@@ -1,0 +1,60 @@
+"""Model configuration for the port (``repro/configs/base.py``'s fields that
+the serving slice reads, with the same names and defaults).
+
+Only plain dense full-attention stacks (block kind ``"attn"``) are served by
+this slice; the MoE, sliding-window, SSM and encoder-decoder fields wait for
+the slices that port those modules.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+__all__ = ["ModelConfig"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    # identity
+    name: str
+    family: str  # dense | moe | ssm | hybrid | encdec | vlm
+    # transformer core
+    n_layers: int = 0
+    d_model: int = 0
+    n_heads: int = 0
+    n_kv_heads: int = 0
+    head_dim: int = 0
+    d_ff: int = 0
+    vocab: int = 0
+    act: str = "swiglu"  # swiglu | gelu
+    qkv_bias: bool = False
+    rope_theta: float = 10_000.0
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = False
+    # layer pattern: repeating unit + tail.  None => homogeneous "attn" stack.
+    pattern: Optional[Tuple[str, ...]] = None
+    n_repeats: int = 0
+    tail: Tuple[str, ...] = ()
+    sliding_window: int = 0
+    n_experts: int = 0
+    # serving / paged KV (the paper's technique)
+    page_size: int = 64
+    bounded_kv_pages: int = 256
+    kv_policy: str = "awrp"  # awrp | lru | fifo | lfu | arc | car
+    # numerics
+    dtype: str = "bfloat16"
+    param_dtype: str = "bfloat16"
+    # training execution (carried so published configs copy verbatim)
+    microbatches: int = 8
+    run_shapes: Tuple[str, ...] = ("train_4k", "prefill_32k", "decode_32k")
+    skip_reasons: Dict[str, str] = dataclasses.field(default_factory=dict)
+
+    # ---- derived -----------------------------------------------------------
+    @property
+    def qk_dim(self) -> int:
+        return self.n_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.n_kv_heads * self.head_dim
