@@ -25,6 +25,15 @@ line, any failure raising (non-zero exit, no result line):
    paged KV with AWRP through the fused kernel, 4 requests of 1024 seeded
    tokens and 192 greedy new tokens, then one repeated prompt that must hit
    the prefix cache.
+5. ``awrp_select``: the two AWRP victim-selection kernels against their
+   plain versions, exact equality of the victims, at the sweep's shapes
+   (kernel 2) and the serve pool's (kernel 1), tie-heavy and all-invalid
+   rows included; timed beside their byte bound.
+6. ``sweep``: the paper's Table 1 through ``repro_torch.core.sweep`` on the
+   card (equal to the host oracles' table, one kernel-2 launch per trace
+   step), a 64-trace grid and a num_sets=2 grid (kernel route == inline
+   route == host oracles), the sweep benchmark's 10k-access zipf trace (hit
+   counts == host oracles'), and a profile of 50 steady-state grid steps.
 
 Then the kernel summary line, the ``nvidia-smi`` line and, last, the result
 line.  Every time is a median of CUDA-event timings on this card.
@@ -428,11 +437,270 @@ def profile_decode(params, cfg, prompts, dev, steps: int = 8) -> dict:
             "top_kernels_ms_per_step": [[n[:80], ms / steps] for n, ms in top]}
 
 
+def select_inputs(gen, B, P, dev, *, pinned: bool):
+    """Seeded AWRP metadata at (B, P): F in 1..49, R below the clock, ~90 %
+    of lanes valid; rows 1 and 2 tie-heavy (F in 1..3, R in a window of 4,
+    so many weights are exactly equal), row 0 (when B > 3) all invalid."""
+    f = torch.randint(1, 50, (B, P), generator=gen, dtype=torch.int32)
+    r = torch.randint(0, 1000, (B, P), generator=gen, dtype=torch.int32)
+    clock = torch.randint(1001, 2000, (B,), generator=gen, dtype=torch.int32)
+    valid = (torch.rand(B, P, generator=gen) < 0.9).to(torch.int32)
+    for b in (1, 2):
+        if b < B:
+            f[b] = torch.randint(1, 4, (P,), generator=gen, dtype=torch.int32)
+            r[b] = torch.randint(0, 4, (P,), generator=gen, dtype=torch.int32)
+            clock[b] = 6
+    if B > 3:
+        valid[0] = 0
+    args = [f, r, clock, valid]
+    if pinned:
+        args.append((torch.rand(B, P, generator=gen) < 0.1).to(torch.int32) * valid)
+    return [a.to(dev) for a in args]
+
+
+def phase_awrp_select(dev) -> dict:
+    """Kernels 1 and 2 against their plain versions, exact equality of the
+    (B,) victims: kernel 2 at the sweep's shapes (Table 1: 32 flat rows of
+    240 lanes; the 64-trace grid: 2048), kernel 1 at the serve pool's (B=4,
+    P=16 and 256) with pinned lanes; plus ragged P (30, 1) and B not a
+    multiple of 8.  Times at the main shapes: kernel (CUDA events), plain
+    version, and the byte bound (each input read once, the victims written
+    once, at 3.35 TB/s).  No single PyTorch call computes a first-index
+    bit-pattern min, so there is no library time."""
+    from repro_torch.kernels.awrp_select import (awrp_select_kernel,
+                                                 awrp_select_rows_kernel)
+
+    gen = torch.Generator().manual_seed(SEED + 5)
+    cases = {"awrp_select_rows": [(32, 240), (2048, 240), (13, 30), (5, 1), (9, 240)],
+             "awrp_select": [(4, 16), (4, 256), (13, 30), (3, 1)]}
+    kern = {"awrp_select_rows": (awrp_select_rows_kernel, ref.awrp_select_rows_plain, 12),
+            "awrp_select": (awrp_select_kernel, ref.awrp_select_plain, 16)}
+    res = {"phase": "awrp_select", "kernels": {}}
+    for name, shapes in cases.items():
+        fn, plain, row_bytes = kern[name]
+        runs = []
+        for B, P in shapes:
+            args = select_inputs(gen, B, P, dev, pinned=name == "awrp_select")
+            got = fn(*args)
+            want = plain(*args)
+            torch.cuda.synchronize()
+            assert got.dtype == torch.int32 and got.shape == (B,), (name, B, P)
+            assert torch.equal(got, want), (name, B, P, got, want)
+            if B > 3:
+                assert int(got[0]) == 0  # every lane invalid: lane 0
+            run = {"B": B, "P": P, "equal": True}
+            if len(runs) < 2:  # the main path's shapes: timed
+                run.update({
+                    "ms": time_ms(lambda: fn(*args), reps=200, warmup=10),
+                    "plain_ms": time_ms(lambda: plain(*args), reps=50, warmup=5),
+                    "bound_ms": (B * P * row_bytes + 8 * B) / HBM_BYTES_PER_S * 1e3,
+                    "bound_by": "bytes", "library_ms": None})
+            runs.append(run)
+        res["kernels"][name] = runs
+    emit(res)
+    return res
+
+
+TABLE1_CAPS = [30, 60, 90, 120, 150, 180, 210, 240]
+
+
+def _host_hits(policy, trace, cap, num_sets=1) -> np.ndarray:
+    """Per-access hit bits of the host oracles under the simulator's set
+    mapping (one oracle instance per set)."""
+    from repro_torch.core.policies import make_policy
+
+    insts = [make_policy(policy, cap // num_sets) for _ in range(num_sets)]
+    return np.array([insts[b % num_sets].access(b) for b in trace.tolist()], dtype=bool)
+
+
+def _engine(traces, policies, caps, **kw):
+    """One engine call on the card: (hits on the host, seconds, launches of
+    the rows kernel, host syncs of the core)."""
+    from repro_torch.core import policy_core
+    from repro_torch.core.torch_policies import simulate_trace_batched
+
+    syncs0 = sum(policy_core.HOST_SYNCS.values())
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    hits = simulate_trace_batched(traces, policies, caps, device="cuda", **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    syncs = sum(policy_core.HOST_SYNCS.values()) - syncs0
+    return hits.cpu().numpy(), seconds, launches, syncs
+
+
+def phase_sweep(dev) -> dict:
+    """The Table-1 sweep on the card through ``repro_torch.core.sweep`` and
+    the batched engine, AWRP victims through kernel 2; four runs:
+    (a) Table 1: six device policies x frame sizes 30..240 on
+        ``paper_trace()``, equal to the host oracles' table, one kernel-2
+        launch per trace step;
+    (b) a 64-trace grid (``paper_trace(seed=s)``, s < 64) x 6 x 8 = 3072
+        rows: kernel route == inline route in every hit bit, seeds 0-3 ==
+        the host oracles;
+    (c) the same at num_sets=2 on 8 seeds: kernel, inline and host agree;
+    (d) the sweep benchmark's trace (``trace_zipf(10_000, 2_000, 0.9,
+        seed=5)``, ``benchmarks/policy_overhead.py``) x 6 x 8: hit counts
+        equal to the host oracles';
+    then a ``torch.profiler`` view of 50 steady-state steps of (b)."""
+    from repro_torch.core import hit_ratio_table, policy_core, sweep
+    from repro_torch.core.policy_core import DEVICE_POLICIES
+    from repro_torch.core.traces import paper_trace, trace_zipf
+
+    pols, caps = list(DEVICE_POLICIES), TABLE1_CAPS
+    res = {"phase": "sweep", "policies": pols, "caps": caps}
+
+    # (a) Table 1 through the user's entry point
+    tr = paper_trace()
+    syncs0 = sum(policy_core.HOST_SYNCS.values())
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    table = sweep(pols, tr, caps, torch_device="cuda")
+    seconds = time.perf_counter() - t0  # ends in the host pull of the counts
+    launches = dict(ops.LAUNCHES)
+    syncs = sum(policy_core.HOST_SYNCS.values()) - syncs0
+    host = sweep(pols, tr, caps, device=False)
+    assert table == host, (table, host)
+    assert launches["awrp_select_rows"] == len(tr), launches
+    res["table1"] = {"seconds": seconds, "ms_per_step": seconds * 1e3 / len(tr),
+                     "steps": len(tr), "launches": launches,
+                     "host_syncs_per_step": syncs / len(tr),
+                     "equal_to_host_table": True,
+                     "hit_ratios": {p: [table[p][c] for c in caps] for p in pols}}
+    res["table1_text"] = hit_ratio_table(table, caps).splitlines()
+
+    # (b) the 64-trace grid: kernel route == inline route; seeds 0-3 == host
+    grid = np.stack([paper_trace(seed=s) for s in range(64)])
+    hk, sk, lk, yk = _engine(grid, pols, caps, use_kernel=True)
+    hi, si, li, yi = _engine(grid, pols, caps, use_kernel=False)
+    assert (hk == hi).all(), "kernel and inline routes differ on the 64-trace grid"
+    assert lk["awrp_select_rows"] == grid.shape[1] and li["awrp_select_rows"] == 0
+    for n in range(4):
+        for pi, p in enumerate(pols):
+            for ci, c in enumerate(caps):
+                assert (hk[n, pi, ci] == _host_hits(p, grid[n], c)).all(), (n, p, c)
+    res["grid64"] = {"rows": int(np.prod(hk.shape[:3])), "steps": grid.shape[1],
+                     "kernel": {"seconds": sk, "ms_per_step": sk * 1e3 / grid.shape[1],
+                                "launches": lk, "host_syncs_per_step": yk / grid.shape[1]},
+                     "inline": {"seconds": si, "ms_per_step": si * 1e3 / grid.shape[1],
+                                "host_syncs_per_step": yi / grid.shape[1]},
+                     "kernel_equals_inline": True, "host_checked_traces": 4}
+
+    # (c) num_sets=2 on 8 seeds
+    g8 = grid[:8]
+    hk2, sk2, lk2, _ = _engine(g8, pols, caps, num_sets=2, use_kernel=True)
+    hi2, si2, _, _ = _engine(g8, pols, caps, num_sets=2, use_kernel=False)
+    assert (hk2 == hi2).all(), "kernel and inline routes differ at num_sets=2"
+    for n in range(8):
+        for pi, p in enumerate(pols):
+            for ci, c in enumerate(caps):
+                assert (hk2[n, pi, ci] == _host_hits(p, g8[n], c, 2)).all(), (n, p, c)
+    res["sets2"] = {"rows": int(np.prod(hk2.shape[:3])), "steps": g8.shape[1],
+                    "kernel": {"seconds": sk2, "ms_per_step": sk2 * 1e3 / g8.shape[1],
+                               "launches": lk2},
+                    "inline": {"seconds": si2, "ms_per_step": si2 * 1e3 / g8.shape[1]},
+                    "kernel_equals_inline_equals_host": True}
+
+    # (d) the sweep benchmark's trace at its smoke size: hit counts == host
+    z = trace_zipf(10_000, 2_000, 0.9, seed=5)
+    hz, sz, lz, yz = _engine(z, pols, caps)
+    counts = hz[0].sum(-1)
+    t0 = time.perf_counter()
+    host_counts = np.array([[int(_host_hits(p, z, c).sum()) for c in caps] for p in pols])
+    host_s = time.perf_counter() - t0
+    assert (counts == host_counts).all(), (counts, host_counts)
+    assert lz["awrp_select_rows"] == len(z), lz
+    res["zipf10k"] = {"steps": len(z), "seconds": sz, "ms_per_step": sz * 1e3 / len(z),
+                      "launches": lz, "host_syncs_per_step": yz / len(z),
+                      "host_oracle_seconds": host_s, "counts_equal_to_host": True,
+                      "hit_counts": counts.tolist()}
+    res["profile_grid64"] = profile_sweep(grid, pols, caps)
+    emit(res)
+    return res
+
+
+def profile_sweep(traces, pols, caps, start: int = 500, steps: int = 50) -> dict:
+    """Where a sweep step's time goes, in the steady state: steps
+    ``[start, start + steps)`` of an engine call on ``traces`` (kernel
+    route), once timed on the host clock between two synchronizes and once
+    under ``torch.profiler`` (a schedule whose active window is those steps;
+    the step counter is a wrapper around ``FlatCore.on_access``, which runs
+    once per step).  Device time is the sum of the kernels' intervals (one
+    stream, so they do not overlap); the busy share is that over the
+    synchronized host wall of the same steps without the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from repro_torch.core import policy_core
+    from repro_torch.core.policy_core import FlatCore
+
+    traces = traces[:, :start + steps + 1]
+    orig = FlatCore.on_access
+    marks, calls, prof = {}, [0], [None]
+
+    def counted(self, *args, **kwargs):
+        i = calls[0]
+        calls[0] += 1
+        if i in (start, start + steps):
+            torch.cuda.synchronize()
+            marks[i] = (time.perf_counter(), sum(policy_core.HOST_SYNCS.values()),
+                        ops.LAUNCHES["awrp_select_rows"])
+        if prof[0] is not None:
+            prof[0].step()
+        return orig(self, *args, **kwargs)
+
+    FlatCore.on_access = counted
+    try:
+        _engine(traces, pols, caps)
+        t0, s0, l0 = marks[start]
+        t1, s1, l1 = marks[start + steps]
+        calls[0] = 0
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=start - 1, warmup=1, active=steps,
+                                       repeat=1)) as p:
+            prof[0] = p
+            _engine(traces, pols, caps)
+    finally:
+        FlatCore.on_access = orig
+    # the schedule's own "ProfilerStep#" annotations also carry the CUDA
+    # device type and span each whole step: not kernels
+    kernels = [e for e in p.events() if e.device_type == DeviceType.CUDA
+               and not e.name.startswith("ProfilerStep")]
+    wall_ms = (t1 - t0) * 1e3 / steps
+    out = {"rows": int(traces.shape[0] * len(pols) * len(caps)),
+           "window": [start, start + steps], "wall_ms_per_step": wall_ms,
+           "host_syncs_per_step": (s1 - s0) / steps,
+           "awrp_select_rows_launches_per_step": (l1 - l0) / steps}
+    if not kernels:
+        out["device_ms_per_step"] = "not measured"
+        return out
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / steps
+    sel = sum(e.time_range.elapsed_us() for e in kernels
+              if "awrp_select" in e.name) / 1e3 / steps
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    out.update({"device_ms_per_step": busy, "device_busy_share": busy / wall_ms,
+                "kernels_per_step": len(kernels) / steps,
+                "awrp_select_rows_ms_per_step": sel,
+                "awrp_select_rows_share_of_device": sel / busy if busy else 0.0,
+                "top_kernels_ms_per_step": [[n[:80], ms / steps] for n, ms in top]})
+    return out
+
+
 KERNELS = {
     "paged_attention": ("src/repro_torch/kernels/csrc/paged_attn.cu",
                         "src/repro/kernels/paged_attn.py:86"),
     "policy_paged_attention": ("src/repro_torch/kernels/csrc/policy_attn.cu",
                                "src/repro/kernels/policy_attn.py:185"),
+    "awrp_select": ("src/repro_torch/kernels/csrc/awrp_select.cu",
+                    "src/repro/kernels/awrp_select.py:50"),
+    "awrp_select_rows": ("src/repro_torch/kernels/csrc/awrp_select.cu",
+                         "src/repro/kernels/awrp_select.py:89"),
 }
 
 
@@ -455,9 +723,13 @@ def main() -> int:
                                   timed=p == "awrp")
                 for p in PAGE_POLICIES]
     srv = phase_serve(dev)
+    sel = phase_awrp_select(dev)
+    swp = phase_sweep(dev)
     # launches: each kernel's count on its path in this run: the fused kernel
     # in the serve phase, the unfused kernel in phase 3's unfused chain (the
-    # serve loop's fused route does not launch it, as in the reference)
+    # serve loop's fused route does not launch it, as in the reference), the
+    # rows kernel in the Table-1 sweep (a); kernel 1 is on no path of the
+    # port (as in the reference, only tests reach it): 0
     kernels = []
     for name, runs, launches, times, shape in (
             ("paged_attention", [pa], pol["launches"]["paged_attention"], pa,
@@ -473,6 +745,18 @@ def main() -> int:
             "ms": times["ms"], "plain_ms": times["plain_ms"],
             "bound_ms": times["bound_ms"], "bound_by": times["bound_by"],
             "library_ms": times["library_ms"], "shape": list(shape)})
+    for name in ("awrp_select", "awrp_select_rows"):
+        source, replaces = KERNELS[name]
+        main_run = sel["kernels"][name][0]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": swp["table1"]["launches"][name],
+            "max_abs_err": 0,  # integer victims, compared for equality
+            "ms": main_run["ms"], "plain_ms": main_run["plain_ms"],
+            "bound_ms": main_run["bound_ms"], "bound_by": main_run["bound_by"],
+            "library_ms": None, "shape": [main_run["B"], main_run["P"]],
+            "other_shapes": [{k: r[k] for k in ("B", "P", "ms", "plain_ms", "bound_ms")}
+                             for r in sel["kernels"][name][1:2]]})
     emit({"kernels": kernels})
     print(smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -6,6 +6,9 @@ paper's eq. (1); LRU/FIFO/LFU are its baselines on page metadata; ``arc`` and
 once since insertion evict first; recency order within a segment for arc,
 insertion order for car).  Every branch is a chain of first-index min
 reductions, so the CUDA kernel's block reductions reproduce it bit for bit.
+The AWRP branch is the core's dispatch (``policy_core.awrp_victim_rows``):
+``use_kernel=True`` routes it through the rows kernel (``awrp_select_rows``),
+decision-identical to the inline path.
 """
 
 from __future__ import annotations
@@ -36,11 +39,13 @@ def page_victim(
     page_start: torch.Tensor,  # (B, P) int32 token start, -1 free
     clock: torch.Tensor,  # (B,) int32
     pinned: torch.Tensor,  # (B, P) bool
+    *,
+    use_kernel: bool = False,
 ) -> torch.Tensor:
     """Next-victim page slot of each row, (B,) int32."""
     valid = (page_start >= 0) & ~pinned
     if policy == "awrp":
-        return awrp_victim_rows(f, r, clock, valid)
+        return awrp_victim_rows(f, r, clock, valid, use_kernel=use_kernel)
     if policy == "lru":
         return first_min(torch.where(valid, r, INT_MAX))
     if policy == "fifo":

@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-All sources under ``kernels/csrc`` are compiled by ONE ``nvcc`` invocation
-(``-gencode arch=compute_90a,code=sm_90a -O3``, IEEE division and ``expf``:
-no ``--use_fast_math``) into a shared library with a plain C interface,
-loaded with ``ctypes``.  The two decode kernels share their attention code
+Each source under ``kernels/csrc`` is compiled by its own ``nvcc -c`` (all
+started together, ``-gencode arch=compute_90a,code=sm_90a -O3``, IEEE
+division and ``expf``: no ``--use_fast_math``), and one more ``nvcc`` links
+the objects into a shared library with a plain C interface, loaded with
+``ctypes``.  The two decode kernels share their attention code
 (``paged_attn_common.cuh``) and these flags, which is what makes the fused
 kernel's output bit-identical to the unfused one's on the card.
 
@@ -26,9 +27,9 @@ from typing import NamedTuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("paged_attn.cu", "policy_attn.cu")
+SOURCES = ("paged_attn.cu", "policy_attn.cu", "awrp_select.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _vp, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -39,6 +40,8 @@ SIGNATURES = {
     "repro_policy_paged_attention": (
         [_int] + [_vp] * 5 + [_int] + [_vp] * 13 + [_int] * 6
         + [_float, _int, _vp], _int),
+    "repro_awrp_select": ([_vp] * 6 + [_int] * 2 + [_vp], _int),
+    "repro_awrp_select_rows": ([_vp] * 5 + [_int] * 2 + [_vp], _int),
     "repro_error_string": ([_int], ctypes.c_char_p),
 }
 
@@ -65,23 +68,44 @@ def _digest() -> str:
 
 
 def build() -> BuildInfo:
-    """Compile the kernels (once per source hash); returns the library path,
-    the seconds nvcc took and its log.  Raises with nvcc's output on
+    """Compile the kernels (once per source hash): one ``nvcc -c`` per
+    source, run in parallel, then one link.  Returns the library path, the
+    seconds the build took and nvcc's log.  Raises with nvcc's output on
     failure."""
     out = BUILD_DIR / f"librepro_torch_kernels_{_digest()}.so"
     if out.exists():
         return BuildInfo(out, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
+    jobs = []
+    for src in SOURCES:
+        obj = BUILD_DIR / f"{tag}.{Path(src).stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log = ""
+    for cmd, _, proc in jobs:
+        text = proc.communicate()[0]
+        log += text
+        if proc.returncode != 0:
+            for _, _, other in jobs:
+                if other.poll() is None:
+                    other.kill()
+                    other.wait()
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{text}")
+    tmp = BUILD_DIR / f"{tag}.tmp.so"
+    cmd = [nvcc, "-shared", "-o", str(tmp), *(str(obj) for _, obj, _ in jobs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
+    log += proc.stdout + proc.stderr
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
     os.replace(tmp, out)
-    return BuildInfo(out, seconds, log)
+    for _, obj, _ in jobs:
+        obj.unlink()
+    return BuildInfo(out, time.perf_counter() - t0, log)
 
 
 _LIB = None

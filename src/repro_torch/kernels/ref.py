@@ -1,4 +1,8 @@
-"""Plain PyTorch versions of the decode kernels.
+"""Plain PyTorch versions of the port's kernels.
+
+* ``awrp_select_plain`` and ``awrp_select_rows_plain`` are the AWRP victim
+  selection of kernels 1 and 2 (``csrc/awrp_select.cu``): the bit-pattern
+  first-index min, not a float ``argmin``.
 
 * ``paged_attention_plain`` and ``policy_paged_attention_plain`` follow their
   CUDA kernels' page-by-page flash recurrence (running ``m``/``l``/``acc``,
@@ -21,6 +25,7 @@ import math
 import torch
 
 from repro_torch.cache.paged_kv import allocate, score_planes
+from repro_torch.core.policy_core import awrp_victim_rows
 
 NEG_INF = -1e30
 
@@ -125,6 +130,22 @@ def policy_paged_attention_plain(q, k_pages, v_pages, new_k, new_v, pos: int,
     f2, r2, clock2 = score_planes(mass, fa, ra, psa, clock)
     open2 = slot if within == 0 else open_slot
     return out, mass, slot, f2, r2, psa, clock2, open2
+
+
+def awrp_select_plain(f, r, clock, valid, pinned):
+    """Plain version of kernel 1 (``repro/kernels/awrp_select.py``
+    ``_masked_weight_first_min``): (B, P) int32 f/r and 0/1 valid/pinned,
+    (B,) int32 clock -> (B,) int32 victim over ``valid & ~pinned`` lanes.
+    Paper eq. (1) as ``f32(F) / f32(max(N - R, 1))``, keyed by the int32 bit
+    pattern of the weight (INT_MAX on masked lanes), then the first lane
+    achieving the row minimum: the policy core's inline AWRP victim.  A row
+    with every lane masked gives lane 0."""
+    return awrp_victim_rows(f, r, clock, (valid != 0) & (pinned == 0))
+
+
+def awrp_select_rows_plain(f, r, clock, valid):
+    """Plain version of kernel 2: the same without ``pinned``."""
+    return awrp_victim_rows(f, r, clock, valid != 0)
 
 
 def ref_paged_attention(q, k_pages, v_pages, page_start, cur_pos):

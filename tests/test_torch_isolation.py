@@ -114,3 +114,52 @@ def test_launch_serve_defaults_to_cuda(no_cuda):
 
     with pytest.raises(RuntimeError, match="cuda"):
         serve.main(["--smoke"])
+
+
+def test_port_files_cover_the_sweep_slice():
+    """The import checks above walk every module of the package, the sweep
+    slice's included."""
+    names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
+    for mod in ("core/traces.py", "core/policies.py", "core/simulator.py",
+                "core/policy_core.py", "core/torch_policies.py",
+                "kernels/awrp_select.py"):
+        assert mod in names, mod
+        assert "repro_torch." + mod[:-3].replace("/", ".") in PORT_MODULES
+
+
+def test_simulate_trace_batched_defaults_to_cuda(no_cuda):
+    from repro_torch.core.torch_policies import simulate_trace_batched
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        simulate_trace_batched([1, 2, 1], ["awrp"], [2])
+
+
+def test_sweep_engine_defaults_to_cuda(no_cuda):
+    from repro_torch.core import sweep
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        sweep(["awrp", "2q"], [1, 2, 1], [2])
+    with pytest.raises(RuntimeError, match="cuda"):
+        sweep(["arc"], [], [2])  # resolved whenever a policy goes to the engine
+    # the host path alone needs no device
+    assert sweep(["awrp"], [1, 2, 1], [2], device=False) == {"awrp": {2: 1 / 3}}
+
+
+@pytest.mark.parametrize("policy", ["awrp", "car"])
+def test_core_init_defaults_to_cuda(no_cuda, policy):
+    from repro_torch.core import policy_core
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        policy_core.make_core(policy, rows=2, ways=4).init()
+    with pytest.raises(RuntimeError, match="cuda"):
+        policy_core.init(policy, rows=2, ways=4)
+
+
+def test_set_state_defaults_to_cuda(no_cuda):
+    from repro_torch.core.policy_core import init_adaptive_state
+    from repro_torch.core.torch_policies import init_set_state
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_set_state(8, 2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_adaptive_state(1, 1, 8)

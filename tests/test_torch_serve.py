@@ -23,6 +23,7 @@ from repro.serve.engine import Request as JRequest  # noqa: E402
 from repro.serve.engine import ServeEngine as JServeEngine  # noqa: E402
 from repro_torch.cache.prefix_cache import PrefixCache, prompt_key  # noqa: E402
 from repro_torch.configs import smollm_360m  # noqa: E402
+from repro_torch.core.policies import POLICIES  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
@@ -123,9 +124,27 @@ def test_awrp_prefix_eviction_matches_reference():
     assert tc.telemetry()["hit_ratio"] == jc.hit_ratio
 
 
-def test_unported_prefix_policy_says_so():
-    with pytest.raises(ValueError, match="not ported"):
-        PrefixCache(3, "lru")
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+def test_prefix_cache_policies_match_reference(policy):
+    """Same insert / lookup stream into both prefix caches (capacity 3), for
+    every host policy: the stored keys and the hit/miss counts agree after
+    every call."""
+    rng = np.random.RandomState(7)
+    prompts = [list(rng.randint(1, 100, size=4)) for _ in range(6)]
+    jc, tc = JPrefixCache(3, policy), PrefixCache(3, policy)
+    for step in range(60):
+        p = prompts[rng.randint(0, len(prompts))]
+        if rng.rand() < 0.5:
+            assert (jc.lookup(p) is None) == (tc.lookup(p) is None), step
+        else:
+            jc.insert(p, step)
+            tc.insert(p, step)
+        assert set(jc.store) == set(tc.store), step
+        assert (jc.hits, jc.misses) == (tc.hits, tc.misses)
+    assert tc.hits > 0 and len(tc.store) == 3
+    assert prompt_key(prompts[0]) == prompt_key(list(prompts[0]))
+    assert tc.telemetry()["hit_ratio"] == jc.hit_ratio
+    assert tc.telemetry()["policy"] == policy
 
 
 def test_launch_serve_runs_on_cpu(capsys):
