@@ -25,6 +25,20 @@ line, any failure raising (non-zero exit, no result line):
    paged KV with AWRP through the fused kernel, 4 requests of 1024 seeded
    tokens and 192 greedy new tokens, then one repeated prompt that must hit
    the prefix cache.
+4a. ``adaptive_attn``: kernel 5, the fused true-adaptive ARC/CAR step, for
+   arc and car from a full pool over two evicting page boundaries at the
+   serve shape (from the prefill seeding, with a forced stamp
+   renormalization, and from a ghost-hit reseed with p != 0) and at P=256
+   (L=512) across one: bitwise equal to the unfused chain
+   adaptive_insert_token + paged_attention kernel + adaptive_score_update,
+   and within phase 2's tolerances of its plain version with every plane
+   equal except at near-tau steps (counted); timed at the serve shape.
+4b. ``serve_adaptive``: the serve phase's model and pool with
+   ``kv_policy`` arc_adaptive and car_adaptive: 4 x 1024-token prompts and 192
+   greedy tokens, then single requests A and B (distinct 1024-token prompts),
+   B's follow-up turn (its re-prefill ghost-hits the pages B's decode
+   evicted and moves p) and A again (a prefix hit); kernel 5 launched once
+   per layer per decode step.
 5. ``awrp_select``: the two AWRP victim-selection kernels against their
    plain versions, exact equality of the victims, at the sweep's shapes
    (kernel 2) and the serve pool's (kernel 1), tie-heavy and all-invalid
@@ -59,7 +73,8 @@ from repro_torch.configs.smollm_360m import CONFIG  # noqa: E402
 from repro_torch.core.kv_policy import PAGE_POLICIES  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.paged_attn import paged_attention_kernel  # noqa: E402
-from repro_torch.kernels.policy_attn import policy_paged_attention_kernel  # noqa: E402
+from repro_torch.kernels.policy_attn import (  # noqa: E402
+    adaptive_policy_paged_attention_kernel, policy_paged_attention_kernel)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 F32_FLOPS = 67e12  # H100 SXM float32 peak outside the tensor cores
@@ -117,14 +132,15 @@ def valid_rows(page_start, cur_pos, page: int) -> int:
     return int(((page_start[..., None] >= 0) & (tok <= cur_pos[:, None, None])).sum())
 
 
-def bound(q, k_pages, rows: int):
+def bound(q, k_pages, rows: int, extra_bytes: int = 0):
     """(bound_ms, bound_by) of one decode step over ``rows`` key rows: each
-    K/V row, the query, the output and the planes moved once, against the
-    flops of the two products at the float32 peak."""
+    K/V row, the query, the output, the planes and ``extra_bytes`` moved
+    once, against the flops of the two products at the float32 peak."""
     B, P, page, KVH, hd = k_pages.shape
     G = q.shape[2]
     esz = k_pages.element_size()
-    nbytes = rows * KVH * hd * 2 * esz + 2 * q.numel() * esz + B * P * 4 * 5
+    nbytes = (rows * KVH * hd * 2 * esz + 2 * q.numel() * esz + B * P * 4 * 5
+              + extra_bytes)
     flops = rows * KVH * G * hd * 4
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS * 1e3
@@ -322,20 +338,27 @@ def phase_policy_attn(dev, policy: str = "awrp", shape=DECODE_SHAPE,
 SERVE_SHAPE = (4, 16, 64, 5, 3, 64)  # the serve phase's pool: 16 pages of 64
 
 
-def phase_serve(dev, base_cfg=CONFIG, n_req=4, prompt_len=1024, new_tokens=192,
-                pages=16) -> dict:
+def serve_params(dev):
+    """smollm-360m's random parameters from SEED on the card, and the seconds
+    their init took."""
+    from repro_torch.models import model as M
+
+    t0 = time.perf_counter()
+    params = M.init_params(CONFIG, torch.Generator(device=dev).manual_seed(SEED),
+                           device=dev)
+    torch.cuda.synchronize()
+    return params, time.perf_counter() - t0
+
+
+def phase_serve(dev, params, init_s, base_cfg=CONFIG, n_req=4, prompt_len=1024,
+                new_tokens=192, pages=16) -> dict:
     """smollm-360m at published widths through ServeEngine(fused=True).  The
     one cut: a 16-page pool (1024 tokens), full after prefill, so AWRP
     evicts during decode."""
-    from repro_torch.models import model as M
     from repro_torch.serve.engine import Request, ServeEngine
 
     cfg = dataclasses.replace(base_cfg, bounded_kv_pages=pages, kv_policy="awrp")
     reduced = {"bounded_kv_pages": [base_cfg.bounded_kv_pages, cfg.bounded_kv_pages]}
-    t0 = time.perf_counter()
-    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
     rng = np.random.RandomState(SEED)
     prompts = [rng.randint(1, cfg.vocab, size=prompt_len).tolist() for _ in range(n_req)]
     max_len = prompt_len + new_tokens
@@ -366,7 +389,7 @@ def phase_serve(dev, base_cfg=CONFIG, n_req=4, prompt_len=1024, new_tokens=192,
                           seed=SEED, device=dev)
     ref_res = unfused.generate([Request(i, list(p), max_new_tokens=new_tokens)
                                 for i, p in enumerate(prompts)])
-    profile = profile_decode(params, cfg, prompts, dev)
+    profile = profile_decode(params, cfg, prompts, dev, "policy_paged_attention")
     same = sum(a == b for i in results
                for a, b in zip(results[i].tokens, ref_res[i].tokens))
     res = {"phase": "serve", "model": cfg.name, "layers": cfg.n_layers,
@@ -388,12 +411,13 @@ def phase_serve(dev, base_cfg=CONFIG, n_req=4, prompt_len=1024, new_tokens=192,
     return res
 
 
-def profile_decode(params, cfg, prompts, dev, steps: int = 8) -> dict:
+def profile_decode(params, cfg, prompts, dev, kernel: str, steps: int = 8) -> dict:
     """Where a paged fused decode step's time goes: ``torch.profiler`` over
     ``steps`` steps after a warm-up.  Device time is the sum of the kernels'
     own intervals (one stream, so they do not overlap); the busy share is
     that over the synchronized host wall of the same steps, without the
-    profiler (its tracing slows the host side)."""
+    profiler (its tracing slows the host side).  ``kernel`` names the fused
+    kernel whose share is reported."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -425,16 +449,242 @@ def profile_decode(params, cfg, prompts, dev, steps: int = 8) -> dict:
         return {"wall_ms_per_step": wall_ms, "device_ms_per_step": "not measured"}
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / steps
     fused = sum(e.time_range.elapsed_us() for e in kernels
-                if "policy_paged_attention" in e.name) / 1e3 / steps
+                if kernel in e.name) / 1e3 / steps
     by_name: dict = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return {"wall_ms_per_step": wall_ms, "device_ms_per_step": busy,
             "device_busy_share": busy / wall_ms,
-            "fused_kernel_ms_per_step": fused,
+            "fused_kernel": kernel, "fused_kernel_ms_per_step": fused,
+            "fused_kernel_share_of_device": fused / busy if busy else 0.0,
             "kernels_per_step": len(kernels) / steps,
             "top_kernels_ms_per_step": [[n[:80], ms / steps] for n, ms in top]}
+
+
+def _adaptive_unfused_step(apool, q, nk, nv, pos, page, core):
+    """adaptive_insert_token + paged_attention kernel + adaptive_score_update;
+    the page mass goes in row 0 of each page so the hit rule's per-page sum
+    is exact."""
+    B, P = apool.pool.f.shape
+    KVH, G, hd = q.shape[1:]
+    apool = paged_kv.adaptive_insert_token(apool, nk.reshape(B, -1),
+                                           nv.reshape(B, -1), pos, page, core)
+    cur = torch.full((B,), pos, dtype=torch.int32, device=q.device)
+    out, mass = ops.paged_attention(q, apool.pool.k.view(B, P, page, KVH, hd),
+                                    apool.pool.v.view(B, P, page, KVH, hd),
+                                    apool.pool.page_start, cur)
+    row_mass = torch.zeros((B, P, page), dtype=torch.float32, device=q.device)
+    row_mass[:, :, 0] = mass
+    return out, mass, paged_kv.adaptive_score_update(apool, row_mass.reshape(B, -1),
+                                                     page, core)
+
+
+def adaptive_start(gen, kind: str, shape, dev, *, ghost: bool):
+    """A full true-adaptive pool as ``pool_from_prefill`` leaves it after a
+    P-page prompt (pages 0..P-1 in slots 0..P-1, seeded K/V), the next token
+    at a page boundary.  The policy is the prefill seeding, or with ``ghost``
+    the cross-request reseed of a previous request that churned pages P..3P-1
+    with re-references (ghost hits move ``p``).  Returns ``(apool, pos)``."""
+    B, P, page, KVH, G, hd = shape
+    _, k, v, _, _, _ = decode_inputs(gen, B, P, page, KVH, G, hd, torch.bfloat16, dev)
+    order = torch.arange(P, dtype=torch.int32, device=dev)
+    pool = paged_kv.PagedPool(
+        k=k.reshape(B, P, page, KVH * hd).contiguous(),
+        v=v.reshape(B, P, page, KVH * hd).contiguous(),
+        f=torch.ones((B, P), dtype=torch.int32, device=dev),
+        r=(order + 1).expand(B, P).contiguous(),
+        page_start=(order * page).expand(B, P).contiguous(),
+        clock=torch.full((B,), P, dtype=torch.int32, device=dev),
+        open_slot=torch.full((B,), P - 1, dtype=torch.int32, device=dev))
+    state = paged_kv.seed_adaptive_state(B, P, 0, P, device=dev)
+    if ghost:
+        churn = [x for y in range(P, 3 * P) for x in (y, y - 1, y - 3)]
+        prev, _ = paged_kv.replay_page_ids(state, kind, P, churn)
+        state, hits = paged_kv.reseed_from_ghosts(prev, kind, P, P, P)
+        assert int(hits.sum()) > 0 and float(state.p.max()) > 0.0, (hits, state.p)
+    return paged_kv.AdaptivePagedPool(pool, state), P * page
+
+
+def phase_adaptive_attn(dev, kind: str, shape=SERVE_SHAPE, steps: int | None = None,
+                        *, ghost: bool = False, renorm_at: int | None = None,
+                        timed: bool = False) -> dict:
+    """Kernel 5, the fused ARC/CAR step, over ``steps`` (default page + 1:
+    two evicting page boundaries) decode steps from a full pool: (a) bitwise
+    equal to the unfused chain adaptive_insert_token + paged_attention kernel
+    + adaptive_score_update on every output and plane; (b) within phase 2's
+    tolerances of its plain version, every pool and ARC/CAR plane equal
+    except at steps where a page's plain mass lies within EPS_TAU of tau
+    (counted).  ``renorm_at`` forces the stamp renormalization: the stamp
+    counter starts one below it, so the first access's grant makes the next
+    check fire."""
+    B, P, page, KVH, G, hd = shape
+    gen = torch.Generator().manual_seed(SEED + 7)
+    core = paged_kv.adaptive_core(kind, B, P)
+    ap, pos0 = adaptive_start(gen, kind, shape, dev, ghost=ghost)
+    if renorm_at is not None:
+        core = dataclasses.replace(core, renorm_at=renorm_at)
+        ap = ap._replace(policy=ap.policy._replace(
+            ctr=torch.full_like(ap.policy.ctr, renorm_at - 1)))
+    ap_u = ap.clone()
+    p_start = float(ap.policy.p.max())
+    steps = page + 1 if steps is None else steps
+    near_tau, renorms, hits = 0, 0, 0
+    err_out, out_x, err_mass, mass_x, abs_out = 0.0, 0.0, 0.0, 0.0, 0.0
+    ops.reset_launches()
+    for i in range(steps):
+        pos = pos0 + i
+        q = torch.randn(B, KVH, G, hd, generator=gen).to(torch.bfloat16).to(dev)
+        nk = (torch.randn(B, KVH, hd, generator=gen) * 0.3).to(torch.bfloat16).to(dev)
+        nv = (torch.randn(B, KVH, hd, generator=gen) * 0.3).to(torch.bfloat16).to(dev)
+        ctr_before = ap.policy.ctr.clone()
+        plain = ref.adaptive_policy_paged_attention_plain(
+            q, ap.pool.k.view(B, P, page, KVH, hd), ap.pool.v.view(B, P, page, KVH, hd),
+            nk, nv, pos, *ap.pool[2:], *(x[:, 0] for x in ap.policy),
+            kind=core.kind, renorm_at=core.renorm_at)
+        out_f, mass_f, ap = paged_kv.fused_adaptive_decode_step(ap, q, nk, nv, pos,
+                                                                page, core)
+        out_u, mass_u, ap_u = _adaptive_unfused_step(ap_u, q, nk, nv, pos, page, core)
+        # (a) fused == unfused, bitwise
+        assert torch.equal(out_f, out_u), f"{kind}: out differs at pos {pos}"
+        assert torch.equal(mass_f, mass_u), f"{kind}: mass differs at pos {pos}"
+        for part_f, part_u in ((ap.pool, ap_u.pool), (ap.policy, ap_u.policy)):
+            for name, a, b in zip(part_f._fields, part_f, part_u):
+                assert torch.equal(a, b), f"{kind}: plane {name} differs at pos {pos}"
+        # (b) against the plain version
+        err_out = max(err_out, (out_f.float() - plain[0].float()).abs().max().item())
+        out_x = max(out_x, excess(out_f, plain[0], OUT_RTOL, OUT_ATOL))
+        err_mass = max(err_mass, (mass_f - plain[1]).abs().max().item())
+        mass_x = max(mass_x, excess(mass_f, plain[1], MASS_RTOL, MASS_ATOL))
+        abs_out += plain[0].float().abs().mean().item() / steps
+        psa = plain[5]
+        tau = 1.0 / torch.clamp((psa >= 0).sum(dim=-1, keepdim=True).float(), min=1.0)
+        close = ((plain[1] - tau).abs() < EPS_TAU) & (psa >= 0)
+        got = (*ap.pool[2:], *(x[:, 0] for x in ap.policy))
+        planes_equal = all(torch.equal(a, b) for a, b in zip(plain[3:], got))
+        if bool(close.any()):
+            near_tau += 1
+        else:
+            assert planes_equal, f"{kind}: planes differ from the plain version at pos {pos}"
+        renorms += int((ap.policy.ctr < ctr_before).any())
+        hits += int((ap.pool.r == ap.pool.clock[:, None]).sum())
+    launches = dict(ops.LAUNCHES)
+    assert launches["adaptive_policy_paged_attention"] == steps, launches
+    assert launches["paged_attention"] == steps, launches
+    assert out_x <= 1.0 and mass_x <= 1.0, (err_out, out_x, err_mass, mass_x)
+    assert hits > 0, "no page was referenced"
+    if renorm_at is not None:
+        assert renorms > 0, "the forced renormalization never fired"
+    res = {"phase": "adaptive_attn", "kind": kind, "shape": [B, P, page, KVH, G, hd],
+           "dtype": "bfloat16", "steps": steps, "start_pos": pos0,
+           "evicting_steps": -(-steps // page), "start": "ghost reseed" if ghost
+           else "prefill seed", "p_at_start": p_start,
+           "p_at_end": float(ap.policy.p.max()), "renorm_at": core.renorm_at,
+           "renorm_steps": renorms, "hit_accesses": hits,
+           "fused_equals_unfused_bitwise": True, "launches": launches,
+           "max_abs_err_out": err_out, "out_err_over_tol": out_x,
+           "mean_abs_out": abs_out, "max_abs_err_mass": err_mass,
+           "mass_err_over_tol": mass_x, "tol_out": [OUT_RTOL, OUT_ATOL],
+           "tol_mass": [MASS_RTOL, MASS_ATOL], "eps_tau": EPS_TAU,
+           "near_tau_steps": near_tau}
+    if timed:
+        # the next step from the final pool at a page boundary (it evicts)
+        q = torch.randn(B, KVH, G, hd, generator=gen).to(torch.bfloat16).to(dev)
+        nk = torch.randn(B, KVH, hd, generator=gen).to(torch.bfloat16).to(dev)
+        kp, vp = ap.pool.k.view(B, P, page, KVH, hd), ap.pool.v.view(B, P, page, KVH, hd)
+        pos = pos0 + 2 * page
+        args = (q, kp, vp, nk, nk, pos, *ap.pool[2:], *(x[:, 0] for x in ap.policy))
+        kw = {"kind": core.kind, "renorm_at": core.renorm_at}
+        cur = torch.full((B,), pos, dtype=torch.int32, device=dev)
+        after = adaptive_policy_paged_attention_kernel(*args, **kw)[5]
+        L = ap.policy.blocks.shape[-1]
+        # the directory (4 planes of L int32, p, ctr) read once and written once
+        bnd, by = bound(q, kp, valid_rows(after, cur, page),
+                        extra_bytes=2 * B * (4 * L * 4 + 8))
+        res.update({
+            "ms": time_ms(lambda: adaptive_policy_paged_attention_kernel(*args, **kw)),
+            "plain_ms": time_ms(lambda: ref.adaptive_policy_paged_attention_plain(
+                *args, **kw), reps=5, warmup=1),
+            "bound_ms": bnd, "bound_by": by,
+            "library_ms": sdpa_ms(q, kp, vp, after, cur)})
+    emit(res)
+    return res
+
+
+def phase_serve_adaptive(dev, params, kv_policy: str, *, profile: bool, n_req=4,
+                         prompt_len=1024, new_tokens=192, pages=16) -> dict:
+    """smollm-360m at published widths, the true-adaptive pool through
+    ServeEngine(fused=True), a 16-page pool as in the serve phase: 4 prompts
+    of 1024 seeded tokens and 192 greedy new tokens; then single requests:
+    A and a distinct B of 1024 tokens each, B's follow-up turn (B and the
+    tokens B generated: its re-prefill re-references the page positions B's
+    decode evicted, so they ghost-hit), and A again (a prefix hit).  Kernel 5
+    launches once per layer per decode step.  ``p`` is recorded after each
+    single request, not gated: it moves only on a B1 ghost hit (a page
+    evicted before any reference), and random weights spread attention so
+    evenly that every resident page is referenced (page mass near
+    1/residents), so pages leave through T2 and B2, where a ghost hit moves
+    ``p`` down from 0, as in the reference."""
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = dataclasses.replace(CONFIG, bounded_kv_pages=pages, kv_policy=kv_policy)
+    rng = np.random.RandomState(SEED + 11)
+    prompts = [rng.randint(1, cfg.vocab, size=prompt_len).tolist() for _ in range(n_req)]
+    a, b = (rng.randint(1, cfg.vocab, size=prompt_len).tolist() for _ in range(2))
+    engine = ServeEngine(cfg, params, max_len=prompt_len + 2 * new_tokens,
+                         kv_mode="paged", fused=True, seed=SEED, device=dev)
+
+    def single(rid, prompt):
+        before = engine.stats["kv_ghost_hits"]
+        res = engine.generate([Request(rid, list(prompt), max_new_tokens=new_tokens)])[rid]
+        tel = engine.telemetry()
+        return res, {"prompt_len": len(prompt), "prefix_hit": res.prefill_cached,
+                     "kv_ghost_hits": tel["serve/kv_ghost_hits"] - before,
+                     "p_max": tel["kv/p_max"], "p_mean": tel["kv/p_mean"]}
+
+    ops.reset_launches()
+    results = engine.generate([Request(i, list(p), max_new_tokens=new_tokens)
+                               for i, p in enumerate(prompts)])
+    batch_stats = dict(engine.stats)
+    res_a, info_a = single(10, a)
+    res_b, info_b = single(11, b)
+    res_c, info_c = single(12, b + res_b.tokens)
+    res_a2, info_a2 = single(13, a)
+    launches = dict(ops.LAUNCHES)
+    stats = dict(engine.stats)
+    expect = cfg.n_layers * stats["decode_steps"]
+    assert stats["decode_steps"] == 5 * (new_tokens - 1), stats
+    assert launches["adaptive_policy_paged_attention"] == expect, (launches, expect)
+    assert launches["policy_paged_attention"] == 0 and launches["paged_attention"] == 0
+    for r in (*results.values(), res_a, res_b, res_c, res_a2):
+        assert len(r.tokens) == new_tokens
+        assert all(0 <= tok < cfg.vocab for tok in r.tokens)
+    assert stats["nonfinite_logits"] == 0, stats
+    assert batch_stats["kv_evictions"] > 0, batch_stats
+    assert info_c["kv_ghost_hits"] > 0, info_c
+    assert not (info_a["prefix_hit"] or info_b["prefix_hit"] or info_c["prefix_hit"])
+    assert info_a2["prefix_hit"] and engine.prefix_cache.hits == 1
+    res = {"phase": "serve_adaptive", "model": cfg.name, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+           "vocab": cfg.vocab, "dtype": cfg.dtype, "kv_mode": "paged",
+           "kv_policy": kv_policy, "page_size": cfg.page_size,
+           "reduced": {"bounded_kv_pages": [CONFIG.bounded_kv_pages, pages]},
+           "requests": n_req, "prompt_len": prompt_len, "new_tokens": new_tokens,
+           "prefill_s_batch": batch_stats["prefill_s"],
+           "decode_s_batch": batch_stats["decode_s"],
+           "decode_tokens_per_s": n_req * (new_tokens - 1) / batch_stats["decode_s"],
+           "single_decode_tokens_per_s":
+               4 * (new_tokens - 1) / (stats["decode_s"] - batch_stats["decode_s"]),
+           "singles": {"A": info_a, "B": info_b, "B_follow_up": info_c, "A_again": info_a2},
+           "decode_steps": stats["decode_steps"], "launches": launches,
+           "launches_expected": expect, "kv_evictions": stats["kv_evictions"],
+           "kv_ghost_hits": stats["kv_ghost_hits"],
+           "repeat_tokens_equal": res_a.tokens == res_a2.tokens}
+    if profile:
+        res["decode_step_profile"] = profile_decode(
+            params, cfg, prompts, dev, "adaptive_paged_attention")
+    emit(res)
+    return res
 
 
 def select_inputs(gen, B, P, dev, *, pinned: bool):
@@ -697,6 +947,8 @@ KERNELS = {
                         "src/repro/kernels/paged_attn.py:86"),
     "policy_paged_attention": ("src/repro_torch/kernels/csrc/policy_attn.cu",
                                "src/repro/kernels/policy_attn.py:185"),
+    "adaptive_policy_paged_attention": ("src/repro_torch/kernels/csrc/adaptive_attn.cu",
+                                        "src/repro/kernels/policy_attn.py:382"),
     "awrp_select": ("src/repro_torch/kernels/csrc/awrp_select.cu",
                     "src/repro/kernels/awrp_select.py:50"),
     "awrp_select_rows": ("src/repro_torch/kernels/csrc/awrp_select.cu",
@@ -722,20 +974,35 @@ def main() -> int:
                                   steps=3 * page if p == "awrp" else page + 1,
                                   timed=p == "awrp")
                 for p in PAGE_POLICIES]
-    srv = phase_serve(dev)
+    params, init_s = serve_params(dev)
+    srv = phase_serve(dev, params, init_s)
+    # kernel 5 at the serve shape from the prefill seeding (timed), with a
+    # forced stamp renormalization and from a ghost-hit reseed (p != 0),
+    # each over two evicting page boundaries; at P=256 (L=512) across one
+    ada = [phase_adaptive_attn(dev, kind, timed=kind == "arc") for kind in ("arc", "car")]
+    ada += [phase_adaptive_attn(dev, kind, renorm_at=64) for kind in ("arc", "car")]
+    ada += [phase_adaptive_attn(dev, kind, ghost=True) for kind in ("arc", "car")]
+    ada += [phase_adaptive_attn(dev, kind, DECODE_SHAPE, steps=2) for kind in ("arc", "car")]
+    srv_ada = [phase_serve_adaptive(dev, params, p, profile=p == "arc_adaptive")
+               for p in ("arc_adaptive", "car_adaptive")]
+    del params
     sel = phase_awrp_select(dev)
     swp = phase_sweep(dev)
-    # launches: each kernel's count on its path in this run: the fused kernel
-    # in the serve phase, the unfused kernel in phase 3's unfused chain (the
-    # serve loop's fused route does not launch it, as in the reference), the
-    # rows kernel in the Table-1 sweep (a); kernel 1 is on no path of the
-    # port (as in the reference, only tests reach it): 0
+    # launches: each kernel's count on its path in this run: the flat fused
+    # kernel in the serve phase, the adaptive one in serve_adaptive (both
+    # policies), the unfused kernel in phase 3's unfused chain (the serve
+    # loop's fused route does not launch it, as in the reference), the rows
+    # kernel in the Table-1 sweep (a); kernel 1 is on no path of the port (as
+    # in the reference, only tests reach it): 0
     kernels = []
     for name, runs, launches, times, shape in (
             ("paged_attention", [pa], pol["launches"]["paged_attention"], pa,
              DECODE_SHAPE),
             ("policy_paged_attention", at_serve,
-             srv["launches"]["policy_paged_attention"], at_serve[0], SERVE_SHAPE)):
+             srv["launches"]["policy_paged_attention"], at_serve[0], SERVE_SHAPE),
+            ("adaptive_policy_paged_attention", ada,
+             sum(r["launches"]["adaptive_policy_paged_attention"] for r in srv_ada),
+             ada[0], SERVE_SHAPE)):
         source, replaces = KERNELS[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,

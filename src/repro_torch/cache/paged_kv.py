@@ -1,5 +1,5 @@
-"""Paged KV cache with AWRP eviction (the classic pool of
-``repro/cache/paged_kv.py``).
+"""Paged KV cache with AWRP eviction and the true-adaptive ARC/CAR pool
+(``repro/cache/paged_kv.py``).
 
 A bounded pool of P pages (page_size tokens each) per (layer, sequence).
 Page metadata mirrors the paper: frequency F_p, recency clock R_p, global
@@ -15,22 +15,45 @@ Differences from the reference, all deliberate:
   prefix-cache payloads on insert and on hit);
 * the token index ``pos`` is a Python int (the engine knows it on the host),
   shared by the batch;
-* no ``mesh`` (XLA layout hints) and no true-adaptive ARC/CAR mode yet.
+* no ``mesh`` (XLA layout hints);
+* between page boundaries the adaptive pool's allocation access is masked
+  off for the whole batch, so ``adaptive_allocate`` runs only its stamp
+  renormalization check instead of a masked ``on_access`` (the same state).
+
+True-adaptive mode (``kv_policy`` in ``TRUE_ADAPTIVE_KV``): the pool carries
+``policy_core.AdaptiveState`` planes per sequence (ghost directory, stamps,
+the self-tuning ``p``) and evicts by the real ARC/CAR step functions.  Page
+allocations are complete-miss accesses of the new page id, each decode
+step's referenced pages are hit accesses in slot order.  Within one decode
+page ids only grow, so ghost hits come from across requests: the serving
+engine replays a re-prefill's page ids through the previous request's final
+state (``reseed_from_ghosts``), which moves ``p``.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Dict, NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.kv_policy import page_victim
-from repro_torch.core.policy_core import first_min
+from repro_torch.core.policy_core import (_TAG_B1, _TAG_B2, _TAG_T1, _TAG_T2,
+                                          AdaptiveCore, AdaptiveState,
+                                          _renorm_stamps, first_min)
 from repro_torch.device import resolve_device
 
 __all__ = ["PagedPool", "init_pool", "allocate", "insert_token", "kv_positions",
            "referenced_pages", "score_planes", "score_update",
-           "fused_decode_step", "full_cache_insert"]
+           "fused_decode_step", "full_cache_insert", "TRUE_ADAPTIVE_KV",
+           "AdaptivePagedPool", "adaptive_core", "init_adaptive_pool",
+           "seed_adaptive_state", "pool_telemetry", "replay_page_ids",
+           "reseed_from_ghosts", "adaptive_allocate", "adaptive_hits",
+           "adaptive_insert_token", "adaptive_score_update",
+           "fused_adaptive_decode_step"]
+
+#: kv_policy names served by the true-adaptive pool mode -> core policy
+TRUE_ADAPTIVE_KV = {"arc_adaptive": "arc", "car_adaptive": "car"}
 
 
 class PagedPool(NamedTuple):
@@ -183,3 +206,289 @@ def full_cache_insert(k_cache, v_cache, new_k, new_v, pos: int):
     k_cache[:, pos:pos + 1] = new_k
     v_cache[:, pos:pos + 1] = new_v
     return k_cache, v_cache
+
+
+# ---------------------------------------------------------------------------
+# true-adaptive (ARC/CAR) pool mode: AdaptiveState planes per sequence
+# ---------------------------------------------------------------------------
+
+
+class AdaptivePagedPool(NamedTuple):
+    """Paged pool plus the policy core's ARC/CAR planes (leading dims may
+    add a ``(n_layers,)`` stack in front of ``B``).  The pool's F/R/clock
+    keep ticking for telemetry; eviction decisions come from ``policy``."""
+
+    pool: PagedPool
+    policy: AdaptiveState  # (B, 1, 2P) planes, (B, 1) p and ctr
+
+    def clone(self) -> "AdaptivePagedPool":
+        return AdaptivePagedPool(self.pool.clone(),
+                                 AdaptiveState(*(t.clone() for t in self.policy)))
+
+
+def adaptive_core(kv_policy: str, batch: int, pages: int) -> AdaptiveCore:
+    """The pool's policy core: one ARC/CAR instance per sequence, capacity
+    the pool size.  Takes the serving names (``arc_adaptive`` /
+    ``car_adaptive``) or the core names (``arc`` / ``car``)."""
+    kind = TRUE_ADAPTIVE_KV.get(kv_policy, kv_policy)
+    return AdaptiveCore(kind=kind, caps=(pages,) * batch)
+
+
+def init_adaptive_pool(batch: int, pages: int, page_size: int, kvd: int, dtype,
+                       kv_policy: str, *, device="cuda") -> AdaptivePagedPool:
+    """Empty pool and freshly initialised ARC/CAR planes."""
+    return AdaptivePagedPool(
+        pool=init_pool(batch, pages, page_size, kvd, dtype, device=device),
+        policy=adaptive_core(kv_policy, batch, pages).init(device=device))
+
+
+def seed_adaptive_state(batch: int, pages: int, first_page: int, n_res: int,
+                        *, device="cuda") -> AdaptiveState:
+    """``pool_from_prefill``'s seeding for the policy: the ``n_res`` resident
+    pages (ids ``first_page..first_page+n_res-1``) as complete-miss inserts
+    in order (all in T1, stamps in insertion order, ``p = 0``, no ghosts),
+    the state the host ARC/CAR oracles reach on that access stream."""
+    dev = resolve_device(device)
+    L = 2 * pages
+    lane = torch.arange(L, dtype=torch.int32, device=dev)
+    res = lane < n_res
+
+    def one_seq(a):
+        return a.to(torch.int32).expand(batch, 1, L).contiguous()
+
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    return AdaptiveState(
+        blocks=one_seq(torch.where(res, first_page + lane, -1)),
+        tag=one_seq(torch.where(res, _TAG_T1, zero)),
+        stamp=one_seq(torch.where(res, lane + 1, zero)),
+        ref=torch.zeros((batch, 1, L), dtype=torch.int32, device=dev),
+        p=torch.zeros((batch, 1), dtype=torch.float32, device=dev),
+        ctr=torch.full((batch, 1), n_res, dtype=torch.int32, device=dev))
+
+
+def pool_telemetry(state: AdaptiveState) -> Dict[str, torch.Tensor]:
+    """The self-tuning ``p`` (mean and max over rows) and the mean resident
+    pages of a persisted policy state, as 0-d tensors, not pulled.  Takes
+    ``(B, 1, L)`` and stacked ``(n_rep, B, 1, L)`` planes alike."""
+    resident = (state.tag == _TAG_T1) | (state.tag == _TAG_T2)
+    return {"p_mean": state.p.mean(), "p_max": state.p.amax(),
+            "resident_mean": resident.sum(dim=-1).to(torch.float32).mean()}
+
+
+# -- ghost-hit feed: cross-request re-references ----------------------------
+
+
+def _flatten_adaptive(state: AdaptiveState):
+    """Collapse the leading dims to one rows axis: planes ``(..., 1, L) ->
+    (R, 1, L)``.  Single-set planes (the serving pools') only."""
+    lead = tuple(state.p.shape[:-1])
+    if state.p.shape[-1] != 1:
+        raise ValueError(f"expected single-set planes, got p shape {tuple(state.p.shape)}")
+    L = state.blocks.shape[-1]
+    R = int(np.prod(lead)) if lead else 1
+    flat = AdaptiveState(*(t.reshape(R, 1, L) for t in state[:4]),
+                         p=state.p.reshape(R, 1), ctr=state.ctr.reshape(R, 1))
+    return flat, lead, L
+
+
+def _unflatten_adaptive(flat: AdaptiveState, lead, L: int) -> AdaptiveState:
+    return AdaptiveState(*(t.reshape(lead + (1, L)) for t in flat[:4]),
+                         p=flat.p.reshape(lead + (1,)),
+                         ctr=flat.ctr.reshape(lead + (1,)))
+
+
+def replay_page_ids(state: AdaptiveState, kind: str, pages: int, page_ids
+                    ) -> Tuple[AdaptiveState, torch.Tensor]:
+    """Replay ``page_ids`` in order through a persisted state, one real
+    ``on_access`` each on the state's device, so ghost hits move ``p`` with
+    the host oracles' arithmetic.  Takes ``(B, 1, L)`` and stacked
+    ``(n_rep, B, 1, L)`` planes.  Returns ``(new_state, ghost_hits)``, the
+    hits counted per row (int32, leading dims kept)."""
+    flat, lead, L = _flatten_adaptive(state)
+    R = flat.p.shape[0]
+    dev = flat.blocks.device
+    core = AdaptiveCore(kind=TRUE_ADAPTIVE_KV.get(kind, kind), caps=(pages,) * R)
+    ghosts = torch.zeros((R,), dtype=torch.int32, device=dev)
+    for pid in (int(x) for x in page_ids):
+        ghost = ((flat.blocks[:, 0] == pid)
+                 & ((flat.tag[:, 0] == _TAG_B1) | (flat.tag[:, 0] == _TAG_B2)))
+        ghosts += ghost.any(dim=-1).to(torch.int32)
+        flat, _ = core.on_access(flat, torch.full((R,), pid, dtype=torch.int32,
+                                                  device=dev))
+    return _unflatten_adaptive(flat, lead, L), ghosts.reshape(lead)
+
+
+def reseed_from_ghosts(prev: AdaptiveState, kind: str, pages: int, n_have: int,
+                       n_res: int) -> Tuple[AdaptiveState, np.ndarray]:
+    """Cross-request reseed of the pool policy: replay the re-prefill's page
+    stream (ids ``0..n_have-1``) through the previous request's final state
+    (previously evicted pages ghost-hit and move ``p``), then rebuild the
+    residency of the freshly seeded pool (its last ``n_res`` pages):
+
+    * target pages resident after the replay keep their list, stamp and
+      reference bit;
+    * target pages the replay evicted re-enter as fresh T1 inserts;
+    * other residents are demoted to their ghost list at the MRU end;
+    * ghost lists are trimmed LRU-first to ``|T1|+|B1| <= c`` and a total of
+      at most ``2c``.
+
+    Host numpy after the replay: a request-boundary operation.  Returns
+    ``(state on prev's device, ghost_hits per row)``."""
+    replayed, ghost_hits = replay_page_ids(prev, kind, pages, range(n_have))
+    flat, lead, L = _flatten_adaptive(replayed)
+    dev = flat.blocks.device
+    blocks = flat.blocks[:, 0].cpu().numpy()
+    tag = flat.tag[:, 0].cpu().numpy()
+    stamp = flat.stamp[:, 0].cpu().numpy()
+    ref = flat.ref[:, 0].cpu().numpy()
+    p = flat.p[:, 0].cpu().numpy()
+    R = blocks.shape[0]
+    cap = pages
+    target = set(range(n_have - n_res, n_have))
+
+    nb = np.full((R, L), -1, dtype=np.int32)
+    nt = np.zeros((R, L), dtype=np.int32)
+    ns = np.zeros((R, L), dtype=np.int32)
+    nf = np.zeros((R, L), dtype=np.int32)
+    nctr = np.zeros(R, dtype=np.int32)
+    for r in range(R):
+        res, ghosts, demoted = [], [], []  # (id, tag, stamp, ref)
+        for lane in range(L):
+            t = int(tag[r, lane])
+            if t == 0:
+                continue
+            bid, st_, rf = int(blocks[r, lane]), int(stamp[r, lane]), int(ref[r, lane])
+            if t in (_TAG_T1, _TAG_T2):
+                if bid in target:
+                    res.append((bid, t, st_, rf))
+                else:  # the pool dropped it: demote to its ghost list
+                    demoted.append((bid, _TAG_B1 if t == _TAG_T1 else _TAG_B2, st_, 0))
+            elif bid not in target:  # a ghost survives unless re-resident
+                ghosts.append((bid, t, st_, 0))
+        hi = max([e[2] for e in res + ghosts + demoted], default=0)
+        for bid, t, _, _ in sorted(demoted, key=lambda e: e[2]):
+            hi += 1
+            ghosts.append((bid, t, hi, 0))
+        for pid in sorted(target - {e[0] for e in res}):
+            hi += 1
+            res.append((pid, _TAG_T1, hi, 0))
+
+        def count(entries, *tags):
+            return sum(1 for e in entries if e[1] in tags)
+
+        while count(res, _TAG_T1) + count(ghosts, _TAG_B1) > cap:
+            b1 = [e for e in ghosts if e[1] == _TAG_B1]
+            ghosts.remove(min(b1, key=lambda e: e[2]))
+        while len(res) + len(ghosts) > 2 * cap:
+            b2 = [e for e in ghosts if e[1] == _TAG_B2]
+            if not b2:
+                b2 = [e for e in ghosts if e[1] == _TAG_B1]
+            ghosts.remove(min(b2, key=lambda e: e[2]))
+        for lane, (bid, t, st_, rf) in enumerate(res + ghosts):
+            nb[r, lane], nt[r, lane], ns[r, lane], nf[r, lane] = bid, t, st_, rf
+        nctr[r] = hi
+
+    def plane(a):
+        return torch.from_numpy(a)[:, None].to(dev)
+
+    out = AdaptiveState(plane(nb), plane(nt), plane(ns), plane(nf),
+                        p=torch.from_numpy(p.astype(np.float32))[:, None].to(dev),
+                        ctr=torch.from_numpy(nctr)[:, None].to(dev))
+    return (_unflatten_adaptive(out, lead, L),
+            ghost_hits.cpu().numpy().reshape(lead if lead else (1,)))
+
+
+# -- the adaptive decode step ----------------------------------------------
+
+
+def adaptive_allocate(core: AdaptiveCore, state: AdaptiveState, f, r, page_start,
+                      clock, open_slot, pos: int, page: int):
+    """The page-boundary allocation of the true-adaptive pool: one
+    complete-miss access of the new page id; the page the policy's REPLACE
+    moved out of the cache (resident before, not after; the largest id if
+    several) gives up its pool slot, else the first free slot is taken.  The
+    slot gets F=1, R=N, page_start=pos.  Between page boundaries the access
+    is masked off, which leaves only the stamp renormalization check (it
+    runs before the mask, as in ``AdaptiveCore.on_access``).  Returns
+    ``(slot, f, r, page_start, state)``."""
+    if pos % page:
+        if core.renorm_at is not None:
+            state = _renorm_stamps(state, core.renorm_at)
+        return open_slot, f, r, page_start, state
+    B = f.shape[0]
+    dev = f.device
+    ids = torch.full((B,), pos // page, dtype=torch.int32, device=dev)
+    new_state, _ = core.on_access(state, ids)
+    evicted = core.resident_mask(state)[:, 0] & ~core.resident_mask(new_state)[:, 0]
+    ev_id = torch.where(evicted, state.blocks[:, 0], -1).amax(dim=-1)
+    pool_pid = torch.where(page_start >= 0, page_start // page, -2)
+    victim = first_min(torch.where(pool_pid == ev_id[:, None], 0, 1).to(torch.int32))
+    first_free = first_min(torch.where(page_start < 0, 0, 1).to(torch.int32))
+    slot = torch.where(ev_id >= 0, victim, first_free)
+    iota = torch.arange(f.shape[1], dtype=torch.int32, device=dev)[None]
+    sel = iota == slot[:, None]
+    return (slot, torch.where(sel, 1, f), torch.where(sel, clock[:, None], r),
+            torch.where(sel, pos, page_start), new_state)
+
+
+def adaptive_hits(core: AdaptiveCore, state: AdaptiveState, page_start,
+                  referenced, page: int) -> AdaptiveState:
+    """Each referenced page (B, P) bool is one policy hit access, issued in
+    slot order: P masked ``on_access`` calls (hits never evict)."""
+    page_ids = torch.where(page_start >= 0, page_start // page, 0)
+    for s in range(page_start.shape[1]):
+        state, _ = core.on_access(state, page_ids[:, s], active=referenced[:, s])
+    return state
+
+
+def adaptive_insert_token(apool: AdaptivePagedPool, new_k, new_v, pos: int,
+                          page_size: int, core: AdaptiveCore) -> AdaptivePagedPool:
+    """``insert_token`` with true ARC/CAR eviction (``adaptive_allocate``);
+    the pool's K/V are written in place."""
+    pool, state = apool
+    slot, f, r, page_start, state = adaptive_allocate(
+        core, state, pool.f, pool.r, pool.page_start, pool.clock, pool.open_slot,
+        pos, page_size)
+    pool = _scatter_new_token(pool, new_k, new_v, pos, page_size, slot, f, r,
+                              page_start, pool.clock, slot.to(torch.int32))
+    return AdaptivePagedPool(pool, state)
+
+
+def adaptive_score_update(apool: AdaptivePagedPool, attn_mass, page_size: int,
+                          core: AdaptiveCore) -> AdaptivePagedPool:
+    """``score_update`` (F/R/clock telemetry) plus ARC/CAR bookkeeping: every
+    referenced page (mass >= 1/residents) is one hit access, in slot order
+    (``adaptive_hits``).  ``attn_mass`` is the (B, P*page) per-row mass."""
+    pool, state = apool
+    referenced = referenced_pages(pool, attn_mass, page_size)
+    state = adaptive_hits(core, state, pool.page_start, referenced, page_size)
+    return AdaptivePagedPool(score_update(pool, attn_mass, page_size), state)
+
+
+def fused_adaptive_decode_step(apool: AdaptivePagedPool, q, new_k, new_v, pos: int,
+                               page_size: int, core: AdaptiveCore):
+    """One true-adaptive decode step as a single kernel launch: equivalent
+    to ``adaptive_insert_token`` + ``ops.paged_attention`` +
+    ``adaptive_score_update``, with the P+1 policy accesses inside the
+    attention kernel.  Returns ``(out, page_mass, new_apool)``; the pool's
+    K/V are updated in place."""
+    from repro_torch.kernels import ops
+
+    pool, st = apool
+    B, P = pool.f.shape
+    KVH, G, hd = q.shape[1:]
+    kp = pool.k.view(B, P, page_size, KVH, hd)
+    vp = pool.v.view(B, P, page_size, KVH, hd)
+    nk = new_k.reshape(B, KVH, hd).to(pool.k.dtype)
+    nv = new_v.reshape(B, KVH, hd).to(pool.v.dtype)
+    (out, mass, slot, f2, r2, ps2, clock2, open2,
+     blk2, tag2, stp2, ref2, p2, ctr2) = ops.adaptive_policy_paged_attention(
+        q, kp, vp, nk, nv, pos, pool.f, pool.r, pool.page_start, pool.clock,
+        pool.open_slot, st.blocks[:, 0], st.tag[:, 0], st.stamp[:, 0],
+        st.ref[:, 0], st.p[:, 0], st.ctr[:, 0], kind=core.kind,
+        renorm_at=core.renorm_at)
+    new_pool = _scatter_new_token(pool, nk.reshape(B, -1), nv.reshape(B, -1), pos,
+                                  page_size, slot, f2, r2, ps2, clock2, open2)
+    state = AdaptiveState(blk2[:, None], tag2[:, None], stp2[:, None],
+                          ref2[:, None], p2[:, None], ctr2[:, None])
+    return out, mass, AdaptivePagedPool(new_pool, state)

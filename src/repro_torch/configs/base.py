@@ -41,7 +41,7 @@ class ModelConfig:
     # serving / paged KV (the paper's technique)
     page_size: int = 64
     bounded_kv_pages: int = 256
-    kv_policy: str = "awrp"  # awrp | lru | fifo | lfu | arc | car
+    kv_policy: str = "awrp"  # awrp | lru | fifo | lfu | arc | car | arc_adaptive | car_adaptive
     # numerics
     dtype: str = "bfloat16"
     param_dtype: str = "bfloat16"

@@ -4,9 +4,9 @@ Each source under ``kernels/csrc`` is compiled by its own ``nvcc -c`` (all
 started together, ``-gencode arch=compute_90a,code=sm_90a -O3``, IEEE
 division and ``expf``: no ``--use_fast_math``), and one more ``nvcc`` links
 the objects into a shared library with a plain C interface, loaded with
-``ctypes``.  The two decode kernels share their attention code
+``ctypes``.  The three decode kernels share their attention code
 (``paged_attn_common.cuh``) and these flags, which is what makes the fused
-kernel's output bit-identical to the unfused one's on the card.
+kernels' output bit-identical to the unfused one's on the card.
 
 The library is built at first use, from the checkout's sources only, into
 ``build/repro_torch_kernels/`` at the repository root (``build/`` is
@@ -27,7 +27,7 @@ from typing import NamedTuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("paged_attn.cu", "policy_attn.cu", "awrp_select.cu")
+SOURCES = ("paged_attn.cu", "policy_attn.cu", "adaptive_attn.cu", "awrp_select.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -40,6 +40,9 @@ SIGNATURES = {
     "repro_policy_paged_attention": (
         [_int] + [_vp] * 5 + [_int] + [_vp] * 13 + [_int] * 6
         + [_float, _int, _vp], _int),
+    "repro_adaptive_policy_paged_attention": (
+        [_int] + [_vp] * 5 + [_int] + [_vp] * 25 + [_int] * 7
+        + [_float, _int, _int, _vp], _int),
     "repro_awrp_select": ([_vp] * 6 + [_int] * 2 + [_vp], _int),
     "repro_awrp_select_rows": ([_vp] * 5 + [_int] * 2 + [_vp], _int),
     "repro_error_string": ([_int], ctypes.c_char_p),

@@ -29,66 +29,11 @@
 // plane int32, mass float32; pos is the token index shared by the batch;
 // policy: 0 awrp, 1 lru, 2 fifo, 3 lfu, 4 arc, 5 car.  All contiguous.
 #include "paged_attn_common.cuh"
+#include "policy_common.cuh"
 
 namespace repro {
 
 enum Policy { kAwrp = 0, kLru = 1, kFifo = 2, kLfu = 3, kArc = 4, kCar = 5 };
-
-// First index of the block minimum of (key, idx), lexicographic; every
-// thread passes its own best candidate and gets the block's idx.
-__device__ int block_first_min(int key, int idx) {
-  __shared__ int red_key[kWarps];
-  __shared__ int red_idx[kWarps];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  for (int o = 16; o > 0; o >>= 1) {
-    const int k2 = __shfl_xor_sync(0xffffffffu, key, o);
-    const int i2 = __shfl_xor_sync(0xffffffffu, idx, o);
-    if (k2 < key || (k2 == key && i2 < idx)) { key = k2; idx = i2; }
-  }
-  if (lane == 0) { red_key[warp] = key; red_idx[warp] = idx; }
-  __syncthreads();
-  if (warp == 0) {
-    key = lane < nwarps ? red_key[lane] : kIntMax;
-    idx = lane < nwarps ? red_idx[lane] : kIntMax;
-    for (int o = 16; o > 0; o >>= 1) {
-      const int k2 = __shfl_xor_sync(0xffffffffu, key, o);
-      const int i2 = __shfl_xor_sync(0xffffffffu, idx, o);
-      if (k2 < key || (k2 == key && i2 < idx)) { key = k2; idx = i2; }
-    }
-    if (lane == 0) red_idx[0] = idx;
-  }
-  __syncthreads();
-  const int res = red_idx[0];
-  __syncthreads();
-  return res;
-}
-
-__device__ int block_sum(int v) {
-  __shared__ int red[kWarps];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  int tot = 0;
-  for (int w = 0; w < nwarps; ++w) tot += red[w];
-  __syncthreads();
-  return tot;
-}
-
-// first_min over the P lanes of a per-lane key function
-template <typename KeyFn>
-__device__ int lanes_first_min(int P, KeyFn key_of) {
-  int key = kIntMax, idx = kIntMax;
-  for (int p = threadIdx.x; p < P; p += blockDim.x) {
-    const int k = key_of(p);
-    // lanes ascend, so strict < keeps the first index; a thread's first
-    // lane is always taken (an all-INT_MAX row still yields lane 0)
-    if (k < key || idx == kIntMax) { key = k; idx = p; }
-  }
-  return block_first_min(key, idx);
-}
 
 // repro_torch/core/kv_policy.py page_victim at rows=1 over the smem planes
 __device__ int page_victim(int policy, const Smem& sm, int clock, int open_slot,

@@ -15,6 +15,7 @@ from repro_torch.kernels import ref
 
 #: kernel launches per wrapper since the last ``reset_launches``
 LAUNCHES: Dict[str, int] = {"paged_attention": 0, "policy_paged_attention": 0,
+                             "adaptive_policy_paged_attention": 0,
                              "awrp_select": 0, "awrp_select_rows": 0}
 
 
@@ -51,6 +52,27 @@ def policy_paged_attention(q, k_pages, v_pages, new_k, new_v, pos: int,
         q, k_pages, v_pages, new_k, new_v, pos, f, r, page_start, clock,
         open_slot, policy=policy)
     LAUNCHES["policy_paged_attention"] += 1
+    return res
+
+
+def adaptive_policy_paged_attention(q, k_pages, v_pages, new_k, new_v, pos: int,
+                                    f, r, page_start, clock, open_slot, blocks,
+                                    tag, stamp, refbits, p_plane, ctr, *,
+                                    kind: str, renorm_at):
+    """One fused true-adaptive (arc/car) decode step; returns the eight
+    outputs of ``policy_paged_attention`` followed by the six updated
+    ARC/CAR planes ``(blocks, tag, stamp, ref (B, L), p, ctr (B,))``
+    (``repro.kernels.ops.adaptive_policy_paged_attention``).  The caller
+    scatters the new K/V row at ``slot``."""
+    args = (q, k_pages, v_pages, new_k, new_v, pos, f, r, page_start, clock,
+            open_slot, blocks, tag, stamp, refbits, p_plane, ctr)
+    if q.device.type == "cpu":
+        return ref.adaptive_policy_paged_attention_plain(*args, kind=kind,
+                                                         renorm_at=renorm_at)
+    from repro_torch.kernels.policy_attn import adaptive_policy_paged_attention_kernel
+
+    res = adaptive_policy_paged_attention_kernel(*args, kind=kind, renorm_at=renorm_at)
+    LAUNCHES["adaptive_policy_paged_attention"] += 1
     return res
 
 

@@ -1,12 +1,17 @@
-"""CUDA launch of the fused flat-policy decode step (``csrc/policy_attn.cu``).
+"""CUDA launches of the fused decode steps.
 
-Replaces ``repro/kernels/policy_attn.py``
-``policy_paged_attention_kernel``: allocation / victim selection, paged
-attention with the new K/V row injected in-tile, and the F/R/clock score
-update, in one launch.  The pool K/V stay read-only; the caller scatters the
-new row at the returned slot (``cache/paged_kv.py`` ``fused_decode_step``).
-The true-adaptive ARC/CAR variant (``adaptive_policy_paged_attention_kernel``)
-is not ported yet.
+* ``policy_paged_attention_kernel`` (``csrc/policy_attn.cu``) replaces
+  ``repro/kernels/policy_attn.py`` ``policy_paged_attention_kernel``:
+  allocation / victim selection, paged attention with the new K/V row
+  injected in-tile, and the F/R/clock score update, in one launch.
+* ``adaptive_policy_paged_attention_kernel`` (``csrc/adaptive_attn.cu``)
+  replaces ``adaptive_policy_paged_attention_kernel``: the same step for the
+  true-adaptive ARC/CAR pool, with the allocation miss and the per-page hit
+  accesses of ``AdaptiveCore.on_access`` inside the launch.
+
+The pool K/V stay read-only; the caller scatters the new row at the returned
+slot (``cache/paged_kv.py`` ``fused_decode_step`` /
+``fused_adaptive_decode_step``).
 """
 
 from __future__ import annotations
@@ -17,6 +22,10 @@ from repro_torch.core.kv_policy import POLICY_ID
 from repro_torch.kernels import _build
 from repro_torch.kernels.paged_attn import DTYPE_CODE, MAX_G, check_inputs
 from repro_torch.kernels.ref import attn_scale
+
+#: ``kind`` codes of the adaptive kernel
+ADAPTIVE_KIND = {"arc": 0, "car": 1}
+MAX_LANES = 1024  # kMaxLanes in csrc/adaptive_attn.cu
 
 
 def policy_paged_attention_kernel(q, k_pages, v_pages, new_k, new_v, pos: int,
@@ -56,3 +65,60 @@ def policy_paged_attention_kernel(q, k_pages, v_pages, new_k, new_v, pos: int,
         B, P, page, KVH, G, hd, attn_scale(hd), POLICY_ID[policy], stream)
     _build.check(err, "policy_paged_attention")
     return out, mass, slot, f2, r2, ps2, clock2, open2
+
+
+def adaptive_policy_paged_attention_kernel(q, k_pages, v_pages, new_k, new_v,
+                                           pos: int, f, r, page_start, clock,
+                                           open_slot, blocks, tag, stamp, refbits,
+                                           p_plane, ctr, *, kind: str, renorm_at):
+    """The inputs of ``policy_paged_attention_kernel`` plus the ARC/CAR
+    directory of each sequence: blocks/tag/stamp/refbits (B, L) int32 with
+    2P <= L <= 1024, ``p_plane`` (B,) float32, ``ctr`` (B,) int32; ``kind``
+    "arc" or "car"; ``renorm_at`` the core's stamp-renormalization ceiling (an
+    int: the kernel always checks).  Returns the eight flat outputs followed
+    by ``(blocks', tag', stamp', ref', p', ctr')``.  One launch."""
+    B, P, page, KVH, hd = k_pages.shape
+    G = q.shape[2]
+    L = blocks.shape[1]
+    name = "adaptive_policy_paged_attention"
+    check_inputs(name, (q, k_pages, v_pages, new_k, new_v),
+                 (f, r, page_start, clock, open_slot, blocks, tag, stamp, refbits,
+                  ctr))
+    if p_plane.dtype != torch.float32 or p_plane.device != q.device \
+            or not p_plane.is_contiguous():
+        raise ValueError(f"{name}: p must be a contiguous float32 tensor on {q.device}")
+    if q.shape != (B, KVH, G, hd) or v_pages.shape != k_pages.shape \
+            or new_k.shape != (B, KVH, hd) or new_v.shape != (B, KVH, hd) \
+            or any(t.shape != (B, P) for t in (f, r, page_start)) \
+            or any(t.shape != (B, L) for t in (blocks, tag, stamp, refbits)) \
+            or any(t.shape != (B,) for t in (clock, open_slot, p_plane, ctr)) \
+            or G > MAX_G or not 2 * P <= L <= MAX_LANES:
+        raise ValueError(f"{name}: inconsistent shapes q={tuple(q.shape)} "
+                         f"k={tuple(k_pages.shape)} blocks={tuple(blocks.shape)}")
+    if kind not in ADAPTIVE_KIND:
+        raise ValueError(f"{name}: kind {kind!r} not in {list(ADAPTIVE_KIND)}")
+    if renorm_at is None or not -2**31 <= int(renorm_at) < 2**31:
+        raise ValueError(f"{name}: renorm_at must be an int32, got {renorm_at!r}")
+    if not 0 <= int(pos) < 2**31:
+        raise ValueError(f"{name}: pos {pos} out of int32 range")
+    dev = q.device
+    out = torch.empty_like(q)
+    mass = torch.empty((B, P), dtype=torch.float32, device=dev)
+    slot = torch.empty((B,), dtype=torch.int32, device=dev)
+    f2, r2, ps2 = (torch.empty_like(f) for _ in range(3))
+    clock2, open2 = torch.empty_like(clock), torch.empty_like(open_slot)
+    blk2, tag2, stp2, ref2 = (torch.empty_like(blocks) for _ in range(4))
+    p2, ctr2 = torch.empty_like(p_plane), torch.empty_like(ctr)
+    outs = (out, mass, slot, f2, r2, ps2, clock2, open2, blk2, tag2, stp2, ref2,
+            p2, ctr2)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _build.library().repro_adaptive_policy_paged_attention(
+        DTYPE_CODE[q.dtype], q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        new_k.data_ptr(), new_v.data_ptr(), int(pos),
+        *(t.data_ptr() for t in (f, r, page_start, clock, open_slot, blocks, tag,
+                                 stamp, refbits, p_plane, ctr)),
+        *(t.data_ptr() for t in outs),
+        B, P, page, KVH, G, hd, L, attn_scale(hd), ADAPTIVE_KIND[kind],
+        int(renorm_at), stream)
+    _build.check(err, name)
+    return outs

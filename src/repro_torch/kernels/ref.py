@@ -12,6 +12,11 @@
   so on the CPU the fused version equals ``insert_token`` +
   ``paged_attention_plain`` + ``score_update`` bit for bit, the contract the
   kernels hold on the card.
+* ``adaptive_policy_paged_attention_plain`` is kernel 5
+  (``csrc/adaptive_attn.cu``), the same step for the true-adaptive ARC/CAR
+  pool, built from the unfused chain's allocation and hit passes, so it
+  equals ``adaptive_insert_token`` + ``paged_attention_plain`` +
+  ``adaptive_score_update`` bit for bit.
 * ``ref_paged_attention`` is the plain softmax over all rows
   (``repro/kernels/ref.py``), the oracle both are checked against.
 
@@ -24,8 +29,10 @@ import math
 
 import torch
 
-from repro_torch.cache.paged_kv import allocate, score_planes
-from repro_torch.core.policy_core import awrp_victim_rows
+from repro_torch.cache.paged_kv import (_hit, adaptive_allocate, adaptive_hits,
+                                       allocate, score_planes)
+from repro_torch.core.policy_core import (AdaptiveCore, AdaptiveState,
+                                          awrp_victim_rows)
 
 NEG_INF = -1e30
 
@@ -102,19 +109,14 @@ def paged_attention_plain(q, k_pages, v_pages, page_start, cur_pos):
     return st.finalize(q.dtype)
 
 
-def policy_paged_attention_plain(q, k_pages, v_pages, new_k, new_v, pos: int,
-                                 f, r, page_start, clock, open_slot, *,
-                                 policy: str):
-    """The fused flat-policy decode step: allocation, attention with the new
-    K/V row injected in-tile (the pool is only read), finalize and
-    the score update.  Returns ``(out, mass, slot, f', r', page_start',
-    clock', open_slot')``."""
+def _injected_attention(q, k_pages, v_pages, new_k, new_v, pos: int, slot,
+                        page_start):
+    """Attention of the fused steps over the post-allocation pool, the new
+    K/V row injected in-tile at (slot, pos % page) (the pool is only read):
+    ``(out, mass)``."""
     B, P, page = k_pages.shape[:3]
-    hd = q.shape[-1]
-    scale = attn_scale(hd)
+    scale = attn_scale(q.shape[-1])
     within = pos % page
-    slot, fa, ra, psa = allocate(f, r, page_start, clock, open_slot, pos, page,
-                                 policy)
     qf = q.to(torch.float32)
     nk = new_k.to(torch.float32)[:, None]  # (B, 1, KVH, hd)
     nv = new_v.to(torch.float32)[:, None]
@@ -125,11 +127,54 @@ def policy_paged_attention_plain(q, k_pages, v_pages, new_k, new_v, pos: int,
         inject = ((slot[:, None] == p_idx) & (row[None] == within))[..., None, None]
         k = torch.where(inject, nk, _tile(k_pages, p_idx))
         v = torch.where(inject, nv, _tile(v_pages, p_idx))
-        st.attend_page(qf, k, v, psa[:, p_idx], cur, p_idx, scale)
-    out, mass = st.finalize(q.dtype)
+        st.attend_page(qf, k, v, page_start[:, p_idx], cur, p_idx, scale)
+    return st.finalize(q.dtype)
+
+
+def policy_paged_attention_plain(q, k_pages, v_pages, new_k, new_v, pos: int,
+                                 f, r, page_start, clock, open_slot, *,
+                                 policy: str):
+    """The fused flat-policy decode step: allocation, attention with the new
+    K/V row injected in-tile (the pool is only read), finalize and
+    the score update.  Returns ``(out, mass, slot, f', r', page_start',
+    clock', open_slot')``."""
+    page = k_pages.shape[2]
+    slot, fa, ra, psa = allocate(f, r, page_start, clock, open_slot, pos, page,
+                                 policy)
+    out, mass = _injected_attention(q, k_pages, v_pages, new_k, new_v, pos, slot,
+                                    psa)
     f2, r2, clock2 = score_planes(mass, fa, ra, psa, clock)
-    open2 = slot if within == 0 else open_slot
+    open2 = slot if pos % page == 0 else open_slot
     return out, mass, slot, f2, r2, psa, clock2, open2
+
+
+def adaptive_policy_paged_attention_plain(q, k_pages, v_pages, new_k, new_v,
+                                          pos: int, f, r, page_start, clock,
+                                          open_slot, blocks, tag, stamp, refbits,
+                                          p_plane, ctr, *, kind: str, renorm_at):
+    """Plain version of kernel 5, the fused true-adaptive (arc/car) decode
+    step, from the pieces of the unfused chain: the allocation as one masked
+    ``AdaptiveCore.on_access`` miss with the demoted page mapped to its slot
+    (``adaptive_allocate``), attention with the new row injected, finalize,
+    the F/R/clock score update, then P masked hit accesses in slot order
+    (``adaptive_hits``).  The directory planes are (B, L) int32 (L = 2P
+    lanes), ``p_plane`` (B,) f32, ``ctr`` (B,) int32; the core has capacity P
+    and ``renorm_at``.  Returns the flat step's eight outputs followed by
+    the six updated directory planes, (B, L) and (B,)."""
+    B, P, page = k_pages.shape[:3]
+    core = AdaptiveCore(kind=kind, caps=(P,) * B, lanes=blocks.shape[1],
+                        renorm_at=renorm_at)
+    state = AdaptiveState(blocks[:, None], tag[:, None], stamp[:, None],
+                          refbits[:, None], p_plane[:, None], ctr[:, None])
+    slot, fa, ra, psa, state = adaptive_allocate(core, state, f, r, page_start,
+                                                 clock, open_slot, pos, page)
+    out, mass = _injected_attention(q, k_pages, v_pages, new_k, new_v, pos, slot,
+                                    psa)
+    f2, r2, clock2 = score_planes(mass, fa, ra, psa, clock)
+    state = adaptive_hits(core, state, psa, _hit(mass, psa), page)
+    open2 = slot if pos % page == 0 else open_slot
+    return (out, mass, slot, f2, r2, psa, clock2, open2,
+            *(t[:, 0] for t in state))
 
 
 def awrp_select_plain(f, r, clock, valid, pinned):

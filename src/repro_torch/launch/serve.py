@@ -3,6 +3,10 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --requests 4 \
       --new-tokens 32 --kv-mode paged --kv-policy awrp --fused
 
+``--kv-policy arc_adaptive`` / ``car_adaptive`` serves the true-adaptive
+ARC/CAR pool; with ``--repeat-prompts`` the requests run one at a time and
+the ghost-hit feed carries the policy across them (``kv_ghost_hits``).
+
 Runs on the CUDA card by default (``--device cuda``; raises when CUDA is not
 available).  ``--device cpu`` runs the plain PyTorch versions of the kernels
 on the CPU.  Weights are random, from ``--seed``; nothing is downloaded.
@@ -19,6 +23,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.cache.paged_kv import TRUE_ADAPTIVE_KV
 from repro_torch.configs.smollm_360m import CONFIG, SMOKE_CONFIG
 from repro_torch.core.kv_policy import PAGE_POLICIES
 from repro_torch.device import resolve_device
@@ -36,7 +41,8 @@ def main(argv=None):
     ap.add_argument("--new-tokens", type=int, default=32)
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--kv-mode", default="full", choices=("full", "paged"))
-    ap.add_argument("--kv-policy", default="awrp", choices=PAGE_POLICIES)
+    ap.add_argument("--kv-policy", default="awrp",
+                    choices=PAGE_POLICIES + tuple(TRUE_ADAPTIVE_KV))
     ap.add_argument("--kv-pages", type=int, default=None,
                     help="bounded pool size in pages (default: the config's)")
     ap.add_argument("--fused", action="store_true",
@@ -83,6 +89,7 @@ def main(argv=None):
     print(f"{len(reqs)} requests, {total} tokens in {dt:.2f}s "
           f"(prefill {tel['serve/prefill_s']:.3f}s, decode {tel['serve/decode_s']:.3f}s)")
     print(f"kv evictions={tel['serve/kv_evictions']} "
+          f"kv_ghost_hits={tel['serve/kv_ghost_hits']} "
           f"prefix cache: hits={tel['prefix/hits']} misses={tel['prefix/misses']}")
     for rid in sorted(results)[:4]:
         r = results[rid]

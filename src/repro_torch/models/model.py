@@ -10,8 +10,10 @@ carry the same leading axis.  Where the reference scans the stack with
 views share storage with the stacked tensors.
 
 Decode caches are ``{"pos": int, "blocks": {"u0": cache}}`` with ``cache`` a
-stacked ``{"k", "v"}`` dict (``kv_mode="full"``) or a stacked
-``paged_kv.PagedPool`` (``kv_mode="paged"``).  K/V tensors are updated in
+stacked ``{"k", "v"}`` dict (``kv_mode="full"``), a stacked
+``paged_kv.PagedPool`` (``kv_mode="paged"``) or, when ``cfg.kv_policy`` is in
+``paged_kv.TRUE_ADAPTIVE_KV``, a stacked ``paged_kv.AdaptivePagedPool`` whose
+ARC/CAR planes also carry the leading layer axis.  K/V tensors are updated in
 place by ``decode_step`` (see ``cache/paged_kv.py``); callers that keep an
 earlier cache clone it.
 """
@@ -25,6 +27,7 @@ from typing import Any, Dict, List, Tuple
 import torch
 
 from repro_torch.cache import paged_kv
+from repro_torch.core.policy_core import AdaptiveState
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 
@@ -177,10 +180,16 @@ def prefill(params: Params, cfg, tokens: torch.Tensor, max_len: int,
     return logits, {"pos": S, "blocks": {"u0": cache}}
 
 
-def pool_from_prefill(cfg, k: torch.Tensor, v: torch.Tensor, S: int) -> paged_kv.PagedPool:
+def _stack_layers(t: torch.Tensor, n_rep: int) -> torch.Tensor:
+    return t[None].expand(n_rep, *t.shape).contiguous()
+
+
+def pool_from_prefill(cfg, k: torch.Tensor, v: torch.Tensor, S: int):
     """Seed a stacked pool from prefill KV (n_rep, B, S, kvd): the last
     ``bounded_kv_pages`` page-aligned pages are resident with F=1 and R =
-    creation order; the clock is the number of resident pages."""
+    creation order; the clock is the number of resident pages.  A
+    true-adaptive ``kv_policy`` also gets ARC/CAR planes seeded with those
+    pages (``paged_kv.seed_adaptive_state``)."""
     page, P = cfg.page_size, cfg.bounded_kv_pages
     n_rep, B, _, kvd = k.shape
     n_have = S // page
@@ -199,7 +208,7 @@ def pool_from_prefill(cfg, k: torch.Tensor, v: torch.Tensor, S: int) -> paged_kv
     def plane(t):
         return t.to(torch.int32).expand(n_rep, B, P).contiguous()
 
-    return paged_kv.PagedPool(
+    pool = paged_kv.PagedPool(
         k=kp, v=vp,
         f=plane(torch.where(res, 1, zero)),
         r=plane(torch.where(res, order + 1, zero)),
@@ -208,6 +217,11 @@ def pool_from_prefill(cfg, k: torch.Tensor, v: torch.Tensor, S: int) -> paged_kv
         open_slot=torch.full((n_rep, B), max(n_res - 1, 0), dtype=torch.int32,
                              device=dev),
     )
+    if cfg.kv_policy not in paged_kv.TRUE_ADAPTIVE_KV:
+        return pool
+    seed = paged_kv.seed_adaptive_state(B, P, start_tok // page, n_res, device=dev)
+    return paged_kv.AdaptivePagedPool(
+        pool, AdaptiveState(*(_stack_layers(t, n_rep) for t in seed)))
 
 
 # ---------------------------------------------------------------------------
@@ -221,11 +235,17 @@ def decode_caches(cfg, batch: int, max_len: int, *, kv_mode: str = "full",
     dev = resolve_device(device)
     _, n_rep, _ = scan_plan(cfg)
     dtype = torch_dtype(cfg.dtype)
-    if kv_mode == "paged":
+    if kv_mode == "paged" and cfg.kv_policy in paged_kv.TRUE_ADAPTIVE_KV:
+        one = paged_kv.init_adaptive_pool(batch, cfg.bounded_kv_pages,
+                                          cfg.page_size, cfg.kv_dim, dtype,
+                                          cfg.kv_policy, device=dev)
+        cache = paged_kv.AdaptivePagedPool(
+            paged_kv.PagedPool(*(_stack_layers(t, n_rep) for t in one.pool)),
+            AdaptiveState(*(_stack_layers(t, n_rep) for t in one.policy)))
+    elif kv_mode == "paged":
         one = paged_kv.init_pool(batch, cfg.bounded_kv_pages, cfg.page_size,
                                  cfg.kv_dim, dtype, device=dev)
-        cache = paged_kv.PagedPool(*(
-            t[None].expand(n_rep, *t.shape).contiguous() for t in one))
+        cache = paged_kv.PagedPool(*(_stack_layers(t, n_rep) for t in one))
     elif kv_mode == "full":
         shape = (n_rep, batch, max_len, cfg.kv_dim)
         cache = {"k": torch.zeros(shape, dtype=dtype, device=dev),
@@ -242,22 +262,36 @@ def _decode_block(p: Params, x: torch.Tensor, cfg, cache, pos: int,
     h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
     nk, nv = L.decode_kv_row(p, h, cfg, position=pos)
     if kv_mode == "paged":
+        adaptive = isinstance(cache, paged_kv.AdaptivePagedPool)
+        if adaptive:
+            core = paged_kv.adaptive_core(cfg.kv_policy, B, cfg.bounded_kv_pages)
         if fused:
             # one CUDA launch: victim selection + attention over the pool +
-            # policy-plane update (kernels/csrc/policy_attn.cu)
+            # policy-plane update (kernels/csrc/policy_attn.cu, adaptive_attn.cu)
             q = L.decode_q(p, h, cfg, position=pos)
-            out, _, new_cache = paged_kv.fused_decode_step(
-                cache, q, nk[:, 0], nv[:, 0], pos, cfg.page_size, cfg.kv_policy)
+            if adaptive:
+                out, _, new_cache = paged_kv.fused_adaptive_decode_step(
+                    cache, q, nk[:, 0], nv[:, 0], pos, cfg.page_size, core)
+            else:
+                out, _, new_cache = paged_kv.fused_decode_step(
+                    cache, q, nk[:, 0], nv[:, 0], pos, cfg.page_size,
+                    cfg.kv_policy)
             attn_out = L.decode_project_out(p, out.to(x.dtype), cfg)
         else:
-            pool = paged_kv.insert_token(cache, nk[:, 0], nv[:, 0], pos,
-                                         cfg.page_size, policy=cfg.kv_policy)
+            if adaptive:
+                apool = paged_kv.adaptive_insert_token(
+                    cache, nk[:, 0], nv[:, 0], pos, cfg.page_size, core)
+                pool = apool.pool
+            else:
+                pool = paged_kv.insert_token(cache, nk[:, 0], nv[:, 0], pos,
+                                             cfg.page_size, policy=cfg.kv_policy)
             P, page = pool.f.shape[1], cfg.page_size
             attn_out, mass = L.decode_attend(
                 p, h, cfg, position=pos, k_cache=pool.k.reshape(B, P * page, -1),
                 v_cache=pool.v.reshape(B, P * page, -1),
                 kv_positions=paged_kv.kv_positions(pool, pos, page))
-            new_cache = paged_kv.score_update(pool, mass, page)
+            new_cache = (paged_kv.adaptive_score_update(apool, mass, page, core)
+                         if adaptive else paged_kv.score_update(pool, mass, page))
     elif kv_mode == "full":
         k, v = paged_kv.full_cache_insert(cache["k"], cache["v"], nk, nv, pos)
         T = k.shape[1]
@@ -283,29 +317,45 @@ def decode_step(params: Params, cfg, token: torch.Tensor, caches,
     pos = caches["pos"]
     x = _embed(params, cfg, token)
     cache = caches["blocks"]["u0"]
-    paged = isinstance(cache, paged_kv.PagedPool)
     planes = []
     for i in range(n_rep):
-        layer_cache = (paged_kv.PagedPool(*(t[i] for t in cache)) if paged
-                       else {"k": cache["k"][i], "v": cache["v"][i]})
-        x, new = _decode_block(_layer(params, "u0", i), x, cfg, layer_cache,
-                               pos, kv_mode, fused)
+        x, new = _decode_block(_layer(params, "u0", i), x, cfg,
+                               _layer_cache(cache, i), pos, kv_mode, fused)
         planes.append(new)
-    if paged:
-        stacked = paged_kv.PagedPool(
-            k=cache.k, v=cache.v,
-            **{name: torch.stack([getattr(c, name) for c in planes])
-               for name in ("f", "r", "page_start", "clock", "open_slot")})
-    else:
-        stacked = cache
     logits = logits_from_hidden(params, cfg, x)
-    return logits, {"pos": pos + 1, "blocks": {"u0": stacked}}
+    return logits, {"pos": pos + 1, "blocks": {"u0": _restack(cache, planes)}}
+
+
+def _layer_cache(cache, i: int):
+    """Layer ``i``'s view of a stacked decode cache (K/V share storage)."""
+    if isinstance(cache, paged_kv.AdaptivePagedPool):
+        return paged_kv.AdaptivePagedPool(_layer_cache(cache.pool, i),
+                                          AdaptiveState(*(t[i] for t in cache.policy)))
+    if isinstance(cache, paged_kv.PagedPool):
+        return paged_kv.PagedPool(*(t[i] for t in cache))
+    return {"k": cache["k"][i], "v": cache["v"][i]}
+
+
+def _restack(cache, layers):
+    """The stacked cache after a step: K/V were written in place; the planes
+    of every layer's new cache are stacked again."""
+    if isinstance(cache, paged_kv.AdaptivePagedPool):
+        return paged_kv.AdaptivePagedPool(
+            _restack(cache.pool, [c.pool for c in layers]),
+            AdaptiveState(*(torch.stack(ts) for ts in zip(*(c.policy for c in layers)))))
+    if isinstance(cache, paged_kv.PagedPool):
+        return paged_kv.PagedPool(
+            k=cache.k, v=cache.v,
+            **{name: torch.stack([getattr(c, name) for c in layers])
+               for name in ("f", "r", "page_start", "clock", "open_slot")})
+    return cache
 
 
 def clone_caches(caches):
     """Deep copy of a decode-cache tree (for a caller that keeps it while
     decoding continues in place)."""
     cache = caches["blocks"]["u0"]
-    copy = (cache.clone() if isinstance(cache, paged_kv.PagedPool)
+    copy = (cache.clone() if isinstance(cache, (paged_kv.PagedPool,
+                                                paged_kv.AdaptivePagedPool))
             else {k: v.clone() for k, v in cache.items()})
     return {"pos": caches["pos"], "blocks": {"u0": copy}}

@@ -7,9 +7,16 @@
     eviction); a hit skips prefill.  Decoding updates the caches in place,
     so stored payloads are cloned on insert and again on every hit;
   * bounded-KV mode: ``kv_mode="paged"`` serves in a fixed page pool with
-    the paper's eviction rule (``cfg.kv_policy``); ``fused=True`` runs each
+    the paper's eviction rule (``cfg.kv_policy``, including the true-adaptive
+    ``arc_adaptive`` / ``car_adaptive`` pool mode); ``fused=True`` runs each
     paged layer's decode step as one CUDA launch
-    (``kernels/csrc/policy_attn.cu``);
+    (``kernels/csrc/policy_attn.cu``, ``adaptive_attn.cu``);
+  * ghost-hit feed: in the true-adaptive mode the engine keeps the final
+    pool policy state of the last single request and, on a prefix-cache miss,
+    replays the new prompt's page ids through it
+    (``paged_kv.reseed_from_ghosts``): previously evicted pages ghost-hit and
+    move ARC/CAR's ``p`` across requests.  One session, the reference's
+    ``"default"`` tenant;
   * the decode loop is a plain Python loop: one ``decode_step`` per token,
     tokens stay on the device until the bucket ends.
 """
@@ -22,7 +29,9 @@ from typing import Dict, List
 
 import torch
 
+from repro_torch.cache import paged_kv
 from repro_torch.cache.prefix_cache import PrefixCache
+from repro_torch.core.policy_core import AdaptiveState
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
 from repro_torch.serve.sampling import sample
@@ -52,7 +61,8 @@ class ServeEngine:
 
     ``stats`` counts prefills, decode steps and tokens, the KV evictions
     (page allocations made while a sequence's pool was full, summed over
-    layers and sequences), logits that were not finite, and the host-clock
+    layers and sequences), the ghost hits of the true-adaptive pool's
+    cross-request feed, logits that were not finite, and the host-clock
     seconds of prefill and decode (each ends in a device synchronize)."""
 
     def __init__(self, cfg, params, *, max_len: int = 512, kv_mode: str = "full",
@@ -67,8 +77,11 @@ class ServeEngine:
         self.prefix_cache = PrefixCache(prefix_cache_entries, "awrp")
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.stats = {"prefills": 0, "decode_steps": 0, "tokens": 0,
-                      "kv_evictions": 0, "nonfinite_logits": 0,
-                      "prefill_s": 0.0, "decode_s": 0.0}
+                      "kv_evictions": 0, "kv_ghost_hits": 0,
+                      "nonfinite_logits": 0, "prefill_s": 0.0, "decode_s": 0.0}
+        #: ghost-hit feed: the last single request's final pool policy
+        #: state (stacked over layers), or None
+        self._kv_session = None
 
     # -- internals ----------------------------------------------------------
     def _align(self, prompt: List[int]) -> List[int]:
@@ -100,7 +113,36 @@ class ServeEngine:
         pool = caches["blocks"]["u0"]
         if self.kv_mode != "paged" or caches["pos"] % self.cfg.page_size:
             return torch.zeros((), dtype=torch.int64, device=self.device)
+        if isinstance(pool, paged_kv.AdaptivePagedPool):
+            pool = pool.pool
         return (pool.page_start >= 0).all(dim=-1).sum()
+
+    # -- ghost-hit feed (true-adaptive paged KV) ---------------------------
+    @property
+    def _ghost_feed_on(self) -> bool:
+        return (self.kv_mode == "paged"
+                and self.cfg.kv_policy in paged_kv.TRUE_ADAPTIVE_KV)
+
+    def _kv_reseed(self, caches, plen: int):
+        """On a re-prefill, replay the prompt's page ids through the persisted
+        pool policy state: previously evicted pages ghost-hit and move ``p``;
+        the rebuilt state seeds the new pool."""
+        if self._kv_session is None:
+            return caches
+        page, P = self.cfg.page_size, self.cfg.bounded_kv_pages
+        n_have = plen // page
+        state, gh = paged_kv.reseed_from_ghosts(
+            self._kv_session, self.cfg.kv_policy, P, n_have, min(n_have, P))
+        self.stats["kv_ghost_hits"] += int(gh.sum())
+        apool = caches["blocks"]["u0"]
+        return {"pos": caches["pos"],
+                "blocks": {"u0": paged_kv.AdaptivePagedPool(apool.pool, state)}}
+
+    def _kv_persist(self, caches) -> None:
+        """Keep the request's final pool policy state (ghost lists, ``p``) for
+        the next re-prefill to replay into."""
+        self._kv_session = AdaptiveState(
+            *(t.clone() for t in caches["blocks"]["u0"].policy))
 
     def _run_bucket(self, plen: int, reqs: List[Request]) -> Dict[int, Result]:
         t0 = time.perf_counter()
@@ -112,6 +154,10 @@ class ServeEngine:
         else:
             logits, caches = self._prefill([r.prompt for r in reqs])
             if single:
+                if self._ghost_feed_on:
+                    # a prefix miss re-references page positions the previous
+                    # request's pool may have evicted
+                    caches = self._kv_reseed(caches, plen)
                 self.prefix_cache.insert(reqs[0].prompt, (logits, M.clone_caches(caches)))
 
         temperature = reqs[0].temperature
@@ -129,6 +175,8 @@ class ServeEngine:
                          vocab=self.cfg.vocab)
             generated.append(tok)
         gen = torch.cat(generated, dim=1).cpu()  # the one pull of the bucket
+        if single and self._ghost_feed_on:
+            self._kv_persist(caches)
         self.stats["decode_s"] += time.perf_counter() - t1
         self.stats["decode_steps"] += max_new - 1
         self.stats["tokens"] += gen.numel()
@@ -157,7 +205,12 @@ class ServeEngine:
         return out
 
     def telemetry(self) -> dict:
-        """Engine counters and the prefix cache's stats, namespaced."""
+        """Engine counters, the prefix cache's stats and, in the
+        true-adaptive mode once a request has run, the persisted policy's
+        ``p`` and residency, namespaced."""
         out = {f"serve/{k}": v for k, v in self.stats.items()}
         out.update({f"prefix/{k}": v for k, v in self.prefix_cache.telemetry().items()})
+        if self._kv_session is not None:
+            out.update({f"kv/{k}": float(v) for k, v in
+                        paged_kv.pool_telemetry(self._kv_session).items()})
         return out

@@ -13,17 +13,21 @@ The ``cuda``-marked tests hold the CUDA kernels against the same plain
 versions on a card and skip without one.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.cache import paged_kv as jpk  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.cache import paged_kv as tpk  # noqa: E402
+from repro_torch.core import policy_core  # noqa: E402
 from repro_torch.core.kv_policy import PAGE_POLICIES, page_victim  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
@@ -137,6 +141,175 @@ def test_plain_fused_equals_unfused_chain_bitwise(policy):
         assert torch.equal(out_f, out_u) and torch.equal(mass_f, mass_u)
         for name, a, b in zip(pool_f._fields, pool_f, pool_u):
             assert torch.equal(a, b), (pos, name)
+
+
+# -- kernel 5: the fused true-adaptive (ARC/CAR) step ------------------------
+
+AP = 3  # adaptive pool pages (the reference's twin tests use P = 3, page 4)
+
+
+def _unfused_adaptive_step(apool, q, nk, nv, pos, core):
+    """adaptive_insert_token + paged attention + adaptive_score_update; the
+    page mass goes in row 0 of each page so the hit rule's per-page sum is
+    exact."""
+    Bn, Pn = apool.pool.f.shape
+    apool = tpk.adaptive_insert_token(apool, nk, nv, pos, PAGE, core)
+    cur = torch.full((Bn,), pos, dtype=torch.int32, device=q.device)
+    out, mass = ops.paged_attention(q, apool.pool.k.view(Bn, Pn, PAGE, KVH, HD),
+                                    apool.pool.v.view(Bn, Pn, PAGE, KVH, HD),
+                                    apool.pool.page_start, cur)
+    row_mass = torch.zeros((Bn, Pn, PAGE), device=q.device)
+    row_mass[:, :, 0] = mass
+    return out, mass, tpk.adaptive_score_update(apool, row_mass.reshape(Bn, -1),
+                                                PAGE, core)
+
+
+def _ghost_seeded(kind, dev="cpu"):
+    """A pool and policy state after the cross-request reseed of the churn
+    stream (``p`` != 0, ghosts in the directory): the pool holds the reseed's
+    target pages with seeded K/V.  Returns ``(apool, first decode pos)``."""
+    kv_policy = f"{kind}_adaptive"
+    core = tpk.adaptive_core(kv_policy, B, AP)
+    churned, gh = tpk.replay_page_ids(core.init(device=dev), kv_policy, AP,
+                                      [0, 1, 2, 0, 1, 3, 2, 4, 0, 5, 1])
+    assert int(gh.min()) > 0
+    n_have = 2 * AP
+    state, _ = tpk.reseed_from_ghosts(churned, kv_policy, AP, n_have, AP)
+    assert float(state.p.max()) > 0.0
+    rng = np.random.default_rng(11)
+    order = torch.arange(AP, dtype=torch.int32, device=dev)
+    start = (n_have - AP) * PAGE
+    pool = tpk.PagedPool(
+        k=t((rng.standard_normal((B, AP, PAGE, KVD)) * 0.3).astype(np.float32)).to(dev),
+        v=t((rng.standard_normal((B, AP, PAGE, KVD)) * 0.3).astype(np.float32)).to(dev),
+        f=torch.ones((B, AP), dtype=torch.int32, device=dev),
+        r=(order + 1).expand(B, AP).contiguous(),
+        page_start=(start + order * PAGE).expand(B, AP).contiguous(),
+        clock=torch.full((B,), AP, dtype=torch.int32, device=dev),
+        open_slot=torch.full((B,), AP - 1, dtype=torch.int32, device=dev))
+    return tpk.AdaptivePagedPool(pool, state), n_have * PAGE
+
+
+def _adaptive_fused_vs_unfused(kind, dev, *, renorm_at="auto", seeded=False,
+                               steps=(AP + 3) * PAGE, seed=9):
+    """The fused step (kernel 5, or its plain version on the CPU) against the
+    unfused chain from the same pool, bitwise on every output and plane."""
+    core = tpk.adaptive_core(f"{kind}_adaptive", B, AP)
+    if renorm_at != "auto":
+        core = dataclasses.replace(core, renorm_at=renorm_at)
+    if seeded:
+        ap_f, start = _ghost_seeded(kind, dev)
+    else:
+        ap_f = tpk.init_adaptive_pool(B, AP, PAGE, KVD, torch.float32,
+                                      f"{kind}_adaptive", device=dev)
+        start = 0
+    ap_u = ap_f.clone()
+    rng = np.random.default_rng(seed)
+    renorms0 = policy_core.HOST_SYNCS["renorm"]
+    for pos in range(start, start + steps):
+        q = t(rng.standard_normal((B, KVH, G, HD)).astype(np.float32)).to(dev)
+        nk = t((rng.standard_normal((B, KVD)) * 0.3).astype(np.float32)).to(dev)
+        nv = t((rng.standard_normal((B, KVD)) * 0.3).astype(np.float32)).to(dev)
+        out_f, mass_f, ap_f = tpk.fused_adaptive_decode_step(ap_f, q, nk, nv, pos,
+                                                             PAGE, core)
+        out_u, mass_u, ap_u = _unfused_adaptive_step(ap_u, q, nk, nv, pos, core)
+        assert torch.equal(out_f, out_u) and torch.equal(mass_f, mass_u), pos
+        for part_f, part_u in ((ap_f.pool, ap_u.pool), (ap_f.policy, ap_u.policy)):
+            for name, a, b in zip(part_f._fields, part_f, part_u):
+                assert a.dtype == b.dtype and torch.equal(a, b), (kind, pos, name)
+    assert policy_core.HOST_SYNCS["renorm"] > renorms0
+    return ap_f
+
+
+@pytest.mark.parametrize("kind", ["arc", "car"])
+def test_adaptive_plain_fused_equals_unfused_chain_bitwise(kind):
+    """Kernel 5's plain version == adaptive_insert_token + plain paged
+    attention + adaptive_score_update, bit for bit, through churn past
+    capacity (the contract kernel 5 holds on the card)."""
+    ap = _adaptive_fused_vs_unfused(kind, "cpu")
+    assert int(ap.pool.page_start.max()) >= AP * PAGE  # evicted
+
+
+@pytest.mark.parametrize("kind", ["arc", "car"])
+def test_adaptive_plain_fused_equals_unfused_at_renorm_edge(kind):
+    """The same with ``renorm_at=40``: the stamp renormalization fires inside
+    the step (ctr is reset to L), and both sides agree."""
+    ap = _adaptive_fused_vs_unfused(kind, "cpu", renorm_at=40)
+    assert int(ap.policy.ctr.max()) < 40 + 2 * (AP + 2)
+
+
+@pytest.mark.parametrize("kind", ["arc", "car"])
+def test_adaptive_plain_fused_equals_unfused_from_ghost_seeded_state(kind):
+    _adaptive_fused_vs_unfused(kind, "cpu", seeded=True, steps=2 * PAGE)
+
+
+_JAX_STEPS = {}
+
+
+def _jax_adaptive_step(core):
+    """JAX's fused adaptive step (interpret mode), jitted once per core."""
+    if core not in _JAX_STEPS:
+        _JAX_STEPS[core] = jax.jit(lambda ap, q, k, v, pos: jpk.fused_adaptive_decode_step(
+            ap, q, k, v, pos, PAGE, core, interpret=True))
+    return _JAX_STEPS[core]
+
+
+@pytest.mark.parametrize("kind,renorm_at,seeded", [
+    ("arc", "auto", False), ("car", "auto", False), ("arc", 40, False),
+    ("car", 36, False), ("arc", "auto", True), ("car", "auto", True)])
+def test_adaptive_plain_matches_reference_kernel(kind, renorm_at, seeded):
+    """Kernel 5's plain version against JAX's ``fused_adaptive_decode_step``
+    (the Pallas kernel in interpret mode) at float32: out and mass within
+    RTOL/ATOL; pool and policy planes bitwise, except at a step whose JAX
+    mass lies within EPS_TAU of tau (counted).  Every step restarts from the
+    JAX pool."""
+    kv_policy = f"{kind}_adaptive"
+    jcore = jpk.adaptive_core(kv_policy, B, AP)
+    tcore = tpk.adaptive_core(kv_policy, B, AP)
+    if renorm_at != "auto":
+        jcore = dataclasses.replace(jcore, renorm_at=renorm_at)
+        tcore = dataclasses.replace(tcore, renorm_at=renorm_at)
+    if seeded:
+        tap, start = _ghost_seeded(kind)
+        steps = 2 * PAGE
+    else:
+        tap = tpk.init_adaptive_pool(B, AP, PAGE, KVD, torch.float32, kv_policy,
+                                     device="cpu")
+        start, steps = 0, (AP + 3) * PAGE
+    jap = jpk.AdaptivePagedPool(
+        pool=jpk.PagedPool(*(jnp.asarray(a.numpy()) for a in tap.pool)),
+        policy=jpk.AdaptiveState(*(jnp.asarray(a.numpy()) for a in tap.policy)))
+    step = _jax_adaptive_step(jcore)
+    rng = np.random.default_rng(13)
+    near_tau = 0
+    for pos in range(start, start + steps):
+        q = rng.standard_normal((B, KVH, G, HD)).astype(np.float32)
+        nk = (rng.standard_normal((B, KVD)) * 0.3).astype(np.float32)
+        nv = (rng.standard_normal((B, KVD)) * 0.3).astype(np.float32)
+        tap = tpk.AdaptivePagedPool(
+            tpk.PagedPool(*(t(np.asarray(a)) for a in jap.pool)),
+            tpk.AdaptiveState(*(t(np.asarray(a)) for a in jap.policy)))
+        out_t, mass_t, tap = tpk.fused_adaptive_decode_step(
+            tap, t(q), t(nk), t(nv), pos, PAGE, tcore)
+        out_j, mass_j, jap = step(jap, jnp.asarray(q), jnp.asarray(nk),
+                                  jnp.asarray(nv), jnp.int32(pos))
+        np.testing.assert_allclose(out_t.numpy(), out_j, rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(mass_t.numpy(), mass_j, rtol=RTOL, atol=ATOL)
+        ps = np.asarray(jap.pool.page_start)
+        tau = np.float32(1.0) / np.maximum((ps >= 0).sum(-1, keepdims=True),
+                                           1).astype(np.float32)
+        if np.any((np.abs(np.asarray(mass_j) - tau) < EPS_TAU) & (ps >= 0)):
+            near_tau += 1
+            continue
+        for part_t, part_j in ((tap.pool, jap.pool), (tap.policy, jap.policy)):
+            for name, a, b in zip(part_j._fields, part_t, part_j):
+                b = np.asarray(b)
+                assert a.numpy().dtype == b.dtype, (pos, name)
+                if name in ("k", "v"):
+                    np.testing.assert_allclose(a.numpy(), b, rtol=0, atol=0)
+                else:
+                    assert np.array_equal(a.numpy(), b), (kind, pos, name)
+    assert near_tau <= 2, f"{near_tau} steps near tau"
 
 
 def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
@@ -325,6 +498,36 @@ def test_cuda_fused_equals_unfused_bitwise(cuda_device, policy):
         assert torch.equal(out_f, out_u) and torch.equal(mass_f, mass_u)
         for name, a, b in zip(pool_f._fields, pool_f, pool_u):
             assert torch.equal(a, b), (pos, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["arc", "car"])
+@pytest.mark.parametrize("renorm_at,seeded", [("auto", False), (40, False),
+                                              ("auto", True)])
+def test_cuda_adaptive_kernel_matches_unfused_and_plain(cuda_device, kind,
+                                                        renorm_at, seeded):
+    """Kernel 5 == the unfused chain on the card, bitwise, through churn, the
+    renormalization edge and a ghost-seeded state; one launch per step; and
+    the kernel == its plain version on the final pool."""
+    before = ops.LAUNCHES["adaptive_policy_paged_attention"]
+    steps = 2 * PAGE if seeded else (AP + 3) * PAGE
+    ap = _adaptive_fused_vs_unfused(kind, cuda_device, renorm_at=renorm_at,
+                                    seeded=seeded, steps=steps)
+    assert ops.LAUNCHES["adaptive_policy_paged_attention"] == before + steps
+    core = tpk.adaptive_core(f"{kind}_adaptive", B, AP)
+    rng = np.random.default_rng(1)
+    q = t(rng.standard_normal((B, KVH, G, HD)).astype(np.float32)).to(cuda_device)
+    nk = t(rng.standard_normal((B, KVH, HD)).astype(np.float32)).to(cuda_device)
+    pos = int(ap.pool.page_start.max()) + PAGE  # the next page boundary
+    args = (q, ap.pool.k.view(B, AP, PAGE, KVH, HD), ap.pool.v.view(B, AP, PAGE, KVH, HD),
+            nk, nk, pos, *ap.pool[2:], *(x[:, 0] for x in ap.policy))
+    got = ops.adaptive_policy_paged_attention(*args, kind=kind, renorm_at=core.renorm_at)
+    want = ref.adaptive_policy_paged_attention_plain(*args, kind=kind,
+                                                     renorm_at=core.renorm_at)
+    torch.testing.assert_close(got[0], want[0], rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(got[1], want[1], rtol=2e-5, atol=2e-5)
+    for a, b in zip(got[2:], want[2:]):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -68,6 +68,64 @@ def test_greedy_tokens_equal_reference_engine(setup, fused):
     assert teng.stats["decode_steps"] == NEW_TOKENS - 1
 
 
+#: the adaptive engine test's traffic: a batch of two requests, then two
+#: single requests with distinct prompts of equal length (the second
+#: re-prefills page positions the first evicted: ghost hits), then the first
+#: of them again (a prefix hit)
+ADAPTIVE_RUNS = [[(0, _prompts(5, 2)[0]), (1, _prompts(5, 2)[1])],
+                 [(10, _prompts(6, 2)[0])], [(11, _prompts(6, 2)[1])],
+                 [(12, _prompts(6, 2)[0])]]
+
+
+@pytest.fixture(scope="module")
+def jax_adaptive_runs(setup):
+    """The JAX engine on ADAPTIVE_RUNS, once per kv_policy: per run the
+    results and the ghost-hit count after it, and the persisted state."""
+    jcfg, jparams, _, _ = setup
+    cache = {}
+
+    def get(kv_policy):
+        if kv_policy not in cache:
+            eng = JServeEngine(dataclasses.replace(jcfg, kv_policy=kv_policy),
+                               jparams, max_len=64, kv_mode="paged", jit_loop=False)
+            runs = []
+            for run in ADAPTIVE_RUNS:
+                res = eng.generate([JRequest(i, list(p), max_new_tokens=NEW_TOKENS)
+                                    for i, p in run])
+                runs.append((res, eng.stats["kv_ghost_hits"]))
+            (state,) = eng._kv_sessions["default"]
+            cache[kv_policy] = (runs, state)
+        return cache[kv_policy]
+
+    return get
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("kv_policy", ["arc_adaptive", "car_adaptive"])
+def test_adaptive_greedy_tokens_and_ghost_hits_equal_reference_engine(
+        setup, jax_adaptive_runs, kv_policy, fused):
+    """The true-adaptive pool through the port's engine on ADAPTIVE_RUNS:
+    greedy tokens, prefix hits, ``kv_ghost_hits`` after every run and the
+    persisted policy planes equal the JAX engine's."""
+    _, _, tcfg, tparams = setup
+    want_runs, jstate = jax_adaptive_runs(kv_policy)
+    teng = ServeEngine(dataclasses.replace(tcfg, kv_policy=kv_policy), tparams,
+                       max_len=64, kv_mode="paged", fused=fused, device="cpu")
+    for run, (want, ghost_hits) in zip(ADAPTIVE_RUNS, want_runs):
+        got = teng.generate([Request(i, list(p), max_new_tokens=NEW_TOKENS)
+                             for i, p in run])
+        for i, _ in run:
+            assert got[i].tokens == want[i].tokens, (kv_policy, i)
+            assert got[i].prefill_cached == want[i].prefill_cached
+        assert teng.stats["kv_ghost_hits"] == ghost_hits
+    assert got[12].prefill_cached
+    assert teng.stats["kv_ghost_hits"] > 0
+    assert teng.stats["kv_evictions"] > 0 and teng.stats["nonfinite_logits"] == 0
+    for name, a, b in zip(jstate._fields, teng._kv_session, jstate):
+        assert np.array_equal(a.numpy(), np.asarray(b)), name
+    assert teng.telemetry()["kv/p_max"] == float(np.asarray(jstate.p).max())
+
+
 def test_full_kv_mode_tokens_equal_reference_engine(setup):
     jcfg, jparams, tcfg, tparams = setup
     prompt = _prompts(3, 1)[0]
@@ -156,3 +214,15 @@ def test_launch_serve_runs_on_cpu(capsys):
     assert len(results) == 3 and all(len(r.tokens) == 6 for r in results.values())
     assert results[2].prefill_cached
     assert "device=cpu" in out and "kv evictions=" in out
+
+
+def test_launch_serve_adaptive_runs_on_cpu(capsys):
+    results = serve_cli.main(["--device", "cpu", "--smoke", "--dtype", "float32",
+                              "--requests", "3", "--new-tokens", "6",
+                              "--prompt-len", "64", "--kv-mode", "paged",
+                              "--kv-policy", "arc_adaptive", "--fused",
+                              "--kv-pages", "1", "--repeat-prompts"])
+    out = capsys.readouterr().out
+    assert len(results) == 3 and all(len(r.tokens) == 6 for r in results.values())
+    assert results[2].prefill_cached
+    assert "policy=arc_adaptive" in out and "kv_ghost_hits=" in out
