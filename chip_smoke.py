@@ -10,9 +10,11 @@ line, any failure raising (non-zero exit, no result line):
    limit (``nvidia-smi``).
 2. ``paged_attention``: the decode-attention kernel at the slice's decode
    shape with the default pool (B=4, P=256, page=64, KVH=5, G=3, hd=64,
-   bf16) and at the serve phase's (P=16), against its plain PyTorch
-   version (bf16 out within one bf16 ulp, f32 mass within MASS_RTOL);
-   kernel, plain and SDPA times beside the byte bound.
+   bf16), at the serve phase's (P=16) and at gemma3-27b's global layers'
+   (B=4, P=16, page=64, KVH=16, G=2, hd=128: pages staged in 16-row
+   chunks), against its plain PyTorch version (bf16 out within one bf16
+   ulp, f32 mass within MASS_RTOL); kernel, plain and SDPA times beside the
+   byte bound.
 3. ``policy_attn``: the fused policy-attention step from a full pool,
    AWRP over 3*page decode steps so every page boundary evicts, at P=256
    and at P=16, and each other page policy over two evicting boundaries at
@@ -20,11 +22,17 @@ line, any failure raising (non-zero exit, no result line):
    paged_attention kernel + score_update, (b) within phase 2's tolerances
    of its plain version, planes equal except at steps where a page's plain
    mass lies within EPS_TAU of tau (counted); the AWRP runs timed like
-   phase 2.
+   phase 2; AWRP again at gemma3's decode shape.
+3a. ``flash_attn``: kernel 6, the prefill attention, against its plain
+   version (bf16 within one bf16 ulp, f32 within F32_OUT_RTOL) at gemma3's
+   prefill shape (4, 2048, 16, 2, 128) with window 1024 and 0, smollm's
+   (4, 1024, 5, 3, 64), a ragged S=1000 with window 48, non-causal, a
+   ``kv_len`` mask and f32; kernel, plain and SDPA times (same mask) beside
+   the bound over the unmasked (query head, key) pairs.
 4. ``serve``: ``ServeEngine`` on smollm-360m at published widths, bf16,
    paged KV with AWRP through the fused kernel, 4 requests of 1024 seeded
    tokens and 192 greedy new tokens, then one repeated prompt that must hit
-   the prefix cache.
+   the prefix cache; kernel 6 launched once per layer per prefill.
 4a. ``adaptive_attn``: kernel 5, the fused true-adaptive ARC/CAR step, for
    arc and car from a full pool over two evicting page boundaries at the
    serve shape (from the prefill seeding, with a forced stamp
@@ -32,13 +40,23 @@ line, any failure raising (non-zero exit, no result line):
    (L=512) across one: bitwise equal to the unfused chain
    adaptive_insert_token + paged_attention kernel + adaptive_score_update,
    and within phase 2's tolerances of its plain version with every plane
-   equal except at near-tau steps (counted); timed at the serve shape.
+   equal except at near-tau steps (counted); timed at the serve shape and
+   at gemma3's decode shape (arc).
 4b. ``serve_adaptive``: the serve phase's model and pool with
    ``kv_policy`` arc_adaptive and car_adaptive: 4 x 1024-token prompts and 192
    greedy tokens, then single requests A and B (distinct 1024-token prompts),
    B's follow-up turn (its re-prefill ghost-hits the pages B's decode
    evicted and moves p) and A again (a prefix hit); kernel 5 launched once
    per layer per decode step.
+4c. ``serve_gemma3``: gemma3-27b at published widths and all 62 layers (10
+   x (5 local + 1 global) + 2 local, window 1024), bf16, random weights from
+   SEED drawn on the card, a 16-page pool (the one cut): 4 prompts of 2048
+   seeded tokens and 128 greedy new tokens (AWRP, kernel 4 on the 10 global
+   layers, sliding-window rings on the 52 local ones, kernel 6 in every
+   layer of every prefill), one prompt alone twice (a prefix hit), then
+   ``arc_adaptive`` (kernel 5) on the same weights: a 1024-token request and
+   its follow-up turn, whose re-prefill ghost-hits the pages the first
+   turn's decode evicted; a decode-step profile and the peak memory.
 5. ``awrp_select``: the two AWRP victim-selection kernels against their
    plain versions, exact equality of the victims, at the sweep's shapes
    (kernel 2) and the serve pool's (kernel 1), tie-heavy and all-invalid
@@ -49,8 +67,9 @@ line, any failure raising (non-zero exit, no result line):
    route == host oracles), the sweep benchmark's 10k-access zipf trace (hit
    counts == host oracles'), and a profile of 50 steady-state grid steps.
 
-Then the kernel summary line, the ``nvidia-smi`` line and, last, the result
-line.  Every time is a median of CUDA-event timings on this card.
+Then the total seconds, the kernel summary line, the ``nvidia-smi`` line
+and, last, the result line.  Every kernel time is a median of CUDA-event
+timings on this card.
 """
 
 from __future__ import annotations
@@ -69,6 +88,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.cache import paged_kv  # noqa: E402
+from repro_torch.configs.gemma3_27b import CONFIG as GEMMA3  # noqa: E402
 from repro_torch.configs.smollm_360m import CONFIG  # noqa: E402
 from repro_torch.core.kv_policy import PAGE_POLICIES  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
@@ -78,6 +98,7 @@ from repro_torch.kernels.policy_attn import (  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 F32_FLOPS = 67e12  # H100 SXM float32 peak outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 # bf16 output: kernel and plain round f32 sums that differ only in summation
 # order, so they may differ by one bf16 ulp of the value (8-bit significand:
 # at most 2**-7 of |value|), plus an f32-level floor for values near 0
@@ -87,6 +108,11 @@ OUT_ATOL = 1e-6
 # ulps only, a few f32 ulps of the value
 MASS_RTOL = 1e-5
 MASS_ATOL = 1e-7
+# f32 flash attention: kernel and plain differ in summation order over up to
+# 2048 keys (tile by tile with a running max against one softmax), some
+# f32 ulps of the terms
+F32_OUT_RTOL = 1e-4
+F32_OUT_ATOL = 1e-5
 EPS_TAU = 1e-5  # a plain mass this close to tau may flip a decision
 SEED = 0
 
@@ -335,7 +361,108 @@ def phase_policy_attn(dev, policy: str = "awrp", shape=DECODE_SHAPE,
     return res
 
 
+#: (label, (B, S, KVH, G, hd), causal, window, kv_len or None, dtype)
+FLASH_CASES = [
+    ("gemma3_local", (4, 2048, 16, 2, 128), True, 1024, None, torch.bfloat16),
+    ("gemma3_global", (4, 2048, 16, 2, 128), True, 0, None, torch.bfloat16),
+    ("smollm", (4, 1024, 5, 3, 64), True, 0, None, torch.bfloat16),
+    ("ragged_window48", (2, 1000, 4, 2, 128), True, 48, None, torch.bfloat16),
+    ("non_causal", (2, 512, 5, 3, 64), False, 0, None, torch.bfloat16),
+    ("kv_len_mask", (2, 256, 2, 4, 64), False, 0, 150, torch.bfloat16),
+    ("f32_window100", (1, 300, 2, 4, 64), True, 100, None, torch.float32),
+]
+
+
+def attended_pairs(Sq: int, Skv: int, causal: bool, window: int, kv_len: int) -> int:
+    """(query, key) position pairs the masks leave: what the flash kernel
+    must compute, per batch row and query head."""
+    i = np.arange(Sq)
+    hi = np.full(Sq, kv_len - 1)
+    if causal:
+        hi = np.minimum(hi, i)
+    lo = np.maximum(i - window + 1, 0) if window else np.zeros(Sq, dtype=np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def sdpa_flash_ms(q, k, v, causal: bool, window: int, kv_len: int) -> float:
+    """One PyTorch call computing the same attention over the same mask (the
+    yardstick; the port never calls it)."""
+    import torch.nn.functional as F
+
+    B, Sq, KVH, G, hd = q.shape
+    Skv = k.shape[1]
+    qq = q.reshape(B, Sq, KVH * G, hd).transpose(1, 2).contiguous()
+    kk = k.transpose(1, 2).contiguous()
+    vv = v.transpose(1, 2).contiguous()
+    if causal and not window and kv_len == Skv and Sq == Skv:
+        return time_ms(lambda: F.scaled_dot_product_attention(
+            qq, kk, vv, is_causal=True, enable_gqa=True))
+    i = torch.arange(Sq, device=q.device)[:, None]
+    j = torch.arange(Skv, device=q.device)[None, :]
+    mask = j < kv_len
+    if causal:
+        mask = mask & (j <= i)
+    if window:
+        mask = mask & (i - j < window)
+    return time_ms(lambda: F.scaled_dot_product_attention(
+        qq, kk, vv, attn_mask=mask, enable_gqa=True))
+
+
+def phase_flash_attn(dev) -> dict:
+    """Kernel 6 against its plain version on FLASH_CASES: bf16 within one
+    bf16 ulp, f32 within F32_OUT_RTOL/ATOL; each case timed (kernel, plain,
+    SDPA over the same mask) beside its bound: q read and out written once,
+    the K/V rows below kv_len read once, at the HBM rate, against 4*hd flops
+    per unmasked (query head, key) pair at the type's peak (bf16 tensor
+    cores; f32 outside them)."""
+    from repro_torch.kernels.flash_attn import flash_attention_kernel
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 13)
+    res = {"phase": "flash_attn", "cases": []}
+    for label, (B, S, KVH, G, hd), causal, window, kv_len, dtype in FLASH_CASES:
+        q = torch.randn(B, S, KVH, G, hd, generator=gen).to(dtype).to(dev)
+        k = (torch.randn(B, S, KVH, hd, generator=gen) * 0.5).to(dtype).to(dev)
+        v = (torch.randn(B, S, KVH, hd, generator=gen) * 0.5).to(dtype).to(dev)
+        kl = S if kv_len is None else kv_len
+        kw = {"causal": causal, "window": window, "kv_len": kl}
+        out = flash_attention_kernel(q, k, v, **kw)
+        plain = ref.flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        rtol, atol = ((OUT_RTOL, OUT_ATOL) if dtype == torch.bfloat16
+                      else (F32_OUT_RTOL, F32_OUT_ATOL))
+        err = (out.float() - plain.float()).abs().max().item()
+        over = excess(out, plain, rtol, atol)
+        assert torch.isfinite(out.float()).all(), label
+        assert over <= 1.0, (label, err, over)
+        pairs = attended_pairs(S, S, causal, window, kl)
+        flops = 4 * hd * pairs * B * KVH * G
+        nbytes = (2 * q.numel() + (k.numel() + v.numel()) * kl // S) * q.element_size()
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / (BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS) * 1e3
+        ms = time_ms(lambda: flash_attention_kernel(q, k, v, **kw))
+        res["cases"].append({
+            "label": label, "shape": [B, S, KVH, G, hd], "causal": causal,
+            "window": window, "kv_len": kl, "dtype": str(dtype).split(".")[-1],
+            "max_abs_err": err, "err_over_tol": over, "tol": [rtol, atol],
+            "mean_abs_out": plain.float().abs().mean().item(),
+            "pairs_per_head": pairs, "flops": flops, "ms": ms,
+            "achieved_tflops": flops / ms / 1e9,
+            "plain_ms": time_ms(lambda: ref.flash_attention_plain(q, k, v, **kw),
+                                reps=5, warmup=1),
+            "library_ms": sdpa_flash_ms(q, k, v, causal, window, kl),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+        del q, k, v, out, plain
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    emit(res)
+    return res
+
+
 SERVE_SHAPE = (4, 16, 64, 5, 3, 64)  # the serve phase's pool: 16 pages of 64
+#: gemma3-27b's global layers' pool in the serve_gemma3 phase
+GEMMA3_DECODE_SHAPE = (4, 16, 64, 16, 2, 128)
 
 
 def serve_params(dev):
@@ -372,6 +499,7 @@ def phase_serve(dev, params, init_s, base_cfg=CONFIG, n_req=4, prompt_len=1024,
     stats = dict(engine.stats)
     expect = cfg.n_layers * (new_tokens - 1)
     assert launches["policy_paged_attention"] == expect, (launches, expect)
+    assert launches["flash_attention"] == cfg.n_layers * stats["prefills"], launches
     for r in results.values():
         assert len(r.tokens) == new_tokens
         assert all(0 <= tok < cfg.vocab for tok in r.tokens)
@@ -401,6 +529,7 @@ def phase_serve(dev, params, init_s, base_cfg=CONFIG, n_req=4, prompt_len=1024,
            "prefill_s": stats["prefill_s"], "decode_s": stats["decode_s"],
            "decode_tokens_per_s": n_req * (new_tokens - 1) / stats["decode_s"],
            "launches": launches, "launches_expected": expect,
+           "flash_launches_per_prefill": launches["flash_attention"] / stats["prefills"],
            "kv_evictions": stats["kv_evictions"],
            "prefix_hit": True, "repeat_tokens_equal": first[10].tokens == again[11].tokens,
            "greedy_agreement_fused_vs_unfused": same / (n_req * new_tokens),
@@ -427,6 +556,7 @@ def profile_decode(params, cfg, prompts, dev, kernel: str, steps: int = 8) -> di
     logits, caches = M.prefill(params, cfg, tokens, tokens.shape[1] + 3 * steps,
                                kv_mode="paged")
     tok = logits[:, -1:].argmax(dim=-1).to(torch.int32)
+    del logits
 
     def run(n):
         nonlocal caches, tok
@@ -683,6 +813,135 @@ def phase_serve_adaptive(dev, params, kv_policy: str, *, profile: bool, n_req=4,
     if profile:
         res["decode_step_profile"] = profile_decode(
             params, cfg, prompts, dev, "adaptive_paged_attention")
+    emit(res)
+    return res
+
+
+def _numel(tree) -> int:
+    return sum(_numel(v) if isinstance(v, dict) else v.numel() for v in tree.values())
+
+
+def phase_serve_gemma3(dev, n_req=4, prompt_len=2048, new_tokens=128, pages=16,
+                       single_len=1024, unfused_tokens=32) -> dict:
+    """gemma3-27b at published widths and all 62 layers through
+    ServeEngine(kv_mode="paged", fused=True): the global layers' KV in a
+    16-page pool (the one cut, so decode evicts), the local layers' in
+    1024-row rings.  AWRP: 4 prompts of 2048 seeded tokens (longer than the
+    window) and 128 greedy tokens, then one of them alone twice (the second
+    hits the prefix cache and repeats its tokens), and the batch again
+    through the unfused engine for ``unfused_tokens`` tokens, whose greedy
+    agreement with the fused tokens is recorded (the first token, from the
+    shared prefill, must agree); ``arc_adaptive`` on the same weights: a request
+    of ``single_len`` tokens (the pool's size, all resident) and its
+    follow-up turn (the prompt and its tokens), whose re-prefill ghost-hits
+    the pages the first turn's decode evicted.  Kernel 6 launches once per
+    layer per prefill, kernel 4 (kernel 5) once per global layer per AWRP
+    (adaptive) decode step."""
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(GEMMA3, bounded_kv_pages=pages, kv_policy="awrp")
+    n_global = cfg.layer_pattern.count("global")
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                           device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.RandomState(SEED + 21)
+    prompts = [rng.randint(1, cfg.vocab, size=prompt_len).tolist() for _ in range(n_req)]
+    engine = ServeEngine(cfg, params, max_len=prompt_len + new_tokens, kv_mode="paged",
+                         fused=True, seed=SEED, device=dev)
+    steps = new_tokens - 1
+
+    ops.reset_launches()
+    results = engine.generate([Request(i, list(p), max_new_tokens=new_tokens)
+                               for i, p in enumerate(prompts)])
+    launches = dict(ops.LAUNCHES)
+    stats = dict(engine.stats)
+    assert launches["flash_attention"] == cfg.n_layers, launches
+    assert launches["policy_paged_attention"] == n_global * steps, launches
+    assert launches["adaptive_policy_paged_attention"] == 0, launches
+    for r in results.values():
+        assert len(r.tokens) == new_tokens
+        assert all(0 <= tok < cfg.vocab for tok in r.tokens)
+    assert stats["nonfinite_logits"] == 0, stats
+    assert stats["kv_evictions"] > 0, stats
+
+    first = engine.generate([Request(10, list(prompts[0]), max_new_tokens=new_tokens)])
+    again = engine.generate([Request(11, list(prompts[0]), max_new_tokens=new_tokens)])
+    assert not first[10].prefill_cached and again[11].prefill_cached
+    assert first[10].tokens == again[11].tokens
+    total = dict(ops.LAUNCHES)
+    assert total["flash_attention"] == 2 * cfg.n_layers, total
+    assert total["policy_paged_attention"] == 3 * n_global * steps, total
+    assert engine.stats["nonfinite_logits"] == 0
+    profile = profile_decode(params, cfg, prompts, dev, "policy_paged_attention")
+    del engine
+    unfused = ServeEngine(cfg, params, max_len=prompt_len + new_tokens, kv_mode="paged",
+                          fused=False, seed=SEED, device=dev)
+    ref_res = unfused.generate([Request(i, list(p), max_new_tokens=unfused_tokens)
+                                for i, p in enumerate(prompts)])
+    assert all(ref_res[i].tokens[0] == results[i].tokens[0] for i in results)
+    assert unfused.stats["nonfinite_logits"] == 0, unfused.stats
+    same = sum(a == b for i in results
+               for a, b in zip(results[i].tokens, ref_res[i].tokens))
+    unfused_tps = n_req * (unfused_tokens - 1) / unfused.stats["decode_s"]
+    del unfused, ref_res
+
+    acfg = dataclasses.replace(cfg, kv_policy="arc_adaptive")
+    aeng = ServeEngine(acfg, params, max_len=single_len + 2 * new_tokens,
+                       kv_mode="paged", fused=True, seed=SEED, device=dev)
+    a = rng.randint(1, cfg.vocab, size=single_len).tolist()
+    ops.reset_launches()
+    ra = aeng.generate([Request(20, list(a), max_new_tokens=new_tokens)])[20]
+    gh0 = aeng.stats["kv_ghost_hits"]
+    rb = aeng.generate([Request(21, a + ra.tokens, max_new_tokens=new_tokens)])[21]
+    ghost_hits = aeng.stats["kv_ghost_hits"] - gh0
+    alaunch = dict(ops.LAUNCHES)
+    assert alaunch["flash_attention"] == 2 * cfg.n_layers, alaunch
+    assert alaunch["adaptive_policy_paged_attention"] == 2 * n_global * steps, alaunch
+    assert alaunch["policy_paged_attention"] == 0, alaunch
+    assert not rb.prefill_cached and ghost_hits > 0, (ghost_hits, aeng.stats)
+    assert aeng.stats["nonfinite_logits"] == 0, aeng.stats
+    for r in (ra, rb):
+        assert len(r.tokens) == new_tokens
+    peak = torch.cuda.max_memory_allocated()
+    res = {"phase": "serve_gemma3", "model": cfg.name, "layers": cfg.n_layers,
+           "layer_kinds": {k: cfg.layer_pattern.count(k) for k in ("local", "global")},
+           "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+           "head_dim": cfg.head_dim, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+           "sliding_window": cfg.sliding_window, "params": _numel(params),
+           "dtype": cfg.dtype, "kv_mode": "paged", "page_size": cfg.page_size,
+           "reduced": {"bounded_kv_pages": [GEMMA3.bounded_kv_pages, pages]},
+           "requests": n_req, "prompt_len": prompt_len, "new_tokens": new_tokens,
+           "param_init_s": init_s, "prefill_s": stats["prefill_s"],
+           "decode_s": stats["decode_s"],
+           "decode_tokens_per_s": n_req * steps / stats["decode_s"],
+           "launches": launches, "launches_with_singles": total,
+           "flash_launches_per_prefill": launches["flash_attention"] / stats["prefills"],
+           "policy_launches_per_decode_step": launches["policy_paged_attention"] / steps,
+           "kv_evictions": stats["kv_evictions"], "prefix_hit": True,
+           "repeat_tokens_equal": True,
+           "greedy_agreement_fused_vs_unfused": same / (n_req * unfused_tokens),
+           "unfused_tokens": unfused_tokens, "unfused_decode_tokens_per_s": unfused_tps,
+           "adaptive": {"kv_policy": "arc_adaptive", "prompt_len": single_len,
+                        "follow_up_len": len(a) + len(ra.tokens),
+                        "launches": alaunch,
+                        "adaptive_launches_per_decode_step":
+                            alaunch["adaptive_policy_paged_attention"] / (2 * steps),
+                        "kv_ghost_hits_follow_up": ghost_hits,
+                        "kv_evictions": aeng.stats["kv_evictions"],
+                        "prefill_s": aeng.stats["prefill_s"],
+                        "decode_tokens_per_s": 2 * steps / aeng.stats["decode_s"],
+                        "p_max": aeng.telemetry()["kv/p_max"]},
+           "max_memory_allocated_gb": peak / 1e9,
+           "decode_step_profile": profile}
+    del params, aeng
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_phase
     emit(res)
     return res
 
@@ -953,6 +1212,8 @@ KERNELS = {
                     "src/repro/kernels/awrp_select.py:50"),
     "awrp_select_rows": ("src/repro_torch/kernels/csrc/awrp_select.cu",
                          "src/repro/kernels/awrp_select.py:89"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attn.cu",
+                        "src/repro/kernels/flash_attn.py:80"),
 }
 
 
@@ -960,12 +1221,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
     pa = phase_paged_attention(dev)
     phase_paged_attention(dev, SERVE_SHAPE)
+    pa_g3 = phase_paged_attention(dev, GEMMA3_DECODE_SHAPE)
     pol = phase_policy_attn(dev)
     # at the serve shape: awrp as the serve phase runs it (3 evicting page
     # boundaries), every other page policy over two evicting boundaries
@@ -974,44 +1237,64 @@ def main() -> int:
                                   steps=3 * page if p == "awrp" else page + 1,
                                   timed=p == "awrp")
                 for p in PAGE_POLICIES]
+    pol_g3 = phase_policy_attn(dev, "awrp", GEMMA3_DECODE_SHAPE)
+    fl = phase_flash_attn(dev)
     params, init_s = serve_params(dev)
     srv = phase_serve(dev, params, init_s)
     # kernel 5 at the serve shape from the prefill seeding (timed), with a
     # forced stamp renormalization and from a ghost-hit reseed (p != 0),
-    # each over two evicting page boundaries; at P=256 (L=512) across one
+    # each over two evicting page boundaries; at P=256 (L=512) across one;
+    # at gemma3's decode shape (timed)
     ada = [phase_adaptive_attn(dev, kind, timed=kind == "arc") for kind in ("arc", "car")]
     ada += [phase_adaptive_attn(dev, kind, renorm_at=64) for kind in ("arc", "car")]
     ada += [phase_adaptive_attn(dev, kind, ghost=True) for kind in ("arc", "car")]
     ada += [phase_adaptive_attn(dev, kind, DECODE_SHAPE, steps=2) for kind in ("arc", "car")]
+    ada_g3 = phase_adaptive_attn(dev, "arc", GEMMA3_DECODE_SHAPE, timed=True)
+    ada.append(ada_g3)
     srv_ada = [phase_serve_adaptive(dev, params, p, profile=p == "arc_adaptive")
                for p in ("arc_adaptive", "car_adaptive")]
     del params
+    g3 = phase_serve_gemma3(dev)
     sel = phase_awrp_select(dev)
     swp = phase_sweep(dev)
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     # launches: each kernel's count on its path in this run: the flat fused
     # kernel in the serve phase, the adaptive one in serve_adaptive (both
     # policies), the unfused kernel in phase 3's unfused chain (the serve
-    # loop's fused route does not launch it, as in the reference), the rows
-    # kernel in the Table-1 sweep (a); kernel 1 is on no path of the port (as
-    # in the reference, only tests reach it): 0
+    # loop's fused route does not launch it, as in the reference), kernel 6
+    # in serve_gemma3's AWRP batch (one prefill), the rows kernel in the
+    # Table-1 sweep (a); kernel 1 is on no path of the port (as in the
+    # reference, only tests reach it): 0
+    timed_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
-    for name, runs, launches, times, shape in (
-            ("paged_attention", [pa], pol["launches"]["paged_attention"], pa,
-             DECODE_SHAPE),
-            ("policy_paged_attention", at_serve,
-             srv["launches"]["policy_paged_attention"], at_serve[0], SERVE_SHAPE),
+    for name, runs, launches, times, shape, other in (
+            ("paged_attention", [pa, pa_g3], pol["launches"]["paged_attention"], pa,
+             DECODE_SHAPE, pa_g3),
+            ("policy_paged_attention", at_serve + [pol_g3],
+             srv["launches"]["policy_paged_attention"], at_serve[0], SERVE_SHAPE,
+             pol_g3),
             ("adaptive_policy_paged_attention", ada,
              sum(r["launches"]["adaptive_policy_paged_attention"] for r in srv_ada),
-             ada[0], SERVE_SHAPE)):
+             ada[0], SERVE_SHAPE, ada_g3)):
         source, replaces = KERNELS[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches,
             "max_abs_err": max(max(r["max_abs_err_out"], r["max_abs_err_mass"])
                                for r in runs),
-            "ms": times["ms"], "plain_ms": times["plain_ms"],
-            "bound_ms": times["bound_ms"], "bound_by": times["bound_by"],
-            "library_ms": times["library_ms"], "shape": list(shape)})
+            **{k: times[k] for k in timed_keys}, "shape": list(shape),
+            "other_shapes": [{"shape": other["shape"],
+                              **{k: other[k] for k in timed_keys}}]})
+    main_case, *other_cases = fl["cases"]
+    source, replaces = KERNELS["flash_attention"]
+    kernels.append({
+        "name": "flash_attention", "route": "cuda", "source": source,
+        "replaces": replaces, "launches": g3["launches"]["flash_attention"],
+        "max_abs_err": max(c["max_abs_err"] for c in fl["cases"]),
+        **{k: main_case[k] for k in timed_keys},
+        "shape": main_case["shape"], "window": main_case["window"],
+        "other_shapes": [{k: c[k] for k in ("label", "shape", "window", "dtype",
+                                            *timed_keys)} for c in other_cases]})
     for name in ("awrp_select", "awrp_select_rows"):
         source, replaces = KERNELS[name]
         main_run = sel["kernels"][name][0]

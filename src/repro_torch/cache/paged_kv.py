@@ -45,7 +45,8 @@ from repro_torch.device import resolve_device
 
 __all__ = ["PagedPool", "init_pool", "allocate", "insert_token", "kv_positions",
            "referenced_pages", "score_planes", "score_update",
-           "fused_decode_step", "full_cache_insert", "TRUE_ADAPTIVE_KV",
+           "fused_decode_step", "full_cache_insert", "ring_insert",
+           "ring_positions", "TRUE_ADAPTIVE_KV",
            "AdaptivePagedPool", "adaptive_core", "init_adaptive_pool",
            "seed_adaptive_state", "pool_telemetry", "replay_page_ids",
            "reseed_from_ghosts", "adaptive_allocate", "adaptive_hits",
@@ -206,6 +207,23 @@ def full_cache_insert(k_cache, v_cache, new_k, new_v, pos: int):
     k_cache[:, pos:pos + 1] = new_k
     v_cache[:, pos:pos + 1] = new_v
     return k_cache, v_cache
+
+
+def ring_insert(k_cache, v_cache, new_k, new_v, pos: int):
+    """Sliding-window cache (B, W, kvd): write the token row (B, 1, kvd) at
+    ring slot ``pos % W`` (evicting the token W steps back), in place."""
+    slot = pos % k_cache.shape[1]
+    k_cache[:, slot:slot + 1] = new_k
+    v_cache[:, slot:slot + 1] = new_v
+    return k_cache, v_cache
+
+
+def ring_positions(pos: int, window: int, device=None) -> torch.Tensor:
+    """(W,) int32 token index each ring slot holds after inserting ``pos``:
+    the latest index <= pos congruent to the slot mod W, or -1."""
+    slots = torch.arange(window, dtype=torch.int32, device=device)
+    cand = pos - torch.remainder(pos - slots, window)
+    return torch.where(cand >= 0, cand, -1).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,11 @@
 """Model configuration for the port (``repro/configs/base.py``'s fields that
 the serving slice reads, with the same names and defaults).
 
-Only plain dense full-attention stacks (block kind ``"attn"``) are served by
-this slice; the MoE, sliding-window, SSM and encoder-decoder fields wait for
-the slices that port those modules.
+The port serves dense stacks of full-attention (``"attn"``, ``"global"``)
+and sliding-window (``"local"``) blocks, as a homogeneous ``"attn"`` stack
+or a repeating ``pattern`` unit plus a ``tail`` (gemma3's 5 local + 1
+global); the MoE, SSM and encoder-decoder fields wait for the slices that
+port those modules.
 """
 
 from __future__ import annotations
@@ -51,6 +53,13 @@ class ModelConfig:
     skip_reasons: Dict[str, str] = dataclasses.field(default_factory=dict)
 
     # ---- derived -----------------------------------------------------------
+    @property
+    def layer_pattern(self) -> Tuple[str, ...]:
+        if self.pattern is None:
+            unit = ("moe",) if self.n_experts else ("attn",)
+            return unit * self.n_layers
+        return self.pattern * self.n_repeats + self.tail
+
     @property
     def qk_dim(self) -> int:
         return self.n_heads * self.head_dim

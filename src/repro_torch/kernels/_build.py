@@ -27,7 +27,8 @@ from typing import NamedTuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("paged_attn.cu", "policy_attn.cu", "adaptive_attn.cu", "awrp_select.cu")
+SOURCES = ("paged_attn.cu", "policy_attn.cu", "adaptive_attn.cu", "awrp_select.cu",
+           "flash_attn.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -45,6 +46,7 @@ SIGNATURES = {
         + [_float, _int, _int, _vp], _int),
     "repro_awrp_select": ([_vp] * 6 + [_int] * 2 + [_vp], _int),
     "repro_awrp_select_rows": ([_vp] * 5 + [_int] * 2 + [_vp], _int),
+    "repro_flash_attention": ([_int] + [_vp] * 4 + [_int] * 9 + [_float, _vp], _int),
     "repro_error_string": ([_int], ctypes.c_char_p),
 }
 

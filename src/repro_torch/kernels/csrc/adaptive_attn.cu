@@ -490,9 +490,11 @@ extern "C" int repro_adaptive_policy_paged_attention(
   if (G < 1 || G > kMaxG || B < 1 || P < 1 || page < 1 || pos < 0 ||
       L < 2 * P || L > kMaxLanes || (kind != kKindArc && kind != kKindCar))
     return (int)cudaErrorInvalidValue;
-  const Dims d{P, page, KVH, G, hd};
   const int esize = dtype == 0 ? 4 : 2;
   if (KVH * hd * esize % 16) return (int)cudaErrorInvalidValue;  // 16 B row chunks
+  Dims d{P, page, KVH, G, hd, 0};
+  d.chunk = chunk_rows(d, esize);
+  if (d.chunk < 1) return (int)cudaErrorInvalidValue;
   const void* ptrs[30] = {q, k, v, new_k, new_v, f, r, page_start, clock,
                           open_slot, blocks, tag, stamp, ref, p, ctr, out, mass,
                           slot, f_out, r_out, ps_out, clock_out, open_out,

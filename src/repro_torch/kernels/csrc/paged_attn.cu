@@ -68,9 +68,11 @@ extern "C" int repro_paged_attention(int dtype, const void* q, const void* k,
                                      int hd, float scale, void* stream) {
   using namespace repro;
   if (G < 1 || G > kMaxG || B < 1 || P < 1) return (int)cudaErrorInvalidValue;
-  const Dims d{P, page, KVH, G, hd};
   const int esize = dtype == 0 ? 4 : 2;
   if (KVH * hd * esize % 16) return (int)cudaErrorInvalidValue;  // 16 B row chunks
+  Dims d{P, page, KVH, G, hd, 0};
+  d.chunk = chunk_rows(d, esize);
+  if (d.chunk < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return (int)launch<float>(q, k, v, page_start, cur_pos, out, mass, B, d, scale, st);

@@ -18,12 +18,21 @@
 // in VMEM scratch.  Here one CTA owns one sequence and loops over its P
 // pages in order; the flash state, the query, one page of scores and the
 // per-page partial sums / maxima (psum, pmax: P x KVH x G floats, 30 KB at
-// P=256, KVH*G=15) live in shared memory.  Each page's valid K and V rows
-// are first staged into shared memory with 16-byte loads, all issued before
-// any is stored, so a page costs one memory round trip instead of one per
-// key row.  Staged rows are padded to an odd number of 4-byte words, so the
-// lanes of a warp, one per key row, read distinct banks.  Threads split the
-// page x KVH x G scores (one lane per key row, no shuffles) and the KVH x hd
+// P=256, KVH*G=15) live in shared memory.  A page's valid K and V rows are
+// staged into shared memory with 16-byte loads, all issued before any is
+// stored, so a chunk of rows costs one memory round trip instead of one per
+// key row.  A chunk is as many rows (a multiple of 16 when less than a page)
+// as fit beside the rest of the CTA's state under the 227 KB block limit
+// (chunk_rows): the whole page at smollm's shapes (K and V staged together),
+// 16 rows at gemma3's global layers, where one (KVH=16, hd=128) bf16 row of
+// K and one of V take 8 KB.  When a page takes several chunks, K is staged
+// chunk by chunk for the scores, the page's max and exponentials are taken
+// over the whole page, and V is staged chunk by chunk in the same row order
+// for P.V, its partial sums carried in shared memory (pv) between chunks:
+// every float operation runs in the same order whatever the chunk size.
+// Staged rows are padded to an odd number of 4-byte words, so the lanes of
+// a warp, one per key row, read distinct banks.  Threads split the page x
+// KVH x G scores (one lane per key row, no shuffles) and the KVH x hd
 // accumulator (one thread per (kv head, dim), all G queries of the group).
 //
 // What bounds it on an H100: bytes.  A decode step reads each resident K/V
@@ -45,6 +54,9 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMaxG = 8;  // largest GQA group (queries per KV head)
 constexpr int kStage = 8;  // 16-byte chunks in flight per thread and tensor
 constexpr size_t kMaxSmem = 232448;  // 227 KB, a block's limit on Hopper
+// static shared memory of the kernels (policy_common.cuh reductions, the
+// adaptive kernel's flag), kept free beside the dynamic carve
+constexpr size_t kStaticSmem = 1024;
 
 template <typename T>
 __device__ __forceinline__ float to_f32(T x);
@@ -70,6 +82,7 @@ struct Dims {
   int KVH;   // KV heads
   int G;     // queries per KV head
   int hd;    // head dim
+  int chunk;  // K/V rows staged at a time (chunk_rows), set by the host
 };
 
 // Shared-memory carve of one CTA.  Floats first, then the int planes the
@@ -85,11 +98,12 @@ struct Smem {
   float* psum;   // (P, R) per-page local sums
   float* pmax;   // (P, R) per-page local maxima
   float* mass;   // (P) normalized per-page mass
+  float* pv;     // (R, hd) P.V partial sums of the current page's chunks
   int* fa;       // (P) post-allocation F
   int* ra;       // (P) post-allocation R
   int* psa;      // (P) post-allocation page_start
-  uint32_t* kt;  // (page, row_words) staged K rows of the current page
-  uint32_t* vt;  // (page, row_words) staged V rows
+  uint32_t* kt;  // (chunk, row_words) staged K rows of the current page
+  uint32_t* vt;  // (chunk, row_words) staged V rows
 };
 
 // 4-byte words of one staged (KVH, hd) row, padded to an odd count so that
@@ -99,12 +113,31 @@ __host__ __device__ inline int row_words(const Dims& d, int esize) {
   return (d.KVH * d.hd * esize / 4) | 1;
 }
 
-__host__ __device__ inline size_t smem_bytes(const Dims& d, bool planes, int esize) {
+// Bytes of the carve without the staged rows.
+__host__ __device__ inline size_t fixed_bytes(const Dims& d, bool planes) {
   const size_t R = (size_t)d.KVH * d.G;
-  size_t n = 2 * R * d.hd + 4 * R + R * d.page + 2 * (size_t)d.P * R + d.P;
+  size_t n = 3 * R * d.hd + 4 * R + R * d.page + 2 * (size_t)d.P * R + d.P;
   if (planes) n += 3 * (size_t)d.P;
-  n += 2 * (size_t)d.page * row_words(d, esize);
   return n * 4;
+}
+
+__host__ __device__ inline size_t smem_bytes(const Dims& d, bool planes, int esize) {
+  return fixed_bytes(d, planes) + 2 * (size_t)d.chunk * row_words(d, esize) * 4;
+}
+
+// Rows per staging chunk: the whole page when it fits, else the most rows,
+// rounded down to a multiple of 16, that fit beside the largest carve of
+// the three kernels (the fused kernels' planes plus the adaptive kernel's
+// directory, 5 planes of L = 2P ints) and the static shared memory.  So the
+// three kernels stage a page alike at one shape.  0 when not even one row
+// fits.
+inline int chunk_rows(const Dims& d, int esize) {
+  const size_t fixed = fixed_bytes(d, true) + 5 * 2 * (size_t)d.P * 4 + kStaticSmem;
+  if (fixed >= kMaxSmem) return 0;
+  const size_t row = 2 * (size_t)row_words(d, esize) * 4;  // one K and one V row
+  const size_t fit = (kMaxSmem - fixed) / row;
+  if (fit >= (size_t)d.page) return d.page;
+  return fit >= 16 ? (int)(fit / 16 * 16) : (int)fit;
 }
 
 __device__ inline Smem carve(unsigned char* raw, const Dims& d, bool planes,
@@ -122,6 +155,7 @@ __device__ inline Smem carve(unsigned char* raw, const Dims& d, bool planes,
   sm.psum = f;       f += d.P * R;
   sm.pmax = f;       f += d.P * R;
   sm.mass = f;       f += d.P;
+  sm.pv = f;         f += R * d.hd;
   int* i = reinterpret_cast<int*>(f);
   sm.fa = planes ? i : nullptr;
   sm.ra = planes ? i + d.P : nullptr;
@@ -129,34 +163,36 @@ __device__ inline Smem carve(unsigned char* raw, const Dims& d, bool planes,
   if (planes) i += 3 * d.P;
   const int rw = row_words(d, esize);
   sm.kt = reinterpret_cast<uint32_t*>(i);
-  sm.vt = sm.kt + (size_t)d.page * rw;
+  sm.vt = sm.kt + (size_t)d.chunk * rw;
   return sm;
 }
 
-// Copy rows 0..nvalid-1 of this page's K and V tiles into sm.kt / sm.vt,
-// row ``inj_row`` from inj_k / inj_v.  Up to kStage 16-byte loads per
-// thread and tensor are issued before the first store.  Ends with a
+// Copy rows row0..row0+n-1 of this page's tile ``sa`` into rows 0..n-1 of
+// ``da`` and, when ``db`` is not null, of ``sb`` into ``db``; row
+// ``inj_row`` comes from inj_a / inj_b instead.  Up to kStage 16-byte loads
+// per thread and tensor are issued before the first store.  Ends with a
 // barrier.
 template <typename T>
-__device__ void stage_page(const Smem& sm, const T* __restrict__ kp,
-                           const T* __restrict__ vp, const T* inj_k,
-                           const T* inj_v, int inj_row, int nvalid,
-                           const Dims& d) {
+__device__ void stage_rows(uint32_t* da, const T* __restrict__ sa, const T* inj_a,
+                           uint32_t* db, const T* __restrict__ sb, const T* inj_b,
+                           int inj_row, int row0, int n, const Dims& d) {
   const int row_elems = d.KVH * d.hd;
   const int chunks = row_elems * (int)sizeof(T) / 16;  // per row
   const int rw = row_words(d, sizeof(T));
-  const int total = nvalid * chunks;
+  const int total = n * chunks;
   for (int base = 0; base < total; base += kStage * blockDim.x) {
     uint4 a[kStage], b[kStage];
 #pragma unroll
     for (int u = 0; u < kStage; ++u) {
       const int idx = base + u * blockDim.x + threadIdx.x;
       if (idx < total) {
-        const int j = idx / chunks, c = idx % chunks;
-        const T* ks = j == inj_row ? inj_k : kp + (size_t)j * row_elems;
-        const T* vs = j == inj_row ? inj_v : vp + (size_t)j * row_elems;
-        a[u] = reinterpret_cast<const uint4*>(ks)[c];
-        b[u] = reinterpret_cast<const uint4*>(vs)[c];
+        const int j = row0 + idx / chunks, c = idx % chunks;
+        const T* as = j == inj_row ? inj_a : sa + (size_t)j * row_elems;
+        a[u] = reinterpret_cast<const uint4*>(as)[c];
+        if (db != nullptr) {
+          const T* bs = j == inj_row ? inj_b : sb + (size_t)j * row_elems;
+          b[u] = reinterpret_cast<const uint4*>(bs)[c];
+        }
       }
     }
 #pragma unroll
@@ -164,10 +200,12 @@ __device__ void stage_page(const Smem& sm, const T* __restrict__ kp,
       const int idx = base + u * blockDim.x + threadIdx.x;
       if (idx < total) {
         const int j = idx / chunks, c = idx % chunks;
-        uint32_t* dk = sm.kt + (size_t)j * rw + 4 * c;
-        uint32_t* dv = sm.vt + (size_t)j * rw + 4 * c;
-        dk[0] = a[u].x; dk[1] = a[u].y; dk[2] = a[u].z; dk[3] = a[u].w;
-        dv[0] = b[u].x; dv[1] = b[u].y; dv[2] = b[u].z; dv[3] = b[u].w;
+        uint32_t* dst = da + (size_t)j * rw + 4 * c;
+        dst[0] = a[u].x; dst[1] = a[u].y; dst[2] = a[u].z; dst[3] = a[u].w;
+        if (db != nullptr) {
+          dst = db + (size_t)j * rw + 4 * c;
+          dst[0] = b[u].x; dst[1] = b[u].y; dst[2] = b[u].z; dst[3] = b[u].w;
+        }
       }
     }
   }
@@ -210,13 +248,14 @@ __device__ void init_state(const Smem& sm, const T* __restrict__ qb, const Dims&
 //   ssum = sum p, m_new = max(m, m_loc), l = l*corr + ssum*scale',
 //   acc = acc*corr + (p.v)*scale', psum[p] = ssum, pmax[p] = m_loc.
 // kp / vp point at this page's (page, KVH, hd) tile, staged into shared
-// memory first.  Row ``inj_row`` (-1: none) is taken from inj_k / inj_v
-// (KVH, hd) instead of the tile: the fused kernel injects the new token
-// there and leaves the pool read-only.  Valid rows are start + row <= cur
-// with start >= 0, a prefix of the page; rows past it are never read, so
-// stale data in a just-allocated page cannot reach the sums.  A page with no valid row leaves the state unchanged
-// exactly (corr = 1, the page adds 0), so it is skipped.  Called by every
-// thread of the CTA with block-uniform arguments; ends with a barrier.
+// memory d.chunk rows at a time.  Row ``inj_row`` (-1: none) is taken from
+// inj_k / inj_v (KVH, hd) instead of the tile: the fused kernel injects the
+// new token there and leaves the pool read-only.  Valid rows are
+// start + row <= cur with start >= 0, a prefix of the page; rows past it are
+// never read, so stale data in a just-allocated page cannot reach the sums.
+// A page with no valid row leaves the state unchanged exactly (corr = 1, the
+// page adds 0), so it is skipped.  Called by every thread of the CTA with
+// block-uniform arguments; ends with a barrier.
 template <typename T>
 __device__ void attend_page(const Smem& sm, const T* __restrict__ kp,
                             const T* __restrict__ vp, const T* inj_k,
@@ -229,32 +268,40 @@ __device__ void attend_page(const Smem& sm, const T* __restrict__ kp,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
   const int rw = row_words(d, sizeof(T));
-  stage_page<T>(sm, kp, vp, inj_k, inj_v, inj_row, nvalid, d);
+  const int ch = d.chunk;
+  const bool whole = nvalid <= ch;  // one chunk: stage K and V together
+  if (whole)
+    stage_rows<T>(sm.kt, kp, inj_k, sm.vt, vp, inj_v, inj_row, 0, nvalid, d);
 
-  // scores: one lane per (kv head, key row)
-  const int jchunks = (nvalid + 31) / 32;
-  for (int t = warp; t < KVH * jchunks; t += nwarps) {
-    const int kh = t % KVH;
-    const int j = (t / KVH) * 32 + lane;
-    if (j < nvalid) {
-      const T* krow = reinterpret_cast<const T*>(sm.kt + (size_t)j * rw) + kh * hd;
-      const float* qh = sm.q + (size_t)kh * G * hd;
-      float dot[kMaxG];
+  // scores, chunk by chunk: one lane per (kv head, key row)
+  for (int r0 = 0; r0 < nvalid; r0 += ch) {
+    const int n = min(ch, nvalid - r0);
+    if (!whole)
+      stage_rows<T>(sm.kt, kp, inj_k, nullptr, nullptr, nullptr, inj_row, r0, n, d);
+    const int jchunks = (n + 31) / 32;
+    for (int t = warp; t < KVH * jchunks; t += nwarps) {
+      const int kh = t % KVH;
+      const int jl = (t / KVH) * 32 + lane;
+      if (jl < n) {
+        const T* krow = reinterpret_cast<const T*>(sm.kt + (size_t)jl * rw) + kh * hd;
+        const float* qh = sm.q + (size_t)kh * G * hd;
+        float dot[kMaxG];
 #pragma unroll
-      for (int g = 0; g < kMaxG; ++g) dot[g] = 0.f;
+        for (int g = 0; g < kMaxG; ++g) dot[g] = 0.f;
 #pragma unroll 8
-      for (int h = 0; h < hd; ++h) {
-        const float kv = to_f32<T>(krow[h]);
+        for (int h = 0; h < hd; ++h) {
+          const float kv = to_f32<T>(krow[h]);
+#pragma unroll
+          for (int g = 0; g < kMaxG; ++g)
+            if (g < G) dot[g] = __fmaf_rn(qh[g * hd + h], kv, dot[g]);
+        }
 #pragma unroll
         for (int g = 0; g < kMaxG; ++g)
-          if (g < G) dot[g] = __fmaf_rn(qh[g * hd + h], kv, dot[g]);
+          if (g < G) sm.s[(kh * G + g) * page + r0 + jl] = __fmul_rn(dot[g], scale);
       }
-#pragma unroll
-      for (int g = 0; g < kMaxG; ++g)
-        if (g < G) sm.s[(kh * G + g) * page + j] = __fmul_rn(dot[g], scale);
     }
+    __syncthreads();
   }
-  __syncthreads();
 
   // softmax statistics and the (m, l) update: one warp per (kv head, group)
   for (int rr = warp; rr < R; rr += nwarps) {
@@ -284,30 +331,42 @@ __device__ void attend_page(const Smem& sm, const T* __restrict__ kp,
   }
   __syncthreads();
 
+  // p.v over the rows in order, chunk by chunk (partial sums in sm.pv), then
   // acc = acc*corr + (p.v)*scale': one thread per (kv head, dim)
-  for (int idx = threadIdx.x; idx < KVH * hd; idx += blockDim.x) {
-    const int kh = idx / hd, h = idx % hd;
-    float pv[kMaxG];
-#pragma unroll
-    for (int g = 0; g < kMaxG; ++g) pv[g] = 0.f;
-#pragma unroll 8
-    for (int j = 0; j < nvalid; ++j) {
-      const T* vrow = reinterpret_cast<const T*>(sm.vt + (size_t)j * rw) + kh * hd;
-      const float vv = to_f32<T>(vrow[h]);
+  for (int r0 = 0; r0 < nvalid; r0 += ch) {
+    const int n = min(ch, nvalid - r0);
+    const bool last = r0 + n == nvalid;
+    if (!whole)
+      stage_rows<T>(sm.vt, vp, inj_v, nullptr, nullptr, nullptr, inj_row, r0, n, d);
+    for (int idx = threadIdx.x; idx < KVH * hd; idx += blockDim.x) {
+      const int kh = idx / hd, h = idx % hd;
+      float pv[kMaxG];
 #pragma unroll
       for (int g = 0; g < kMaxG; ++g)
-        if (g < G) pv[g] = __fmaf_rn(sm.s[(kh * G + g) * page + j], vv, pv[g]);
-    }
+        pv[g] = (g < G && r0 > 0) ? sm.pv[(size_t)(kh * G + g) * hd + h] : 0.f;
+#pragma unroll 8
+      for (int jl = 0; jl < n; ++jl) {
+        const T* vrow = reinterpret_cast<const T*>(sm.vt + (size_t)jl * rw) + kh * hd;
+        const float vv = to_f32<T>(vrow[h]);
 #pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
-      if (g < G) {
-        const int rr = kh * G + g;
-        float* a = sm.acc + (size_t)rr * hd + h;
-        *a = __fadd_rn(__fmul_rn(*a, sm.corr[rr]), __fmul_rn(pv[g], sm.scale[rr]));
+        for (int g = 0; g < kMaxG; ++g)
+          if (g < G) pv[g] = __fmaf_rn(sm.s[(kh * G + g) * page + r0 + jl], vv, pv[g]);
+      }
+#pragma unroll
+      for (int g = 0; g < kMaxG; ++g) {
+        if (g < G) {
+          const int rr = kh * G + g;
+          if (last) {
+            float* a = sm.acc + (size_t)rr * hd + h;
+            *a = __fadd_rn(__fmul_rn(*a, sm.corr[rr]), __fmul_rn(pv[g], sm.scale[rr]));
+          } else {
+            sm.pv[(size_t)rr * hd + h] = pv[g];
+          }
+        }
       }
     }
+    __syncthreads();
   }
-  __syncthreads();
 }
 
 // Epilogue: out = acc / max(l, 1e-30) in T, and the normalized per-page mass

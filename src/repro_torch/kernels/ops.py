@@ -16,7 +16,8 @@ from repro_torch.kernels import ref
 #: kernel launches per wrapper since the last ``reset_launches``
 LAUNCHES: Dict[str, int] = {"paged_attention": 0, "policy_paged_attention": 0,
                              "adaptive_policy_paged_attention": 0,
-                             "awrp_select": 0, "awrp_select_rows": 0}
+                             "awrp_select": 0, "awrp_select_rows": 0,
+                             "flash_attention": 0}
 
 
 def reset_launches() -> None:
@@ -100,4 +101,20 @@ def awrp_select_rows(f, r, clock, valid):
 
     res = awrp_select_rows_kernel(f, r, clock, valid)
     LAUNCHES["awrp_select_rows"] += 1
+    return res
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    kv_len: int | None = None):
+    """Tiled flash attention, forward: q (B, Sq, KVH, G, hd), k/v (B, Skv,
+    KVH, hd) -> out like q, with causal, sliding-window (``window`` > 0) and
+    ``kv_len`` masks (``repro.kernels.ops.flash_attention``; any Sq / Skv,
+    no padding).  The port's prefill attention."""
+    if q.device.type == "cpu":
+        return ref.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                         kv_len=kv_len)
+    from repro_torch.kernels.flash_attn import flash_attention_kernel
+
+    res = flash_attention_kernel(q, k, v, causal=causal, window=window, kv_len=kv_len)
+    LAUNCHES["flash_attention"] += 1
     return res

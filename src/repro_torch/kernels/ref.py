@@ -17,6 +17,8 @@
   pool, built from the unfused chain's allocation and hit passes, so it
   equals ``adaptive_insert_token`` + ``paged_attention_plain`` +
   ``adaptive_score_update`` bit for bit.
+* ``flash_attention_plain`` is kernel 6 (``csrc/flash_attn.cu``), the
+  prefill attention with causal, sliding-window and ``kv_len`` masks.
 * ``ref_paged_attention`` is the plain softmax over all rows
   (``repro/kernels/ref.py``), the oracle both are checked against.
 
@@ -191,6 +193,35 @@ def awrp_select_plain(f, r, clock, valid, pinned):
 def awrp_select_rows_plain(f, r, clock, valid):
     """Plain version of kernel 2: the same without ``pinned``."""
     return awrp_victim_rows(f, r, clock, valid != 0)
+
+
+def flash_attention_plain(q, k, v, *, causal: bool, window: int = 0,
+                          kv_len: int | None = None):
+    """Plain version of kernel 6 (``csrc/flash_attn.cu``), the function of
+    ``repro/kernels/flash_attn.py`` ``flash_attention_kernel``: q (B, Sq,
+    KVH, G, hd), k/v (B, Skv, KVH, hd) -> out like q, in q's dtype.  Query
+    position i sees key j where ``j < kv_len``, ``j <= i`` if causal and
+    ``i - j < window`` if window; f32 scores scaled by 1/sqrt(hd), masked
+    scores NEG_INF, masked p 0 and ``l`` clamped at 1e-30, so a fully masked
+    row gives 0.  One softmax over all keys, p kept in f32 for P.V."""
+    B, Sq, KVH, G, hd = q.shape
+    Skv = k.shape[1]
+    kv_len = Skv if kv_len is None else kv_len
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Skv, device=q.device)[None, :]
+    mask = kpos < kv_len
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window:
+        mask = mask & (qpos - kpos < window)
+    s = torch.einsum("bqkgh,bckh->bkgqc", q.to(torch.float32),
+                     k.to(torch.float32)) * attn_scale(hd)
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = torch.where(mask, p, 0.0)
+    l = torch.clamp(p.sum(dim=-1), min=1e-30)  # (B, KVH, G, Sq)
+    out = torch.einsum("bkgqc,bckh->bqkgh", p, v.to(torch.float32))
+    return (out / l.permute(0, 3, 1, 2)[..., None]).to(q.dtype)
 
 
 def ref_paged_attention(q, k_pages, v_pages, page_start, cur_pos):

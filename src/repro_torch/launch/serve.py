@@ -7,11 +7,15 @@
 ARC/CAR pool; with ``--repeat-prompts`` the requests run one at a time and
 the ghost-hit feed carries the policy across them (``kv_ghost_hits``).
 
+``--arch`` picks the model: ``smollm_360m`` (default) or ``gemma3_27b``
+(5 sliding-window local layers per global layer; the pool bounds the global
+layers' KV, the local layers keep ``sliding_window``-row rings).
+
 Runs on the CUDA card by default (``--device cuda``; raises when CUDA is not
 available).  ``--device cpu`` runs the plain PyTorch versions of the kernels
 on the CPU.  Weights are random, from ``--seed``; nothing is downloaded.
-``--smoke`` serves the reduced smoke configuration instead of the published
-widths.
+``--smoke`` serves the arch's reduced smoke configuration instead of the
+published widths.
 """
 
 from __future__ import annotations
@@ -24,16 +28,20 @@ import numpy as np
 import torch
 
 from repro_torch.cache.paged_kv import TRUE_ADAPTIVE_KV
-from repro_torch.configs.smollm_360m import CONFIG, SMOKE_CONFIG
+from repro_torch.configs import gemma3_27b, smollm_360m
 from repro_torch.core.kv_policy import PAGE_POLICIES
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
 from repro_torch.serve.engine import Request, ServeEngine
 
+ARCHS = {"smollm_360m": smollm_360m, "gemma3_27b": gemma3_27b}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="smollm_360m", choices=tuple(ARCHS))
     ap.add_argument("--smoke", action="store_true",
-                    help="serve smollm-360m's reduced SMOKE_CONFIG")
+                    help="serve the arch's reduced SMOKE_CONFIG")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--dtype", default=None, choices=("bfloat16", "float32"),
                     help="activation and parameter dtype (default: the config's)")
@@ -54,7 +62,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
-    cfg = SMOKE_CONFIG if args.smoke else CONFIG
+    arch = ARCHS[args.arch]
+    cfg = arch.SMOKE_CONFIG if args.smoke else arch.CONFIG
     cfg = dataclasses.replace(cfg, kv_policy=args.kv_policy)
     if args.dtype:
         cfg = dataclasses.replace(cfg, dtype=args.dtype, param_dtype=args.dtype)

@@ -2,8 +2,9 @@
 
 ``params_from_jax`` takes ``repro.models.model.init_params`` output after
 ``np.asarray`` on every leaf (this module never imports JAX) and returns the
-port's parameter tree: the same nesting and layout (``u0`` stacked on a
-leading ``(n_layers,)`` axis, (in, out) matrices), norm scales in float32.
+port's parameter tree: the same nesting and layout (the unit positions
+``u0``.. stacked on a leading ``(n_repeats,)`` axis, the tail positions
+``t0``.. unstacked, (in, out) matrices), norm scales in float32.
 """
 
 from __future__ import annotations

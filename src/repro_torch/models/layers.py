@@ -4,10 +4,13 @@ Conventions, as in the reference:
   * activations (B, S, D) in the config's dtype; softmax and norms in f32;
   * parameters keep FLATTENED feature dims (``n_heads*head_dim``) and the
     reference's (in, out) layout, so ``x @ w`` is the reference's einsum;
-  * attention for prefill is a chunked flash-style loop (running max and
-    denominator) in plain torch, the way the reference's is plain jnp.  The
-    decode-time paged attention is the CUDA kernel (``cache/paged_kv.py``
-    ``fused_decode_step``); ``decode_attend`` is the unfused plain path.
+  * prefill attention (``attention``) runs kernel 6, the flash-attention
+    CUDA kernel (``kernels/ops.py`` ``flash_attention``; its plain version
+    on the CPU), causal with the block's sliding window; the reference
+    computes the same function as a chunked jnp loop.
+    The decode-time paged attention is the CUDA kernel
+    (``cache/paged_kv.py`` ``fused_decode_step``); ``decode_attend`` is the
+    unfused plain path and the local layers' ring-cache attention.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels import ops
 
 Params = Dict[str, Any]
 
@@ -45,51 +50,16 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     return out.to(x.dtype)
 
 
-def mlp(params: Params, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU feed-forward."""
-    return (F.silu(x @ params["w_gate"]) * (x @ params["w_up"])) @ params["w_down"]
-
-
-def flash_attention(
-    q: torch.Tensor,  # (B, Sq, KVH, G, hd)
-    k: torch.Tensor,  # (B, Skv, KVH, hd)
-    v: torch.Tensor,  # (B, Skv, KVH, hd)
-    *,
-    q_positions: torch.Tensor,  # (Sq,) int
-    kv_positions: torch.Tensor,  # (Skv,) int, -1 = invalid
-    q_chunk: int = 512,
-    kv_chunk: int = 1024,
-) -> torch.Tensor:
-    """Causal chunked softmax attention with running (m, l, acc): the
-    rectangular schedule of the reference, with block masking."""
-    B, Sq, KVH, G, hd = q.shape
-    Skv = k.shape[1]
-    q_chunk, kv_chunk = min(q_chunk, Sq), min(kv_chunk, Skv)
-    scale = 1.0 / math.sqrt(hd)
-    outs = []
-    for q0 in range(0, Sq, q_chunk):
-        qc = q[:, q0:q0 + q_chunk]
-        qpos = q_positions[q0:q0 + q_chunk]
-        cq = qc.shape[1]
-        m = torch.full((B, KVH, G, cq), NEG_INF, dtype=torch.float32, device=q.device)
-        l = torch.zeros((B, KVH, G, cq), dtype=torch.float32, device=q.device)
-        acc = torch.zeros((B, KVH, G, cq, hd), dtype=torch.float32, device=q.device)
-        for k0 in range(0, Skv, kv_chunk):
-            kc, vc = k[:, k0:k0 + kv_chunk], v[:, k0:k0 + kv_chunk]
-            kpos = kv_positions[k0:k0 + kv_chunk]
-            s = torch.einsum("bqkgh,bckh->bkgqc", qc, kc).to(torch.float32) * scale
-            mask = (kpos[None, :] >= 0) & (kpos[None, :] <= qpos[:, None])
-            s = torch.where(mask, s, NEG_INF)
-            m_new = torch.maximum(m, s.amax(dim=-1))
-            p = torch.exp(s - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(dim=-1)
-            pv = torch.einsum("bkgqc,bckh->bkgqh", p.to(vc.dtype), vc)
-            acc = acc * corr[..., None] + pv.to(torch.float32)
-            m = m_new
-        out = acc / torch.clamp(l, min=1e-30)[..., None]
-        outs.append(out.permute(0, 3, 1, 2, 4))  # (B, cq, KVH, G, hd)
-    return torch.cat(outs, dim=1).to(q.dtype)
+def mlp(params: Params, x: torch.Tensor, act: str) -> torch.Tensor:
+    """Feed-forward: SwiGLU, or GELU in its tanh form (``jax.nn.gelu``'s
+    default; torch's default is the exact erf form)."""
+    if act == "swiglu":
+        h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+    elif act == "gelu":
+        h = F.gelu(x @ params["w_up"], approximate="tanh")
+    else:
+        raise ValueError(f"unknown act {act!r}")
+    return h @ params["w_down"]
 
 
 def _project_qkv(params: Params, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, ...]:
@@ -100,17 +70,20 @@ def _project_qkv(params: Params, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, ..
             v.reshape(B, S, KVH, hd))
 
 
-def attention(params: Params, x: torch.Tensor, cfg, *, positions: torch.Tensor
+def attention(params: Params, x: torch.Tensor, cfg, *, window: int = 0
               ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Full-sequence causal self-attention (prefill).  Returns (out, (k, v)) so
-    prefill can keep the KV cache; k is RoPE'd."""
+    """Full-sequence causal self-attention (prefill) over positions
+    ``arange(S)``, through kernel 6 (``ops.flash_attention``) with the
+    block's sliding ``window`` (0 = none).  Returns (out, (k, v)) so prefill
+    can keep the KV cache; k is RoPE'd."""
     B, S, _ = x.shape
     H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, k, v = _project_qkv(params, x, cfg)
-    pos2 = positions[None].expand(B, S)
+    pos2 = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
     q = rope(q.reshape(B, S, H, hd), pos2, cfg.rope_theta).reshape(B, S, KVH, H // KVH, hd)
     k = rope(k, pos2, cfg.rope_theta)
-    out = flash_attention(q, k, v, q_positions=positions, kv_positions=positions)
+    out = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                              causal=True, window=window)
     return out.reshape(B, S, H * hd) @ params["wo"], (k, v)
 
 

@@ -1,21 +1,27 @@
 """Model assembly for the serving slice (``repro/models/model.py``):
 parameter declarations and init, prefill, the decode step and the
-prefill-to-pool handoff, for plain dense stacks of ``"attn"`` blocks.
+prefill-to-cache handoff, for dense stacks of ``"attn"``, ``"global"``
+(full attention) and ``"local"`` (sliding-window) blocks.
 
 Layout follows the reference so weights carry across
-(``models/convert.py``): the repeating unit's position ``u0`` holds every
-layer's parameters stacked on a leading ``(n_layers,)`` axis; decode caches
-carry the same leading axis.  Where the reference scans the stack with
-``lax.scan``, this module runs a Python loop over layers; the per-layer
-views share storage with the stacked tensors.
+(``models/convert.py``): ``scan_plan`` names the repeating unit's positions
+``u0``..``u{n-1}`` (one ``u0`` for a homogeneous stack, gemma3's 5 local + 1
+global as ``u0``..``u5``) and the tail's ``t0``..; each unit position holds
+its layers' parameters stacked on a leading ``(n_repeats,)`` axis, each
+tail position one unstacked set.  Decode caches carry the same structure.
+Where the reference scans the unit with ``lax.scan``, this module runs a
+Python loop over repeats and positions; the per-layer views share storage
+with the stacked tensors.
 
-Decode caches are ``{"pos": int, "blocks": {"u0": cache}}`` with ``cache`` a
-stacked ``{"k", "v"}`` dict (``kv_mode="full"``), a stacked
-``paged_kv.PagedPool`` (``kv_mode="paged"``) or, when ``cfg.kv_policy`` is in
-``paged_kv.TRUE_ADAPTIVE_KV``, a stacked ``paged_kv.AdaptivePagedPool`` whose
-ARC/CAR planes also carry the leading layer axis.  K/V tensors are updated in
-place by ``decode_step`` (see ``cache/paged_kv.py``); callers that keep an
-earlier cache clone it.
+Decode caches are ``{"pos": int, "blocks": {position: cache}}``.  A
+``"local"`` position's cache is a sliding-window ring ``{"k", "v"}`` of
+``sliding_window`` rows (slot ``pos % W``); a full-attention position's is
+a ``{"k", "v"}`` dict of ``max_len`` rows (``kv_mode="full"``), a
+``paged_kv.PagedPool`` (``kv_mode="paged"``) or, when ``cfg.kv_policy`` is
+in ``paged_kv.TRUE_ADAPTIVE_KV``, a ``paged_kv.AdaptivePagedPool`` whose
+ARC/CAR planes also carry the leading layer axis.  K/V tensors are updated
+in place by ``decode_step`` (see ``cache/paged_kv.py``); callers that keep
+an earlier cache clone it.
 """
 
 from __future__ import annotations
@@ -66,26 +72,42 @@ def _attn_decls(cfg) -> Dict[str, Decl]:
 
 def _mlp_decls(cfg) -> Dict[str, Decl]:
     d, ff = cfg.d_model, cfg.d_ff
-    return {"w_up": Decl((d, ff)), "w_down": Decl((ff, d)), "w_gate": Decl((d, ff))}
+    out = {"w_up": Decl((d, ff)), "w_down": Decl((ff, d))}
+    if cfg.act == "swiglu":
+        out["w_gate"] = Decl((d, ff))
+    return out
+
+
+#: block kinds the port serves: full attention and sliding-window attention
+KINDS = ("attn", "global", "local")
 
 
 def _check_supported(cfg) -> None:
-    if (cfg.family != "dense" or cfg.pattern is not None or cfg.n_experts
-            or cfg.act != "swiglu" or cfg.qkv_bias):
+    kinds = set(cfg.layer_pattern)
+    if (cfg.family != "dense" or cfg.n_experts or cfg.qkv_bias
+            or cfg.act not in ("swiglu", "gelu") or not kinds <= set(KINDS)
+            or ("local" in kinds and cfg.sliding_window < 1)):
         raise NotImplementedError(
-            f"{cfg.name}: only plain dense SwiGLU 'attn' stacks without QKV "
-            "bias are ported to repro_torch so far (MoE, sliding-window, SSM, "
-            "enc-dec and VLM blocks come in later slices)")
+            f"{cfg.name}: only dense stacks of {'/'.join(KINDS)} blocks with "
+            "SwiGLU or GELU, without QKV bias, are ported to repro_torch so "
+            "far (MoE, mamba, shared_attn, QKV bias, enc-dec and VLM come in "
+            f"later slices); got family={cfg.family!r} kinds={sorted(kinds)} "
+            f"act={cfg.act!r} qkv_bias={cfg.qkv_bias}")
 
 
 def scan_plan(cfg) -> Tuple[List[Tuple[str, str]], int, List[Tuple[str, str]]]:
     """(unit, n_repeats, tail) of (position_name, kind) entries."""
     _check_supported(cfg)
-    return [("u0", "attn")], cfg.n_layers, []
+    if cfg.pattern is None:
+        return [("u0", "attn")], cfg.n_layers, []
+    unit = [(f"u{i}", k) for i, k in enumerate(cfg.pattern)]
+    tail = [(f"t{i}", k) for i, k in enumerate(cfg.tail)]
+    return unit, cfg.n_repeats, tail
 
 
 def param_decls(cfg) -> Dict[str, Any]:
-    """Declaration tree with the stacked leading layer dim on ``u0``."""
+    """Declaration tree: unit positions stacked on a leading
+    ``(n_repeats,)`` dim, tail positions unstacked."""
     V, d = pad_vocab(cfg), cfg.d_model
     tree: Dict[str, Any] = {
         "embed": Decl((V, d), scale=1.0),
@@ -93,10 +115,13 @@ def param_decls(cfg) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         tree["unembed"] = Decl((V, d))
-    unit, n_rep, _ = scan_plan(cfg)
+    unit, n_rep, tail = scan_plan(cfg)
+    block = {**_attn_decls(cfg), **_mlp_decls(cfg)}
     for pos, _kind in unit:
         tree[pos] = {k: Decl((n_rep,) + v.shape, v.init, v.scale)
-                     for k, v in {**_attn_decls(cfg), **_mlp_decls(cfg)}.items()}
+                     for k, v in block.items()}
+    for pos, _kind in tail:
+        tree[pos] = dict(block)
     return tree
 
 
@@ -148,36 +173,68 @@ def _layer(params: Params, pos_name: str, i: int) -> Params:
 # ---------------------------------------------------------------------------
 
 
+def _prefill_block(kind: str, p: Params, x: torch.Tensor, cfg):
+    """One block over the whole prompt; returns (x, k, v), k/v (B, S, kvd)."""
+    B, S, _ = x.shape
+    window = cfg.sliding_window if kind == "local" else 0
+    h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
+    attn_out, (k, v) = L.attention(p, h, cfg, window=window)
+    x = x + attn_out
+    x = x + L.mlp(p, L.rmsnorm(x, p["ln2"], cfg.norm_eps), cfg.act)
+    return x, k.reshape(B, S, -1), v.reshape(B, S, -1)
+
+
+def _cache_from_prefill(cfg, kind: str, k: torch.Tensor, v: torch.Tensor, S: int,
+                        max_len: int, kv_mode: str):
+    """Decode cache of one position from its layers' prefill K/V (n, B, S,
+    kvd): a ``local`` ring keeps the last W rows at ring slots
+    ``arange(start, S) % W``; a full-attention position gets a pool
+    (``paged``) or ``max_len`` zero-padded rows (``full``)."""
+    if kind == "local":
+        W = cfg.sliding_window
+        start = max(S - W, 0)
+        slots = torch.arange(start, S, device=k.device) % W
+        kr = torch.zeros(k.shape[:2] + (W, k.shape[-1]), dtype=k.dtype, device=k.device)
+        vr = torch.zeros_like(kr)
+        kr[:, :, slots], vr[:, :, slots] = k[:, :, start:S], v[:, :, start:S]
+        return {"k": kr, "v": vr}
+    if kv_mode == "paged":
+        return pool_from_prefill(cfg, k, v, S)
+    kf = torch.zeros(k.shape[:2] + (max_len, k.shape[-1]), dtype=k.dtype,
+                     device=k.device)
+    vf = torch.zeros_like(kf)
+    kf[:, :, :S], vf[:, :, :S] = k, v
+    return {"k": kf, "v": vf}
+
+
 def prefill(params: Params, cfg, tokens: torch.Tensor, max_len: int,
             *, kv_mode: str = "full"):
     """Run the whole prompt (B, S); returns (logits (B, S, Vpad), decode
     caches positioned at S).  For ``kv_mode="paged"`` the prompt must be
     page-aligned (the engine aligns it)."""
-    unit, n_rep, _ = scan_plan(cfg)
+    if kv_mode not in ("full", "paged"):
+        raise ValueError(f"unknown kv_mode {kv_mode!r}")
+    unit, n_rep, tail = scan_plan(cfg)
     B, S = tokens.shape
     x = _embed(params, cfg, tokens)
-    positions = torch.arange(S, dtype=torch.int32, device=x.device)
-    ks, vs = [], []
+    kv = {pos: ([], []) for pos, _ in unit}
     for i in range(n_rep):
-        p = _layer(params, "u0", i)
-        h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
-        attn_out, (k, v) = L.attention(p, h, cfg, positions=positions)
-        x = x + attn_out
-        x = x + L.mlp(p, L.rmsnorm(x, p["ln2"], cfg.norm_eps))
-        ks.append(k.reshape(B, S, -1))
-        vs.append(v.reshape(B, S, -1))
+        for pos, kind in unit:
+            x, k, v = _prefill_block(kind, _layer(params, pos, i), x, cfg)
+            kv[pos][0].append(k)
+            kv[pos][1].append(v)
+    blocks = {}
+    for pos, kind in tail:
+        x, k, v = _prefill_block(kind, params[pos], x, cfg)
+        blocks[pos] = _layer_cache(
+            _cache_from_prefill(cfg, kind, k[None], v[None], S, max_len, kv_mode), 0)
     logits = logits_from_hidden(params, cfg, x)
-    k, v = torch.stack(ks), torch.stack(vs)  # (n_rep, B, S, kvd)
-    if kv_mode == "paged":
-        cache = pool_from_prefill(cfg, k, v, S)
-    elif kv_mode == "full":
-        kf = torch.zeros((n_rep, B, max_len, k.shape[-1]), dtype=k.dtype, device=k.device)
-        vf = torch.zeros_like(kf)
-        kf[:, :, :S], vf[:, :, :S] = k, v
-        cache = {"k": kf, "v": vf}
-    else:
-        raise ValueError(f"unknown kv_mode {kv_mode!r}")
-    return logits, {"pos": S, "blocks": {"u0": cache}}
+    for pos, kind in unit:
+        ks, vs = kv.pop(pos)
+        k, v = torch.stack(ks), torch.stack(vs)  # (n_rep, B, S, kvd)
+        del ks, vs
+        blocks[pos] = _cache_from_prefill(cfg, kind, k, v, S, max_len, kv_mode)
+    return logits, {"pos": S, "blocks": blocks}
 
 
 def _stack_layers(t: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -231,37 +288,53 @@ def pool_from_prefill(cfg, k: torch.Tensor, v: torch.Tensor, S: int):
 
 def decode_caches(cfg, batch: int, max_len: int, *, kv_mode: str = "full",
                   device="cuda"):
-    """Empty decode caches (stacked on the layer axis), positioned at 0."""
+    """Empty decode caches, positioned at 0: unit positions stacked on the
+    ``(n_repeats,)`` axis, tail positions unstacked."""
     dev = resolve_device(device)
-    _, n_rep, _ = scan_plan(cfg)
+    unit, n_rep, tail = scan_plan(cfg)
     dtype = torch_dtype(cfg.dtype)
-    if kv_mode == "paged" and cfg.kv_policy in paged_kv.TRUE_ADAPTIVE_KV:
-        one = paged_kv.init_adaptive_pool(batch, cfg.bounded_kv_pages,
-                                          cfg.page_size, cfg.kv_dim, dtype,
-                                          cfg.kv_policy, device=dev)
-        cache = paged_kv.AdaptivePagedPool(
-            paged_kv.PagedPool(*(_stack_layers(t, n_rep) for t in one.pool)),
-            AdaptiveState(*(_stack_layers(t, n_rep) for t in one.policy)))
-    elif kv_mode == "paged":
-        one = paged_kv.init_pool(batch, cfg.bounded_kv_pages, cfg.page_size,
-                                 cfg.kv_dim, dtype, device=dev)
-        cache = paged_kv.PagedPool(*(_stack_layers(t, n_rep) for t in one))
-    elif kv_mode == "full":
-        shape = (n_rep, batch, max_len, cfg.kv_dim)
-        cache = {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                 "v": torch.zeros(shape, dtype=dtype, device=dev)}
-    else:
+
+    def one(kind, n):
+        if kind == "local":
+            shape = (n, batch, cfg.sliding_window, cfg.kv_dim)
+            return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                    "v": torch.zeros(shape, dtype=dtype, device=dev)}
+        if kv_mode == "paged" and cfg.kv_policy in paged_kv.TRUE_ADAPTIVE_KV:
+            a = paged_kv.init_adaptive_pool(batch, cfg.bounded_kv_pages,
+                                            cfg.page_size, cfg.kv_dim, dtype,
+                                            cfg.kv_policy, device=dev)
+            return paged_kv.AdaptivePagedPool(
+                paged_kv.PagedPool(*(_stack_layers(t, n) for t in a.pool)),
+                AdaptiveState(*(_stack_layers(t, n) for t in a.policy)))
+        if kv_mode == "paged":
+            a = paged_kv.init_pool(batch, cfg.bounded_kv_pages, cfg.page_size,
+                                   cfg.kv_dim, dtype, device=dev)
+            return paged_kv.PagedPool(*(_stack_layers(t, n) for t in a))
+        if kv_mode == "full":
+            shape = (n, batch, max_len, cfg.kv_dim)
+            return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                    "v": torch.zeros(shape, dtype=dtype, device=dev)}
         raise ValueError(f"unknown kv_mode {kv_mode!r}")
-    return {"pos": 0, "blocks": {"u0": cache}}
+
+    blocks = {pos: one(kind, n_rep) for pos, kind in unit}
+    blocks.update({pos: _layer_cache(one(kind, 1), 0) for pos, kind in tail})
+    return {"pos": 0, "blocks": blocks}
 
 
-def _decode_block(p: Params, x: torch.Tensor, cfg, cache, pos: int,
-                  kv_mode: str, fused: bool):
-    """One ``attn`` block at decode; returns (x, new cache of this layer)."""
+def _decode_block(kind: str, p: Params, x: torch.Tensor, cfg, cache, pos: int,
+                  win_positions, kv_mode: str, fused: bool):
+    """One block at decode; returns (x, new cache of this layer).  A
+    ``local`` block writes its ring and attends over ``win_positions``."""
     B = x.shape[0]
     h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
     nk, nv = L.decode_kv_row(p, h, cfg, position=pos)
-    if kv_mode == "paged":
+    if kind == "local":
+        k, v = paged_kv.ring_insert(cache["k"], cache["v"], nk, nv, pos)
+        kv_pos = win_positions[None].expand(B, win_positions.shape[0])
+        attn_out, _ = L.decode_attend(p, h, cfg, position=pos, k_cache=k,
+                                      v_cache=v, kv_positions=kv_pos)
+        new_cache = {"k": k, "v": v}
+    elif kv_mode == "paged":
         adaptive = isinstance(cache, paged_kv.AdaptivePagedPool)
         if adaptive:
             core = paged_kv.adaptive_core(cfg.kv_policy, B, cfg.bounded_kv_pages)
@@ -303,7 +376,7 @@ def _decode_block(p: Params, x: torch.Tensor, cfg, cache, pos: int,
     else:
         raise ValueError(f"unknown kv_mode {kv_mode!r}")
     x = x + attn_out
-    x = x + L.mlp(p, L.rmsnorm(x, p["ln2"], cfg.norm_eps))
+    x = x + L.mlp(p, L.rmsnorm(x, p["ln2"], cfg.norm_eps), cfg.act)
     return x, new_cache
 
 
@@ -313,17 +386,25 @@ def decode_step(params: Params, cfg, token: torch.Tensor, caches,
 
     ``fused=True`` routes the paged blocks through the fused CUDA policy
     kernel (one launch per layer); decisions equal the unfused path's."""
-    unit, n_rep, _ = scan_plan(cfg)
+    unit, n_rep, tail = scan_plan(cfg)
     pos = caches["pos"]
     x = _embed(params, cfg, token)
-    cache = caches["blocks"]["u0"]
-    planes = []
+    win_positions = (paged_kv.ring_positions(pos, cfg.sliding_window, x.device)
+                     if cfg.sliding_window else None)
+    blocks = caches["blocks"]
+    layers = {name: [] for name, _ in unit}
     for i in range(n_rep):
-        x, new = _decode_block(_layer(params, "u0", i), x, cfg,
-                               _layer_cache(cache, i), pos, kv_mode, fused)
-        planes.append(new)
+        for name, kind in unit:
+            x, new = _decode_block(kind, _layer(params, name, i), x, cfg,
+                                   _layer_cache(blocks[name], i), pos,
+                                   win_positions, kv_mode, fused)
+            layers[name].append(new)
+    new_blocks = {name: _restack(blocks[name], layers[name]) for name, _ in unit}
+    for name, kind in tail:
+        x, new_blocks[name] = _decode_block(kind, params[name], x, cfg, blocks[name],
+                                            pos, win_positions, kv_mode, fused)
     logits = logits_from_hidden(params, cfg, x)
-    return logits, {"pos": pos + 1, "blocks": {"u0": _restack(cache, planes)}}
+    return logits, {"pos": pos + 1, "blocks": new_blocks}
 
 
 def _layer_cache(cache, i: int):
@@ -354,8 +435,10 @@ def _restack(cache, layers):
 def clone_caches(caches):
     """Deep copy of a decode-cache tree (for a caller that keeps it while
     decoding continues in place)."""
-    cache = caches["blocks"]["u0"]
-    copy = (cache.clone() if isinstance(cache, (paged_kv.PagedPool,
-                                                paged_kv.AdaptivePagedPool))
-            else {k: v.clone() for k, v in cache.items()})
-    return {"pos": caches["pos"], "blocks": {"u0": copy}}
+    def copy(cache):
+        if isinstance(cache, (paged_kv.PagedPool, paged_kv.AdaptivePagedPool)):
+            return cache.clone()
+        return {k: v.clone() for k, v in cache.items()}
+
+    return {"pos": caches["pos"],
+            "blocks": {name: copy(c) for name, c in caches["blocks"].items()}}

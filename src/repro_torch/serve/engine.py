@@ -12,8 +12,9 @@
     paged layer's decode step as one CUDA launch
     (``kernels/csrc/policy_attn.cu``, ``adaptive_attn.cu``);
   * ghost-hit feed: in the true-adaptive mode the engine keeps the final
-    pool policy state of the last single request and, on a prefix-cache miss,
-    replays the new prompt's page ids through it
+    pool policy state of every adaptive cache position (gemma3: its global
+    layers' ``u5``) of the last single request and, on a prefix-cache miss,
+    replays the new prompt's page ids through each
     (``paged_kv.reseed_from_ghosts``): previously evicted pages ghost-hit and
     move ARC/CAR's ``p`` across requests.  One session, the reference's
     ``"default"`` tenant;
@@ -80,7 +81,7 @@ class ServeEngine:
                       "kv_evictions": 0, "kv_ghost_hits": 0,
                       "nonfinite_logits": 0, "prefill_s": 0.0, "decode_s": 0.0}
         #: ghost-hit feed: the last single request's final pool policy
-        #: state (stacked over layers), or None
+        #: state of each adaptive position (stacked over layers), or None
         self._kv_session = None
 
     # -- internals ----------------------------------------------------------
@@ -105,17 +106,21 @@ class ServeEngine:
         self._sync()
         self.stats["prefill_s"] += time.perf_counter() - t0
         self.stats["prefills"] += 1
-        return logits[:, -1:], caches
+        # a copy of the last position, so the (B, S, V) logits are freed
+        return logits[:, -1:].clone(), caches
 
     def _evictions_at(self, caches) -> torch.Tensor:
-        """Allocations the next step makes into a full pool (0-d tensor,
-        not pulled)."""
-        pool = caches["blocks"]["u0"]
+        """Allocations the next step makes into a full pool, summed over the
+        pool positions (0-d tensor, not pulled)."""
+        total = torch.zeros((), dtype=torch.int64, device=self.device)
         if self.kv_mode != "paged" or caches["pos"] % self.cfg.page_size:
-            return torch.zeros((), dtype=torch.int64, device=self.device)
-        if isinstance(pool, paged_kv.AdaptivePagedPool):
-            pool = pool.pool
-        return (pool.page_start >= 0).all(dim=-1).sum()
+            return total
+        for pool in caches["blocks"].values():
+            if isinstance(pool, paged_kv.AdaptivePagedPool):
+                pool = pool.pool
+            if isinstance(pool, paged_kv.PagedPool):
+                total = total + (pool.page_start >= 0).all(dim=-1).sum()
+        return total
 
     # -- ghost-hit feed (true-adaptive paged KV) ---------------------------
     @property
@@ -131,18 +136,21 @@ class ServeEngine:
             return caches
         page, P = self.cfg.page_size, self.cfg.bounded_kv_pages
         n_have = plen // page
-        state, gh = paged_kv.reseed_from_ghosts(
-            self._kv_session, self.cfg.kv_policy, P, n_have, min(n_have, P))
-        self.stats["kv_ghost_hits"] += int(gh.sum())
-        apool = caches["blocks"]["u0"]
-        return {"pos": caches["pos"],
-                "blocks": {"u0": paged_kv.AdaptivePagedPool(apool.pool, state)}}
+        blocks = dict(caches["blocks"])
+        for name, prev in self._kv_session.items():
+            state, gh = paged_kv.reseed_from_ghosts(
+                prev, self.cfg.kv_policy, P, n_have, min(n_have, P))
+            self.stats["kv_ghost_hits"] += int(gh.sum())
+            blocks[name] = paged_kv.AdaptivePagedPool(blocks[name].pool, state)
+        return {"pos": caches["pos"], "blocks": blocks}
 
     def _kv_persist(self, caches) -> None:
-        """Keep the request's final pool policy state (ghost lists, ``p``) for
-        the next re-prefill to replay into."""
-        self._kv_session = AdaptiveState(
-            *(t.clone() for t in caches["blocks"]["u0"].policy))
+        """Keep the request's final pool policy states (ghost lists, ``p``),
+        one per adaptive position, for the next re-prefill to replay into."""
+        self._kv_session = {
+            name: AdaptiveState(*(t.clone() for t in c.policy))
+            for name, c in caches["blocks"].items()
+            if isinstance(c, paged_kv.AdaptivePagedPool)}
 
     def _run_bucket(self, plen: int, reqs: List[Request]) -> Dict[int, Result]:
         t0 = time.perf_counter()
@@ -210,7 +218,10 @@ class ServeEngine:
         ``p`` and residency, namespaced."""
         out = {f"serve/{k}": v for k, v in self.stats.items()}
         out.update({f"prefix/{k}": v for k, v in self.prefix_cache.telemetry().items()})
-        if self._kv_session is not None:
-            out.update({f"kv/{k}": float(v) for k, v in
-                        paged_kv.pool_telemetry(self._kv_session).items()})
+        if self._kv_session:
+            tel = [paged_kv.pool_telemetry(s) for s in self._kv_session.values()]
+            out.update({"kv/p_mean": float(torch.stack([t["p_mean"] for t in tel]).mean()),
+                        "kv/p_max": float(torch.stack([t["p_max"] for t in tel]).max()),
+                        "kv/resident_mean": float(torch.stack(
+                            [t["resident_mean"] for t in tel]).mean())})
         return out

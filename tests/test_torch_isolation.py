@@ -116,13 +116,25 @@ def test_launch_serve_defaults_to_cuda(no_cuda):
         serve.main(["--smoke"])
 
 
+def test_gemma3_entry_points_default_to_cuda(no_cuda):
+    from repro_torch.configs import gemma3_27b
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--arch", "gemma3_27b", "--smoke"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        M.decode_caches(gemma3_27b.SMOKE_CONFIG, 1, 64, kv_mode="paged")
+
+
 def test_port_files_cover_the_sweep_slice():
     """The import checks above walk every module of the package, the sweep
     slice's included."""
     names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
     for mod in ("core/traces.py", "core/policies.py", "core/simulator.py",
                 "core/policy_core.py", "core/torch_policies.py",
-                "kernels/awrp_select.py"):
+                "kernels/awrp_select.py", "kernels/flash_attn.py",
+                "configs/gemma3_27b.py"):
         assert mod in names, mod
         assert "repro_torch." + mod[:-3].replace("/", ".") in PORT_MODULES
 
