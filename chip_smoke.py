@@ -8,13 +8,16 @@ line, any failure raising (non-zero exit, no result line):
 1. ``build``: compile the CUDA kernels with nvcc (sm_90a) from the sources in
    this checkout; print the seconds taken and the card's name and power
    limit (``nvidia-smi``).
-2. ``paged_attention``: the decode-attention kernel at the slice's decode
-   shape with the default pool (B=4, P=256, page=64, KVH=5, G=3, hd=64,
-   bf16), at the serve phase's (P=16) and at gemma3-27b's global layers'
-   (B=4, P=16, page=64, KVH=16, G=2, hd=128: pages staged in 16-row
-   chunks), against its plain PyTorch version (bf16 out within one bf16
-   ulp, f32 mass within MASS_RTOL); kernel, plain and SDPA times beside the
-   byte bound.
+2. ``paged_attention``: the decode-attention kernel (kernel 3) at the
+   slice's decode shape with the default pool (B=4, P=256, page=64, KVH=5,
+   G=3, hd=64, bf16), at the serve phase's (P=16) and at gemma3-27b's global
+   layers' (B=4, P=16, page=64, KVH=16, G=2, hd=128), against its plain
+   PyTorch version (bf16 out within one bf16 ulp, f32 mass within
+   MASS_RTOL), its output repeated bit for bit over 6 launches; kernel,
+   plain and SDPA times beside the byte bound, with the grid's CTA count,
+   the achieved GB/s and bound_ms / ms; then a ragged pool (5 free pages,
+   each sequence's ``cur`` elsewhere mid-page) at P=256 and at gemma3's
+   shape.
 3. ``policy_attn``: the fused policy-attention step from a full pool,
    AWRP over 3*page decode steps so every page boundary evicts, at P=256
    and at P=16, and each other page policy over two evicting boundaries at
@@ -22,7 +25,8 @@ line, any failure raising (non-zero exit, no result line):
    paged_attention kernel + score_update, (b) within phase 2's tolerances
    of its plain version, planes equal except at steps where a page's plain
    mass lies within EPS_TAU of tau (counted); the AWRP runs timed like
-   phase 2; AWRP again at gemma3's decode shape.
+   phase 2, the timed (evicting) step repeated bit for bit over 6
+   launches; AWRP again at gemma3's decode shape.
 3a. ``flash_attn``: kernel 6, the prefill attention, against its plain
    version (bf16 within one bf16 ulp, f32 within F32_OUT_RTOL) at gemma3's
    prefill shape (4, 2048, 16, 2, 128) with window 1024 and 0, smollm's
@@ -30,7 +34,8 @@ line, any failure raising (non-zero exit, no result line):
    ``kv_len`` mask and f32; kernel, plain and SDPA times (same mask) beside
    the bound over the unmasked (query head, key) pairs.
 4. ``serve``: ``ServeEngine`` on smollm-360m at published widths, bf16,
-   paged KV with AWRP through the fused kernel, 4 requests of 1024 seeded
+   paged KV with AWRP through the fused kernel (kernel 4: two launches per
+   layer per decode step, ``ops.SPLIT_LAUNCHES``), 4 requests of 1024 seeded
    tokens and 192 greedy new tokens, then one repeated prompt that must hit
    the prefix cache; kernel 6 launched once per layer per prefill.
 4a. ``adaptive_attn``: kernel 5, the fused true-adaptive ARC/CAR step, for
@@ -92,7 +97,8 @@ from repro_torch.configs.gemma3_27b import CONFIG as GEMMA3  # noqa: E402
 from repro_torch.configs.smollm_360m import CONFIG  # noqa: E402
 from repro_torch.core.kv_policy import PAGE_POLICIES  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
-from repro_torch.kernels.paged_attn import paged_attention_kernel  # noqa: E402
+from repro_torch.kernels.paged_attn import (  # noqa: E402
+    paged_attention_kernel, split_ctas)
 from repro_torch.kernels.policy_attn import (  # noqa: E402
     adaptive_policy_paged_attention_kernel, policy_paged_attention_kernel)
 
@@ -158,15 +164,22 @@ def valid_rows(page_start, cur_pos, page: int) -> int:
     return int(((page_start[..., None] >= 0) & (tok <= cur_pos[:, None, None])).sum())
 
 
+def decode_bytes(q, k_pages, rows: int, extra_bytes: int = 0) -> int:
+    """Bytes one decode step over ``rows`` key rows must move: each K/V row,
+    the query, the output, the planes and ``extra_bytes`` once."""
+    B, P, page, KVH, hd = k_pages.shape
+    esz = k_pages.element_size()
+    return (rows * KVH * hd * 2 * esz + 2 * q.numel() * esz + B * P * 4 * 5
+            + extra_bytes)
+
+
 def bound(q, k_pages, rows: int, extra_bytes: int = 0):
-    """(bound_ms, bound_by) of one decode step over ``rows`` key rows: each
-    K/V row, the query, the output, the planes and ``extra_bytes`` moved
-    once, against the flops of the two products at the float32 peak."""
+    """(bound_ms, bound_by) of one decode step over ``rows`` key rows:
+    ``decode_bytes`` at the HBM rate against the flops of the two products
+    at the float32 peak."""
     B, P, page, KVH, hd = k_pages.shape
     G = q.shape[2]
-    esz = k_pages.element_size()
-    nbytes = (rows * KVH * hd * 2 * esz + 2 * q.numel() * esz + B * P * 4 * 5
-              + extra_bytes)
+    nbytes = decode_bytes(q, k_pages, rows, extra_bytes)
     flops = rows * KVH * G * hd * 4
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS * 1e3
@@ -189,6 +202,26 @@ def sdpa_ms(q, k_pages, v_pages, page_start, cur_pos) -> float:
     qq = q.reshape(B, KVH * G, 1, hd)
     return time_ms(lambda: F.scaled_dot_product_attention(
         qq, kk, vv, attn_mask=mask, enable_gqa=True))
+
+
+def split_fields(q, k_pages, rows: int, ms: float, bound_ms: float) -> dict:
+    """Kernels 3 and 4: the CTAs of both grids (partials and fold), the
+    achieved rate of the bytes the step must move, and bound_ms / ms (the
+    share of the byte bound)."""
+    B, P, page, KVH, hd = k_pages.shape
+    return {"ctas": split_ctas(B, P, KVH, q.shape[2], hd),
+            "gb_per_s": decode_bytes(q, k_pages, rows) / (ms * 1e-3) / 1e9,
+            "bound_over_ms": bound_ms / ms}
+
+
+def assert_repeatable(fn, reps: int = 5) -> int:
+    """``fn()`` ``reps`` more times gives the first call's bits on every
+    output (the result must not depend on which CTA folds)."""
+    first = fn()
+    for _ in range(reps):
+        for a, b in zip(first, fn()):
+            assert torch.equal(a, b), "a repeated launch changed its output"
+    return reps + 1
 
 
 def decode_inputs(gen, B, P, page, KVH, G, hd, dtype, dev, *, n_free=0):
@@ -224,12 +257,23 @@ def phase_build() -> dict:
 DECODE_SHAPE = (4, 256, 64, 5, 3, 64)  # B, P, page, KVH, G, hd
 
 
-def phase_paged_attention(dev, shape=DECODE_SHAPE) -> dict:
+def phase_paged_attention(dev, shape=DECODE_SHAPE, *, ragged: bool = False,
+                          timed: bool = True) -> dict:
+    """Kernel 3 against its plain version on a pool with 3 free pages and
+    every sequence at its last row (a full last page), or with ``ragged`` 5
+    free pages and each sequence's ``cur`` elsewhere mid-page (partly filled
+    pages, whole pages past ``cur``); timed and checked for repeatable bits."""
     B, P, page, KVH, G, hd = shape
-    gen = torch.Generator().manual_seed(SEED)
+    gen = torch.Generator().manual_seed(SEED + (11 if ragged else 0))
     q, k, v, ps, _, _ = decode_inputs(gen, B, P, page, KVH, G, hd,
-                                      torch.bfloat16, dev, n_free=3)
-    cur = torch.full((B,), P * page - 1, dtype=torch.int32, device=dev)
+                                      torch.bfloat16, dev, n_free=5 if ragged else 3)
+    last = P * page - 1
+    if ragged:
+        back = [page // 2 + 1, 3, page + 7, 2 * page + 31]
+        cur = torch.tensor([last - back[b % 4] % (P * page // 2) for b in range(B)],
+                           dtype=torch.int32, device=dev)
+    else:
+        cur = torch.full((B,), last, dtype=torch.int32, device=dev)
     out, mass = paged_attention_kernel(q, k, v, ps, cur)
     out_p, mass_p = ref.paged_attention_plain(q, k, v, ps, cur)
     torch.cuda.synchronize()
@@ -239,18 +283,27 @@ def phase_paged_attention(dev, shape=DECODE_SHAPE) -> dict:
     mass_x = excess(mass, mass_p, MASS_RTOL, MASS_ATOL)
     assert torch.isfinite(out.float()).all() and torch.isfinite(mass).all()
     assert out_x <= 1.0 and mass_x <= 1.0, (err_out, out_x, err_mass, mass_x)
-    bnd, by = bound(q, k, valid_rows(ps, cur, page))
+    rows = valid_rows(ps, cur, page)
     res = {"phase": "paged_attention", "shape": [B, P, page, KVH, G, hd],
-           "dtype": "bfloat16", "max_abs_err_out": err_out,
+           "dtype": "bfloat16", "pool": "ragged" if ragged else "full last page",
+           "cur_pos": cur.tolist(), "free_pages": 5 if ragged else 3,
+           "valid_rows": rows, "max_abs_err_out": err_out,
            "out_err_over_tol": out_x, "mean_abs_out": out_p.float().abs().mean().item(),
            "max_abs_err_mass": err_mass, "mass_err_over_tol": mass_x,
            "max_mass": mass_p.max().item(), "tol_out": [OUT_RTOL, OUT_ATOL],
            "tol_mass": [MASS_RTOL, MASS_ATOL],
-           "ms": time_ms(lambda: paged_attention_kernel(q, k, v, ps, cur)),
-           "plain_ms": time_ms(lambda: ref.paged_attention_plain(q, k, v, ps, cur),
-                               reps=5, warmup=1),
-           "bound_ms": bnd, "bound_by": by,
-           "library_ms": sdpa_ms(q, k, v, ps, cur)}
+           "repeat_launches_equal": assert_repeatable(
+               lambda: paged_attention_kernel(q, k, v, ps, cur))}
+    if timed:
+        bnd, by = bound(q, k, rows)
+        ms = time_ms(lambda: paged_attention_kernel(q, k, v, ps, cur))
+        res.update({
+            "ms": ms,
+            "plain_ms": time_ms(lambda: ref.paged_attention_plain(q, k, v, ps, cur),
+                                reps=5, warmup=1),
+            "bound_ms": bnd, "bound_by": by,
+            "library_ms": sdpa_ms(q, k, v, ps, cur),
+            **split_fields(q, k, rows, ms, bnd)})
     emit(res)
     return res
 
@@ -325,8 +378,8 @@ def phase_policy_attn(dev, policy: str = "awrp", shape=DECODE_SHAPE,
         else:
             assert planes_equal, f"planes differ from the plain version at pos {pos}"
     launches = dict(ops.LAUNCHES)
-    assert launches["policy_paged_attention"] == steps, launches
-    assert launches["paged_attention"] == steps, launches
+    assert launches["policy_paged_attention"] == ops.SPLIT_LAUNCHES * steps, launches
+    assert launches["paged_attention"] == ops.SPLIT_LAUNCHES * steps, launches
     assert out_x <= 1.0 and mass_x <= 1.0, (err_out, out_x, err_mass, mass_x)
     assert int((pool.clock - clock0).min()) == steps
     res = {"phase": "policy_attn", "policy": policy,
@@ -350,13 +403,18 @@ def phase_policy_attn(dev, policy: str = "awrp", shape=DECODE_SHAPE,
         # rows read: the pages resident after the allocation, the new row
         # counted once at its page
         after = policy_paged_attention_kernel(*args, policy=policy)[5]
-        bnd, by = bound(q, kp, valid_rows(after, cur, page))
+        rows = valid_rows(after, cur, page)
+        bnd, by = bound(q, kp, rows)
+        ms = time_ms(lambda: policy_paged_attention_kernel(*args, policy=policy))
         res.update({
-            "ms": time_ms(lambda: policy_paged_attention_kernel(*args, policy=policy)),
+            "ms": ms,
             "plain_ms": time_ms(lambda: ref.policy_paged_attention_plain(
                 *args, policy=policy), reps=5, warmup=1),
             "bound_ms": bnd, "bound_by": by,
-            "library_ms": sdpa_ms(q, kp, vp, after, cur)})
+            "library_ms": sdpa_ms(q, kp, vp, after, cur),
+            **split_fields(q, kp, rows, ms, bnd),
+            "repeat_launches_equal": assert_repeatable(
+                lambda: policy_paged_attention_kernel(*args, policy=policy))})
     emit(res)
     return res
 
@@ -497,7 +555,7 @@ def phase_serve(dev, params, init_s, base_cfg=CONFIG, n_req=4, prompt_len=1024,
                                for i, p in enumerate(prompts)])
     launches = dict(ops.LAUNCHES)
     stats = dict(engine.stats)
-    expect = cfg.n_layers * (new_tokens - 1)
+    expect = ops.SPLIT_LAUNCHES * cfg.n_layers * (new_tokens - 1)
     assert launches["policy_paged_attention"] == expect, (launches, expect)
     assert launches["flash_attention"] == cfg.n_layers * stats["prefills"], launches
     for r in results.values():
@@ -517,7 +575,7 @@ def phase_serve(dev, params, init_s, base_cfg=CONFIG, n_req=4, prompt_len=1024,
                           seed=SEED, device=dev)
     ref_res = unfused.generate([Request(i, list(p), max_new_tokens=new_tokens)
                                 for i, p in enumerate(prompts)])
-    profile = profile_decode(params, cfg, prompts, dev, "policy_paged_attention")
+    profile = profile_decode(params, cfg, prompts, dev, KERNEL4_CUDA)
     same = sum(a == b for i in results
                for a, b in zip(results[i].tokens, ref_res[i].tokens))
     res = {"phase": "serve", "model": cfg.name, "layers": cfg.n_layers,
@@ -540,13 +598,18 @@ def phase_serve(dev, params, init_s, base_cfg=CONFIG, n_req=4, prompt_len=1024,
     return res
 
 
-def profile_decode(params, cfg, prompts, dev, kernel: str, steps: int = 8) -> dict:
+#: the CUDA kernels of one kernel-4 call (csrc/policy_attn.cu): partials, fold
+KERNEL4_CUDA = ("policy_partials_kernel", "policy_fold_kernel")
+
+
+def profile_decode(params, cfg, prompts, dev, kernel: tuple, steps: int = 8) -> dict:
     """Where a paged fused decode step's time goes: ``torch.profiler`` over
     ``steps`` steps after a warm-up.  Device time is the sum of the kernels'
     own intervals (one stream, so they do not overlap); the busy share is
     that over the synchronized host wall of the same steps, without the
     profiler (its tracing slows the host side).  ``kernel`` names the fused
-    kernel whose share is reported."""
+    step's CUDA kernels (kernel 4 runs as two: its partials and its fold),
+    whose share is reported."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -578,15 +641,16 @@ def profile_decode(params, cfg, prompts, dev, kernel: str, steps: int = 8) -> di
     if not kernels:
         return {"wall_ms_per_step": wall_ms, "device_ms_per_step": "not measured"}
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / steps
-    fused = sum(e.time_range.elapsed_us() for e in kernels
-                if kernel in e.name) / 1e3 / steps
+    mine = [e for e in kernels if any(k in e.name for k in kernel)]
+    fused = sum(e.time_range.elapsed_us() for e in mine) / 1e3 / steps
     by_name: dict = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return {"wall_ms_per_step": wall_ms, "device_ms_per_step": busy,
             "device_busy_share": busy / wall_ms,
-            "fused_kernel": kernel, "fused_kernel_ms_per_step": fused,
+            "fused_kernel": list(kernel), "fused_kernel_ms_per_step": fused,
+            "fused_kernel_launches_per_step": len(mine) / steps,
             "fused_kernel_share_of_device": fused / busy if busy else 0.0,
             "kernels_per_step": len(kernels) / steps,
             "top_kernels_ms_per_step": [[n[:80], ms / steps] for n, ms in top]}
@@ -700,7 +764,7 @@ def phase_adaptive_attn(dev, kind: str, shape=SERVE_SHAPE, steps: int | None = N
         hits += int((ap.pool.r == ap.pool.clock[:, None]).sum())
     launches = dict(ops.LAUNCHES)
     assert launches["adaptive_policy_paged_attention"] == steps, launches
-    assert launches["paged_attention"] == steps, launches
+    assert launches["paged_attention"] == ops.SPLIT_LAUNCHES * steps, launches
     assert out_x <= 1.0 and mass_x <= 1.0, (err_out, out_x, err_mass, mass_x)
     assert hits > 0, "no page was referenced"
     if renorm_at is not None:
@@ -812,7 +876,7 @@ def phase_serve_adaptive(dev, params, kv_policy: str, *, profile: bool, n_req=4,
            "repeat_tokens_equal": res_a.tokens == res_a2.tokens}
     if profile:
         res["decode_step_profile"] = profile_decode(
-            params, cfg, prompts, dev, "adaptive_paged_attention")
+            params, cfg, prompts, dev, ("adaptive_paged_attention",))
     emit(res)
     return res
 
@@ -862,7 +926,7 @@ def phase_serve_gemma3(dev, n_req=4, prompt_len=2048, new_tokens=128, pages=16,
     launches = dict(ops.LAUNCHES)
     stats = dict(engine.stats)
     assert launches["flash_attention"] == cfg.n_layers, launches
-    assert launches["policy_paged_attention"] == n_global * steps, launches
+    assert launches["policy_paged_attention"] == ops.SPLIT_LAUNCHES * n_global * steps, launches
     assert launches["adaptive_policy_paged_attention"] == 0, launches
     for r in results.values():
         assert len(r.tokens) == new_tokens
@@ -876,9 +940,9 @@ def phase_serve_gemma3(dev, n_req=4, prompt_len=2048, new_tokens=128, pages=16,
     assert first[10].tokens == again[11].tokens
     total = dict(ops.LAUNCHES)
     assert total["flash_attention"] == 2 * cfg.n_layers, total
-    assert total["policy_paged_attention"] == 3 * n_global * steps, total
+    assert total["policy_paged_attention"] == 3 * ops.SPLIT_LAUNCHES * n_global * steps, total
     assert engine.stats["nonfinite_logits"] == 0
-    profile = profile_decode(params, cfg, prompts, dev, "policy_paged_attention")
+    profile = profile_decode(params, cfg, prompts, dev, KERNEL4_CUDA)
     del engine
     unfused = ServeEngine(cfg, params, max_len=prompt_len + new_tokens, kv_mode="paged",
                           fused=False, seed=SEED, device=dev)
@@ -1229,6 +1293,8 @@ def main() -> int:
     pa = phase_paged_attention(dev)
     phase_paged_attention(dev, SERVE_SHAPE)
     pa_g3 = phase_paged_attention(dev, GEMMA3_DECODE_SHAPE)
+    for shape in (DECODE_SHAPE, GEMMA3_DECODE_SHAPE):
+        phase_paged_attention(dev, shape, ragged=True, timed=False)
     pol = phase_policy_attn(dev)
     # at the serve shape: awrp as the serve phase runs it (3 evicting page
     # boundaries), every other page policy over two evicting boundaries

@@ -4,7 +4,7 @@ Each source under ``kernels/csrc`` is compiled by its own ``nvcc -c`` (all
 started together, ``-gencode arch=compute_90a,code=sm_90a -O3``, IEEE
 division and ``expf``: no ``--use_fast_math``), and one more ``nvcc`` links
 the objects into a shared library with a plain C interface, loaded with
-``ctypes``.  The three decode kernels share their attention code
+``ctypes``.  The three decode kernels share their page math
 (``paged_attn_common.cuh``) and these flags, which is what makes the fused
 kernels' output bit-identical to the unfused one's on the card.
 
@@ -37,9 +37,9 @@ _vp, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: ctypes signature of every C entry point: (argtypes, restype)
 SIGNATURES = {
     "repro_paged_attention": (
-        [_int] + [_vp] * 7 + [_int] * 6 + [_float, _vp], _int),
+        [_int] + [_vp] * 9 + [_int] * 6 + [_float, _vp], _int),
     "repro_policy_paged_attention": (
-        [_int] + [_vp] * 5 + [_int] + [_vp] * 13 + [_int] * 6
+        [_int] + [_vp] * 5 + [_int] + [_vp] * 15 + [_int] * 6
         + [_float, _int, _vp], _int),
     "repro_adaptive_policy_paged_attention": (
         [_int] + [_vp] * 5 + [_int] + [_vp] * 25 + [_int] * 7

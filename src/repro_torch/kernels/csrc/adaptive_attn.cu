@@ -4,14 +4,17 @@
 // referenced page, in one launch.
 //
 // Replaces repro/kernels/policy_attn.py adaptive_policy_paged_attention_kernel
-// (_adaptive_kernel; Pallas, TPU).  One CTA per sequence, as policy_attn.cu:
+// (_adaptive_kernel; Pallas, TPU).  One CTA per sequence of kThreads threads:
 //   1. the renormalization check, then (at a page boundary, pos % page == 0)
 //      the miss access of page id pos / page; the page the policy moved out
 //      of the cache (resident before, not after; the largest id) gives up
 //      its pool slot, else the first free slot is taken; the slot gets F = 1,
 //      R = N, page_start = pos;
-//   2. the page loop and epilogue of paged_attn_common.cuh, unchanged, so
-//      out and mass are bitwise those of the unfused kernel on the same pool;
+//   2. the page loop of paged_attn_common.cuh (page_partials, then
+//      page_fold, page by page) and its epilogue, so out and mass are
+//      bitwise those of the unfused kernel 3 (paged_attn.cu, which computes
+//      the same partials in parallel and folds them in page order) on the
+//      same pool;
 //   3. the reference rule (mass >= 1/residents: F += 1, R = N + 1, N ticks);
 //   4. P masked hit accesses in slot order, each after its own
 //      renormalization check (repro_torch/core/policy_core.py on_access runs
@@ -35,7 +38,8 @@
 // The other warps wait at one barrier after the miss and skip the hit pass.
 // What bounds it on an H100: bytes, as paged_attn_common.cuh says; the
 // policy part is a serial chain of warp reductions (about 20 per access),
-// small next to the page loop.  Build without --use_fast_math.
+// small next to the page loop, which still runs in one CTA per sequence.
+// Build without --use_fast_math.
 //
 // C entry point (loaded with ctypes by repro_torch/kernels/_build.py):
 //   repro_adaptive_policy_paged_attention(dtype, q, k, v, new_k, new_v, pos,
@@ -321,8 +325,8 @@ __global__ void __launch_bounds__(kThreads)
 adaptive_paged_attention_kernel(Args<T> a, int pos, Dims d, int L, float scale,
                                 int kind, int renorm_at) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Smem sm = carve(smem_raw, d, true, sizeof(T));
-  int* dir_base = reinterpret_cast<int*>(smem_raw + smem_bytes(d, true, sizeof(T)));
+  const Smem sm = carve(smem_raw, d, sizeof(T));
+  int* dir_base = reinterpret_cast<int*>(smem_raw + smem_bytes(d, sizeof(T)));
   const Dir dir{dir_base, dir_base + L, dir_base + 2 * L, dir_base + 3 * L,
                 dir_base + 4 * L, L, (L + 31) / 32, d.P};
   __shared__ int ev_shared;
@@ -397,8 +401,9 @@ adaptive_paged_attention_kernel(Args<T> a, int pos, Dims d, int L, float scale,
   const T* nv = a.new_v + b * row;
   for (int p = 0; p < P; ++p) {
     const size_t off = (boff + p) * page_elems;
-    attend_page<T>(sm, a.k + off, a.v + off, nk, nv, p == slot ? within : -1,
-                   sm.psa[p], pos, p, scale, d);
+    if (page_partials<T>(sm, a.k + off, a.v + off, nk, nv, p == slot ? within : -1,
+                         sm.psa[p], pos, p, scale, d))
+      page_fold(sm, p, d);
   }
   finalize<T>(sm, a.out + b * qsize, a.mass + boff, d);  // ends with a barrier
 
@@ -444,7 +449,7 @@ adaptive_paged_attention_kernel(Args<T> a, int pos, Dims d, int L, float scale,
 template <typename T>
 cudaError_t launch(const void* const* ptrs, int pos, int B, const Dims& d, int L,
                    float scale, int kind, int renorm_at, cudaStream_t stream) {
-  const size_t bytes = smem_bytes(d, true, sizeof(T)) + 5 * (size_t)L * sizeof(int);
+  const size_t bytes = smem_bytes(d, sizeof(T)) + 5 * (size_t)L * sizeof(int);
   if (bytes > kMaxSmem) return cudaErrorInvalidValue;
   auto kern = adaptive_paged_attention_kernel<T>;
   if (bytes > 48 * 1024) {

@@ -4,7 +4,10 @@ A CUDA tensor goes to the hand-written kernel; a CPU tensor goes to the
 plain PyTorch version (``kernels/ref.py``), and only because it lies on the
 CPU.  There is no fallback: a CUDA call that fails raises.  Each wrapper
 counts its kernel launches in ``LAUNCHES`` (plain ints, CUDA launches only),
-so a run can show that its main path went through the kernels.
+so a run can show that its main path went through the kernels.  Kernels 3
+and 4 (``paged_attention``, ``policy_paged_attention``) make
+``SPLIT_LAUNCHES`` launches per call, the pages' partials and then their
+fold, and count each.
 """
 
 from __future__ import annotations
@@ -20,6 +23,10 @@ LAUNCHES: Dict[str, int] = {"paged_attention": 0, "policy_paged_attention": 0,
                              "flash_attention": 0}
 
 
+#: CUDA launches per call of kernels 3 and 4: the pages' partials, their fold
+SPLIT_LAUNCHES = 2
+
+
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
@@ -33,7 +40,7 @@ def paged_attention(q, k_pages, v_pages, page_start, cur_pos):
     from repro_torch.kernels.paged_attn import paged_attention_kernel
 
     res = paged_attention_kernel(q, k_pages, v_pages, page_start, cur_pos)
-    LAUNCHES["paged_attention"] += 1
+    LAUNCHES["paged_attention"] += SPLIT_LAUNCHES
     return res
 
 
@@ -52,7 +59,7 @@ def policy_paged_attention(q, k_pages, v_pages, new_k, new_v, pos: int,
     res = policy_paged_attention_kernel(
         q, k_pages, v_pages, new_k, new_v, pos, f, r, page_start, clock,
         open_slot, policy=policy)
-    LAUNCHES["policy_paged_attention"] += 1
+    LAUNCHES["policy_paged_attention"] += SPLIT_LAUNCHES
     return res
 
 

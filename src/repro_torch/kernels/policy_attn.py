@@ -3,7 +3,8 @@
 * ``policy_paged_attention_kernel`` (``csrc/policy_attn.cu``) replaces
   ``repro/kernels/policy_attn.py`` ``policy_paged_attention_kernel``:
   allocation / victim selection, paged attention with the new K/V row
-  injected in-tile, and the F/R/clock score update, in one launch.
+  injected in-tile, and the F/R/clock score update, in one call (two
+  launches: the pages' partials, then their fold and the score update).
 * ``adaptive_policy_paged_attention_kernel`` (``csrc/adaptive_attn.cu``)
   replaces ``adaptive_policy_paged_attention_kernel``: the same step for the
   true-adaptive ARC/CAR pool, with the allocation miss and the per-page hit
@@ -20,7 +21,8 @@ import torch
 
 from repro_torch.core.kv_policy import POLICY_ID
 from repro_torch.kernels import _build
-from repro_torch.kernels.paged_attn import DTYPE_CODE, MAX_G, check_inputs
+from repro_torch.kernels.paged_attn import (DTYPE_CODE, MAX_G, check_head_rows,
+                                            check_inputs, split_buffers)
 from repro_torch.kernels.ref import attn_scale
 
 #: ``kind`` codes of the adaptive kernel
@@ -35,7 +37,8 @@ def policy_paged_attention_kernel(q, k_pages, v_pages, new_k, new_v, pos: int,
     new_k/new_v (B, KVH, hd) in the pool's dtype; ``pos`` the token index
     shared by the batch; f/r/page_start (B, P) and clock/open_slot (B,)
     int32.  Returns ``(out, mass, slot, f', r', page_start', clock',
-    open_slot')``.  One launch."""
+    open_slot')``.  One call: two launches (``paged_attn.split_ctas``),
+    every CTA of the first running the allocation itself."""
     B, P, page, KVH, hd = k_pages.shape
     G = q.shape[2]
     check_inputs("policy_paged_attention", (q, k_pages, v_pages, new_k, new_v),
@@ -49,12 +52,14 @@ def policy_paged_attention_kernel(q, k_pages, v_pages, new_k, new_v, pos: int,
                          f"q={tuple(q.shape)} k={tuple(k_pages.shape)}")
     if not 0 <= int(pos) < 2**31:
         raise ValueError(f"policy_paged_attention: pos {pos} out of int32 range")
+    check_head_rows("policy_paged_attention", hd, q)
     dev = q.device
     out = torch.empty_like(q)
     mass = torch.empty((B, P), dtype=torch.float32, device=dev)
     slot = torch.empty((B,), dtype=torch.int32, device=dev)
     f2, r2, ps2 = (torch.empty_like(f) for _ in range(3))
     clock2, open2 = torch.empty_like(clock), torch.empty_like(open_slot)
+    scratch, counters = split_buffers(B, P, KVH, G, hd, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _build.library().repro_policy_paged_attention(
         DTYPE_CODE[q.dtype], q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
@@ -62,6 +67,7 @@ def policy_paged_attention_kernel(q, k_pages, v_pages, new_k, new_v, pos: int,
         page_start.data_ptr(), clock.data_ptr(), open_slot.data_ptr(),
         out.data_ptr(), mass.data_ptr(), slot.data_ptr(), f2.data_ptr(),
         r2.data_ptr(), ps2.data_ptr(), clock2.data_ptr(), open2.data_ptr(),
+        scratch.data_ptr(), counters.data_ptr(),
         B, P, page, KVH, G, hd, attn_scale(hd), POLICY_ID[policy], stream)
     _build.check(err, "policy_paged_attention")
     return out, mass, slot, f2, r2, ps2, clock2, open2

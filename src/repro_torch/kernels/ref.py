@@ -60,8 +60,11 @@ class _Flash:
         self.pmax = torch.full((B, n_pages, KVH, G), NEG_INF, dtype=torch.float32,
                                device=dev)
 
-    def attend_page(self, q, k, v, start, cur, p_idx: int, scale: float):
-        """One page: q (B, KVH, G, hd) f32; k/v (B, page, KVH, hd) f32;
+    @staticmethod
+    def page_partials(q, k, v, start, cur, scale: float):
+        """What one page contributes, from the query and that page alone:
+        ``(m_loc, ssum, pv)``, its local max, its sum of exponentials and
+        its unscaled P.V.  q (B, KVH, G, hd) f32; k/v (B, page, KVH, hd) f32;
         start/cur (B,) int32.  Rows are valid where ``start >= 0`` and
         ``start + row <= cur``."""
         page = k.shape[1]
@@ -74,15 +77,29 @@ class _Flash:
         p_exp = torch.exp(s - m_loc[..., None])
         p_exp = torch.where(vmask, p_exp, 0.0)
         ssum = p_exp.sum(dim=-1)
+        pv = torch.einsum("bkgp,bpkh->bkgh", p_exp, v)
+        return m_loc, ssum, pv
+
+    def fold(self, p_idx: int, m_loc, ssum, pv):
+        """Fold page ``p_idx``'s partials into the running state; pages are
+        folded in page order, whatever order their partials were computed
+        in."""
         m_new = torch.maximum(self.m, m_loc)
         corr = torch.exp(self.m - m_new)
         sc = torch.exp(m_loc - m_new)
         self.l = self.l * corr + ssum * sc
-        pv = torch.einsum("bkgp,bpkh->bkgh", p_exp, v)
         self.acc = self.acc * corr[..., None] + pv * sc[..., None]
         self.m = m_new
         self.psum[:, p_idx] = ssum
         self.pmax[:, p_idx] = m_loc
+
+    def attend(self, q, tile, page_start, cur, scale: float):
+        """Every page in page order: its partials, then their fold (the CUDA
+        kernels 3 and 4 compute the partials in parallel and fold them in
+        page order).  ``tile(p)`` gives page p's f32 (k, v), each (B, page,
+        KVH, hd)."""
+        for p in range(self.psum.shape[1]):
+            self.fold(p, *self.page_partials(q, *tile(p), page_start[:, p], cur, scale))
 
     def finalize(self, out_dtype):
         """(out (B, KVH, G, hd) in ``out_dtype``, mass (B, P) f32)."""
@@ -102,12 +119,10 @@ def paged_attention_plain(q, k_pages, v_pages, page_start, cur_pos):
     int32 (-1 = free); cur_pos (B,) int32 -> (out in q's dtype, mass (B, P)
     f32)."""
     P, hd = k_pages.shape[1], q.shape[-1]
-    scale = attn_scale(hd)
     qf = q.to(torch.float32)
     st = _Flash(qf, P)
-    for p_idx in range(P):
-        st.attend_page(qf, _tile(k_pages, p_idx), _tile(v_pages, p_idx),
-                       page_start[:, p_idx], cur_pos, p_idx, scale)
+    st.attend(qf, lambda p: (_tile(k_pages, p), _tile(v_pages, p)), page_start,
+              cur_pos, attn_scale(hd))
     return st.finalize(q.dtype)
 
 
@@ -117,19 +132,20 @@ def _injected_attention(q, k_pages, v_pages, new_k, new_v, pos: int, slot,
     K/V row injected in-tile at (slot, pos % page) (the pool is only read):
     ``(out, mass)``."""
     B, P, page = k_pages.shape[:3]
-    scale = attn_scale(q.shape[-1])
     within = pos % page
     qf = q.to(torch.float32)
     nk = new_k.to(torch.float32)[:, None]  # (B, 1, KVH, hd)
     nv = new_v.to(torch.float32)[:, None]
     row = torch.arange(page, dtype=torch.int32, device=q.device)
     cur = torch.full((B,), pos, dtype=torch.int32, device=q.device)
-    st = _Flash(qf, P)
-    for p_idx in range(P):
+
+    def tile(p_idx):
         inject = ((slot[:, None] == p_idx) & (row[None] == within))[..., None, None]
-        k = torch.where(inject, nk, _tile(k_pages, p_idx))
-        v = torch.where(inject, nv, _tile(v_pages, p_idx))
-        st.attend_page(qf, k, v, page_start[:, p_idx], cur, p_idx, scale)
+        return (torch.where(inject, nk, _tile(k_pages, p_idx)),
+                torch.where(inject, nv, _tile(v_pages, p_idx)))
+
+    st = _Flash(qf, P)
+    st.attend(qf, tile, page_start, cur, attn_scale(q.shape[-1]))
     return st.finalize(q.dtype)
 
 

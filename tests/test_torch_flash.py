@@ -7,8 +7,9 @@ non-causal} x {f32 within 2e-5, bf16 within 3e-2 (the reference's bf16
 tolerance: the two sides round bf16 inputs and outputs at other places)},
 plus a ragged S, the ``kv_len`` mask and fully masked rows; and against the
 reference model's chunked layer ``layers.flash_attention``, with a window.
-The decode kernels' shared-memory carve, mirrored here in
-Python, fits a block at both served configs' decode shapes.
+The decode kernels' shared-memory carves (kernel 5's one CTA per
+sequence, kernels 3 and 4's one CTA per page, kv head and sequence),
+mirrored here in Python, fit a block at both served configs' decode shapes.
 
 The ``cuda``-marked test holds the CUDA kernel against the plain version on
 a card and skips without one.
@@ -27,6 +28,7 @@ from repro.kernels.flash_attn import flash_attention_kernel as jflash  # noqa: E
 from repro.models import layers as JL  # noqa: E402
 from repro_torch.configs import gemma3_27b, smollm_360m  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels.paged_attn import split_ctas, split_scratch_floats  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
 
 torch.set_num_threads(2)
@@ -168,24 +170,34 @@ def test_cpu_flash_attention_takes_plain_version_and_cuda_wrapper_refuses_cpu():
 
 MAX_SMEM = 232448  # kMaxSmem: 227 KB, a block's shared-memory limit on Hopper
 STATIC_SMEM = 1024  # kStaticSmem: kept free for the kernels' static arrays
+FOLD_TILE = 64  # kFoldTile
+L2_BYTES = 50 * 2**20  # the H100's L2
 
 
-def decode_smem(P, page, KVH, G, hd, esize, *, planes, lanes=0):
-    """``(chunk, bytes)`` of the decode kernels' dynamic shared memory as
+def decode_smem(P, page, KVH, G, hd, esize, *, lanes):
+    """``(chunk, bytes)`` of kernel 5's dynamic shared memory as
     ``kernels/csrc/paged_attn_common.cuh`` computes them (``chunk_rows``,
-    ``smem_bytes``), plus ``lanes`` * 5 ints of the adaptive kernel's
+    ``smem_bytes`` with the planes), plus ``lanes`` * 5 ints of its
     directory; ``chunk`` is 0 when not even one row fits."""
     R = KVH * G
     row_words = (KVH * hd * esize // 4) | 1
-
-    def fixed(with_planes):
-        n = 3 * R * hd + 4 * R + R * page + 2 * P * R + P
-        return 4 * (n + (3 * P if with_planes else 0))
-
-    reserve = fixed(True) + 5 * 2 * P * 4 + STATIC_SMEM
+    fixed = 4 * (3 * R * hd + 4 * R + R * page + 2 * P * R + P + 3 * P)
+    reserve = fixed + 5 * 2 * P * 4 + STATIC_SMEM
     fit = max(MAX_SMEM - reserve, 0) // (2 * row_words * 4)
     chunk = page if fit >= page else (fit // 16 * 16 if fit >= 16 else fit)
-    return chunk, fixed(planes) + 2 * chunk * row_words * 4 + 5 * lanes * 4
+    return chunk, fixed + 2 * chunk * row_words * 4 + 5 * lanes * 4
+
+
+def split_smem(page, KVH, G, hd, esize):
+    """``(partials, fold)`` dynamic shared memory of kernels 3 and 4's two
+    launches (``split_smem_bytes``, ``fold_smem_bytes``): a partials CTA
+    holds its kv head's K and V rows of a page, the query group and a page of
+    scores (rows padded to 4 floats); a fold CTA two buffers of FOLD_TILE
+    pages' 64-dim P.V slices, the tile's statistics and flags and the
+    sequence's (m, l)."""
+    partials = 2 * page * hd * esize + 4 * G * (hd + (page + 3) // 4 * 4)
+    fold = 4 * (2 * FOLD_TILE * 64 + 5 * FOLD_TILE + 2 * KVH * G)
+    return partials, fold
 
 
 def _decode_shapes():
@@ -200,23 +212,45 @@ def _decode_shapes():
 @pytest.mark.parametrize("esize", [2, 4])
 @pytest.mark.parametrize("shape", list(_decode_shapes()), ids=lambda s: f"{s[0]}-P{s[1]}")
 def test_decode_kernels_shared_memory_fits_a_block(shape, esize):
-    """Kernels 3, 4 and 5 stage a page in chunks of rows sized to the 227 KB
-    block limit (``paged_attn_common.cuh`` ``chunk_rows``): every served
-    decode shape launches, in bf16 and f32."""
+    """Kernel 5 stages a page in chunks of rows sized to the 227 KB block
+    limit (``paged_attn_common.cuh`` ``chunk_rows``): every served decode
+    shape launches, in bf16 and f32."""
     _, P, page, KVH, G, hd = shape
-    chunks = set()
-    for planes, lanes in ((False, 0), (True, 0), (True, 2 * P)):
-        chunk, nbytes = decode_smem(P, page, KVH, G, hd, esize, planes=planes,
-                                    lanes=lanes)
-        assert 1 <= chunk <= page
-        assert nbytes + STATIC_SMEM <= MAX_SMEM, (shape, esize, planes, nbytes)
-        chunks.add(chunk)
-    assert len(chunks) == 1  # the three kernels stage a page alike
-    row_bytes = KVH * hd * esize
+    chunk, nbytes = decode_smem(P, page, KVH, G, hd, esize, lanes=2 * P)
+    assert 1 <= chunk <= page
+    assert nbytes + STATIC_SMEM <= MAX_SMEM, (shape, esize, nbytes)
     if (P, page, KVH, G, hd, esize) == (16, 64, 16, 2, 128, 2):
-        assert chunks == {16}  # gemma3's served pool: pages take 4 chunks
-    if row_bytes <= 640:
-        assert chunks == {page}  # smollm: whole pages, K and V staged together
+        assert chunk == 16  # gemma3's served pool: pages take 4 chunks
+    if KVH * hd * esize <= 640:
+        assert chunk == page  # smollm: whole pages, K and V staged together
+
+
+@pytest.mark.parametrize("esize", [2, 4])
+@pytest.mark.parametrize("shape", list(_decode_shapes()), ids=lambda s: f"{s[0]}-P{s[1]}")
+def test_split_decode_kernels_fit_and_their_scratch_stays_in_l2(shape, esize):
+    """Kernels 3 and 4 (one CTA per page, kv head and sequence) take every
+    served decode shape whole, in bf16 and f32: a kv head's slice of a row is
+    whole 16-byte chunks, a partials CTA's shared memory leaves room for
+    several per SM, a fold CTA's fits the default 48 KB, and the partials'
+    scratch for a batch of 4 (``paged_attn.split_scratch_floats``)
+    fits the 50 MB L2 and is at most a tenth of a full pool's K/V bytes."""
+    _, P, page, KVH, G, hd = shape
+    B = 4
+    assert hd * esize % 16 == 0 and 1 <= G <= 8
+    partials, fold = split_smem(page, KVH, G, hd, esize)
+    assert fold + STATIC_SMEM <= 48 * 1024  # the fold launch needs no opt-in
+    # several partials CTAs per SM: 8 at smollm's shapes in bf16, 3 at
+    # gemma3's in f32
+    per_sm = 228 * 1024 // (partials + STATIC_SMEM)
+    assert per_sm >= (8 if KVH * hd * esize <= 640 else 3), (shape, esize, partials)
+    R = KVH * G
+    scratch = 4 * (B * P * R * hd + 2 * B * P * R + 2 * B * R)
+    assert 4 * split_scratch_floats(B, P, KVH, G, hd) == scratch
+    assert scratch < L2_BYTES
+    # pv is G*hd*4 bytes per page and kv head against 2*page*hd*esize of
+    # K/V: the partials add at most a tenth to a full pool's bytes (through L2)
+    assert scratch <= 0.1 * B * P * page * KVH * hd * 2 * esize
+    assert split_ctas(B, P, KVH, G, hd) == B * KVH * (P + G * -(-hd // 64)) > B
 
 
 # -- on the card -------------------------------------------------------------
