@@ -31,8 +31,10 @@ line, any failure raising (non-zero exit, no result line):
    version (bf16 within one bf16 ulp, f32 within F32_OUT_RTOL) at gemma3's
    prefill shape (4, 2048, 16, 2, 128) with window 1024 and 0, smollm's
    (4, 1024, 5, 3, 64), a ragged S=1000 with window 48, non-causal, a
-   ``kv_len`` mask and f32; kernel, plain and SDPA times (same mask) beside
-   the bound over the unmasked (query head, key) pairs.
+   ``kv_len`` mask, f32 and hd=256, each repeated bit for bit over 6
+   launches; kernel, plain and SDPA times (same mask) beside the bound over
+   the unmasked (query head, key) pairs; the HMMA instructions of each bf16
+   instantiation in the built library (``cuobjdump -sass``).
 4. ``serve``: ``ServeEngine`` on smollm-360m at published widths, bf16,
    paged KV with AWRP through the fused kernel (kernel 4: two launches per
    layer per decode step, ``ops.SPLIT_LAUNCHES``), 4 requests of 1024 seeded
@@ -46,13 +48,14 @@ line, any failure raising (non-zero exit, no result line):
    adaptive_insert_token + paged_attention kernel + adaptive_score_update,
    and within phase 2's tolerances of its plain version with every plane
    equal except at near-tau steps (counted); timed at the serve shape and
-   at gemma3's decode shape (arc).
+   at gemma3's decode shape (arc), at a page boundary and mid-page, both
+   repeated bit for bit over 6 launches, as at P=256.
 4b. ``serve_adaptive``: the serve phase's model and pool with
    ``kv_policy`` arc_adaptive and car_adaptive: 4 x 1024-token prompts and 192
    greedy tokens, then single requests A and B (distinct 1024-token prompts),
    B's follow-up turn (its re-prefill ghost-hits the pages B's decode
-   evicted and moves p) and A again (a prefix hit); kernel 5 launched once
-   per layer per decode step.
+   evicted and moves p) and A again (a prefix hit); kernel 5 called once
+   per layer per decode step (two launches, ``ops.SPLIT_LAUNCHES``).
 4c. ``serve_gemma3``: gemma3-27b at published widths and all 62 layers (10
    x (5 local + 1 global) + 2 local, window 1024), bf16, random weights from
    SEED drawn on the card, a 16-page pool (the one cut): 4 prompts of 2048
@@ -428,6 +431,7 @@ FLASH_CASES = [
     ("non_causal", (2, 512, 5, 3, 64), False, 0, None, torch.bfloat16),
     ("kv_len_mask", (2, 256, 2, 4, 64), False, 0, 150, torch.bfloat16),
     ("f32_window100", (1, 300, 2, 4, 64), True, 100, None, torch.float32),
+    ("hd256", (1, 384, 2, 4, 256), True, 0, None, torch.bfloat16),
 ]
 
 
@@ -466,18 +470,43 @@ def sdpa_flash_ms(q, k, v, causal: bool, window: int, kv_len: int) -> float:
         qq, kk, vv, attn_mask=mask, enable_gqa=True))
 
 
+def sass_hmma(lib: Path, name: str) -> dict:
+    """HMMA (tensor-core) instructions in each function of the built library
+    whose mangled name contains ``name``, counted in ``cuobjdump -sass``."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    counts: dict = {}
+    cur = None
+    for line in text.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            cur = fn if name in fn else None
+            if cur is not None:
+                counts[cur] = 0
+        elif cur is not None and "HMMA" in line:
+            counts[cur] += 1
+    return counts
+
+
 def phase_flash_attn(dev) -> dict:
     """Kernel 6 against its plain version on FLASH_CASES: bf16 within one
-    bf16 ulp, f32 within F32_OUT_RTOL/ATOL; each case timed (kernel, plain,
-    SDPA over the same mask) beside its bound: q read and out written once,
-    the K/V rows below kv_len read once, at the HBM rate, against 4*hd flops
-    per unmasked (query head, key) pair at the type's peak (bf16 tensor
-    cores; f32 outside them)."""
-    from repro_torch.kernels.flash_attn import flash_attention_kernel
+    bf16 ulp, f32 within F32_OUT_RTOL/ATOL, each repeated bit for bit over 6
+    launches; each case timed (kernel, plain, SDPA over the same mask) beside
+    its bound: q read and out written once, the K/V rows below kv_len read
+    once, at the HBM rate, against 4*hd flops per unmasked (query head, key)
+    pair at the type's peak (bf16 tensor cores; f32 outside them).  The bf16
+    path's tensor-core use is read from the built library: every bf16
+    instantiation (hd 64, 128, 256) must hold HMMA instructions."""
+    from repro_torch.kernels.flash_attn import HEAD_DIMS, flash_attention_kernel
 
     t0 = time.perf_counter()
+    hmma = sass_hmma(_build.build().path, "flash_attention_bf16_kernel")
+    assert len(hmma) == len(HEAD_DIMS) and min(hmma.values()) > 0, hmma
     gen = torch.Generator().manual_seed(SEED + 13)
-    res = {"phase": "flash_attn", "cases": []}
+    res = {"phase": "flash_attn", "hmma_per_bf16_function": hmma, "cases": []}
     for label, (B, S, KVH, G, hd), causal, window, kv_len, dtype in FLASH_CASES:
         q = torch.randn(B, S, KVH, G, hd, generator=gen).to(dtype).to(dev)
         k = (torch.randn(B, S, KVH, hd, generator=gen) * 0.5).to(dtype).to(dev)
@@ -504,6 +533,8 @@ def phase_flash_attn(dev) -> dict:
             "window": window, "kv_len": kl, "dtype": str(dtype).split(".")[-1],
             "max_abs_err": err, "err_over_tol": over, "tol": [rtol, atol],
             "mean_abs_out": plain.float().abs().mean().item(),
+            "repeat_launches_equal": assert_repeatable(
+                lambda: (flash_attention_kernel(q, k, v, **kw),)),
             "pairs_per_head": pairs, "flops": flops, "ms": ms,
             "achieved_tflops": flops / ms / 1e9,
             "plain_ms": time_ms(lambda: ref.flash_attention_plain(q, k, v, **kw),
@@ -600,6 +631,8 @@ def phase_serve(dev, params, init_s, base_cfg=CONFIG, n_req=4, prompt_len=1024,
 
 #: the CUDA kernels of one kernel-4 call (csrc/policy_attn.cu): partials, fold
 KERNEL4_CUDA = ("policy_partials_kernel", "policy_fold_kernel")
+#: the CUDA kernels of one kernel-5 call (csrc/adaptive_attn.cu)
+KERNEL5_CUDA = ("adaptive_partials_kernel", "adaptive_fold_kernel")
 
 
 def profile_decode(params, cfg, prompts, dev, kernel: tuple, steps: int = 8) -> dict:
@@ -702,7 +735,7 @@ def adaptive_start(gen, kind: str, shape, dev, *, ghost: bool):
 
 def phase_adaptive_attn(dev, kind: str, shape=SERVE_SHAPE, steps: int | None = None,
                         *, ghost: bool = False, renorm_at: int | None = None,
-                        timed: bool = False) -> dict:
+                        timed: bool = False, repeat: bool = False) -> dict:
     """Kernel 5, the fused ARC/CAR step, over ``steps`` (default page + 1:
     two evicting page boundaries) decode steps from a full pool: (a) bitwise
     equal to the unfused chain adaptive_insert_token + paged_attention kernel
@@ -711,7 +744,10 @@ def phase_adaptive_attn(dev, kind: str, shape=SERVE_SHAPE, steps: int | None = N
     except at steps where a page's plain mass lies within EPS_TAU of tau
     (counted).  ``renorm_at`` forces the stamp renormalization: the stamp
     counter starts one below it, so the first access's grant makes the next
-    check fire."""
+    check fire.  With ``repeat`` (implied by ``timed``), the next page
+    boundary step and the next mid-page step from the final pool are each
+    launched 6 times for equal bits; with ``timed`` both are timed like
+    kernels 3 and 4 (the boundary step's times are the phase's)."""
     B, P, page, KVH, G, hd = shape
     gen = torch.Generator().manual_seed(SEED + 7)
     core = paged_kv.adaptive_core(kind, B, P)
@@ -763,7 +799,7 @@ def phase_adaptive_attn(dev, kind: str, shape=SERVE_SHAPE, steps: int | None = N
         renorms += int((ap.policy.ctr < ctr_before).any())
         hits += int((ap.pool.r == ap.pool.clock[:, None]).sum())
     launches = dict(ops.LAUNCHES)
-    assert launches["adaptive_policy_paged_attention"] == steps, launches
+    assert launches["adaptive_policy_paged_attention"] == ops.SPLIT_LAUNCHES * steps, launches
     assert launches["paged_attention"] == ops.SPLIT_LAUNCHES * steps, launches
     assert out_x <= 1.0 and mass_x <= 1.0, (err_out, out_x, err_mass, mass_x)
     assert hits > 0, "no page was referenced"
@@ -781,26 +817,43 @@ def phase_adaptive_attn(dev, kind: str, shape=SERVE_SHAPE, steps: int | None = N
            "mass_err_over_tol": mass_x, "tol_out": [OUT_RTOL, OUT_ATOL],
            "tol_mass": [MASS_RTOL, MASS_ATOL], "eps_tau": EPS_TAU,
            "near_tau_steps": near_tau}
-    if timed:
-        # the next step from the final pool at a page boundary (it evicts)
+    if timed or repeat:
+        # from the final pool: the next page boundary (it evicts; every
+        # partials CTA runs the miss) and the next mid-page step (the hit
+        # pass alone)
         q = torch.randn(B, KVH, G, hd, generator=gen).to(torch.bfloat16).to(dev)
         nk = torch.randn(B, KVH, hd, generator=gen).to(torch.bfloat16).to(dev)
         kp, vp = ap.pool.k.view(B, P, page, KVH, hd), ap.pool.v.view(B, P, page, KVH, hd)
-        pos = pos0 + 2 * page
-        args = (q, kp, vp, nk, nk, pos, *ap.pool[2:], *(x[:, 0] for x in ap.policy))
         kw = {"kind": core.kind, "renorm_at": core.renorm_at}
-        cur = torch.full((B,), pos, dtype=torch.int32, device=dev)
-        after = adaptive_policy_paged_attention_kernel(*args, **kw)[5]
         L = ap.policy.blocks.shape[-1]
-        # the directory (4 planes of L int32, p, ctr) read once and written once
-        bnd, by = bound(q, kp, valid_rows(after, cur, page),
-                        extra_bytes=2 * B * (4 * L * 4 + 8))
-        res.update({
-            "ms": time_ms(lambda: adaptive_policy_paged_attention_kernel(*args, **kw)),
-            "plain_ms": time_ms(lambda: ref.adaptive_policy_paged_attention_plain(
-                *args, **kw), reps=5, warmup=1),
-            "bound_ms": bnd, "bound_by": by,
-            "library_ms": sdpa_ms(q, kp, vp, after, cur)})
+        pos_mid = pos0 + steps + (0 if (pos0 + steps) % page else 1)
+        for label, pos in (("boundary", pos0 + -(-steps // page) * page),
+                           ("mid_page", pos_mid)):
+            args = (q, kp, vp, nk, nk, pos, *ap.pool[2:], *(x[:, 0] for x in ap.policy))
+
+            def call(args=args):
+                return adaptive_policy_paged_attention_kernel(*args, **kw)
+
+            entry = {"pos": pos, "repeat_launches_equal": assert_repeatable(call)}
+            if timed:
+                cur = torch.full((B,), pos, dtype=torch.int32, device=dev)
+                after = call()[5]
+                rows = valid_rows(after, cur, page)
+                # the directory (4 planes of L int32, p, ctr) read once and
+                # written once
+                bnd, by = bound(q, kp, rows, extra_bytes=2 * B * (4 * L * 4 + 8))
+                ms = time_ms(call)
+                entry.update({
+                    "ms": ms,
+                    "plain_ms": time_ms(lambda args=args: ref.adaptive_policy_paged_attention_plain(
+                        *args, **kw), reps=5, warmup=1),
+                    "bound_ms": bnd, "bound_by": by,
+                    "library_ms": sdpa_ms(q, kp, vp, after, cur),
+                    **split_fields(q, kp, rows, ms, bnd)})
+            res[label] = entry
+        if timed:
+            res.update({k: res["boundary"][k] for k in
+                        ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
     emit(res)
     return res
 
@@ -813,7 +866,8 @@ def phase_serve_adaptive(dev, params, kv_policy: str, *, profile: bool, n_req=4,
     A and a distinct B of 1024 tokens each, B's follow-up turn (B and the
     tokens B generated: its re-prefill re-references the page positions B's
     decode evicted, so they ghost-hit), and A again (a prefix hit).  Kernel 5
-    launches once per layer per decode step.  ``p`` is recorded after each
+    is called once per layer per decode step (``ops.SPLIT_LAUNCHES``
+    launches).  ``p`` is recorded after each
     single request, not gated: it moves only on a B1 ghost hit (a page
     evicted before any reference), and random weights spread attention so
     evenly that every resident page is referenced (page mass near
@@ -846,7 +900,7 @@ def phase_serve_adaptive(dev, params, kv_policy: str, *, profile: bool, n_req=4,
     res_a2, info_a2 = single(13, a)
     launches = dict(ops.LAUNCHES)
     stats = dict(engine.stats)
-    expect = cfg.n_layers * stats["decode_steps"]
+    expect = ops.SPLIT_LAUNCHES * cfg.n_layers * stats["decode_steps"]
     assert stats["decode_steps"] == 5 * (new_tokens - 1), stats
     assert launches["adaptive_policy_paged_attention"] == expect, (launches, expect)
     assert launches["policy_paged_attention"] == 0 and launches["paged_attention"] == 0
@@ -875,8 +929,7 @@ def phase_serve_adaptive(dev, params, kv_policy: str, *, profile: bool, n_req=4,
            "kv_ghost_hits": stats["kv_ghost_hits"],
            "repeat_tokens_equal": res_a.tokens == res_a2.tokens}
     if profile:
-        res["decode_step_profile"] = profile_decode(
-            params, cfg, prompts, dev, ("adaptive_paged_attention",))
+        res["decode_step_profile"] = profile_decode(params, cfg, prompts, dev, KERNEL5_CUDA)
     emit(res)
     return res
 
@@ -899,8 +952,8 @@ def phase_serve_gemma3(dev, n_req=4, prompt_len=2048, new_tokens=128, pages=16,
     of ``single_len`` tokens (the pool's size, all resident) and its
     follow-up turn (the prompt and its tokens), whose re-prefill ghost-hits
     the pages the first turn's decode evicted.  Kernel 6 launches once per
-    layer per prefill, kernel 4 (kernel 5) once per global layer per AWRP
-    (adaptive) decode step."""
+    layer per prefill, kernel 4 (kernel 5) is called once per global layer
+    per AWRP (adaptive) decode step, ``ops.SPLIT_LAUNCHES`` launches each."""
     from repro_torch.models import model as M
     from repro_torch.serve.engine import Request, ServeEngine
 
@@ -966,7 +1019,8 @@ def phase_serve_gemma3(dev, n_req=4, prompt_len=2048, new_tokens=128, pages=16,
     ghost_hits = aeng.stats["kv_ghost_hits"] - gh0
     alaunch = dict(ops.LAUNCHES)
     assert alaunch["flash_attention"] == 2 * cfg.n_layers, alaunch
-    assert alaunch["adaptive_policy_paged_attention"] == 2 * n_global * steps, alaunch
+    assert alaunch["adaptive_policy_paged_attention"] == \
+        ops.SPLIT_LAUNCHES * 2 * n_global * steps, alaunch
     assert alaunch["policy_paged_attention"] == 0, alaunch
     assert not rb.prefill_cached and ghost_hits > 0, (ghost_hits, aeng.stats)
     assert aeng.stats["nonfinite_logits"] == 0, aeng.stats
@@ -1314,7 +1368,8 @@ def main() -> int:
     ada = [phase_adaptive_attn(dev, kind, timed=kind == "arc") for kind in ("arc", "car")]
     ada += [phase_adaptive_attn(dev, kind, renorm_at=64) for kind in ("arc", "car")]
     ada += [phase_adaptive_attn(dev, kind, ghost=True) for kind in ("arc", "car")]
-    ada += [phase_adaptive_attn(dev, kind, DECODE_SHAPE, steps=2) for kind in ("arc", "car")]
+    ada += [phase_adaptive_attn(dev, kind, DECODE_SHAPE, steps=2, repeat=True)
+            for kind in ("arc", "car")]
     ada_g3 = phase_adaptive_attn(dev, "arc", GEMMA3_DECODE_SHAPE, timed=True)
     ada.append(ada_g3)
     srv_ada = [phase_serve_adaptive(dev, params, p, profile=p == "arc_adaptive")

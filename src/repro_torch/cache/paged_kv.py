@@ -180,7 +180,8 @@ def score_update(pool: PagedPool, attn_mass, page_size: int) -> PagedPool:
 def fused_decode_step(pool: PagedPool, q, new_k, new_v, pos: int,
                       page_size: int, policy: str = "awrp"
                       ) -> Tuple[torch.Tensor, torch.Tensor, PagedPool]:
-    """One flat-policy decode step as a single kernel launch: equivalent to
+    """One flat-policy decode step as one kernel call (kernel 4: two
+    launches, ``ops.SPLIT_LAUNCHES``): equivalent to
     ``insert_token`` + ``ops.paged_attention`` + ``score_update``, with the
     policy arithmetic inside the attention kernel.  q (B, KVH, G, hd);
     new_k/new_v (B, kvd).  Returns ``(out (B, KVH, G, hd), page_mass (B, P),
@@ -485,8 +486,9 @@ def adaptive_score_update(apool: AdaptivePagedPool, attn_mass, page_size: int,
 
 def fused_adaptive_decode_step(apool: AdaptivePagedPool, q, new_k, new_v, pos: int,
                                page_size: int, core: AdaptiveCore):
-    """One true-adaptive decode step as a single kernel launch: equivalent
-    to ``adaptive_insert_token`` + ``ops.paged_attention`` +
+    """One true-adaptive decode step as one kernel call (kernel 5: two
+    launches, ``ops.SPLIT_LAUNCHES``): equivalent to
+    ``adaptive_insert_token`` + ``ops.paged_attention`` +
     ``adaptive_score_update``, with the P+1 policy accesses inside the
     attention kernel.  Returns ``(out, page_mass, new_apool)``; the pool's
     K/V are updated in place."""

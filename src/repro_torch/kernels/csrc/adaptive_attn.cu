@@ -1,24 +1,38 @@
 // Fused true-adaptive (ARC / CAR) decode step: the page allocation as one
 // ARC/CAR complete-miss access, paged attention with the new token injected
 // in-tile, the F/R/clock score update and one ARC/CAR hit access per
-// referenced page, in one launch.
+// referenced page.
 //
 // Replaces repro/kernels/policy_attn.py adaptive_policy_paged_attention_kernel
-// (_adaptive_kernel; Pallas, TPU).  One CTA per sequence of kThreads threads:
-//   1. the renormalization check, then (at a page boundary, pos % page == 0)
+// (_adaptive_kernel; Pallas, TPU).  Two launches, the schedule of kernels 3
+// and 4 (paged_attn_common.cuh):
+//   1. adaptive_partials_kernel, one CTA of kSplitThreads per (page, kv
+//      head, sequence): the CTA issues its page's loads, then, at a page
+//      boundary (pos % page == 0), copies its sequence's directory into its
+//      own shared memory and runs, on warp 0, the renormalization check and
 //      the miss access of page id pos / page; the page the policy moved out
-//      of the cache (resident before, not after; the largest id) gives up
-//      its pool slot, else the first free slot is taken; the slot gets F = 1,
-//      R = N, page_start = pos;
-//   2. the page loop of paged_attn_common.cuh (page_partials, then
-//      page_fold, page by page) and its epilogue, so out and mass are
-//      bitwise those of the unfused kernel 3 (paged_attn.cu, which computes
-//      the same partials in parallel and folds them in page order) on the
-//      same pool;
-//   3. the reference rule (mass >= 1/residents: F += 1, R = N + 1, N ticks);
-//   4. P masked hit accesses in slot order, each after its own
+//      of the cache (resident before, not after; the largest id) gives up its
+//      pool slot, else the first free slot is taken; the slot gets F = 1,
+//      R = N, page_start = pos.  The chain is deterministic, so every CTA
+//      reaches the same slot; the CTA of page 0 and kv head 0 writes the slot
+//      and the post-miss directory, p and ctr to the output planes.  Then the
+//      page's partials (split_compute), the new row read from new_k / new_v
+//      at (slot, pos % page).  Between page boundaries no CTA touches the
+//      directory and the launch carves no shared memory for it, so the
+//      common step has kernel 4's occupancy;
+//   2. adaptive_fold_kernel, one CTA per (query, 64-dim slice, kv head,
+//      sequence): the fold in page order (fold_slice) and that slice of the
+//      output; the last CTA of a sequence writes the mass, runs the
+//      reference rule (mass >= 1/residents: F += 1, R = N + 1), ticks the
+//      clock (score_update_last, as kernel 4), then one warp takes the
+//      directory (the post-miss one launch 1 wrote at a page boundary, else
+//      the input, whose opening renormalization check it runs first) and
+//      runs P masked hit accesses in slot order, each after its own
 //      renormalization check (repro_torch/core/policy_core.py on_access runs
-//      _renorm_stamps before its active mask).
+//      _renorm_stamps before its active mask), and writes the directory.
+// Out and mass come from the same split_compute / fold_slice as kernel 3, so
+// kernel 5 equals its unfused chain (adaptive_insert_token + kernel 3 +
+// adaptive_score_update) bit for bit on every output and plane.
 // The ARC/CAR step is repro_torch/core/policy_core.py _arc_step / _car_step
 // at rows = 1, operation for operation: list sizes, list heads as the lanes
 // holding the smallest stamp of a list, the first free lane for an insert,
@@ -35,22 +49,24 @@
 // __ballot_sync / __popc sum, a head a __reduce_min_sync of the stamp, and
 // each thread reads and writes only its own lanes, so the warp needs no
 // barrier except around a renormalization (every lane reads every stamp).
-// The other warps wait at one barrier after the miss and skip the hit pass.
-// What bounds it on an H100: bytes, as paged_attn_common.cuh says; the
-// policy part is a serial chain of warp reductions (about 20 per access),
-// small next to the page loop, which still runs in one CTA per sequence.
-// Build without --use_fast_math.
+// In the fold's last CTA the directory and the hit flags reuse the P.V
+// buffers, free once the fold is done.  What bounds it on an H100: bytes,
+// as paged_attn_common.cuh says; the policy part is a serial chain of warp
+// reductions (about 20 per access): at a page boundary one miss in every
+// partials CTA, after its loads went out, and P masked hit accesses in one
+// warp per sequence after the fold.  Build without --use_fast_math.
 //
 // C entry point (loaded with ctypes by repro_torch/kernels/_build.py):
 //   repro_adaptive_policy_paged_attention(dtype, q, k, v, new_k, new_v, pos,
 //       f, r, page_start, clock, open_slot, blocks, tag, stamp, ref, p, ctr,
 //       out, mass, slot, f_out, r_out, ps_out, clock_out, open_out,
-//       blocks_out, tag_out, stamp_out, ref_out, p_out, ctr_out,
-//       B, P, page, KVH, G, hd, L, scale, kind, renorm_at, stream)
+//       blocks_out, tag_out, stamp_out, ref_out, p_out, ctr_out, scratch,
+//       counters, B, P, page, KVH, G, hd, L, scale, kind, renorm_at, stream)
 // dtype 0 = float32, 1 = bfloat16 for q / k / v / new_k / new_v / out; the
 // pool planes (B, P) and clock / open_slot (B,) int32; the directory planes
 // (B, L) int32 with 2P <= L <= 1024; p (B,) float32, ctr (B,) int32;
-// kind 0 = arc, 1 = car; the policy's capacity is P.  All contiguous.
+// kind 0 = arc, 1 = car; the policy's capacity is P; scratch and counters
+// as in paged_attn.cu.  All contiguous.
 #include "paged_attn_common.cuh"
 #include "policy_common.cuh"
 
@@ -307,175 +323,228 @@ __device__ __forceinline__ void dir_access(const Dir& d, int kind, int x, float&
     car_access(d, x, p, ctr);
 }
 
-template <typename T>
-struct Args {
-  const T* q; const T* k; const T* v; const T* new_k; const T* new_v;
-  const int* f; const int* r; const int* page_start; const int* clock;
-  const int* open_slot;
-  const int* blocks; const int* tag; const int* stamp; const int* ref;
-  const float* p; const int* ctr;
-  T* out; float* mass; int* slot; int* f_out; int* r_out; int* ps_out;
-  int* clock_out; int* open_out;
-  int* blocks_out; int* tag_out; int* stamp_out; int* ref_out; float* p_out;
-  int* ctr_out;
-};
+// The directory carved at ``base``: 5 planes of L ints.
+__device__ __forceinline__ Dir dir_at(int* base, int L, int cap) {
+  return Dir{base, base + L, base + 2 * L, base + 3 * L, base + 4 * L, L, (L + 31) / 32, cap};
+}
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-adaptive_paged_attention_kernel(Args<T> a, int pos, Dims d, int L, float scale,
-                                int kind, int renorm_at) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Smem sm = carve(smem_raw, d, sizeof(T));
-  int* dir_base = reinterpret_cast<int*>(smem_raw + smem_bytes(d, sizeof(T)));
-  const Dir dir{dir_base, dir_base + L, dir_base + 2 * L, dir_base + 3 * L,
-                dir_base + 4 * L, L, (L + 31) / 32, d.P};
-  __shared__ int ev_shared;
-  const int b = blockIdx.x, P = d.P;
-  const size_t qsize = (size_t)d.KVH * d.G * d.hd;
-  const size_t row = (size_t)d.KVH * d.hd;
-  const size_t page_elems = (size_t)d.page * row;
-  const size_t boff = (size_t)b * P, loff = (size_t)b * L;
-  const int clock_b = a.clock[b], open_b = a.open_slot[b];
-  const int within = pos % d.page;
-  const bool need_alloc = within == 0;
-  const bool policy_warp = threadIdx.x < 32;
-
-  for (int p = threadIdx.x; p < P; p += blockDim.x) {
-    sm.fa[p] = a.f[boff + p];
-    sm.ra[p] = a.r[boff + p];
-    sm.psa[p] = a.page_start[boff + p];
-  }
-  for (int l = threadIdx.x; l < L; l += blockDim.x) {
-    dir.blocks[l] = a.blocks[loff + l];
-    dir.tag[l] = a.tag[loff + l];
-    dir.stamp[l] = a.stamp[loff + l];
-    dir.ref[l] = a.ref[loff + l];
-  }
-  init_state<T>(sm, a.q + b * qsize, d);  // ends with a barrier
-
-  float p_b = a.p[b];
-  int ctr_b = a.ctr[b];
-  if (policy_warp) {
-    renorm_stamps(dir, renorm_at, ctr_b);
-    int ev = -1;
-    if (need_alloc) {
-      for (int j = 0; j < dir.nj; ++j) {  // resident page ids before the miss
-        const int l = (j << 5) + lane_id();
-        if (l < L) {
-          const int t = dir.tag[l];
-          dir.tmp[l] = (t == kT1 || t == kT2) ? dir.blocks[l] : kIntMin;
-        }
-      }
-      dir_access(dir, kind, pos / d.page, p_b, ctr_b);
-      int m = -1;
-      for (int j = 0; j < dir.nj; ++j) {
-        const int l = (j << 5) + lane_id();
-        if (l < L && dir.tmp[l] != kIntMin && dir.tag[l] != kT1 && dir.tag[l] != kT2)
-          m = max(m, dir.tmp[l]);
-      }
-      ev = __reduce_max_sync(kFull, m);
-    }
-    if (threadIdx.x == 0) ev_shared = ev;
+// Copy one sequence's directory planes into ``dir``.  Called by every thread
+// of the CTA; ends with a barrier.
+__device__ void load_dir(const Dir& dir, const int* blocks, const int* tag,
+                         const int* stamp, const int* ref) {
+  for (int l = threadIdx.x; l < dir.L; l += blockDim.x) {
+    dir.blocks[l] = blocks[l];
+    dir.tag[l] = tag[l];
+    dir.stamp[l] = stamp[l];
+    dir.ref[l] = ref[l];
   }
   __syncthreads();
+}
 
+// Write ``dir``'s planes: called by the policy warp, each thread its own lanes.
+__device__ void store_dir(const Dir& dir, int* blocks, int* tag, int* stamp, int* ref) {
+  for (int j = 0; j < dir.nj; ++j) {
+    const int l = (j << 5) + lane_id();
+    if (l < dir.L) {
+      blocks[l] = dir.blocks[l];
+      tag[l] = dir.tag[l];
+      stamp[l] = dir.stamp[l];
+      ref[l] = dir.ref[l];
+    }
+  }
+}
+
+// The page-boundary allocation on the policy warp: the renormalization
+// check, the miss access of page id x, and the page id the policy moved out
+// of the cache (resident before, not after; the largest), -1 if none.
+__device__ int miss_access(const Dir& dir, int kind, int x, int renorm_at, float& p,
+                           int& ctr) {
+  renorm_stamps(dir, renorm_at, ctr);
+  for (int j = 0; j < dir.nj; ++j) {  // resident page ids before the miss
+    const int l = (j << 5) + lane_id();
+    if (l < dir.L) {
+      const int t = dir.tag[l];
+      dir.tmp[l] = (t == kT1 || t == kT2) ? dir.blocks[l] : kIntMin;
+    }
+  }
+  dir_access(dir, kind, x, p, ctr);
+  int m = -1;
+  for (int j = 0; j < dir.nj; ++j) {
+    const int l = (j << 5) + lane_id();
+    if (l < dir.L && dir.tmp[l] != kIntMin && dir.tag[l] != kT1 && dir.tag[l] != kT2)
+      m = max(m, dir.tmp[l]);
+  }
+  return __reduce_max_sync(kFull, m);
+}
+
+template <typename T, int G>
+__global__ void __launch_bounds__(kSplitThreads, kSplitBlocks)
+adaptive_partials_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ new_k,
+                         const T* __restrict__ new_v, int pos,
+                         const int* __restrict__ page_start,
+                         const int* __restrict__ open_slot, const int* __restrict__ blocks,
+                         const int* __restrict__ tag, const int* __restrict__ stamp,
+                         const int* __restrict__ ref, const float* __restrict__ p_in,
+                         const int* __restrict__ ctr_in, int* __restrict__ slot_out,
+                         int* __restrict__ blocks_out, int* __restrict__ tag_out,
+                         int* __restrict__ stamp_out, int* __restrict__ ref_out,
+                         float* __restrict__ p_out, int* __restrict__ ctr_out,
+                         float* scratch, Dims d, int L, float scale, int kind,
+                         int renorm_at) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int ev_shared;
+  const SplitSmem sm = split_carve(smem_raw, d, sizeof(T));
+  const int p = blockIdx.x, kh = blockIdx.y, b = blockIdx.z, P = d.P;
+  const SplitScratch scr = split_scratch(scratch, gridDim.z, d);
+  const size_t row = (size_t)d.KVH * d.hd;
+  const size_t boff = (size_t)b * P, loff = (size_t)b * L;
+  const int* psb = page_start + boff;
+  const int open_b = open_slot[b];
+  const int within = pos % d.page;
+  const bool need_alloc = within == 0;
+
+  // the page's loads go out before the allocation: they need only the
+  // input planes, except on the page the allocation takes
+  const size_t off = (boff + p) * d.page * row;
+  const T* nk = new_k + b * row;
+  const T* nv = new_v + b * row;
+  split_stage<T>(sm, d, k + off, v + off, nk, nv, !need_alloc && p == open_b ? within : -1,
+                 kh, 0, valid_rows(psb[p], pos, d.page));
   int slot = open_b;
   if (need_alloc) {
+    // the directory sits past the split carve: the launch sized for it
+    const Dir dir = dir_at(reinterpret_cast<int*>(smem_raw + split_smem_bytes(d, sizeof(T))),
+                           L, P);
+    load_dir(dir, blocks + loff, tag + loff, stamp + loff, ref + loff);
+    if (threadIdx.x < 32) {
+      float p_b = p_in[b];
+      int ctr_b = ctr_in[b];
+      const int ev = miss_access(dir, kind, pos / d.page, renorm_at, p_b, ctr_b);
+      if (threadIdx.x == 0) ev_shared = ev;
+      if (p == 0 && kh == 0) {  // the post-miss directory, for the fold's hit pass
+        store_dir(dir, blocks_out + loff, tag_out + loff, stamp_out + loff, ref_out + loff);
+        if (threadIdx.x == 0) {
+          p_out[b] = p_b;
+          ctr_out[b] = ctr_b;
+        }
+      }
+    }
+    __syncthreads();
     const int ev_id = ev_shared;
-    const int first_free =
-        lanes_first_min(P, [&](int p) { return sm.psa[p] < 0 ? 0 : 1; });
-    const int victim = lanes_first_min(P, [&](int p) {
-      const int ps = sm.psa[p];
+    const int first_free = lanes_first_min(P, [&](int pp) { return psb[pp] < 0 ? 0 : 1; });
+    const int victim = lanes_first_min(P, [&](int pp) {
+      const int ps = psb[pp];
       return (ps >= 0 ? ps / d.page : -2) == ev_id ? 0 : 1;
     });
     slot = ev_id >= 0 ? victim : first_free;
-    if (threadIdx.x == 0) {
-      sm.fa[slot] = 1;
-      sm.ra[slot] = clock_b;
-      sm.psa[slot] = pos;
-    }
+  }
+  if (p == 0 && kh == 0 && threadIdx.x == 0) slot_out[b] = slot;
+  int start = psb[p];
+  if (need_alloc && p == slot) {  // a new page: its one valid row is the new token
+    cp_async_wait_all();
     __syncthreads();
+    split_stage<T>(sm, d, k + off, v + off, nk, nv, 0, kh, 0, 1);
+    start = pos;
   }
+  split_compute<T, G>(sm, d, scr, q + b * row * G, b, kh, p, valid_rows(start, pos, d.page),
+                      scale);
+}
 
-  const T* nk = a.new_k + b * row;
-  const T* nv = a.new_v + b * row;
-  for (int p = 0; p < P; ++p) {
-    const size_t off = (boff + p) * page_elems;
-    if (page_partials<T>(sm, a.k + off, a.v + off, nk, nv, p == slot ? within : -1,
-                         sm.psa[p], pos, p, scale, d))
-      page_fold(sm, p, d);
-  }
-  finalize<T>(sm, a.out + b * qsize, a.mass + boff, d);  // ends with a barrier
+// The directory planes are read and written by the same last CTA (at a page
+// boundary it reads the outputs launch 1 wrote), so they carry no
+// __restrict__.
+template <typename T, int G>
+__global__ void __launch_bounds__(kFoldThreads)
+adaptive_fold_kernel(int pos, const int* __restrict__ f, const int* __restrict__ r,
+                     const int* __restrict__ page_start, const int* __restrict__ clock,
+                     const int* __restrict__ open_slot, const int* blocks, const int* tag,
+                     const int* stamp, const int* ref, const float* p_in,
+                     const int* ctr_in, T* __restrict__ out, float* __restrict__ mass,
+                     const int* __restrict__ slot_in, int* __restrict__ f_out,
+                     int* __restrict__ r_out, int* __restrict__ ps_out,
+                     int* __restrict__ clock_out, int* __restrict__ open_out,
+                     int* blocks_out, int* tag_out, int* stamp_out, int* ref_out,
+                     float* p_out, int* ctr_out, float* scratch, int* counters, Dims d,
+                     int L, int kind, int renorm_at) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const FoldSmem sm = fold_carve(smem_raw);
+  const int ns = fold_slices(d), P = d.P;
+  const int g = blockIdx.x / ns, h0 = (blockIdx.x % ns) * kFoldDims;
+  const int kh = blockIdx.y, b = blockIdx.z;
+  const SplitScratch scr = split_scratch(scratch, gridDim.z, d);
+  const int* psb = page_start + (size_t)b * P;
+  const bool need_alloc = pos % d.page == 0;
+  const int slot = slot_in[b];  // launch 1's allocation
+  // post-allocation page_start
+  auto start_of = [&](int pp) { return need_alloc && pp == slot ? pos : psb[pp]; };
+  fold_slice<T, G>(sm, d, scr, b, kh, g, h0, pos, start_of,
+                   out + b * (size_t)d.KVH * G * d.hd);
+  if (!arrive_last(counters + b, gridDim.x * gridDim.y)) return;
 
-  int res = 0;
-  for (int p = threadIdx.x; p < P; p += blockDim.x) res += sm.psa[p] >= 0;
-  const int resident = block_sum(res);
-  const float tau = __fdiv_rn(1.0f, fmaxf((float)resident, 1.0f));
-  const int clock_new = clock_b + 1;
-  for (int p = threadIdx.x; p < P; p += blockDim.x) {
-    const bool referenced = sm.mass[p] >= tau && sm.psa[p] >= 0;
-    a.f_out[boff + p] = referenced ? sm.fa[p] + 1 : sm.fa[p];
-    a.r_out[boff + p] = referenced ? clock_new : sm.ra[p];
-    a.ps_out[boff + p] = sm.psa[p];
-  }
-  if (threadIdx.x == 0) {
-    a.slot[b] = slot;
-    a.clock_out[b] = clock_new;
-    a.open_out[b] = need_alloc ? slot : open_b;
-  }
-  if (!policy_warp) return;
-
+  load_ml(sm, d, scr, b);
+  // the fold is done: its P.V buffers hold the hit pages and the directory
+  int* hit_page = reinterpret_cast<int*>(sm.pvb);
+  score_update_last(sm, d, scr, b, slot, need_alloc, start_of, f, r, clock, open_slot,
+                    mass, f_out, r_out, ps_out, clock_out, open_out, hit_page);
+  const size_t loff = (size_t)b * L;
+  const Dir dir = dir_at(hit_page + P, L, P);
+  if (need_alloc)  // launch 1 ran the step's opening check and the miss
+    load_dir(dir, blocks_out + loff, tag_out + loff, stamp_out + loff, ref_out + loff);
+  else
+    load_dir(dir, blocks + loff, tag + loff, stamp + loff, ref + loff);
+  if (threadIdx.x >= 32) return;
+  float p_b = need_alloc ? p_out[b] : p_in[b];
+  int ctr_b = need_alloc ? ctr_out[b] : ctr_in[b];
+  if (!need_alloc) renorm_stamps(dir, renorm_at, ctr_b);
   // the hit pass: P masked accesses in slot order
   for (int s = 0; s < P; ++s) {
     renorm_stamps(dir, renorm_at, ctr_b);
-    if (sm.mass[s] >= tau && sm.psa[s] >= 0)
-      dir_access(dir, kind, sm.psa[s] / d.page, p_b, ctr_b);
+    if (hit_page[s] >= 0) dir_access(dir, kind, hit_page[s], p_b, ctr_b);
   }
-  for (int j = 0; j < dir.nj; ++j) {
-    const int l = (j << 5) + lane_id();
-    if (l < L) {
-      a.blocks_out[loff + l] = dir.blocks[l];
-      a.tag_out[loff + l] = dir.tag[l];
-      a.stamp_out[loff + l] = dir.stamp[l];
-      a.ref_out[loff + l] = dir.ref[l];
-    }
-  }
+  store_dir(dir, blocks_out + loff, tag_out + loff, stamp_out + loff, ref_out + loff);
   if (threadIdx.x == 0) {
-    a.p_out[b] = p_b;
-    a.ctr_out[b] = ctr_b;
+    p_out[b] = p_b;
+    ctr_out[b] = ctr_b;
   }
 }
 
 template <typename T>
 cudaError_t launch(const void* const* ptrs, int pos, int B, const Dims& d, int L,
                    float scale, int kind, int renorm_at, cudaStream_t stream) {
-  const size_t bytes = smem_bytes(d, sizeof(T)) + 5 * (size_t)L * sizeof(int);
-  if (bytes > kMaxSmem) return cudaErrorInvalidValue;
-  auto kern = adaptive_paged_attention_kernel<T>;
-  if (bytes > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return err;
-  }
+  const size_t split = split_launch_bytes(d, sizeof(T));
+  // the fold's last CTA keeps the hit pages and the directory in its P.V
+  // buffers (2 * kFoldTile * kFoldDims floats; P + 5L <= 5632 ints at L = 1024)
+  if (split == 0 || (size_t)d.P + 5 * (size_t)L > 2 * (size_t)kFoldTile * kFoldDims)
+    return cudaErrorInvalidValue;
+  // launch 1 carves the directory only at a page boundary
+  const size_t bytes = split + (pos % d.page == 0 ? 5 * (size_t)L * sizeof(int) : 0);
+  if (bytes + kStaticSmem > kMaxSmem) return cudaErrorInvalidValue;
   auto in = [&](int i) { return static_cast<const T*>(ptrs[i]); };
   auto ci = [&](int i) { return static_cast<const int*>(ptrs[i]); };
   auto oi = [&](int i) { return static_cast<int*>(const_cast<void*>(ptrs[i])); };
-  Args<T> a;
-  a.q = in(0); a.k = in(1); a.v = in(2); a.new_k = in(3); a.new_v = in(4);
-  a.f = ci(5); a.r = ci(6); a.page_start = ci(7); a.clock = ci(8);
-  a.open_slot = ci(9);
-  a.blocks = ci(10); a.tag = ci(11); a.stamp = ci(12); a.ref = ci(13);
-  a.p = static_cast<const float*>(ptrs[14]); a.ctr = ci(15);
-  a.out = static_cast<T*>(const_cast<void*>(ptrs[16]));
-  a.mass = static_cast<float*>(const_cast<void*>(ptrs[17]));
-  a.slot = oi(18); a.f_out = oi(19); a.r_out = oi(20); a.ps_out = oi(21);
-  a.clock_out = oi(22); a.open_out = oi(23);
-  a.blocks_out = oi(24); a.tag_out = oi(25); a.stamp_out = oi(26);
-  a.ref_out = oi(27);
-  a.p_out = static_cast<float*>(const_cast<void*>(ptrs[28]));
-  a.ctr_out = oi(29);
-  kern<<<B, kThreads, bytes, stream>>>(a, pos, d, L, scale, kind, renorm_at);
-  return cudaGetLastError();
+  auto of = [&](int i) { return static_cast<float*>(const_cast<void*>(ptrs[i])); };
+  const float* p_in = static_cast<const float*>(ptrs[14]);
+  return with_group(d.G, [&](auto group) {
+    constexpr int G = decltype(group)::value;
+    auto partials = adaptive_partials_kernel<T, G>;
+    auto fold = adaptive_fold_kernel<T, G>;
+    cudaError_t err = allow_smem(partials, bytes);
+    if (err == cudaSuccess) err = allow_smem(fold, fold_smem_bytes(d));
+    if (err != cudaSuccess) return err;
+    partials<<<dim3(d.P, d.KVH, B), kSplitThreads, bytes, stream>>>(
+        in(0), in(1), in(2), in(3), in(4), pos, ci(7), ci(9), ci(10), ci(11), ci(12), ci(13),
+        p_in, ci(15), oi(18), oi(24), oi(25), oi(26), oi(27), of(28), oi(29), of(30), d, L,
+        scale, kind, renorm_at);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    fold<<<dim3(G * fold_slices(d), d.KVH, B), kFoldThreads, fold_smem_bytes(d), stream>>>(
+        pos, ci(5), ci(6), ci(7), ci(8), ci(9), ci(10), ci(11), ci(12), ci(13), p_in, ci(15),
+        static_cast<T*>(const_cast<void*>(ptrs[16])), of(17), ci(18), oi(19), oi(20), oi(21),
+        oi(22), oi(23), oi(24), oi(25), oi(26), oi(27), of(28), oi(29), of(30), oi(31), d, L,
+        kind, renorm_at);
+    return cudaGetLastError();
+  });
 }
 
 }  // namespace
@@ -489,21 +558,19 @@ extern "C" int repro_adaptive_policy_paged_attention(
     const void* p, const void* ctr, void* out, void* mass, void* slot,
     void* f_out, void* r_out, void* ps_out, void* clock_out, void* open_out,
     void* blocks_out, void* tag_out, void* stamp_out, void* ref_out,
-    void* p_out, void* ctr_out, int B, int P, int page, int KVH, int G, int hd,
-    int L, float scale, int kind, int renorm_at, void* stream) {
+    void* p_out, void* ctr_out, void* scratch, void* counters, int B, int P,
+    int page, int KVH, int G, int hd, int L, float scale, int kind, int renorm_at,
+    void* stream) {
   using namespace repro;
-  if (G < 1 || G > kMaxG || B < 1 || P < 1 || page < 1 || pos < 0 ||
-      L < 2 * P || L > kMaxLanes || (kind != kKindArc && kind != kKindCar))
+  if (B < 1 || B > 65535 || pos < 0 || L < 2 * P || L > kMaxLanes ||
+      (kind != kKindArc && kind != kKindCar))
     return (int)cudaErrorInvalidValue;
-  const int esize = dtype == 0 ? 4 : 2;
-  if (KVH * hd * esize % 16) return (int)cudaErrorInvalidValue;  // 16 B row chunks
-  Dims d{P, page, KVH, G, hd, 0};
-  d.chunk = chunk_rows(d, esize);
-  if (d.chunk < 1) return (int)cudaErrorInvalidValue;
-  const void* ptrs[30] = {q, k, v, new_k, new_v, f, r, page_start, clock,
+  const Dims d{P, page, KVH, G, hd};
+  const void* ptrs[32] = {q, k, v, new_k, new_v, f, r, page_start, clock,
                           open_slot, blocks, tag, stamp, ref, p, ctr, out, mass,
                           slot, f_out, r_out, ps_out, clock_out, open_out,
-                          blocks_out, tag_out, stamp_out, ref_out, p_out, ctr_out};
+                          blocks_out, tag_out, stamp_out, ref_out, p_out, ctr_out,
+                          scratch, counters};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return (int)launch<float>(ptrs, pos, B, d, L, scale, kind, renorm_at, st);

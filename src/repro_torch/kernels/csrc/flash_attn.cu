@@ -6,32 +6,61 @@
 //   j < kv_len  and  (j <= i if causal)  and  (i - j < window if window),
 // with f32 scores s = (q.k) * scale, the online softmax in f32 (NEG_INF =
 // -1e30 on masked scores, masked p = 0, l clamped at 1e-30, so a fully
-// masked row gives 0) and P.V with p kept in f32, as the Pallas body does.
-// expf and IEEE division: build without --use_fast_math.
+// masked row gives 0) and P.V with p kept at f32 precision, as the Pallas
+// body does.  expf (exp2f on the bf16 path) and IEEE division: build
+// without --use_fast_math.
 //
 // Design.  One CTA per (q tile, kv head, batch row): the tile is 64 query
 // rows, BQ = 64 / G positions x the G query heads of the group, so each K/V
 // tile is staged once for all G heads (the Pallas block (bq, G, hd)).  The
 // TPU grid's sequential kv axis becomes a loop inside the CTA whose bounds
-// are the Pallas ``relevant`` predicate: it starts at the first 64-key tile
+// are the Pallas ``relevant`` predicate: it starts at the first key tile
 // that meets the window of the tile's first position and stops at the
 // causal diagonal of its last (and at kv_len), so skipped tiles cost
 // nothing; edge tiles mask per element, and key rows past Skv are staged as
-// zeros.  Q (transposed), one K tile, one V tile and the tile's
-// probabilities live in shared memory as f32 (114,944 bytes at hd=128, two
-// CTAs per SM); the running (m, l, acc) live in registers.  256 threads as
-// 16 x 16: thread (ty, tx) owns query rows 4ty..4ty+3, score columns tx +
-// 16jj (jj < 4) and output columns tx + 16c (c < hd/16); row max and sum are
-// butterfly shuffles over the 16 lanes of a row, so every lane holds the
-// same (m, l).  The output is written once, after the last tile.
+// zeros.  The running (m, l, acc) live in registers and the output is
+// written once, after the last tile.  Two kernels:
+//
+// bf16 (flash_attention_bf16_kernel): both products on the tensor cores,
+// mma.sync.m16n8k16 bf16 x bf16 -> f32.  128 threads, each warp owning 16
+// query rows.  Two buffers of one K and one V tile (kBK key rows: 64, or 32
+// at hd = 256 so that the accumulator fits in registers) sit in shared
+// memory as bf16 rows of 16-byte chunks, XOR-swizzled by the row so that
+// ldmatrix reads 8 rows without a bank conflict; the next tile's K and V
+// are in flight (cp.async) while this one is computed.  S = Q K^T takes its
+// A fragments from Q and its B fragments from K with ldmatrix; at hd <= 128
+// Q's fragments stay in registers, Q being staged once in the second
+// buffer, so 64 KB of shared memory and 3 CTAs fit an SM at hd = 128.
+// bf16 x bf16 products are exact in f32, only the order of the sum
+// changes.  The softmax runs in f32 on S's accumulator fragments (a row's
+// max and sum over the 4 lanes that share it), in base 2: the scores are
+// scaled by scale * log2(e) so that each exponential is one exp2f, and the
+// accumulator is rescaled only when a row's max moved; l sums the f32 p.
+// P.V cannot take p as one bf16: rounding p to 8 significant bits moves
+// outputs far past one bf16 ulp of the f32 result.  So p is split as hi =
+// bf16(p), lo = bf16(p - hi) (p - hi is exact; hi + lo carries 16
+// significant bits) and acc += hi.V + lo.V, two MMAs with the A fragments
+// built in registers from S's accumulator layout and V's B fragments from
+// ldmatrix.trans.
+//
+// f32 (flash_attention_kernel): the two products on the CUDA cores in f32
+// (TF32 tensor cores would keep 10 significant bits of q, k, v and p and
+// miss the f32 tolerance).  256 threads as 16 x 16: thread (ty, tx) owns
+// query rows 4ty..4ty+3, score columns tx + 16jj (jj < 4) and output
+// columns tx + 16c (c < hd/16); Q (transposed), one K tile, one V tile and
+// the tile's probabilities live in shared memory as f32 (114,944 bytes at
+// hd=128, two CTAs per SM); row max and sum are butterfly shuffles over the
+// 16 lanes of a row.
 //
 // What bounds it on an H100: operations.  Causal prefill does 4*hd flops per
 // unmasked (query head, key) pair against 2*hd*sizeof(T) bytes per key row
 // read once per tile: at gemma3's (4, 2048, 16, 2, 128) some 137 GFLOP per
-// global layer against 67 MB of q/k/v/out.  This first kernel runs the two
-// products on the f32 FMA units (67 TFLOP/s peak), not the tensor cores
-// (989 TFLOP/s bf16, the bound reported beside it): mma/wgmma tiles, TMA
-// staging and a persistent schedule are later work.
+// global layer against 67 MB of q/k/v/out.  The bound reported beside it is
+// those flops at the bf16 tensor-core peak (989 TFLOP/s); the bf16 kernel
+// runs 1.5 times them on the tensor cores (P.V twice), through mma.sync,
+// which does not reach wgmma's rate, with one bf16 Q tile of 64 rows per
+// CTA: every warp reads the whole K and V tile from shared memory for its
+// 16 rows.  wgmma, TMA staging and a persistent schedule are later work.
 //
 // C entry point (loaded with ctypes by repro_torch/kernels/_build.py):
 //   repro_flash_attention(dtype, q, k, v, out, B, Sq, Skv, KVH, G, hd,
@@ -42,32 +71,344 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace repro {
 namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr int kRows = 64;      // query rows (positions x G heads) per CTA
-constexpr int kBK = 64;        // key rows per tile
-constexpr int kThreads = 256;  // 16 x 16
+constexpr int kBK = 64;        // key rows per tile (f32)
+constexpr int kThreads = 256;  // f32: 16 x 16
 constexpr size_t kMaxSmem = 232448;
 
-template <typename T>
-__device__ __forceinline__ float to_f32(T x);
-template <>
-__device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+// ---- bf16: both products on the tensor cores --------------------------------
+
+constexpr int kMmaThreads = 128;  // 4 warps of 16 query rows
+constexpr float kLog2e = 1.44269504088896341f;
+
+template <int HD>
+struct MmaTile {
+  static constexpr int kBK = HD <= 128 ? 64 : 32;  // key rows per tile
+  static constexpr int kNch = HD / 8;              // 16-byte chunks of a row
+  // Q's A fragments live in registers, and Q is staged in the second
+  // buffer's K tile (kRows == kBK rows) before the first tile is issued
+  static constexpr bool kQRegs = HD <= 128;
+  // two buffers of one K and one V tile (and Q apart at hd = 256), bf16
+  static constexpr size_t kSmem = (size_t)((kQRegs ? 0 : kRows) + 4 * kBK) * HD * 2;
+  // CTAs per SM the registers must allow: as many as the shared memory does
+  static constexpr int kMinBlocks = HD == 64 ? 4 : HD == 128 ? 3 : 1;
+  static_assert(!kQRegs || kRows == kBK, "Q is staged in a K tile");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+// 16-byte cp.async into shared memory; zeros when ``valid`` is false
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(smem)),
+               "l"(gmem), "r"(valid ? 16 : 0)
+               : "memory");
 }
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups of this thread are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 bf16 matrices from shared memory, lane l giving the address of
+// row l % 8 of matrix l / 8; .trans delivers them transposed.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// d += a.b, one 16x8x16 product: bf16 inputs, f32 accumulator
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 h) {
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// (x, y) as the bf16x2 pair hi = bf16(.) (x in the low half) and lo =
+// bf16(. - hi): x - bf16(x) is exact in f32, so hi + lo keeps x to 16
+// significant bits.
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  hi = as_u32(h);
+  lo = as_u32(__floats2bfloat162_rn(__fsub_rn(x, hf.x), __fsub_rn(y, hf.y)));
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kMmaThreads, MmaTile<HD>::kMinBlocks)
+flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                            const __nv_bfloat16* __restrict__ k,
+                            const __nv_bfloat16* __restrict__ v,
+                            __nv_bfloat16* __restrict__ out, int Sq, int Skv, int KVH, int G,
+                            int causal, int window, int kv_len, float scale_log2) {
+  using Tile = MmaTile<HD>;
+  constexpr int BK = Tile::kBK, NCH = Tile::kNch;
+  constexpr int NT = BK / 8;   // 8-key column tiles of S
+  constexpr int ND = HD / 8;   // 8-dim column tiles of the output
+  constexpr int KS = HD / 16;  // 16-dim steps of Q K^T
+  extern __shared__ __align__(128) uint4 smem4[];
+  uint4* Ks = smem4;              // (2, BK, NCH)
+  uint4* Vs = Ks + 2 * BK * NCH;  // (2, BK, NCH)
+  uint4* Qs = Tile::kQRegs ? Ks + BK * NCH : Vs + 2 * BK * NCH;  // (kRows, NCH)
+  // chunk c of row r, XOR-swizzled within the row (NCH >= 8)
+  auto at = [](int r, int c) { return r * NCH + (c ^ (r & 7)); };
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int BQ = kRows / G;  // positions per tile
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // the longest causal tiles first
+  const int kh = blockIdx.y, b = blockIdx.z;
+  const int nq = min(BQ, Sq - q0);  // positions of this tile
+  const int rows = nq * G;          // active rows
+  const size_t qrow = (size_t)KVH * G * HD;  // q elements per position
+  const size_t krow = (size_t)KVH * HD;      // k/v elements per position
+  const __nv_bfloat16* qb = q + ((size_t)b * Sq + q0) * qrow + (size_t)kh * G * HD;
+  const __nv_bfloat16* kb = k + (size_t)b * Skv * krow + (size_t)kh * HD;
+  const __nv_bfloat16* vb = v + (size_t)b * Skv * krow + (size_t)kh * HD;
+
+  // Q tile: row r = position (r / G) x head (r % G); inactive rows are zeros
+  for (int i = tid; i < kRows * NCH; i += kMmaThreads) {
+    const int r = i / NCH, c = i % NCH;
+    const bool in = r < rows;
+    cp_async16(Qs + at(r, c), in ? qb + (size_t)(r / G) * qrow + (r % G) * HD + c * 8 : q, in);
+  }
+  cp_async_commit();
+
+  // the kv tiles that meet any row of this tile (Pallas ``relevant``)
+  const int q_last = q0 + nq - 1;
+  int k_end = kv_len;
+  if (causal) k_end = min(k_end, q_last + 1);
+  const int k_begin = window ? max(0, q0 - window + 1) / BK * BK : 0;
+  const int ntiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
+
+  // K and V rows k0..k0+BK-1 into buffer ``buf``; rows past Skv are zeros
+  auto load_kv = [&](int k0, int buf) {
+    uint4* kd = Ks + buf * BK * NCH;
+    uint4* vd = Vs + buf * BK * NCH;
+    for (int i = tid; i < BK * NCH; i += kMmaThreads) {
+      const int j = i / NCH, c = i % NCH;
+      const bool in = k0 + j < Skv;
+      const size_t off = in ? (size_t)(k0 + j) * krow + c * 8 : 0;
+      cp_async16(kd + at(j, c), kb + off, in);
+      cp_async16(vd + at(j, c), vb + off, in);
+    }
+    cp_async_commit();
+  };
+  if (ntiles > 0) load_kv(k_begin, 0);
+
+  // this thread's rows of the warp's 16 (the accumulator layout): r0 and
+  // r0 + 8; its columns of an 8-wide tile: 2 * (lane % 4) and the next
+  const int r0 = warp * 16 + (lane >> 2), r1 = r0 + 8;
+  const int qp0 = q0 + r0 / G, qp1 = q0 + r1 / G;
+  const int col = 2 * (lane & 3);
+  float m0 = kNegInf, m1 = kNegInf;
+  float l0 = 0.f, l1 = 0.f;  // this thread's share of its rows' sums
+  float o[ND][4];
+#pragma unroll
+  for (int d = 0; d < ND; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+
+  // A fragments of Q for dims 16kk..16kk+15
+  auto q_frag = [&](int kk, uint32_t(&a)[4]) {
+    ldsm_x4(a, Qs + at(warp * 16 + (lane & 15), 2 * kk + (lane >> 4)));
+  };
+  uint32_t qf[Tile::kQRegs ? KS : 1][4];
+  if (ntiles > 0)
+    cp_async_wait<1>();
+  else
+    cp_async_wait<0>();
+  __syncthreads();
+  if constexpr (Tile::kQRegs) {
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) q_frag(kk, qf[kk]);
+    __syncthreads();  // Q is read before the second buffer is loaded
+  }
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int k0 = k_begin + t * BK, buf = t & 1;
+    if (t + 1 < ntiles) {
+      load_kv(k0 + BK, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const uint4* kt = Ks + buf * BK * NCH;
+    const uint4* vt = Vs + buf * BK * NCH;
+
+    // S = Q K^T
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t a[4];
+      if constexpr (Tile::kQRegs) {
+#pragma unroll
+        for (int x = 0; x < 4; ++x) a[x] = qf[kk][x];
+      } else {
+        q_frag(kk, a);
+      }
+#pragma unroll
+      for (int jp = 0; jp < NT / 2; ++jp) {
+        uint32_t bk[4];
+        ldsm_x4(bk, kt + at(jp * 16 + (lane & 7) + ((lane >> 4) << 3),
+                            2 * kk + ((lane >> 3) & 1)));
+        mma_bf16(s[2 * jp], a, bk[0], bk[1]);
+        mma_bf16(s[2 * jp + 1], a, bk[2], bk[3]);
+      }
+    }
+
+    // scale (to base 2) and masks (edge tiles only), then the online-softmax
+    // update
+    const bool full = k0 + BK <= kv_len && (!causal || k0 + BK - 1 <= q0) &&
+                      (!window || q_last - k0 < window);
+    uint32_t keep = 0xffffffffu;  // bit 4j + e: element e of tile j unmasked
+    float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = __fmul_rn(s[j][e], scale_log2);
+        if (!full) {
+          const int kpos = k0 + 8 * j + col + (e & 1), qp = e < 2 ? qp0 : qp1;
+          if (!(kpos < kv_len && (!causal || kpos <= qp) && (!window || qp - kpos < window))) {
+            x = kNegInf;
+            keep &= ~(1u << (4 * j + e));
+          }
+        }
+        s[j][e] = x;
+        if (e < 2)
+          mx0 = fmaxf(mx0, x);
+        else
+          mx1 = fmaxf(mx1, x);
+      }
+    }
+#pragma unroll
+    for (int o2 = 1; o2 <= 2; o2 <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o2));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float c0 = exp2f(__fsub_rn(m0, mn0)), c1 = exp2f(__fsub_rn(m1, mn1));
+    m0 = mn0;
+    m1 = mn1;
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = (keep >> (4 * j + e)) & 1u
+                            ? exp2f(__fsub_rn(s[j][e], e < 2 ? mn0 : mn1)) : 0.f;
+        s[j][e] = p;
+        if (e < 2)
+          sum0 = __fadd_rn(sum0, p);
+        else
+          sum1 = __fadd_rn(sum1, p);
+      }
+    }
+    l0 = __fadd_rn(__fmul_rn(l0, c0), sum0);
+    l1 = __fadd_rn(__fmul_rn(l1, c1), sum1);
+    if (__any_sync(0xffffffffu, c0 != 1.f || c1 != 1.f)) {  // a row's max moved
+#pragma unroll
+      for (int d = 0; d < ND; ++d) {
+        o[d][0] = __fmul_rn(o[d][0], c0);
+        o[d][1] = __fmul_rn(o[d][1], c0);
+        o[d][2] = __fmul_rn(o[d][2], c1);
+        o[d][3] = __fmul_rn(o[d][3], c1);
+      }
+    }
+
+    // acc += hi.V + lo.V over the tile's keys, 16 at a time
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t hi[4], lo[4];
+      split_bf16(s[2 * kk][0], s[2 * kk][1], hi[0], lo[0]);
+      split_bf16(s[2 * kk][2], s[2 * kk][3], hi[1], lo[1]);
+      split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], hi[2], lo[2]);
+      split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], hi[3], lo[3]);
+#pragma unroll
+      for (int dp = 0; dp < ND / 2; ++dp) {
+        uint32_t bv[4];
+        ldsm_x4_trans(bv, vt + at(kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3),
+                                  2 * dp + (lane >> 4)));
+        mma_bf16(o[2 * dp], hi, bv[0], bv[1]);
+        mma_bf16(o[2 * dp], lo, bv[0], bv[1]);
+        mma_bf16(o[2 * dp + 1], hi, bv[2], bv[3]);
+        mma_bf16(o[2 * dp + 1], lo, bv[2], bv[3]);
+      }
+    }
+    __syncthreads();  // this buffer is consumed before the next load refills it
+  }
+
+  // out = acc / max(l, 1e-30), written once
+#pragma unroll
+  for (int o2 = 1; o2 <= 2; o2 <<= 1) {
+    l0 = __fadd_rn(l0, __shfl_xor_sync(0xffffffffu, l0, o2));
+    l1 = __fadd_rn(l1, __shfl_xor_sync(0xffffffffu, l1, o2));
+  }
+  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  __nv_bfloat16* ob = out + ((size_t)b * Sq + q0) * qrow + (size_t)kh * G * HD;
+  if (r0 < rows) {
+    __nv_bfloat16* orow = ob + (size_t)(r0 / G) * qrow + (r0 % G) * HD + col;
+#pragma unroll
+    for (int d = 0; d < ND; ++d)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * d) =
+          __floats2bfloat162_rn(__fdiv_rn(o[d][0], d0), __fdiv_rn(o[d][1], d0));
+  }
+  if (r1 < rows) {
+    __nv_bfloat16* orow = ob + (size_t)(r1 / G) * qrow + (r1 % G) * HD + col;
+#pragma unroll
+    for (int d = 0; d < ND; ++d)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * d) =
+          __floats2bfloat162_rn(__fdiv_rn(o[d][2], d1), __fdiv_rn(o[d][3], d1));
+  }
+}
+
+template <int HD>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out, int B,
+                        int Sq, int Skv, int KVH, int G, int causal, int window,
+                        int kv_len, float scale, cudaStream_t stream) {
+  constexpr size_t bytes = MmaTile<HD>::kSmem;
+  static_assert(bytes <= kMaxSmem, "bf16 tiles must fit a block");
+  auto kern = flash_attention_bf16_kernel<HD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  const int BQ = kRows / G;
+  const dim3 grid((Sq + BQ - 1) / BQ, KVH, B);
+  kern<<<grid, kMmaThreads, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), Sq, Skv, KVH,
+      G, causal, window, kv_len, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+// ---- f32: the CUDA cores ----------------------------------------------------
 
 template <int HD>
 constexpr size_t smem_floats() {
@@ -95,14 +436,14 @@ __device__ __forceinline__ float row_sum16(float v) {
   return v;
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads, HD <= 128 ? 2 : 1)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int Sq,
+flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ out, int Sq,
                        int Skv, int KVH, int G, int causal, int window,
                        int kv_len, float scale) {
   constexpr int kC = HD / 16;                 // output columns per thread
-  constexpr int kVec = 16 / (int)sizeof(T);   // elements per 16-byte load
+  constexpr int kVec = 4;  // elements per 16-byte load
   constexpr int kIters = kBK * HD / kVec / kThreads;  // 16-byte loads per tensor
   constexpr int kGroup = kIters < 4 ? kIters : 4;      // of them in flight
   static_assert(kBK * HD / kVec % kThreads == 0 && kIters % kGroup == 0,
@@ -123,11 +464,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // Q tile, transposed: row r = position (r / G) x head (r % G); inactive
   // rows are zeros
-  const T* qb = q + ((size_t)b * Sq + q0) * qrow + (size_t)kh * G * HD;
+  const float* qb = q + ((size_t)b * Sq + q0) * qrow + (size_t)kh * G * HD;
   for (int e = threadIdx.x; e < kRows * HD; e += kThreads) {
     const int r = e % kRows, h = e / kRows;
     float x = 0.f;
-    if (r < rows) x = to_f32<T>(qb[(size_t)(r / G) * qrow + (r % G) * HD + h]);
+    if (r < rows) x = qb[(size_t)(r / G) * qrow + (r % G) * HD + h];
     Qt[h * kRows + r] = x;
   }
 
@@ -173,12 +514,12 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int u = 0; u < kGroup; ++u) {
         const int idx = (u0 + u) * kThreads + threadIdx.x;
         const int j = idx / (HD / kVec), c = idx % (HD / kVec);
-        const T* ke = reinterpret_cast<const T*>(&ka[u]);
-        const T* ve = reinterpret_cast<const T*>(&va[u]);
+        const float* ke = reinterpret_cast<const float*>(&ka[u]);
+        const float* ve = reinterpret_cast<const float*>(&va[u]);
 #pragma unroll
         for (int e = 0; e < kVec; ++e) {
-          Ks[j * (HD + 1) + c * kVec + e] = to_f32<T>(ke[e]);
-          Vs[j * HD + c * kVec + e] = to_f32<T>(ve[e]);
+          Ks[j * (HD + 1) + c * kVec + e] = ke[e];
+          Vs[j * HD + c * kVec + e] = ve[e];
         }
       }
     }
@@ -246,51 +587,47 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   // out = acc / max(l, 1e-30), written once
-  T* ob = out + ((size_t)b * Sq + q0) * qrow + (size_t)kh * G * HD;
+  float* ob = out + ((size_t)b * Sq + q0) * qrow + (size_t)kh * G * HD;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = 4 * ty + i;
     if (r >= rows) continue;
     const float li = fmaxf(l[i], 1e-30f);
-    T* orow = ob + (size_t)(r / G) * qrow + (r % G) * HD;
+    float* orow = ob + (size_t)(r / G) * qrow + (r % G) * HD;
 #pragma unroll
     for (int c = 0; c < kC; ++c)
-      orow[tx + 16 * c] = from_f32<T>(__fdiv_rn(acc[i][c], li));
+      orow[tx + 16 * c] = __fdiv_rn(acc[i][c], li);
   }
 }
 
-template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B,
-                   int Sq, int Skv, int KVH, int G, int causal, int window,
-                   int kv_len, float scale, cudaStream_t stream) {
+template <int HD>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out, int B,
+                       int Sq, int Skv, int KVH, int G, int causal, int window,
+                       int kv_len, float scale, cudaStream_t stream) {
   const size_t bytes = smem_floats<HD>() * sizeof(float);
   if (bytes > kMaxSmem) return cudaErrorInvalidValue;
-  auto kern = flash_attention_kernel<T, HD>;
+  auto kern = flash_attention_kernel<HD>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
   const int BQ = kRows / G;
   const dim3 grid((Sq + BQ - 1) / BQ, KVH, B);
   kern<<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), Sq, Skv, KVH, G, causal, window, kv_len, scale);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), Sq, Skv, KVH, G, causal,
+      window, kv_len, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(int hd, const void* q, const void* k, const void* v,
-                     void* out, int B, int Sq, int Skv, int KVH, int G, int causal,
-                     int window, int kv_len, float scale, cudaStream_t st) {
-  if (hd == 64)
-    return launch<T, 64>(q, k, v, out, B, Sq, Skv, KVH, G, causal, window, kv_len,
-                         scale, st);
-  if (hd == 128)
-    return launch<T, 128>(q, k, v, out, B, Sq, Skv, KVH, G, causal, window, kv_len,
-                          scale, st);
-  if (hd == 256)
-    return launch<T, 256>(q, k, v, out, B, Sq, Skv, KVH, G, causal, window, kv_len,
-                          scale, st);
-  return cudaErrorInvalidValue;
+// f(std::integral_constant<int, HD>{}) for the head dim hd in {64, 128, 256}
+template <typename F>
+cudaError_t with_head_dim(int hd, F f) {
+  switch (hd) {
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 128: return f(std::integral_constant<int, 128>{});
+    case 256: return f(std::integral_constant<int, 256>{});
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -306,11 +643,14 @@ extern "C" int repro_flash_attention(int dtype, const void* q, const void* k,
       G < 1 || G > kRows || window < 0 || kv_len < 0 || kv_len > Skv)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)dispatch<float>(hd, q, k, v, out, B, Sq, Skv, KVH, G, causal, window,
-                                kv_len, scale, st);
-  if (dtype == 1)
-    return (int)dispatch<__nv_bfloat16>(hd, q, k, v, out, B, Sq, Skv, KVH, G, causal,
-                                        window, kv_len, scale, st);
-  return (int)cudaErrorInvalidValue;
+  return (int)with_head_dim(hd, [&](auto h) {
+    constexpr int HD = decltype(h)::value;
+    if (dtype == 0)
+      return launch_f32<HD>(q, k, v, out, B, Sq, Skv, KVH, G, causal, window, kv_len, scale,
+                            st);
+    if (dtype == 1)
+      return launch_bf16<HD>(q, k, v, out, B, Sq, Skv, KVH, G, causal, window, kv_len, scale,
+                             st);
+    return cudaErrorInvalidValue;
+  });
 }

@@ -15,8 +15,9 @@
 //      kFoldThreads per (query, 64-dim slice, kv head, sequence): the fold
 //      of the pages in page order and that slice of the output; the last CTA
 //      of a sequence (an atomic counter) writes the mass.
-// The fold is in page order so that the result is bitwise kernel 5's
-// one-CTA loop, whose fused == unfused gate runs through this kernel.
+// The fold is in page order so that the result does not depend on which
+// CTA folds, and the fused kernels 4 and 5, whose fused == unfused gates run
+// through this kernel, fold with the same code.
 // Shared code and design: paged_attn_common.cuh.
 //
 // C entry point (loaded with ctypes by repro_torch/kernels/_build.py):
@@ -106,7 +107,7 @@ extern "C" int repro_paged_attention(int dtype, const void* q, const void* k,
                                      void* stream) {
   using namespace repro;
   if (B < 1 || B > 65535) return (int)cudaErrorInvalidValue;
-  const Dims d{P, page, KVH, G, hd, 0};
+  const Dims d{P, page, KVH, G, hd};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return (int)launch<float>(q, k, v, page_start, cur_pos, out, mass, scratch,

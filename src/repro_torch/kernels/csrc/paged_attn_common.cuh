@@ -11,61 +11,39 @@
 // __fmul_rn by the scale), its local max m_loc (a warp max), its
 // exponentials expf(s - m_loc) and their sum (lane-strided, row j on lane
 // j % 32, then warp_sum's butterfly), and its unscaled P.V (for each dim a
-// __fmaf_rn chain over the rows in order): page_partials.  Only the fold into
+// __fmaf_rn chain over the rows in order): split_compute.  Only the fold into
 // the running (m, l, acc) is serial, a few float operations per (row, dim)
-// per page: fold_stats / fold_acc (page_fold).  Every kernel computes the
-// partials with the same operations in the same order and folds the pages in
-// page order with the same operations, so the three kernels' attention output
-// and per-page mass are equal bit for bit on equal inputs, and the reference
-// rule (mass >= 1/residents) sees equal inputs on the fused and the unfused
-// path.  Every float operation that could be contracted or reassociated is
-// written with an explicit round-to-nearest intrinsic (__fmaf_rn, __fmul_rn,
-// __fadd_rn, __fdiv_rn), so the result does not depend on how the compiler
-// inlines the steps.  Build without --use_fast_math: expf and IEEE division
-// are part of the contract.
+// per page: fold_slice (fold_l, fold_acc).  The three kernels compute the
+// partials with the same code and fold the pages in page order with the same
+// code, so their attention output and per-page mass are equal bit for bit on
+// equal inputs, and the reference rule (mass >= 1/residents) sees equal
+// inputs on the fused and the unfused path.  Every float operation that could
+// be contracted or reassociated is written with an explicit round-to-nearest
+// intrinsic (__fmaf_rn, __fmul_rn, __fadd_rn, __fdiv_rn), so the result does
+// not depend on how the compiler inlines the steps.  Build without
+// --use_fast_math: expf and IEEE division are part of the contract.
 //
-// Kernels 3 and 4: two launches, so a decode step runs on all SMs.
-// Launch 1, grid (P, KVH, B): one CTA of kSplitThreads per (page, kv head,
-// sequence) stages its kv head's slice of the page's valid rows (hd *
-// sizeof(T) contiguous bytes a row) into shared memory with 16-byte
-// cp.async, K's chunks XOR-swizzled so that the lanes of a quarter warp, one
-// per key row, read distinct banks; one page of one kv head is 16 KB of K+V
-// at smollm's shape, 32 KB at gemma3's, staged whole, and 8 CTAs fit on an
-// SM.  It writes the page's partials (pv, psum, pmax) to a scratch buffer
-// the wrapper allocates; a page with no valid row writes psum 0 and pmax
-// NEG_INF and is skipped by the fold, as the one-CTA loop skips it.  Launch
-// 2, grid (G * ceil(hd / 64), KVH, B): one CTA per (query, 64-dim slice, kv
-// head, sequence) folds the P pages IN PAGE ORDER, streaming the slice's
-// partials through shared memory two tiles at a time, and writes the
-// slice's output; the last CTA of a sequence (__threadfence and an atomic
-// counter it resets to 0) computes the per-page mass (and, in kernel 4, the
-// reference rule, the clock tick and the planes).  In one launch the last
-// page CTA of a kv head would fold it alone, one CTA streaming all of the
-// head's partials from L2 (200 KB at P=256) after the pages are done; the
-// second launch spreads the fold over G * KVH * B * ceil(hd / 64) CTAs.
-// The fold is in page order, not the textbook per-split combine of flash
-// decoding, because kernel 5 keeps the one-CTA loop and its fused ==
-// unfused gate runs through kernel 3: a per-split combine would change
-// kernel 3's bits.  Which CTA arrives last does not change any result.
-//
-// Kernel 5 (one CTA per sequence, kThreads): the TPU kernels ran a (B, P)
-// grid whose page axis was sequential on one core, carrying the flash state
-// in VMEM scratch; kernel 5 keeps that shape: one CTA loops over its P pages
-// in order, page_partials then page_fold.  The flash state, the query, one
-// page of scores, the page's P.V and the per-page sums / maxima (psum, pmax:
-// P x KVH x G floats) live in shared memory.  A page's valid K and V rows
-// (all KVH heads) are staged with 16-byte loads, all issued before any is
-// stored, as many rows at a time (a multiple of 16 when less than a page) as
-// fit beside the rest of the carve under the 227 KB block limit
-// (chunk_rows): the whole page at smollm's shapes (K and V staged together),
-// 16 rows at gemma3's global layers, where one (KVH=16, hd=128) bf16 row of
-// K and one of V take 8 KB.  When a page takes several chunks, K is staged
-// chunk by chunk for the scores, the page's max and exponentials are taken
-// over the whole page, and V is staged chunk by chunk in the same row order
-// for P.V, its partial sums carried in shared memory: every float operation
-// runs in the same order whatever the chunk size.  Staged rows are padded to
-// an odd number of 4-byte words, so the lanes of a warp, one per key row,
-// read distinct banks.
+// Each kernel is two launches, so a decode step runs on all SMs.  Launch 1,
+// grid (P, KVH, B): one CTA of kSplitThreads per (page, kv head, sequence)
+// stages its kv head's slice of the page's valid rows (hd * sizeof(T)
+// contiguous bytes a row) into shared memory with 16-byte cp.async, K's
+// chunks XOR-swizzled so that the lanes of a quarter warp, one per key row,
+// read distinct banks; one page of one kv head is 16 KB of K+V at smollm's
+// shape, 32 KB at gemma3's, staged whole, and 8 CTAs fit on an SM at
+// smollm's.  The fused kernels (4 and 5) run their page-boundary allocation
+// in every CTA of this launch, after the page's loads went out.  It writes
+// the page's partials (pv, psum, pmax) to a scratch buffer the wrapper
+// allocates; a page with no valid row writes psum 0 and pmax NEG_INF and is
+// skipped by the fold.  Launch 2, grid (G * ceil(hd / 64), KVH, B): one CTA
+// per (query, 64-dim slice, kv head, sequence) folds the P pages IN PAGE
+// ORDER, streaming the slice's partials through shared memory two tiles at a
+// time, and writes the slice's output; the last CTA of a sequence
+// (__threadfence and an atomic counter it resets to 0) computes the per-page
+// mass (and, in kernels 4 and 5, the reference rule, the clock tick and the
+// planes; in kernel 5 also the ARC/CAR hit accesses).  The fold is in page
+// order, not the textbook per-split combine of flash decoding, so that the
+// output does not depend on which CTA folds and the fused kernels equal
+// their unfused chains through kernel 3 bit for bit.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -78,10 +56,8 @@ namespace repro {
 
 constexpr float kNegInf = -1e30f;
 constexpr int kIntMax = 2147483647;
-constexpr int kThreads = 512;  // kernel 5's block
-constexpr int kWarps = kThreads / 32;
+constexpr int kWarps = 32;  // most warps of a block (policy_common.cuh reductions)
 constexpr int kMaxG = 8;  // largest GQA group (queries per KV head)
-constexpr int kStage = 8;  // 16-byte chunks in flight per thread and tensor
 constexpr size_t kMaxSmem = 232448;  // 227 KB, a block's limit on Hopper
 // static shared memory of the kernels (policy_common.cuh reductions, the
 // adaptive kernel's flag, arrive_last's flag), kept free beside the dynamic
@@ -112,7 +88,6 @@ struct Dims {
   int KVH;   // KV heads
   int G;     // queries per KV head
   int hd;    // head dim
-  int chunk;  // kernel 5: K/V rows staged at a time (chunk_rows), set by the host
 };
 
 // ---- page math shared by every decode kernel --------------------------------
@@ -150,18 +125,9 @@ __device__ __forceinline__ void row_stats(float* srow, int nvalid, int lane,
 
 // The fold of one page into one query's running (m, l): m_new = max(m,
 // m_loc), corr = exp(m - m_new), sc = exp(m_loc - m_new), l = l*corr +
-// ssum*sc.  Returns corr and sc for fold_acc.
+// ssum*sc.
 __device__ __forceinline__ float fold_l(float l, float ssum, float corr, float sc) {
   return __fadd_rn(__fmul_rn(l, corr), __fmul_rn(ssum, sc));
-}
-
-__device__ __forceinline__ void fold_stats(float& m, float& l, float m_loc, float ssum,
-                                           float& corr, float& sc) {
-  const float m_new = fmaxf(m, m_loc);
-  corr = expf(__fsub_rn(m, m_new));
-  sc = expf(__fsub_rn(m_loc, m_new));
-  l = fold_l(l, ssum, corr, sc);
-  m = m_new;
 }
 
 // acc = acc*corr + pv*sc
@@ -188,285 +154,7 @@ __device__ __forceinline__ int valid_rows(int start, int cur, int page) {
   return start >= 0 ? max(0, min(cur - start + 1, page)) : 0;
 }
 
-// ---- kernel 5: one CTA per sequence, the page loop in order -----------------
-
-// Shared-memory carve of one CTA.  Floats first, then the int planes it
-// keeps (post-allocation F, R, page_start).
-struct Smem {
-  float* q;      // (R, hd) query as f32, R = KVH*G
-  float* acc;    // (R, hd) running numerator
-  float* m;      // (R) running max
-  float* l;      // (R) running denominator
-  float* corr;   // (R) exp(m_prev - m_new) of the current page
-  float* scale;  // (R) exp(m_loc - m_new) of the current page
-  float* s;      // (R, page) scores, then unnormalized probabilities
-  float* psum;   // (P, R) per-page local sums
-  float* pmax;   // (P, R) per-page local maxima
-  float* mass;   // (P) normalized per-page mass
-  float* pv;     // (R, hd) P.V of the current page (partial sums between chunks)
-  int* fa;       // (P) post-allocation F
-  int* ra;       // (P) post-allocation R
-  int* psa;      // (P) post-allocation page_start
-  uint32_t* kt;  // (chunk, row_words) staged K rows of the current page
-  uint32_t* vt;  // (chunk, row_words) staged V rows
-};
-
-// 4-byte words of one staged (KVH, hd) row, padded to an odd count so that
-// consecutive rows start in different banks.  The row must be a whole number
-// of 16-byte chunks (checked by the entry point).
-__host__ __device__ inline int row_words(const Dims& d, int esize) {
-  return (d.KVH * d.hd * esize / 4) | 1;
-}
-
-// Bytes of the carve without the staged rows.
-__host__ __device__ inline size_t fixed_bytes(const Dims& d) {
-  const size_t R = (size_t)d.KVH * d.G;
-  return 4 * (3 * R * d.hd + 4 * R + R * d.page + 2 * (size_t)d.P * R + 4 * (size_t)d.P);
-}
-
-__host__ __device__ inline size_t smem_bytes(const Dims& d, int esize) {
-  return fixed_bytes(d) + 2 * (size_t)d.chunk * row_words(d, esize) * 4;
-}
-
-// Rows per staging chunk of kernel 5: the whole page when it fits, else the
-// most rows, rounded down to a multiple of 16, that fit beside its carve (the
-// planes plus its directory, 5 planes of L = 2P ints) and the static shared
-// memory.  0 when not even one row fits.
-inline int chunk_rows(const Dims& d, int esize) {
-  const size_t fixed = fixed_bytes(d) + 5 * 2 * (size_t)d.P * 4 + kStaticSmem;
-  if (fixed >= kMaxSmem) return 0;
-  const size_t row = 2 * (size_t)row_words(d, esize) * 4;  // one K and one V row
-  const size_t fit = (kMaxSmem - fixed) / row;
-  if (fit >= (size_t)d.page) return d.page;
-  return fit >= 16 ? (int)(fit / 16 * 16) : (int)fit;
-}
-
-__device__ inline Smem carve(unsigned char* raw, const Dims& d, int esize) {
-  const int R = d.KVH * d.G;
-  float* f = reinterpret_cast<float*>(raw);
-  Smem sm;
-  sm.q = f;          f += R * d.hd;
-  sm.acc = f;        f += R * d.hd;
-  sm.m = f;          f += R;
-  sm.l = f;          f += R;
-  sm.corr = f;       f += R;
-  sm.scale = f;      f += R;
-  sm.s = f;          f += R * d.page;
-  sm.psum = f;       f += d.P * R;
-  sm.pmax = f;       f += d.P * R;
-  sm.mass = f;       f += d.P;
-  sm.pv = f;         f += R * d.hd;
-  int* i = reinterpret_cast<int*>(f);
-  sm.fa = i;
-  sm.ra = i + d.P;
-  sm.psa = i + 2 * d.P;
-  i += 3 * d.P;
-  const int rw = row_words(d, esize);
-  sm.kt = reinterpret_cast<uint32_t*>(i);
-  sm.vt = sm.kt + (size_t)d.chunk * rw;
-  return sm;
-}
-
-// Copy rows row0..row0+n-1 of this page's tile ``sa`` into rows 0..n-1 of
-// ``da`` and, when ``db`` is not null, of ``sb`` into ``db``; row
-// ``inj_row`` comes from inj_a / inj_b instead.  Up to kStage 16-byte loads
-// per thread and tensor are issued before the first store.  Ends with a
-// barrier.
-template <typename T>
-__device__ void stage_rows(uint32_t* da, const T* __restrict__ sa, const T* inj_a,
-                           uint32_t* db, const T* __restrict__ sb, const T* inj_b,
-                           int inj_row, int row0, int n, const Dims& d) {
-  const int row_elems = d.KVH * d.hd;
-  const int chunks = row_elems * (int)sizeof(T) / 16;  // per row
-  const int rw = row_words(d, sizeof(T));
-  const int total = n * chunks;
-  for (int base = 0; base < total; base += kStage * blockDim.x) {
-    uint4 a[kStage], b[kStage];
-#pragma unroll
-    for (int u = 0; u < kStage; ++u) {
-      const int idx = base + u * blockDim.x + threadIdx.x;
-      if (idx < total) {
-        const int j = row0 + idx / chunks, c = idx % chunks;
-        const T* as = j == inj_row ? inj_a : sa + (size_t)j * row_elems;
-        a[u] = reinterpret_cast<const uint4*>(as)[c];
-        if (db != nullptr) {
-          const T* bs = j == inj_row ? inj_b : sb + (size_t)j * row_elems;
-          b[u] = reinterpret_cast<const uint4*>(bs)[c];
-        }
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kStage; ++u) {
-      const int idx = base + u * blockDim.x + threadIdx.x;
-      if (idx < total) {
-        const int j = idx / chunks, c = idx % chunks;
-        uint32_t* dst = da + (size_t)j * rw + 4 * c;
-        dst[0] = a[u].x; dst[1] = a[u].y; dst[2] = a[u].z; dst[3] = a[u].w;
-        if (db != nullptr) {
-          dst = db + (size_t)j * rw + 4 * c;
-          dst[0] = b[u].x; dst[1] = b[u].y; dst[2] = b[u].z; dst[3] = b[u].w;
-        }
-      }
-    }
-  }
-  __syncthreads();
-}
-
-// Load the query (as f32) and reset the flash state.  Ends with a barrier.
-template <typename T>
-__device__ void init_state(const Smem& sm, const T* __restrict__ qb, const Dims& d) {
-  const int R = d.KVH * d.G;
-  for (int i = threadIdx.x; i < R * d.hd; i += blockDim.x) {
-    sm.q[i] = to_f32<T>(qb[i]);
-    sm.acc[i] = 0.f;
-  }
-  for (int i = threadIdx.x; i < R; i += blockDim.x) {
-    sm.m[i] = kNegInf;
-    sm.l[i] = 0.f;
-  }
-  for (int i = threadIdx.x; i < d.P * R; i += blockDim.x) {
-    sm.psum[i] = 0.f;
-    sm.pmax[i] = kNegInf;
-  }
-  __syncthreads();
-}
-
-// One page's partials, the op sequence of the Pallas body's page-local part:
-//   s = q.k * scale (valid rows only), m_loc = max s, p = exp(s - m_loc),
-//   psum[p_idx] = sum p, pmax[p_idx] = m_loc, sm.pv = p.v (unscaled).
-// kp / vp point at this page's (page, KVH, hd) tile, staged into shared
-// memory d.chunk rows at a time.  Row ``inj_row`` (-1: none) is taken from
-// inj_k / inj_v (KVH, hd) instead of the tile: the fused kernel injects the
-// new token there and leaves the pool read-only.  Rows past the valid prefix
-// are never read, so stale data in a just-allocated page cannot reach the
-// sums.  Returns false, touching nothing, for a page with no valid row (its
-// psum 0 and pmax NEG_INF stay as init_state left them; page_fold is
-// skipped).  Called by every thread of the CTA with block-uniform
-// arguments; ends with a barrier.
-template <typename T>
-__device__ bool page_partials(const Smem& sm, const T* __restrict__ kp,
-                              const T* __restrict__ vp, const T* inj_k,
-                              const T* inj_v, int inj_row, int start, int cur,
-                              int p_idx, float scale, const Dims& d) {
-  const int nvalid = valid_rows(start, cur, d.page);
-  if (nvalid == 0) return false;
-  const int KVH = d.KVH, G = d.G, hd = d.hd, page = d.page, R = KVH * G;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int rw = row_words(d, sizeof(T));
-  const int ch = d.chunk;
-  const bool whole = nvalid <= ch;  // one chunk: stage K and V together
-  if (whole)
-    stage_rows<T>(sm.kt, kp, inj_k, sm.vt, vp, inj_v, inj_row, 0, nvalid, d);
-
-  // scores, chunk by chunk: one lane per (kv head, key row)
-  for (int r0 = 0; r0 < nvalid; r0 += ch) {
-    const int n = min(ch, nvalid - r0);
-    if (!whole)
-      stage_rows<T>(sm.kt, kp, inj_k, nullptr, nullptr, nullptr, inj_row, r0, n, d);
-    const int jchunks = (n + 31) / 32;
-    for (int t = warp; t < KVH * jchunks; t += nwarps) {
-      const int kh = t % KVH;
-      const int jl = (t / KVH) * 32 + lane;
-      if (jl < n) {
-        const T* krow = reinterpret_cast<const T*>(sm.kt + (size_t)jl * rw) + kh * hd;
-        const float* qh = sm.q + (size_t)kh * G * hd;
-        float dot[kMaxG];
-#pragma unroll
-        for (int g = 0; g < kMaxG; ++g) dot[g] = 0.f;
-#pragma unroll 8
-        for (int h = 0; h < hd; ++h) {
-          const float kv = to_f32<T>(krow[h]);
-#pragma unroll
-          for (int g = 0; g < kMaxG; ++g)
-            if (g < G) dot[g] = __fmaf_rn(qh[g * hd + h], kv, dot[g]);
-        }
-#pragma unroll
-        for (int g = 0; g < kMaxG; ++g)
-          if (g < G) sm.s[(kh * G + g) * page + r0 + jl] = __fmul_rn(dot[g], scale);
-      }
-    }
-    __syncthreads();
-  }
-
-  // softmax statistics: one warp per (kv head, group)
-  for (int rr = warp; rr < R; rr += nwarps) {
-    float mx, sum;
-    row_stats(sm.s + (size_t)rr * page, nvalid, lane, mx, sum);
-    if (lane == 0) {
-      sm.psum[p_idx * R + rr] = sum;
-      sm.pmax[p_idx * R + rr] = mx;
-    }
-  }
-  __syncthreads();
-
-  // p.v over the rows in order, chunk by chunk (partial sums in sm.pv): one
-  // thread per (kv head, dim)
-  for (int r0 = 0; r0 < nvalid; r0 += ch) {
-    const int n = min(ch, nvalid - r0);
-    if (!whole)
-      stage_rows<T>(sm.vt, vp, inj_v, nullptr, nullptr, nullptr, inj_row, r0, n, d);
-    for (int idx = threadIdx.x; idx < KVH * hd; idx += blockDim.x) {
-      const int kh = idx / hd, h = idx % hd;
-      float pv[kMaxG];
-#pragma unroll
-      for (int g = 0; g < kMaxG; ++g)
-        pv[g] = (g < G && r0 > 0) ? sm.pv[(size_t)(kh * G + g) * hd + h] : 0.f;
-#pragma unroll 8
-      for (int jl = 0; jl < n; ++jl) {
-        const T* vrow = reinterpret_cast<const T*>(sm.vt + (size_t)jl * rw) + kh * hd;
-        const float vv = to_f32<T>(vrow[h]);
-#pragma unroll
-        for (int g = 0; g < kMaxG; ++g)
-          if (g < G) pv[g] = __fmaf_rn(sm.s[(kh * G + g) * page + r0 + jl], vv, pv[g]);
-      }
-#pragma unroll
-      for (int g = 0; g < kMaxG; ++g)
-        if (g < G) sm.pv[(size_t)(kh * G + g) * hd + h] = pv[g];
-    }
-    __syncthreads();
-  }
-  return true;
-}
-
-// Fold page p_idx's partials (psum, pmax, sm.pv) into the running (m, l,
-// acc).  Ends with a barrier.
-__device__ inline void page_fold(const Smem& sm, int p_idx, const Dims& d) {
-  const int R = d.KVH * d.G, hd = d.hd;
-  for (int rr = threadIdx.x; rr < R; rr += blockDim.x) {
-    float m = sm.m[rr], l = sm.l[rr], corr, sc;
-    fold_stats(m, l, sm.pmax[p_idx * R + rr], sm.psum[p_idx * R + rr], corr, sc);
-    sm.m[rr] = m;
-    sm.l[rr] = l;
-    sm.corr[rr] = corr;
-    sm.scale[rr] = sc;
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < R * hd; i += blockDim.x)
-    sm.acc[i] = fold_acc(sm.acc[i], sm.pv[i], sm.corr[i / hd], sm.scale[i / hd]);
-  __syncthreads();
-}
-
-// Epilogue: out = acc / max(l, 1e-30) in T, and the normalized per-page mass
-//   mass[p] = sum_{kh,g} psum[p] * exp(pmax[p] - m) / max(l, 1e-30),
-// written to mass_out and kept in sm.mass.  Ends with a barrier.
-template <typename T>
-__device__ void finalize(const Smem& sm, T* __restrict__ out_b,
-                         float* __restrict__ mass_b, const Dims& d) {
-  const int R = d.KVH * d.G, hd = d.hd;
-  for (int i = threadIdx.x; i < R * hd; i += blockDim.x)
-    out_b[i] = from_f32<T>(out_value(sm.acc[i], sm.l[i / hd]));
-  for (int p = threadIdx.x; p < d.P; p += blockDim.x) {
-    float tot = 0.f;
-    for (int rr = 0; rr < R; ++rr)
-      tot = add_mass(tot, sm.psum[p * R + rr], sm.pmax[p * R + rr], sm.m[rr], sm.l[rr]);
-    sm.mass[p] = tot;
-    mass_b[p] = tot;
-  }
-  __syncthreads();
-}
-
-// ---- kernels 3 and 4: partials, then the fold -------------------------------
+// ---- the two launches: partials, then the fold ------------------------------
 //
 // Launch 1, one CTA per (page, kv head, sequence): the page's partials into
 // scratch.  Launch 2, one CTA per (query, 64-dim slice, kv head, sequence):
@@ -652,10 +340,11 @@ __device__ void split_stage(const SplitSmem& sm, const Dims& d, const T* __restr
 }
 
 // The partials of page p for kv head kh from its nvalid staged rows, into
-// scratch: the same operations in the same order as page_partials (one
-// thread per key row for the scores, h in order; row_stats per query; one
-// thread per dim for P.V, the rows in order), with 16-byte shared-memory
-// loads of K, the query and the probabilities.  qb is the sequence's (KVH,
+// scratch, the op sequence of the Pallas body's page-local part: s = q.k *
+// scale (one thread per key row, h in order), m_loc = max s, p = exp(s -
+// m_loc) and its sum (row_stats, one warp per query), the unscaled P.V (one
+// thread per dim, the rows in order), with 16-byte shared-memory loads of K,
+// the query and the probabilities.  qb is the sequence's (KVH,
 // G, hd) query.  A page with no valid row writes psum 0 and pmax NEG_INF.
 // Called by every thread of the CTA; ends with the staged loads complete.
 template <typename T, int G>
@@ -756,8 +445,8 @@ __device__ void split_compute(const SplitSmem& sm, const Dims& d, const SplitScr
 // the fold CTA calls it.  Tile by tile of kFoldTile pages, the P.V slices
 // staged with cp.async into two buffers (the next tile's loads in flight
 // while this one is folded) and the tile's psum / pmax fetched into
-// registers ahead.  fold_stats' operations, split so that only the fmax, l
-// and acc chains are serial: the last warp's lane 0 runs the running max
+// registers ahead.  fold_l's and fold_acc's operations, split so that only
+// the fmax, l and acc chains are serial: the last warp's lane 0 runs the running max
 // over the tile, every thread takes corr = exp(m - m_new) and sc = exp(m_loc
 // - m_new) of a page, then that lane runs the l chain while thread t <
 // kFoldDims runs dim h0 + t's acc chain.  Reads only what launch 1 wrote.
@@ -853,8 +542,9 @@ __device__ inline void load_ml(const FoldSmem& sm, const Dims& d,
   __syncthreads();
 }
 
-// Normalized mass of page p of sequence b, as finalize computes it, from
-// launch 1's psum / pmax and sm.ml (load_ml).
+// Normalized mass of page p of sequence b from launch 1's psum / pmax and
+// sm.ml (load_ml): the sum over the queries rr in order of psum * exp(pmax -
+// m) / max(l, 1e-30) (add_mass).
 __device__ inline float split_mass(const FoldSmem& sm, const Dims& d,
                                    const SplitScratch& scr, int b, int p) {
   const int R = d.KVH * d.G;

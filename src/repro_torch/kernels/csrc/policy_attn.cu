@@ -144,26 +144,8 @@ policy_fold_kernel(int pos, const int* __restrict__ f, const int* __restrict__ r
   if (!arrive_last(counters + b, gridDim.x * gridDim.y)) return;
 
   load_ml(sm, d, scr, b);
-  int res = 0;
-  for (int pp = threadIdx.x; pp < P; pp += blockDim.x) res += start_of(pp) >= 0;
-  const int resident = block_sum(res);
-  const float tau = __fdiv_rn(1.0f, fmaxf((float)resident, 1.0f));
-  const int clock_b = clock[b], clock_new = clock_b + 1;
-  for (int pp = threadIdx.x; pp < P; pp += blockDim.x) {
-    const float m = split_mass(sm, d, scr, b, pp);
-    const bool alloc = need_alloc && pp == slot;
-    const int fa = alloc ? 1 : f[boff + pp], ra = alloc ? clock_b : r[boff + pp];
-    const int psa = start_of(pp);
-    const bool referenced = m >= tau && psa >= 0;
-    mass[boff + pp] = m;
-    f_out[boff + pp] = referenced ? fa + 1 : fa;
-    r_out[boff + pp] = referenced ? clock_new : ra;
-    ps_out[boff + pp] = psa;
-  }
-  if (threadIdx.x == 0) {
-    clock_out[b] = clock_new;
-    open_out[b] = need_alloc ? slot : open_slot[b];
-  }
+  score_update_last(sm, d, scr, b, slot, need_alloc, start_of, f, r, clock, open_slot,
+                    mass, f_out, r_out, ps_out, clock_out, open_out, nullptr);
 }
 
 template <typename T>
@@ -208,7 +190,7 @@ extern "C" int repro_policy_paged_attention(
   using namespace repro;
   if (B < 1 || B > 65535 || pos < 0 || policy < kAwrp || policy > kCar)
     return (int)cudaErrorInvalidValue;
-  const Dims d{P, page, KVH, G, hd, 0};
+  const Dims d{P, page, KVH, G, hd};
   const void* ptrs[20] = {q, k, v, new_k, new_v, f, r, page_start, clock,
                           open_slot, out, mass, slot, f_out, r_out, ps_out,
                           clock_out, open_out, scratch, counters};

@@ -4,7 +4,9 @@ Replaces ``repro/kernels/flash_attn.py`` ``flash_attention_kernel``: the
 port's prefill attention.  This module only validates, allocates the output
 and launches on the current stream; ``kernels/ops.py`` dispatches between it
 and the plain version.  The kernel takes any Sq / Skv and masks the ragged
-edge itself: there is no padding.
+edge itself: there is no padding.  bf16 runs both products on the tensor
+cores (P.V as two bf16 products, p split into hi + lo); f32 runs on the
+CUDA cores.
 """
 
 from __future__ import annotations

@@ -4,10 +4,10 @@ A CUDA tensor goes to the hand-written kernel; a CPU tensor goes to the
 plain PyTorch version (``kernels/ref.py``), and only because it lies on the
 CPU.  There is no fallback: a CUDA call that fails raises.  Each wrapper
 counts its kernel launches in ``LAUNCHES`` (plain ints, CUDA launches only),
-so a run can show that its main path went through the kernels.  Kernels 3
-and 4 (``paged_attention``, ``policy_paged_attention``) make
-``SPLIT_LAUNCHES`` launches per call, the pages' partials and then their
-fold, and count each.
+so a run can show that its main path went through the kernels.  Kernels
+3, 4 and 5 (``paged_attention``, ``policy_paged_attention``,
+``adaptive_policy_paged_attention``) make ``SPLIT_LAUNCHES`` launches per
+call, the pages' partials and then their fold, and count each.
 """
 
 from __future__ import annotations
@@ -23,7 +23,8 @@ LAUNCHES: Dict[str, int] = {"paged_attention": 0, "policy_paged_attention": 0,
                              "flash_attention": 0}
 
 
-#: CUDA launches per call of kernels 3 and 4: the pages' partials, their fold
+#: CUDA launches per call of kernels 3, 4 and 5: the pages' partials, their
+#: fold
 SPLIT_LAUNCHES = 2
 
 
@@ -80,7 +81,7 @@ def adaptive_policy_paged_attention(q, k_pages, v_pages, new_k, new_v, pos: int,
     from repro_torch.kernels.policy_attn import adaptive_policy_paged_attention_kernel
 
     res = adaptive_policy_paged_attention_kernel(*args, kind=kind, renorm_at=renorm_at)
-    LAUNCHES["adaptive_policy_paged_attention"] += 1
+    LAUNCHES["adaptive_policy_paged_attention"] += SPLIT_LAUNCHES
     return res
 
 

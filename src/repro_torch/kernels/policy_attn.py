@@ -8,7 +8,9 @@
 * ``adaptive_policy_paged_attention_kernel`` (``csrc/adaptive_attn.cu``)
   replaces ``adaptive_policy_paged_attention_kernel``: the same step for the
   true-adaptive ARC/CAR pool, with the allocation miss and the per-page hit
-  accesses of ``AdaptiveCore.on_access`` inside the launch.
+  accesses of ``AdaptiveCore.on_access`` inside the call (the same two
+  launches: the miss in every partials CTA at a page boundary, the hit
+  accesses in the fold's last CTA of each sequence).
 
 The pool K/V stay read-only; the caller scatters the new row at the returned
 slot (``cache/paged_kv.py`` ``fused_decode_step`` /
@@ -82,7 +84,8 @@ def adaptive_policy_paged_attention_kernel(q, k_pages, v_pages, new_k, new_v,
     2P <= L <= 1024, ``p_plane`` (B,) float32, ``ctr`` (B,) int32; ``kind``
     "arc" or "car"; ``renorm_at`` the core's stamp-renormalization ceiling (an
     int: the kernel always checks).  Returns the eight flat outputs followed
-    by ``(blocks', tag', stamp', ref', p', ctr')``.  One launch."""
+    by ``(blocks', tag', stamp', ref', p', ctr')``.  One call: two launches
+    over the grids of ``paged_attn.split_ctas``."""
     B, P, page, KVH, hd = k_pages.shape
     G = q.shape[2]
     L = blocks.shape[1]
@@ -117,13 +120,14 @@ def adaptive_policy_paged_attention_kernel(q, k_pages, v_pages, new_k, new_v,
     p2, ctr2 = torch.empty_like(p_plane), torch.empty_like(ctr)
     outs = (out, mass, slot, f2, r2, ps2, clock2, open2, blk2, tag2, stp2, ref2,
             p2, ctr2)
+    scratch, counters = split_buffers(B, P, KVH, G, hd, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _build.library().repro_adaptive_policy_paged_attention(
         DTYPE_CODE[q.dtype], q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         new_k.data_ptr(), new_v.data_ptr(), int(pos),
         *(t.data_ptr() for t in (f, r, page_start, clock, open_slot, blocks, tag,
                                  stamp, refbits, p_plane, ctr)),
-        *(t.data_ptr() for t in outs),
+        *(t.data_ptr() for t in outs), scratch.data_ptr(), counters.data_ptr(),
         B, P, page, KVH, G, hd, L, attn_scale(hd), ADAPTIVE_KIND[kind],
         int(renorm_at), stream)
     _build.check(err, name)

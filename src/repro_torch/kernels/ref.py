@@ -61,7 +61,7 @@ class _Flash:
                                device=dev)
 
     @staticmethod
-    def page_partials(q, k, v, start, cur, scale: float):
+    def partials(q, k, v, start, cur, scale: float):
         """What one page contributes, from the query and that page alone:
         ``(m_loc, ssum, pv)``, its local max, its sum of exponentials and
         its unscaled P.V.  q (B, KVH, G, hd) f32; k/v (B, page, KVH, hd) f32;
@@ -99,7 +99,7 @@ class _Flash:
         page order).  ``tile(p)`` gives page p's f32 (k, v), each (B, page,
         KVH, hd)."""
         for p in range(self.psum.shape[1]):
-            self.fold(p, *self.page_partials(q, *tile(p), page_start[:, p], cur, scale))
+            self.fold(p, *self.partials(q, *tile(p), page_start[:, p], cur, scale))
 
     def finalize(self, out_dtype):
         """(out (B, KVH, G, hd) in ``out_dtype``, mass (B, P) f32)."""

@@ -385,7 +385,8 @@ def decode_step(params: Params, cfg, token: torch.Tensor, caches,
     """One serving step: token (B, 1) int -> (logits (B, 1, Vpad), caches).
 
     ``fused=True`` routes the paged blocks through the fused CUDA policy
-    kernel (one launch per layer); decisions equal the unfused path's."""
+    kernel (one call per layer, ``ops.SPLIT_LAUNCHES`` launches); decisions
+    equal the unfused path's."""
     unit, n_rep, tail = scan_plan(cfg)
     pos = caches["pos"]
     x = _embed(params, cfg, token)

@@ -7,9 +7,10 @@ non-causal} x {f32 within 2e-5, bf16 within 3e-2 (the reference's bf16
 tolerance: the two sides round bf16 inputs and outputs at other places)},
 plus a ragged S, the ``kv_len`` mask and fully masked rows; and against the
 reference model's chunked layer ``layers.flash_attention``, with a window.
-The decode kernels' shared-memory carves (kernel 5's one CTA per
-sequence, kernels 3 and 4's one CTA per page, kv head and sequence),
-mirrored here in Python, fit a block at both served configs' decode shapes.
+The decode kernels' shared-memory carves (kernels 3, 4 and 5's one CTA per
+page, kv head and sequence, kernel 5's with its ARC/CAR directory at a page
+boundary), mirrored here in Python, fit a block at both served configs'
+decode shapes.
 
 The ``cuda``-marked test holds the CUDA kernel against the plain version on
 a card and skips without one.
@@ -69,10 +70,14 @@ def test_flash_attention_matches_reference_kernel(B, S, KVH, G, hd, causal, wind
     tol = BF16_TOL if dtype == "bfloat16" else F32_TOL
     want = _jax(jops.flash_attention, q, k, v, dtype, causal=causal, window=window,
                 block_q=64, block_k=64, interpret=True)
-    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
     oracle = _jax(jref.ref_flash_attention, q, k, v, dtype, causal=causal,
                   window=window)
-    np.testing.assert_allclose(got, oracle, rtol=tol, atol=tol)
+    # on a mismatch, say which of the three results moved
+    moved = (f"max |port - kernel| {np.abs(got - want).max():.3g}, "
+             f"|port - oracle| {np.abs(got - oracle).max():.3g}, "
+             f"|kernel - oracle| {np.abs(want - oracle).max():.3g}")
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol, err_msg=moved)
+    np.testing.assert_allclose(got, oracle, rtol=tol, atol=tol, err_msg=moved)
 
 
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 48), (False, 16)])
@@ -168,24 +173,56 @@ def test_cpu_flash_attention_takes_plain_version_and_cuda_wrapper_refuses_cpu():
         flash_attention_kernel(q, k, v, causal=True, window=0)
 
 
+# one bf16 ulp of the plain value plus a floor: the card's gate on kernel 6
+GATE_RTOL, GATE_ATOL = 2.0 ** -7, 1e-6
+
+
+def _tensor_core_pv(q, k, v, *, split: bool):
+    """Kernel 6's bf16 numerics emulated in torch, causal: f32 scores and
+    softmax, l summed from the f32 p, then P.V as the tensor cores take it,
+    p in bf16 (bf16 x bf16 products are exact in f32, summed in f32): p
+    rounded once, or with ``split`` as hi = bf16(p) plus lo = bf16(p - hi);
+    out rounded to bf16."""
+    S, hd = q.shape[1], q.shape[-1]
+    s = torch.einsum("bqkgh,bckh->bkgqc", q.float(), k.float()) * ref.attn_scale(hd)
+    pos = torch.arange(S)
+    mask = pos[None, :] <= pos[:, None]
+    s = torch.where(mask, s, ref.NEG_INF)
+    p = torch.where(mask, torch.exp(s - s.amax(dim=-1, keepdim=True)), 0.0)
+    l = torch.clamp(p.sum(dim=-1), min=1e-30)
+    hi = p.to(torch.bfloat16).float()
+    pv = torch.einsum("bkgqc,bckh->bqkgh", hi, v.float())
+    if split:
+        lo = (p - hi).to(torch.bfloat16).float()
+        pv = pv + torch.einsum("bkgqc,bckh->bqkgh", lo, v.float())
+    return (pv / l.permute(0, 3, 1, 2)[..., None]).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("B,S,KVH,G,hd", [(1, 128, 2, 2, 64), (1, 256, 2, 2, 128)])
+def test_bf16_kernel_needs_p_split_into_hi_and_lo(B, S, KVH, G, hd):
+    """Why kernel 6's bf16 path runs P.V as two tensor-core products: with
+    p rounded once to bf16 the output misses the card's one-ulp gate against
+    the plain version by two orders of magnitude (outputs near 0 lose all
+    their bits); with p split into hi + lo it stays within the gate.  Inputs
+    drawn as ``chip_smoke.py`` draws them (q ~ N(0, 1), k, v ~ 0.5 N(0, 1))."""
+    rng = np.random.default_rng(12)
+    q = torch.from_numpy(rng.standard_normal((B, S, KVH, G, hd)).astype(np.float32))
+    k, v = (torch.from_numpy((rng.standard_normal((B, S, KVH, hd)) * 0.5).astype(np.float32))
+            for _ in range(2))
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    plain = ref.flash_attention_plain(q, k, v, causal=True).float()
+
+    def over_gate(out):
+        return ((out.float() - plain).abs() / (GATE_RTOL * plain.abs() + GATE_ATOL)).max().item()
+
+    assert over_gate(_tensor_core_pv(q, k, v, split=False)) > 10.0
+    assert over_gate(_tensor_core_pv(q, k, v, split=True)) <= 1.0
+
+
 MAX_SMEM = 232448  # kMaxSmem: 227 KB, a block's shared-memory limit on Hopper
 STATIC_SMEM = 1024  # kStaticSmem: kept free for the kernels' static arrays
 FOLD_TILE = 64  # kFoldTile
 L2_BYTES = 50 * 2**20  # the H100's L2
-
-
-def decode_smem(P, page, KVH, G, hd, esize, *, lanes):
-    """``(chunk, bytes)`` of kernel 5's dynamic shared memory as
-    ``kernels/csrc/paged_attn_common.cuh`` computes them (``chunk_rows``,
-    ``smem_bytes`` with the planes), plus ``lanes`` * 5 ints of its
-    directory; ``chunk`` is 0 when not even one row fits."""
-    R = KVH * G
-    row_words = (KVH * hd * esize // 4) | 1
-    fixed = 4 * (3 * R * hd + 4 * R + R * page + 2 * P * R + P + 3 * P)
-    reserve = fixed + 5 * 2 * P * 4 + STATIC_SMEM
-    fit = max(MAX_SMEM - reserve, 0) // (2 * row_words * 4)
-    chunk = page if fit >= page else (fit // 16 * 16 if fit >= 16 else fit)
-    return chunk, fixed + 2 * chunk * row_words * 4 + 5 * lanes * 4
 
 
 def split_smem(page, KVH, G, hd, esize):
@@ -209,20 +246,47 @@ def _decode_shapes():
                    cfg.n_heads // cfg.n_kv_heads, cfg.head_dim)
 
 
+def decode_smem(page, KVH, G, hd, esize, *, lanes):
+    """Kernel 5's partials launch, dynamic shared memory (``adaptive_attn.cu``
+    ``launch``): kernels 3 and 4's partials carve, plus, at a page boundary,
+    its sequence's ARC/CAR directory, 5 planes of ``lanes`` ints (``lanes``
+    0: a mid-page step, which carves none)."""
+    return split_smem(page, KVH, G, hd, esize)[0] + 5 * lanes * 4
+
+
+SPLIT_BLOCKS = 8  # kSplitBlocks: 64 registers a thread, 8 CTAs of 128 per SM
+
+
+def ctas_per_sm(nbytes):
+    """Partials CTAs of ``nbytes`` dynamic shared memory an SM holds: its
+    228 KB of shared memory, and at most SPLIT_BLOCKS by registers."""
+    return min(228 * 1024 // (nbytes + STATIC_SMEM), SPLIT_BLOCKS)
+
+
 @pytest.mark.parametrize("esize", [2, 4])
 @pytest.mark.parametrize("shape", list(_decode_shapes()), ids=lambda s: f"{s[0]}-P{s[1]}")
 def test_decode_kernels_shared_memory_fits_a_block(shape, esize):
-    """Kernel 5 stages a page in chunks of rows sized to the 227 KB block
-    limit (``paged_attn_common.cuh`` ``chunk_rows``): every served decode
-    shape launches, in bf16 and f32."""
+    """Kernel 5 runs on kernels 3 and 4's schedule: mid-page its partials
+    CTA carves exactly kernel 4's shared memory; at a page boundary it adds
+    the directory (L = 2P lanes), which at the served 16-page pools leaves
+    the CTAs per SM unchanged (8 or more at smollm's in bf16), and which fits
+    a block at every served shape and at P=256 with L=1024 lanes.  The
+    fold's last CTA keeps the hit pages and the directory (P + 5L ints) in
+    its two P.V buffers."""
     _, P, page, KVH, G, hd = shape
-    chunk, nbytes = decode_smem(P, page, KVH, G, hd, esize, lanes=2 * P)
-    assert 1 <= chunk <= page
-    assert nbytes + STATIC_SMEM <= MAX_SMEM, (shape, esize, nbytes)
-    if (P, page, KVH, G, hd, esize) == (16, 64, 16, 2, 128, 2):
-        assert chunk == 16  # gemma3's served pool: pages take 4 chunks
-    if KVH * hd * esize <= 640:
-        assert chunk == page  # smollm: whole pages, K and V staged together
+    mid = decode_smem(page, KVH, G, hd, esize, lanes=0)
+    assert mid == split_smem(page, KVH, G, hd, esize)[0]
+    boundary = decode_smem(page, KVH, G, hd, esize, lanes=2 * P)
+    assert boundary + STATIC_SMEM <= MAX_SMEM, (shape, esize, boundary)
+    if P == 16:  # the served pools
+        assert ctas_per_sm(boundary) == ctas_per_sm(mid), (shape, esize)
+    if KVH * hd * esize <= 640:  # smollm in bf16
+        assert ctas_per_sm(mid) == SPLIT_BLOCKS
+        if P == 16:
+            assert ctas_per_sm(boundary) == SPLIT_BLOCKS
+    assert decode_smem(page, KVH, G, hd, esize, lanes=1024) + STATIC_SMEM <= MAX_SMEM
+    fold_buffers = 2 * FOLD_TILE * 64  # floats
+    assert P + 5 * 2 * P <= fold_buffers and 256 + 5 * 1024 <= fold_buffers
 
 
 @pytest.mark.parametrize("esize", [2, 4])

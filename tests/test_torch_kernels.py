@@ -529,13 +529,15 @@ def test_cuda_fused_kernel_repeats_its_bits(cuda_device, within):
 def test_cuda_adaptive_kernel_matches_unfused_and_plain(cuda_device, kind,
                                                         renorm_at, seeded):
     """Kernel 5 == the unfused chain on the card, bitwise, through churn, the
-    renormalization edge and a ghost-seeded state; one launch per step; and
-    the kernel == its plain version on the final pool."""
+    renormalization edge and a ghost-seeded state; two launches per step
+    (partials and fold, ``ops.SPLIT_LAUNCHES``); and the kernel == its plain
+    version on the final pool."""
     before = ops.LAUNCHES["adaptive_policy_paged_attention"]
     steps = 2 * PAGE if seeded else (AP + 3) * PAGE
     ap = _adaptive_fused_vs_unfused(kind, cuda_device, renorm_at=renorm_at,
                                     seeded=seeded, steps=steps)
-    assert ops.LAUNCHES["adaptive_policy_paged_attention"] == before + steps
+    assert ops.LAUNCHES["adaptive_policy_paged_attention"] == \
+        before + ops.SPLIT_LAUNCHES * steps
     core = tpk.adaptive_core(f"{kind}_adaptive", B, AP)
     rng = np.random.default_rng(1)
     q = t(rng.standard_normal((B, KVH, G, HD)).astype(np.float32)).to(cuda_device)
