@@ -70,10 +70,15 @@ line, any failure raising (non-zero exit, no result line):
    (kernel 2) and the serve pool's (kernel 1), tie-heavy and all-invalid
    rows included; timed beside their byte bound.
 6. ``sweep``: the paper's Table 1 through ``repro_torch.core.sweep`` on the
-   card (equal to the host oracles' table, one kernel-2 launch per trace
-   step), a 64-trace grid and a num_sets=2 grid (kernel route == inline
-   route == host oracles), the sweep benchmark's 10k-access zipf trace (hit
-   counts == host oracles'), and a profile of 50 steady-state grid steps.
+   card on the engine's trace route (one ``flat_sweep`` and two
+   ``adaptive_sweep`` launches, no kernel-2 launch, no host sync; equal to
+   the host oracles' table), a 64-trace grid and a num_sets=2 grid (with and
+   without forced renormalization): trace route == eager route == host
+   oracles, each trace kernel's final planes == its plain version's; the
+   sweep benchmark's 10k- and 100k-access zipf traces (hit counts == host
+   oracles'); kernel 2 on its per-step path (``FlatCore(use_kernel=True)``,
+   200 steps) == the trace kernel; the trace kernels timed alone; a profile
+   of the trace route on the grid.
 
 Then the total seconds, the kernel summary line, the ``nvidia-smi`` line
 and, last, the result line.  Every kernel time is a median of CUDA-event
@@ -1140,13 +1145,25 @@ def _host_hits(policy, trace, cap, num_sets=1) -> np.ndarray:
     return np.array([insts[b % num_sets].access(b) for b in trace.tolist()], dtype=bool)
 
 
+def _host_counts(pols, trace, caps) -> tuple:
+    """(hit counts (policies, caps) of the host oracles, seconds)."""
+    t0 = time.perf_counter()
+    counts = np.array([[int(_host_hits(p, trace, c).sum()) for c in caps] for p in pols])
+    return counts, time.perf_counter() - t0
+
+
+def _syncs() -> int:
+    from repro_torch.core import policy_core
+
+    return sum(policy_core.HOST_SYNCS.values())
+
+
 def _engine(traces, policies, caps, **kw):
     """One engine call on the card: (hits on the host, seconds, launches of
-    the rows kernel, host syncs of the core)."""
-    from repro_torch.core import policy_core
+    the kernels, host syncs of the core)."""
     from repro_torch.core.torch_policies import simulate_trace_batched
 
-    syncs0 = sum(policy_core.HOST_SYNCS.values())
+    syncs0 = _syncs()
     torch.cuda.synchronize()
     ops.reset_launches()
     t0 = time.perf_counter()
@@ -1154,168 +1171,304 @@ def _engine(traces, policies, caps, **kw):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
-    syncs = sum(policy_core.HOST_SYNCS.values()) - syncs0
-    return hits.cpu().numpy(), seconds, launches, syncs
+    return hits.cpu().numpy(), seconds, launches, _syncs() - syncs0
+
+
+def _assert_trace_route(launches, syncs) -> None:
+    """One call of the trace route over the six device policies: one
+    flat_sweep launch, one adaptive_sweep launch per adaptive kind (arc,
+    car), no kernel-2 launch, no host sync."""
+    assert launches["flat_sweep"] == 1, launches
+    assert launches["adaptive_sweep"] == 2, launches
+    assert launches["awrp_select_rows"] == 0, launches
+    assert syncs == 0, syncs
+
+
+def _groups(traces, pols, caps, num_sets, dev):
+    """The engine's row groups of a grid on the card, and its traces there."""
+    from repro_torch.core.policy_core import POLICY_IDS
+    from repro_torch.core.torch_policies import _grid_groups
+
+    ways = tuple(c // num_sets for c in caps)
+    tr = torch.as_tensor(np.atleast_2d(traces).astype(np.int32), device=dev)
+    return _grid_groups(tr.shape[0], tuple(POLICY_IDS[p] for p in pols), ways, dev), tr, \
+        max(ways)
+
+
+def _planes_equal_plain(traces, pols, caps, dev, *, num_sets=1, renorm_at=None) -> dict:
+    """Both trace kernels against their plain versions on the card, over the
+    engine's groups of this grid: hits and every final plane bitwise (``p``
+    as its int32 bits).  Returns the plain versions' seconds."""
+    from repro_torch.core.torch_policies import _sweep_groups
+
+    groups, tr, W = _groups(traces, pols, caps, num_sets, dev)
+    got = _sweep_groups(tr, groups, num_sets, W, renorm_at)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = _sweep_groups(tr, groups, num_sets, W, renorm_at, flat=ref.flat_sweep_plain,
+                         adaptive=ref.adaptive_sweep_plain)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    for g, (gh, gs), (wh, ws) in zip(groups, got, want):
+        assert torch.equal(gh, wh), ("hits", g.kind)
+        for name, a, b in zip(gs._fields, gs, ws):
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            assert torch.equal(a, b), ("final plane", g.kind, name)
+    return {"plain_seconds": plain_s, "planes_equal_plain": [g.kind for g in groups]}
+
+
+def _sweep_bound(traces, rows: int, hits, plane_ints: int, lanes_per_access: np.ndarray,
+                 extra_ops: float = 0.0) -> tuple:
+    """(bound_ms, bound_by) of one trace-kernel call: the bytes it must move
+    (the traces it reads, 4 per-row int32s, the (rows, T) bool hits, the
+    final planes, each once) at the HBM rate, against its 32-bit operations
+    at the f32 peak: per access one comparison per live lane (the hit
+    search), per miss two more (the victim key and its minimum), plus
+    ``extra_ops``."""
+    nbytes = traces.numel() * 4 + rows * 16 + hits.numel() + plane_ints * 4
+    misses = (~hits).sum(dim=1).cpu().numpy()
+    n_ops = float((lanes_per_access * (hits.shape[1] + 2 * misses)).sum()) + extra_ops
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_trace_kernels(dev, pols, caps) -> dict:
+    """Each trace kernel timed alone on Table 1's groups (one row group's
+    whole 1000-step trace per call) and on the 64-trace grid's, beside its
+    plain version at Table 1's and its bound; ``ms_per_step`` is the call's
+    time over T (each row's steps are a serial chain)."""
+    from repro_torch.core.traces import paper_trace
+
+    out = {"flat_sweep": [], "adaptive_sweep": []}
+    for label, traces in (("table1", paper_trace()),
+                          ("grid64", np.stack([paper_trace(seed=s) for s in range(64)]))):
+        groups, tr, W = _groups(traces, pols, caps, 1, dev)
+        T = tr.shape[1]
+        for g in groups:
+            if g.kind == "flat":
+                name = "flat_sweep"
+                args, kw = (tr, g.row_trace, g.pids, g.ways), dict(num_sets=1, lanes=W)
+                fn, plain = ops.flat_sweep, ref.flat_sweep_plain
+            else:
+                name = "adaptive_sweep"
+                args = (tr, g.row_trace, g.ways)
+                kw = dict(kind=g.kind, num_sets=1, lanes=2 * W, renorm_at=None)
+                fn, plain = ops.adaptive_sweep, ref.adaptive_sweep_plain
+            hits, state = fn(*args, **kw)
+            ms = time_ms(lambda: fn(*args, **kw), reps=10, warmup=2)
+            ways = g.ways.cpu().numpy()
+            lanes = ways if g.kind == "flat" else 2 * ways
+            plane_ints = sum(t.numel() for t in state)
+            bound_ms, bound_by = _sweep_bound(tr, len(ways), hits, plane_ints, lanes)
+            run = {"grid": label, "kind": g.kind, "rows": len(ways), "steps": T,
+                   "lanes": W if g.kind == "flat" else 2 * W, "ms": ms,
+                   "ms_per_step": ms / T, "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": None}
+            if label == "table1" and g.kind in ("flat", "arc"):
+                run["plain_ms"] = time_ms(lambda: plain(*args, **kw), reps=2, warmup=1)
+            out[name].append(run)
+    return out
 
 
 def phase_sweep(dev) -> dict:
     """The Table-1 sweep on the card through ``repro_torch.core.sweep`` and
-    the batched engine, AWRP victims through kernel 2; four runs:
+    the batched engine's trace route (one launch per row group runs its
+    whole trace: ``flat_sweep`` for the flat rows, ``adaptive_sweep`` per
+    adaptive kind); the eager route (``use_kernel=False``) beside it:
     (a) Table 1: six device policies x frame sizes 30..240 on
-        ``paper_trace()``, equal to the host oracles' table, one kernel-2
-        launch per trace step;
+        ``paper_trace()``, equal to the host oracles' table; 1 flat_sweep
+        and 2 adaptive_sweep launches, no kernel-2 launch, no host sync;
     (b) a 64-trace grid (``paper_trace(seed=s)``, s < 64) x 6 x 8 = 3072
-        rows: kernel route == inline route in every hit bit, seeds 0-3 ==
-        the host oracles;
-    (c) the same at num_sets=2 on 8 seeds: kernel, inline and host agree;
+        rows: trace route == eager route in every hit bit, seeds 0-3 == the
+        host oracles, each kernel's hits and final planes == its plain
+        version's on the card, bitwise;
+    (c) the same at num_sets=2 on 8 seeds, and again with ``_renorm_at=64``
+        (stamps renormalize in sets the step does not access);
     (d) the sweep benchmark's trace (``trace_zipf(10_000, 2_000, 0.9,
         seed=5)``, ``benchmarks/policy_overhead.py``) x 6 x 8: hit counts
-        equal to the host oracles';
-    then a ``torch.profiler`` view of 50 steady-state steps of (b)."""
-    from repro_torch.core import hit_ratio_table, policy_core, sweep
-    from repro_torch.core.policy_core import DEVICE_POLICIES
+        equal to the host oracles', on both routes;
+    (e) its 100k-access size (``trace_zipf(100_000, 2_000, 0.9, seed=5)``)
+        x 6 x 8 on the trace route: hit counts equal to the host oracles';
+    then kernel 2 on its per-step path (``FlatCore(use_kernel=True)``) over
+    the first 200 steps of (a)'s flat rows, equal to the trace kernel's hits
+    and planes at step 200; the trace kernels timed alone; and a
+    ``torch.profiler`` view of the trace route on (b)."""
+    from repro_torch.core import hit_ratio_table, sweep
+    from repro_torch.core.policy_core import DEVICE_POLICIES, FlatCore
     from repro_torch.core.traces import paper_trace, trace_zipf
 
     pols, caps = list(DEVICE_POLICIES), TABLE1_CAPS
     res = {"phase": "sweep", "policies": pols, "caps": caps}
 
-    # (a) Table 1 through the user's entry point
+    # (a) Table 1 through the user's entry point, both routes
     tr = paper_trace()
-    syncs0 = sum(policy_core.HOST_SYNCS.values())
+    syncs0 = _syncs()
     torch.cuda.synchronize()
     ops.reset_launches()
     t0 = time.perf_counter()
     table = sweep(pols, tr, caps, torch_device="cuda")
     seconds = time.perf_counter() - t0  # ends in the host pull of the counts
     launches = dict(ops.LAUNCHES)
-    syncs = sum(policy_core.HOST_SYNCS.values()) - syncs0
+    syncs = _syncs() - syncs0
+    t0 = time.perf_counter()
     host = sweep(pols, tr, caps, device=False)
+    host_s = time.perf_counter() - t0
     assert table == host, (table, host)
-    assert launches["awrp_select_rows"] == len(tr), launches
+    _assert_trace_route(launches, syncs)
+    t0 = time.perf_counter()  # again, the kernels and torch's ops loaded
+    assert sweep(pols, tr, caps, torch_device="cuda") == host
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eager = sweep(pols, tr, caps, torch_device="cuda", use_kernel=False)
+    eager_s = time.perf_counter() - t0
+    assert eager == host
     res["table1"] = {"seconds": seconds, "ms_per_step": seconds * 1e3 / len(tr),
-                     "steps": len(tr), "launches": launches,
-                     "host_syncs_per_step": syncs / len(tr),
+                     "seconds_second_call": warm_s,
+                     "steps": len(tr), "launches": launches, "host_syncs": syncs,
+                     "eager_seconds": eager_s, "host_oracle_seconds": host_s,
                      "equal_to_host_table": True,
                      "hit_ratios": {p: [table[p][c] for c in caps] for p in pols}}
     res["table1_text"] = hit_ratio_table(table, caps).splitlines()
 
-    # (b) the 64-trace grid: kernel route == inline route; seeds 0-3 == host
+    # kernel 2 on its per-step path: FlatCore(use_kernel=True).on_access over
+    # the first 200 steps of (a)'s flat rows == the trace kernel at step 200
+    groups, tr_a, W = _groups(tr, pols, caps, 1, dev)
+    g = groups[0]
+    core = FlatCore(pids=tuple(g.pids.tolist()), ways=tuple(g.ways.tolist()), lanes=W,
+                    use_kernel=True)
+    state, ids = core.init(device=dev), tr_a[0, :200]
+    ops.reset_launches()
+    steps_hits = []
+    for t in range(200):
+        state, h = core.on_access(state, ids[t].expand(core.rows))
+        steps_hits.append(h)
+    k2_launches = ops.LAUNCHES["awrp_select_rows"]
+    assert k2_launches == 200, ops.LAUNCHES
+    kh, ks = ops.flat_sweep(tr_a[:, :200].contiguous(), g.row_trace, g.pids, g.ways,
+                            num_sets=1, lanes=W)
+    assert torch.equal(torch.stack(steps_hits, dim=1), kh)
+    assert all(torch.equal(a, b) for a, b in zip(state, ks))
+    res["kernel2_path"] = {"rows": core.rows, "steps": 200, "launches": k2_launches,
+                           "equal_to_trace_kernel": True}
+
+    # (b) the 64-trace grid: trace route == eager route; seeds 0-3 == host;
+    # final planes == the plain versions'
     grid = np.stack([paper_trace(seed=s) for s in range(64)])
     hk, sk, lk, yk = _engine(grid, pols, caps, use_kernel=True)
+    _assert_trace_route(lk, yk)
     hi, si, li, yi = _engine(grid, pols, caps, use_kernel=False)
-    assert (hk == hi).all(), "kernel and inline routes differ on the 64-trace grid"
-    assert lk["awrp_select_rows"] == grid.shape[1] and li["awrp_select_rows"] == 0
+    assert (hk == hi).all(), "trace and eager routes differ on the 64-trace grid"
+    assert li["awrp_select_rows"] == 0 and li["flat_sweep"] == 0
+    t0 = time.perf_counter()
     for n in range(4):
         for pi, p in enumerate(pols):
             for ci, c in enumerate(caps):
                 assert (hk[n, pi, ci] == _host_hits(p, grid[n], c)).all(), (n, p, c)
+    host_s = time.perf_counter() - t0
     res["grid64"] = {"rows": int(np.prod(hk.shape[:3])), "steps": grid.shape[1],
-                     "kernel": {"seconds": sk, "ms_per_step": sk * 1e3 / grid.shape[1],
-                                "launches": lk, "host_syncs_per_step": yk / grid.shape[1]},
-                     "inline": {"seconds": si, "ms_per_step": si * 1e3 / grid.shape[1],
-                                "host_syncs_per_step": yi / grid.shape[1]},
-                     "kernel_equals_inline": True, "host_checked_traces": 4}
+                     "trace": {"seconds": sk, "ms_per_step": sk * 1e3 / grid.shape[1],
+                               "launches": lk, "host_syncs": yk},
+                     "eager": {"seconds": si, "ms_per_step": si * 1e3 / grid.shape[1],
+                               "host_syncs_per_step": yi / grid.shape[1]},
+                     "trace_equals_eager": True, "host_checked_traces": 4,
+                     "host_oracle_seconds_4_traces": host_s,
+                     **_planes_equal_plain(grid, pols, caps, dev)}
 
-    # (c) num_sets=2 on 8 seeds
+    # (c) num_sets=2 on 8 seeds, then with renormalization forced
     g8 = grid[:8]
-    hk2, sk2, lk2, _ = _engine(g8, pols, caps, num_sets=2, use_kernel=True)
-    hi2, si2, _, _ = _engine(g8, pols, caps, num_sets=2, use_kernel=False)
-    assert (hk2 == hi2).all(), "kernel and inline routes differ at num_sets=2"
-    for n in range(8):
-        for pi, p in enumerate(pols):
-            for ci, c in enumerate(caps):
-                assert (hk2[n, pi, ci] == _host_hits(p, g8[n], c, 2)).all(), (n, p, c)
-    res["sets2"] = {"rows": int(np.prod(hk2.shape[:3])), "steps": g8.shape[1],
-                    "kernel": {"seconds": sk2, "ms_per_step": sk2 * 1e3 / g8.shape[1],
-                               "launches": lk2},
-                    "inline": {"seconds": si2, "ms_per_step": si2 * 1e3 / g8.shape[1]},
-                    "kernel_equals_inline_equals_host": True}
+    res["sets2"] = []
+    for renorm_at in (None, 64):
+        kw = {"num_sets": 2, "_renorm_at": renorm_at}
+        hk2, sk2, lk2, yk2 = _engine(g8, pols, caps, use_kernel=True, **kw)
+        _assert_trace_route(lk2, yk2)
+        hi2, si2, _, _ = _engine(g8, pols, caps, use_kernel=False, **kw)
+        assert (hk2 == hi2).all(), ("trace and eager routes differ at num_sets=2", renorm_at)
+        for n in range(8):
+            for pi, p in enumerate(pols):
+                for ci, c in enumerate(caps):
+                    assert (hk2[n, pi, ci] == _host_hits(p, g8[n], c, 2)).all(), (n, p, c)
+        res["sets2"].append({
+            "renorm_at": renorm_at, "rows": int(np.prod(hk2.shape[:3])), "steps": g8.shape[1],
+            "trace": {"seconds": sk2, "launches": lk2}, "eager": {"seconds": si2},
+            "trace_equals_eager_equals_host": True,
+            **_planes_equal_plain(g8, pols, caps, dev, num_sets=2, renorm_at=renorm_at)})
 
-    # (d) the sweep benchmark's trace at its smoke size: hit counts == host
+    # (d) the sweep benchmark's trace at its smoke size: both routes == host
     z = trace_zipf(10_000, 2_000, 0.9, seed=5)
     hz, sz, lz, yz = _engine(z, pols, caps)
+    _assert_trace_route(lz, yz)
+    hze, sze, _, yze = _engine(z, pols, caps, use_kernel=False)
     counts = hz[0].sum(-1)
-    t0 = time.perf_counter()
-    host_counts = np.array([[int(_host_hits(p, z, c).sum()) for c in caps] for p in pols])
-    host_s = time.perf_counter() - t0
+    host_counts, host_s = _host_counts(pols, z, caps)
     assert (counts == host_counts).all(), (counts, host_counts)
-    assert lz["awrp_select_rows"] == len(z), lz
+    assert (hze == hz).all(), "trace and eager routes differ on the 10k zipf trace"
     res["zipf10k"] = {"steps": len(z), "seconds": sz, "ms_per_step": sz * 1e3 / len(z),
-                      "launches": lz, "host_syncs_per_step": yz / len(z),
+                      "launches": lz, "host_syncs": yz, "eager_seconds": sze,
+                      "eager_host_syncs_per_step": yze / len(z),
                       "host_oracle_seconds": host_s, "counts_equal_to_host": True,
                       "hit_counts": counts.tolist()}
+
+    # (e) the 100k-access size, trace route only
+    z = trace_zipf(100_000, 2_000, 0.9, seed=5)
+    hz, sz, lz, yz = _engine(z, pols, caps)
+    _assert_trace_route(lz, yz)
+    counts = hz[0].sum(-1)
+    host_counts, host_s = _host_counts(pols, z, caps)
+    assert (counts == host_counts).all(), (counts, host_counts)
+    res["zipf100k"] = {"steps": len(z), "seconds": sz, "ms_per_step": sz * 1e3 / len(z),
+                       "launches": lz, "host_syncs": yz, "host_oracle_seconds": host_s,
+                       "counts_equal_to_host": True, "hit_counts": counts.tolist()}
+
+    res["kernels"] = time_trace_kernels(dev, pols, caps)
     res["profile_grid64"] = profile_sweep(grid, pols, caps)
     emit(res)
     return res
 
 
-def profile_sweep(traces, pols, caps, start: int = 500, steps: int = 50) -> dict:
-    """Where a sweep step's time goes, in the steady state: steps
-    ``[start, start + steps)`` of an engine call on ``traces`` (kernel
-    route), once timed on the host clock between two synchronizes and once
-    under ``torch.profiler`` (a schedule whose active window is those steps;
-    the step counter is a wrapper around ``FlatCore.on_access``, which runs
-    once per step).  Device time is the sum of the kernels' intervals (one
-    stream, so they do not overlap); the busy share is that over the
-    synchronized host wall of the same steps without the profiler."""
+def profile_sweep(traces, pols, caps) -> dict:
+    """Where a trace-route sweep's time goes: one engine call on ``traces``
+    timed on the host clock between two synchronizes, with CUDA events
+    recorded on the stream just before and after it (the device span of the
+    call, its idle gaps included), then the same call under
+    ``torch.profiler`` (a schedule whose one active cycle is a second call,
+    after a warm-up cycle).  Device time is the sum of the profiled kernels'
+    intervals (one stream, so they do not overlap); the busy share is that
+    over the host wall of the unprofiled call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    from repro_torch.core import policy_core
-    from repro_torch.core.policy_core import FlatCore
-
-    traces = traces[:, :start + steps + 1]
-    orig = FlatCore.on_access
-    marks, calls, prof = {}, [0], [None]
-
-    def counted(self, *args, **kwargs):
-        i = calls[0]
-        calls[0] += 1
-        if i in (start, start + steps):
-            torch.cuda.synchronize()
-            marks[i] = (time.perf_counter(), sum(policy_core.HOST_SYNCS.values()),
-                        ops.LAUNCHES["awrp_select_rows"])
-        if prof[0] is not None:
-            prof[0].step()
-        return orig(self, *args, **kwargs)
-
-    FlatCore.on_access = counted
-    try:
-        _engine(traces, pols, caps)
-        t0, s0, l0 = marks[start]
-        t1, s1, l1 = marks[start + steps]
-        calls[0] = 0
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     schedule=schedule(wait=start - 1, warmup=1, active=steps,
-                                       repeat=1)) as p:
-            prof[0] = p
+    _engine(traces, pols, caps)  # warm
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    _, wall_s, launches, syncs = _engine(traces, pols, caps)
+    end.record()
+    end.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as p:
+        for _ in range(2):
             _engine(traces, pols, caps)
-    finally:
-        FlatCore.on_access = orig
+            p.step()
+    T = traces.shape[1]
     # the schedule's own "ProfilerStep#" annotations also carry the CUDA
-    # device type and span each whole step: not kernels
+    # device type and span each whole cycle: not kernels
     kernels = [e for e in p.events() if e.device_type == DeviceType.CUDA
                and not e.name.startswith("ProfilerStep")]
-    wall_ms = (t1 - t0) * 1e3 / steps
-    out = {"rows": int(traces.shape[0] * len(pols) * len(caps)),
-           "window": [start, start + steps], "wall_ms_per_step": wall_ms,
-           "host_syncs_per_step": (s1 - s0) / steps,
-           "awrp_select_rows_launches_per_step": (l1 - l0) / steps}
+    out = {"rows": int(traces.shape[0] * len(pols) * len(caps)), "steps": T,
+           "wall_ms": wall_s * 1e3, "device_span_ms": start.elapsed_time(end),
+           "launches": launches, "host_syncs": syncs}
     if not kernels:
-        out["device_ms_per_step"] = "not measured"
+        out["device_ms"] = "not measured"
         return out
-    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / steps
-    sel = sum(e.time_range.elapsed_us() for e in kernels
-              if "awrp_select" in e.name) / 1e3 / steps
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     by_name: dict = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    out.update({"device_ms_per_step": busy, "device_busy_share": busy / wall_ms,
-                "kernels_per_step": len(kernels) / steps,
-                "awrp_select_rows_ms_per_step": sel,
-                "awrp_select_rows_share_of_device": sel / busy if busy else 0.0,
-                "top_kernels_ms_per_step": [[n[:80], ms / steps] for n, ms in top]})
+    out.update({"device_ms": busy, "device_ms_per_step": busy / T,
+                "device_busy_share": busy / out["wall_ms"], "kernels": len(kernels),
+                "top_kernels_ms": [[n[:80], ms] for n, ms in top]})
     return out
 
 
@@ -1332,6 +1485,13 @@ KERNELS = {
                          "src/repro/kernels/awrp_select.py:89"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attn.cu",
                         "src/repro/kernels/flash_attn.py:80"),
+    # kernel 2 redesigned: the whole trace around the per-step victim search
+    "flat_sweep": ("src/repro_torch/kernels/csrc/sweep.cu",
+                   "src/repro/kernels/awrp_select.py:89"),
+    # port-only: the ARC/CAR rows of the same lax.scan, which has no Pallas
+    # kernel of its own (its body is the core's on_access)
+    "adaptive_sweep": ("src/repro_torch/kernels/csrc/sweep.cu",
+                       "src/repro/core/jax_policies.py:329"),
 }
 
 
@@ -1383,9 +1543,10 @@ def main() -> int:
     # kernel in the serve phase, the adaptive one in serve_adaptive (both
     # policies), the unfused kernel in phase 3's unfused chain (the serve
     # loop's fused route does not launch it, as in the reference), kernel 6
-    # in serve_gemma3's AWRP batch (one prefill), the rows kernel in the
-    # Table-1 sweep (a); kernel 1 is on no path of the port (as in the
-    # reference, only tests reach it): 0
+    # in serve_gemma3's AWRP batch (one prefill), the rows kernel on its
+    # per-step path (FlatCore(use_kernel=True), 200 steps of (a)'s flat rows),
+    # the trace kernels in the Table-1 sweep (a); kernel 1 is on no path of
+    # the port (as in the reference, only tests reach it): 0
     timed_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
     for name, runs, launches, times, shape, other in (
@@ -1421,13 +1582,25 @@ def main() -> int:
         main_run = sel["kernels"][name][0]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": swp["table1"]["launches"][name],
+            "launches": swp["kernel2_path"]["launches"] if name == "awrp_select_rows" else 0,
             "max_abs_err": 0,  # integer victims, compared for equality
             "ms": main_run["ms"], "plain_ms": main_run["plain_ms"],
             "bound_ms": main_run["bound_ms"], "bound_by": main_run["bound_by"],
             "library_ms": None, "shape": [main_run["B"], main_run["P"]],
             "other_shapes": [{k: r[k] for k in ("B", "P", "ms", "plain_ms", "bound_ms")}
                              for r in sel["kernels"][name][1:2]]})
+    for name in ("flat_sweep", "adaptive_sweep"):
+        source, replaces = KERNELS[name]
+        main_run, *others = swp["kernels"][name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": swp["table1"]["launches"][name],
+            "max_abs_err": 0,  # hit bits and integer planes, compared for equality
+            **{k: main_run[k] for k in timed_keys}, "ms_per_step": main_run["ms_per_step"],
+            "shape": {k: main_run[k] for k in ("grid", "kind", "rows", "steps", "lanes")},
+            "other_shapes": [{k: r.get(k) for k in ("grid", "kind", "rows", "steps", "lanes",
+                                                    *timed_keys, "ms_per_step")}
+                             for r in others]})
     emit({"kernels": kernels})
     print(smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -26,13 +26,17 @@ order) and every selection is a first-index min, never ``argmin`` (whose tie
 order torch does not promise).  The AWRP victim of the flat rows can route
 through the hand-written CUDA rows kernel (``use_kernel``,
 ``kernels/ops.py`` ``awrp_select_rows``): a dispatch of the core, not of its
-callers.
+callers.  The sweep engine's trace route does not step the core from the
+host: its kernels (``ops.flat_sweep``, ``ops.adaptive_sweep``) run
+``on_access`` at every step of a whole trace on the card, decision for
+decision, with no host sync.
 
 Differences from the reference, all deliberate:
-* the scan-body control flow runs eagerly: CAR's clock-hand sweep is a Python
-  loop that stops when no row is still sweeping (one ``any()`` sync per trip,
-  at most ``max(caps) + 1`` trips), and the stamp renormalization check is a
-  Python ``if`` (one sync per access while it is enabled);
+* ``on_access`` runs the scan-body control flow eagerly: CAR's clock-hand
+  sweep is a Python loop that stops when no row is still sweeping (one
+  ``any()`` sync per trip, at most ``max(caps) + 1`` trips), and the stamp
+  renormalization check is a Python ``if`` (one sync per access while it is
+  enabled);
 * ``_GridMasks`` also carries ``valid``, the int32 live-lane plane the rows
   kernel takes, built once per batch instead of once per access;
 * no ``mesh``, no ``RowCounters`` / ``on_access_counted`` / admission and no

@@ -112,7 +112,7 @@ def sweep(
     ``device="auto"`` runs every device-capable policy's whole capacity row
     in one batched engine call on ``torch_device``; hit ratios are
     bit-identical to the host path either way.  ``use_kernel`` is the
-    engine's (default: the CUDA kernel on a CUDA device)."""
+    engine's (default: its trace kernels on a CUDA device)."""
     policies = list(policies)
     caps = [int(c) for c in capacities]
     if device == "auto":

@@ -12,23 +12,26 @@ access per step::
 
 Flat-state rows (awrp/lru/fifo/lfu) share one ``FlatCore``; arc and car rows
 each get an ``AdaptiveCore``.  Smaller capacities are padded to the widest
-config's ways with dead lanes masked out of fill and eviction.  On the card
-the AWRP victim search of all flat rows goes through the hand-written CUDA
-rows kernel (``kernels/ops.py`` ``awrp_select_rows``), one launch per trace
-step for the whole grid.  Decisions are bit-identical to the host oracles in
-``core/policies.py``.
+config's ways with dead lanes masked out of fill and eviction.  Decisions
+are bit-identical to the host oracles in ``core/policies.py``.
 
-The reference's ``lax.scan`` is a Python loop over the trace here:
+Two routes run the reference's ``lax.scan``:
 
-* the traces go to the device once, as int32 (range-checked on the host),
-  and each group's per-row block ids are gathered for the whole trace up
-  front, so a step reads a row of an ``(T, rows)`` tensor;
-* the per-row constants (grid masks, the kernel's int32 valid plane,
-  adaptive capacities) and the re-interleaving permutation are device
-  tensors built once;
-* hits go into a preallocated ``(T, rows)`` bool tensor on the device;
-* the only host syncs are CAR's clock-hand sweep checks and, where the
-  trace is long enough to need it, the stamp renormalization check
+* the trace route (``use_kernel=True``, the default on the card): each row
+  group's whole trace is one call, ``kernels/ops.py`` ``flat_sweep`` for the
+  flat rows and ``adaptive_sweep`` for each adaptive kind, so a sweep is at
+  most three launches of the persistent trace kernels (``csrc/sweep.cu``;
+  on the CPU their plain versions).  The traces go to the device once, as
+  int32 (range-checked on the host); the kernels read them as they are with
+  a row -> trace map, and nothing is read back before the hits: no host
+  sync;
+* the eager route (``use_kernel=False``, the default on the CPU and the
+  card's comparison route): a Python loop over the trace calling each
+  group's ``on_access`` per step, every row's block ids gathered up front
+  as a ``(T, rows)`` tensor, the per-row constants (grid masks, adaptive
+  capacities) built once, hits in a preallocated ``(T, rows)`` bool tensor.
+  Its only host syncs are CAR's clock-hand sweep checks and, where the trace
+  is long enough to need it, the stamp renormalization check
   (``policy_core.HOST_SYNCS`` counts both).
 
 Not ported yet: the ``mesh=`` rows sharding (``_sharded_groups_scan``), the
@@ -38,7 +41,7 @@ Not ported yet: the ``mesh=`` rows sharding (``_sharded_groups_scan``), the
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -102,6 +105,56 @@ def init_set_state(
     )
 
 
+class _Group(NamedTuple):
+    """One state layout of a grid: its flat rows, its arc rows or its car
+    rows, with their per-row constants on the engine's device."""
+
+    kind: str  # "flat", "arc" or "car"
+    rows: np.ndarray  # grid rows b = (n*P + p)*C + c, ascending (so by trace)
+    row_trace: torch.Tensor  # (rows,) int32 trace of each row
+    pids: torch.Tensor  # (rows,) int32 POLICY_IDS value
+    ways: torch.Tensor  # (rows,) int32 per-set capacity
+
+
+def _grid_groups(N: int, policy_ids: Tuple[int, ...], ways: Tuple[int, ...],
+                 dev) -> List[_Group]:
+    """Partition the (N, policies, capacities) grid by state layout:
+    flat-state rows share one group, arc and car rows get one each."""
+    P, C = len(policy_ids), len(ways)
+    pids = np.tile(np.repeat(np.asarray(policy_ids, np.int32), C), N)
+    ways_b = np.tile(np.asarray(ways, np.int32), N * P)
+    parts = (("flat", np.isin(pids, [POLICY_IDS[p] for p in JAX_POLICIES])),
+             ("arc", pids == POLICY_IDS["arc"]), ("car", pids == POLICY_IDS["car"]))
+    groups = []
+    for kind, sel in parts:
+        idx = np.flatnonzero(sel)
+        if len(idx):
+            groups.append(_Group(kind, idx, *(
+                torch.as_tensor(a.astype(np.int32), device=dev)
+                for a in (idx // (P * C), pids[idx], ways_b[idx]))))
+    return groups
+
+
+def _sweep_groups(traces: torch.Tensor, groups: Sequence[_Group], num_sets: int, W: int,
+                  renorm_at: Optional[int], *, flat=None, adaptive=None) -> list:
+    """The trace route: each group's whole trace in one call of ``flat``
+    (default ``ops.flat_sweep``) or ``adaptive`` (``ops.adaptive_sweep``);
+    returns ``[(hits (rows, T) bool, final state)]`` in group order.  Nothing
+    here reads the device back."""
+    from repro_torch.kernels import ops
+
+    flat = flat or ops.flat_sweep
+    adaptive = adaptive or ops.adaptive_sweep
+    out = []
+    for g in groups:
+        if g.kind == "flat":
+            out.append(flat(traces, g.row_trace, g.pids, g.ways, num_sets=num_sets, lanes=W))
+        else:
+            out.append(adaptive(traces, g.row_trace, g.ways, kind=g.kind, num_sets=num_sets,
+                                lanes=2 * W, renorm_at=renorm_at))
+    return out
+
+
 def _simulate_batched_impl(
     traces: torch.Tensor,  # (N, T) int32, on the engine's device
     policy_ids: Tuple[int, ...],
@@ -113,57 +166,41 @@ def _simulate_batched_impl(
     dev = traces.device
     N, T = traces.shape
     P, C = len(policy_ids), len(ways)
-    PC = P * C
     W = max(ways)
 
     # grid flattening: b = (n*P + p)*C + c  (capacity axis fastest).  Rows
-    # partition by state layout: flat-state rows share one FlatCore; arc
-    # and car rows each get an AdaptiveCore.  Hits re-interleave with one
-    # gather at the end.
-    pids = np.tile(np.repeat(np.asarray(policy_ids, np.int32), C), N)
-    ways_b = np.tile(np.asarray(ways, np.int32), N * P)
-    simple_idx = np.flatnonzero(np.isin(pids, [POLICY_IDS[p] for p in JAX_POLICIES]))
-    arc_idx = np.flatnonzero(pids == POLICY_IDS["arc"])
-    car_idx = np.flatnonzero(pids == POLICY_IDS["car"])
-    order = np.concatenate([simple_idx, arc_idx, car_idx])
-    inv = torch.as_tensor(np.argsort(order), device=dev)
-    L = 2 * W  # adaptive directory lanes (cache + ghosts)
+    # partition by state layout; hits re-interleave with one gather at the
+    # end.
+    groups = _grid_groups(N, policy_ids, ways, dev)
+    inv = torch.as_tensor(np.argsort(np.concatenate([g.rows for g in groups])), device=dev)
 
-    # every row's block id at every step, gathered once: (T, rows) int32
+    if use_kernel:  # the trace route: one call per group runs its whole trace
+        hits = torch.cat([h for h, _ in _sweep_groups(traces, groups, num_sets, W, renorm_at)])
+        return hits[inv].reshape(N, P, C, T)
+
+    # the eager route: every row's block id at every step, gathered once:
+    # (T, rows) int32
     xs = traces.T.contiguous()
+    steps = []  # (core, state, per-step ids, step keyword arguments)
+    for g in groups:
+        ids = xs[:, g.row_trace.long()].contiguous()
+        pids_g = np.asarray(policy_ids)[(g.rows // C) % P]
+        ways_g = tuple(int(w) for w in np.asarray(ways)[g.rows % C])
+        if g.kind == "flat":
+            core = FlatCore(pids=tuple(int(p) for p in pids_g), ways=ways_g,
+                            num_sets=num_sets, lanes=W)
+            masks = _make_masks(pids_g, ways_g, W, dev)
+            steps.append((core, core.init(device=dev), ids, {"masks": masks}))
+        else:
+            core = AdaptiveCore(kind=g.kind, caps=ways_g, num_sets=num_sets, lanes=2 * W,
+                                renorm_at=renorm_at)
+            steps.append((core, core.init(device=dev), ids, {"caps": g.ways}))
 
-    def ids_for(idx: np.ndarray) -> torch.Tensor:
-        return xs[:, torch.as_tensor(idx // PC, device=dev)].contiguous()
-
-    groups = []  # (core, state, per-step ids, step keyword arguments)
-    if len(simple_idx):
-        core = FlatCore(
-            pids=tuple(int(p) for p in pids[simple_idx]),
-            ways=tuple(int(w) for w in ways_b[simple_idx]),
-            num_sets=num_sets,
-            lanes=W,
-            use_kernel=use_kernel,
-        )
-        masks = _make_masks(pids[simple_idx], ways_b[simple_idx], W, dev)
-        groups.append((core, core.init(device=dev), ids_for(simple_idx),
-                       {"masks": masks}))
-    for kind, idx in (("arc", arc_idx), ("car", car_idx)):
-        if len(idx):
-            core = AdaptiveCore(
-                kind=kind,
-                caps=tuple(int(w) for w in ways_b[idx]),
-                num_sets=num_sets,
-                lanes=L,
-                renorm_at=renorm_at,
-            )
-            caps = torch.as_tensor(ways_b[idx], dtype=torch.int32, device=dev)
-            groups.append((core, core.init(device=dev), ids_for(idx), {"caps": caps}))
-
-    hits = torch.empty((T, len(order)), dtype=torch.bool, device=dev)
-    states = [g[1] for g in groups]
+    hits = torch.empty((T, len(inv)), dtype=torch.bool, device=dev)
+    states = [g[1] for g in steps]
     for t in range(T):
         col = 0
-        for gi, (core, _, ids, kw) in enumerate(groups):
+        for gi, (core, _, ids, kw) in enumerate(steps):
             states[gi], h = core.on_access(states[gi], ids[t], **kw)
             hits[t, col:col + core.rows] = h
             col += core.rows
@@ -192,11 +229,12 @@ def simulate_trace_batched(
         masked out of both fill and eviction.
       num_sets: set-associative mapping ``set = block % num_sets`` (the host
         simulator's convention).
-      use_kernel: route AWRP victim selection through the rows kernel
-        (``kernels/ops.py`` ``awrp_select_rows``).  Default: True on a CUDA
-        device (the hand-written kernel), False on the CPU (where the
-        kernel's plain version would only repeat the inline search).
-        Decisions are identical either way.
+      use_kernel: run each row group's whole trace in one call of the trace
+        kernels (``kernels/ops.py`` ``flat_sweep``, ``adaptive_sweep``)
+        instead of the eager per-step loop.  Default: True on a CUDA device
+        (the hand-written kernels), False on the CPU (where their plain
+        versions would only repeat the eager loop).  Decisions are
+        identical either way.
       device: where the engine runs: the CUDA card unless the caller asks
         for the CPU.
       _renorm_at: test hook — override the adaptive stamp-renormalization

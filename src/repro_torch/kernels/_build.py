@@ -28,7 +28,7 @@ from typing import NamedTuple
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("paged_attn.cu", "policy_attn.cu", "adaptive_attn.cu", "awrp_select.cu",
-           "flash_attn.cu")
+           "flash_attn.cu", "sweep.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -47,6 +47,8 @@ SIGNATURES = {
     "repro_awrp_select": ([_vp] * 6 + [_int] * 2 + [_vp], _int),
     "repro_awrp_select_rows": ([_vp] * 5 + [_int] * 2 + [_vp], _int),
     "repro_flash_attention": ([_int] + [_vp] * 4 + [_int] * 9 + [_float, _vp], _int),
+    "repro_flat_sweep": ([_vp] * 9 + [_int] * 4 + [_vp], _int),
+    "repro_adaptive_sweep": ([_vp] * 10 + [_int] * 7 + [_vp], _int),
     "repro_error_string": ([_int], ctypes.c_char_p),
 }
 

@@ -1,8 +1,9 @@
 """CUDA launch of the AWRP victim-selection kernels (``csrc/awrp_select.cu``).
 
 Replaces ``repro/kernels/awrp_select.py`` ``awrp_select_kernel`` (kernel 1,
-with a ``pinned`` mask) and ``awrp_select_rows_kernel`` (kernel 2, the sweep
-engine's per-step victim search).  This module only validates, allocates
+with a ``pinned`` mask) and ``awrp_select_rows_kernel`` (kernel 2's per-step
+victim search, which ``FlatCore(use_kernel=True).on_access`` calls once per
+access; the sweep engine runs whole traces in ``csrc/sweep.cu`` instead).  This module only validates, allocates
 the ``(B,)`` int32 output and launches on the current stream;
 ``kernels/ops.py`` dispatches between it and the plain versions.  The CUDA
 kernels take any lane count P: there is no lane padding.
@@ -52,7 +53,7 @@ def awrp_select_kernel(f, r, clock, valid, pinned):
 
 def awrp_select_rows_kernel(f, r, clock, valid):
     """Kernel 2: the same victim search without ``pinned``, for all B rows
-    in one launch (the sweep engine calls it once per trace step)."""
+    in one launch (``FlatCore(use_kernel=True)`` calls it once per access)."""
     _check("awrp_select_rows", (f, r, valid), clock)
     B, P = f.shape
     out = torch.empty((B,), dtype=torch.int32, device=f.device)

@@ -21,8 +21,9 @@
 // What bounds it: bytes.  Each call reads F, R, valid (and pinned) once,
 // B*P*(12|16) bytes, plus the clock and the victim, 8*B bytes.  The sweep's
 // Table-1 grid (B = 32 AWRP rows of 240 lanes, ~92 KB) is a few hundred
-// nanoseconds of memory traffic, so one call is bound by launch latency; the
-// sweep engine calls kernel 2 once per trace step.
+// nanoseconds of memory traffic, so one call is bound by launch latency.
+// FlatCore(use_kernel=True) calls kernel 2 once per access; the sweep
+// engine's trace route runs a whole trace per launch in sweep.cu instead.
 //
 // Arithmetic that must match the plain version and the reference bit for
 // bit: the clock difference wraps as int32 (as jnp and torch int32 do), the

@@ -8,6 +8,8 @@ so a run can show that its main path went through the kernels.  Kernels
 3, 4 and 5 (``paged_attention``, ``policy_paged_attention``,
 ``adaptive_policy_paged_attention``) make ``SPLIT_LAUNCHES`` launches per
 call, the pages' partials and then their fold, and count each.
+``flat_sweep`` and ``adaptive_sweep`` run a row group's whole trace in one
+launch (the sweep engine's trace route).
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from repro_torch.kernels import ref
 LAUNCHES: Dict[str, int] = {"paged_attention": 0, "policy_paged_attention": 0,
                              "adaptive_policy_paged_attention": 0,
                              "awrp_select": 0, "awrp_select_rows": 0,
-                             "flash_attention": 0}
+                             "flash_attention": 0, "flat_sweep": 0, "adaptive_sweep": 0}
 
 
 #: CUDA launches per call of kernels 3, 4 and 5: the pages' partials, their
@@ -100,15 +102,45 @@ def awrp_select(f, r, clock, valid, pinned):
 
 def awrp_select_rows(f, r, clock, valid):
     """(B, P) int32 metadata -> (B,) int32 victims, all rows in one launch:
-    the batched sweep engine's victim search, called once per trace step
-    with B = the flat-policy rows of the grid
-    (``repro.kernels.ops.awrp_select_rows``)."""
+    the AWRP victim of ``FlatCore(use_kernel=True).on_access`` (the
+    incremental ``access_sets``, ``kv_policy.page_victim``), one call per
+    access (``repro.kernels.ops.awrp_select_rows``)."""
     if f.device.type == "cpu":
         return ref.awrp_select_rows_plain(f, r, clock, valid)
     from repro_torch.kernels.awrp_select import awrp_select_rows_kernel
 
     res = awrp_select_rows_kernel(f, r, clock, valid)
     LAUNCHES["awrp_select_rows"] += 1
+    return res
+
+
+def flat_sweep(traces, row_trace, pids, ways, *, num_sets: int, lanes: int):
+    """A flat (awrp/lru/fifo/lfu) row group's whole trace: traces (N, T)
+    int32, row_trace / pids / ways (rows,) int32 -> ``(hits (rows, T) bool,
+    final FlatState)``, ``FlatCore.on_access`` at every step.  Kernel 2
+    redesigned for the card: one launch per call."""
+    args = (traces, row_trace, pids, ways)
+    if traces.device.type == "cpu":
+        return ref.flat_sweep_plain(*args, num_sets=num_sets, lanes=lanes)
+    from repro_torch.kernels.sweep import flat_sweep_kernel
+
+    res = flat_sweep_kernel(*args, num_sets=num_sets, lanes=lanes)
+    LAUNCHES["flat_sweep"] += 1
+    return res
+
+
+def adaptive_sweep(traces, row_trace, caps, *, kind: str, num_sets: int, lanes: int,
+                   renorm_at):
+    """An ARC or CAR row group's whole trace: traces (N, T) int32, row_trace /
+    caps (rows,) int32 -> ``(hits (rows, T) bool, final AdaptiveState)``,
+    ``AdaptiveCore.on_access`` at every step.  One launch per call."""
+    kw = dict(kind=kind, num_sets=num_sets, lanes=lanes, renorm_at=renorm_at)
+    if traces.device.type == "cpu":
+        return ref.adaptive_sweep_plain(traces, row_trace, caps, **kw)
+    from repro_torch.kernels.sweep import adaptive_sweep_kernel
+
+    res = adaptive_sweep_kernel(traces, row_trace, caps, **kw)
+    LAUNCHES["adaptive_sweep"] += 1
     return res
 
 

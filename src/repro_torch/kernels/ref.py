@@ -17,6 +17,10 @@
   pool, built from the unfused chain's allocation and hit passes, so it
   equals ``adaptive_insert_token`` + ``paged_attention_plain`` +
   ``adaptive_score_update`` bit for bit.
+* ``flat_sweep_plain`` and ``adaptive_sweep_plain`` are the persistent trace
+  kernels (``csrc/sweep.cu``; the first is kernel 2 redesigned) as the eager
+  loop they replace: ``FlatCore.on_access`` (inline victim) or
+  ``AdaptiveCore.on_access`` at every step of the trace.
 * ``flash_attention_plain`` is kernel 6 (``csrc/flash_attn.cu``), the
   prefill attention with causal, sliding-window and ``kv_len`` masks.
 * ``ref_paged_attention`` is the plain softmax over all rows
@@ -33,7 +37,7 @@ import torch
 
 from repro_torch.cache.paged_kv import (_hit, adaptive_allocate, adaptive_hits,
                                        allocate, score_planes)
-from repro_torch.core.policy_core import (AdaptiveCore, AdaptiveState,
+from repro_torch.core.policy_core import (AdaptiveCore, AdaptiveState, FlatCore,
                                           awrp_victim_rows)
 
 NEG_INF = -1e30
@@ -209,6 +213,35 @@ def awrp_select_plain(f, r, clock, valid, pinned):
 def awrp_select_rows_plain(f, r, clock, valid):
     """Plain version of kernel 2: the same without ``pinned``."""
     return awrp_victim_rows(f, r, clock, valid != 0)
+
+
+def _sweep(core, traces, row_trace, **kw):
+    """``core.on_access`` over every step of each row's trace, from an empty
+    state: ``(hits (rows, T) bool, final state)``."""
+    ids = traces[row_trace.long()].T.contiguous()  # (T, rows)
+    hits = torch.empty(ids.shape[::-1], dtype=torch.bool, device=traces.device)
+    state = core.init(device=traces.device)
+    for t in range(ids.shape[0]):
+        state, hits[:, t] = core.on_access(state, ids[t], **kw)
+    return hits, state
+
+
+def flat_sweep_plain(traces, row_trace, pids, ways, *, num_sets: int, lanes: int):
+    """Plain version of ``flat_sweep_kernel``: traces (N, T) int32; row_trace,
+    pids, ways (rows,) int32 -> ``(hits (rows, T) bool, final FlatState)``."""
+    core = FlatCore(pids=tuple(pids.tolist()), ways=tuple(ways.tolist()),
+                    num_sets=num_sets, lanes=lanes)
+    return _sweep(core, traces, row_trace)
+
+
+def adaptive_sweep_plain(traces, row_trace, caps, *, kind: str, num_sets: int,
+                         lanes: int, renorm_at):
+    """Plain version of ``adaptive_sweep_kernel``: traces (N, T) int32;
+    row_trace, caps (rows,) int32 -> ``(hits (rows, T) bool, final
+    AdaptiveState)``; ``renorm_at`` None skips the renormalization check."""
+    core = AdaptiveCore(kind=kind, caps=tuple(caps.tolist()), num_sets=num_sets,
+                        lanes=lanes, renorm_at=renorm_at)
+    return _sweep(core, traces, row_trace, caps=caps)
 
 
 def flash_attention_plain(q, k, v, *, causal: bool, window: int = 0,

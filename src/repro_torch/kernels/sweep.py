@@ -1,0 +1,107 @@
+"""CUDA launch of the persistent trace kernels (``csrc/sweep.cu``).
+
+``flat_sweep_kernel`` is kernel 2 redesigned: it replaces
+``repro/kernels/awrp_select.py`` ``awrp_select_rows_kernel``, which the
+reference calls once per trace step, with one launch that runs a flat row
+group's whole trace (``FlatCore.on_access`` at every step).
+``adaptive_sweep_kernel`` does the same for one ARC or CAR row group
+(``AdaptiveCore.on_access``).  This module only validates, allocates the
+outputs and launches on the current stream; ``kernels/ops.py`` dispatches
+between it and the plain versions (``kernels/ref.py``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.policy_core import AdaptiveState, FlatState
+from repro_torch.kernels import _build
+
+#: the kernels' limits: flat lanes per set, adaptive directory lanes
+MAX_FLAT_LANES = 2048
+MAX_ADAPTIVE_LANES = 1024
+ADAPTIVE_KIND = {"arc": 0, "car": 1}
+
+
+def _check(name: str, traces, per_row) -> int:
+    """Raise unless ``traces`` is a (N, T) and every ``per_row`` tensor a
+    (rows,) contiguous int32 tensor, all on one CUDA device; returns rows."""
+    dev = traces.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: expected CUDA tensors, got {dev}")
+    if traces.dim() != 2 or traces.shape[0] < 1:
+        raise ValueError(f"{name}: traces must be (N, T) with N >= 1, got {tuple(traces.shape)}")
+    rows = per_row[0].shape[0] if per_row[0].dim() == 1 else 0
+    if rows < 1:
+        raise ValueError(f"{name}: per-row tensors must be (rows,) with rows >= 1")
+    for t in (traces, *per_row):
+        if t.dtype != torch.int32:
+            raise ValueError(f"{name}: tensors must be int32, got {t.dtype}")
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous and on {dev}")
+        if t is not traces and t.shape != (rows,):
+            raise ValueError(f"{name}: per-row shapes differ: {tuple(t.shape)} vs ({rows},)")
+    return rows
+
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def flat_sweep_kernel(traces, row_trace, pids, ways, *, num_sets: int, lanes: int):
+    """traces (N, T) int32 block ids; row_trace, pids, ways (rows,) int32: each
+    row's trace, flat ``POLICY_IDS`` value and live lanes per set (1 <= ways
+    <= lanes).  Returns ``(hits, state)``: (rows, T) bool hits and the final
+    ``FlatState`` in ``FlatCore``'s layout (``(rows, lanes)`` planes and a
+    ``(rows,)`` clock at ``num_sets == 1``, else ``(rows, num_sets, lanes)``
+    and ``(rows, num_sets)``).  One launch."""
+    name = "flat_sweep"
+    rows = _check(name, traces, (row_trace, pids, ways))
+    if num_sets < 1 or not 1 <= lanes <= MAX_FLAT_LANES:
+        raise ValueError(f"{name}: need num_sets >= 1 and 1 <= lanes <= {MAX_FLAT_LANES}, "
+                         f"got {num_sets}, {lanes}")
+    dev, T = traces.device, traces.shape[1]
+    lead = (rows,) if num_sets == 1 else (rows, num_sets)
+    hits = torch.empty((rows, T), dtype=torch.bool, device=dev)
+    state = FlatState(*(torch.empty(lead + (lanes,), dtype=torch.int32, device=dev)
+                        for _ in range(3)),
+                      clock=torch.empty(lead, dtype=torch.int32, device=dev))
+    err = _build.library().repro_flat_sweep(
+        traces.data_ptr(), row_trace.data_ptr(), pids.data_ptr(), ways.data_ptr(),
+        hits.data_ptr(), *(t.data_ptr() for t in state), rows, T, num_sets, lanes,
+        _stream(dev))
+    _build.check(err, name)
+    return hits, state
+
+
+def adaptive_sweep_kernel(traces, row_trace, caps, *, kind: str, num_sets: int, lanes: int,
+                          renorm_at):
+    """traces (N, T) int32 block ids; row_trace, caps (rows,) int32: each
+    row's trace and per-set capacity (2 * caps <= lanes); ``kind`` "arc" or
+    "car"; ``renorm_at`` the stamp-renormalization ceiling, or None for no
+    check.  Returns ``(hits, state)``: (rows, T) bool hits and the final
+    ``AdaptiveState`` ((rows, num_sets, lanes) planes, (rows, num_sets) p and
+    ctr).  One launch."""
+    name = "adaptive_sweep"
+    rows = _check(name, traces, (row_trace, caps))
+    if kind not in ADAPTIVE_KIND:
+        raise ValueError(f"{name}: kind {kind!r} not in {list(ADAPTIVE_KIND)}")
+    if num_sets < 1 or not 2 <= lanes <= MAX_ADAPTIVE_LANES:
+        raise ValueError(f"{name}: need num_sets >= 1 and 2 <= lanes <= "
+                         f"{MAX_ADAPTIVE_LANES}, got {num_sets}, {lanes}")
+    if renorm_at is not None and not -2**31 <= int(renorm_at) < 2**31:
+        raise ValueError(f"{name}: renorm_at must be an int32 or None, got {renorm_at!r}")
+    dev, T = traces.device, traces.shape[1]
+    hits = torch.empty((rows, T), dtype=torch.bool, device=dev)
+    planes = [torch.empty((rows, num_sets, lanes), dtype=torch.int32, device=dev)
+              for _ in range(4)]
+    state = AdaptiveState(*planes,
+                          p=torch.empty((rows, num_sets), dtype=torch.float32, device=dev),
+                          ctr=torch.empty((rows, num_sets), dtype=torch.int32, device=dev))
+    err = _build.library().repro_adaptive_sweep(
+        traces.data_ptr(), row_trace.data_ptr(), caps.data_ptr(), hits.data_ptr(),
+        *(t.data_ptr() for t in state), rows, T, num_sets, lanes, ADAPTIVE_KIND[kind],
+        int(renorm_at is not None), 0 if renorm_at is None else int(renorm_at),
+        _stream(dev))
+    _build.check(err, name)
+    return hits, state

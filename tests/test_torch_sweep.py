@@ -3,8 +3,8 @@ against the JAX engine (``repro.core.jax_policies``), the JAX ``sweep`` and
 the host oracles, on the CPU.
 
 Hit bits, hit ratios and the ``hit_ratio_table`` strings are compared
-exactly, on both routes of the AWRP victim search (the rows kernel's plain
-version and the inline reduction): nothing here sums floats."""
+exactly, on both routes of the engine (the trace kernels' plain versions
+and the eager loop): nothing here sums floats."""
 
 import numpy as np
 import pytest
@@ -80,13 +80,16 @@ def test_mixed_caps_set_associative_equals_jax_and_host(num_sets):
 
 
 def test_routes_agree_on_mixed_sets_grid():
-    """Kernel route == inline route on a multi-trace set-associative grid,
-    and the kernel route calls the rows kernel once per trace step."""
+    """Trace route == eager route on a multi-trace set-associative grid; on
+    the CPU the trace route runs the trace kernels' plain versions and
+    counts no launch."""
     traces = np.stack([paper_trace(seed=s)[:300] for s in range(3)])
     before = dict(ops.LAUNCHES)
     a = run(traces, DEVICE_POLICIES, [30, 60, 90], num_sets=2, use_kernel=True)
     b = run(traces, DEVICE_POLICIES, [30, 60, 90], num_sets=2, use_kernel=False)
     assert ops.LAUNCHES == before  # CPU tensors: plain version, no launches
+    assert ops.LAUNCHES["flat_sweep"] == before["flat_sweep"]
+    assert ops.LAUNCHES["adaptive_sweep"] == before["adaptive_sweep"]
     np.testing.assert_array_equal(a, b)
 
 
