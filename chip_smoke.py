@@ -79,6 +79,23 @@ line, any failure raising (non-zero exit, no result line):
    oracles'); kernel 2 on its per-step path (``FlatCore(use_kernel=True)``,
    200 steps) == the trace kernel; the trace kernels timed alone; a profile
    of the trace route on the grid.
+4d. ``serve_tenants`` (after ``serve_adaptive``): multi-tenant serving of
+   smollm-360m at published widths, tenants {calm: 2, busy: 2, hog: 1}
+   behind the admission controller with ``auto_rebalance``, 1024-token
+   single requests: AWRP pages (kernel 4) with the awrp prefix core (the
+   flat stream kernel), then ``arc_adaptive`` pages (kernel 5) with the arc
+   prefix core (the ARC/CAR stream kernel); the hog goes ok -> deferred ->
+   shed, a shed request touches nothing, per-tenant counters == host
+   oracles and a CPU replay, ``decide_batch`` == the host loop, A's ghost
+   hits == a single-tenant engine's, deferred tokens == an unpressured
+   engine's.
+7. ``tenancy``: the trace kernels' stream mode (the tenancy manager's
+   ``access_stream`` and ``access``) == its plain version (the same manager
+   on the CPU, in worker processes) on the tenancy benchmark's 6000-access
+   stream for all six policies, in 8 chunks with rebalances, at quotas
+   (200, 100, 40), with forced renormalization, access by access; == the
+   host oracles there and at 100 000 accesses; one launch and no host sync
+   per call; timed.
 
 Then the total seconds, the kernel summary line, the ``nvidia-smi`` line
 and, last, the result line.  Every kernel time is a median of CUDA-event
@@ -1472,6 +1489,552 @@ def profile_sweep(traces, pols, caps) -> dict:
     return out
 
 
+# ---- tenancy: the stream mode of the trace kernels ---------------------------
+
+#: the tenancy benchmark's tenants and stream (benchmarks/tenancy_bench.py)
+TENANCY_TENANTS = ("hot", "mid", "scan")
+TENANCY_N = 6000
+TENANCY_BIG = 100_000
+TENANCY_POLICIES = ("awrp", "lru", "fifo", "lfu", "arc", "car")
+
+
+def tenancy_trace(n: int):
+    """``trace_multi_tenant(n, 3 tenants, working_set=120, alphas (1.2, 0.8,
+    0.0), mix (0.5, 0.3, 0.2), seed=0)``, keys mod INT_MAX: (rows, keys)
+    int32."""
+    from repro_torch.core.traces import trace_multi_tenant
+
+    rows, addrs = trace_multi_tenant(n, n_tenants=3, working_set=120, alphas=(1.2, 0.8, 0.0),
+                                     mix=(0.5, 0.3, 0.2), seed=0)
+    return rows.astype(np.int32), (addrs % (2**31 - 1)).astype(np.int32)
+
+
+def tenancy_drive(case: dict, device) -> dict:
+    """One tenancy case through a ``TenantCacheManager`` on ``device`` (on
+    the card the stream kernels, on the CPU their plain versions): the
+    stream in one ``access_stream`` call, in 8 chunks with the benchmark's
+    AWRP-ranked ``rebalance`` between them, or access by access through
+    ``access`` (``case["mode"]``).  Returns the hits, every final plane,
+    the counters and the quotas as numpy arrays."""
+    from repro_torch.serve.tenancy import TenantCacheManager
+
+    rows, keys = tenancy_trace(case["n"])
+    mgr = TenantCacheManager(dict(zip(TENANCY_TENANTS, case["quotas"])), case["policy"],
+                             device=device)
+    if case.get("renorm_at"):
+        mgr.core = dataclasses.replace(mgr.core, renorm_at=case["renorm_at"])
+    moves = 0
+    if case["mode"] == "access":
+        hits = np.array([mgr.access(TENANCY_TENANTS[r], int(k))[0]
+                         for r, k in zip(rows, keys)])
+    elif case["mode"] == "chunks":  # tenancy_bench._rebalanced
+        hits = np.zeros(len(keys), dtype=bool)
+        bounds = np.linspace(0, len(keys), 9, dtype=int)
+        for lo, hi in zip(bounds[:-1], bounds[1:]):
+            hits[lo:hi] = mgr.access_stream(rows[lo:hi], keys[lo:hi])
+            ranked = mgr.rank_tenants()
+            for cand in reversed(ranked):
+                if cand != ranked[0] and mgr.pressure(cand) > 0.05:
+                    moves += mgr.rebalance(cand, 1)[0]
+                    break
+    else:
+        hits = mgr.access_stream(rows, keys)
+    return {"hits": hits, "planes": [t.cpu().numpy() for t in (*mgr.state, *mgr.counters)],
+            "quotas": dict(mgr.quotas), "moves": moves}
+
+
+def _cpu_drive(case: dict) -> dict:
+    """``tenancy_drive`` on the CPU in a worker process."""
+    torch.set_num_threads(1)
+    return tenancy_drive(case, "cpu")
+
+
+def _tenant_oracles(policy, quotas, rows, keys) -> tuple:
+    """(per-tenant (hits, misses, evictions) of the host oracles on the
+    demuxed streams, seconds)."""
+    from repro_torch.core.policies import make_policy
+
+    t0 = time.perf_counter()
+    oracles = [make_policy(policy, q) for q in quotas]
+    stats = np.zeros((len(quotas), 3), dtype=np.int64)
+    for r, k in zip(rows.tolist(), keys.tolist()):
+        o = oracles[r]
+        before = o.resident_set()
+        hit = o.access(k)
+        stats[r] += (hit, not hit, len(before - o.resident_set()))
+    return stats, time.perf_counter() - t0
+
+
+def _assert_rows_match_oracles(planes, stats, label) -> None:
+    """The manager's per-row hits / misses / evictions (the first three
+    counters, after the state planes) equal the oracles'."""
+    got = np.stack(planes[-4:-1], axis=1)
+    assert (got == stats).all(), (label, got.tolist(), stats.tolist())
+
+
+def _stream_bound(rows, keys, hits, planes, lanes) -> tuple:
+    """(bound_ms, bound_by) of one stream-kernel call: the bytes it must
+    move (the (T, 2) records, the hits, every plane and counter in and out,
+    each once) at the HBM rate, against its 32-bit operations at the f32
+    peak: per access one comparison per live lane of its row (the hit
+    search), per miss two more (the victim key and its minimum)."""
+    nbytes = 8 * len(keys) + len(hits) + 2 * sum(p.nbytes for p in planes)
+    acc = np.bincount(rows, minlength=len(lanes))
+    miss = np.bincount(rows, weights=~hits, minlength=len(lanes))
+    n_ops = float((np.asarray(lanes) * (acc + 2 * miss)).sum())
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_tenancy(dev) -> dict:
+    """The trace kernels' stream mode (the tenancy manager's
+    ``access_stream`` and ``access``) on the card against its plain version
+    (the same manager on the CPU, run in worker processes meanwhile): hit
+    bits, every final plane and counter equal, pressure bitwise, for
+    (a) each of the six policies on the tenancy benchmark's stream
+        (``tenancy_trace(6000)``, quotas 16/16/16);
+    (b) the same stream in 8 chunks with the benchmark's AWRP-ranked
+        ``rebalance`` between them (awrp), the state carried across calls;
+    (c) quotas (200, 100, 40): flat rows of 340 lanes, above the register
+        path (awrp, lfu);
+    (d) arc and car with a forced ``renorm_at=64``;
+    (e) ``access`` against ``access_stream`` on the first 300 accesses (awrp,
+        car);
+    and per-tenant hits / misses / evictions equal to the host oracles on the
+    demuxed streams in (a), (c) and (f) 100 000 accesses of the same
+    generator in one call (awrp, arc, car).  One launch per call, no host
+    sync in the call (``policy_core.HOST_SYNCS``); seconds per call at 6000
+    and 100 000, the eager plain route on the card at 6000 (awrp), the host
+    oracles, the kernels timed alone and their bound."""
+    import concurrent.futures
+    import multiprocessing
+
+    from repro_torch.core import policy_core
+    from repro_torch.serve.tenancy import TenantCacheManager
+
+    t_phase = time.perf_counter()
+    q16 = (16, 16, 16)
+    cases = [dict(label=f"stream_{p}", policy=p, quotas=q16, n=TENANCY_N, mode="stream")
+             for p in TENANCY_POLICIES]
+    cases += [dict(label="chunks_awrp", policy="awrp", quotas=q16, n=TENANCY_N, mode="chunks")]
+    cases += [dict(label=f"wide_{p}", policy=p, quotas=(200, 100, 40), n=TENANCY_N,
+                   mode="stream") for p in ("awrp", "lfu")]
+    cases += [dict(label=f"renorm_{p}", policy=p, quotas=q16, n=TENANCY_N, mode="stream",
+                   renorm_at=64) for p in ("arc", "car")]
+    cases += [dict(label=f"{mode}300_{p}", policy=p, quotas=q16, n=300, mode=mode)
+              for p in ("awrp", "car") for mode in ("access", "stream")]
+    ctx = multiprocessing.get_context("spawn")
+    res = {"phase": "tenancy", "tenants": list(TENANCY_TENANTS), "stream_len": TENANCY_N,
+           "cases": {}}
+    with concurrent.futures.ProcessPoolExecutor(max_workers=6, mp_context=ctx) as pool:
+        plain = {c["label"]: pool.submit(_cpu_drive, c) for c in cases}
+        card = {}
+        for c in cases:
+            syncs0 = _syncs()
+            ops.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            card[c["label"]] = tenancy_drive(c, dev)
+            seconds = time.perf_counter() - t0
+            launches = ops.LAUNCHES["flat_stream"] + ops.LAUNCHES["adaptive_stream"]
+            calls = {"stream": 1, "chunks": 8, "access": c["n"]}[c["mode"]]
+            assert launches == calls, (c["label"], dict(ops.LAUNCHES))
+            assert _syncs() == syncs0, c["label"]
+            res["cases"][c["label"]] = {"policy": c["policy"], "quotas": list(c["quotas"]),
+                                        "accesses": c["n"], "mode": c["mode"],
+                                        "seconds": seconds, "launches": launches,
+                                        "host_syncs": _syncs() - syncs0}
+        t_wait = time.perf_counter()
+        plain = {k: f.result() for k, f in plain.items()}
+        res["plain_wait_s"] = time.perf_counter() - t_wait
+    for c in cases:
+        label = c["label"]
+        got = card[label]
+        wants = [plain[label]]
+        if c["mode"] == "access":  # access() == access_stream on the card and on the CPU
+            twin = f"stream300_{c['policy']}"
+            wants += [card[twin], plain[twin]]
+        for want in wants:
+            assert np.array_equal(got["hits"], want["hits"]), label
+            for i, (a, b) in enumerate(zip(got["planes"], want["planes"])):
+                assert a.tobytes() == b.tobytes(), (label, i)
+            assert got["quotas"] == want["quotas"], label
+        res["cases"][label].update(equal_to_plain=True, quotas_after=got["quotas"],
+                                   rebalance_moves=got["moves"],
+                                   pressure=got["planes"][-1].tolist())
+    rows, keys = tenancy_trace(TENANCY_N)
+    for c in cases:
+        if c["mode"] == "stream" and c["n"] == TENANCY_N:
+            stats, host_s = _tenant_oracles(c["policy"], c["quotas"], rows, keys)
+            _assert_rows_match_oracles(card[c["label"]]["planes"], stats, c["label"])
+            res["cases"][c["label"]].update(host_oracle_seconds=host_s,
+                                            counts_equal_to_host=True)
+
+    # (f) 100k accesses in one call, against the host oracles
+    big_rows, big_keys = tenancy_trace(TENANCY_BIG)
+    res["stream_100k"] = {}
+    for p in ("awrp", "arc", "car"):
+        mgr = TenantCacheManager(dict(zip(TENANCY_TENANTS, q16)), p, device=dev)
+        ops.reset_launches()
+        syncs0 = _syncs()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.access_stream(big_rows, big_keys)
+        seconds = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        assert launches["flat_stream"] + launches["adaptive_stream"] == 1, launches
+        stats, host_s = _tenant_oracles(p, q16, big_rows, big_keys)
+        planes = [t.cpu().numpy() for t in (*mgr.state, *mgr.counters)]
+        _assert_rows_match_oracles(planes, stats, f"100k_{p}")
+        res["stream_100k"][p] = {"seconds": seconds, "us_per_access": seconds * 1e6 / TENANCY_BIG,
+                                 "host_syncs": _syncs() - syncs0, "host_oracle_seconds": host_s,
+                                 "counts_equal_to_host": True}
+
+    # the kernels alone (CUDA events) at 6000, beside the eager plain route
+    # on the card (awrp) and the bound
+    res["kernels"] = {"flat_stream": [], "adaptive_stream": []}
+    dev_rows, dev_keys = (torch.from_numpy(a).to(dev) for a in (rows, keys))
+    for p in TENANCY_POLICIES:
+        mgr = TenantCacheManager(dict(zip(TENANCY_TENANTS, q16)), p, device=dev)
+        core = mgr.core
+        if mgr.is_adaptive:
+            name, fn = "adaptive_stream", ops.adaptive_stream
+            kw = dict(kind=core.kind, alpha=mgr.pressure_alpha, renorm_at=core.renorm_at)
+            args = (dev_keys, dev_rows, mgr.state, mgr.counters, *mgr._row_consts)
+            lanes = [2 * c for c in core.caps]
+        else:
+            name, fn = "flat_stream", ops.flat_stream
+            kw = dict(alpha=mgr.pressure_alpha)
+            args = (dev_keys, dev_rows, mgr.state, mgr.counters, *mgr._row_consts)
+            lanes = list(core.ways)
+        hits, state, ctr = fn(*args, **kw)
+        ms = time_ms(lambda: fn(*args, **kw), reps=10, warmup=2)
+        planes = [t.cpu().numpy() for t in (*state, *ctr)]
+        bound_ms, bound_by = _stream_bound(rows, keys, hits.cpu().numpy(), planes, lanes)
+        # the call again on a fresh manager (the case above was this kind's
+        # first launch in the process)
+        warm = TenantCacheManager(dict(zip(TENANCY_TENANTS, q16)), p, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        warm.access_stream(rows, keys)
+        warm_s = time.perf_counter() - t0
+        run = {"policy": p, "rows": 3, "accesses": TENANCY_N, "lanes": max(lanes),
+               "plane_lanes": mgr.state.blocks.shape[-1], "ms": ms,
+               "us_per_access": ms * 1e3 / TENANCY_N, "bound_ms": bound_ms,
+               "bound_by": bound_by, "library_ms": None,
+               "seconds_per_access_stream_call": res["cases"][f"stream_{p}"]["seconds"],
+               "seconds_per_access_stream_call_again": warm_s}
+        if p == "awrp":
+            plain_fn = ref.flat_stream_plain
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plain_fn(*args, **kw)
+            torch.cuda.synchronize()
+            run["plain_ms"] = (time.perf_counter() - t0) * 1e3
+        res["kernels"][name].append(run)
+    res["seconds"] = time.perf_counter() - t_phase
+    emit(res)
+    return res
+
+
+def _tenancy_snapshot(engine) -> dict:
+    """Every piece of tenancy and cache state a shed request must leave as
+    it was: the manager's planes and counters, the stores, the KV sessions,
+    the stats."""
+    mgr = engine.tenant_cache.manager
+    return {"planes": [t.clone() for t in (*mgr.state, *mgr.counters)],
+            "quotas": dict(mgr.quotas), "tf": mgr._tf.copy(), "tr": mgr._tr.copy(),
+            "stores": {t: dict(s) for t, s in engine.tenant_cache.stores.items()},
+            "sessions": {t: {n: [x.clone() for x in s] for n, s in d.items()}
+                         for t, d in engine._kv_sessions.items()},
+            "stats": {k: v for k, v in engine.stats.items() if k != "shed"}}
+
+
+def _assert_shed_touched_nothing(before: dict, engine, tenant: str) -> None:
+    """A shed request changed nothing but one probation decay of its
+    tenant's pressure (one float32 multiply by 1 - a)."""
+    mgr = engine.tenant_cache.manager
+    after = _tenancy_snapshot(engine)
+    r = mgr.row(tenant)
+    *same, p_before = before["planes"]
+    *same_after, p_after = after["planes"]
+    for a, b in zip(same, same_after):
+        assert torch.equal(a, b), "a shed request changed a plane or counter"
+    one_a = torch.ones((), device=p_before.device) - torch.tensor(
+        mgr.pressure_alpha, dtype=torch.float32, device=p_before.device)
+    want = p_before.clone()
+    want[r] = p_before[r] * one_a
+    assert torch.equal(p_after.view(torch.int32), want.view(torch.int32))
+    assert before["quotas"] == after["quotas"] and before["stats"] == after["stats"]
+    assert (before["tf"] == after["tf"]).all() and (before["tr"] == after["tr"]).all()
+    assert before["stores"].keys() == after["stores"].keys()
+    for t in before["stores"]:
+        assert before["stores"][t].keys() == after["stores"][t].keys()
+        assert all(before["stores"][t][k] is after["stores"][t][k] for k in before["stores"][t])
+    assert before["sessions"].keys() == after["sessions"].keys()
+    for t, d in before["sessions"].items():
+        for n, s in d.items():
+            assert all(torch.equal(a, b) for a, b in zip(s, after["sessions"][t][n]))
+
+
+def _decide_batch_equals_host_loop(mgr, adm) -> list:
+    """``decide_batch`` on a copy of ``mgr`` == the host loop of ``decide`` +
+    ``decay_pressure`` on another copy: decisions and pressure bits."""
+    import copy
+
+    from repro_torch.serve.tenancy import SHED
+
+    batch = ["hog", "calm", "hog", "busy", "hog", "hog", "calm"]
+    host, dev = copy.deepcopy(mgr), copy.deepcopy(mgr)
+    want = []
+    for t in batch:
+        d = adm.decide(host, t)
+        if d == SHED:
+            host.decay_pressure(t)
+        want.append(d)
+    got = adm.decide_batch(dev, batch)
+    assert got == want, (got, want)
+    assert torch.equal(host.counters.pressure.view(torch.int32),
+                       dev.counters.pressure.view(torch.int32))
+    assert host._pressure.tobytes() == dev._pressure.tobytes()
+    return got
+
+
+def phase_serve_tenants(dev, params, base_cfg=CONFIG, prompt_len=1024, new_tokens=16,
+                        pages=16, rounds=(6, 5)) -> dict:
+    """Multi-tenant serving of smollm-360m at published widths, bf16, paged
+    KV in a 16-page pool through the fused kernels: tenants {calm: 2, busy:
+    2, hog: 1} behind ``AdmissionController(defer_at=0.3, shed_at=0.5,
+    warmup=4)`` (default alpha 0.1) with ``auto_rebalance``; single requests,
+    one ``generate`` each, of 1024 seeded tokens (the pool's size, so the
+    first decode token evicts a page) and 16 greedy new tokens, in rounds of
+    calm (two prompts, each three rounds running: prefix hits), busy (three
+    prompts, each two rounds running, through quota 2) and two hog requests
+    (distinct prompts, so its pressure climbs until it defers and then
+    sheds); ``rounds`` per run.  Two runs: AWRP pages (kernel 4) with the awrp
+    prefix policy (flat stream kernel, rebalances), and ``arc_adaptive``
+    pages (kernel 5) with the arc prefix policy (ARC/CAR stream kernel, fixed
+    quotas), whose first requests are A's (calm's) first turn, B's (busy's)
+    first request and A's follow-up turn.  Checks: the hog goes ok ->
+    deferred -> shed and the others stay ok; every shed request leaves every
+    plane, counter, store and session as it was (but its tenant's one
+    decay); the per-tenant counters equal the host oracles on the demuxed
+    prompt-key streams of the admitted requests (tenants whose quota a
+    rebalance changed: a CPU replay of the same accesses, decays and
+    rebalances, bitwise); ``decide_batch`` == the host loop on copies of the
+    manager at the first shed; A's ghost hits, ``p`` and session planes ==
+    a single-tenant engine's running A's two turns alone (A's first turn
+    decodes ``page_size + 8`` tokens, so its pool leaves a ghost); each
+    deferred-then-completed request's tokens == an unpressured engine's
+    (AWRP run); the stream kernel launched once per prefix-cache access.
+    The host oracles are checked after every request up to the first
+    rebalance, and at the end for every tenant whose quota never moved."""
+    import copy
+
+    from repro_torch.core.policies import make_policy
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.tenancy import AdmissionController, TenantCacheManager, _prompt_key
+
+    t_phase = time.perf_counter()
+    quotas = {"calm": 2, "busy": 2, "hog": 1}
+    rng = np.random.RandomState(SEED + 31)
+
+    def new_prompt():
+        return rng.randint(1, base_cfg.vocab, size=prompt_len).tolist()
+
+    calm, busy = [new_prompt() for _ in range(2)], [new_prompt() for _ in range(3)]
+    # A's first turn decodes past two page boundaries: the first eviction
+    # discards T1's LRU outright, the second leaves a ghost for the
+    # follow-up's re-prefill to hit
+    a_new = base_cfg.page_size + 8
+    res = {"phase": "serve_tenants", "model": base_cfg.name, "layers": base_cfg.n_layers,
+           "d_model": base_cfg.d_model, "dtype": base_cfg.dtype, "kv_mode": "paged",
+           "reduced": {"bounded_kv_pages": [base_cfg.bounded_kv_pages, pages]},
+           "tenants": quotas, "prompt_len": prompt_len, "new_tokens": new_tokens,
+           "admission": {"defer_at": 0.3, "shed_at": 0.5, "warmup": 4, "alpha": 0.1},
+           "runs": []}
+    for kv_policy, prefix_policy, stream_kernel, n_rounds in (
+            ("awrp", "awrp", "flat_stream", rounds[0]),
+            ("arc_adaptive", "arc", "adaptive_stream", rounds[1])):
+        cfg = dataclasses.replace(base_cfg, bounded_kv_pages=pages, kv_policy=kv_policy)
+        adm = AdmissionController(defer_at=0.3, shed_at=0.5, warmup=4)
+
+        def engine(**kw):
+            return ServeEngine(cfg, params, max_len=prompt_len + a_new + new_tokens,
+                               kv_mode="paged",
+                               fused=True, seed=SEED, prefix_policy=prefix_policy,
+                               device=dev, **kw)
+
+        eng = engine(tenants=quotas, admission=adm, auto_rebalance=True)
+        mgr = eng.tenant_cache.manager
+        events, log, rid = [], [], 0
+        first_shed = None
+
+        def send(tenant, prompt, new=new_tokens):
+            nonlocal rid, first_shed
+            rid += 1
+            before = _tenancy_snapshot(eng)
+            pre = copy.deepcopy(mgr) if first_shed is None else None
+            reb = eng.stats["rebalances"]
+            out = eng.generate([Request(rid, list(prompt), max_new_tokens=new,
+                                        tenant_id=tenant)])[rid]
+            if out.status == "shed":
+                assert out.tokens == []
+                _assert_shed_touched_nothing(before, eng, tenant)
+                events.append(("decay", tenant))
+                if first_shed is None:
+                    first_shed = _decide_batch_equals_host_loop(pre, adm)
+            else:
+                assert len(out.tokens) == new
+                events.append(("access", tenant, _prompt_key(eng._align(list(prompt)))))
+                if eng.stats["rebalances"] > reb:
+                    events.append(("rebalance", tenant))
+            rows = mgr.row_telemetry()
+            log.append({"rid": rid, "tenant": tenant, "status": out.status,
+                        "prefill_cached": out.prefill_cached, "latency_s": out.latency_s,
+                        "pressure_after": mgr.pressure(tenant), "prompt": prompt,
+                        "tokens": out.tokens, "n_events": len(events),
+                        "counts": np.stack([rows[k] for k in ("hits", "misses", "evictions")],
+                                           axis=1)})
+            return out
+
+        ops.reset_launches()
+        run = {"kv_policy": kv_policy, "prefix_policy": prefix_policy}
+        if kv_policy == "arc_adaptive":
+            # A's follow-up turn interleaved with B's first request; held below
+            # to a single-tenant engine running A's two turns alone
+            prompt_a = new_prompt()
+            a1 = send("calm", prompt_a, a_new)
+            send("busy", new_prompt())
+            send("calm", prompt_a + a1.tokens)
+            tel = eng.telemetry()
+            follow = {"tokens": [a1.tokens, log[-1]["tokens"]],
+                      "tel": {k: tel[f"kv/calm/{k}"] for k in ("ghost_hits", "p_max", "p_mean")},
+                      "session": {n: [x.clone() for x in s]
+                                  for n, s in eng._kv_sessions["calm"].items()}}
+            assert follow["tel"]["ghost_hits"] > 0, tel
+        for i in range(n_rounds):
+            send("calm", calm[i // 3 % 2])
+            send("busy", busy[i // 2 % 3])
+            send("hog", new_prompt())
+            send("hog", new_prompt())
+        launches = dict(ops.LAUNCHES)
+        stats = dict(eng.stats)
+
+        statuses = {t: [e["status"] for e in log if e["tenant"] == t] for t in quotas}
+        hog = statuses["hog"]
+        assert all(s == "ok" for t in ("calm", "busy") for s in statuses[t]), statuses
+        assert "deferred" in hog and "shed" in hog, hog
+        assert hog.index("ok") < hog.index("deferred") < hog.index("shed"), hog
+        assert first_shed is not None and stats["nonfinite_logits"] == 0
+
+        # per-tenant counters: host oracles where the quota never changed, a
+        # CPU replay of the whole event stream for every tenant
+        replay = TenantCacheManager(quotas, prefix_policy, device="cpu")
+        demux = {t: [] for t in quotas}
+        for ev in events:
+            if ev[0] == "access":
+                replay.access(ev[1], ev[2])
+                demux[ev[1]].append(ev[2])
+            elif ev[0] == "decay":
+                replay.decay_pressure(ev[1])
+            else:
+                replay.rebalance(ev[1], 1)
+        for x, y in zip((*mgr.state, *mgr.counters), (*replay.state, *replay.counters)):
+            assert x.cpu().numpy().tobytes() == y.numpy().tobytes(), "card != CPU replay"
+        assert mgr.quotas == replay.quotas
+        # host oracles: after every request up to the first rebalance; at the
+        # end for the tenants whose quota never moved
+        oracles = {t: make_policy(prefix_policy, q) for t, q in quotas.items()}
+        counts = np.zeros((len(quotas), 3), dtype=np.int64)
+        checked_requests, done = 0, 0
+        first_reb = next((i for i, ev in enumerate(events) if ev[0] == "rebalance"),
+                         len(events))
+        for entry in log:
+            for ev in events[done:entry["n_events"]]:
+                if ev[0] == "access":
+                    o = oracles[ev[1]]
+                    before = o.resident_set()
+                    hit = o.access(ev[2])
+                    counts[mgr.row(ev[1])] += (hit, not hit, len(before - o.resident_set()))
+            done = entry["n_events"]
+            if done > first_reb:
+                break
+            assert (entry["counts"] == counts).all(), (entry["rid"], counts.tolist())
+            checked_requests += 1
+        tel = eng.telemetry()
+        oracle_checked = []
+        for t, q in quotas.items():
+            if mgr.quotas[t] != q or any(ev == ("rebalance", t) for ev in events):
+                continue
+            o = make_policy(prefix_policy, q)
+            h = e = 0
+            for k in demux[t]:
+                before = o.resident_set()
+                h += o.access(k)
+                e += len(before - o.resident_set())
+            assert (tel[f"tenant/{t}/hits"], tel[f"tenant/{t}/misses"],
+                    tel[f"tenant/{t}/evictions"]) == (h, len(demux[t]) - h, e), t
+            oracle_checked.append(t)
+        if prefix_policy == "arc":
+            assert oracle_checked == list(quotas), oracle_checked
+        assert checked_requests > 0
+
+        # launches: the stream kernel once per prefix-cache access, the
+        # decode kernel twice per layer per decode step, kernel 6 once per
+        # layer per prefill
+        steps = stats["decode_steps"]
+        decode_kernel = ("policy_paged_attention" if kv_policy == "awrp"
+                         else "adaptive_policy_paged_attention")
+        assert launches[stream_kernel] == len(demux["calm"] + demux["busy"] + demux["hog"]), \
+            launches
+        assert launches[decode_kernel] == ops.SPLIT_LAUNCHES * cfg.n_layers * steps, launches
+        assert launches["flash_attention"] == cfg.n_layers * stats["prefills"], launches
+
+        if kv_policy == "awrp":  # deferred-then-completed == an unpressured engine
+            plain = engine()
+            deferred = [e for e in log if e["status"] == "deferred"]
+            for e in deferred:
+                o = plain.generate([Request(e["rid"], list(e["prompt"]),
+                                            max_new_tokens=new_tokens)])[e["rid"]]
+                assert o.tokens == e["tokens"], e["rid"]
+            run["deferred_equal_to_unpressured"] = len(deferred)
+            del plain
+        else:  # A's two turns alone
+            solo = engine()
+            s1 = solo.generate([Request(0, list(prompt_a), max_new_tokens=a_new)])[0]
+            s2 = solo.generate([Request(1, prompt_a + s1.tokens, max_new_tokens=new_tokens)])[1]
+            assert [s1.tokens, s2.tokens] == follow["tokens"]
+            alone = solo.telemetry()
+            assert follow["tel"] == {k: alone[f"kv/default/{k}"] for k in follow["tel"]}
+            for n, x in follow["session"].items():
+                assert all(torch.equal(u, v) for u, v in zip(x, solo._kv_sessions["default"][n]))
+            run["follow_up"] = {**follow["tel"], "equal_to_single_tenant_engine": True}
+            del solo
+        for e in log:
+            del e["prompt"], e["tokens"], e["counts"]
+        lat = [e["latency_s"] for e in log if e["status"] != "shed"]
+        run.update({"statuses": statuses, "requests": len(log), "stats": stats,
+                    "quotas_after": dict(mgr.quotas), "launches": launches,
+                    "oracle_checked_tenants": oracle_checked, "cpu_replay_equal": True,
+                    "oracle_checked_requests_before_first_rebalance": checked_requests,
+                    "decide_batch_at_first_shed": first_shed,
+                    "tenants": {t: {k: tel[f"tenant/{t}/{k}"] for k in
+                                    ("quota", "hits", "misses", "evictions", "pressure",
+                                     "hit_ratio")} for t in quotas},
+                    "latency_s": {"median": statistics.median(lat), "max": max(lat),
+                                  "per_request": [[e["tenant"], e["status"], e["latency_s"]]
+                                                  for e in log]},
+                    "decode_tokens_per_s": stats["decode_steps"] / stats["decode_s"],
+                    "prefill_s": stats["prefill_s"]})
+        res["runs"].append(run)
+        del eng
+    res["seconds"] = time.perf_counter() - t_phase
+    emit(res)
+    return res
+
+
 KERNELS = {
     "paged_attention": ("src/repro_torch/kernels/csrc/paged_attn.cu",
                         "src/repro/kernels/paged_attn.py:86"),
@@ -1534,10 +2097,12 @@ def main() -> int:
     ada.append(ada_g3)
     srv_ada = [phase_serve_adaptive(dev, params, p, profile=p == "arc_adaptive")
                for p in ("arc_adaptive", "car_adaptive")]
+    srv_ten = phase_serve_tenants(dev, params)
     del params
     g3 = phase_serve_gemma3(dev)
     sel = phase_awrp_select(dev)
     swp = phase_sweep(dev)
+    ten = phase_tenancy(dev)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     # launches: each kernel's count on its path in this run: the flat fused
     # kernel in the serve phase, the adaptive one in serve_adaptive (both
@@ -1545,8 +2110,10 @@ def main() -> int:
     # loop's fused route does not launch it, as in the reference), kernel 6
     # in serve_gemma3's AWRP batch (one prefill), the rows kernel on its
     # per-step path (FlatCore(use_kernel=True), 200 steps of (a)'s flat rows),
-    # the trace kernels in the Table-1 sweep (a); kernel 1 is on no path of
-    # the port (as in the reference, only tests reach it): 0
+    # the trace kernels in the Table-1 sweep (a) and, in their stream mode,
+    # in serve_tenants (the AWRP run's prefix cache: flat, the arc run's:
+    # ARC/CAR); kernel 1 is on no path of the port (as in the reference, only
+    # tests reach it): 0
     timed_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
     for name, runs, launches, times, shape, other in (
@@ -1589,9 +2156,11 @@ def main() -> int:
             "library_ms": None, "shape": [main_run["B"], main_run["P"]],
             "other_shapes": [{k: r[k] for k in ("B", "P", "ms", "plain_ms", "bound_ms")}
                              for r in sel["kernels"][name][1:2]]})
-    for name in ("flat_sweep", "adaptive_sweep"):
+    for name, stream in (("flat_sweep", "flat_stream"), ("adaptive_sweep", "adaptive_stream")):
         source, replaces = KERNELS[name]
         main_run, *others = swp["kernels"][name]
+        s_main, *s_others = ten["kernels"][stream]
+        stream_keys = ("policy", "rows", "accesses", "lanes", *timed_keys, "us_per_access")
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": swp["table1"]["launches"][name],
@@ -1600,7 +2169,15 @@ def main() -> int:
             "shape": {k: main_run[k] for k in ("grid", "kind", "rows", "steps", "lanes")},
             "other_shapes": [{k: r.get(k) for k in ("grid", "kind", "rows", "steps", "lanes",
                                                     *timed_keys, "ms_per_step")}
-                             for r in others]})
+                             for r in others],
+            # the stream mode (the tenancy manager's access_stream / access)
+            "stream": {"name": stream, "max_abs_err": 0,
+                       "launches": sum(r["launches"][stream] for r in srv_ten["runs"]),
+                       "launches_tenancy_phase": sum(
+                           c["launches"] for c in ten["cases"].values()
+                           if (c["policy"] in ("arc", "car")) == (stream == "adaptive_stream")),
+                       **{k: s_main.get(k) for k in stream_keys},
+                       "other_shapes": [{k: r.get(k) for k in stream_keys} for r in s_others]}})
     emit({"kernels": kernels})
     print(smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

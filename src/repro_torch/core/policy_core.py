@@ -39,8 +39,10 @@ Differences from the reference, all deliberate:
   enabled);
 * ``_GridMasks`` also carries ``valid``, the int32 live-lane plane the rows
   kernel takes, built once per batch instead of once per access;
-* no ``mesh``, no ``RowCounters`` / ``on_access_counted`` / admission and no
-  decision tracing yet (later slices).
+* the pressure EWMA of ``on_access_counted`` is written out as the one fused
+  multiply-add the reference's jitted step compiles to
+  (``pressure_ewma``), not left to a compiler's choice;
+* no ``mesh`` and no decision tracing yet (later slices).
 """
 
 from __future__ import annotations
@@ -73,6 +75,13 @@ __all__ = [
     "first_min",
     "awrp_victim_rows",
     "make_cache_policy",
+    "RowCounters",
+    "ADMIT_ACCEPT",
+    "ADMIT_DEFER",
+    "ADMIT_SHED",
+    "pressure_ewma",
+    "admission_decide",
+    "admission_decay",
 ]
 
 INT_MAX = 2**31 - 1
@@ -251,6 +260,138 @@ def _row_step(
     return slot, is_hit, new_f, new_r
 
 
+# ---------------------------------------------------------------------------
+# per-row accounting and admission
+# ---------------------------------------------------------------------------
+
+
+class RowCounters(NamedTuple):
+    """Per-row cumulative accounting, ``(rows,)`` tensors, carried beside the
+    policy state (not inside it) by the callers that account: the tenancy
+    manager.  ``pressure`` is the admission plane: a per-row EWMA of
+    evictions per access, folded in the same step as the access itself.  It
+    is the single source of truth; host mirrors are pulled copies."""
+
+    hits: torch.Tensor  # (rows,) int32
+    misses: torch.Tensor  # (rows,) int32
+    evictions: torch.Tensor  # (rows,) int32
+    pressure: torch.Tensor  # (rows,) float32 EWMA of evictions/access
+
+
+def _f32_of_sum(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """float32 of the exact ``x + y`` (float64 tensors), rounded once.  The
+    float64 sum is rounded to odd (TwoSum's exact error decides its last
+    bit), so its conversion to float32 rounds correctly, ties included
+    (53 >= 24 + 2 bits)."""
+    s = x + y
+    bp = s - x
+    err = (x - (s - bp)) + (y - bp)  # s + err == x + y exactly
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, float("inf"), float("-inf")).to(torch.float64)
+    return torch.where((err != 0) & even, torch.nextafter(s, toward), s).to(torch.float32)
+
+
+def pressure_ewma(p: torch.Tensor, evicted: torch.Tensor, alpha: float) -> torch.Tensor:
+    """``(1 - a) * p + a * e`` as the reference's jitted step computes it: one
+    fused multiply-add, ``fma(1 - a, p, a * e)`` rounded once to float32, with
+    ``a = f32(alpha)`` and ``1 - a`` and ``a * e`` each a float32 operation.
+    ``p`` float32, ``evicted`` int32, same shape.  The product of two float32
+    values is exact in float64; ``_f32_of_sum`` rounds the sum once."""
+    a = _f32(alpha, p)
+    one_a = _f32(1.0, p) - a
+    return _f32_of_sum(one_a.double() * p.double(),
+                       (a * evicted.to(torch.float32)).double())
+
+
+class _Accounting:
+    """Per-row accounting shared by both core layouts.
+
+    An eviction is detected structurally, not policy by policy: a miss
+    inserts exactly one resident, so the residents it displaced number
+    ``occupancy_before + 1 - occupancy_after`` (0 when the insert filled a
+    free lane, 1 when a resident was overwritten or demoted to a ghost list,
+    ARC's discard-T1 and ghost-hit REPLACE included)."""
+
+    def init_counters(self, *, device="cuda") -> RowCounters:
+        """Fresh all-zero counters for this core's ``rows`` on ``device``
+        (the CUDA card unless the caller asks for the CPU)."""
+        dev = resolve_device(device)
+        z = torch.zeros((self.rows,), dtype=_I32, device=dev)
+        return RowCounters(hits=z, misses=z.clone(), evictions=z.clone(),
+                           pressure=torch.zeros((self.rows,), dtype=torch.float32,
+                                                device=dev))
+
+    def on_access_counted(self, state, counters: RowCounters, ids, *, active=None,
+                          pressure_alpha: float = 0.1):
+        """``on_access`` plus per-row hit / miss / eviction accounting and the
+        pressure EWMA (``pressure_ewma``) on the active rows; inactive rows
+        keep every counter.  Returns ``(new state, new counters, hits)`` and
+        writes nothing it was given."""
+        occ_b = self.occupancy(state)
+        new_state, hit = self.on_access(state, ids, active=active)
+        occ_a = self.occupancy(new_state)
+        act = (torch.ones((self.rows,), dtype=torch.bool, device=occ_b.device)
+               if active is None else _as_active(active, occ_b.device))
+        miss = act & ~hit
+        evicted = torch.where(miss, occ_b + 1 - occ_a, 0).to(_I32)
+        p_new = pressure_ewma(counters.pressure, evicted, pressure_alpha)
+        new_counters = RowCounters(
+            hits=counters.hits + hit.to(_I32),
+            misses=counters.misses + miss.to(_I32),
+            evictions=counters.evictions + evicted,
+            pressure=torch.where(act, p_new, counters.pressure),
+        )
+        return new_state, new_counters, hit
+
+    def row_telemetry(self, state, counters: RowCounters) -> dict:
+        """Per-row accounting as ``(rows,)`` tensors, not pulled: cumulative
+        hits / misses / evictions / accesses, occupancy, capacity and
+        pressure."""
+        return {
+            "hits": counters.hits,
+            "misses": counters.misses,
+            "evictions": counters.evictions,
+            "accesses": counters.hits + counters.misses,
+            "occupancy": self.occupancy(state),
+            "capacity": torch.as_tensor(self.row_capacity, dtype=_I32,
+                                        device=counters.hits.device),
+            "pressure": counters.pressure,
+        }
+
+
+#: admission decision codes, the device encoding of the controller's
+#: ``"accept"`` / ``"defer"`` / ``"shed"``
+ADMIT_ACCEPT = 0
+ADMIT_DEFER = 1
+ADMIT_SHED = 2
+
+
+def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
+    """``f32(x)`` as a 0-d tensor on ``like``'s device (a fill, no host
+    copy)."""
+    return torch.full((), x, dtype=torch.float32, device=like.device)
+
+
+def admission_decide(pressure: torch.Tensor, accesses: torch.Tensor, *, defer_at: float,
+                     shed_at: float, warmup: int) -> torch.Tensor:
+    """Device admission decision over per-row planes: rows inside the
+    warmup window (``accesses < warmup``) ACCEPT; otherwise SHED when
+    ``pressure >= f32(shed_at)``, DEFER when ``pressure >= f32(defer_at)``,
+    else ACCEPT.  Returns int32 ``ADMIT_*`` codes shaped like ``pressure``."""
+    code = torch.where(pressure >= _f32(shed_at, pressure), ADMIT_SHED,
+                       torch.where(pressure >= _f32(defer_at, pressure), ADMIT_DEFER,
+                                   ADMIT_ACCEPT))
+    return torch.where(accesses < int(warmup), ADMIT_ACCEPT, code).to(_I32)
+
+
+def admission_decay(pressure: torch.Tensor, mask, alpha: float) -> torch.Tensor:
+    """Probation decay after a shed: rows where ``mask`` holds scale their
+    pressure by ``1 - a`` in float32 (one multiply); other rows are
+    untouched.  Returns a new tensor."""
+    one_a = _f32(1.0, pressure) - _f32(alpha, pressure)
+    return torch.where(_as_active(mask, pressure.device), pressure * one_a, pressure)
+
+
 def _select_state(active: torch.Tensor, new_state, old_state):
     """Row-masked select: rows where ``active`` is False keep their old
     state (the serving callers' masked no-op accesses)."""
@@ -271,7 +412,7 @@ def _as_active(active, device) -> torch.Tensor:
 
 
 @dataclasses.dataclass(frozen=True)
-class FlatCore:
+class FlatCore(_Accounting):
     """Static spec for a batch of flat-state policy rows (awrp/lru/fifo/lfu).
 
     ``pids``/``ways`` are per-row: mixed policies and mixed capacities batch
@@ -690,7 +831,7 @@ def _lane_iota(L: int, device: torch.device) -> torch.Tensor:
 
 
 @dataclasses.dataclass(frozen=True)
-class AdaptiveCore:
+class AdaptiveCore(_Accounting):
     """Static spec for a batch of adaptive (arc/car) policy rows.
 
     ``caps`` is the per-row per-set capacity c; the directory spans

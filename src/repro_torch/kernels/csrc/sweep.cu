@@ -14,6 +14,14 @@
 //   adaptive_sweep_kernel  the same for one ARC or CAR row group:
 //                          AdaptiveCore.on_access at every step, on the
 //                          one-warp directory machine of adaptive_common.cuh.
+//   flat_stream_kernel,    the stream mode of the two, for the tenancy manager
+//   adaptive_stream_kernel (repro_torch/serve/tenancy.py access_stream and
+//                          access): one interleaved stream of (row, key)
+//                          accesses over one row per tenant, num_sets = 1,
+//                          from a given state and given counters; access t
+//                          acts on row stream[t].row only, as the reference's
+//                          lax.scan of masked on_access_counted steps
+//                          (repro/serve/tenancy.py _jit_stream).
 //
 // Layout.  One warp per (row, set), kSweepWarps of them per CTA, consecutive
 // units u = row * S + set.  A flat warp keeps its set's W lanes of blocks /
@@ -45,6 +53,21 @@
 // sweep is car_access's warp-uniform loop of at most c + 1 trips: no host
 // round trip.
 //
+// The stream mode runs the same step functions and the same chunk pipeline:
+// every warp (one per row) reads the whole (T, 2) stream, the CTA's first
+// warp staging it, and acts only where the access's row is its own.  It
+// starts from the planes and counters it is given and writes new ones.  On
+// its own accesses a warp also counts the hit, the miss and the structural
+// eviction (occupancy before + 1 - occupancy after, live lanes only: on a
+// flat row only the slot's lane changes) and folds the eviction into the
+// pressure EWMA as the reference's jitted step rounds it, one fused
+// multiply-add: __fmaf_rn(__fsub_rn(1, a), p, __fmul_rn(a, e)), written out
+// so that nvcc's -fmad choice does not pick the form.  An ARC/CAR warp runs
+// the renormalization check at every access of the stream, its own or not
+// (the reference renormalizes every row before the masked select keeps
+// inactive rows), so a stream that ends before a row's next access leaves
+// the same planes.  An inactive flat row does not tick its clock.
+//
 // What bounds it on an H100: neither bytes nor operations.  A Table-1 trace
 // moves about 4 KB of ids in and 1 byte of hit per row and step out, a few
 // microseconds of HBM traffic; what takes the time is each row's serial
@@ -61,6 +84,13 @@
 //   repro_adaptive_sweep(traces, row_trace, caps, hits, blocks, tag, stamp,
 //                        ref, p, ctr, rows, T, S, L, kind, renorm, renorm_at,
 //                        stream)
+//   repro_flat_stream(acc, pid, ways, blocks_in, f_in, r_in, clock_in,
+//                     counters_in[4], hits, blocks, f, r, clock, counters[4],
+//                     rows, T, W, alpha, stream)
+//   repro_adaptive_stream(acc, caps, blocks_in, tag_in, stamp_in, ref_in, p_in,
+//                         ctr_in, counters_in[4], hits, blocks, tag, stamp, ref,
+//                         p, ctr, counters[4], rows, T, L, kind, renorm,
+//                         renorm_at, alpha, stream)
 // traces (N, T) int32; row_trace, pid, ways, caps (rows,) int32 (row_trace in
 // [0, N), pid a flat POLICY_IDS value, 1 <= ways <= W <= kMaxFlatLanes,
 // 1 <= caps, 2 * caps <= L <= kMaxLanes); hits (rows, T) bool; flat planes
@@ -68,6 +98,8 @@
 // p (rows, S) float32, ctr (rows, S) int32; kind 0 = arc, 1 = car; renorm 0
 // skips the renormalization check.  All contiguous.  Each returns
 // cudaGetLastError() after its launch.
+#include <type_traits>
+
 #include "adaptive_common.cuh"
 #include "paged_attn_common.cuh"
 
@@ -102,16 +134,18 @@ __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
                : "memory");
 }
 
-// Calls step(id, t) for t = 0 .. T-1 in order, id = trace n's t-th block, on
-// every lane of the calling warp when n >= 0.  Every thread of the CTA calls
-// it (it holds the barriers of the chunk pipeline).
-template <typename Step>
+// Calls step(rec, t) for t = 0 .. T-1 in order, rec = the t-th access of
+// record n (kWidth consecutive ints: a trace's block id, or a stream's
+// (row, key)), on every lane of the calling warp when n >= 0.  Every thread
+// of the CTA calls it (it holds the barriers of the chunk pipeline).
+template <int kWidth, typename Step>
 __device__ __forceinline__ void for_each_access(IdStage& st, const int* __restrict__ traces,
                                                 int n, int T, Step step) {
+  static_assert(kChunk % kWidth == 0, "a chunk holds whole accesses");
   const int warp = threadIdx.x >> 5;
   if ((threadIdx.x & 31) == 0) st.trace[warp] = n;
   __syncthreads();
-  int lead = warp;  // the first warp of the CTA on this trace
+  int lead = warp;  // the first warp of the CTA on this record
   for (int w = 0; w < warp; ++w) {
     if (st.trace[w] == n) {
       lead = w;
@@ -119,13 +153,14 @@ __device__ __forceinline__ void for_each_access(IdStage& st, const int* __restri
     }
   }
   const bool copies = n >= 0 && lead == warp;
-  const int* src = traces + (size_t)(n < 0 ? 0 : n) * T;
-  const int chunks = (T + kChunk - 1) / kChunk;
+  const int total = T * kWidth;
+  const int* src = traces + (size_t)(n < 0 ? 0 : n) * total;
+  const int chunks = (total + kChunk - 1) / kChunk;
   // every thread commits one group per chunk (empty unless it copies), so
   // wait_group 1 leaves only the newest chunk in flight
   auto stage_chunk = [&](int c) {
     if (copies && c < chunks) {
-      const int base = c * kChunk, cnt = min(kChunk, T - base);
+      const int base = c * kChunk, cnt = min(kChunk, total - base);
       int* dst = st.ids[warp][c & 1];
       for (int i = threadIdx.x & 31; i < cnt; i += 32) cp_async4(dst + i, src + base + i);
     }
@@ -138,8 +173,8 @@ __device__ __forceinline__ void for_each_access(IdStage& st, const int* __restri
     __syncthreads();
     if (n >= 0) {
       const int* ids = st.ids[lead][c & 1];
-      const int base = c * kChunk, cnt = min(kChunk, T - base);
-      for (int i = 0; i < cnt; ++i) step(ids[i], base + i);
+      const int base = c * kChunk, cnt = min(kChunk, total - base);
+      for (int i = 0; i < cnt; i += kWidth) step(ids + i, (base + i) / kWidth);
     }
     __syncthreads();  // the buffer is refilled two chunks on
   }
@@ -182,10 +217,11 @@ __device__ __forceinline__ int flat_key(int f, int r, int clk, int pol, bool liv
 }
 
 // One access of block id to the warp's set (policy_core._row_step); returns
-// the hit.
+// the hit.  With occ_delta, also the change of the set's occupancy (live
+// lanes holding a block): only the slot's lane changes.
 template <class Lanes>
 __device__ __forceinline__ bool flat_access(Lanes& s, int& clock, int id, int pol, int ways,
-                                            int W) {
+                                            int W, int* occ_delta = nullptr) {
   const int lane = threadIdx.x & 31;
   const int clk = (int)((unsigned)clock + 1u);
   int hit_l = W, m1 = kIntMax;
@@ -222,14 +258,17 @@ __device__ __forceinline__ bool flat_access(Lanes& s, int& clock, int id, int po
       slot = m2;
     }
   }
+  int delta = 0;
 #pragma unroll
   for (int j = 0; j < s.nj(); ++j) {
     if ((j << 5) + lane == slot) {
+      if (slot < ways) delta = (int)(id >= 0) - (int)(s.blk(j) >= 0);
       s.frq(j) = hit ? s.frq(j) + 1 : 1;
       if (!(hit && pol == kPolFifo)) s.rec(j) = clk;  // FIFO keeps its insertion clock
       s.blk(j) = id;
     }
   }
+  if (occ_delta) *occ_delta = __shfl_sync(kFull, delta, slot & 31);
   clock = clk;
   return hit;
 }
@@ -263,11 +302,13 @@ __device__ __forceinline__ void flat_run(const FlatArgs& a, IdStage& st, Lanes& 
   }
   int clock = 0;
   bool* hits = a.hits + (size_t)row * a.T;
-  for_each_access(st, a.traces, active ? a.row_trace[row] : -1, a.T, [&](int id, int t) {
-    if (id % a.S != set) return;
-    const bool h = flat_access(s, clock, id, pol, ways, a.W);
-    if (lane == 0) hits[t] = h;
-  });
+  for_each_access<1>(st, a.traces, active ? a.row_trace[row] : -1, a.T,
+                     [&](const int* acc, int t) {
+                       const int id = acc[0];
+                       if (id % a.S != set) return;
+                       const bool h = flat_access(s, clock, id, pol, ways, a.W);
+                       if (lane == 0) hits[t] = h;
+                     });
   if (!active) return;
   const size_t off = (size_t)u * a.W;
 #pragma unroll
@@ -282,6 +323,15 @@ __device__ __forceinline__ void flat_run(const FlatArgs& a, IdStage& st, Lanes& 
   if (lane == 0) a.clock[u] = clock;
 }
 
+// The warp's lanes in dynamic shared memory (W > 256): per warp 4 planes of
+// (W + 31) / 32 * 32 ints.
+__device__ __forceinline__ SmemLanes smem_lanes(int W) {
+  extern __shared__ int lane_smem[];
+  const int nj = (W + 31) / 32;
+  int* base = lane_smem + (size_t)(threadIdx.x >> 5) * 4 * nj * 32 + (threadIdx.x & 31);
+  return SmemLanes{base, base + nj * 32, base + 2 * nj * 32, base + 3 * nj * 32, nj};
+}
+
 // NJ > 0: lanes in registers, NJ groups of 32; NJ == 0: in shared memory.
 template <int NJ>
 __global__ void __launch_bounds__(kSweepThreads) flat_sweep_kernel(FlatArgs a) {
@@ -290,23 +340,151 @@ __global__ void __launch_bounds__(kSweepThreads) flat_sweep_kernel(FlatArgs a) {
     RegLanes<NJ> s;
     flat_run(a, st, s);
   } else {
-    extern __shared__ int lane_smem[];  // per warp 4 planes of nj * 32 ints
-    const int nj = (a.W + 31) / 32;
-    int* base = lane_smem + (size_t)(threadIdx.x >> 5) * 4 * nj * 32 + (threadIdx.x & 31);
-    SmemLanes s{base, base + nj * 32, base + 2 * nj * 32, base + 3 * nj * 32, nj};
+    SmemLanes s = smem_lanes(a.W);
     flat_run(a, st, s);
   }
 }
 
+// The stream mode's per-row accounting: planes in, counters in, and out.
+struct Counters {
+  int* hits;
+  int* misses;
+  int* evictions;
+  float* pressure;
+};
+
+struct CountersIn {
+  const int* hits;
+  const int* misses;
+  const int* evictions;
+  const float* pressure;
+};
+
+// One row's counters in registers; count() folds one own access.
+struct RowCount {
+  int hits, misses, evictions;
+  float pressure;
+  __device__ __forceinline__ void load(const CountersIn& c, int row) {
+    hits = c.hits[row];
+    misses = c.misses[row];
+    evictions = c.evictions[row];
+    pressure = c.pressure[row];
+  }
+  // the reference's EWMA, rounded once: fma(1 - a, p, a * e)
+  __device__ __forceinline__ void count(bool hit, int evicted, float alpha) {
+    hits += hit;
+    misses += !hit;
+    evictions += evicted;
+    pressure = __fmaf_rn(__fsub_rn(1.f, alpha), pressure,
+                         __fmul_rn(alpha, __int2float_rn(evicted)));
+  }
+  __device__ __forceinline__ void store(const Counters& c, int row) const {
+    c.hits[row] = hits;
+    c.misses[row] = misses;
+    c.evictions[row] = evictions;
+    c.pressure[row] = pressure;
+  }
+};
+
+struct FlatStreamArgs {
+  const int* acc;  // (T, 2): row, key
+  const int* pid;
+  const int* ways;
+  const int* blocks_in;
+  const int* f_in;
+  const int* r_in;
+  const int* clock_in;
+  CountersIn ctr_in;
+  bool* hits;  // (T,)
+  int* blocks;
+  int* f;
+  int* r;
+  int* clock;
+  Counters ctr;
+  int rows, T, W;
+  float alpha;
+};
+
+template <class Lanes>
+__device__ __forceinline__ void flat_stream_run(const FlatStreamArgs& a, IdStage& st,
+                                                Lanes& s) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kSweepWarps + (threadIdx.x >> 5);
+  const bool active = row < a.rows;
+  const int pol = active ? a.pid[row] : 0, ways = active ? a.ways[row] : 0;
+  const size_t off = (size_t)(active ? row : 0) * a.W;
+#pragma unroll
+  for (int j = 0; j < s.nj(); ++j) {
+    const int l = (j << 5) + lane;
+    const bool in = active && l < a.W;
+    s.blk(j) = in ? a.blocks_in[off + l] : -1;
+    s.frq(j) = in ? a.f_in[off + l] : 0;
+    s.rec(j) = in ? a.r_in[off + l] : 0;
+  }
+  int clock = active ? a.clock_in[row] : 0;
+  RowCount c{0, 0, 0, 0.f};
+  if (active) c.load(a.ctr_in, row);
+  for_each_access<2>(st, a.acc, active ? 0 : -1, a.T, [&](const int* acc, int t) {
+    if (acc[0] != row) return;  // another row's access: no clock tick
+    int delta;
+    const bool h = flat_access(s, clock, acc[1], pol, ways, a.W, &delta);
+    c.count(h, h ? 0 : 1 - delta, a.alpha);
+    if (lane == 0) a.hits[t] = h;
+  });
+  if (!active) return;
+#pragma unroll
+  for (int j = 0; j < s.nj(); ++j) {
+    const int l = (j << 5) + lane;
+    if (l < a.W) {
+      a.blocks[off + l] = s.blk(j);
+      a.f[off + l] = s.frq(j);
+      a.r[off + l] = s.rec(j);
+    }
+  }
+  if (lane == 0) {
+    a.clock[row] = clock;
+    c.store(a.ctr, row);
+  }
+}
+
 template <int NJ>
-cudaError_t launch_flat(const FlatArgs& a, cudaStream_t stream) {
-  const size_t bytes =
-      NJ > 0 ? 0 : (size_t)kSweepWarps * 4 * ((a.W + 31) / 32) * 32 * sizeof(int);
-  const cudaError_t err = allow_dynamic_smem(flat_sweep_kernel<NJ>, bytes);
+__global__ void __launch_bounds__(kSweepThreads) flat_stream_kernel(FlatStreamArgs a) {
+  __shared__ IdStage st;
+  if constexpr (NJ > 0) {
+    RegLanes<NJ> s;
+    flat_stream_run(a, st, s);
+  } else {
+    SmemLanes s = smem_lanes(a.W);
+    flat_stream_run(a, st, s);
+  }
+}
+
+template <int NJ, class Args>
+cudaError_t launch_flat(void (*kern)(Args), const Args& a, int units, int W,
+                        cudaStream_t stream) {
+  const size_t bytes = NJ > 0 ? 0 : (size_t)kSweepWarps * 4 * ((W + 31) / 32) * 32 * sizeof(int);
+  const cudaError_t err = allow_dynamic_smem(kern, bytes);
   if (err != cudaSuccess) return err;
-  const int grid = (a.units + kSweepWarps - 1) / kSweepWarps;
-  flat_sweep_kernel<NJ><<<grid, kSweepThreads, bytes, stream>>>(a);
+  const int grid = (units + kSweepWarps - 1) / kSweepWarps;
+  kern<<<grid, kSweepThreads, bytes, stream>>>(a);
   return cudaGetLastError();
+}
+
+// Calls launch(std::integral_constant<int, NJ>) with W's lane groups NJ
+// (lanes in registers up to 8 groups, 0: in shared memory).
+template <class Launch>
+cudaError_t by_lane_groups(int W, Launch launch) {
+  switch ((W + 31) / 32) {
+    case 1: return launch(std::integral_constant<int, 1>{});
+    case 2: return launch(std::integral_constant<int, 2>{});
+    case 3: return launch(std::integral_constant<int, 3>{});
+    case 4: return launch(std::integral_constant<int, 4>{});
+    case 5: return launch(std::integral_constant<int, 5>{});
+    case 6: return launch(std::integral_constant<int, 6>{});
+    case 7: return launch(std::integral_constant<int, 7>{});
+    case 8: return launch(std::integral_constant<int, kMaxRegGroups>{});
+    default: return launch(std::integral_constant<int, 0>{});
+  }
 }
 
 // ---- adaptive rows (arc / car) -------------------------------------------------
@@ -335,7 +513,8 @@ adaptive_sweep_kernel(const int* __restrict__ traces, const int* __restrict__ ro
   float p = 0.f;
   int ctr = 0;
   bool* row_hits = hits + (size_t)row * T;
-  for_each_access(st, traces, active ? row_trace[row] : -1, T, [&](int id, int t) {
+  for_each_access<1>(st, traces, active ? row_trace[row] : -1, T, [&](const int* acc, int t) {
+    const int id = acc[0];
     if (renorm) renorm_stamps(d, renorm_at, ctr);  // every set, every step
     if (id % S != set) return;
     const bool h = dir_access(d, kind, id, p, ctr);
@@ -347,6 +526,75 @@ adaptive_sweep_kernel(const int* __restrict__ traces, const int* __restrict__ ro
   if (lane == 0) {
     p_out[u] = p;
     ctr_out[u] = ctr;
+  }
+}
+
+struct AdaptiveStreamArgs {
+  const int* acc;  // (T, 2): row, key
+  const int* caps;
+  const int* blocks_in;
+  const int* tag_in;
+  const int* stamp_in;
+  const int* ref_in;
+  const float* p_in;
+  const int* ctr_in;
+  CountersIn cnt_in;
+  bool* hits;  // (T,)
+  int* blocks;
+  int* tag;
+  int* stamp;
+  int* ref;
+  float* p;
+  int* ctr;
+  Counters cnt;
+  int rows, T, L, kind, renorm, renorm_at;
+  float alpha;
+};
+
+// Residents (T1 and T2) of the warp's directory: AdaptiveCore.occupancy.
+__device__ __forceinline__ int resident_count(const Dir& d) {
+  int n = 0;
+  for (int j = 0; j < d.nj; ++j) {
+    const int l = (j << 5) + lane_id();
+    const int t = l < d.L ? d.tag[l] : kFree;
+    n += __popc(__ballot_sync(kFull, t == kT1 || t == kT2));
+  }
+  return n;
+}
+
+__global__ void __launch_bounds__(kSweepThreads) adaptive_stream_kernel(AdaptiveStreamArgs a) {
+  __shared__ IdStage st;
+  extern __shared__ int dir_smem[];  // per warp the directory, 5 planes of L ints
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kSweepWarps + warp;
+  const bool active = row < a.rows;
+  const Dir d = dir_at(dir_smem + (size_t)warp * 5 * a.L, a.L, active ? a.caps[row] : 1);
+  const size_t off = (size_t)(active ? row : 0) * a.L;
+  for (int l = lane; l < a.L; l += 32) {
+    d.blocks[l] = active ? a.blocks_in[off + l] : -1;
+    d.tag[l] = active ? a.tag_in[off + l] : kFree;
+    d.stamp[l] = active ? a.stamp_in[off + l] : 0;
+    d.ref[l] = active ? a.ref_in[off + l] : 0;
+  }
+  __syncwarp();
+  float p = active ? a.p_in[row] : 0.f;
+  int ctr = active ? a.ctr_in[row] : 0;
+  RowCount c{0, 0, 0, 0.f};
+  if (active) c.load(a.cnt_in, row);
+  for_each_access<2>(st, a.acc, active ? 0 : -1, a.T, [&](const int* acc, int t) {
+    if (a.renorm) renorm_stamps(d, a.renorm_at, ctr);  // every row, every access
+    if (acc[0] != row) return;
+    const int occ_b = resident_count(d);
+    const bool h = dir_access(d, a.kind, acc[1], p, ctr);
+    c.count(h, h ? 0 : occ_b + 1 - resident_count(d), a.alpha);
+    if (lane == 0) a.hits[t] = h;
+  });
+  if (!active) return;
+  store_dir(d, a.blocks + off, a.tag + off, a.stamp + off, a.ref + off);
+  if (lane == 0) {
+    a.p[row] = p;
+    a.ctr[row] = ctr;
+    c.store(a.cnt, row);
   }
 }
 
@@ -368,17 +616,10 @@ extern "C" int repro_flat_sweep(const void* traces, const void* row_trace, const
                    T,                               S,
                    W};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch ((W + 31) / 32) {
-    case 1: return (int)launch_flat<1>(a, st);
-    case 2: return (int)launch_flat<2>(a, st);
-    case 3: return (int)launch_flat<3>(a, st);
-    case 4: return (int)launch_flat<4>(a, st);
-    case 5: return (int)launch_flat<5>(a, st);
-    case 6: return (int)launch_flat<6>(a, st);
-    case 7: return (int)launch_flat<7>(a, st);
-    case 8: return (int)launch_flat<kMaxRegGroups>(a, st);
-    default: return (int)launch_flat<0>(a, st);
-  }
+  return (int)by_lane_groups(W, [&](auto nj) {
+    constexpr int NJ = decltype(nj)::value;
+    return launch_flat<NJ>(flat_sweep_kernel<NJ>, a, rows * S, W, st);
+  });
 }
 
 extern "C" int repro_adaptive_sweep(const void* traces, const void* row_trace, const void* caps,
@@ -399,5 +640,75 @@ extern "C" int repro_adaptive_sweep(const void* traces, const void* row_trace, c
       static_cast<const int*>(caps), static_cast<bool*>(hits), static_cast<int*>(blocks),
       static_cast<int*>(tag), static_cast<int*>(stamp), static_cast<int*>(ref),
       static_cast<float*>(p), static_cast<int*>(ctr), units, T, S, L, kind, renorm, renorm_at);
+  return (int)cudaGetLastError();
+}
+
+namespace {
+
+repro::CountersIn counters_in(const void* const* c) {
+  return {static_cast<const int*>(c[0]), static_cast<const int*>(c[1]),
+          static_cast<const int*>(c[2]), static_cast<const float*>(c[3])};
+}
+
+repro::Counters counters_out(void* const* c) {
+  return {static_cast<int*>(c[0]), static_cast<int*>(c[1]), static_cast<int*>(c[2]),
+          static_cast<float*>(c[3])};
+}
+
+}  // namespace
+
+extern "C" int repro_flat_stream(const void* acc, const void* pid, const void* ways,
+                                 const void* blocks_in, const void* f_in, const void* r_in,
+                                 const void* clock_in, const void* const* ctr_in, void* hits,
+                                 void* blocks, void* f, void* r, void* clock,
+                                 void* const* ctr, int rows, int T, int W, float alpha,
+                                 void* stream) {
+  using namespace repro;
+  if (rows < 1 || T < 0 || T > (1 << 29) || W < 1 || W > kMaxFlatLanes)
+    return (int)cudaErrorInvalidValue;
+  const FlatStreamArgs a{static_cast<const int*>(acc),      static_cast<const int*>(pid),
+                         static_cast<const int*>(ways),     static_cast<const int*>(blocks_in),
+                         static_cast<const int*>(f_in),     static_cast<const int*>(r_in),
+                         static_cast<const int*>(clock_in), counters_in(ctr_in),
+                         static_cast<bool*>(hits),          static_cast<int*>(blocks),
+                         static_cast<int*>(f),              static_cast<int*>(r),
+                         static_cast<int*>(clock),          counters_out(ctr),
+                         rows,                              T,
+                         W,                                 alpha};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)by_lane_groups(W, [&](auto nj) {
+    constexpr int NJ = decltype(nj)::value;
+    return launch_flat<NJ>(flat_stream_kernel<NJ>, a, rows, W, st);
+  });
+}
+
+extern "C" int repro_adaptive_stream(const void* acc, const void* caps, const void* blocks_in,
+                                     const void* tag_in, const void* stamp_in,
+                                     const void* ref_in, const void* p_in, const void* ctr_in,
+                                     const void* const* cnt_in, void* hits, void* blocks,
+                                     void* tag, void* stamp, void* ref, void* p, void* ctr,
+                                     void* const* cnt, int rows, int T, int L, int kind,
+                                     int renorm, int renorm_at, float alpha, void* stream) {
+  using namespace repro;
+  if (rows < 1 || T < 0 || T > (1 << 29) || L < 2 || L > kMaxLanes ||
+      (kind != kKindArc && kind != kKindCar))
+    return (int)cudaErrorInvalidValue;
+  const AdaptiveStreamArgs a{static_cast<const int*>(acc),      static_cast<const int*>(caps),
+                             static_cast<const int*>(blocks_in), static_cast<const int*>(tag_in),
+                             static_cast<const int*>(stamp_in), static_cast<const int*>(ref_in),
+                             static_cast<const float*>(p_in),   static_cast<const int*>(ctr_in),
+                             counters_in(cnt_in),               static_cast<bool*>(hits),
+                             static_cast<int*>(blocks),         static_cast<int*>(tag),
+                             static_cast<int*>(stamp),          static_cast<int*>(ref),
+                             static_cast<float*>(p),            static_cast<int*>(ctr),
+                             counters_out(cnt),                 rows,
+                             T,                                 L,
+                             kind,                              renorm,
+                             renorm_at,                         alpha};
+  const size_t bytes = (size_t)kSweepWarps * 5 * L * sizeof(int);
+  const cudaError_t err = allow_dynamic_smem(adaptive_stream_kernel, bytes);
+  if (err != cudaSuccess) return (int)err;
+  adaptive_stream_kernel<<<(rows + kSweepWarps - 1) / kSweepWarps, kSweepThreads, bytes,
+                           static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }

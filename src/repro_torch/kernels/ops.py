@@ -9,7 +9,9 @@ so a run can show that its main path went through the kernels.  Kernels
 ``adaptive_policy_paged_attention``) make ``SPLIT_LAUNCHES`` launches per
 call, the pages' partials and then their fold, and count each.
 ``flat_sweep`` and ``adaptive_sweep`` run a row group's whole trace in one
-launch (the sweep engine's trace route).
+launch (the sweep engine's trace route); ``flat_stream`` and
+``adaptive_stream``, their stream mode, run a tenancy manager's interleaved
+stream in one launch.
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ from repro_torch.kernels import ref
 LAUNCHES: Dict[str, int] = {"paged_attention": 0, "policy_paged_attention": 0,
                              "adaptive_policy_paged_attention": 0,
                              "awrp_select": 0, "awrp_select_rows": 0,
-                             "flash_attention": 0, "flat_sweep": 0, "adaptive_sweep": 0}
+                             "flash_attention": 0, "flat_sweep": 0, "adaptive_sweep": 0,
+                             "flat_stream": 0, "adaptive_stream": 0}
 
 
 #: CUDA launches per call of kernels 3, 4 and 5: the pages' partials, their
@@ -141,6 +144,39 @@ def adaptive_sweep(traces, row_trace, caps, *, kind: str, num_sets: int, lanes: 
 
     res = adaptive_sweep_kernel(traces, row_trace, caps, **kw)
     LAUNCHES["adaptive_sweep"] += 1
+    return res
+
+
+def flat_stream(keys, stream_rows, state, counters, pids, ways, *, alpha: float):
+    """A tenancy manager's flat (awrp/lru/fifo/lfu) rows over one interleaved
+    stream: keys, stream_rows (T,) int32, a single-set ``FlatState`` and its
+    ``RowCounters``, pids / ways (rows,) int32 -> ``(hits (T,) bool, new
+    FlatState, new RowCounters)``, ``on_access_counted`` on row
+    ``stream_rows[t]`` at step t.  The flat trace kernel's stream mode: one
+    launch per call."""
+    args = (keys, stream_rows, state, counters, pids, ways)
+    if keys.device.type == "cpu":
+        return ref.flat_stream_plain(*args, alpha=alpha)
+    from repro_torch.kernels.sweep import flat_stream_kernel
+
+    res = flat_stream_kernel(*args, alpha=alpha)
+    LAUNCHES["flat_stream"] += 1
+    return res
+
+
+def adaptive_stream(keys, stream_rows, state, counters, caps, *, kind: str, alpha: float,
+                    renorm_at):
+    """The same for ARC or CAR rows (``AdaptiveState`` with num_sets == 1,
+    caps (rows,) int32): the ARC/CAR trace kernel's stream mode, one launch
+    per call."""
+    args = (keys, stream_rows, state, counters, caps)
+    kw = dict(kind=kind, alpha=alpha, renorm_at=renorm_at)
+    if keys.device.type == "cpu":
+        return ref.adaptive_stream_plain(*args, **kw)
+    from repro_torch.kernels.sweep import adaptive_stream_kernel
+
+    res = adaptive_stream_kernel(*args, **kw)
+    LAUNCHES["adaptive_stream"] += 1
     return res
 
 

@@ -21,6 +21,10 @@
   kernels (``csrc/sweep.cu``; the first is kernel 2 redesigned) as the eager
   loop they replace: ``FlatCore.on_access`` (inline victim) or
   ``AdaptiveCore.on_access`` at every step of the trace.
+* ``flat_stream_plain`` and ``adaptive_stream_plain`` are the same kernels'
+  stream mode (the tenancy manager's ``access_stream``) as the reference's
+  scan body: a loop of masked ``on_access_counted`` calls, access t active
+  on row ``stream_rows[t]`` alone.
 * ``flash_attention_plain`` is kernel 6 (``csrc/flash_attn.cu``), the
   prefill attention with causal, sliding-window and ``kv_len`` masks.
 * ``ref_paged_attention`` is the plain softmax over all rows
@@ -242,6 +246,49 @@ def adaptive_sweep_plain(traces, row_trace, caps, *, kind: str, num_sets: int,
     core = AdaptiveCore(kind=kind, caps=tuple(caps.tolist()), num_sets=num_sets,
                         lanes=lanes, renorm_at=renorm_at)
     return _sweep(core, traces, row_trace, caps=caps)
+
+
+def _stream(core, keys, stream_rows, state, counters, alpha: float):
+    """Masked ``core.on_access_counted`` at every access of the stream, access
+    t active on row ``stream_rows[t]`` alone: ``(hits (T,) bool, final state,
+    final counters)``."""
+    rows = stream_rows.tolist()
+    hits = torch.zeros(len(rows), dtype=torch.bool, device=keys.device)
+    lane = torch.arange(core.rows, device=keys.device)
+    for t, r in enumerate(rows):
+        state, counters, hit = core.on_access_counted(
+            state, counters, keys[t].expand(core.rows), active=lane == r,
+            pressure_alpha=alpha)
+        hits[t] = hit[r]
+    return hits, state, counters
+
+
+def _single_set(name: str, blocks, dims: int) -> None:
+    if blocks.dim() != dims or (dims == 3 and blocks.shape[1] != 1):
+        raise ValueError(f"{name}: the stream mode takes num_sets == 1, got planes "
+                         f"{tuple(blocks.shape)}")
+
+
+def flat_stream_plain(keys, stream_rows, state, counters, pids, ways, *, alpha: float):
+    """Plain version of ``flat_stream_kernel``: keys, stream_rows (T,) int32;
+    a single-set ``FlatState`` and its ``RowCounters``; pids, ways (rows,)
+    int32 -> ``(hits (T,) bool, final FlatState, final RowCounters)``."""
+    _single_set("flat_stream", state.blocks, 2)
+    core = FlatCore(pids=tuple(pids.tolist()), ways=tuple(ways.tolist()),
+                    lanes=state.blocks.shape[1])
+    return _stream(core, keys, stream_rows, state, counters, alpha)
+
+
+def adaptive_stream_plain(keys, stream_rows, state, counters, caps, *, kind: str,
+                          alpha: float, renorm_at):
+    """Plain version of ``adaptive_stream_kernel``: keys, stream_rows (T,)
+    int32; an ``AdaptiveState`` with num_sets == 1 and its ``RowCounters``;
+    caps (rows,) int32 -> ``(hits (T,) bool, final AdaptiveState, final
+    RowCounters)``; ``renorm_at`` None skips the renormalization check."""
+    _single_set("adaptive_stream", state.blocks, 3)
+    core = AdaptiveCore(kind=kind, caps=tuple(caps.tolist()), lanes=state.blocks.shape[2],
+                        renorm_at=renorm_at)
+    return _stream(core, keys, stream_rows, state, counters, alpha)
 
 
 def flash_attention_plain(q, k, v, *, causal: bool, window: int = 0,

@@ -5,16 +5,23 @@
 reference calls once per trace step, with one launch that runs a flat row
 group's whole trace (``FlatCore.on_access`` at every step).
 ``adaptive_sweep_kernel`` does the same for one ARC or CAR row group
-(``AdaptiveCore.on_access``).  This module only validates, allocates the
-outputs and launches on the current stream; ``kernels/ops.py`` dispatches
-between it and the plain versions (``kernels/ref.py``).
+(``AdaptiveCore.on_access``).  ``flat_stream_kernel`` and
+``adaptive_stream_kernel`` are their stream mode, the tenancy manager's
+``access_stream``: one interleaved stream of (row, key) accesses, one row per
+tenant, from a given state and given ``RowCounters``
+(``on_access_counted`` on the access's row at every step).  This module only
+validates, allocates the outputs and launches on the current stream;
+``kernels/ops.py`` dispatches between it and the plain versions
+(``kernels/ref.py``).
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from repro_torch.core.policy_core import AdaptiveState, FlatState
+from repro_torch.core.policy_core import AdaptiveState, FlatState, RowCounters
 from repro_torch.kernels import _build
 
 #: the kernels' limits: flat lanes per set, adaptive directory lanes
@@ -105,3 +112,101 @@ def adaptive_sweep_kernel(traces, row_trace, caps, *, kind: str, num_sets: int, 
         _stream(dev))
     _build.check(err, name)
     return hits, state
+
+
+def _stream_inputs(name: str, keys, stream_rows, state, counters, per_row):
+    """Check the stream mode's inputs: keys, stream_rows (T,) int32; every
+    plane of ``state`` and ``counters`` contiguous on one CUDA device with
+    ``rows`` leading; ``per_row`` (rows,) int32.  Returns (rows, T, the
+    (T, 2) int32 (row, key) records)."""
+    dev = keys.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: expected CUDA tensors, got {dev}")
+    if keys.dim() != 1 or stream_rows.shape != keys.shape:
+        raise ValueError(f"{name}: keys and stream_rows must be equal-length (T,) tensors, "
+                         f"got {tuple(keys.shape)} and {tuple(stream_rows.shape)}")
+    rows = counters.hits.shape[0]
+    floats = [counters.pressure] + ([state.p] if isinstance(state, AdaptiveState) else [])
+    for t in (keys, stream_rows, *state, *counters, *per_row):
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous and on {dev}")
+        want = torch.float32 if any(t is f for f in floats) else torch.int32
+        if t.dtype != want:
+            raise ValueError(f"{name}: expected {want}, got {t.dtype}")
+        if t is not keys and t is not stream_rows and t.shape[0] != rows:
+            raise ValueError(f"{name}: every plane must have {rows} rows, got {tuple(t.shape)}")
+    T = keys.shape[0]
+    if T > 2**29:
+        raise ValueError(f"{name}: at most 2**29 accesses per call, got {T}")
+    return rows, T, torch.stack([stream_rows, keys], dim=1).contiguous()
+
+
+def _new_counters(rows: int, dev) -> RowCounters:
+    return RowCounters(*(torch.empty(rows, dtype=torch.int32, device=dev) for _ in range(3)),
+                       pressure=torch.empty(rows, dtype=torch.float32, device=dev))
+
+
+def _ptrs(tensors):
+    return (ctypes.c_void_p * 4)(*(t.data_ptr() for t in tensors))
+
+
+def flat_stream_kernel(keys, stream_rows, state: FlatState, counters: RowCounters, pids, ways,
+                       *, alpha: float):
+    """The flat trace kernel's stream mode: keys, stream_rows (T,) int32 (row in
+    [0, rows)); ``state`` a single-set ``FlatState`` ((rows, W) planes,
+    (rows,) clock), ``counters`` its ``RowCounters``; pids, ways (rows,)
+    int32.  Access t is ``on_access_counted`` on row ``stream_rows[t]``
+    alone, with the pressure EWMA weight ``alpha``.  Returns ``(hits (T,)
+    bool, new FlatState, new RowCounters)``; the inputs are not written.
+    One launch."""
+    name = "flat_stream"
+    if state.blocks.dim() != 2:
+        raise ValueError(f"{name}: the stream mode takes num_sets == 1 ((rows, W) planes), "
+                         f"got blocks {tuple(state.blocks.shape)}")
+    rows, T, acc = _stream_inputs(name, keys, stream_rows, state, counters, (pids, ways))
+    W = state.blocks.shape[1]
+    if not 1 <= W <= MAX_FLAT_LANES:
+        raise ValueError(f"{name}: need 1 <= lanes <= {MAX_FLAT_LANES}, got {W}")
+    dev = keys.device
+    hits = torch.zeros(T, dtype=torch.bool, device=dev)
+    out = FlatState(*(torch.empty_like(t) for t in state))
+    ctr = _new_counters(rows, dev)
+    err = _build.library().repro_flat_stream(
+        acc.data_ptr(), pids.data_ptr(), ways.data_ptr(), *(t.data_ptr() for t in state),
+        _ptrs(counters), hits.data_ptr(), *(t.data_ptr() for t in out), _ptrs(ctr),
+        rows, T, W, float(alpha), _stream(dev))
+    _build.check(err, name)
+    return hits, out, ctr
+
+
+def adaptive_stream_kernel(keys, stream_rows, state: AdaptiveState, counters: RowCounters,
+                           caps, *, kind: str, alpha: float, renorm_at):
+    """The ARC/CAR trace kernel's stream mode: keys, stream_rows (T,) int32;
+    ``state`` an ``AdaptiveState`` with num_sets == 1 ((rows, 1, L) planes,
+    (rows, 1) p and ctr), ``counters`` its ``RowCounters``; caps (rows,)
+    int32 (2 * caps <= L); ``renorm_at`` the stamp-renormalization ceiling,
+    or None for no check (made at every access, on every row).  Returns
+    ``(hits (T,) bool, new AdaptiveState, new RowCounters)``.  One launch."""
+    name = "adaptive_stream"
+    if kind not in ADAPTIVE_KIND:
+        raise ValueError(f"{name}: kind {kind!r} not in {list(ADAPTIVE_KIND)}")
+    if state.blocks.dim() != 3 or state.blocks.shape[1] != 1:
+        raise ValueError(f"{name}: the stream mode takes num_sets == 1 ((rows, 1, L) planes), "
+                         f"got blocks {tuple(state.blocks.shape)}")
+    rows, T, acc = _stream_inputs(name, keys, stream_rows, state, counters, (caps,))
+    L = state.blocks.shape[2]
+    if not 2 <= L <= MAX_ADAPTIVE_LANES:
+        raise ValueError(f"{name}: need 2 <= lanes <= {MAX_ADAPTIVE_LANES}, got {L}")
+    if renorm_at is not None and not -2**31 <= int(renorm_at) < 2**31:
+        raise ValueError(f"{name}: renorm_at must be an int32 or None, got {renorm_at!r}")
+    dev = keys.device
+    hits = torch.zeros(T, dtype=torch.bool, device=dev)
+    out = AdaptiveState(*(torch.empty_like(t) for t in state))
+    ctr = _new_counters(rows, dev)
+    err = _build.library().repro_adaptive_stream(
+        acc.data_ptr(), caps.data_ptr(), *(t.data_ptr() for t in state), _ptrs(counters),
+        hits.data_ptr(), *(t.data_ptr() for t in out), _ptrs(ctr), rows, T, L,
+        ADAPTIVE_KIND[kind], int(renorm_at is not None),
+        0 if renorm_at is None else int(renorm_at), float(alpha), _stream(dev))
+    _build.check(err, name)
+    return hits, out, ctr

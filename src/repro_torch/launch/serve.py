@@ -7,6 +7,13 @@
 ARC/CAR pool; with ``--repeat-prompts`` the requests run one at a time and
 the ghost-hit feed carries the policy across them (``kv_ghost_hits``).
 
+``--tenants a=2,b=2`` mounts the prompt cache as one policy-core row per
+tenant (quota = row capacity) with the admission controller in front:
+requests round-robin the tenants, run one at a time, and the last lines give
+each tenant's quota, hit ratio, evictions and pressure and the shed /
+deferred / rebalanced counts; ``--auto-rebalance`` moves quota lanes to a
+pressured tenant from the coldest.
+
 ``--arch`` picks the model: ``smollm_360m`` (default) or ``gemma3_27b``
 (5 sliding-window local layers per global layer; the pool bounds the global
 layers' KV, the local layers keep ``sliding_window``-row rings).
@@ -58,8 +65,21 @@ def main(argv=None):
     ap.add_argument("--max-len", type=int, default=512)
     ap.add_argument("--repeat-prompts", action="store_true",
                     help="send duplicate prompts to exercise the prefix cache")
+    ap.add_argument("--tenants", default=None, metavar="NAME=QUOTA,...",
+                    help="multi-tenant mode: per-tenant prompt-cache quotas (one "
+                    "policy-core row each); requests round-robin the tenants")
+    ap.add_argument("--auto-rebalance", action="store_true",
+                    help="move quota lanes to pressured tenants from the coldest "
+                    "(AWRP tenant ranking)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+
+    tenants = None
+    if args.tenants:
+        tenants = {}
+        for part in args.tenants.split(","):
+            name, _, quota = part.partition("=")
+            tenants[name.strip()] = int(quota)
 
     device = resolve_device(args.device)
     arch = ARCHS[args.arch]
@@ -72,19 +92,25 @@ def main(argv=None):
     gen = torch.Generator().manual_seed(args.seed)
     params = M.init_params(cfg, gen, device=device)
     engine = ServeEngine(cfg, params, max_len=args.max_len, kv_mode=args.kv_mode,
-                         fused=args.fused, seed=args.seed, device=device)
+                         fused=args.fused, seed=args.seed, tenants=tenants,
+                         auto_rebalance=args.auto_rebalance, device=device)
 
     rng = np.random.RandomState(args.seed)
+    names = list(tenants) if tenants else ["default"]
     reqs = []
     for i in range(args.requests):
-        if args.repeat_prompts and i >= 2:
-            prompt = reqs[i - 2].prompt[:]
+        if args.repeat_prompts and i >= 2 * len(names):
+            # repeat an earlier prompt of the same tenant (prefix reuse)
+            prompt = reqs[i - 2 * len(names)].prompt[:]
         else:
             prompt = rng.randint(1, cfg.vocab, size=args.prompt_len).tolist()
-        reqs.append(Request(i, prompt, max_new_tokens=args.new_tokens))
+        reqs.append(Request(i, prompt, max_new_tokens=args.new_tokens,
+                            tenant_id=names[i % len(names)]))
 
     t0 = time.perf_counter()
-    if args.repeat_prompts:  # one request at a time: the prefix path is per request
+    if args.repeat_prompts or tenants:
+        # one request at a time: the prefix path and the admission
+        # controller act request by request
         results = {}
         for r in reqs:
             results.update(engine.generate([r]))
@@ -98,11 +124,22 @@ def main(argv=None):
     print(f"{len(reqs)} requests, {total} tokens in {dt:.2f}s "
           f"(prefill {tel['serve/prefill_s']:.3f}s, decode {tel['serve/decode_s']:.3f}s)")
     print(f"kv evictions={tel['serve/kv_evictions']} "
-          f"kv_ghost_hits={tel['serve/kv_ghost_hits']} "
-          f"prefix cache: hits={tel['prefix/hits']} misses={tel['prefix/misses']}")
+          f"kv_ghost_hits={tel['serve/kv_ghost_hits']}", end=" ")
+    if tenants is None:
+        print(f"prefix cache: hits={tel['prefix/hits']} misses={tel['prefix/misses']}")
+    else:
+        print()
+        for name in names:
+            print(f"tenant {name}: quota={tel[f'tenant/{name}/quota']} "
+                  f"hit_ratio={tel[f'tenant/{name}/hit_ratio']:.2f} "
+                  f"evictions={tel[f'tenant/{name}/evictions']} "
+                  f"pressure={tel[f'tenant/{name}/pressure']:.2f}")
+        print(f"admission: shed={tel['serve/shed']} deferred={tel['serve/deferred']} "
+              f"rebalances={tel['serve/rebalances']}")
     for rid in sorted(results)[:4]:
         r = results[rid]
-        print(f"  req {rid}: cached={r.prefill_cached} tokens={r.tokens[:8]}...")
+        print(f"  req {rid}: cached={r.prefill_cached} status={r.status} "
+              f"tokens={r.tokens[:8]}...")
     return results
 
 

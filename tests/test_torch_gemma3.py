@@ -241,8 +241,8 @@ def test_adaptive_engine_tokens_and_ghost_hits_equal_reference_engine(models):
         assert teng.stats["kv_ghost_hits"] == jeng.stats["kv_ghost_hits"], rid
     assert teng.stats["kv_ghost_hits"] > 0
     (jstate,) = jeng._kv_sessions["default"]
-    assert list(teng._kv_session) == ["u2"]
-    for name, x, y in zip(jstate._fields, teng._kv_session["u2"], jstate):
+    assert list(teng._kv_sessions["default"]) == ["u2"]
+    for name, x, y in zip(jstate._fields, teng._kv_sessions["default"]["u2"], jstate):
         assert np.array_equal(x.numpy(), np.asarray(y)), name
 
 

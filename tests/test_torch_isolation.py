@@ -129,12 +129,12 @@ def test_gemma3_entry_points_default_to_cuda(no_cuda):
 
 def test_port_files_cover_the_sweep_slice():
     """The import checks above walk every module of the package, the sweep
-    slice's included."""
+    and tenancy slices' included."""
     names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
     for mod in ("core/traces.py", "core/policies.py", "core/simulator.py",
                 "core/policy_core.py", "core/torch_policies.py",
                 "kernels/awrp_select.py", "kernels/flash_attn.py",
-                "configs/gemma3_27b.py"):
+                "configs/gemma3_27b.py", "serve/tenancy.py", "kernels/sweep.py"):
         assert mod in names, mod
         assert "repro_torch." + mod[:-3].replace("/", ".") in PORT_MODULES
 
@@ -165,6 +165,20 @@ def test_core_init_defaults_to_cuda(no_cuda, policy):
         policy_core.make_core(policy, rows=2, ways=4).init()
     with pytest.raises(RuntimeError, match="cuda"):
         policy_core.init(policy, rows=2, ways=4)
+
+
+def test_tenancy_defaults_to_cuda(no_cuda):
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.tenancy import TenantCacheManager, TenantPrefixCache
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        TenantCacheManager({"a": 2, "b": 1})
+    with pytest.raises(RuntimeError, match="cuda"):
+        TenantPrefixCache({"a": 2}, "arc")
+    params = M.init_params(_smoke_cfg(), torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        ServeEngine(_smoke_cfg(), params, tenants={"a": 2})
 
 
 def test_set_state_defaults_to_cuda(no_cuda):

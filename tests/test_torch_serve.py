@@ -121,7 +121,7 @@ def test_adaptive_greedy_tokens_and_ghost_hits_equal_reference_engine(
     assert got[12].prefill_cached
     assert teng.stats["kv_ghost_hits"] > 0
     assert teng.stats["kv_evictions"] > 0 and teng.stats["nonfinite_logits"] == 0
-    for name, a, b in zip(jstate._fields, teng._kv_session["u0"], jstate):
+    for name, a, b in zip(jstate._fields, teng._kv_sessions["default"]["u0"], jstate):
         assert np.array_equal(a.numpy(), np.asarray(b)), name
     assert teng.telemetry()["kv/p_max"] == float(np.asarray(jstate.p).max())
 
