@@ -26,12 +26,14 @@ line, any failure raising (non-zero exit, no result line):
    of its plain version, planes equal except at steps where a page's plain
    mass lies within EPS_TAU of tau (counted); the AWRP runs timed like
    phase 2, the timed (evicting) step repeated bit for bit over 6
-   launches; AWRP again at gemma3's decode shape.
+   launches; AWRP again at gemma3's decode shape and at phi3.5-moe's (B=4,
+   P=16, page=64, KVH=8, G=4, hd=128).
 3a. ``flash_attn``: kernel 6, the prefill attention, against its plain
    version (bf16 within one bf16 ulp, f32 within F32_OUT_RTOL) at gemma3's
    prefill shape (4, 2048, 16, 2, 128) with window 1024 and 0, smollm's
-   (4, 1024, 5, 3, 64), a ragged S=1000 with window 48, non-causal, a
-   ``kv_len`` mask, f32 and hd=256, each repeated bit for bit over 6
+   (4, 1024, 5, 3, 64), phi3.5-moe's (4, 2048, 8, 4, 128) causal, a ragged
+   S=1000 with window 48, non-causal, a ``kv_len`` mask, f32 and hd=256,
+   each repeated bit for bit over 6
    launches; kernel, plain and SDPA times (same mask) beside the bound over
    the unmasked (query head, key) pairs; the HMMA instructions of each bf16
    instantiation in the built library (``cuobjdump -sass``).
@@ -48,8 +50,8 @@ line, any failure raising (non-zero exit, no result line):
    adaptive_insert_token + paged_attention kernel + adaptive_score_update,
    and within phase 2's tolerances of its plain version with every plane
    equal except at near-tau steps (counted); timed at the serve shape and
-   at gemma3's decode shape (arc), at a page boundary and mid-page, both
-   repeated bit for bit over 6 launches, as at P=256.
+   at gemma3's and phi3.5-moe's decode shapes (arc), at a page boundary and
+   mid-page, both repeated bit for bit over 6 launches, as at P=256.
 4b. ``serve_adaptive``: the serve phase's model and pool with
    ``kv_policy`` arc_adaptive and car_adaptive: 4 x 1024-token prompts and 192
    greedy tokens, then single requests A and B (distinct 1024-token prompts),
@@ -65,6 +67,22 @@ line, any failure raising (non-zero exit, no result line):
    ``arc_adaptive`` (kernel 5) on the same weights: a 1024-token request and
    its follow-up turn, whose re-prefill ghost-hits the pages the first
    turn's decode evicted; a decode-step profile and the peak memory.
+4e. ``serve_phi35``: phi3.5-moe (16 SwiGLU experts of d_ff 6400, top-2,
+   capacity factor 1.0; d 4096, 32/8 heads, hd 128, vocab 32064) at
+   published widths, bf16, random weights from SEED drawn on the card, cut
+   to 24 of 32 layers (the 32 layers' 83.7 GB of weights do not fit the
+   card) and a 16-page pool: 4 prompts of 2048 seeded tokens and 64 greedy
+   tokens (AWRP: kernel 4 twice per layer per decode step, kernel 6 in
+   every layer of every prefill; the MoE FFN in torch ops, every expert
+   over its capacity buffer, as in the reference; first, layer 0's MoE FFN
+   at the prefill shape (4, 2048, 4096): its routing bitwise equal to the
+   CPU's on the same f32 logits, with pairs dropped by capacity, and its
+   output within one bf16 ulp plus MOE_ROW_TOL of a plain loop over the
+   routed experts), one prompt alone twice
+   (a prefix hit whose ``entry_bytes`` equals the payload's tensor bytes),
+   then ``arc_adaptive`` (kernel 5): a 1024-token request and its follow-up
+   turn (ghost hits); a decode-step profile beside the step's byte bound,
+   prefill seconds, decode tokens/s and the peak memory.
 5. ``awrp_select``: the two AWRP victim-selection kernels against their
    plain versions, exact equality of the victims, at the sweep's shapes
    (kernel 2) and the serve pool's (kernel 1), tie-heavy and all-invalid
@@ -96,6 +114,14 @@ line, any failure raising (non-zero exit, no result line):
    (200, 100, 40), with forced renormalization, access by access; == the
    host oracles there and at 100 000 accesses; one launch and no host sync
    per call; timed.
+8. ``expert_cache``: ``ExpertCacheRuntime(device="cuda")`` on the card for
+   awrp, lru, fifo, lfu, arc and car: the expert-cache benchmark's three
+   20 000-access router traces, each as one ``route(0, trace)`` (one stream
+   launch) == the host path's hits and transfers; its runtime section (16
+   layers x top-2 x 400 steps of zipf(1.3) % 16, capacity 8): every
+   ``route_step`` (one launch each) == the host path, and ``route`` layer
+   by layer == ``route_step``; microseconds per ``route_step`` on both
+   paths.
 
 Then the total seconds, the kernel summary line, the ``nvidia-smi`` line
 and, last, the result line.  Every kernel time is a median of CUDA-event
@@ -105,6 +131,7 @@ timings on this card.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -119,6 +146,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.cache import paged_kv  # noqa: E402
 from repro_torch.configs.gemma3_27b import CONFIG as GEMMA3  # noqa: E402
+from repro_torch.configs.phi35_moe import CONFIG as PHI35  # noqa: E402
 from repro_torch.configs.smollm_360m import CONFIG  # noqa: E402
 from repro_torch.core.kv_policy import PAGE_POLICIES  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
@@ -145,6 +173,15 @@ MASS_ATOL = 1e-7
 F32_OUT_RTOL = 1e-4
 F32_OUT_ATOL = 1e-5
 EPS_TAU = 1e-5  # a plain mass this close to tau may flip a decision
+# MoE gates (f32, K choices normalised): ``exp`` rounds differently on the
+# card and the CPU, a few f32 ulps of the gate
+MOE_GATE_RTOL = 2.0 ** -20
+# MoE FFN output beside its plain loop: the two round the same f32 products
+# to bf16 where only the summation order differs, so a product may land one
+# bf16 ulp apart and carry into the down projection; bounded by this share
+# of the token's contribution scale (rms over d of |c0| + |c1|), where a
+# pair routed, dropped or weighted wrongly is off by about a whole one
+MOE_ROW_TOL = 2.0 ** -5
 SEED = 0
 
 
@@ -449,6 +486,7 @@ FLASH_CASES = [
     ("gemma3_local", (4, 2048, 16, 2, 128), True, 1024, None, torch.bfloat16),
     ("gemma3_global", (4, 2048, 16, 2, 128), True, 0, None, torch.bfloat16),
     ("smollm", (4, 1024, 5, 3, 64), True, 0, None, torch.bfloat16),
+    ("phi35", (4, 2048, 8, 4, 128), True, 0, None, torch.bfloat16),
     ("ragged_window48", (2, 1000, 4, 2, 128), True, 48, None, torch.bfloat16),
     ("non_causal", (2, 512, 5, 3, 64), False, 0, None, torch.bfloat16),
     ("kv_len_mask", (2, 256, 2, 4, 64), False, 0, 150, torch.bfloat16),
@@ -574,6 +612,8 @@ def phase_flash_attn(dev) -> dict:
 SERVE_SHAPE = (4, 16, 64, 5, 3, 64)  # the serve phase's pool: 16 pages of 64
 #: gemma3-27b's global layers' pool in the serve_gemma3 phase
 GEMMA3_DECODE_SHAPE = (4, 16, 64, 16, 2, 128)
+#: phi3.5-moe's pool in the serve_phi35 phase (GQA group G = 4)
+PHI35_DECODE_SHAPE = (4, 16, 64, 8, 4, 128)
 
 
 def serve_params(dev):
@@ -1080,6 +1120,230 @@ def phase_serve_gemma3(dev, n_req=4, prompt_len=2048, new_tokens=128, pages=16,
            "max_memory_allocated_gb": peak / 1e9,
            "decode_step_profile": profile}
     del params, aeng
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_phase
+    emit(res)
+    return res
+
+
+PHI35_LAYERS = 24  # of 32: the 32 layers' 83.7 GB of bf16 weights exceed the card
+
+
+def phi35_step_bound(cfg, params, pages: int, batch: int) -> dict:
+    """Least time of one decode step of ``cfg`` at ``batch`` sequences over a
+    full ``pages``-page pool: every weight the step reads (each layer's
+    attention, router and all its experts, as the reference's step runs
+    every expert over its capacity buffer; the unembedding; not the
+    embedding table, of which it reads one row per sequence) and the pool's
+    K/V read once, at the HBM rate."""
+    unit = params["u0"]
+    expert = sum(unit[k].numel() * unit[k].element_size()
+                 for k in ("w_up", "w_gate", "w_down") if k in unit)
+    rest = sum(t.numel() * t.element_size() for k, t in unit.items()
+               if k not in ("w_up", "w_gate", "w_down"))
+    unembed = params["unembed"].numel() * params["unembed"].element_size()
+    kv = cfg.n_layers * batch * pages * cfg.page_size * cfg.kv_dim * 2 * 2
+    total = expert + rest + unembed + kv
+    return {"expert_bytes": expert, "attention_router_norm_bytes": rest,
+            "unembed_bytes": unembed, "kv_bytes": kv, "bytes": total,
+            "bound_ms": total / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+
+
+def moe_layer_check(params, cfg, dev, batch: int, seq: int) -> dict:
+    """Layer 0's ``layers.moe`` on the card at the prefill shape (batch, seq,
+    d_model), bf16, on seeded unit-normal inputs, held against (a) the same
+    routing on the CPU from the card's own f32 router logits (the port's
+    CPU routing equals the reference's bitwise in the tests): top-k ids,
+    dispatch order, ranks and keep mask bitwise, gates within MOE_GATE_RTOL;
+    and (b) a plain loop over experts and sequences on the card, written
+    from the reference's rule and not from the layer's dispatch: each
+    expert's first C pairs in (token, choice) order through its FFN, in f32
+    from the same bf16 weights, rounded to bf16 where the layer rounds (the
+    products, the activation, the gate product, the sum of the K rows);
+    within one bf16 ulp of the value plus MOE_ROW_TOL of the token's
+    contribution scale.  At least one pair must be dropped by capacity."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import layers as L
+
+    E, K, D = cfg.n_experts, cfg.top_k, cfg.d_model
+    C = L.moe_capacity(seq, cfg)
+    unit = params["u0"]
+    p = {k: unit[k][0] for k in ("w_router", "w_up", "w_gate", "w_down") if k in unit}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    x = torch.randn((batch, seq, D), generator=gen, device=dev).to(torch.bfloat16)
+    y = L.moe(p, x, cfg)
+    t_moe = time_ms(lambda: L.moe(p, x, cfg), reps=5, warmup=1)
+
+    # (a) routing: the layer's logits, routed on the card and on the CPU
+    logits = torch.einsum("bsd,de->bse", x, p["w_router"]).to(torch.float32)
+    r, rc = L.route(logits, K, C), L.route(logits.cpu(), K, C)
+    for field in ("expert_idx", "order", "sorted_e", "rank", "keep"):
+        assert torch.equal(getattr(r, field).cpu(), getattr(rc, field)), field
+    gate_x = excess(r.gate.cpu(), rc.gate, MOE_GATE_RTOL, 1e-12)
+    assert gate_x <= 1, gate_x
+    top = torch.sort(logits.cpu(), dim=-1, descending=True).values
+
+    # (b) the plain loop, from the CPU routing's choices and gates
+    def mm(a, w):
+        return (a.float() @ w.float()).to(torch.bfloat16)
+
+    eidx, gate = rc.expert_idx.to(dev), rc.gate.to(dev)
+    contrib = torch.zeros((K, batch, seq, D), dtype=torch.bfloat16, device=dev)
+    dropped = 0
+    for e in range(E):
+        for b in range(batch):
+            pairs = (eidx[b] == e).reshape(-1).nonzero()[:, 0]  # s * K + k, ascending
+            dropped += max(len(pairs) - C, 0)
+            pairs = pairs[:C]
+            tok, k = pairs // K, pairs % K
+            rows = x[b, tok]
+            if cfg.act == "swiglu":
+                h = F.silu(mm(rows, p["w_gate"][e])) * mm(rows, p["w_up"][e])
+            else:
+                h = F.gelu(mm(rows, p["w_up"][e]), approximate="tanh")
+            out = mm(h, p["w_down"][e])
+            contrib[k, b, tok] = out * gate[b, tok, k].to(torch.bfloat16)[:, None]
+    plain = contrib[0] if K == 1 else contrib[0] + contrib[1]
+    scale = contrib.float().abs().sum(0).pow(2).mean(-1, keepdim=True).sqrt()
+    limit = OUT_RTOL * plain.float().abs() + MOE_ROW_TOL * scale + OUT_ATOL
+    out_x = ((y.float() - plain.float()).abs() / limit).max().item()
+    assert out_x <= 1, out_x
+    assert dropped > 0 and dropped == int((~rc.keep).sum()), dropped
+    assert torch.isfinite(y).all()
+    return {"shape": [batch, seq, D], "experts": E, "top_k": K, "capacity": C,
+            "pairs": batch * seq * K, "dropped_pairs": dropped,
+            "tied_top_k_boundary": int((top[..., K - 1] == top[..., K]).sum()),
+            "tied_within_top_k": int((top[..., :K - 1] == top[..., 1:K]).sum()),
+            "routing_bitwise_to_cpu": True, "gate_excess": gate_x,
+            "out_excess": out_x,
+            "max_abs_err": (y.float() - plain.float()).abs().max().item(),
+            "tol_out": [OUT_RTOL, MOE_ROW_TOL, OUT_ATOL], "tol_gate": MOE_GATE_RTOL,
+            "ms": t_moe}
+
+
+def phase_serve_phi35(dev, n_req=4, prompt_len=2048, new_tokens=64, pages=16,
+                      single_len=1024) -> dict:
+    """phi3.5-moe at its published widths through ServeEngine(kv_mode="paged",
+    fused=True), cut to PHI35_LAYERS layers and a 16-page pool.  AWRP: 4
+    prompts of 2048 seeded tokens and 64 greedy tokens (kernel 6 in every
+    layer of every prefill, kernel 4 once per layer per decode step,
+    ``ops.SPLIT_LAUNCHES`` launches each), then one of them alone twice: the
+    second hits the prefix cache, repeats its tokens, and the cache's
+    ``entry_bytes`` equals the payload's tensor bytes counted from the
+    shapes; ``arc_adaptive`` on the same weights: a request of
+    ``single_len`` tokens and its follow-up turn, whose re-prefill
+    ghost-hits the pages the first turn's decode evicted (kernel 5).  First,
+    layer 0's MoE FFN alone at the prefill shape against the CPU's routing
+    and a plain loop (``moe_layer_check``)."""
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(PHI35, n_layers=PHI35_LAYERS, bounded_kv_pages=pages,
+                              kv_policy="awrp")
+    L = cfg.n_layers
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    # no f32 copy of a stacked leaf: the peak is the weights and one matrix
+    param_peak = torch.cuda.max_memory_allocated() - before
+    assert param_peak < M.param_bytes(cfg) + (1 << 30), (param_peak, M.param_bytes(cfg))
+    moe_check = moe_layer_check(params, cfg, dev, n_req, prompt_len)
+    rng = np.random.RandomState(SEED + 31)
+    prompts = [rng.randint(1, cfg.vocab, size=prompt_len).tolist() for _ in range(n_req)]
+    engine = ServeEngine(cfg, params, max_len=prompt_len + new_tokens, kv_mode="paged",
+                         fused=True, seed=SEED, device=dev)
+    steps = new_tokens - 1
+
+    ops.reset_launches()
+    results = engine.generate([Request(i, list(p), max_new_tokens=new_tokens)
+                               for i, p in enumerate(prompts)])
+    launches = dict(ops.LAUNCHES)
+    stats = dict(engine.stats)
+    assert launches["flash_attention"] == L, launches
+    assert launches["policy_paged_attention"] == ops.SPLIT_LAUNCHES * L * steps, launches
+    assert launches["adaptive_policy_paged_attention"] == 0, launches
+    for r in results.values():
+        assert len(r.tokens) == new_tokens
+        assert all(0 <= tok < cfg.vocab for tok in r.tokens)
+    assert stats["nonfinite_logits"] == 0, stats
+    assert stats["kv_evictions"] > 0, stats
+
+    first = engine.generate([Request(10, list(prompts[0]), max_new_tokens=new_tokens)])
+    again = engine.generate([Request(11, list(prompts[0]), max_new_tokens=new_tokens)])
+    assert not first[10].prefill_cached and again[11].prefill_cached
+    assert first[10].tokens == again[11].tokens
+    assert engine.prefix_cache.hits == 1 and engine.stats["nonfinite_logits"] == 0
+    # the stored payload: (last logits (1, 1, Vpad) f32, the caches: one
+    # stacked pool of L layers, K/V bf16 and five int32 planes)
+    P, page, kvd = pages, cfg.page_size, cfg.kv_dim
+    want_bytes = (M.pad_vocab(cfg) * 4
+                  + L * (2 * P * page * kvd * 2 + 3 * P * 4 + 2 * 4))
+    entry_bytes = engine.prefix_cache.entry_bytes()
+    assert entry_bytes == want_bytes, (entry_bytes, want_bytes)
+    total = dict(ops.LAUNCHES)
+    assert total["flash_attention"] == 2 * L, total
+    assert total["policy_paged_attention"] == 3 * ops.SPLIT_LAUNCHES * L * steps, total
+    profile = profile_decode(params, cfg, prompts, dev, KERNEL4_CUDA)
+    step_bound = phi35_step_bound(cfg, params, pages, n_req)
+    del engine
+
+    acfg = dataclasses.replace(cfg, kv_policy="arc_adaptive")
+    aeng = ServeEngine(acfg, params, max_len=single_len + 2 * new_tokens,
+                       kv_mode="paged", fused=True, seed=SEED, device=dev)
+    a = rng.randint(1, cfg.vocab, size=single_len).tolist()
+    ops.reset_launches()
+    ra = aeng.generate([Request(20, list(a), max_new_tokens=new_tokens)])[20]
+    gh0 = aeng.stats["kv_ghost_hits"]
+    rb = aeng.generate([Request(21, a + ra.tokens, max_new_tokens=new_tokens)])[21]
+    ghost_hits = aeng.stats["kv_ghost_hits"] - gh0
+    alaunch = dict(ops.LAUNCHES)
+    assert alaunch["flash_attention"] == 2 * L, alaunch
+    assert alaunch["adaptive_policy_paged_attention"] == \
+        ops.SPLIT_LAUNCHES * 2 * L * steps, alaunch
+    assert alaunch["policy_paged_attention"] == 0, alaunch
+    assert not rb.prefill_cached and ghost_hits > 0, (ghost_hits, aeng.stats)
+    assert aeng.stats["nonfinite_logits"] == 0, aeng.stats
+    for r in (ra, rb):
+        assert len(r.tokens) == new_tokens
+    peak = torch.cuda.max_memory_allocated()
+    res = {"phase": "serve_phi35", "model": cfg.name, "layers": L,
+           "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+           "head_dim": cfg.head_dim, "experts": cfg.n_experts, "top_k": cfg.top_k,
+           "d_ff": cfg.d_ff, "capacity_factor": cfg.capacity_factor, "vocab": cfg.vocab,
+           "params": _numel(params), "param_bytes": M.param_bytes(cfg),
+           "dtype": cfg.dtype, "kv_mode": "paged", "page_size": cfg.page_size,
+           "reduced": {"n_layers": [PHI35.n_layers, L],
+                       "bounded_kv_pages": [PHI35.bounded_kv_pages, pages]},
+           "requests": n_req, "prompt_len": prompt_len, "new_tokens": new_tokens,
+           "param_init_s": init_s, "param_init_peak_gb": param_peak / 1e9,
+           "prefill_s": stats["prefill_s"], "decode_s": stats["decode_s"],
+           "decode_tokens_per_s": n_req * steps / stats["decode_s"],
+           "launches": launches, "launches_with_singles": total,
+           "flash_launches_per_prefill": launches["flash_attention"] / stats["prefills"],
+           "policy_launches_per_decode_step": launches["policy_paged_attention"] / steps,
+           "kv_evictions": stats["kv_evictions"], "prefix_hit": True,
+           "repeat_tokens_equal": True, "prefix_entry_bytes": entry_bytes,
+           "adaptive": {"kv_policy": "arc_adaptive", "prompt_len": single_len,
+                        "follow_up_len": len(a) + len(ra.tokens), "launches": alaunch,
+                        "adaptive_launches_per_decode_step":
+                            alaunch["adaptive_policy_paged_attention"] / (2 * steps),
+                        "kv_ghost_hits_follow_up": ghost_hits,
+                        "kv_evictions": aeng.stats["kv_evictions"],
+                        "prefill_s": aeng.stats["prefill_s"],
+                        "decode_tokens_per_s": 2 * steps / aeng.stats["decode_s"],
+                        "p_max": aeng.telemetry()["kv/p_max"]},
+           "max_memory_allocated_gb": peak / 1e9,
+           "decode_step_bound": step_bound,
+           "decode_step_profile": profile, "moe_layer": moe_check}
+    del params, aeng
+    gc.collect()
     torch.cuda.empty_cache()
     res["seconds"] = time.perf_counter() - t_phase
     emit(res)
@@ -2035,6 +2299,134 @@ def phase_serve_tenants(dev, params, base_cfg=CONFIG, prompt_len=1024, new_token
     return res
 
 
+#: benchmarks/expert_cache_bench.py's CASES: (name, experts, capacity,
+#: expert MB, zipf a, phases)
+EXPERT_CASES = [
+    ("grok1_8e_cache6", 8, 6, 805, 1.2, 1),
+    ("phi35_16e_cache8", 16, 8, 105, 1.3, 2),
+    ("fine_grained_64e_cache16", 64, 16, 25, 1.1, 3),
+]
+EXPERT_POLICIES = ("awrp", "lru", "fifo", "lfu", "arc", "car")
+
+
+def expert_trace(E, alpha, phases, n=20_000, seed=0):
+    """benchmarks/expert_cache_bench.py's ``_trace``: a Zipf router stream
+    whose hot set drifts by E/4 experts per phase."""
+    rng = np.random.RandomState(seed)
+    per = n // phases
+    parts = []
+    for ph in range(phases):
+        t = rng.zipf(alpha, size=per) % E
+        parts.append((t + ph * max(E // 4, 1)) % E)
+    return np.concatenate(parts)
+
+
+def _time_expert_stream(policy: str, n_layers: int, cap: int, rows: np.ndarray,
+                        keys: np.ndarray, dev) -> dict:
+    """The stream launch of an expert cache's device path alone (CUDA
+    events), as the runtime makes it (``ExpertCacheRuntime.stream_call``)
+    from a fresh core of ``n_layers`` rows of ``cap`` ways over ``keys`` on
+    core rows ``rows``, beside its bound (``_stream_bound``)."""
+    from repro_torch.cache.expert_cache import ExpertCacheRuntime
+
+    rt = ExpertCacheRuntime(n_layers, cap, policy, device=dev)
+    fn, args, kw = rt.stream_call(rows, keys)
+    hits, state, ctr = fn(*args, **kw)
+    ms = time_ms(lambda: fn(*args, **kw), reps=10, warmup=2)
+    lanes = ([2 * c for c in rt.core.caps] if policy in ("arc", "car")
+             else list(rt.core.ways))
+    planes = [t.cpu().numpy() for t in (*state, *ctr)]
+    bound_ms, bound_by = _stream_bound(rows, keys, hits.cpu().numpy(), planes, lanes)
+    return {"policy": policy, "rows": n_layers, "accesses": len(keys), "lanes": max(lanes),
+            "ms": ms, "us_per_access": ms * 1e3 / len(keys), "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+def phase_expert_cache(dev, n_layers=16, cap=8, k=2, steps=400, by_layer_steps=100) -> dict:
+    """``ExpertCacheRuntime(device="cuda")`` on the card against its host path
+    for the six device policies: (a) each of the expert-cache benchmark's
+    three traces as one ``route(0, trace)``: one stream launch, misses ==
+    the host oracle's; (b) its runtime section, ``steps`` router steps of
+    ``n_layers`` layers x top-``k`` at capacity ``cap``: every
+    ``route_step`` one launch with misses == the host path's, both timed on
+    the host clock per call (the device call ends in its pull of the hit
+    count); ``route`` layer by layer == ``route_step`` over the first
+    ``by_layer_steps`` steps.  The launches are read from ``ops.LAUNCHES``:
+    a device path that ran its stream on the host would count none."""
+    from repro_torch.cache.expert_cache import ExpertCacheRuntime
+
+    t_phase = time.perf_counter()
+    res = {"phase": "expert_cache", "policies": list(EXPERT_POLICIES), "traces": [],
+           "runtime": {"layers": n_layers, "capacity": cap, "top_k": k, "steps": steps,
+                       "policies": {}}, "kernels": []}
+    route = np.random.RandomState(1).zipf(1.3, size=(steps, n_layers, k)) % 16
+    _, phi_e, phi_cap, _, phi_alpha, phi_phases = EXPERT_CASES[1]
+    phi_trace = expert_trace(phi_e, phi_alpha, phi_phases)
+    launched = {"flat_stream": 0, "adaptive_stream": 0}
+    for policy in EXPERT_POLICIES:
+        stream = "adaptive_stream" if policy in ("arc", "car") else "flat_stream"
+        for name, E, ecap, mb, alpha, phases in EXPERT_CASES:
+            trace = expert_trace(E, alpha, phases)
+            host = ExpertCacheRuntime(1, ecap, policy, device="host")
+            t0 = time.perf_counter()
+            want = host.route(0, trace.tolist())
+            host_s = time.perf_counter() - t0
+            rt = ExpertCacheRuntime(1, ecap, policy, device=dev)
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            got = rt.route(0, trace.tolist())
+            dev_s = time.perf_counter() - t0
+            assert ops.LAUNCHES[stream] == 1, (policy, name, ops.LAUNCHES)
+            assert got == want, (policy, name, got, want)
+            launched[stream] += 1
+            res["traces"].append({"case": name, "policy": policy, "experts": E,
+                                  "capacity": ecap, "accesses": len(trace),
+                                  "transfers": got, "hit_ratio": rt.hit_ratio,
+                                  "transfer_gb": got * (mb << 20) / 2**30,
+                                  "device_s": dev_s, "host_s": host_s})
+        host = ExpertCacheRuntime(n_layers, cap, policy, device="host")
+        rt = ExpertCacheRuntime(n_layers, cap, policy, device=dev)
+        layered = ExpertCacheRuntime(n_layers, cap, policy, device=dev)
+        host_t, dev_t = [], []
+        ops.reset_launches()
+        for s in range(steps):
+            t0 = time.perf_counter()
+            m_host = host.route_step(route[s])
+            t1 = time.perf_counter()
+            m_dev = rt.route_step(route[s])
+            t2 = time.perf_counter()
+            host_t.append(t1 - t0)
+            dev_t.append(t2 - t1)
+            assert m_dev == m_host, (policy, s, m_dev, m_host)
+        assert ops.LAUNCHES[stream] == steps, (policy, ops.LAUNCHES)
+        launched[stream] += steps
+        # route layer by layer == route_step, misses and final planes
+        by_step = ExpertCacheRuntime(n_layers, cap, policy, device=dev)
+        ops.reset_launches()
+        for s in range(by_layer_steps):
+            m = sum(layered.route(layer, route[s, layer]) for layer in range(n_layers))
+            assert m == by_step.route_step(route[s]), (policy, s)
+        assert all(torch.equal(a, b) for a, b in zip(layered.state, by_step.state)), policy
+        assert ops.LAUNCHES[stream] == by_layer_steps * (n_layers + 1), ops.LAUNCHES
+        launched[stream] += by_layer_steps * (n_layers + 1)
+        res["runtime"]["policies"][policy] = {
+            "hit_ratio": rt.hit_ratio, "transfers": rt.transfers,
+            "equal_to_host": True, "launches_per_route_step": 1,
+            "host_us_per_route_step": statistics.median(host_t) * 1e6,
+            "device_us_per_route_step": statistics.median(dev_t) * 1e6,
+            "device_us_first_route_step": dev_t[0] * 1e6,
+            "kernel_ms_route_step": _time_expert_stream(
+                policy, n_layers, cap, np.tile(np.arange(n_layers), k),
+                route[0].T.reshape(-1), dev)["ms"]}
+        # the stream kernel alone on the phi3.5 case's trace (one row)
+        res["kernels"].append(_time_expert_stream(
+            policy, 1, phi_cap, np.zeros(len(phi_trace), np.int64), phi_trace, dev))
+    res["launches"] = launched
+    res["seconds"] = time.perf_counter() - t_phase
+    emit(res)
+    return res
+
+
 KERNELS = {
     "paged_attention": ("src/repro_torch/kernels/csrc/paged_attn.cu",
                         "src/repro/kernels/paged_attn.py:86"),
@@ -2081,6 +2473,7 @@ def main() -> int:
                                   timed=p == "awrp")
                 for p in PAGE_POLICIES]
     pol_g3 = phase_policy_attn(dev, "awrp", GEMMA3_DECODE_SHAPE)
+    pol_phi = phase_policy_attn(dev, "awrp", PHI35_DECODE_SHAPE)
     fl = phase_flash_attn(dev)
     params, init_s = serve_params(dev)
     srv = phase_serve(dev, params, init_s)
@@ -2094,15 +2487,18 @@ def main() -> int:
     ada += [phase_adaptive_attn(dev, kind, DECODE_SHAPE, steps=2, repeat=True)
             for kind in ("arc", "car")]
     ada_g3 = phase_adaptive_attn(dev, "arc", GEMMA3_DECODE_SHAPE, timed=True)
-    ada.append(ada_g3)
+    ada_phi = phase_adaptive_attn(dev, "arc", PHI35_DECODE_SHAPE, timed=True)
+    ada += [ada_g3, ada_phi]
     srv_ada = [phase_serve_adaptive(dev, params, p, profile=p == "arc_adaptive")
                for p in ("arc_adaptive", "car_adaptive")]
     srv_ten = phase_serve_tenants(dev, params)
     del params
     g3 = phase_serve_gemma3(dev)
+    phi = phase_serve_phi35(dev)
     sel = phase_awrp_select(dev)
     swp = phase_sweep(dev)
     ten = phase_tenancy(dev)
+    ec = phase_expert_cache(dev)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     # launches: each kernel's count on its path in this run: the flat fused
     # kernel in the serve phase, the adaptive one in serve_adaptive (both
@@ -2113,18 +2509,19 @@ def main() -> int:
     # the trace kernels in the Table-1 sweep (a) and, in their stream mode,
     # in serve_tenants (the AWRP run's prefix cache: flat, the arc run's:
     # ARC/CAR); kernel 1 is on no path of the port (as in the reference, only
-    # tests reach it): 0
+    # tests reach it): 0.  Kernels 4-6 also give their counts in
+    # serve_phi35, the stream kernels theirs in expert_cache.
     timed_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
-    for name, runs, launches, times, shape, other in (
+    for name, runs, launches, times, shape, others in (
             ("paged_attention", [pa, pa_g3], pol["launches"]["paged_attention"], pa,
-             DECODE_SHAPE, pa_g3),
-            ("policy_paged_attention", at_serve + [pol_g3],
+             DECODE_SHAPE, [pa_g3]),
+            ("policy_paged_attention", at_serve + [pol_g3, pol_phi],
              srv["launches"]["policy_paged_attention"], at_serve[0], SERVE_SHAPE,
-             pol_g3),
+             [pol_g3, pol_phi]),
             ("adaptive_policy_paged_attention", ada,
              sum(r["launches"]["adaptive_policy_paged_attention"] for r in srv_ada),
-             ada[0], SERVE_SHAPE, ada_g3)):
+             ada[0], SERVE_SHAPE, [ada_g3, ada_phi])):
         source, replaces = KERNELS[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2132,13 +2529,17 @@ def main() -> int:
             "max_abs_err": max(max(r["max_abs_err_out"], r["max_abs_err_mass"])
                                for r in runs),
             **{k: times[k] for k in timed_keys}, "shape": list(shape),
-            "other_shapes": [{"shape": other["shape"],
-                              **{k: other[k] for k in timed_keys}}]})
+            "other_shapes": [{"shape": o["shape"], **{k: o[k] for k in timed_keys}}
+                             for o in others]})
+    kernels[1]["launches_serve_phi35"] = phi["launches"]["policy_paged_attention"]
+    kernels[2]["launches_serve_phi35"] = \
+        phi["adaptive"]["launches"]["adaptive_policy_paged_attention"]
     main_case, *other_cases = fl["cases"]
     source, replaces = KERNELS["flash_attention"]
     kernels.append({
         "name": "flash_attention", "route": "cuda", "source": source,
         "replaces": replaces, "launches": g3["launches"]["flash_attention"],
+        "launches_serve_phi35": phi["launches"]["flash_attention"],
         "max_abs_err": max(c["max_abs_err"] for c in fl["cases"]),
         **{k: main_case[k] for k in timed_keys},
         "shape": main_case["shape"], "window": main_case["window"],
@@ -2176,8 +2577,12 @@ def main() -> int:
                        "launches_tenancy_phase": sum(
                            c["launches"] for c in ten["cases"].values()
                            if (c["policy"] in ("arc", "car")) == (stream == "adaptive_stream")),
+                       "launches_expert_cache_phase": ec["launches"][stream],
                        **{k: s_main.get(k) for k in stream_keys},
-                       "other_shapes": [{k: r.get(k) for k in stream_keys} for r in s_others]}})
+                       "other_shapes": [{k: r.get(k) for k in stream_keys} for r in s_others]
+                       + [{"label": "expert_cache", **{k: r.get(k) for k in stream_keys}}
+                          for r in ec["kernels"]
+                          if (r["policy"] in ("arc", "car")) == (stream == "adaptive_stream")]}})
     emit({"kernels": kernels})
     print(smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

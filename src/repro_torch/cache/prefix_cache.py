@@ -12,6 +12,8 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
+import torch
+
 from repro_torch.core.policy_core import make_cache_policy
 from repro_torch.obs.metrics import safe_ratio
 
@@ -63,3 +65,21 @@ class PrefixCache:
         return {"policy": self.policy.name, "entries": len(self.store),
                 "hits": self.hits, "misses": self.misses,
                 "hit_ratio": self.hit_ratio}
+
+    def entry_bytes(self) -> int:
+        """Total bytes of the tensors the stored payloads hold (accounting
+        hook: the production capacity unit; entries are the repro unit)."""
+        return sum(_tensor_bytes(v) for v in self.store.values())
+
+
+def _tensor_bytes(tree) -> int:
+    """Bytes of every tensor leaf of a payload: nested dicts, lists and
+    tuples (``PagedPool`` and the other named tuples included); other leaves
+    (the cache position, an int) hold none."""
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        tree = tree.values()
+    elif not isinstance(tree, (list, tuple)):
+        return 0
+    return sum(_tensor_bytes(v) for v in tree)

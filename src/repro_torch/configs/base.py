@@ -1,11 +1,12 @@
 """Model configuration for the port (``repro/configs/base.py``'s fields that
 the serving slice reads, with the same names and defaults).
 
-The port serves dense stacks of full-attention (``"attn"``, ``"global"``)
-and sliding-window (``"local"``) blocks, as a homogeneous ``"attn"`` stack
-or a repeating ``pattern`` unit plus a ``tail`` (gemma3's 5 local + 1
-global); the MoE, SSM and encoder-decoder fields wait for the slices that
-port those modules.
+The port serves stacks of full-attention (``"attn"``, ``"global"``),
+sliding-window (``"local"``) and MoE (``"moe"``: full attention and a top-k
+expert FFN) blocks, as a homogeneous ``"attn"`` or ``"moe"`` stack or a
+repeating ``pattern`` unit plus a ``tail`` (gemma3's 5 local + 1 global);
+the SSM and encoder-decoder fields wait for the slices that port those
+modules.
 """
 
 from __future__ import annotations
@@ -34,12 +35,16 @@ class ModelConfig:
     rope_theta: float = 10_000.0
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
-    # layer pattern: repeating unit + tail.  None => homogeneous "attn" stack.
+    # layer pattern: repeating unit + tail.  None => homogeneous ("attn" or
+    # "moe") stack.
     pattern: Optional[Tuple[str, ...]] = None
     n_repeats: int = 0
     tail: Tuple[str, ...] = ()
     sliding_window: int = 0
+    # MoE
     n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
     # serving / paged KV (the paper's technique)
     page_size: int = 64
     bounded_kv_pages: int = 256

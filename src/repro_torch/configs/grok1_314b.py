@@ -1,0 +1,42 @@
+"""grok-1-314b [moe] — 8 experts, top-2. [hf:xai-org/grok-1; unverified]
+
+The reference's config also sets its sharding, decode weight layout and
+optimizer dtypes; the port serves on one card and carries none of them.
+Its weights exceed one card: ``launch.serve`` refuses the full config, and
+the smoke config is the GELU-expert case of the CPU parity tests.
+"""
+
+import dataclasses
+
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="grok-1-314b",
+    family="moe",
+    n_layers=64,
+    d_model=6144,
+    n_heads=48,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=32768,
+    vocab=131072,
+    n_experts=8,
+    top_k=2,
+    act="gelu",
+    microbatches=16,
+    run_shapes=("train_4k", "prefill_32k", "decode_32k"),
+    skip_reasons={"long_500k": "pure full-attention arch (DESIGN.md §5)"},
+)
+
+SMOKE_CONFIG = dataclasses.replace(
+    CONFIG,
+    n_layers=2,
+    d_model=128,
+    n_heads=4,
+    n_kv_heads=2,
+    head_dim=32,
+    d_ff=256,
+    vocab=512,
+    n_experts=4,
+    top_k=2,
+)

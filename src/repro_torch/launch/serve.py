@@ -14,9 +14,13 @@ each tenant's quota, hit ratio, evictions and pressure and the shed /
 deferred / rebalanced counts; ``--auto-rebalance`` moves quota lanes to a
 pressured tenant from the coldest.
 
-``--arch`` picks the model: ``smollm_360m`` (default) or ``gemma3_27b``
-(5 sliding-window local layers per global layer; the pool bounds the global
-layers' KV, the local layers keep ``sliding_window``-row rings).
+``--arch`` picks the model: ``smollm_360m`` (default), ``gemma3_27b`` (5
+sliding-window local layers per global layer; the pool bounds the global
+layers' KV, the local layers keep ``sliding_window``-row rings), or the MoE
+family's ``phi35_moe`` (16 SwiGLU experts, top-2) and ``grok1_314b`` (8 GELU
+experts, top-2).  A configuration whose weights exceed the device's memory
+is refused (grok-1's full config on one card): its ``--smoke`` config
+runs.
 
 Runs on the CUDA card by default (``--device cuda``; raises when CUDA is not
 available).  ``--device cpu`` runs the plain PyTorch versions of the kernels
@@ -29,19 +33,29 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 
 import numpy as np
 import torch
 
 from repro_torch.cache.paged_kv import TRUE_ADAPTIVE_KV
-from repro_torch.configs import gemma3_27b, smollm_360m
+from repro_torch.configs import gemma3_27b, grok1_314b, phi35_moe, smollm_360m
 from repro_torch.core.kv_policy import PAGE_POLICIES
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
 from repro_torch.serve.engine import Request, ServeEngine
 
-ARCHS = {"smollm_360m": smollm_360m, "gemma3_27b": gemma3_27b}
+ARCHS = {"smollm_360m": smollm_360m, "gemma3_27b": gemma3_27b,
+         "phi35_moe": phi35_moe, "grok1_314b": grok1_314b}
+
+
+def device_memory_bytes(device: torch.device) -> int:
+    """Memory a model's weights may take on ``device``: the card's total, or
+    the host's physical memory for the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).total_memory
+    return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
 
 
 def main(argv=None):
@@ -89,6 +103,11 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, dtype=args.dtype, param_dtype=args.dtype)
     if args.kv_pages:
         cfg = dataclasses.replace(cfg, bounded_kv_pages=args.kv_pages)
+    need, have = M.param_bytes(cfg), device_memory_bytes(device)
+    if need > have:
+        ap.error(f"{cfg.name}: its {cfg.param_dtype} weights take {need / 1e9:.1f} GB, "
+                 f"more than the {have / 1e9:.1f} GB of {device}; serve its --smoke "
+                 "config instead")
     gen = torch.Generator().manual_seed(args.seed)
     params = M.init_params(cfg, gen, device=device)
     engine = ServeEngine(cfg, params, max_len=args.max_len, kv_mode=args.kv_mode,

@@ -1,4 +1,5 @@
-"""Dense decoder layers in plain PyTorch (``repro/models/layers.py``).
+"""Decoder layers in plain PyTorch (``repro/models/layers.py``): dense
+attention and MLP blocks, and the top-k MoE FFN.
 
 Conventions, as in the reference:
   * activations (B, S, D) in the config's dtype; softmax and norms in f32;
@@ -10,13 +11,17 @@ Conventions, as in the reference:
     computes the same function as a chunked jnp loop.
     The decode-time paged attention is the CUDA kernel
     (``cache/paged_kv.py`` ``fused_decode_step``); ``decode_attend`` is the
-    unfused plain path and the local layers' ring-cache attention.
+    unfused plain path and the local layers' ring-cache attention;
+  * ``moe`` is the reference's sort-based dispatch with per-sequence
+    capacity, its products ``torch.einsum`` as the reference leaves them to
+    XLA (no Pallas kernel there): every expert runs over its capacity
+    buffer, at decode too.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -135,3 +140,97 @@ def decode_attend(params: Params, x: torch.Tensor, cfg, *, position: int,
     out = torch.einsum("bkgqt,btkh->bqkgh", p.to(vc.dtype), vc)
     proj = out.reshape(B, 1, H * hd) @ params["wo"]
     return proj, p.sum(dim=(1, 2, 3))
+
+
+# ---------------------------------------------------------------------------
+# MoE (sort-based dispatch, per-sequence capacity)
+# ---------------------------------------------------------------------------
+
+
+def moe_capacity(S: int, cfg) -> int:
+    """Slots per expert per sequence, in Python floats as the reference
+    computes them: ``max(8, int(S * K / E * capacity_factor))``."""
+    return max(8, int(S * cfg.top_k / cfg.n_experts * cfg.capacity_factor))
+
+
+class Routing(NamedTuple):
+    """One batch's routing, every tensor (B, S*K) in the reference's
+    expert-sorted pair order unless noted."""
+
+    gate: torch.Tensor  # (B, S, K) f32, normalised over the K choices
+    expert_idx: torch.Tensor  # (B, S, K) int64, best first
+    order: torch.Tensor  # pair index (s * K + k) at each sorted position
+    sorted_e: torch.Tensor  # expert of each sorted pair
+    rank: torch.Tensor  # its rank among its expert's pairs
+    keep: torch.Tensor  # bool: rank < capacity
+
+
+def route(logits: torch.Tensor, top_k: int, capacity: int) -> Routing:
+    """Top-k routing and dispatch order from f32 router logits (B, S, E).
+
+    Both sorts are stable, so ties resolve as ``jax.lax.top_k`` and
+    ``jnp.argsort(..., stable=True)`` resolve them: the lower index first
+    (``torch.topk`` promises no tie order).  The softmax is written out as
+    the reference's, ``exp(l - max) / sum``."""
+    B, S, E = logits.shape
+    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    probs = e / e.sum(dim=-1, keepdim=True)
+    top, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, expert_idx = top[..., :top_k], idx[..., :top_k]
+    gate = gate / torch.clamp(gate.sum(dim=-1, keepdim=True), min=1e-9)
+    pairs_e = expert_idx.reshape(B, S * top_k)
+    sorted_e, order = torch.sort(pairs_e, dim=-1, stable=True)
+    counts = torch.zeros((B, E), dtype=torch.int64, device=logits.device)
+    counts.scatter_add_(1, pairs_e, torch.ones_like(pairs_e))
+    starts = torch.cumsum(counts, dim=-1) - counts
+    rank = (torch.arange(S * top_k, device=logits.device)[None]
+            - torch.gather(starts, 1, sorted_e))
+    return Routing(gate, expert_idx, order, sorted_e, rank, rank < capacity)
+
+
+def moe(params: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+    """Top-k MoE FFN over (B, S, D), as ``repro.models.layers.moe``: each
+    sequence dispatches its S*K token-expert pairs sorted by expert, the
+    first ``moe_capacity`` of each expert kept (GShard-style dropping); a
+    (B, E, C, D) buffer through every expert's FFN; each token's output the
+    sum of its kept pairs' rows times their gates (cast to ``x.dtype``).
+
+    Only kept pairs are written into the buffer (the reference scatter-adds
+    zero rows for the dropped ones onto rank C - 1: the same values).  The
+    combine adds each token's contributions onto zero, which rounds once
+    whatever the order for K <= 2, so it equals the reference's scatter-add;
+    a larger K is refused."""
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    if not 1 <= K <= 2:
+        raise NotImplementedError(f"moe: the combine is exact for top_k <= 2, got {K}")
+    C = moe_capacity(S, cfg)
+    logits = torch.einsum("bsd,de->bse", x, params["w_router"]).to(torch.float32)
+    r = route(logits, K, C)
+
+    b = torch.arange(B, device=x.device)[:, None]
+    src_token = r.order // K  # (B, S*K) indices into S
+    # kept pairs to their (expert, rank) slot; dropped ones to one spare row
+    # past the buffer, so no pair needs a host-side mask
+    slot = torch.where(r.keep, (b * E + r.sorted_e) * C + r.rank, B * E * C)
+    buf = torch.zeros((B * E * C + 1, D), dtype=x.dtype, device=x.device)
+    buf[slot.reshape(-1)] = x[b, src_token].reshape(-1, D)
+    buf = buf[:-1].view(B, E, C, D)
+
+    if cfg.act == "swiglu":
+        h = F.silu(torch.einsum("becd,edf->becf", buf, params["w_gate"]))
+        h = h * torch.einsum("becd,edf->becf", buf, params["w_up"])
+    elif cfg.act == "gelu":
+        h = F.gelu(torch.einsum("becd,edf->becf", buf, params["w_up"]),
+                   approximate="tanh")
+    else:
+        raise ValueError(f"unknown act {cfg.act!r}")
+    eout = torch.einsum("becf,efd->becd", h, params["w_down"]).reshape(-1, D)
+
+    w = torch.gather(r.gate.reshape(B, S * K), 1, r.order)
+    rows = eout[torch.where(r.keep, slot, 0).reshape(-1)] * w.reshape(-1, 1).to(x.dtype)
+    rows = torch.where(r.keep.reshape(-1, 1), rows, 0)
+    # back to pair order (s * K + k), then each token's K contributions
+    contrib = torch.empty_like(rows).index_copy_(0, (b * S * K + r.order).reshape(-1), rows)
+    contrib = contrib.view(B, S, K, D)
+    return contrib[:, :, 0] if K == 1 else contrib[:, :, 0] + contrib[:, :, 1]

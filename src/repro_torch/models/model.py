@@ -1,7 +1,8 @@
 """Model assembly for the serving slice (``repro/models/model.py``):
 parameter declarations and init, prefill, the decode step and the
-prefill-to-cache handoff, for dense stacks of ``"attn"``, ``"global"``
-(full attention) and ``"local"`` (sliding-window) blocks.
+prefill-to-cache handoff, for stacks of ``"attn"``, ``"global"`` (full
+attention), ``"local"`` (sliding-window) and ``"moe"`` (full attention and
+the top-k expert FFN, ``layers.moe``) blocks.
 
 Layout follows the reference so weights carry across
 (``models/convert.py``): ``scan_plan`` names the repeating unit's positions
@@ -78,28 +79,41 @@ def _mlp_decls(cfg) -> Dict[str, Decl]:
     return out
 
 
-#: block kinds the port serves: full attention and sliding-window attention
-KINDS = ("attn", "global", "local")
+def _moe_decls(cfg) -> Dict[str, Decl]:
+    d, ff, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    out = {"w_router": Decl((d, e)), "w_up": Decl((e, d, ff)),
+           "w_down": Decl((e, ff, d))}
+    if cfg.act == "swiglu":
+        out["w_gate"] = Decl((e, d, ff))
+    return out
+
+
+#: block kinds the port serves: full attention, sliding-window attention and
+#: full attention with the MoE FFN
+KINDS = ("attn", "global", "local", "moe")
 
 
 def _check_supported(cfg) -> None:
     kinds = set(cfg.layer_pattern)
-    if (cfg.family != "dense" or cfg.n_experts or cfg.qkv_bias
+    moe_ok = (("moe" in kinds) == (cfg.family == "moe")
+              and ("moe" not in kinds or 1 <= cfg.top_k <= min(2, cfg.n_experts)))
+    if (cfg.family not in ("dense", "moe") or not moe_ok or cfg.qkv_bias
             or cfg.act not in ("swiglu", "gelu") or not kinds <= set(KINDS)
             or ("local" in kinds and cfg.sliding_window < 1)):
         raise NotImplementedError(
-            f"{cfg.name}: only dense stacks of {'/'.join(KINDS)} blocks with "
-            "SwiGLU or GELU, without QKV bias, are ported to repro_torch so "
-            "far (MoE, mamba, shared_attn, QKV bias, enc-dec and VLM come in "
-            f"later slices); got family={cfg.family!r} kinds={sorted(kinds)} "
-            f"act={cfg.act!r} qkv_bias={cfg.qkv_bias}")
+            f"{cfg.name}: only stacks of {'/'.join(KINDS)} blocks with SwiGLU "
+            "or GELU, without QKV bias, are ported to repro_torch so far "
+            "(moe blocks in the moe family alone, top-1 or top-2; mamba, "
+            "shared_attn, QKV bias, enc-dec and VLM come in later slices); got "
+            f"family={cfg.family!r} kinds={sorted(kinds)} act={cfg.act!r} "
+            f"qkv_bias={cfg.qkv_bias} top_k={cfg.top_k}")
 
 
 def scan_plan(cfg) -> Tuple[List[Tuple[str, str]], int, List[Tuple[str, str]]]:
     """(unit, n_repeats, tail) of (position_name, kind) entries."""
     _check_supported(cfg)
     if cfg.pattern is None:
-        return [("u0", "attn")], cfg.n_layers, []
+        return [("u0", cfg.layer_pattern[0])], cfg.n_layers, []
     unit = [(f"u{i}", k) for i, k in enumerate(cfg.pattern)]
     tail = [(f"t{i}", k) for i, k in enumerate(cfg.tail)]
     return unit, cfg.n_repeats, tail
@@ -116,19 +130,38 @@ def param_decls(cfg) -> Dict[str, Any]:
     if not cfg.tie_embeddings:
         tree["unembed"] = Decl((V, d))
     unit, n_rep, tail = scan_plan(cfg)
-    block = {**_attn_decls(cfg), **_mlp_decls(cfg)}
-    for pos, _kind in unit:
+
+    def block(kind):
+        ffn = _moe_decls(cfg) if kind == "moe" else _mlp_decls(cfg)
+        return {**_attn_decls(cfg), **ffn}
+
+    for pos, kind in unit:
         tree[pos] = {k: Decl((n_rep,) + v.shape, v.init, v.scale)
-                     for k, v in block.items()}
-    for pos, _kind in tail:
-        tree[pos] = dict(block)
+                     for k, v in block(kind).items()}
+    for pos, kind in tail:
+        tree[pos] = block(kind)
     return tree
+
+
+def param_bytes(cfg) -> int:
+    """Bytes of the parameters ``init_params`` allocates."""
+    esize = torch_dtype(cfg.param_dtype).itemsize
+
+    def walk(tree):
+        return sum(walk(d) if not isinstance(d, Decl)
+                   else math.prod(d.shape) * (4 if name in F32_PARAMS else esize)
+                   for name, d in tree.items())
+
+    return walk(param_decls(cfg))
 
 
 def init_params(cfg, generator: torch.Generator, device="cuda") -> Params:
     """Random parameters with the reference's declarations and scales
     (normal * min(scale, 1/sqrt(fan_in)); norm scales zero, in f32), drawn
-    on the generator's device.  The streams differ from JAX's: weights that
+    on the generator's device.  Each leaf is allocated once in its dtype and
+    drawn matrix by matrix along its leading (layer, expert) axes, so no f32
+    copy of a whole stacked leaf exists (phi3.5-moe's stacked expert leaves
+    are 20 GB each in bf16).  The streams differ from JAX's: weights that
     must match the reference come through ``convert.params_from_jax``."""
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.param_dtype)
@@ -145,9 +178,13 @@ def init_params(cfg, generator: torch.Generator, device="cuda") -> Params:
                 continue
             fan_in = decl.shape[-2] if len(decl.shape) >= 2 else decl.shape[-1]
             scale = min(decl.scale, 1.0 / math.sqrt(fan_in))
-            w = torch.randn(decl.shape, generator=generator, dtype=torch.float32,
-                            device=generator.device)
-            out[name] = (w * scale).to(dt).to(dev)
+            leaf = torch.empty(decl.shape, dtype=dt, device=dev)
+            mats = leaf.view(-1, *decl.shape[-2:]) if leaf.dim() > 2 else leaf[None]
+            for m in mats:
+                w = torch.randn(m.shape, generator=generator, dtype=torch.float32,
+                                device=generator.device)
+                m.copy_(w * scale)
+            out[name] = leaf
         return out
 
     return walk(param_decls(cfg))
@@ -180,8 +217,12 @@ def _prefill_block(kind: str, p: Params, x: torch.Tensor, cfg):
     h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
     attn_out, (k, v) = L.attention(p, h, cfg, window=window)
     x = x + attn_out
-    x = x + L.mlp(p, L.rmsnorm(x, p["ln2"], cfg.norm_eps), cfg.act)
+    x = x + _ffn(kind, p, L.rmsnorm(x, p["ln2"], cfg.norm_eps), cfg)
     return x, k.reshape(B, S, -1), v.reshape(B, S, -1)
+
+
+def _ffn(kind: str, p: Params, h: torch.Tensor, cfg) -> torch.Tensor:
+    return L.moe(p, h, cfg) if kind == "moe" else L.mlp(p, h, cfg.act)
 
 
 def _cache_from_prefill(cfg, kind: str, k: torch.Tensor, v: torch.Tensor, S: int,
@@ -376,7 +417,7 @@ def _decode_block(kind: str, p: Params, x: torch.Tensor, cfg, cache, pos: int,
     else:
         raise ValueError(f"unknown kv_mode {kv_mode!r}")
     x = x + attn_out
-    x = x + L.mlp(p, L.rmsnorm(x, p["ln2"], cfg.norm_eps), cfg.act)
+    x = x + _ffn(kind, p, L.rmsnorm(x, p["ln2"], cfg.norm_eps), cfg)
     return x, new_cache
 
 

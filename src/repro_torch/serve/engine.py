@@ -26,6 +26,9 @@ registry).
     (``paged_kv.reseed_from_ghosts``): previously evicted pages ghost-hit and
     move ARC/CAR's ``p`` across requests.  One session per tenant (the
     single-tenant engine's is ``"default"``);
+  * expert cache: ``expert_cache=`` carries an MoE model's
+    ``ExpertCacheRuntime`` and mounts its stats under ``expert/...``; nothing
+    feeds the router into it yet (in the reference neither);
   * the decode loop is a plain Python loop: one ``decode_step`` per token,
     tokens stay on the device until the bucket ends.
 """
@@ -94,7 +97,8 @@ class ServeEngine:
                  prefix_cache_entries: int = 8, prefix_policy="awrp", seed: int = 0,
                  tenants: Optional[Dict[str, int]] = None,
                  admission: Optional[AdmissionController] = None,
-                 auto_rebalance: bool = False, fused: bool = False, device="cuda"):
+                 auto_rebalance: bool = False, fused: bool = False, expert_cache=None,
+                 device="cuda"):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
@@ -103,6 +107,7 @@ class ServeEngine:
         self.fused = bool(fused)
         self.tenants = dict(tenants) if tenants else None
         self.auto_rebalance = bool(auto_rebalance)
+        self.expert_cache = expert_cache
         if self.tenants is None:
             self.prefix_cache = PrefixCache(prefix_cache_entries, prefix_policy)
             self.tenant_cache = None
@@ -328,7 +333,8 @@ class ServeEngine:
 
     def telemetry(self) -> dict:
         """Engine counters; the prompt cache's stats (``prefix/...``, or
-        ``tenant/<t>/...`` per tenant); in the paged mode the pool's policy
+        ``tenant/<t>/...`` per tenant); an attached expert cache's
+        (``expert/...``); in the paged mode the pool's policy
         and size (``kv/pool/...``) and, per tenant with a persisted session,
         its ghost hits and ``p`` (``kv/<t>/...``), with ``p`` and residency
         over every session (``kv/p_mean``, ``kv/p_max``,
@@ -339,6 +345,8 @@ class ServeEngine:
         else:
             for t, d in self.tenant_cache.telemetry().items():
                 out.update({f"tenant/{t}/{k}": v for k, v in d.items()})
+        if self.expert_cache is not None:
+            out.update({f"expert/{k}": v for k, v in self.expert_cache.telemetry().items()})
         if self.kv_mode != "paged":
             return out
         out.update({"kv/pool/policy": self.cfg.kv_policy,
