@@ -3,7 +3,17 @@
     python3 chip_smoke.py
 
 Needs one CUDA card and ``nvcc``.  Phase by phase, each printing one JSON
-line, any failure raising (non-zero exit, no result line):
+line, any failure raising (non-zero exit, no result line).  Kernels 4 and 5
+take the token position as a 0-d int32 tensor they read from device memory.
+Every served phase (``serve``, ``serve_adaptive``, ``serve_gemma3``,
+``serve_phi35``) runs its requests through the engine's decode graph
+(``jit_loop=True``: one captured CUDA graph per batch size, replayed once per
+token under sync debug mode ``"error"``) and then the same requests through
+the host loop (``jit_loop=False``) on the same parameters: greedy tokens,
+stats (but the clocks and the graph count), launch counts after every
+request list, the final policy planes of every decode loop (bitwise) and the
+ghost sessions must be equal (``loops_agree``), and the decode-step profile
+runs both loops side by side:
 
 1. ``build``: compile the CUDA kernels with nvcc (sm_90a) from the sources in
    this checkout; print the seconds taken and the card's name and power
@@ -41,7 +51,9 @@ line, any failure raising (non-zero exit, no result line):
    paged KV with AWRP through the fused kernel (kernel 4: two launches per
    layer per decode step, ``ops.SPLIT_LAUNCHES``), 4 requests of 1024 seeded
    tokens and 192 greedy new tokens, then one repeated prompt that must hit
-   the prefix cache; kernel 6 launched once per layer per prefill.
+   the prefix cache; kernel 6 launched once per layer per prefill; the
+   split kernels' arrival counters of the engine's capture stream are 0
+   after the replays.
 4a. ``adaptive_attn``: kernel 5, the fused true-adaptive ARC/CAR step, for
    arc and car from a full pool over two evicting page boundaries at the
    serve shape (from the prefill seeding, with a forced stamp
@@ -123,8 +135,9 @@ line, any failure raising (non-zero exit, no result line):
    by layer == ``route_step``; microseconds per ``route_step`` on both
    paths.
 
-Then the total seconds, the kernel summary line, the ``nvidia-smi`` line
-and, last, the result line.  Every kernel time is a median of CUDA-event
+Then both loops of every served phase side by side (``decode_loops``), the
+total seconds, the kernel summary line, the ``nvidia-smi`` line and, last,
+the result line.  Every kernel time is a median of CUDA-event
 timings on this card.
 """
 
@@ -286,6 +299,12 @@ def assert_repeatable(fn, reps: int = 5) -> int:
     return reps + 1
 
 
+def dpos(pos: int, dev) -> torch.Tensor:
+    """A decode position as kernels 4 and 5 take it: a 0-d int32 tensor on
+    the card, read by the kernels from device memory."""
+    return torch.tensor(pos, dtype=torch.int32, device=dev)
+
+
 def decode_inputs(gen, B, P, page, KVH, G, hd, dtype, dev, *, n_free=0):
     """A full (or ``n_free``-short) pool of seeded K/V with shuffled pages,
     its query and the next token's K/V row."""
@@ -376,7 +395,7 @@ def _unfused_step(pool, q, nk, nv, pos, page, policy):
     B, P = pool.f.shape
     KVH, G, hd = q.shape[1:]
     pool = paged_kv.insert_token(pool, nk.reshape(B, -1), nv.reshape(B, -1),
-                                 pos, page, policy)
+                                 dpos(pos, q.device), page, policy)
     cur = torch.full((B,), pos, dtype=torch.int32, device=q.device)
     out, mass = ops.paged_attention(q, pool.k.view(B, P, page, KVH, hd),
                                     pool.v.view(B, P, page, KVH, hd),
@@ -414,9 +433,9 @@ def phase_policy_attn(dev, policy: str = "awrp", shape=DECODE_SHAPE,
         nv = (torch.randn(B, KVH, hd, generator=gen) * 0.3).to(torch.bfloat16).to(dev)
         plain = ref.policy_paged_attention_plain(
             q, pool.k.view(B, P, page, KVH, hd), pool.v.view(B, P, page, KVH, hd),
-            nk, nv, pos, pool.f, pool.r, pool.page_start, pool.clock,
+            nk, nv, dpos(pos, dev), pool.f, pool.r, pool.page_start, pool.clock,
             pool.open_slot, policy=policy)
-        out_f, mass_f, pool = paged_kv.fused_decode_step(pool, q, nk, nv, pos,
+        out_f, mass_f, pool = paged_kv.fused_decode_step(pool, q, nk, nv, dpos(pos, dev),
                                                          page, policy)
         out_u, mass_u, pool_u = _unfused_step(pool_u, q, nk, nv, pos, page, policy)
         # (a) fused == unfused, bitwise
@@ -459,7 +478,7 @@ def phase_policy_attn(dev, policy: str = "awrp", shape=DECODE_SHAPE,
         nk = torch.randn(B, KVH, hd, generator=gen).to(torch.bfloat16).to(dev)
         kp, vp = pool.k.view(B, P, page, KVH, hd), pool.v.view(B, P, page, KVH, hd)
         pos = P * page + steps
-        args = (q, kp, vp, nk, nk, pos, pool.f, pool.r, pool.page_start,
+        args = (q, kp, vp, nk, nk, dpos(pos, dev), pool.f, pool.r, pool.page_start,
                 pool.clock, pool.open_slot)
         cur = torch.full((B,), pos, dtype=torch.int32, device=dev)
         # rows read: the pages resident after the allocation, the new row
@@ -628,6 +647,113 @@ def serve_params(dev):
     return params, time.perf_counter() - t0
 
 
+#: engine stats that are host-clock seconds or differ by loop by design
+LOOP_STATS = ("prefill_s", "decode_s", "loop_captures")
+
+
+def _planes_of(caches) -> list:
+    """``pos`` and every policy plane of a decode-cache tree (copies; the
+    K/V are left out)."""
+    out = [caches["pos"].clone()]
+    for c in caches["blocks"].values():
+        if isinstance(c, paged_kv.AdaptivePagedPool):
+            out += [t.clone() for t in (*c.pool[2:], *c.policy)]
+        elif isinstance(c, paged_kv.PagedPool):
+            out += [t.clone() for t in c[2:]]
+    return out
+
+
+class Drive:
+    """An engine's request lists in order: per list the results, and the
+    engine's stats and ``ops.LAUNCHES`` after it (counted from 0 at the
+    start); per decode loop the final planes (``_planes_of``); at the end the
+    ghost sessions.  ``replay`` sends the same lists to another engine."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.calls: list = []
+        self.planes: list = []
+        self.sessions: dict = {}
+        self.graphs: list = []
+        for name in ("_graph_loop", "_host_loop"):
+            orig = getattr(engine, name)
+
+            def wrapped(*args, _orig=orig, **kwargs):
+                out = _orig(*args, **kwargs)
+                self.planes.append(_planes_of(out[1]))
+                return out
+
+            setattr(engine, name, wrapped)
+        ops.reset_launches()
+
+    def generate(self, reqs):
+        asked = [(r.rid, list(r.prompt), r.max_new_tokens, r.temperature) for r in reqs]
+        res = self.engine.generate(_requests(asked))
+        self.calls.append({
+            "asked": asked, "stats": dict(self.engine.stats), "launches": dict(ops.LAUNCHES),
+            "results": {rid: (r.tokens, r.prefill_cached, r.status) for rid, r in res.items()}})
+        self.sessions = {t: dict(s) for t, s in self.engine._kv_sessions.items()}
+        # each decode graph's build seconds and static-tree bytes
+        self.graphs = [(g.build_s, sum(t.numel() * t.element_size() for t in _leaves(g.caches)))
+                       for g in self.engine._graphs.values()]
+        return res
+
+    def replay(self, engine) -> "Drive":
+        other = Drive(engine)
+        for call in self.calls:
+            other.generate(_requests(call["asked"]))
+        return other
+
+
+def _requests(asked):
+    from repro_torch.serve.engine import Request
+
+    return [Request(rid, list(p), max_new_tokens=n, temperature=t) for rid, p, n, t in asked]
+
+
+def loops_agree(graph: Drive, host: Drive) -> dict:
+    """The graph loop's run against the host loop's on the same requests and
+    parameters: greedy tokens, every stat but the clocks and the graph
+    count, the launch counts after every request list, the final planes of
+    every decode loop and the ghost sessions, all equal (planes bitwise).
+    Returns both loops' decode seconds and ms per step, and the graphs'
+    build seconds and static-tree sizes."""
+    assert len(graph.calls) == len(host.calls)
+    for i, (g, h) in enumerate(zip(graph.calls, host.calls)):
+        assert g["results"] == h["results"], f"request list {i}: tokens differ"
+        strip = [{k: v for k, v in c["stats"].items() if k not in LOOP_STATS} for c in (g, h)]
+        assert strip[0] == strip[1], (i, strip)
+        assert g["launches"] == h["launches"], (i, g["launches"], h["launches"])
+    assert g["stats"]["nonfinite_logits"] == 0 and h["stats"]["loop_captures"] == 0
+    assert len(graph.planes) == len(host.planes) > 0
+    for i, (a, b) in enumerate(zip(graph.planes, host.planes)):
+        assert all(torch.equal(x, y) for x, y in zip(a, b, strict=True)), \
+            f"decode loop {i}: final planes differ"
+    gs, hs = graph.sessions, host.sessions
+    assert gs.keys() == hs.keys()
+    for t in gs:
+        for name, st in gs[t].items():
+            assert all(torch.equal(x, y) for x, y in zip(st, hs[t][name])), (t, name)
+    steps = g["stats"]["decode_steps"]
+    tokens = sum(len(r[0]) for c in graph.calls for r in c["results"].values())
+    return {"tokens_equal": True, "stats_equal": True, "launches_equal": True,
+            "planes_equal_bitwise": True, "decode_loops": len(graph.planes),
+            "ghost_sessions_equal": bool(gs), "decode_steps": steps, "tokens": tokens,
+            "loop_captures": g["stats"]["loop_captures"],
+            "graph_build_s": [b for b, _ in graph.graphs],
+            "static_tree_gb": [n / 1e9 for _, n in graph.graphs],
+            "graph_decode_s": g["stats"]["decode_s"], "host_decode_s": h["stats"]["decode_s"],
+            "graph_ms_per_step": g["stats"]["decode_s"] * 1e3 / steps,
+            "host_ms_per_step": h["stats"]["decode_s"] * 1e3 / steps}
+
+
+def _leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    vals = tree.values() if isinstance(tree, dict) else tree
+    return [t for v in vals for t in _leaves(v)]
+
+
 def phase_serve(dev, params, init_s, base_cfg=CONFIG, n_req=4, prompt_len=1024,
                 new_tokens=192, pages=16) -> dict:
     """smollm-360m at published widths through ServeEngine(fused=True).  The
@@ -642,12 +768,11 @@ def phase_serve(dev, params, init_s, base_cfg=CONFIG, n_req=4, prompt_len=1024,
     max_len = prompt_len + new_tokens
     engine = ServeEngine(cfg, params, max_len=max_len, kv_mode="paged", fused=True,
                          seed=SEED, device=dev)
-
-    ops.reset_launches()
-    results = engine.generate([Request(i, list(p), max_new_tokens=new_tokens)
-                               for i, p in enumerate(prompts)])
-    launches = dict(ops.LAUNCHES)
-    stats = dict(engine.stats)
+    drive = Drive(engine)
+    results = drive.generate([Request(i, list(p), max_new_tokens=new_tokens)
+                              for i, p in enumerate(prompts)])
+    launches = drive.calls[0]["launches"]
+    stats = drive.calls[0]["stats"]
     expect = ops.SPLIT_LAUNCHES * cfg.n_layers * (new_tokens - 1)
     assert launches["policy_paged_attention"] == expect, (launches, expect)
     assert launches["flash_attention"] == cfg.n_layers * stats["prefills"], launches
@@ -656,13 +781,26 @@ def phase_serve(dev, params, init_s, base_cfg=CONFIG, n_req=4, prompt_len=1024,
         assert all(0 <= tok < cfg.vocab for tok in r.tokens)
     assert stats["nonfinite_logits"] == 0, stats
     assert stats["kv_evictions"] > 0, stats
+    assert stats["loop_captures"] == 1, stats
 
     # one prompt alone twice: the second run must hit the prefix cache
-    first = engine.generate([Request(10, list(prompts[0]), max_new_tokens=new_tokens)])
-    again = engine.generate([Request(11, list(prompts[0]), max_new_tokens=new_tokens)])
+    first = drive.generate([Request(10, list(prompts[0]), max_new_tokens=new_tokens)])
+    again = drive.generate([Request(11, list(prompts[0]), max_new_tokens=new_tokens)])
     assert not first[10].prefill_cached and again[11].prefill_cached
     assert engine.prefix_cache.hits == 1
     assert engine.stats["nonfinite_logits"] == 0
+    # the split kernels' arrival counters of the engine's capture stream are
+    # back at 0 after the last replay
+    from repro_torch.kernels import paged_attn
+
+    handle = engine.capture_stream().cuda_stream
+    (counters,) = [c for (_, st), c in paged_attn._COUNTERS.items() if st == handle]
+    assert int(counters.abs().sum()) == 0
+    # the same requests through the host loop, on the same parameters
+    host = ServeEngine(cfg, params, max_len=max_len, kv_mode="paged", fused=True,
+                       seed=SEED, jit_loop=False, device=dev)
+    loops = loops_agree(drive, drive.replay(host))
+    del host
 
     unfused = ServeEngine(cfg, params, max_len=max_len, kv_mode="paged", fused=False,
                           seed=SEED, device=dev)
@@ -686,7 +824,7 @@ def phase_serve(dev, params, init_s, base_cfg=CONFIG, n_req=4, prompt_len=1024,
            "greedy_agreement_fused_vs_unfused": same / (n_req * new_tokens),
            "unfused_decode_tokens_per_s":
                n_req * (new_tokens - 1) / unfused.stats["decode_s"],
-           "decode_step_profile": profile}
+           "loops": loops, "decode_step_profile": profile}
     emit(res)
     return res
 
@@ -698,41 +836,72 @@ KERNEL5_CUDA = ("adaptive_partials_kernel", "adaptive_fold_kernel")
 
 
 def profile_decode(params, cfg, prompts, dev, kernel: tuple, steps: int = 8) -> dict:
-    """Where a paged fused decode step's time goes: ``torch.profiler`` over
-    ``steps`` steps after a warm-up.  Device time is the sum of the kernels'
-    own intervals (one stream, so they do not overlap); the busy share is
-    that over the synchronized host wall of the same steps, without the
-    profiler (its tracing slows the host side).  ``kernel`` names the fused
-    step's CUDA kernels (kernel 4 runs as two: its partials and its fold),
-    whose share is reported."""
+    """Where a paged fused decode step's time goes, in both loops: the
+    eager step (``jit_loop=False``'s body) and one replay of the engine's
+    captured decode graph (``jit_loop=True``), from the same prefill, each
+    by ``_profile_steps``.  ``kernel`` names the fused step's CUDA kernels
+    (kernel 4 runs as two: its partials and its fold), whose share is
+    reported."""
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import ServeEngine
+
+    tokens = torch.tensor(prompts, dtype=torch.int32, device=dev)
+    max_len = tokens.shape[1] + 3 * steps
+    logits, caches = M.prefill(params, cfg, tokens, max_len, kv_mode="paged")
+    tok = logits[:, -1:].argmax(dim=-1).to(torch.int32)
+    del logits
+    engine = ServeEngine(cfg, params, max_len=max_len, kv_mode="paged", fused=True,
+                         device=dev)
+    graph = engine.decode_graph(caches, sampled=False)
+    graph.load(caches, tok, 0.0)
+    state = {"tok": tok, "caches": caches}
+    del caches
+
+    def eager(n):
+        for _ in range(n):
+            lg, state["caches"] = M.decode_step(params, cfg, state["tok"], state["caches"],
+                                                kv_mode="paged", fused=True)
+            state["tok"] = lg.argmax(dim=-1).to(torch.int32)
+
+    def replay(n):
+        for _ in range(n):
+            graph.step()
+
+    res = {"eager": _profile_steps(eager, steps, kernel),
+           "graph": _profile_steps(replay, steps, kernel, sync_errors=True)}
+    res["graph"]["build_s"] = graph.build_s
+    return res
+
+
+def _profile_steps(run, steps: int, kernel: tuple, *, sync_errors: bool = False) -> dict:
+    """``run(steps)`` after a warm-up of as many: the synchronized host wall
+    per step, without the profiler (its tracing slows the host side), then
+    ``torch.profiler`` over ``run(steps)``.  Device time is the sum of the
+    kernels' own intervals (one stream, so they do not overlap); the busy
+    share is that over the wall; graph launches are the host's
+    ``cudaGraphLaunch`` calls.  With ``sync_errors`` (graph replays) the
+    unprofiled runs go under sync debug mode ``"error"``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.models import model as M
-
-    tokens = torch.tensor(prompts, dtype=torch.int32, device=dev)
-    logits, caches = M.prefill(params, cfg, tokens, tokens.shape[1] + 3 * steps,
-                               kv_mode="paged")
-    tok = logits[:, -1:].argmax(dim=-1).to(torch.int32)
-    del logits
-
-    def run(n):
-        nonlocal caches, tok
-        for _ in range(n):
-            lg, caches = M.decode_step(params, cfg, tok, caches, kv_mode="paged",
-                                       fused=True)
-            tok = lg.argmax(dim=-1).to(torch.int32)
-
-    run(steps)  # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    run(steps)
-    torch.cuda.synchronize()
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error" if sync_errors else prev)
+    try:
+        run(steps)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(steps)
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run(steps)
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    graph_launches = sum(1 for e in events if e.device_type != DeviceType.CUDA
+                         and "cudaGraphLaunch" in e.name)
     if not kernels:
         return {"wall_ms_per_step": wall_ms, "device_ms_per_step": "not measured"}
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / steps
@@ -748,6 +917,7 @@ def profile_decode(params, cfg, prompts, dev, kernel: tuple, steps: int = 8) -> 
             "fused_kernel_launches_per_step": len(mine) / steps,
             "fused_kernel_share_of_device": fused / busy if busy else 0.0,
             "kernels_per_step": len(kernels) / steps,
+            "graph_launches_per_step": graph_launches / steps,
             "top_kernels_ms_per_step": [[n[:80], ms / steps] for n, ms in top]}
 
 
@@ -758,7 +928,8 @@ def _adaptive_unfused_step(apool, q, nk, nv, pos, page, core):
     B, P = apool.pool.f.shape
     KVH, G, hd = q.shape[1:]
     apool = paged_kv.adaptive_insert_token(apool, nk.reshape(B, -1),
-                                           nv.reshape(B, -1), pos, page, core)
+                                           nv.reshape(B, -1), dpos(pos, q.device),
+                                           page, core)
     cur = torch.full((B,), pos, dtype=torch.int32, device=q.device)
     out, mass = ops.paged_attention(q, apool.pool.k.view(B, P, page, KVH, hd),
                                     apool.pool.v.view(B, P, page, KVH, hd),
@@ -832,10 +1003,10 @@ def phase_adaptive_attn(dev, kind: str, shape=SERVE_SHAPE, steps: int | None = N
         ctr_before = ap.policy.ctr.clone()
         plain = ref.adaptive_policy_paged_attention_plain(
             q, ap.pool.k.view(B, P, page, KVH, hd), ap.pool.v.view(B, P, page, KVH, hd),
-            nk, nv, pos, *ap.pool[2:], *(x[:, 0] for x in ap.policy),
+            nk, nv, dpos(pos, dev), *ap.pool[2:], *(x[:, 0] for x in ap.policy),
             kind=core.kind, renorm_at=core.renorm_at)
-        out_f, mass_f, ap = paged_kv.fused_adaptive_decode_step(ap, q, nk, nv, pos,
-                                                                page, core)
+        out_f, mass_f, ap = paged_kv.fused_adaptive_decode_step(ap, q, nk, nv,
+                                                                dpos(pos, dev), page, core)
         out_u, mass_u, ap_u = _adaptive_unfused_step(ap_u, q, nk, nv, pos, page, core)
         # (a) fused == unfused, bitwise
         assert torch.equal(out_f, out_u), f"{kind}: out differs at pos {pos}"
@@ -891,7 +1062,8 @@ def phase_adaptive_attn(dev, kind: str, shape=SERVE_SHAPE, steps: int | None = N
         pos_mid = pos0 + steps + (0 if (pos0 + steps) % page else 1)
         for label, pos in (("boundary", pos0 + -(-steps // page) * page),
                            ("mid_page", pos_mid)):
-            args = (q, kp, vp, nk, nk, pos, *ap.pool[2:], *(x[:, 0] for x in ap.policy))
+            args = (q, kp, vp, nk, nk, dpos(pos, dev), *ap.pool[2:],
+                    *(x[:, 0] for x in ap.policy))
 
             def call(args=args):
                 return adaptive_policy_paged_attention_kernel(*args, **kw)
@@ -941,20 +1113,24 @@ def phase_serve_adaptive(dev, params, kv_policy: str, *, profile: bool, n_req=4,
     rng = np.random.RandomState(SEED + 11)
     prompts = [rng.randint(1, cfg.vocab, size=prompt_len).tolist() for _ in range(n_req)]
     a, b = (rng.randint(1, cfg.vocab, size=prompt_len).tolist() for _ in range(2))
-    engine = ServeEngine(cfg, params, max_len=prompt_len + 2 * new_tokens,
-                         kv_mode="paged", fused=True, seed=SEED, device=dev)
+    def make(jit_loop):
+        return ServeEngine(cfg, params, max_len=prompt_len + 2 * new_tokens,
+                           kv_mode="paged", fused=True, seed=SEED, jit_loop=jit_loop,
+                           device=dev)
+
+    engine = make(True)
+    drive = Drive(engine)
 
     def single(rid, prompt):
         before = engine.stats["kv_ghost_hits"]
-        res = engine.generate([Request(rid, list(prompt), max_new_tokens=new_tokens)])[rid]
+        res = drive.generate([Request(rid, list(prompt), max_new_tokens=new_tokens)])[rid]
         tel = engine.telemetry()
         return res, {"prompt_len": len(prompt), "prefix_hit": res.prefill_cached,
                      "kv_ghost_hits": tel["serve/kv_ghost_hits"] - before,
                      "p_max": tel["kv/p_max"], "p_mean": tel["kv/p_mean"]}
 
-    ops.reset_launches()
-    results = engine.generate([Request(i, list(p), max_new_tokens=new_tokens)
-                               for i, p in enumerate(prompts)])
+    results = drive.generate([Request(i, list(p), max_new_tokens=new_tokens)
+                              for i, p in enumerate(prompts)])
     batch_stats = dict(engine.stats)
     res_a, info_a = single(10, a)
     res_b, info_b = single(11, b)
@@ -962,6 +1138,9 @@ def phase_serve_adaptive(dev, params, kv_policy: str, *, profile: bool, n_req=4,
     res_a2, info_a2 = single(13, a)
     launches = dict(ops.LAUNCHES)
     stats = dict(engine.stats)
+    assert stats["loop_captures"] == 2, stats  # batch sizes 4 and 1
+    # the same requests through the host loop, on the same parameters
+    loops = loops_agree(drive, drive.replay(make(False)))
     expect = ops.SPLIT_LAUNCHES * cfg.n_layers * stats["decode_steps"]
     assert stats["decode_steps"] == 5 * (new_tokens - 1), stats
     assert launches["adaptive_policy_paged_attention"] == expect, (launches, expect)
@@ -989,7 +1168,7 @@ def phase_serve_adaptive(dev, params, kv_policy: str, *, profile: bool, n_req=4,
            "decode_steps": stats["decode_steps"], "launches": launches,
            "launches_expected": expect, "kv_evictions": stats["kv_evictions"],
            "kv_ghost_hits": stats["kv_ghost_hits"],
-           "repeat_tokens_equal": res_a.tokens == res_a2.tokens}
+           "repeat_tokens_equal": res_a.tokens == res_a2.tokens, "loops": loops}
     if profile:
         res["decode_step_profile"] = profile_decode(params, cfg, prompts, dev, KERNEL5_CUDA)
     emit(res)
@@ -1031,13 +1210,16 @@ def phase_serve_gemma3(dev, n_req=4, prompt_len=2048, new_tokens=128, pages=16,
     init_s = time.perf_counter() - t0
     rng = np.random.RandomState(SEED + 21)
     prompts = [rng.randint(1, cfg.vocab, size=prompt_len).tolist() for _ in range(n_req)]
-    engine = ServeEngine(cfg, params, max_len=prompt_len + new_tokens, kv_mode="paged",
-                         fused=True, seed=SEED, device=dev)
-    steps = new_tokens - 1
 
-    ops.reset_launches()
-    results = engine.generate([Request(i, list(p), max_new_tokens=new_tokens)
-                               for i, p in enumerate(prompts)])
+    def make(c, max_len, jit_loop=True):
+        return ServeEngine(c, params, max_len=max_len, kv_mode="paged", fused=True,
+                           seed=SEED, jit_loop=jit_loop, device=dev)
+
+    engine = make(cfg, prompt_len + new_tokens)
+    steps = new_tokens - 1
+    drive = Drive(engine)
+    results = drive.generate([Request(i, list(p), max_new_tokens=new_tokens)
+                              for i, p in enumerate(prompts)])
     launches = dict(ops.LAUNCHES)
     stats = dict(engine.stats)
     assert launches["flash_attention"] == cfg.n_layers, launches
@@ -1049,16 +1231,19 @@ def phase_serve_gemma3(dev, n_req=4, prompt_len=2048, new_tokens=128, pages=16,
     assert stats["nonfinite_logits"] == 0, stats
     assert stats["kv_evictions"] > 0, stats
 
-    first = engine.generate([Request(10, list(prompts[0]), max_new_tokens=new_tokens)])
-    again = engine.generate([Request(11, list(prompts[0]), max_new_tokens=new_tokens)])
+    first = drive.generate([Request(10, list(prompts[0]), max_new_tokens=new_tokens)])
+    again = drive.generate([Request(11, list(prompts[0]), max_new_tokens=new_tokens)])
     assert not first[10].prefill_cached and again[11].prefill_cached
     assert first[10].tokens == again[11].tokens
     total = dict(ops.LAUNCHES)
     assert total["flash_attention"] == 2 * cfg.n_layers, total
     assert total["policy_paged_attention"] == 3 * ops.SPLIT_LAUNCHES * n_global * steps, total
     assert engine.stats["nonfinite_logits"] == 0
+    graph_peak = torch.cuda.max_memory_allocated()
     profile = profile_decode(params, cfg, prompts, dev, KERNEL4_CUDA)
-    del engine
+    drive.engine = engine = None  # frees the static tree and the prefix payloads
+    loops = loops_agree(drive, drive.replay(make(cfg, prompt_len + new_tokens, False)))
+    del drive
     unfused = ServeEngine(cfg, params, max_len=prompt_len + new_tokens, kv_mode="paged",
                           fused=False, seed=SEED, device=dev)
     ref_res = unfused.generate([Request(i, list(p), max_new_tokens=unfused_tokens)
@@ -1071,13 +1256,12 @@ def phase_serve_gemma3(dev, n_req=4, prompt_len=2048, new_tokens=128, pages=16,
     del unfused, ref_res
 
     acfg = dataclasses.replace(cfg, kv_policy="arc_adaptive")
-    aeng = ServeEngine(acfg, params, max_len=single_len + 2 * new_tokens,
-                       kv_mode="paged", fused=True, seed=SEED, device=dev)
+    aeng = make(acfg, single_len + 2 * new_tokens)
     a = rng.randint(1, cfg.vocab, size=single_len).tolist()
-    ops.reset_launches()
-    ra = aeng.generate([Request(20, list(a), max_new_tokens=new_tokens)])[20]
+    adrive = Drive(aeng)
+    ra = adrive.generate([Request(20, list(a), max_new_tokens=new_tokens)])[20]
     gh0 = aeng.stats["kv_ghost_hits"]
-    rb = aeng.generate([Request(21, a + ra.tokens, max_new_tokens=new_tokens)])[21]
+    rb = adrive.generate([Request(21, a + ra.tokens, max_new_tokens=new_tokens)])[21]
     ghost_hits = aeng.stats["kv_ghost_hits"] - gh0
     alaunch = dict(ops.LAUNCHES)
     assert alaunch["flash_attention"] == 2 * cfg.n_layers, alaunch
@@ -1118,8 +1302,12 @@ def phase_serve_gemma3(dev, n_req=4, prompt_len=2048, new_tokens=128, pages=16,
                         "decode_tokens_per_s": 2 * steps / aeng.stats["decode_s"],
                         "p_max": aeng.telemetry()["kv/p_max"]},
            "max_memory_allocated_gb": peak / 1e9,
-           "decode_step_profile": profile}
-    del params, aeng
+           "graph_peak_memory_allocated_gb": graph_peak / 1e9,
+           "loops": loops, "decode_step_profile": profile}
+    adrive.engine = aeng = None
+    res["adaptive"]["loops"] = loops_agree(
+        adrive, adrive.replay(make(acfg, single_len + 2 * new_tokens, False)))
+    del params, adrive
     torch.cuda.empty_cache()
     res["seconds"] = time.perf_counter() - t_phase
     emit(res)
@@ -1257,13 +1445,16 @@ def phase_serve_phi35(dev, n_req=4, prompt_len=2048, new_tokens=64, pages=16,
     moe_check = moe_layer_check(params, cfg, dev, n_req, prompt_len)
     rng = np.random.RandomState(SEED + 31)
     prompts = [rng.randint(1, cfg.vocab, size=prompt_len).tolist() for _ in range(n_req)]
-    engine = ServeEngine(cfg, params, max_len=prompt_len + new_tokens, kv_mode="paged",
-                         fused=True, seed=SEED, device=dev)
-    steps = new_tokens - 1
 
-    ops.reset_launches()
-    results = engine.generate([Request(i, list(p), max_new_tokens=new_tokens)
-                               for i, p in enumerate(prompts)])
+    def make(c, max_len, jit_loop=True):
+        return ServeEngine(c, params, max_len=max_len, kv_mode="paged", fused=True,
+                           seed=SEED, jit_loop=jit_loop, device=dev)
+
+    engine = make(cfg, prompt_len + new_tokens)
+    steps = new_tokens - 1
+    drive = Drive(engine)
+    results = drive.generate([Request(i, list(p), max_new_tokens=new_tokens)
+                              for i, p in enumerate(prompts)])
     launches = dict(ops.LAUNCHES)
     stats = dict(engine.stats)
     assert launches["flash_attention"] == L, launches
@@ -1275,33 +1466,36 @@ def phase_serve_phi35(dev, n_req=4, prompt_len=2048, new_tokens=64, pages=16,
     assert stats["nonfinite_logits"] == 0, stats
     assert stats["kv_evictions"] > 0, stats
 
-    first = engine.generate([Request(10, list(prompts[0]), max_new_tokens=new_tokens)])
-    again = engine.generate([Request(11, list(prompts[0]), max_new_tokens=new_tokens)])
+    first = drive.generate([Request(10, list(prompts[0]), max_new_tokens=new_tokens)])
+    again = drive.generate([Request(11, list(prompts[0]), max_new_tokens=new_tokens)])
     assert not first[10].prefill_cached and again[11].prefill_cached
     assert first[10].tokens == again[11].tokens
     assert engine.prefix_cache.hits == 1 and engine.stats["nonfinite_logits"] == 0
-    # the stored payload: (last logits (1, 1, Vpad) f32, the caches: one
-    # stacked pool of L layers, K/V bf16 and five int32 planes)
+    # the stored payload: (last logits (1, 1, Vpad) f32, the caches: the
+    # int32 position and one stacked pool of L layers, K/V bf16 and five
+    # int32 planes)
     P, page, kvd = pages, cfg.page_size, cfg.kv_dim
-    want_bytes = (M.pad_vocab(cfg) * 4
+    want_bytes = (M.pad_vocab(cfg) * 4 + 4
                   + L * (2 * P * page * kvd * 2 + 3 * P * 4 + 2 * 4))
     entry_bytes = engine.prefix_cache.entry_bytes()
     assert entry_bytes == want_bytes, (entry_bytes, want_bytes)
     total = dict(ops.LAUNCHES)
     assert total["flash_attention"] == 2 * L, total
     assert total["policy_paged_attention"] == 3 * ops.SPLIT_LAUNCHES * L * steps, total
+    graph_peak = torch.cuda.max_memory_allocated()
     profile = profile_decode(params, cfg, prompts, dev, KERNEL4_CUDA)
     step_bound = phi35_step_bound(cfg, params, pages, n_req)
-    del engine
+    drive.engine = engine = None  # frees the static tree and the prefix payloads
+    loops = loops_agree(drive, drive.replay(make(cfg, prompt_len + new_tokens, False)))
+    del drive
 
     acfg = dataclasses.replace(cfg, kv_policy="arc_adaptive")
-    aeng = ServeEngine(acfg, params, max_len=single_len + 2 * new_tokens,
-                       kv_mode="paged", fused=True, seed=SEED, device=dev)
+    aeng = make(acfg, single_len + 2 * new_tokens)
     a = rng.randint(1, cfg.vocab, size=single_len).tolist()
-    ops.reset_launches()
-    ra = aeng.generate([Request(20, list(a), max_new_tokens=new_tokens)])[20]
+    adrive = Drive(aeng)
+    ra = adrive.generate([Request(20, list(a), max_new_tokens=new_tokens)])[20]
     gh0 = aeng.stats["kv_ghost_hits"]
-    rb = aeng.generate([Request(21, a + ra.tokens, max_new_tokens=new_tokens)])[21]
+    rb = adrive.generate([Request(21, a + ra.tokens, max_new_tokens=new_tokens)])[21]
     ghost_hits = aeng.stats["kv_ghost_hits"] - gh0
     alaunch = dict(ops.LAUNCHES)
     assert alaunch["flash_attention"] == 2 * L, alaunch
@@ -1340,9 +1534,13 @@ def phase_serve_phi35(dev, n_req=4, prompt_len=2048, new_tokens=64, pages=16,
                         "decode_tokens_per_s": 2 * steps / aeng.stats["decode_s"],
                         "p_max": aeng.telemetry()["kv/p_max"]},
            "max_memory_allocated_gb": peak / 1e9,
-           "decode_step_bound": step_bound,
+           "graph_peak_memory_allocated_gb": graph_peak / 1e9,
+           "decode_step_bound": step_bound, "loops": loops,
            "decode_step_profile": profile, "moe_layer": moe_check}
-    del params, aeng
+    adrive.engine = aeng = None
+    res["adaptive"]["loops"] = loops_agree(
+        adrive, adrive.replay(make(acfg, single_len + 2 * new_tokens, False)))
+    del params, adrive
     gc.collect()
     torch.cuda.empty_cache()
     res["seconds"] = time.perf_counter() - t_phase
@@ -2450,6 +2648,31 @@ KERNELS = {
 }
 
 
+def serving_summary(runs) -> list:
+    """Per served phase the two loops side by side: the engine's decode
+    ms/step of the graph and the host loop (``loops_agree``), and the
+    profiled step of each (``profile_decode``)."""
+    keys = ("wall_ms_per_step", "device_ms_per_step", "device_busy_share",
+            "kernels_per_step", "graph_launches_per_step")
+    out = []
+    for label, r in runs:
+        row = {"phase": label, **{k: r["loops"][k] for k in (
+            "graph_ms_per_step", "host_ms_per_step", "decode_steps", "loop_captures",
+            "graph_build_s", "static_tree_gb")}}
+        prof = r.get("decode_step_profile")
+        if prof:
+            row.update({f"{loop}_{k}": prof[loop].get(k) for loop in ("eager", "graph")
+                        for k in keys})
+        for k in ("max_memory_allocated_gb", "graph_peak_memory_allocated_gb"):
+            if k in r:
+                row[k] = r[k]
+        if "adaptive" in r and "loops" in r["adaptive"]:
+            row["adaptive"] = {k: r["adaptive"]["loops"][k] for k in (
+                "graph_ms_per_step", "host_ms_per_step", "decode_steps")}
+        out.append(row)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2499,6 +2722,9 @@ def main() -> int:
     swp = phase_sweep(dev)
     ten = phase_tenancy(dev)
     ec = phase_expert_cache(dev)
+    emit({"phase": "decode_loops", "card": smi(), "cells": serving_summary(
+        [("serve", srv), *((r["kv_policy"], r) for r in srv_ada), ("serve_gemma3", g3),
+         ("serve_phi35", phi)])})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     # launches: each kernel's count on its path in this run: the flat fused
     # kernel in the serve phase, the adaptive one in serve_adaptive (both

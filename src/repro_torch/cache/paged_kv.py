@@ -11,14 +11,16 @@ at least tau = 1/num_resident_pages; on a pool-full allocation the victim is
 Differences from the reference, all deliberate:
 * the pool's K/V tensors are updated IN PLACE (a token row written, a page
   zeroed on allocation); every other plane is replaced by a new tensor.  A
-  caller that keeps an old pool must clone it (the serving engine clones
-  prefix-cache payloads on insert and on hit);
-* the token index ``pos`` is a Python int (the engine knows it on the host),
-  shared by the batch;
-* no ``mesh`` (XLA layout hints);
-* between page boundaries the adaptive pool's allocation access is masked
-  off for the whole batch, so ``adaptive_allocate`` runs only its stamp
-  renormalization check instead of a masked ``on_access`` (the same state).
+  caller that keeps an old pool must clone it (the serving engine's host
+  loop clones prefix-cache payloads on insert and on hit; its graph loop
+  copies them into the graph's own tree);
+* no ``mesh`` (XLA layout hints).
+
+The token index ``pos`` is a 0-d int32 tensor on the pool's device, shared
+by the batch, as the reference's traced scalar.  Every page-boundary branch
+is the reference's masked form (the allocation computed always and selected
+by ``pos % page == 0``), so a decode step reads nothing back to the host and
+a CUDA graph can capture it (``serve/engine.py``).
 
 True-adaptive mode (``kv_policy`` in ``TRUE_ADAPTIVE_KV``): the pool carries
 ``policy_core.AdaptiveState`` planes per sequence (ghost directory, stamps,
@@ -39,8 +41,7 @@ import torch
 
 from repro_torch.core.kv_policy import page_victim
 from repro_torch.core.policy_core import (_TAG_B1, _TAG_B2, _TAG_T1, _TAG_T2,
-                                          AdaptiveCore, AdaptiveState,
-                                          _renorm_stamps, first_min)
+                                          AdaptiveCore, AdaptiveState, first_min)
 from repro_torch.device import resolve_device
 
 __all__ = ["PagedPool", "init_pool", "allocate", "insert_token", "kv_positions",
@@ -89,44 +90,49 @@ def init_pool(batch: int, pages: int, page_size: int, kvd: int, dtype,
     )
 
 
-def _scatter_new_token(pool: PagedPool, new_k, new_v, pos: int, page_size: int,
+def _scatter_new_token(pool: PagedPool, new_k, new_v, pos, page_size: int,
                        slot, f, r, page_start, clock, open_slot) -> PagedPool:
     """Write the token row at (slot, pos % page_size) in place, zeroing the
-    page first on an allocation; returns the pool with the given planes."""
+    page first on an allocation (a masked select); returns the pool with the
+    given planes."""
     within = pos % page_size
-    bidx = torch.arange(pool.k.shape[0], device=pool.k.device)
+    B = pool.k.shape[0]
+    bidx = torch.arange(B, device=pool.k.device)
     sl = slot.long()
-    if within == 0:
-        pool.k[bidx, sl] = 0
-        pool.v[bidx, sl] = 0
-    pool.k[bidx, sl, within] = new_k.to(pool.k.dtype)
-    pool.v[bidx, sl, within] = new_v.to(pool.v.dtype)
+    fresh = within == 0
+    pool.k[bidx, sl] = torch.where(fresh, 0, pool.k[bidx, sl])
+    pool.v[bidx, sl] = torch.where(fresh, 0, pool.v[bidx, sl])
+    row = within.long().expand(B)
+    pool.k[bidx, sl, row] = new_k.to(pool.k.dtype)
+    pool.v[bidx, sl, row] = new_v.to(pool.v.dtype)
     return PagedPool(pool.k, pool.v, f, r, page_start, clock, open_slot)
 
 
-def allocate(f, r, page_start, clock, open_slot, pos: int, page: int, policy: str):
+def allocate(f, r, page_start, clock, open_slot, pos, page: int, policy: str):
     """The page-boundary allocation: first free slot, else ``page_victim``
     with the open slot pinned; the chosen page is reset to F=1, R=N,
-    page_start=pos (the paper's insert rule).  Returns ``(slot, f, r,
-    page_start)``, the planes unchanged between page boundaries."""
-    if pos % page:
-        return open_slot, f, r, page_start
+    page_start=pos (the paper's insert rule).  Computed at every step and
+    selected where ``pos % page == 0``: between page boundaries the slot is
+    the open slot and the planes are unchanged.  Returns ``(slot, f, r,
+    page_start)``."""
+    need = pos % page == 0
     iota = torch.arange(f.shape[1], dtype=torch.int32, device=f.device)[None]
     free = page_start < 0
     first_free = first_min(torch.where(free, 0, 1).to(torch.int32))
     victim = page_victim(policy, f, r, page_start, clock, iota == open_slot[:, None])
-    slot = torch.where(free.any(dim=-1), first_free, victim)
-    sel = iota == slot[:, None]
+    slot = torch.where(need, torch.where(free.any(dim=-1), first_free, victim), open_slot)
+    sel = (iota == slot[:, None]) & need
     return (slot,
             torch.where(sel, 1, f),
             torch.where(sel, clock[:, None], r),
             torch.where(sel, pos, page_start))
 
 
-def insert_token(pool: PagedPool, new_k, new_v, pos: int, page_size: int,
+def insert_token(pool: PagedPool, new_k, new_v, pos, page_size: int,
                  policy: str = "awrp") -> PagedPool:
-    """Write one token row (B, kvd); on a page boundary allocate, evicting by
-    ``policy`` when the pool is full (paper insert rule: F=1, R=N)."""
+    """Write one token row (B, kvd) at ``pos`` (0-d int32); on a page
+    boundary allocate, evicting by ``policy`` when the pool is full (paper
+    insert rule: F=1, R=N)."""
     slot, f, r, page_start = allocate(pool.f, pool.r, pool.page_start,
                                       pool.clock, pool.open_slot, pos,
                                       page_size, policy)
@@ -135,7 +141,7 @@ def insert_token(pool: PagedPool, new_k, new_v, pos: int, page_size: int,
                               page_start, pool.clock, open_slot)
 
 
-def kv_positions(pool: PagedPool, pos: int, page_size: int) -> torch.Tensor:
+def kv_positions(pool: PagedPool, pos, page_size: int) -> torch.Tensor:
     """(B, P*page) token index per cache row; -1 for invalid rows."""
     B, P = pool.f.shape
     row = torch.arange(page_size, dtype=torch.int32, device=pool.f.device)
@@ -177,14 +183,15 @@ def score_update(pool: PagedPool, attn_mass, page_size: int) -> PagedPool:
     return pool._replace(f=f, r=r, clock=clock)
 
 
-def fused_decode_step(pool: PagedPool, q, new_k, new_v, pos: int,
+def fused_decode_step(pool: PagedPool, q, new_k, new_v, pos,
                       page_size: int, policy: str = "awrp"
                       ) -> Tuple[torch.Tensor, torch.Tensor, PagedPool]:
     """One flat-policy decode step as one kernel call (kernel 4: two
     launches, ``ops.SPLIT_LAUNCHES``): equivalent to
     ``insert_token`` + ``ops.paged_attention`` + ``score_update``, with the
     policy arithmetic inside the attention kernel.  q (B, KVH, G, hd);
-    new_k/new_v (B, kvd).  Returns ``(out (B, KVH, G, hd), page_mass (B, P),
+    new_k/new_v (B, kvd); ``pos`` 0-d int32, which the kernel reads from
+    device memory.  Returns ``(out (B, KVH, G, hd), page_mass (B, P),
     new_pool)``; the pool's K/V are updated in place."""
     from repro_torch.kernels import ops
 
@@ -202,27 +209,33 @@ def fused_decode_step(pool: PagedPool, q, new_k, new_v, pos: int,
     return out, mass, new_pool
 
 
-def full_cache_insert(k_cache, v_cache, new_k, new_v, pos: int):
+def _write_row(cache, new, index) -> None:
+    """``cache[:, index] = new[:, 0]`` in place, ``index`` a 0-d tensor."""
+    cache.index_copy_(1, index.reshape(1).long(), new.to(cache.dtype))
+
+
+def full_cache_insert(k_cache, v_cache, new_k, new_v, pos):
     """Unbounded-cache baseline: write the token row (B, 1, kvd) at index
-    ``pos`` of (B, T, kvd), in place."""
-    k_cache[:, pos:pos + 1] = new_k
-    v_cache[:, pos:pos + 1] = new_v
+    ``pos`` (0-d int32) of (B, T, kvd), in place."""
+    _write_row(k_cache, new_k, pos)
+    _write_row(v_cache, new_v, pos)
     return k_cache, v_cache
 
 
-def ring_insert(k_cache, v_cache, new_k, new_v, pos: int):
+def ring_insert(k_cache, v_cache, new_k, new_v, pos):
     """Sliding-window cache (B, W, kvd): write the token row (B, 1, kvd) at
     ring slot ``pos % W`` (evicting the token W steps back), in place."""
     slot = pos % k_cache.shape[1]
-    k_cache[:, slot:slot + 1] = new_k
-    v_cache[:, slot:slot + 1] = new_v
+    _write_row(k_cache, new_k, slot)
+    _write_row(v_cache, new_v, slot)
     return k_cache, v_cache
 
 
-def ring_positions(pos: int, window: int, device=None) -> torch.Tensor:
-    """(W,) int32 token index each ring slot holds after inserting ``pos``:
-    the latest index <= pos congruent to the slot mod W, or -1."""
-    slots = torch.arange(window, dtype=torch.int32, device=device)
+def ring_positions(pos, window: int) -> torch.Tensor:
+    """(W,) int32 token index each ring slot holds after inserting ``pos``
+    (0-d int32): the latest index <= pos congruent to the slot mod W, or
+    -1."""
+    slots = torch.arange(window, dtype=torch.int32, device=pos.device)
     cand = pos - torch.remainder(pos - slots, window)
     return torch.where(cand >= 0, cand, -1).to(torch.int32)
 
@@ -245,12 +258,14 @@ class AdaptivePagedPool(NamedTuple):
                                  AdaptiveState(*(t.clone() for t in self.policy)))
 
 
-def adaptive_core(kv_policy: str, batch: int, pages: int) -> AdaptiveCore:
+def adaptive_core(kv_policy: str, batch: int, pages: int, *,
+                  masked_renorm: bool = False) -> AdaptiveCore:
     """The pool's policy core: one ARC/CAR instance per sequence, capacity
     the pool size.  Takes the serving names (``arc_adaptive`` /
-    ``car_adaptive``) or the core names (``arc`` / ``car``)."""
+    ``car_adaptive``) or the core names (``arc`` / ``car``);
+    ``masked_renorm`` as ``AdaptiveCore``'s (the decode step's core)."""
     kind = TRUE_ADAPTIVE_KV.get(kv_policy, kv_policy)
-    return AdaptiveCore(kind=kind, caps=(pages,) * batch)
+    return AdaptiveCore(kind=kind, caps=(pages,) * batch, masked_renorm=masked_renorm)
 
 
 def init_adaptive_pool(batch: int, pages: int, page_size: int, kvd: int, dtype,
@@ -421,31 +436,30 @@ def reseed_from_ghosts(prev: AdaptiveState, kind: str, pages: int, n_have: int,
 
 
 def adaptive_allocate(core: AdaptiveCore, state: AdaptiveState, f, r, page_start,
-                      clock, open_slot, pos: int, page: int):
+                      clock, open_slot, pos, page: int):
     """The page-boundary allocation of the true-adaptive pool: one
     complete-miss access of the new page id; the page the policy's REPLACE
     moved out of the cache (resident before, not after; the largest id if
     several) gives up its pool slot, else the first free slot is taken.  The
-    slot gets F=1, R=N, page_start=pos.  Between page boundaries the access
-    is masked off, which leaves only the stamp renormalization check (it
-    runs before the mask, as in ``AdaptiveCore.on_access``).  Returns
-    ``(slot, f, r, page_start, state)``."""
-    if pos % page:
-        if core.renorm_at is not None:
-            state = _renorm_stamps(state, core.renorm_at)
-        return open_slot, f, r, page_start, state
+    slot gets F=1, R=N, page_start=pos.  As in the reference, the access is
+    issued at every step with the core's ``active`` mask set where ``pos %
+    page == 0``: between page boundaries only the stamp renormalization
+    check, which ``AdaptiveCore.on_access`` runs before the mask, changes
+    the state, and the slot is the open slot.  Returns ``(slot, f, r,
+    page_start, state)``."""
     B = f.shape[0]
     dev = f.device
-    ids = torch.full((B,), pos // page, dtype=torch.int32, device=dev)
-    new_state, _ = core.on_access(state, ids)
+    need = pos % page == 0
+    ids = (pos // page).expand(B)
+    new_state, _ = core.on_access(state, ids, active=need.expand(B))
     evicted = core.resident_mask(state)[:, 0] & ~core.resident_mask(new_state)[:, 0]
     ev_id = torch.where(evicted, state.blocks[:, 0], -1).amax(dim=-1)
     pool_pid = torch.where(page_start >= 0, page_start // page, -2)
     victim = first_min(torch.where(pool_pid == ev_id[:, None], 0, 1).to(torch.int32))
     first_free = first_min(torch.where(page_start < 0, 0, 1).to(torch.int32))
-    slot = torch.where(ev_id >= 0, victim, first_free)
+    slot = torch.where(need, torch.where(ev_id >= 0, victim, first_free), open_slot)
     iota = torch.arange(f.shape[1], dtype=torch.int32, device=dev)[None]
-    sel = iota == slot[:, None]
+    sel = (iota == slot[:, None]) & need
     return (slot, torch.where(sel, 1, f), torch.where(sel, clock[:, None], r),
             torch.where(sel, pos, page_start), new_state)
 
@@ -460,7 +474,7 @@ def adaptive_hits(core: AdaptiveCore, state: AdaptiveState, page_start,
     return state
 
 
-def adaptive_insert_token(apool: AdaptivePagedPool, new_k, new_v, pos: int,
+def adaptive_insert_token(apool: AdaptivePagedPool, new_k, new_v, pos,
                           page_size: int, core: AdaptiveCore) -> AdaptivePagedPool:
     """``insert_token`` with true ARC/CAR eviction (``adaptive_allocate``);
     the pool's K/V are written in place."""
@@ -484,7 +498,7 @@ def adaptive_score_update(apool: AdaptivePagedPool, attn_mass, page_size: int,
     return AdaptivePagedPool(score_update(pool, attn_mass, page_size), state)
 
 
-def fused_adaptive_decode_step(apool: AdaptivePagedPool, q, new_k, new_v, pos: int,
+def fused_adaptive_decode_step(apool: AdaptivePagedPool, q, new_k, new_v, pos,
                                page_size: int, core: AdaptiveCore):
     """One true-adaptive decode step as one kernel call (kernel 5: two
     launches, ``ops.SPLIT_LAUNCHES``): equivalent to

@@ -805,17 +805,20 @@ def _car_step(
 # ---------------------------------------------------------------------------
 
 
-def _renorm_stamps(state: AdaptiveState, renorm_at: int) -> AdaptiveState:
+def _renorm_stamps(state: AdaptiveState, renorm_at: int, *,
+                   masked: bool = False) -> AdaptiveState:
     """Compact stamps when ``ctr`` nears the int32 range: dense-rank each
     row-set's stamp plane (rank = #lanes with a strictly smaller stamp) and
     reset ``ctr`` to L.  Occupied lanes carry unique stamps, so ranking
     preserves every within-list order and therefore every future decision;
     free lanes' stamps are never compared.  The O(L^2) rank runs only when
-    some row needs it (one host sync per call to decide)."""
+    some row needs it (one host sync per call to decide); ``masked=True``
+    computes it every call and selects it per row, with no host read."""
     need = state.ctr >= renorm_at  # (B, S) bool
-    HOST_SYNCS["renorm"] += 1
-    if not bool(need.any()):
-        return state
+    if not masked:
+        HOST_SYNCS["renorm"] += 1
+        if not bool(need.any()):
+            return state
     s = state.stamp  # (B, S, L)
     L = s.shape[-1]
     rank = (s[..., :, None] > s[..., None, :]).sum(dim=-1, dtype=_I32)
@@ -838,13 +841,18 @@ class AdaptiveCore(_Accounting):
     ``lanes = 2*max(caps)`` lanes (cache + ghosts).  ``renorm_at`` is the
     stamp-counter ceiling that triggers in-place stamp renormalization
     (None disables the check entirely — a static guarantee the caller makes
-    when the access count is bounded, e.g. a known-length sweep trace)."""
+    when the access count is bounded, e.g. a known-length sweep trace).
+    ``masked_renorm=True`` runs that check as a per-row select with no host
+    read (``_renorm_stamps(masked=True)``): the decode step's cores, which a
+    CUDA graph captures.  CAR's clock-hand sweep still reads the host once
+    per trip."""
 
     kind: str  # "arc" | "car"
     caps: Tuple[int, ...]  # per-row per-set capacity
     num_sets: int = 1
     lanes: Optional[int] = None  # padded directory lanes; default 2*max(caps)
     renorm_at: Optional[int] = "auto"  # type: ignore[assignment]
+    masked_renorm: bool = False
 
     def __post_init__(self):
         if self.kind not in ADAPTIVE_POLICIES:
@@ -894,7 +902,7 @@ class AdaptiveCore(_Accounting):
         dev = state.blocks.device
         ids = _as_ids(ids, dev)
         if self.renorm_at is not None:
-            state = _renorm_stamps(state, self.renorm_at)
+            state = _renorm_stamps(state, self.renorm_at, masked=self.masked_renorm)
         L = self.L
         iota_l = _lane_iota(L, dev)
         cap = _as_ids(self.caps if caps is None else caps, dev)

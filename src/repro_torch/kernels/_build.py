@@ -39,11 +39,9 @@ SIGNATURES = {
     "repro_paged_attention": (
         [_int] + [_vp] * 9 + [_int] * 6 + [_float, _vp], _int),
     "repro_policy_paged_attention": (
-        [_int] + [_vp] * 5 + [_int] + [_vp] * 15 + [_int] * 6
-        + [_float, _int, _vp], _int),
+        [_int] + [_vp] * 21 + [_int] * 6 + [_float, _int, _vp], _int),
     "repro_adaptive_policy_paged_attention": (
-        [_int] + [_vp] * 5 + [_int] + [_vp] * 27 + [_int] * 7
-        + [_float, _int, _int, _vp], _int),
+        [_int] + [_vp] * 33 + [_int] * 7 + [_float, _int, _int, _vp], _int),
     "repro_awrp_select": ([_vp] * 6 + [_int] * 2 + [_vp], _int),
     "repro_awrp_select_rows": ([_vp] * 5 + [_int] * 2 + [_vp], _int),
     "repro_flash_attention": ([_int] + [_vp] * 4 + [_int] * 9 + [_float, _vp], _int),

@@ -18,8 +18,9 @@
 //      and the post-miss directory, p and ctr to the output planes.  Then the
 //      page's partials (split_compute), the new row read from new_k / new_v
 //      at (slot, pos % page).  Between page boundaries no CTA touches the
-//      directory and the launch carves no shared memory for it, so the
-//      common step has kernel 4's occupancy;
+//      directory; the launch carves its shared memory all the same (5 L
+//      ints: 640 B at P = 16, 10 KB at P = 256), since pos is read on the
+//      device and one launch configuration serves every position;
 //   2. adaptive_fold_kernel, one CTA per (query, 64-dim slice, kv head,
 //      sequence): the fold in page order (fold_slice) and that slice of the
 //      output; the last CTA of a sequence writes the mass, runs the
@@ -52,8 +53,10 @@
 // dtype 0 = float32, 1 = bfloat16 for q / k / v / new_k / new_v / out; the
 // pool planes (B, P) and clock / open_slot (B,) int32; the directory planes
 // (B, L) int32 with 2P <= L <= 1024; p (B,) float32, ctr (B,) int32;
-// kind 0 = arc, 1 = car; the policy's capacity is P; scratch and counters
-// as in paged_attn.cu.  All contiguous.
+// kind 0 = arc, 1 = car; the policy's capacity is P; pos points to the
+// token index shared by the batch (one int32 >= 0 in device memory, read
+// by both launches, as the Pallas kernel reads pos_ref[0]); scratch and
+// counters as in paged_attn.cu.  All contiguous.
 #include "adaptive_common.cuh"
 #include "paged_attn_common.cuh"
 #include "policy_common.cuh"
@@ -88,7 +91,7 @@ template <typename T, int G>
 __global__ void __launch_bounds__(kSplitThreads, kSplitBlocks)
 adaptive_partials_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ new_k,
-                         const T* __restrict__ new_v, int pos,
+                         const T* __restrict__ new_v, const int* __restrict__ pos_in,
                          const int* __restrict__ page_start,
                          const int* __restrict__ open_slot, const int* __restrict__ blocks,
                          const int* __restrict__ tag, const int* __restrict__ stamp,
@@ -101,6 +104,7 @@ adaptive_partials_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          int renorm_at) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int ev_shared;
+  const int pos = *pos_in;
   const SplitSmem sm = split_carve(smem_raw, d, sizeof(T));
   const int p = blockIdx.x, kh = blockIdx.y, b = blockIdx.z, P = d.P;
   const SplitScratch scr = split_scratch(scratch, gridDim.z, d);
@@ -163,7 +167,8 @@ adaptive_partials_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // __restrict__.
 template <typename T, int G>
 __global__ void __launch_bounds__(kFoldThreads)
-adaptive_fold_kernel(int pos, const int* __restrict__ f, const int* __restrict__ r,
+adaptive_fold_kernel(const int* __restrict__ pos_in, const int* __restrict__ f,
+                     const int* __restrict__ r,
                      const int* __restrict__ page_start, const int* __restrict__ clock,
                      const int* __restrict__ open_slot, const int* blocks, const int* tag,
                      const int* stamp, const int* ref, const float* p_in,
@@ -176,6 +181,7 @@ adaptive_fold_kernel(int pos, const int* __restrict__ f, const int* __restrict__
                      int L, int kind, int renorm_at) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const FoldSmem sm = fold_carve(smem_raw);
+  const int pos = *pos_in;
   const int ns = fold_slices(d), P = d.P;
   const int g = blockIdx.x / ns, h0 = (blockIdx.x % ns) * kFoldDims;
   const int kh = blockIdx.y, b = blockIdx.z;
@@ -217,15 +223,15 @@ adaptive_fold_kernel(int pos, const int* __restrict__ f, const int* __restrict__
 }
 
 template <typename T>
-cudaError_t launch(const void* const* ptrs, int pos, int B, const Dims& d, int L,
+cudaError_t launch(const void* const* ptrs, const int* pos, int B, const Dims& d, int L,
                    float scale, int kind, int renorm_at, cudaStream_t stream) {
   const size_t split = split_launch_bytes(d, sizeof(T));
   // the fold's last CTA keeps the hit pages and the directory in its P.V
   // buffers (2 * kFoldTile * kFoldDims floats; P + 5L <= 5632 ints at L = 1024)
   if (split == 0 || (size_t)d.P + 5 * (size_t)L > 2 * (size_t)kFoldTile * kFoldDims)
     return cudaErrorInvalidValue;
-  // launch 1 carves the directory only at a page boundary
-  const size_t bytes = split + (pos % d.page == 0 ? 5 * (size_t)L * sizeof(int) : 0);
+  // launch 1 carves the directory whatever pos is (only the device knows it)
+  const size_t bytes = split + 5 * (size_t)L * sizeof(int);
   if (bytes + kStaticSmem > kMaxSmem) return cudaErrorInvalidValue;
   auto in = [&](int i) { return static_cast<const T*>(ptrs[i]); };
   auto ci = [&](int i) { return static_cast<const int*>(ptrs[i]); };
@@ -259,7 +265,7 @@ cudaError_t launch(const void* const* ptrs, int pos, int B, const Dims& d, int L
 
 extern "C" int repro_adaptive_policy_paged_attention(
     int dtype, const void* q, const void* k, const void* v, const void* new_k,
-    const void* new_v, int pos, const void* f, const void* r,
+    const void* new_v, const void* pos, const void* f, const void* r,
     const void* page_start, const void* clock, const void* open_slot,
     const void* blocks, const void* tag, const void* stamp, const void* ref,
     const void* p, const void* ctr, void* out, void* mass, void* slot,
@@ -269,7 +275,7 @@ extern "C" int repro_adaptive_policy_paged_attention(
     int page, int KVH, int G, int hd, int L, float scale, int kind, int renorm_at,
     void* stream) {
   using namespace repro;
-  if (B < 1 || B > 65535 || pos < 0 || L < 2 * P || L > kMaxLanes ||
+  if (B < 1 || B > 65535 || L < 2 * P || L > kMaxLanes ||
       (kind != kKindArc && kind != kKindCar))
     return (int)cudaErrorInvalidValue;
   const Dims d{P, page, KVH, G, hd};
@@ -279,9 +285,10 @@ extern "C" int repro_adaptive_policy_paged_attention(
                           blocks_out, tag_out, stamp_out, ref_out, p_out, ctr_out,
                           scratch, counters};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* pos_in = static_cast<const int*>(pos);
   if (dtype == 0)
-    return (int)launch<float>(ptrs, pos, B, d, L, scale, kind, renorm_at, st);
+    return (int)launch<float>(ptrs, pos_in, B, d, L, scale, kind, renorm_at, st);
   if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(ptrs, pos, B, d, L, scale, kind, renorm_at, st);
+    return (int)launch<__nv_bfloat16>(ptrs, pos_in, B, d, L, scale, kind, renorm_at, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -2,8 +2,11 @@
 // attention with the new token injected in-tile, and the AWRP score update.
 //
 // Replaces repro/kernels/policy_attn.py policy_paged_attention_kernel
-// (Pallas, TPU).  Bound: bytes (each valid K/V row read once).  The two
-// launches of paged_attn.cu:
+// (Pallas, TPU).  Bound: bytes (each valid K/V row read once).  The token
+// index pos is read from device memory (one int32), as the Pallas kernel
+// reads pos_ref[0]: no launch argument depends on its value, so a captured
+// CUDA graph replays the step at every position.  The two launches of
+// paged_attn.cu:
 //   1. policy_partials_kernel, one CTA per (page, kv head, sequence): the
 //      CTA issues its page's loads, then, at a page boundary (pos % page ==
 //      0), runs the allocation over the read-only input planes: the first
@@ -33,7 +36,8 @@
 //       clock_out, open_out, scratch, counters, B, P, page, KVH, G, hd, scale,
 //       policy, stream)
 // dtype 0 = float32, 1 = bfloat16 for q / k / v / new_k / new_v / out; every
-// plane int32, mass float32; pos is the token index shared by the batch;
+// plane int32, mass float32; pos points to the token index shared by the
+// batch (one int32 >= 0 in device memory);
 // policy: 0 awrp, 1 lru, 2 fifo, 3 lfu, 4 arc, 5 car; scratch and counters
 // as in paged_attn.cu.  All contiguous.
 #include "paged_attn_common.cuh"
@@ -76,12 +80,13 @@ template <typename T, int G>
 __global__ void __launch_bounds__(kSplitThreads, kSplitBlocks)
 policy_partials_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const T* __restrict__ new_k,
-                       const T* __restrict__ new_v, int pos, const int* __restrict__ f,
-                       const int* __restrict__ r, const int* __restrict__ page_start,
-                       const int* __restrict__ clock, const int* __restrict__ open_slot,
-                       int* __restrict__ slot_out, float* scratch, Dims d, float scale,
-                       int policy) {
+                       const T* __restrict__ new_v, const int* __restrict__ pos_in,
+                       const int* __restrict__ f, const int* __restrict__ r,
+                       const int* __restrict__ page_start, const int* __restrict__ clock,
+                       const int* __restrict__ open_slot, int* __restrict__ slot_out,
+                       float* scratch, Dims d, float scale, int policy) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int pos = *pos_in;
   const SplitSmem sm = split_carve(smem_raw, d, sizeof(T));
   const int p = blockIdx.x, kh = blockIdx.y, b = blockIdx.z, P = d.P;
   const SplitScratch scr = split_scratch(scratch, gridDim.z, d);
@@ -120,7 +125,8 @@ policy_partials_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int G>
 __global__ void __launch_bounds__(kFoldThreads)
-policy_fold_kernel(int pos, const int* __restrict__ f, const int* __restrict__ r,
+policy_fold_kernel(const int* __restrict__ pos_in, const int* __restrict__ f,
+                   const int* __restrict__ r,
                    const int* __restrict__ page_start, const int* __restrict__ clock,
                    const int* __restrict__ open_slot, T* __restrict__ out,
                    float* __restrict__ mass, const int* __restrict__ slot_in,
@@ -129,6 +135,7 @@ policy_fold_kernel(int pos, const int* __restrict__ f, const int* __restrict__ r
                    int* __restrict__ open_out, float* scratch, int* counters, Dims d) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const FoldSmem sm = fold_carve(smem_raw);
+  const int pos = *pos_in;
   const int ns = fold_slices(d), P = d.P;
   const int g = blockIdx.x / ns, h0 = (blockIdx.x % ns) * kFoldDims;
   const int kh = blockIdx.y, b = blockIdx.z;
@@ -149,7 +156,7 @@ policy_fold_kernel(int pos, const int* __restrict__ f, const int* __restrict__ r
 }
 
 template <typename T>
-static cudaError_t launch_policy(const void* const* ptrs, int pos, int B,
+static cudaError_t launch_policy(const void* const* ptrs, const int* pos, int B,
                                  const Dims& d, float scale, int policy,
                                  cudaStream_t stream) {
   const size_t bytes = split_launch_bytes(d, sizeof(T));
@@ -182,21 +189,22 @@ static cudaError_t launch_policy(const void* const* ptrs, int pos, int B,
 
 extern "C" int repro_policy_paged_attention(
     int dtype, const void* q, const void* k, const void* v, const void* new_k,
-    const void* new_v, int pos, const void* f, const void* r,
+    const void* new_v, const void* pos, const void* f, const void* r,
     const void* page_start, const void* clock, const void* open_slot, void* out,
     void* mass, void* slot, void* f_out, void* r_out, void* ps_out,
     void* clock_out, void* open_out, void* scratch, void* counters, int B, int P,
     int page, int KVH, int G, int hd, float scale, int policy, void* stream) {
   using namespace repro;
-  if (B < 1 || B > 65535 || pos < 0 || policy < kAwrp || policy > kCar)
+  if (B < 1 || B > 65535 || policy < kAwrp || policy > kCar)
     return (int)cudaErrorInvalidValue;
   const Dims d{P, page, KVH, G, hd};
   const void* ptrs[20] = {q, k, v, new_k, new_v, f, r, page_start, clock,
                           open_slot, out, mass, slot, f_out, r_out, ps_out,
                           clock_out, open_out, scratch, counters};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch_policy<float>(ptrs, pos, B, d, scale, policy, st);
+  const int* pos_in = static_cast<const int*>(pos);
+  if (dtype == 0) return (int)launch_policy<float>(ptrs, pos_in, B, d, scale, policy, st);
   if (dtype == 1)
-    return (int)launch_policy<__nv_bfloat16>(ptrs, pos, B, d, scale, policy, st);
+    return (int)launch_policy<__nv_bfloat16>(ptrs, pos_in, B, d, scale, policy, st);
   return (int)cudaErrorInvalidValue;
 }

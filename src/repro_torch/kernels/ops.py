@@ -50,12 +50,12 @@ def paged_attention(q, k_pages, v_pages, page_start, cur_pos):
     return res
 
 
-def policy_paged_attention(q, k_pages, v_pages, new_k, new_v, pos: int,
+def policy_paged_attention(q, k_pages, v_pages, new_k, new_v, pos,
                            f, r, page_start, clock, open_slot, *, policy: str):
-    """One fused flat-policy decode step; returns ``(out, page_mass, slot,
-    f', r', page_start', clock', open_slot')``
-    (``repro.kernels.ops.policy_paged_attention``).  The caller scatters the
-    new K/V row at ``slot``."""
+    """One fused flat-policy decode step at ``pos`` (0-d int32, on q's
+    device); returns ``(out, page_mass, slot, f', r', page_start', clock',
+    open_slot')`` (``repro.kernels.ops.policy_paged_attention``).  The
+    caller scatters the new K/V row at ``slot``."""
     if q.device.type == "cpu":
         return ref.policy_paged_attention_plain(
             q, k_pages, v_pages, new_k, new_v, pos, f, r, page_start, clock,
@@ -69,7 +69,7 @@ def policy_paged_attention(q, k_pages, v_pages, new_k, new_v, pos: int,
     return res
 
 
-def adaptive_policy_paged_attention(q, k_pages, v_pages, new_k, new_v, pos: int,
+def adaptive_policy_paged_attention(q, k_pages, v_pages, new_k, new_v, pos,
                                     f, r, page_start, clock, open_slot, blocks,
                                     tag, stamp, refbits, p_plane, ctr, *,
                                     kind: str, renorm_at):

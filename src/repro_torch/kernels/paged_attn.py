@@ -12,7 +12,10 @@ head, sequence) writes the page's partials to a scratch buffer
 counts both grids).  The last fold CTA of a sequence, found with an atomic
 counter, writes the mass; the counters live in one zeroed int32 buffer per
 (device, stream) (``split_buffers``), and the kernel leaves them 0, so
-launches on one stream reuse it.
+launches on one stream reuse it.  A captured CUDA graph keeps the buffer of
+the stream it was captured on: the serving engine captures every decode
+graph on one stream it owns (``ServeEngine.capture_stream``), and its
+warm-up makes the buffer before the capture.
 """
 
 from __future__ import annotations

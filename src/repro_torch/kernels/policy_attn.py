@@ -14,7 +14,10 @@
 
 The pool K/V stay read-only; the caller scatters the new row at the returned
 slot (``cache/paged_kv.py`` ``fused_decode_step`` /
-``fused_adaptive_decode_step``).
+``fused_adaptive_decode_step``).  The token index ``pos`` is a 0-d int32
+tensor on the kernel's device, read by the kernels from device memory as the
+Pallas kernels read ``pos_ref[0]``: no launch argument depends on its value,
+so a captured CUDA graph replays the step at every position.
 """
 
 from __future__ import annotations
@@ -32,13 +35,22 @@ ADAPTIVE_KIND = {"arc": 0, "car": 1}
 MAX_LANES = 1024  # kMaxLanes in csrc/adaptive_attn.cu
 
 
-def policy_paged_attention_kernel(q, k_pages, v_pages, new_k, new_v, pos: int,
+def check_pos(name: str, pos, device) -> None:
+    """Raise unless ``pos`` is a 0-d int32 tensor on ``device`` (its value,
+    which must be >= 0, stays on the device)."""
+    if not (isinstance(pos, torch.Tensor) and pos.dim() == 0
+            and pos.dtype == torch.int32 and pos.device == device):
+        raise ValueError(f"{name}: pos must be a 0-d int32 tensor on {device}, got "
+                         f"{pos!r}")
+
+
+def policy_paged_attention_kernel(q, k_pages, v_pages, new_k, new_v, pos,
                                   f, r, page_start, clock, open_slot, *,
                                   policy: str):
     """q (B, KVH, G, hd); pages (B, P, page, KVH, hd) WITHOUT the new token;
     new_k/new_v (B, KVH, hd) in the pool's dtype; ``pos`` the token index
-    shared by the batch; f/r/page_start (B, P) and clock/open_slot (B,)
-    int32.  Returns ``(out, mass, slot, f', r', page_start', clock',
+    shared by the batch (0-d int32 on the card); f/r/page_start (B, P) and
+    clock/open_slot (B,) int32.  Returns ``(out, mass, slot, f', r', page_start', clock',
     open_slot')``.  One call: two launches (``paged_attn.split_ctas``),
     every CTA of the first running the allocation itself."""
     B, P, page, KVH, hd = k_pages.shape
@@ -52,8 +64,7 @@ def policy_paged_attention_kernel(q, k_pages, v_pages, new_k, new_v, pos: int,
             or open_slot.shape != (B,) or G > MAX_G:
         raise ValueError("policy_paged_attention: inconsistent shapes "
                          f"q={tuple(q.shape)} k={tuple(k_pages.shape)}")
-    if not 0 <= int(pos) < 2**31:
-        raise ValueError(f"policy_paged_attention: pos {pos} out of int32 range")
+    check_pos("policy_paged_attention", pos, q.device)
     check_head_rows("policy_paged_attention", hd, q)
     dev = q.device
     out = torch.empty_like(q)
@@ -65,7 +76,7 @@ def policy_paged_attention_kernel(q, k_pages, v_pages, new_k, new_v, pos: int,
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _build.library().repro_policy_paged_attention(
         DTYPE_CODE[q.dtype], q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        new_k.data_ptr(), new_v.data_ptr(), int(pos), f.data_ptr(), r.data_ptr(),
+        new_k.data_ptr(), new_v.data_ptr(), pos.data_ptr(), f.data_ptr(), r.data_ptr(),
         page_start.data_ptr(), clock.data_ptr(), open_slot.data_ptr(),
         out.data_ptr(), mass.data_ptr(), slot.data_ptr(), f2.data_ptr(),
         r2.data_ptr(), ps2.data_ptr(), clock2.data_ptr(), open2.data_ptr(),
@@ -76,7 +87,7 @@ def policy_paged_attention_kernel(q, k_pages, v_pages, new_k, new_v, pos: int,
 
 
 def adaptive_policy_paged_attention_kernel(q, k_pages, v_pages, new_k, new_v,
-                                           pos: int, f, r, page_start, clock,
+                                           pos, f, r, page_start, clock,
                                            open_slot, blocks, tag, stamp, refbits,
                                            p_plane, ctr, *, kind: str, renorm_at):
     """The inputs of ``policy_paged_attention_kernel`` plus the ARC/CAR
@@ -108,8 +119,7 @@ def adaptive_policy_paged_attention_kernel(q, k_pages, v_pages, new_k, new_v,
         raise ValueError(f"{name}: kind {kind!r} not in {list(ADAPTIVE_KIND)}")
     if renorm_at is None or not -2**31 <= int(renorm_at) < 2**31:
         raise ValueError(f"{name}: renorm_at must be an int32, got {renorm_at!r}")
-    if not 0 <= int(pos) < 2**31:
-        raise ValueError(f"{name}: pos {pos} out of int32 range")
+    check_pos(name, pos, q.device)
     dev = q.device
     out = torch.empty_like(q)
     mass = torch.empty((B, P), dtype=torch.float32, device=dev)
@@ -124,7 +134,7 @@ def adaptive_policy_paged_attention_kernel(q, k_pages, v_pages, new_k, new_v,
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _build.library().repro_adaptive_policy_paged_attention(
         DTYPE_CODE[q.dtype], q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        new_k.data_ptr(), new_v.data_ptr(), int(pos),
+        new_k.data_ptr(), new_v.data_ptr(), pos.data_ptr(),
         *(t.data_ptr() for t in (f, r, page_start, clock, open_slot, blocks, tag,
                                  stamp, refbits, p_plane, ctr)),
         *(t.data_ptr() for t in outs), scratch.data_ptr(), counters.data_ptr(),

@@ -134,7 +134,7 @@ def paged_attention_plain(q, k_pages, v_pages, page_start, cur_pos):
     return st.finalize(q.dtype)
 
 
-def _injected_attention(q, k_pages, v_pages, new_k, new_v, pos: int, slot,
+def _injected_attention(q, k_pages, v_pages, new_k, new_v, pos, slot,
                         page_start):
     """Attention of the fused steps over the post-allocation pool, the new
     K/V row injected in-tile at (slot, pos % page) (the pool is only read):
@@ -145,7 +145,7 @@ def _injected_attention(q, k_pages, v_pages, new_k, new_v, pos: int, slot,
     nk = new_k.to(torch.float32)[:, None]  # (B, 1, KVH, hd)
     nv = new_v.to(torch.float32)[:, None]
     row = torch.arange(page, dtype=torch.int32, device=q.device)
-    cur = torch.full((B,), pos, dtype=torch.int32, device=q.device)
+    cur = pos.expand(B)
 
     def tile(p_idx):
         inject = ((slot[:, None] == p_idx) & (row[None] == within))[..., None, None]
@@ -157,25 +157,26 @@ def _injected_attention(q, k_pages, v_pages, new_k, new_v, pos: int, slot,
     return st.finalize(q.dtype)
 
 
-def policy_paged_attention_plain(q, k_pages, v_pages, new_k, new_v, pos: int,
+def policy_paged_attention_plain(q, k_pages, v_pages, new_k, new_v, pos,
                                  f, r, page_start, clock, open_slot, *,
                                  policy: str):
     """The fused flat-policy decode step: allocation, attention with the new
     K/V row injected in-tile (the pool is only read), finalize and
-    the score update.  Returns ``(out, mass, slot, f', r', page_start',
-    clock', open_slot')``."""
+    the score update; ``pos`` a 0-d int32 tensor, as the kernel reads it.
+    Returns ``(out, mass, slot, f', r', page_start', clock', open_slot')``:
+    the open slot is the allocated one at a page boundary, else unchanged,
+    which is ``slot`` either way."""
     page = k_pages.shape[2]
     slot, fa, ra, psa = allocate(f, r, page_start, clock, open_slot, pos, page,
                                  policy)
     out, mass = _injected_attention(q, k_pages, v_pages, new_k, new_v, pos, slot,
                                     psa)
     f2, r2, clock2 = score_planes(mass, fa, ra, psa, clock)
-    open2 = slot if pos % page == 0 else open_slot
-    return out, mass, slot, f2, r2, psa, clock2, open2
+    return out, mass, slot, f2, r2, psa, clock2, slot
 
 
 def adaptive_policy_paged_attention_plain(q, k_pages, v_pages, new_k, new_v,
-                                          pos: int, f, r, page_start, clock,
+                                          pos, f, r, page_start, clock,
                                           open_slot, blocks, tag, stamp, refbits,
                                           p_plane, ctr, *, kind: str, renorm_at):
     """Plain version of kernel 5, the fused true-adaptive (arc/car) decode
@@ -186,10 +187,12 @@ def adaptive_policy_paged_attention_plain(q, k_pages, v_pages, new_k, new_v,
     (``adaptive_hits``).  The directory planes are (B, L) int32 (L = 2P
     lanes), ``p_plane`` (B,) f32, ``ctr`` (B,) int32; the core has capacity P
     and ``renorm_at``.  Returns the flat step's eight outputs followed by
-    the six updated directory planes, (B, L) and (B,)."""
+    the six updated directory planes, (B, L) and (B,).  Like the kernel it
+    reads nothing back to the host for ARC (the renormalization check is
+    masked); CAR's clock-hand sweep reads it once per trip."""
     B, P, page = k_pages.shape[:3]
     core = AdaptiveCore(kind=kind, caps=(P,) * B, lanes=blocks.shape[1],
-                        renorm_at=renorm_at)
+                        renorm_at=renorm_at, masked_renorm=True)
     state = AdaptiveState(blocks[:, None], tag[:, None], stamp[:, None],
                           refbits[:, None], p_plane[:, None], ctr[:, None])
     slot, fa, ra, psa, state = adaptive_allocate(core, state, f, r, page_start,
@@ -198,8 +201,7 @@ def adaptive_policy_paged_attention_plain(q, k_pages, v_pages, new_k, new_v,
                                     psa)
     f2, r2, clock2 = score_planes(mass, fa, ra, psa, clock)
     state = adaptive_hits(core, state, psa, _hit(mass, psa), page)
-    open2 = slot if pos % page == 0 else open_slot
-    return (out, mass, slot, f2, r2, psa, clock2, open2,
+    return (out, mass, slot, f2, r2, psa, clock2, slot,
             *(t[:, 0] for t in state))
 
 

@@ -22,6 +22,10 @@ experts, top-2).  A configuration whose weights exceed the device's memory
 is refused (grok-1's full config on one card): its ``--smoke`` config
 runs.
 
+The decode loop replays one captured CUDA graph per step (the engine's
+``jit_loop=True``, the reference's default); ``--host-loop`` runs the eager
+per-step loop instead, the baseline.
+
 Runs on the CUDA card by default (``--device cuda``; raises when CUDA is not
 available).  ``--device cpu`` runs the plain PyTorch versions of the kernels
 on the CPU.  Weights are random, from ``--seed``; nothing is downloaded.
@@ -85,6 +89,9 @@ def main(argv=None):
     ap.add_argument("--auto-rebalance", action="store_true",
                     help="move quota lanes to pressured tenants from the coldest "
                     "(AWRP tenant ranking)")
+    ap.add_argument("--host-loop", action="store_true",
+                    help="decode with the eager per-step host loop instead of "
+                    "replaying the captured decode graph")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -112,7 +119,8 @@ def main(argv=None):
     params = M.init_params(cfg, gen, device=device)
     engine = ServeEngine(cfg, params, max_len=args.max_len, kv_mode=args.kv_mode,
                          fused=args.fused, seed=args.seed, tenants=tenants,
-                         auto_rebalance=args.auto_rebalance, device=device)
+                         auto_rebalance=args.auto_rebalance,
+                         jit_loop=not args.host_loop, device=device)
 
     rng = np.random.RandomState(args.seed)
     names = list(tenants) if tenants else ["default"]
@@ -139,7 +147,8 @@ def main(argv=None):
     total = sum(len(r.tokens) for r in results.values())
     tel = engine.telemetry()
     print(f"arch={cfg.name} device={device} kv_mode={args.kv_mode} "
-          f"policy={args.kv_policy} fused={args.fused}")
+          f"policy={args.kv_policy} fused={args.fused} "
+          f"loop={'host' if args.host_loop else 'graph'}")
     print(f"{len(reqs)} requests, {total} tokens in {dt:.2f}s "
           f"(prefill {tel['serve/prefill_s']:.3f}s, decode {tel['serve/decode_s']:.3f}s)")
     print(f"kv evictions={tel['serve/kv_evictions']} "

@@ -47,7 +47,9 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     hd = x.shape[-1]
     half = hd // 2
     exponent = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
-    freq = torch.pow(torch.tensor(theta, dtype=torch.float32, device=x.device), exponent)
+    # theta filled on the device, not copied from the host: a decode step
+    # makes no host-to-device copy (a CUDA graph captures it)
+    freq = torch.pow(torch.full((), theta, dtype=torch.float32, device=x.device), exponent)
     ang = positions[..., None].to(torch.float32) * freq  # (B, S, half)
     cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
     x1, x2 = x[..., :half], x[..., half:]
@@ -92,26 +94,32 @@ def attention(params: Params, x: torch.Tensor, cfg, *, window: int = 0
     return out.reshape(B, S, H * hd) @ params["wo"], (k, v)
 
 
-def decode_kv_row(params: Params, x: torch.Tensor, cfg, *, position: int
+def _positions(position: torch.Tensor, B: int) -> torch.Tensor:
+    """The decode token's (B, 1) positions from the shared 0-d int32
+    ``position`` (a broadcast on the device)."""
+    return position.reshape(1, 1).expand(B, 1)
+
+
+def decode_kv_row(params: Params, x: torch.Tensor, cfg, *, position: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """New token's (k, v) rows, RoPE'd at ``position``: (B, 1, D) ->
-    (B, 1, kvd) each."""
+    """New token's (k, v) rows, RoPE'd at ``position`` (0-d int32): (B, 1,
+    D) -> (B, 1, kvd) each."""
     B = x.shape[0]
     KVH, hd = cfg.n_kv_heads, cfg.head_dim
     k_new, v_new = x @ params["wk"], x @ params["wv"]
-    pos = torch.full((B, 1), position, dtype=torch.int32, device=x.device)
-    k_new = rope(k_new.reshape(B, 1, KVH, hd), pos, cfg.rope_theta).reshape(B, 1, KVH * hd)
+    k_new = rope(k_new.reshape(B, 1, KVH, hd), _positions(position, B),
+                 cfg.rope_theta).reshape(B, 1, KVH * hd)
     return k_new, v_new
 
 
-def decode_q(params: Params, x: torch.Tensor, cfg, *, position: int) -> torch.Tensor:
+def decode_q(params: Params, x: torch.Tensor, cfg, *, position: torch.Tensor
+             ) -> torch.Tensor:
     """The query half of ``decode_attend``: (B, 1, D) -> (B, KVH, G, hd)
-    grouped queries, RoPE'd at ``position``."""
+    grouped queries, RoPE'd at ``position`` (0-d int32)."""
     B = x.shape[0]
     H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = x @ params["wq"]
-    pos = torch.full((B, 1), position, dtype=torch.int32, device=x.device)
-    q = rope(q.reshape(B, 1, H, hd), pos, cfg.rope_theta)
+    q = rope(q.reshape(B, 1, H, hd), _positions(position, B), cfg.rope_theta)
     return q.reshape(B, KVH, H // KVH, hd)
 
 
@@ -121,7 +129,7 @@ def decode_project_out(params: Params, out: torch.Tensor, cfg) -> torch.Tensor:
     return out.reshape(B, 1, cfg.n_heads * cfg.head_dim) @ params["wo"]
 
 
-def decode_attend(params: Params, x: torch.Tensor, cfg, *, position: int,
+def decode_attend(params: Params, x: torch.Tensor, cfg, *, position: torch.Tensor,
                   k_cache: torch.Tensor, v_cache: torch.Tensor,
                   kv_positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """One-token attention over a (B, T, kvd) cache that already holds the

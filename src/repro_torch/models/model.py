@@ -14,7 +14,10 @@ Where the reference scans the unit with ``lax.scan``, this module runs a
 Python loop over repeats and positions; the per-layer views share storage
 with the stacked tensors.
 
-Decode caches are ``{"pos": int, "blocks": {position: cache}}``.  A
+Decode caches are ``{"pos": pos, "blocks": {position: cache}}``, ``pos``
+the next token's index as a 0-d int32 tensor on the caches' device (the
+reference's traced scalar): ``decode_step`` advances it there and reads
+nothing back to the host, so a CUDA graph can capture the step.  A
 ``"local"`` position's cache is a sliding-window ring ``{"k", "v"}`` of
 ``sliding_window`` rows (slot ``pos % W``); a full-attention position's is
 a ``{"k", "v"}`` dict of ``max_len`` rows (``kv_mode="full"``), a
@@ -275,7 +278,12 @@ def prefill(params: Params, cfg, tokens: torch.Tensor, max_len: int,
         k, v = torch.stack(ks), torch.stack(vs)  # (n_rep, B, S, kvd)
         del ks, vs
         blocks[pos] = _cache_from_prefill(cfg, kind, k, v, S, max_len, kv_mode)
-    return logits, {"pos": S, "blocks": blocks}
+    return logits, {"pos": _position(S, x.device), "blocks": blocks}
+
+
+def _position(value: int, device) -> torch.Tensor:
+    """A 0-d int32 position on ``device``, filled there (no host copy)."""
+    return torch.full((), value, dtype=torch.int32, device=device)
 
 
 def _stack_layers(t: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -359,10 +367,10 @@ def decode_caches(cfg, batch: int, max_len: int, *, kv_mode: str = "full",
 
     blocks = {pos: one(kind, n_rep) for pos, kind in unit}
     blocks.update({pos: _layer_cache(one(kind, 1), 0) for pos, kind in tail})
-    return {"pos": 0, "blocks": blocks}
+    return {"pos": _position(0, dev), "blocks": blocks}
 
 
-def _decode_block(kind: str, p: Params, x: torch.Tensor, cfg, cache, pos: int,
+def _decode_block(kind: str, p: Params, x: torch.Tensor, cfg, cache, pos,
                   win_positions, kv_mode: str, fused: bool):
     """One block at decode; returns (x, new cache of this layer).  A
     ``local`` block writes its ring and attends over ``win_positions``."""
@@ -378,7 +386,8 @@ def _decode_block(kind: str, p: Params, x: torch.Tensor, cfg, cache, pos: int,
     elif kv_mode == "paged":
         adaptive = isinstance(cache, paged_kv.AdaptivePagedPool)
         if adaptive:
-            core = paged_kv.adaptive_core(cfg.kv_policy, B, cfg.bounded_kv_pages)
+            core = paged_kv.adaptive_core(cfg.kv_policy, B, cfg.bounded_kv_pages,
+                                          masked_renorm=True)
         if fused:
             # one CUDA launch: victim selection + attention over the pool +
             # policy-plane update (kernels/csrc/policy_attn.cu, adaptive_attn.cu)
@@ -423,7 +432,12 @@ def _decode_block(kind: str, p: Params, x: torch.Tensor, cfg, cache, pos: int,
 
 def decode_step(params: Params, cfg, token: torch.Tensor, caches,
                 *, kv_mode: str = "full", fused: bool = False):
-    """One serving step: token (B, 1) int -> (logits (B, 1, Vpad), caches).
+    """One serving step: token (B, 1) int -> (logits (B, 1, Vpad), caches),
+    ``pos`` advanced on the device.  No host read and no host copy, so a
+    CUDA graph captures it whole (``serve/engine.py``).  An unfused
+    true-adaptive pool is the exception: its eager core copies its
+    capacities to the device at every access, and CAR's clock-hand sweep
+    reads the host once per trip (``policy_core._car_step``).
 
     ``fused=True`` routes the paged blocks through the fused CUDA policy
     kernel (one call per layer, ``ops.SPLIT_LAUNCHES`` launches); decisions
@@ -431,7 +445,7 @@ def decode_step(params: Params, cfg, token: torch.Tensor, caches,
     unit, n_rep, tail = scan_plan(cfg)
     pos = caches["pos"]
     x = _embed(params, cfg, token)
-    win_positions = (paged_kv.ring_positions(pos, cfg.sliding_window, x.device)
+    win_positions = (paged_kv.ring_positions(pos, cfg.sliding_window)
                      if cfg.sliding_window else None)
     blocks = caches["blocks"]
     layers = {name: [] for name, _ in unit}
@@ -482,5 +496,5 @@ def clone_caches(caches):
             return cache.clone()
         return {k: v.clone() for k, v in cache.items()}
 
-    return {"pos": caches["pos"],
+    return {"pos": caches["pos"].clone(),
             "blocks": {name: copy(c) for name, c in caches["blocks"].items()}}

@@ -1,6 +1,6 @@
 """Serving engine: prefill -> decode over AWRP-managed caches
-(``repro/serve/engine.py`` without the jitted decode loop and the obs
-registry).
+(``repro/serve/engine.py`` without the obs registry: its ``metrics=False``
+decode loop).
 
   * length-bucketed batching: requests with equal page-aligned prompt
     lengths run together, sharing one token position per step;
@@ -29,12 +29,20 @@ registry).
   * expert cache: ``expert_cache=`` carries an MoE model's
     ``ExpertCacheRuntime`` and mounts its stats under ``expert/...``; nothing
     feeds the router into it yet (in the reference neither);
-  * the decode loop is a plain Python loop: one ``decode_step`` per token,
-    tokens stay on the device until the bucket ends.
+  * the decode loop: with ``jit_loop=True`` (the default, as in the
+    reference) one decode step, its sampling and the step's counters are
+    captured as one CUDA graph per (batch size, greedy or sampled) key
+    (``DecodeGraph``, the counterpart of the reference's ``_get_loop`` /
+    ``_build_loop``) and a bucket replays it once per token; on the CPU the
+    same runner runs the same step eagerly.  ``jit_loop=False`` is the
+    eager host loop, one ``decode_step`` per token, the baseline.  In both,
+    tokens stay on the device until the bucket ends and the loop reads
+    nothing back to the host.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Dict, List, Optional
@@ -45,8 +53,9 @@ from repro_torch.cache import paged_kv
 from repro_torch.cache.prefix_cache import PrefixCache
 from repro_torch.core.policy_core import AdaptiveState
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
 from repro_torch.models import model as M
-from repro_torch.serve.sampling import sample
+from repro_torch.serve.sampling import sample, sample_traced
 from repro_torch.serve.tenancy import DEFER, SHED, AdmissionController, TenantPrefixCache
 
 
@@ -78,6 +87,135 @@ class Result:
     status: str = "ok"  # "ok" | "deferred" | "shed"
 
 
+def _copy_into(dst, src) -> None:
+    """Copy cache tree ``src`` into ``dst`` (the same structure) leaf by
+    leaf, skipping leaves that already share storage (the K/V a decode step
+    writes in place)."""
+    if isinstance(dst, torch.Tensor):
+        if dst.data_ptr() != src.data_ptr():
+            dst.copy_(src)
+    elif isinstance(dst, dict):
+        for key, leaf in dst.items():
+            _copy_into(leaf, src[key])
+    else:  # PagedPool, AdaptivePagedPool, AdaptiveState
+        for a, b in zip(dst, src):
+            _copy_into(a, b)
+
+
+@contextlib.contextmanager
+def _sync_errors(device: torch.device):
+    """Run the body with ``torch.cuda.set_sync_debug_mode("error")`` on a
+    CUDA device: a host sync between graph replays raises."""
+    if device.type != "cuda":
+        yield
+        return
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
+class DecodeGraph:
+    """One decode step as a CUDA graph for one (batch size, greedy or
+    sampled) key: the counterpart of the reference's ``_build_loop``, whose
+    ``lax.scan`` body is this step.
+
+    It owns the static inputs: the token, the cache tree (``pos``, the K/V,
+    every policy plane), the temperature and the eviction and non-finite
+    counters.  One step runs ``ServeEngine._step`` on them and writes its
+    results back into them: the K/V pages are written in place by the step,
+    the planes ``decode_step`` restacks are copied back.  ``load`` copies a
+    bucket's caches in; a stored prefix payload is only read, so none
+    aliases the static tree (the reference's donation rule).
+
+    On a CUDA device the step is captured once, on the engine's long-lived
+    capture stream, after one eager warm-up step there (the kernel library's
+    load, cuBLAS's workspace and the split kernels' arrival counters are
+    set up outside the capture); a failed capture raises.  Each replay adds
+    the launches the capture recorded to ``ops.LAUNCHES``, so it counts the
+    launches the device ran in both loops; the warm-up and the capture
+    count none.  A sampled graph draws from the engine's generator,
+    registered with the graph.  On the CPU ``step`` runs the same body
+    eagerly."""
+
+    def __init__(self, engine: "ServeEngine", caches, sampled: bool):
+        dev = engine.device
+        self.engine = engine
+        self.caches = M.clone_caches(caches)
+        B = _batch_of(next(iter(caches["blocks"].values())))
+        self.tok = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+        self.temperature = torch.zeros((), dtype=torch.float32, device=dev)
+        self.evictions = torch.zeros((), dtype=torch.int64, device=dev)
+        self.nonfinite = torch.zeros((), dtype=torch.int64, device=dev)
+        self.generator = engine.generator if sampled else None
+        self.graph = None
+        #: host-clock seconds of the build: clone, warm-up and capture
+        self.build_s = 0.0
+        #: ops.LAUNCHES the captured step makes, added once per replay
+        self.launches: Dict[str, int] = {}
+        if dev.type == "cuda":
+            self._capture(engine.capture_stream())
+
+    def _body(self, generator) -> None:
+        tok, caches, evictions, nonfinite = self.engine._step(
+            self.tok, self.caches, generator, self.temperature)
+        self.tok.copy_(tok)
+        self.evictions += evictions
+        self.nonfinite += nonfinite
+        _copy_into(self.caches, caches)
+
+    def _capture(self, stream) -> None:
+        dev = self.engine.device
+        before = dict(ops.LAUNCHES)
+        # the warm-up draws from a generator of its own: the engine's stream
+        # of draws is the host loop's
+        warm_gen = (torch.Generator(device=dev).manual_seed(0)
+                    if self.generator is not None else None)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            self._body(warm_gen)
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        warmed = dict(ops.LAUNCHES)
+        graph = torch.cuda.CUDAGraph()
+        if self.generator is not None:
+            graph.register_generator_state(self.generator)
+        with torch.cuda.graph(graph, stream=stream):
+            self._body(self.generator)
+        self.launches = {k: n - warmed[k] for k, n in ops.LAUNCHES.items()
+                         if n != warmed[k]}
+        ops.LAUNCHES.update(before)
+        self.graph = graph
+
+    def load(self, caches, tok: torch.Tensor, temperature: float) -> None:
+        """A bucket's starting state: its caches, its first token, its
+        temperature, the counters at 0."""
+        _copy_into(self.caches, caches)
+        self.tok.copy_(tok)
+        self.temperature.fill_(temperature)
+        self.evictions.zero_()
+        self.nonfinite.zero_()
+
+    def step(self) -> None:
+        """One decode step: a graph replay on the card, the body on the CPU."""
+        if self.graph is None:
+            self._body(self.generator)
+            return
+        self.graph.replay()
+        for name, n in self.launches.items():
+            ops.LAUNCHES[name] += n
+
+
+def _batch_of(cache) -> int:
+    """The batch size of one position's decode cache (stacked or not)."""
+    if isinstance(cache, paged_kv.AdaptivePagedPool):
+        cache = cache.pool
+    if isinstance(cache, paged_kv.PagedPool):
+        return cache.f.shape[-2]
+    return cache["k"].shape[-3]
+
+
 class ServeEngine:
     """Batched generation over AWRP-managed caches on one device.
 
@@ -85,9 +223,19 @@ class ServeEngine:
     (page allocations made while a sequence's pool was full, summed over
     layers and sequences), the ghost hits of the true-adaptive pool's
     cross-request feed, logits that were not finite, the host-clock seconds
-    of prefill and decode (each ends in a device synchronize), and the
+    of prefill and decode (each ends in a device synchronize), the
     multi-tenant engine's shed and deferred requests and rebalanced quota
-    lanes.
+    lanes, and the decode graphs built (``loop_captures``: one per batch
+    size and sampling mode, the reference's ``compile/decode_loop`` count;
+    on the CPU the runner is built but nothing is captured; the seconds a
+    build took are its ``DecodeGraph.build_s``, not in ``decode_s``).
+
+    ``jit_loop=True`` (the default) decodes by replaying ``DecodeGraph``;
+    ``jit_loop=False`` runs the eager host loop.  On a CUDA device the
+    unfused true-adaptive pool (``arc_adaptive`` / ``car_adaptive`` with
+    ``fused=False``) is refused with ``jit_loop=True``: its eager policy
+    core reads the host (CAR's clock-hand sweep, the core's capacities), so
+    it cannot be captured; it is the correctness reference of kernel 5.
 
     ``prefix_policy`` is a policy name or a prebuilt host policy (through
     ``make_cache_policy``) for the single-tenant prompt cache, a device
@@ -98,8 +246,15 @@ class ServeEngine:
                  tenants: Optional[Dict[str, int]] = None,
                  admission: Optional[AdmissionController] = None,
                  auto_rebalance: bool = False, fused: bool = False, expert_cache=None,
-                 device="cuda"):
+                 jit_loop: bool = True, device="cuda"):
         self.device = resolve_device(device)
+        self.jit_loop = bool(jit_loop)
+        if (self.jit_loop and self.device.type == "cuda" and kv_mode == "paged"
+                and cfg.kv_policy in paged_kv.TRUE_ADAPTIVE_KV and not fused):
+            raise ValueError(
+                f"kv_policy {cfg.kv_policy!r} with fused=False reads the host in "
+                "its eager policy core and cannot be captured as a decode graph; "
+                "serve it with fused=True, or with jit_loop=False")
         self.cfg = cfg
         self.params = params
         self.max_len = max_len
@@ -121,7 +276,12 @@ class ServeEngine:
         self.stats = {"prefills": 0, "decode_steps": 0, "tokens": 0,
                       "kv_evictions": 0, "kv_ghost_hits": 0,
                       "nonfinite_logits": 0, "prefill_s": 0.0, "decode_s": 0.0,
-                      "shed": 0, "deferred": 0, "rebalances": 0}
+                      "shed": 0, "deferred": 0, "rebalances": 0, "loop_captures": 0}
+        #: decode graphs by (batch size, sampled), and the stream they are
+        #: captured on (one per engine, so the split kernels' per-stream
+        #: arrival counters are set up once)
+        self._graphs: Dict[tuple, DecodeGraph] = {}
+        self._capture_stream = None
         #: ghost-hit feed, per tenant: the tenant's last single request's
         #: final pool policy state of each adaptive position (stacked over
         #: layers), and the ghost hits its re-prefills replayed
@@ -155,16 +315,80 @@ class ServeEngine:
 
     def _evictions_at(self, caches) -> torch.Tensor:
         """Allocations the next step makes into a full pool, summed over the
-        pool positions (0-d tensor, not pulled)."""
+        pool positions: counted on every step and kept where ``pos`` is a
+        page boundary (0-d tensor, computed on the device, not pulled)."""
         total = torch.zeros((), dtype=torch.int64, device=self.device)
-        if self.kv_mode != "paged" or caches["pos"] % self.cfg.page_size:
+        if self.kv_mode != "paged":
             return total
         for pool in caches["blocks"].values():
             if isinstance(pool, paged_kv.AdaptivePagedPool):
                 pool = pool.pool
             if isinstance(pool, paged_kv.PagedPool):
                 total = total + (pool.page_start >= 0).all(dim=-1).sum()
-        return total
+        return total * (caches["pos"] % self.cfg.page_size == 0)
+
+    # -- the decode loop ----------------------------------------------------
+    def capture_stream(self) -> torch.cuda.Stream:
+        """The engine's stream for graph warm-ups and captures, made once."""
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(device=self.device)
+        return self._capture_stream
+
+    def _step(self, tok, caches, generator, temperature):
+        """One decode step on the device: the evictions its allocation makes
+        into a full pool, the step, its non-finite logits and the next token
+        (``sample_traced``).  Returns ``(tok, caches, evictions,
+        nonfinite)``; nothing is read back to the host."""
+        evictions = self._evictions_at(caches)
+        logits, caches = M.decode_step(self.params, self.cfg, tok, caches,
+                                       kv_mode=self.kv_mode, fused=self.fused)
+        nonfinite = (~torch.isfinite(logits)).sum()
+        tok = sample_traced(logits, generator, temperature, vocab=self.cfg.vocab)
+        return tok, caches, evictions, nonfinite
+
+    def decode_graph(self, caches, sampled: bool) -> DecodeGraph:
+        """The decode graph of ``caches``' batch size and the sampling mode,
+        built (and on the card captured) at its first use, from ``caches``'
+        shapes."""
+        key = (_batch_of(next(iter(caches["blocks"].values()))), bool(sampled))
+        graph = self._graphs.get(key)
+        if graph is None:
+            t0 = time.perf_counter()
+            graph = DecodeGraph(self, caches, sampled)
+            self._sync()
+            graph.build_s = time.perf_counter() - t0
+            self._graphs[key] = graph
+            self.stats["loop_captures"] += 1
+        return graph
+
+    def _graph_loop(self, graph: DecodeGraph, tok, caches, temperature: float,
+                    steps: int):
+        """``steps`` replays of the bucket's decode graph: the generated
+        tokens (each a copy of the static token), the final caches (the
+        graph's static tree) and the counters, all on the device."""
+        graph.load(caches, tok, temperature)
+        generated = []
+        with _sync_errors(self.device):
+            for _ in range(steps):
+                graph.step()
+                generated.append(graph.tok.clone())
+        return generated, graph.caches, graph.evictions, graph.nonfinite
+
+    def _host_loop(self, tok, caches, temperature: float, steps: int):
+        """``steps`` eager decode steps (``jit_loop=False``, the baseline):
+        the same outputs as ``_graph_loop``."""
+        evictions = torch.zeros((), dtype=torch.int64, device=self.device)
+        nonfinite = torch.zeros((), dtype=torch.int64, device=self.device)
+        generated = []
+        for _ in range(steps):
+            evictions += self._evictions_at(caches)
+            logits, caches = M.decode_step(self.params, self.cfg, tok, caches,
+                                           kv_mode=self.kv_mode, fused=self.fused)
+            nonfinite += (~torch.isfinite(logits)).sum()
+            tok = sample(logits, self.generator, temperature=temperature,
+                         vocab=self.cfg.vocab)
+            generated.append(tok)
+        return generated, caches, evictions, nonfinite
 
     # -- ghost-hit feed (true-adaptive paged KV) ---------------------------
     @property
@@ -239,9 +463,13 @@ class ServeEngine:
         t0 = time.perf_counter()
         max_new = max(r.max_new_tokens for r in reqs)
         single = len(reqs) == 1
+        # the graph loop copies the caches into its static tree and never
+        # writes a stored payload; the host loop decodes in place, so it
+        # takes a copy on a hit and stores a copy on a miss
+        own = M.clone_caches if not self.jit_loop else (lambda c: c)
         cached = self._lookup_prefix(reqs[0]) if single else None
         if cached is not None:
-            logits, caches = cached[0], M.clone_caches(cached[1])
+            logits, caches = cached[0], own(cached[1])
         else:
             logits, caches = self._prefill([r.prompt for r in reqs])
             if single:
@@ -249,23 +477,22 @@ class ServeEngine:
                     # a prefix miss re-references page positions the tenant's
                     # previous request's pool may have evicted
                     caches = self._kv_reseed(caches, reqs[0].tenant_id, plen)
-                self._insert_prefix(reqs[0], (logits, M.clone_caches(caches)))
+                self._insert_prefix(reqs[0], (logits, own(caches)))
 
         temperature = reqs[0].temperature
+        steps = max_new - 1
+        graph = (self.decode_graph(caches, temperature > 0.0)
+                 if self.jit_loop and steps else None)
         t1 = time.perf_counter()
-        nonfinite = (~torch.isfinite(logits)).sum()
-        evictions = torch.zeros((), dtype=torch.int64, device=self.device)
         tok = sample(logits, self.generator, temperature=0.0, vocab=self.cfg.vocab)
-        generated = [tok]
-        for _ in range(max_new - 1):
-            evictions += self._evictions_at(caches)
-            logits, caches = M.decode_step(self.params, self.cfg, tok, caches,
-                                           kv_mode=self.kv_mode, fused=self.fused)
-            nonfinite += (~torch.isfinite(logits)).sum()
-            tok = sample(logits, self.generator, temperature=temperature,
-                         vocab=self.cfg.vocab)
-            generated.append(tok)
-        gen = torch.cat(generated, dim=1).cpu()  # the one pull of the bucket
+        if graph is None:
+            generated, caches, evictions, nonfinite = self._host_loop(
+                tok, caches, temperature, steps)
+        else:
+            generated, caches, evictions, nonfinite = self._graph_loop(
+                graph, tok, caches, temperature, steps)
+        nonfinite = nonfinite + (~torch.isfinite(logits)).sum()
+        gen = torch.cat([tok, *generated], dim=1).cpu()  # the one pull of the bucket
         if single and self._ghost_feed_on:
             self._kv_persist(caches, reqs[0].tenant_id)
         self.stats["decode_s"] += time.perf_counter() - t1

@@ -69,7 +69,8 @@ def test_adaptive_pool_matches_reference_past_capacity(kv_policy):
         nk = rng.standard_normal((B, KVD)).astype(np.float32)
         nv = rng.standard_normal((B, KVD)).astype(np.float32)
         jp = insert(jp, jnp.asarray(nk), jnp.asarray(nv), jnp.int32(pos))
-        tp = tpk.adaptive_insert_token(tp, t(nk), t(nv), pos, page, tcore)
+        tp = tpk.adaptive_insert_token(tp, t(nk), t(nv),
+                                       torch.tensor(pos, dtype=torch.int32), page, tcore)
         assert_apools_equal(f"{kv_policy} insert pos={pos}", tp, jp)
         # scaled so that pages straddle tau = 1/residents
         mass = (rng.random((B, P * page)) * 2.0 / (P * page)).astype(np.float32)
@@ -169,7 +170,8 @@ def test_reseeded_pool_decodes_like_reference(kv_policy):
     for pos in range(n_have * page, (n_have + 3) * page):
         nk = rng.standard_normal((B, KVD)).astype(np.float32)
         jp = insert(jp, jnp.asarray(nk), jnp.int32(pos))
-        tp = tpk.adaptive_insert_token(tp, t(nk), t(nk), pos, page, tcore)
+        tp = tpk.adaptive_insert_token(tp, t(nk), t(nk),
+                                       torch.tensor(pos, dtype=torch.int32), page, tcore)
         mass = (rng.random((B, P * page)) * 2.0 / (P * page)).astype(np.float32)
         jp = score(jp, jnp.asarray(mass))
         tp = tpk.adaptive_score_update(tp, t(mass), page, tcore)

@@ -186,12 +186,13 @@ def test_ring_helpers_match_reference_through_three_wraps():
         nv = rng.standard_normal((B, 1, kvd)).astype(np.float32)
         jk, jv = JM.paged_kv.ring_insert(jk, jv, jnp.asarray(nk), jnp.asarray(nv),
                                          jnp.asarray(pos, jnp.int32))
+        tpos = torch.tensor(pos, dtype=torch.int32)
         tk, tv = paged_kv.ring_insert(tk, tv, torch.from_numpy(nk),
-                                      torch.from_numpy(nv), pos)
+                                      torch.from_numpy(nv), tpos)
         assert np.array_equal(tk.numpy(), np.asarray(jk))
         assert np.array_equal(tv.numpy(), np.asarray(jv))
         want = np.asarray(JM.paged_kv.ring_positions(jnp.asarray(pos, jnp.int32), W))
-        got = paged_kv.ring_positions(pos, W)
+        got = paged_kv.ring_positions(tpos, W)
         assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want), pos
 
 

@@ -44,6 +44,11 @@ def t(a):
     return torch.from_numpy(np.array(a))
 
 
+def ipos(p: int, device="cpu") -> torch.Tensor:
+    """A decode position as the port takes it: a 0-d int32 tensor."""
+    return torch.tensor(p, dtype=torch.int32, device=device)
+
+
 def random_pool(rng, *, n_free=1, pos=None):
     """Pages of seeded K/V with shuffled starts (``n_free`` free per row)
     and the decode position after the last resident token."""
@@ -92,7 +97,7 @@ def test_policy_paged_attention_plain_matches_reference(policy):
         kp = np.asarray(jp.k).reshape(B, P, PAGE, KVH, HD)
         vp = np.asarray(jp.v).reshape(B, P, PAGE, KVH, HD)
         got = ref.policy_paged_attention_plain(
-            t(q), t(kp), t(vp), t(nk), t(nv), pos, t(jp.f), t(jp.r),
+            t(q), t(kp), t(vp), t(nk), t(nv), ipos(pos), t(jp.f), t(jp.r),
             t(jp.page_start), t(jp.clock), t(jp.open_slot), policy=policy)
         want = jops.policy_paged_attention(
             jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(nk),
@@ -128,9 +133,9 @@ def test_plain_fused_equals_unfused_chain_bitwise(policy):
         q = t(rng.standard_normal((B, KVH, G, HD)).astype(np.float32))
         nk = t((rng.standard_normal((B, KVD)) * 0.3).astype(np.float32))
         nv = t((rng.standard_normal((B, KVD)) * 0.3).astype(np.float32))
-        out_f, mass_f, pool_f = tpk.fused_decode_step(pool_f, q, nk, nv, pos, PAGE,
-                                                      policy)
-        pool_u = tpk.insert_token(pool_u, nk, nv, pos, PAGE, policy)
+        out_f, mass_f, pool_f = tpk.fused_decode_step(pool_f, q, nk, nv, ipos(pos),
+                                                      PAGE, policy)
+        pool_u = tpk.insert_token(pool_u, nk, nv, ipos(pos), PAGE, policy)
         cur = torch.full((B,), pos, dtype=torch.int32)
         out_u, mass_u = ops.paged_attention(q, pool_u.k.view(B, P, PAGE, KVH, HD),
                                             pool_u.v.view(B, P, PAGE, KVH, HD),
@@ -154,7 +159,7 @@ def _unfused_adaptive_step(apool, q, nk, nv, pos, core):
     exact."""
     Bn, Pn = apool.pool.f.shape
     apool = tpk.adaptive_insert_token(apool, nk, nv, pos, PAGE, core)
-    cur = torch.full((Bn,), pos, dtype=torch.int32, device=q.device)
+    cur = pos.expand(Bn)
     out, mass = ops.paged_attention(q, apool.pool.k.view(Bn, Pn, PAGE, KVH, HD),
                                     apool.pool.v.view(Bn, Pn, PAGE, KVH, HD),
                                     apool.pool.page_start, cur)
@@ -210,9 +215,10 @@ def _adaptive_fused_vs_unfused(kind, dev, *, renorm_at="auto", seeded=False,
         q = t(rng.standard_normal((B, KVH, G, HD)).astype(np.float32)).to(dev)
         nk = t((rng.standard_normal((B, KVD)) * 0.3).astype(np.float32)).to(dev)
         nv = t((rng.standard_normal((B, KVD)) * 0.3).astype(np.float32)).to(dev)
-        out_f, mass_f, ap_f = tpk.fused_adaptive_decode_step(ap_f, q, nk, nv, pos,
-                                                             PAGE, core)
-        out_u, mass_u, ap_u = _unfused_adaptive_step(ap_u, q, nk, nv, pos, core)
+        out_f, mass_f, ap_f = tpk.fused_adaptive_decode_step(ap_f, q, nk, nv,
+                                                             ipos(pos, dev), PAGE, core)
+        out_u, mass_u, ap_u = _unfused_adaptive_step(ap_u, q, nk, nv, ipos(pos, dev),
+                                                     core)
         assert torch.equal(out_f, out_u) and torch.equal(mass_f, mass_u), pos
         for part_f, part_u in ((ap_f.pool, ap_u.pool), (ap_f.policy, ap_u.policy)):
             for name, a, b in zip(part_f._fields, part_f, part_u):
@@ -290,7 +296,7 @@ def test_adaptive_plain_matches_reference_kernel(kind, renorm_at, seeded):
             tpk.PagedPool(*(t(np.asarray(a)) for a in jap.pool)),
             tpk.AdaptiveState(*(t(np.asarray(a)) for a in jap.policy)))
         out_t, mass_t, tap = tpk.fused_adaptive_decode_step(
-            tap, t(q), t(nk), t(nv), pos, PAGE, tcore)
+            tap, t(q), t(nk), t(nv), ipos(pos), PAGE, tcore)
         out_j, mass_j, jap = step(jap, jnp.asarray(q), jnp.asarray(nk),
                                   jnp.asarray(nv), jnp.int32(pos))
         np.testing.assert_allclose(out_t.numpy(), out_j, rtol=RTOL, atol=ATOL)
@@ -485,9 +491,10 @@ def test_cuda_fused_equals_unfused_bitwise(cuda_device, policy):
         q = t(rng.standard_normal((B, KVH, G, HD)).astype(np.float32)).to(cuda_device)
         nk = t((rng.standard_normal((B, KVD)) * 0.3).astype(np.float32)).to(cuda_device)
         nv = t((rng.standard_normal((B, KVD)) * 0.3).astype(np.float32)).to(cuda_device)
-        out_f, mass_f, pool_f = tpk.fused_decode_step(pool_f, q, nk, nv, pos, PAGE,
+        tpos = ipos(pos, cuda_device)
+        out_f, mass_f, pool_f = tpk.fused_decode_step(pool_f, q, nk, nv, tpos, PAGE,
                                                       policy)
-        pool_u = tpk.insert_token(pool_u, nk, nv, pos, PAGE, policy)
+        pool_u = tpk.insert_token(pool_u, nk, nv, tpos, PAGE, policy)
         cur = torch.full((B,), pos, dtype=torch.int32, device=cuda_device)
         out_u, mass_u = ops.paged_attention(q, pool_u.k.view(B, P, PAGE, KVH, HD),
                                             pool_u.v.view(B, P, PAGE, KVH, HD),
@@ -515,7 +522,8 @@ def test_cuda_fused_kernel_repeats_its_bits(cuda_device, within):
     open_slot = ps.argmax(dim=-1).to(torch.int32)
     if within:
         ps[torch.arange(B), open_slot.long()] = P * PAGE
-    args = (q, k, v, nk, nk, P * PAGE + within, f, r, ps, clock, open_slot)
+    args = (q, k, v, nk, nk, ipos(P * PAGE + within, cuda_device), f, r, ps, clock,
+            open_slot)
     first = ops.policy_paged_attention(*args, policy="awrp")
     for _ in range(3):
         for a, b in zip(first, ops.policy_paged_attention(*args, policy="awrp")):
@@ -542,7 +550,7 @@ def test_cuda_adaptive_kernel_matches_unfused_and_plain(cuda_device, kind,
     rng = np.random.default_rng(1)
     q = t(rng.standard_normal((B, KVH, G, HD)).astype(np.float32)).to(cuda_device)
     nk = t(rng.standard_normal((B, KVH, HD)).astype(np.float32)).to(cuda_device)
-    pos = int(ap.pool.page_start.max()) + PAGE  # the next page boundary
+    pos = ipos(int(ap.pool.page_start.max()) + PAGE, cuda_device)  # the next boundary
     args = (q, ap.pool.k.view(B, AP, PAGE, KVH, HD), ap.pool.v.view(B, AP, PAGE, KVH, HD),
             nk, nk, pos, *ap.pool[2:], *(x[:, 0] for x in ap.policy))
     got = ops.adaptive_policy_paged_attention(*args, kind=kind, renorm_at=core.renorm_at)

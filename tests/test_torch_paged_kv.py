@@ -133,9 +133,10 @@ def test_insert_and_score_update_match_reference_past_capacity(policy):
         _, nk, nv = step_inputs(rng, B)
         jp = jpk.insert_token(jp, jnp.asarray(nk), jnp.asarray(nv), jnp.int32(pos),
                               page, policy=policy)
-        tp = tpk.insert_token(tp, t(nk), t(nv), pos, page, policy=policy)
+        tpos = torch.tensor(pos, dtype=torch.int32)
+        tp = tpk.insert_token(tp, t(nk), t(nv), tpos, page, policy=policy)
         pools_equal(tp, jp)
-        assert equal(tpk.kv_positions(tp, pos, page).numpy(),
+        assert equal(tpk.kv_positions(tp, tpos, page).numpy(),
                      jpk.kv_positions(jp, jnp.int32(pos), page))
         # a random softmax-like mass per row; scaled so pages straddle tau
         mass = (rng.random((B, P * page)) * 2.0 / (P * page)).astype(np.float32)
@@ -170,8 +171,9 @@ def test_cpu_fused_decode_step_matches_reference(policy):
     for pos in range(P * page + 2 * page):
         q, nk, nv = step_inputs(rng, B)
         tp = to_torch_pool(jp)
-        out_t, mass_t, tp = tpk.fused_decode_step(tp, t(q), t(nk), t(nv), pos, page,
-                                                  policy)
+        out_t, mass_t, tp = tpk.fused_decode_step(tp, t(q), t(nk), t(nv),
+                                                  torch.tensor(pos, dtype=torch.int32),
+                                                  page, policy)
         out_j, mass_j, jp = jpk.fused_decode_step(
             jp, jnp.asarray(q), jnp.asarray(nk), jnp.asarray(nv), jnp.int32(pos),
             page, policy, interpret=True)

@@ -106,9 +106,10 @@ def test_fused_step_with_shuffled_partials_keeps_every_plane(seed, G, P, n_free,
     if within:
         ps[torch.arange(2), open_slot.long()] = P * page
     pos = P * page + within
-    want = ref.policy_paged_attention_plain(q, k, v, nk, nv, pos, f, r, ps, clock,
+    tpos = torch.tensor(pos, dtype=torch.int32)
+    want = ref.policy_paged_attention_plain(q, k, v, nk, nv, tpos, f, r, ps, clock,
                                             open_slot, policy=policy)
-    slot, fa, ra, psa = ref.allocate(f, r, ps, clock, open_slot, pos, page, policy)
+    slot, fa, ra, psa = ref.allocate(f, r, ps, clock, open_slot, tpos, page, policy)
     row = torch.arange(page, dtype=torch.int32)
 
     def tile(p):
@@ -174,12 +175,13 @@ def test_adaptive_step_with_shuffled_partials_keeps_every_plane(kind, ghost, dty
     for pos in range(pos0, pos0 + page + 1):
         q, nk, nv = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dt)
                      for shape in ((B, KVH, G, hd), (B, KVH, hd), (B, KVH, hd)))
+        tpos = torch.tensor(pos, dtype=torch.int32)
         want = ref.adaptive_policy_paged_attention_plain(
-            q, k, v, nk, nv, pos, *planes, *dirp, kind=kind, renorm_at=core.renorm_at)
+            q, k, v, nk, nv, tpos, *planes, *dirp, kind=kind, renorm_at=core.renorm_at)
         f, r, ps, clock, open_slot = planes
         state = ref.AdaptiveState(*(x[:, None] for x in dirp))
         slot, fa, ra, psa, state = ref.adaptive_allocate(core, state, f, r, ps, clock,
-                                                          open_slot, pos, page)
+                                                          open_slot, tpos, page)
 
         def tile(p):
             inject = ((slot[:, None] == p) & (row[None] == pos % page))[..., None, None]
