@@ -11,9 +11,11 @@ Every served phase (``serve``, ``serve_adaptive``, ``serve_gemma3``,
 token under sync debug mode ``"error"``) and then the same requests through
 the host loop (``jit_loop=False``) on the same parameters: greedy tokens,
 stats (but the clocks and the graph count), launch counts after every
-request list, the final policy planes of every decode loop (bitwise) and the
-ghost sessions must be equal (``loops_agree``), and the decode-step profile
-runs both loops side by side:
+request list, the final policy planes of every decode loop (bitwise), the
+snapshot's decode-loop planes ``serve/loop/*`` after every request list
+(bitwise; ``steps`` == the sampling events) and the ghost sessions must be
+equal (``loops_agree``), and the decode-step profile runs both loops side by
+side:
 
 1. ``build``: compile the CUDA kernels with nvcc (sm_90a) from the sources in
    this checkout; print the seconds taken and the card's name and power
@@ -53,7 +55,12 @@ runs both loops side by side:
    tokens and 192 greedy new tokens, then one repeated prompt that must hit
    the prefix cache; kernel 6 launched once per layer per prefill; the
    split kernels' arrival counters of the engine's capture stream are 0
-   after the replays.
+   after the replays.  Then the fold's cost: the 4 prompts served for 64
+   tokens with ``metrics=True`` and ``metrics=False`` (tokens equal), each
+   one's graph ms per step, and the decode graph profiled both ways (wall ms
+   and kernels per step); and one ``telemetry()`` snapshot under
+   ``torch.profiler``: exactly one synchronizing CUDA call and one ``_pull``
+   per snapshot, the device-to-host copies and the snapshot's wall ms.
 4a. ``adaptive_attn``: kernel 5, the fused true-adaptive ARC/CAR step, for
    arc and car from a full pool over two evicting page boundaries at the
    serve shape (from the prefill seeding, with a forced stamp
@@ -118,7 +125,12 @@ runs both loops side by side:
    shed, a shed request touches nothing, per-tenant counters == host
    oracles and a CPU replay, ``decide_batch`` == the host loop, A's ghost
    hits == a single-tenant engine's, deferred tokens == an unpressured
-   engine's.
+   engine's; the snapshot's ``tenant/<t>/{hits, misses, evictions,
+   accesses}`` == the host oracles and the CPU replay, one synchronization
+   per snapshot (as in ``serve``); in the AWRP run, a ``MetricsServer``
+   polled by a client thread while the engine captures a new decode graph
+   (a batch of 2) and replays it: no error, no 500, the batch's tokens == a
+   fresh engine's, and ``/metrics.json`` == ``telemetry()`` afterwards.
 7. ``tenancy``: the trace kernels' stream mode (the tenancy manager's
    ``access_stream`` and ``access``) == its plain version (the same manager
    on the CPU, in worker processes) on the tenancy benchmark's 6000-access
@@ -136,8 +148,10 @@ runs both loops side by side:
    paths.
 
 Then both loops of every served phase side by side (``decode_loops``), the
-total seconds, the kernel summary line, the ``nvidia-smi`` line and, last,
-the result line.  Every kernel time is a median of CUDA-event
+``telemetry`` line (a snapshot's key count, one pull's ms, its
+synchronizing calls, the kernel library's nvcc seconds, the fold's cost,
+the live endpoint), the total seconds, the kernel summary line, the
+``nvidia-smi`` line and, last, the result line.  Every kernel time is a median of CUDA-event
 timings on this card.
 """
 
@@ -649,6 +663,8 @@ def serve_params(dev):
 
 #: engine stats that are host-clock seconds or differ by loop by design
 LOOP_STATS = ("prefill_s", "decode_s", "loop_captures")
+#: the decode-loop planes of a snapshot (``obs/metrics.py``)
+LOOP_KEYS = ("serve/loop/steps", "serve/loop/tokens", "serve/loop/token_hist")
 
 
 def _planes_of(caches) -> list:
@@ -665,7 +681,8 @@ def _planes_of(caches) -> list:
 
 class Drive:
     """An engine's request lists in order: per list the results, and the
-    engine's stats and ``ops.LAUNCHES`` after it (counted from 0 at the
+    engine's stats, ``ops.LAUNCHES``, the decode loops run so far and the
+    snapshot's ``serve/loop/*`` planes after it (counted from 0 at the
     start); per decode loop the final planes (``_planes_of``); at the end the
     ghost sessions.  ``replay`` sends the same lists to another engine."""
 
@@ -689,8 +706,10 @@ class Drive:
     def generate(self, reqs):
         asked = [(r.rid, list(r.prompt), r.max_new_tokens, r.temperature) for r in reqs]
         res = self.engine.generate(_requests(asked))
+        tel = self.engine.telemetry()
         self.calls.append({
             "asked": asked, "stats": dict(self.engine.stats), "launches": dict(ops.LAUNCHES),
+            "loops": len(self.planes), "planes": {k: tel[k] for k in LOOP_KEYS},
             "results": {rid: (r.tokens, r.prefill_cached, r.status) for rid, r in res.items()}})
         self.sessions = {t: dict(s) for t, s in self.engine._kv_sessions.items()}
         # each decode graph's build seconds and static-tree bytes
@@ -715,15 +734,27 @@ def loops_agree(graph: Drive, host: Drive) -> dict:
     """The graph loop's run against the host loop's on the same requests and
     parameters: greedy tokens, every stat but the clocks and the graph
     count, the launch counts after every request list, the final planes of
-    every decode loop and the ghost sessions, all equal (planes bitwise).
-    Returns both loops' decode seconds and ms per step, and the graphs'
-    build seconds and static-tree sizes."""
+    every decode loop and the ghost sessions, all equal (planes bitwise);
+    after every request list the snapshot's ``serve/loop/*`` equal bit for
+    bit, ``steps`` the sampling events (each loop's first token and its
+    decode steps) and ``tokens`` the engine's.  Returns both loops' decode
+    seconds and ms per step, and the graphs' build seconds and static-tree
+    sizes."""
     assert len(graph.calls) == len(host.calls)
     for i, (g, h) in enumerate(zip(graph.calls, host.calls)):
         assert g["results"] == h["results"], f"request list {i}: tokens differ"
         strip = [{k: v for k, v in c["stats"].items() if k not in LOOP_STATS} for c in (g, h)]
         assert strip[0] == strip[1], (i, strip)
         assert g["launches"] == h["launches"], (i, g["launches"], h["launches"])
+        gp, hp = g["planes"], h["planes"]
+        hist = gp["serve/loop/token_hist"]
+        assert hist.dtype == hp["serve/loop/token_hist"].dtype == np.int32
+        assert hist.tobytes() == hp["serve/loop/token_hist"].tobytes(), (i, "token_hist")
+        for k in LOOP_KEYS[:2]:
+            assert gp[k] == hp[k], (i, k, gp[k], hp[k])
+        assert g["loops"] == h["loops"]
+        assert gp["serve/loop/steps"] == g["stats"]["decode_steps"] + g["loops"], (i, gp)
+        assert gp["serve/loop/tokens"] == g["stats"]["tokens"] == int(hist.sum()), (i, gp)
     assert g["stats"]["nonfinite_logits"] == 0 and h["stats"]["loop_captures"] == 0
     assert len(graph.planes) == len(host.planes) > 0
     for i, (a, b) in enumerate(zip(graph.planes, host.planes)):
@@ -737,7 +768,9 @@ def loops_agree(graph: Drive, host: Drive) -> dict:
     steps = g["stats"]["decode_steps"]
     tokens = sum(len(r[0]) for c in graph.calls for r in c["results"].values())
     return {"tokens_equal": True, "stats_equal": True, "launches_equal": True,
-            "planes_equal_bitwise": True, "decode_loops": len(graph.planes),
+            "planes_equal_bitwise": True, "loop_planes_equal_bitwise": True,
+            "loop_steps": gp["serve/loop/steps"], "loop_tokens": gp["serve/loop/tokens"],
+            "decode_loops": len(graph.planes),
             "ghost_sessions_equal": bool(gs), "decode_steps": steps, "tokens": tokens,
             "loop_captures": g["stats"]["loop_captures"],
             "graph_build_s": [b for b, _ in graph.graphs],
@@ -752,6 +785,99 @@ def _leaves(tree):
         return [tree]
     vals = tree.values() if isinstance(tree, dict) else tree
     return [t for v in vals for t in _leaves(v)]
+
+
+#: CUDA runtime calls that block the host until the device is done
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+              "cudaMemcpy", "cudaMemcpy2D")
+
+
+def one_pull(engine, reps: int = 5) -> dict:
+    """One ``telemetry()`` snapshot's cost: its host wall ms (median of
+    ``reps`` after a warm-up), then one snapshot under ``torch.profiler``
+    inside a ``record_function``: the synchronizing CUDA runtime calls made
+    in that range (gated: exactly one) and the device-to-host copies the
+    device ran; every snapshot makes one ``_pull``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.obs import metrics as obs_metrics
+
+    pulls = []
+    orig = obs_metrics._pull
+    obs_metrics._pull = lambda leaves: (pulls.append(len(leaves)), orig(leaves))[1]
+    try:
+        engine.telemetry()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            tel = engine.telemetry()
+            times.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with record_function("telemetry_snapshot"):
+                engine.telemetry()
+            torch.cuda.synchronize()
+    finally:
+        obs_metrics._pull = orig
+    events = prof.events()
+    span = min((e for e in events if e.name == "telemetry_snapshot"
+                and e.device_type != DeviceType.CUDA), key=lambda e: e.time_range.start)
+    lo, hi = span.time_range.start, span.time_range.end
+    inside = [e for e in events if e.device_type != DeviceType.CUDA
+              and lo <= e.time_range.start <= hi]
+    syncs = [e.name for e in inside if e.name in SYNC_CALLS]
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    d2h = sum(1 for e in device if "DtoH" in e.name or "Device -> Pageable" in e.name)
+    assert len(pulls) == reps + 2 and set(pulls) == {pulls[0]}, pulls
+    assert len(syncs) == 1, syncs
+    return {"keys": len(tel), "device_leaves": pulls[0], "pulls_per_snapshot": 1,
+            "sync_calls": len(syncs), "sync_call": syncs[0],
+            "memcpy_calls": sum(1 for e in inside if e.name.startswith("cudaMemcpy")),
+            "device_to_host_copies": d2h if device else "not measured",
+            "snapshot_ms": statistics.median(times), "snapshot_ms_all": times,
+            "nvcc_seconds": tel["compile/nvcc/seconds"], "nvcc_builds": tel["compile/nvcc/count"]}
+
+
+def fold_cost(params, cfg, prompts, dev, new_tokens: int = 64) -> dict:
+    """The loop-plane fold's cost in the graph step: the same requests
+    served for ``new_tokens`` by an engine with ``metrics=True`` and one with
+    ``metrics=False`` (tokens equal, the stats but the clocks equal, no
+    planes in the second), each one's graph ms per step, then the decode
+    graph profiled both ways (``profile_decode``, graph only): wall ms and
+    kernels per step."""
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    out, tokens, stats = {}, {}, {}
+    for metrics in (True, False):
+        eng = ServeEngine(cfg, params, max_len=len(prompts[0]) + new_tokens, kv_mode="paged",
+                          fused=True, seed=SEED, metrics=metrics, device=dev)
+        res = eng.generate([Request(i, list(p), max_new_tokens=new_tokens)
+                            for i, p in enumerate(prompts)])
+        tokens[metrics] = [res[i].tokens for i in range(len(prompts))]
+        stats[metrics] = {k: v for k, v in eng.stats.items() if k not in LOOP_STATS}
+        tel = eng.telemetry()
+        assert any(k.startswith("serve/loop/") for k in tel) == metrics
+        assert eng._graphs and all((g.planes is not None) == metrics
+                                   for g in eng._graphs.values())
+        steps = eng.stats["decode_steps"]
+        prof = profile_decode(params, cfg, prompts, dev, KERNEL4_CUDA, metrics=metrics,
+                              eager=False)["graph"]
+        out["metrics_on" if metrics else "metrics_off"] = {
+            "engine_graph_ms_per_step": eng.stats["decode_s"] * 1e3 / steps,
+            "decode_steps": steps,
+            **{k: prof.get(k) for k in ("wall_ms_per_step", "device_ms_per_step",
+                                        "kernels_per_step", "graph_launches_per_step")}}
+        del eng
+    assert tokens[True] == tokens[False], "metrics=False changed the tokens"
+    assert stats[True] == stats[False], stats
+    on, off = out["metrics_on"], out["metrics_off"]
+    out.update({"tokens_equal": True, "new_tokens": new_tokens, "card": smi()})
+    if isinstance(on["kernels_per_step"], (int, float)) and \
+            isinstance(off["kernels_per_step"], (int, float)):
+        out["fold_kernels_per_step"] = on["kernels_per_step"] - off["kernels_per_step"]
+    return out
 
 
 def phase_serve(dev, params, init_s, base_cfg=CONFIG, n_req=4, prompt_len=1024,
@@ -807,6 +933,8 @@ def phase_serve(dev, params, init_s, base_cfg=CONFIG, n_req=4, prompt_len=1024,
     ref_res = unfused.generate([Request(i, list(p), max_new_tokens=new_tokens)
                                 for i, p in enumerate(prompts)])
     profile = profile_decode(params, cfg, prompts, dev, KERNEL4_CUDA)
+    fold = fold_cost(params, cfg, prompts, dev)
+    snapshot = one_pull(engine)
     same = sum(a == b for i in results
                for a, b in zip(results[i].tokens, ref_res[i].tokens))
     res = {"phase": "serve", "model": cfg.name, "layers": cfg.n_layers,
@@ -824,7 +952,8 @@ def phase_serve(dev, params, init_s, base_cfg=CONFIG, n_req=4, prompt_len=1024,
            "greedy_agreement_fused_vs_unfused": same / (n_req * new_tokens),
            "unfused_decode_tokens_per_s":
                n_req * (new_tokens - 1) / unfused.stats["decode_s"],
-           "loops": loops, "decode_step_profile": profile}
+           "loops": loops, "decode_step_profile": profile, "fold_cost": fold,
+           "snapshot": snapshot}
     emit(res)
     return res
 
@@ -835,13 +964,15 @@ KERNEL4_CUDA = ("policy_partials_kernel", "policy_fold_kernel")
 KERNEL5_CUDA = ("adaptive_partials_kernel", "adaptive_fold_kernel")
 
 
-def profile_decode(params, cfg, prompts, dev, kernel: tuple, steps: int = 8) -> dict:
+def profile_decode(params, cfg, prompts, dev, kernel: tuple, steps: int = 8, *,
+                   metrics: bool = True, eager: bool = True) -> dict:
     """Where a paged fused decode step's time goes, in both loops: the
     eager step (``jit_loop=False``'s body) and one replay of the engine's
-    captured decode graph (``jit_loop=True``), from the same prefill, each
-    by ``_profile_steps``.  ``kernel`` names the fused step's CUDA kernels
-    (kernel 4 runs as two: its partials and its fold), whose share is
-    reported."""
+    captured decode graph (``jit_loop=True``; with ``metrics`` the
+    loop-plane fold is in it), from the same prefill, each by
+    ``_profile_steps``; ``eager=False`` profiles the graph only.
+    ``kernel`` names the fused step's CUDA kernels (kernel 4 runs as two:
+    its partials and its fold), whose share is reported."""
     from repro_torch.models import model as M
     from repro_torch.serve.engine import ServeEngine
 
@@ -851,13 +982,13 @@ def profile_decode(params, cfg, prompts, dev, kernel: tuple, steps: int = 8) -> 
     tok = logits[:, -1:].argmax(dim=-1).to(torch.int32)
     del logits
     engine = ServeEngine(cfg, params, max_len=max_len, kv_mode="paged", fused=True,
-                         device=dev)
+                         metrics=metrics, device=dev)
     graph = engine.decode_graph(caches, sampled=False)
     graph.load(caches, tok, 0.0)
     state = {"tok": tok, "caches": caches}
     del caches
 
-    def eager(n):
+    def run_eager(n):
         for _ in range(n):
             lg, state["caches"] = M.decode_step(params, cfg, state["tok"], state["caches"],
                                                 kv_mode="paged", fused=True)
@@ -867,8 +998,8 @@ def profile_decode(params, cfg, prompts, dev, kernel: tuple, steps: int = 8) -> 
         for _ in range(n):
             graph.step()
 
-    res = {"eager": _profile_steps(eager, steps, kernel),
-           "graph": _profile_steps(replay, steps, kernel, sync_errors=True)}
+    res = {"eager": _profile_steps(run_eager, steps, kernel)} if eager else {}
+    res["graph"] = _profile_steps(replay, steps, kernel, sync_errors=True)
     res["graph"]["build_s"] = graph.build_s
     return res
 
@@ -2263,6 +2394,76 @@ def _decide_batch_equals_host_loop(mgr, adm) -> list:
     return got
 
 
+def live_endpoint(eng, make_plain, prompts, new_tokens: int) -> dict:
+    """``MetricsServer(eng.telemetry)`` on a free port while ``eng`` builds a
+    new decode graph (a batch of ``len(prompts)``, calm's) and replays it: a
+    client thread GETs ``/metrics`` in a loop the whole time.  Every poll
+    answers 200 with the loop planes in it and none raises (the engine's lock
+    keeps snapshots out of the capture and out of the graph loop's sync
+    debug mode); the capture is whole (one more graph; the batch's tokens ==
+    a fresh single-tenant engine's); after the loop ``/metrics.json`` ==
+    ``telemetry()`` taken without the server."""
+    import threading
+    import urllib.request
+
+    from repro_torch.obs.server import MetricsServer
+    from repro_torch.serve.engine import Request
+
+    reqs = [Request(900 + i, list(p), max_new_tokens=new_tokens, tenant_id="calm")
+            for i, p in enumerate(prompts)]
+    captures = eng.stats["loop_captures"]
+    polls, errors, stop = [], [], threading.Event()
+    with MetricsServer(eng.telemetry, port=0) as srv:
+        url = f"http://127.0.0.1:{srv.port}"
+
+        def client():
+            while not stop.is_set():
+                try:
+                    with urllib.request.urlopen(url + "/metrics", timeout=120) as r:
+                        body = r.read()
+                        polls.append((r.status, time.perf_counter()))
+                    if b"awrp_serve_loop_steps" not in body:
+                        errors.append("a scrape without the loop planes")
+                except Exception as e:  # noqa: BLE001 — every failure is gated below
+                    errors.append(repr(e))
+
+        thread = threading.Thread(target=client, name="metrics-client", daemon=True)
+        thread.start()
+        while len(polls) < 2 and not errors and thread.is_alive():
+            time.sleep(0.001)
+        t0 = time.perf_counter()
+        out = eng.generate(reqs)
+        t1 = time.perf_counter()
+        stop.set()
+        thread.join(timeout=120)
+        assert not thread.is_alive(), "the metrics client did not stop"
+        gc.collect()  # no engine's sentinel may drop out between the two snapshots
+        gc.disable()
+        try:
+            with urllib.request.urlopen(url + "/metrics.json", timeout=120) as r:
+                via_server = json.loads(r.read())
+            direct = eng.telemetry()
+        finally:
+            gc.enable()
+    assert not errors, errors[:3]
+    during = sum(1 for _, t in polls if t0 <= t <= t1)
+    assert polls and {c for c, _ in polls} == {200} and during >= 1, (len(polls), during)
+    assert all(r.status == "ok" for r in out.values())
+    assert eng.stats["loop_captures"] == captures + 1, eng.stats
+    plain = make_plain()
+    want = plain.generate([Request(r.rid, list(r.prompt), max_new_tokens=new_tokens)
+                           for r in reqs])
+    assert [out[r.rid].tokens for r in reqs] == [want[r.rid].tokens for r in reqs]
+    del plain
+    assert via_server.keys() == direct.keys()
+    for k, v in direct.items():
+        assert via_server[k] == (v.tolist() if isinstance(v, np.ndarray) else v), k
+    return {"polls": len(polls), "polls_during_generate": during,
+            "generate_s": t1 - t0, "errors": 0, "new_graph_captured": True,
+            "tokens_equal_to_plain_engine": True, "json_snapshot_equals_direct": True,
+            "keys": len(direct)}
+
+
 def phase_serve_tenants(dev, params, base_cfg=CONFIG, prompt_len=1024, new_tokens=16,
                         pages=16, rounds=(6, 5)) -> dict:
     """Multi-tenant serving of smollm-360m at published widths, bf16, paged
@@ -2295,6 +2496,7 @@ def phase_serve_tenants(dev, params, base_cfg=CONFIG, prompt_len=1024, new_token
     import copy
 
     from repro_torch.core.policies import make_policy
+    from repro_torch.obs.metrics import safe_ratio
     from repro_torch.serve.engine import Request, ServeEngine
     from repro_torch.serve.tenancy import AdmissionController, TenantCacheManager, _prompt_key
 
@@ -2437,8 +2639,19 @@ def phase_serve_tenants(dev, params, base_cfg=CONFIG, prompt_len=1024, new_token
                 h += o.access(k)
                 e += len(before - o.resident_set())
             assert (tel[f"tenant/{t}/hits"], tel[f"tenant/{t}/misses"],
-                    tel[f"tenant/{t}/evictions"]) == (h, len(demux[t]) - h, e), t
+                    tel[f"tenant/{t}/evictions"], tel[f"tenant/{t}/accesses"]) == \
+                (h, len(demux[t]) - h, e, len(demux[t])), t
             oracle_checked.append(t)
+        # the one-pull snapshot's tenant rows == the CPU replay (== the card's
+        # planes, bitwise, above) for every tenant, hit_ratio exact
+        replayed = replay.row_telemetry()
+        for t in quotas:
+            r = replay.row(t)
+            for k in ("hits", "misses", "evictions", "accesses"):
+                assert tel[f"tenant/{t}/{k}"] == int(replayed[k][r]), (t, k)
+            assert tel[f"tenant/{t}/hit_ratio"] == safe_ratio(
+                tel[f"tenant/{t}/hits"], tel[f"tenant/{t}/accesses"])
+        run["snapshot"] = one_pull(eng)
         if prefix_policy == "arc":
             assert oracle_checked == list(quotas), oracle_checked
         assert checked_requests > 0
@@ -2463,6 +2676,10 @@ def phase_serve_tenants(dev, params, base_cfg=CONFIG, prompt_len=1024, new_token
                 assert o.tokens == e["tokens"], e["rid"]
             run["deferred_equal_to_unpressured"] = len(deferred)
             del plain
+            live_rng = np.random.RandomState(SEED + 41)
+            run["live_endpoint"] = live_endpoint(
+                eng, engine, [live_rng.randint(1, base_cfg.vocab, size=prompt_len).tolist()
+                              for _ in range(2)], new_tokens)
         else:  # A's two turns alone
             solo = engine()
             s1 = solo.generate([Request(0, list(prompt_a), max_new_tokens=a_new)])[0]
@@ -2725,6 +2942,19 @@ def main() -> int:
     emit({"phase": "decode_loops", "card": smi(), "cells": serving_summary(
         [("serve", srv), *((r["kv_policy"], r) for r in srv_ada), ("serve_gemma3", g3),
          ("serve_phi35", phi)])})
+    # the metrics half of observability: one snapshot's keys, pull and syncs
+    # (serve and both serve_tenants runs), the fold's cost in the graph step,
+    # the live endpoint over a capture, the kernel library's nvcc seconds
+    snap = srv["snapshot"]
+    emit({"phase": "telemetry", "card": smi(), "keys": snap["keys"],
+          "pull_ms": snap["snapshot_ms"], "sync_calls": snap["sync_calls"],
+          "nvcc_seconds": snap["nvcc_seconds"], "nvcc_builds": snap["nvcc_builds"],
+          "serve": snap, "serve_tenants": [r["snapshot"] for r in srv_ten["runs"]],
+          "fold_cost": srv["fold_cost"], "live_endpoint": srv_ten["runs"][0]["live_endpoint"],
+          "loop_planes_equal_bitwise": {label: r["loops"]["loop_planes_equal_bitwise"]
+                                        for label, r in [("serve", srv), *(
+                                            (x["kv_policy"], x) for x in srv_ada),
+                                            ("serve_gemma3", g3), ("serve_phi35", phi)]}})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     # launches: each kernel's count on its path in this run: the flat fused
     # kernel in the serve phase, the adaptive one in serve_adaptive (both

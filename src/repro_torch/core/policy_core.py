@@ -353,8 +353,10 @@ class _Accounting:
             "evictions": counters.evictions,
             "accesses": counters.hits + counters.misses,
             "occupancy": self.occupancy(state),
-            "capacity": torch.as_tensor(self.row_capacity, dtype=_I32,
-                                        device=counters.hits.device),
+            # a non-blocking copy: no host sync, so a registry snapshot that
+            # reads these rows keeps its one synchronization
+            "capacity": torch.tensor(self.row_capacity, dtype=_I32).to(
+                counters.hits.device, non_blocking=True),
             "pressure": counters.pressure,
         }
 

@@ -23,7 +23,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import NamedTuple
+from typing import List, NamedTuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -57,6 +57,11 @@ class BuildInfo(NamedTuple):
     path: Path
     seconds: float  # 0.0 when the library was already built
     log: str  # nvcc / ptxas output (registers, shared memory, spills)
+
+
+#: every build this process ran nvcc for (``obs/profiling.py`` reports their
+#: count and seconds as ``compile/nvcc/...``)
+BUILDS: List[BuildInfo] = []
 
 
 def _nvcc() -> str:
@@ -112,7 +117,9 @@ def build() -> BuildInfo:
     os.replace(tmp, out)
     for _, obj, _ in jobs:
         obj.unlink()
-    return BuildInfo(out, time.perf_counter() - t0, log)
+    info = BuildInfo(out, time.perf_counter() - t0, log)
+    BUILDS.append(info)
+    return info
 
 
 _LIB = None

@@ -26,6 +26,18 @@ The decode loop replays one captured CUDA graph per step (the engine's
 ``jit_loop=True``, the reference's default); ``--host-loop`` runs the eager
 per-step loop instead, the baseline.
 
+Observability: ``--metrics-out PATH`` writes the final telemetry snapshot
+as ``PATH.prom`` (Prometheus text) and appends it to ``PATH.jsonl``;
+``--metrics-port`` serves live snapshots over HTTP while generating
+(``/metrics``, ``/metrics.json``, ``/healthz``; 0 picks a free port);
+``--snapshot-every S`` appends a JSONL snapshot every S seconds meanwhile;
+``--profile-dir`` writes ``torch.profiler`` chrome traces, one per
+``--profile-every`` requests; ``--profile-phases`` makes the phase spans
+wait for their own device work:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke \
+      --dtype float32 --metrics-out /tmp/m
+
 Runs on the CUDA card by default (``--device cuda``; raises when CUDA is not
 available).  ``--device cpu`` runs the plain PyTorch versions of the kernels
 on the CPU.  Weights are random, from ``--seed``; nothing is downloaded.
@@ -48,6 +60,8 @@ from repro_torch.configs import gemma3_27b, grok1_314b, phi35_moe, smollm_360m
 from repro_torch.core.kv_policy import PAGE_POLICIES
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
+from repro_torch.obs.export import append_jsonl, prometheus_text
+from repro_torch.obs.server import MetricsServer, SnapshotLogger
 from repro_torch.serve.engine import Request, ServeEngine
 
 ARCHS = {"smollm_360m": smollm_360m, "gemma3_27b": gemma3_27b,
@@ -63,6 +77,9 @@ def device_memory_bytes(device: torch.device) -> int:
 
 
 def main(argv=None):
+    """Serve the requests ``argv`` describes, print the summary lines from
+    one telemetry snapshot, export it as asked; returns the results by
+    request id."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm_360m", choices=tuple(ARCHS))
     ap.add_argument("--smoke", action="store_true",
@@ -93,7 +110,29 @@ def main(argv=None):
                     help="decode with the eager per-step host loop instead of "
                     "replaying the captured decode graph")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="export the final telemetry snapshot: writes PATH.prom "
+                    "(Prometheus text exposition) and appends one JSON line to "
+                    "PATH.jsonl")
+    ap.add_argument("--metrics-port", type=int, default=None, metavar="PORT",
+                    help="serve live telemetry over HTTP from a background thread "
+                    "while generating: /metrics (Prometheus text), /metrics.json, "
+                    "/healthz (0 = a free port, printed at startup)")
+    ap.add_argument("--snapshot-every", type=float, default=0.0, metavar="SECONDS",
+                    help="with --metrics-out: append a JSONL telemetry snapshot every "
+                    "SECONDS from a background thread while generating (plus the "
+                    "final snapshot)")
+    ap.add_argument("--profile-dir", default=None, metavar="DIR",
+                    help="write torch.profiler chrome traces under DIR, one per "
+                    "--profile-every requests")
+    ap.add_argument("--profile-every", type=int, default=16, metavar="N",
+                    help="requests between profiler captures (with --profile-dir)")
+    ap.add_argument("--profile-phases", action="store_true",
+                    help="each phase span waits for its own device work, so span/* "
+                    "holds per-phase device time")
     args = ap.parse_args(argv)
+    if args.snapshot_every and not args.metrics_out:
+        ap.error("--snapshot-every needs --metrics-out")
 
     tenants = None
     if args.tenants:
@@ -120,7 +159,19 @@ def main(argv=None):
     engine = ServeEngine(cfg, params, max_len=args.max_len, kv_mode=args.kv_mode,
                          fused=args.fused, seed=args.seed, tenants=tenants,
                          auto_rebalance=args.auto_rebalance,
-                         jit_loop=not args.host_loop, device=device)
+                         jit_loop=not args.host_loop, profile_dir=args.profile_dir,
+                         profile_every=args.profile_every,
+                         profile_phases=args.profile_phases, device=device)
+    # live export: both run on daemon threads and take the same one-pull
+    # snapshot telemetry() takes
+    server = logger = None
+    if args.metrics_port is not None:
+        server = MetricsServer(engine.telemetry, port=args.metrics_port).start()
+        print(f"metrics: serving http://127.0.0.1:{server.port}/metrics")
+    extra = {"arch": cfg.name, "kv_mode": args.kv_mode}
+    if args.snapshot_every:
+        logger = SnapshotLogger(engine.telemetry, args.metrics_out + ".jsonl",
+                                interval_s=args.snapshot_every, extra=extra).start()
 
     rng = np.random.RandomState(args.seed)
     names = list(tenants) if tenants else ["default"]
@@ -145,7 +196,7 @@ def main(argv=None):
         results = engine.generate(reqs)
     dt = time.perf_counter() - t0
     total = sum(len(r.tokens) for r in results.values())
-    tel = engine.telemetry()
+    tel = engine.telemetry()  # one flat snapshot, one synchronization
     print(f"arch={cfg.name} device={device} kv_mode={args.kv_mode} "
           f"policy={args.kv_policy} fused={args.fused} "
           f"loop={'host' if args.host_loop else 'graph'}")
@@ -164,6 +215,20 @@ def main(argv=None):
                   f"pressure={tel[f'tenant/{name}/pressure']:.2f}")
         print(f"admission: shed={tel['serve/shed']} deferred={tel['serve/deferred']} "
               f"rebalances={tel['serve/rebalances']}")
+    print(f"decode graphs: built={tel['compile/decode_loop/count']} "
+          f"replays={tel['compile/decode_loop/calls']} "
+          f"loop steps={tel.get('serve/loop/steps', 'off')} "
+          f"nvcc builds={tel['compile/nvcc/count']}")
+    if args.metrics_out:
+        with open(args.metrics_out + ".prom", "w") as fh:
+            fh.write(prometheus_text(tel))
+        if logger is not None:
+            logger.stop()  # appends the final JSONL snapshot itself
+        else:
+            append_jsonl(args.metrics_out + ".jsonl", tel, extra=extra)
+        print(f"metrics: wrote {args.metrics_out}.prom, appended {args.metrics_out}.jsonl")
+    if server is not None:
+        server.stop()
     for rid in sorted(results)[:4]:
         r = results[rid]
         print(f"  req {rid}: cached={r.prefill_cached} status={r.status} "

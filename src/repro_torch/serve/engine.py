@@ -1,6 +1,6 @@
 """Serving engine: prefill -> decode over AWRP-managed caches
-(``repro/serve/engine.py`` without the obs registry: its ``metrics=False``
-decode loop).
+(``repro/serve/engine.py``; its decision-trace ring and OPT regret are not
+ported yet).
 
   * length-bucketed batching: requests with equal page-aligned prompt
     lengths run together, sharing one token position per step;
@@ -37,13 +37,25 @@ decode loop).
     same runner runs the same step eagerly.  ``jit_loop=False`` is the
     eager host loop, one ``decode_step`` per token, the baseline.  In both,
     tokens stay on the device until the bucket ends and the loop reads
-    nothing back to the host.
+    nothing back to the host;
+  * observability: with ``metrics=True`` (the default, as in the reference)
+    the decode-loop planes (``serve/loop/{steps, tokens, token_hist}``,
+    ``obs/metrics.py``) are folded after every sampling event: the first
+    greedy token eagerly, every later step inside the captured step (into
+    planes the graph owns, added into the engine's after the bucket) or per
+    step on the host loop, integer ops only, so both loops' planes are equal
+    bit for bit.  Every telemetry surface mounts a provider on one
+    ``Registry`` and ``telemetry()`` is one flat snapshot with one
+    synchronization; host spans (``prefill``, ``decode``, ``rebalance``),
+    the decode graphs' compile counters and, with ``profile_dir``, one
+    ``torch.profiler`` trace per ``profile_every`` requests ride along.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import threading
 import time
 from typing import Dict, List, Optional
 
@@ -55,6 +67,11 @@ from repro_torch.core.policy_core import AdaptiveState
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import model as M
+from repro_torch.obs import profiling
+from repro_torch.obs.metrics import (Derived, Registry, loop_merge_, loop_planes,
+                                     loop_update_, safe_ratio)
+from repro_torch.obs.profiling import Sentinel, TraceCapture
+from repro_torch.obs.spans import SpanSet
 from repro_torch.serve.sampling import sample, sample_traced
 from repro_torch.serve.tenancy import DEFER, SHED, AdmissionController, TenantPrefixCache
 
@@ -123,11 +140,14 @@ class DecodeGraph:
     ``lax.scan`` body is this step.
 
     It owns the static inputs: the token, the cache tree (``pos``, the K/V,
-    every policy plane), the temperature and the eviction and non-finite
-    counters.  One step runs ``ServeEngine._step`` on them and writes its
-    results back into them: the K/V pages are written in place by the step,
-    the planes ``decode_step`` restacks are copied back.  ``load`` copies a
-    bucket's caches in; a stored prefix payload is only read, so none
+    every policy plane), the temperature, the eviction and non-finite
+    counters and, on an engine with ``metrics=True``, decode-loop planes of
+    its own (``planes``).  One step runs ``ServeEngine._step`` on them and
+    writes its results back into them: the K/V pages are written in place
+    by the step, the planes ``decode_step`` restacks are copied back, the
+    loop planes are folded in place.  ``load`` copies a bucket's caches in
+    and zeroes the counters and loop planes (the warm-up and the capture
+    run the step too); a stored prefix payload is only read, so none
     aliases the static tree (the reference's donation rule).
 
     On a CUDA device the step is captured once, on the engine's long-lived
@@ -149,6 +169,8 @@ class DecodeGraph:
         self.temperature = torch.zeros((), dtype=torch.float32, device=dev)
         self.evictions = torch.zeros((), dtype=torch.int64, device=dev)
         self.nonfinite = torch.zeros((), dtype=torch.int64, device=dev)
+        #: the bucket's loop planes, added into the engine's after it
+        self.planes = loop_planes(dev) if engine.metrics else None
         self.generator = engine.generator if sampled else None
         self.graph = None
         #: host-clock seconds of the build: clone, warm-up and capture
@@ -160,7 +182,7 @@ class DecodeGraph:
 
     def _body(self, generator) -> None:
         tok, caches, evictions, nonfinite = self.engine._step(
-            self.tok, self.caches, generator, self.temperature)
+            self.tok, self.caches, generator, self.temperature, self.planes)
         self.tok.copy_(tok)
         self.evictions += evictions
         self.nonfinite += nonfinite
@@ -190,15 +212,18 @@ class DecodeGraph:
 
     def load(self, caches, tok: torch.Tensor, temperature: float) -> None:
         """A bucket's starting state: its caches, its first token, its
-        temperature, the counters at 0."""
+        temperature, the counters and loop planes at 0."""
         _copy_into(self.caches, caches)
         self.tok.copy_(tok)
         self.temperature.fill_(temperature)
         self.evictions.zero_()
         self.nonfinite.zero_()
+        for plane in (self.planes or {}).values():
+            plane.zero_()
 
     def step(self) -> None:
         """One decode step: a graph replay on the card, the body on the CPU."""
+        self.engine._loop_sentinel.calls += 1
         if self.graph is None:
             self._body(self.generator)
             return
@@ -239,14 +264,25 @@ class ServeEngine:
 
     ``prefix_policy`` is a policy name or a prebuilt host policy (through
     ``make_cache_policy``) for the single-tenant prompt cache, a device
-    policy name (awrp/lru/fifo/lfu/arc/car) for the tenants' core."""
+    policy name (awrp/lru/fifo/lfu/arc/car) for the tenants' core.
+
+    ``metrics=False`` drops the loop planes (no fold in the graph, tokens and
+    stats unchanged); ``profile_phases=True`` makes each span wait for its
+    phase's outputs; ``profile_dir`` turns on ``torch.profiler`` capture.
+    ``telemetry()`` may be called from another thread (``obs/server.py``):
+    the engine's lock, held while a decode graph is captured and while a
+    bucket's graph loop runs under sync debug mode ``"error"``, makes a
+    snapshot wait for both to end, so its one synchronization neither
+    raises in that mode nor breaks a capture."""
 
     def __init__(self, cfg, params, *, max_len: int = 512, kv_mode: str = "full",
                  prefix_cache_entries: int = 8, prefix_policy="awrp", seed: int = 0,
                  tenants: Optional[Dict[str, int]] = None,
                  admission: Optional[AdmissionController] = None,
                  auto_rebalance: bool = False, fused: bool = False, expert_cache=None,
-                 jit_loop: bool = True, device="cuda"):
+                 jit_loop: bool = True, metrics: bool = True,
+                 profile_dir: Optional[str] = None, profile_every: int = 16,
+                 profile_phases: bool = False, device="cuda"):
         self.device = resolve_device(device)
         self.jit_loop = bool(jit_loop)
         if (self.jit_loop and self.device.type == "cuda" and kv_mode == "paged"
@@ -287,6 +323,21 @@ class ServeEngine:
         #: layers), and the ghost hits its re-prefills replayed
         self._kv_sessions: Dict[str, Dict[str, AdaptiveState]] = {}
         self._kv_ghost_hits: Dict[str, int] = {}
+        # -- observability ---------------------------------------------------
+        #: held while a decode graph is captured and while a graph loop runs
+        #: (sync debug mode "error"); ``telemetry()`` takes it
+        self._lock = threading.RLock()
+        #: the decode-loop planes, None with metrics off
+        self.metrics = bool(metrics)
+        self._planes = loop_planes(self.device) if self.metrics else None
+        #: the decode graphs' compile counters (``compile/decode_loop/...``)
+        self._loop_sentinel = Sentinel("decode_loop")
+        #: host spans around prefill, decode and rebalance; with
+        #: ``profile_phases`` each waits for its phase's outputs
+        self.spans = SpanSet(sync=bool(profile_phases))
+        self._capture = TraceCapture(profile_dir, profile_every) if profile_dir else None
+        self.registry = Registry()
+        self._mount_providers()
 
     # -- internals ----------------------------------------------------------
     def _align(self, prompt: List[int]) -> List[int]:
@@ -305,9 +356,11 @@ class ServeEngine:
     def _prefill(self, prompts: List[List[int]]):
         tokens = torch.tensor(prompts, dtype=torch.int32, device=self.device)
         t0 = time.perf_counter()
-        logits, caches = M.prefill(self.params, self.cfg, tokens, self.max_len,
-                                   kv_mode=self.kv_mode)
-        self._sync()
+        with self.spans.span("prefill") as sp:
+            logits, caches = M.prefill(self.params, self.cfg, tokens, self.max_len,
+                                       kv_mode=self.kv_mode)
+            sp.ready(logits)
+            self._sync()
         self.stats["prefill_s"] += time.perf_counter() - t0
         self.stats["prefills"] += 1
         # a copy of the last position, so the (B, S, V) logits are freed
@@ -334,16 +387,19 @@ class ServeEngine:
             self._capture_stream = torch.cuda.Stream(device=self.device)
         return self._capture_stream
 
-    def _step(self, tok, caches, generator, temperature):
+    def _step(self, tok, caches, generator, temperature, planes=None):
         """One decode step on the device: the evictions its allocation makes
         into a full pool, the step, its non-finite logits and the next token
-        (``sample_traced``).  Returns ``(tok, caches, evictions,
-        nonfinite)``; nothing is read back to the host."""
+        (``sample_traced``), folded into the loop ``planes`` in place when
+        given.  Returns ``(tok, caches, evictions, nonfinite)``; nothing is
+        read back to the host."""
         evictions = self._evictions_at(caches)
         logits, caches = M.decode_step(self.params, self.cfg, tok, caches,
                                        kv_mode=self.kv_mode, fused=self.fused)
         nonfinite = (~torch.isfinite(logits)).sum()
         tok = sample_traced(logits, generator, temperature, vocab=self.cfg.vocab)
+        if planes is not None:
+            loop_update_(planes, tok, vocab=self.cfg.vocab)
         return tok, caches, evictions, nonfinite
 
     def decode_graph(self, caches, sampled: bool) -> DecodeGraph:
@@ -353,25 +409,34 @@ class ServeEngine:
         key = (_batch_of(next(iter(caches["blocks"].values()))), bool(sampled))
         graph = self._graphs.get(key)
         if graph is None:
-            t0 = time.perf_counter()
-            graph = DecodeGraph(self, caches, sampled)
-            self._sync()
-            graph.build_s = time.perf_counter() - t0
+            with self._lock:
+                t0 = time.perf_counter()
+                graph = DecodeGraph(self, caches, sampled)
+                self._sync()
+                graph.build_s = time.perf_counter() - t0
             self._graphs[key] = graph
             self.stats["loop_captures"] += 1
+            sentinel = self._loop_sentinel
+            sentinel.traces += 1
+            sentinel.cache_size = len(self._graphs)
+            sentinel.last_trace_s = graph.build_s
         return graph
 
     def _graph_loop(self, graph: DecodeGraph, tok, caches, temperature: float,
                     steps: int):
         """``steps`` replays of the bucket's decode graph: the generated
         tokens (each a copy of the static token), the final caches (the
-        graph's static tree) and the counters, all on the device."""
-        graph.load(caches, tok, temperature)
-        generated = []
-        with _sync_errors(self.device):
-            for _ in range(steps):
-                graph.step()
-                generated.append(graph.tok.clone())
+        graph's static tree) and the counters, all on the device; the
+        graph's loop planes are added into the engine's."""
+        with self._lock:
+            graph.load(caches, tok, temperature)
+            generated = []
+            with _sync_errors(self.device):
+                for _ in range(steps):
+                    graph.step()
+                    generated.append(graph.tok.clone())
+            if self._planes is not None:
+                loop_merge_(self._planes, graph.planes)
         return generated, graph.caches, graph.evictions, graph.nonfinite
 
     def _host_loop(self, tok, caches, temperature: float, steps: int):
@@ -387,6 +452,8 @@ class ServeEngine:
             nonfinite += (~torch.isfinite(logits)).sum()
             tok = sample(logits, self.generator, temperature=temperature,
                          vocab=self.cfg.vocab)
+            if self._planes is not None:
+                loop_update_(self._planes, tok, vocab=self.cfg.vocab)
             generated.append(tok)
         return generated, caches, evictions, nonfinite
 
@@ -449,7 +516,8 @@ class ServeEngine:
             return
         if mgr.rank_tenants()[0] == tenant:
             return
-        moved, _ = self.tenant_cache.rebalance(tenant, 1)
+        with self.spans.span("rebalance"):
+            moved, _ = self.tenant_cache.rebalance(tenant, 1)
         self.stats["rebalances"] += moved
 
     def _admit(self, requests: List[Request]) -> List[str]:
@@ -484,15 +552,19 @@ class ServeEngine:
         graph = (self.decode_graph(caches, temperature > 0.0)
                  if self.jit_loop and steps else None)
         t1 = time.perf_counter()
-        tok = sample(logits, self.generator, temperature=0.0, vocab=self.cfg.vocab)
-        if graph is None:
-            generated, caches, evictions, nonfinite = self._host_loop(
-                tok, caches, temperature, steps)
-        else:
-            generated, caches, evictions, nonfinite = self._graph_loop(
-                graph, tok, caches, temperature, steps)
-        nonfinite = nonfinite + (~torch.isfinite(logits)).sum()
-        gen = torch.cat([tok, *generated], dim=1).cpu()  # the one pull of the bucket
+        with self.spans.span("decode") as sp:
+            tok = sample(logits, self.generator, temperature=0.0, vocab=self.cfg.vocab)
+            if self._planes is not None:
+                loop_update_(self._planes, tok, vocab=self.cfg.vocab)
+            if graph is None:
+                generated, caches, evictions, nonfinite = self._host_loop(
+                    tok, caches, temperature, steps)
+            else:
+                generated, caches, evictions, nonfinite = self._graph_loop(
+                    graph, tok, caches, temperature, steps)
+            sp.ready(caches)
+            nonfinite = nonfinite + (~torch.isfinite(logits)).sum()
+            gen = torch.cat([tok, *generated], dim=1).cpu()  # the one pull of the bucket
         if single and self._ghost_feed_on:
             self._kv_persist(caches, reqs[0].tenant_id)
         self.stats["decode_s"] += time.perf_counter() - t1
@@ -520,7 +592,15 @@ class ServeEngine:
         deferred requests run after the unpressured work, shed only if their
         tenant is still at shed pressure by then, else completed with
         ``status="deferred"``.  Mutates the sampling generator, ``stats``,
-        the prompt caches and the KV sessions."""
+        the prompt caches and the KV sessions.  With ``profile_dir`` set, one
+        call per ``profile_every`` requests runs inside a ``torch.profiler``
+        capture."""
+        if self._capture is None:
+            return self._generate(requests)
+        with self._capture.maybe(len(requests)):
+            return self._generate(requests)
+
+    def _generate(self, requests: List[Request]) -> Dict[int, Result]:
         out: Dict[int, Result] = {}
         for r in requests:
             r.prompt = self._align(r.prompt)
@@ -558,37 +638,89 @@ class ServeEngine:
                 out.update(res)
         return out
 
-    def telemetry(self) -> dict:
-        """Engine counters; the prompt cache's stats (``prefix/...``, or
-        ``tenant/<t>/...`` per tenant); an attached expert cache's
-        (``expert/...``); in the paged mode the pool's policy
-        and size (``kv/pool/...``) and, per tenant with a persisted session,
-        its ghost hits and ``p`` (``kv/<t>/...``), with ``p`` and residency
-        over every session (``kv/p_mean``, ``kv/p_max``,
-        ``kv/resident_mean``), namespaced."""
-        out = {f"serve/{k}": v for k, v in self.stats.items()}
+    # -- observability mounts -----------------------------------------------
+    def _mount_providers(self) -> None:
+        """Mount every telemetry surface the engine holds on the registry.
+        Providers read ``self`` when the snapshot runs (an expert cache
+        attached after construction appears at the next snapshot) and return
+        tensors un-pulled: the snapshot's one ``_pull`` is the only read."""
+        self.registry.mount("serve", self._serve_provider)
         if self.tenants is None:
-            out.update({f"prefix/{k}": v for k, v in self.prefix_cache.telemetry().items()})
+            self.registry.mount("prefix", lambda: self.prefix_cache.telemetry())
         else:
-            for t, d in self.tenant_cache.telemetry().items():
-                out.update({f"tenant/{t}/{k}": v for k, v in d.items()})
-        if self.expert_cache is not None:
-            out.update({f"expert/{k}": v for k, v in self.expert_cache.telemetry().items()})
+            self.registry.mount("tenant", self._tenant_provider)
+        self.registry.mount("kv", self._kv_provider)
+        self.registry.mount("expert", lambda: (self.expert_cache.telemetry()
+                                               if self.expert_cache is not None else {}))
+        self.registry.mount("span", self.spans.metrics)
+        # process-wide compile counters: every engine mounts the same sums
+        self.registry.mount("compile", profiling.compile_metrics)
+        if self._capture is not None:
+            self.registry.mount("profiler", self._capture.metrics)
+
+    def _serve_provider(self) -> dict:
+        out: dict = dict(self.stats)
+        if self._planes is not None:
+            out["loop"] = dict(self._planes)
+        return out
+
+    def _tenant_provider(self) -> dict:
+        mgr = self.tenant_cache.manager
+        rows = mgr.row_metrics()  # (rows,) device planes, not pulled
+        ratio = Derived(lambda g: safe_ratio(g["hits"], g["accesses"]))
+        out = {}
+        for t in mgr.tenants:
+            r = mgr.row(t)
+            out[t] = {
+                "policy": mgr.policy_name,
+                "quota": mgr.quotas[t],
+                "entries": len(self.tenant_cache.stores[t]),
+                "occupancy": rows["occupancy"][r],
+                "hits": rows["hits"][r],
+                "misses": rows["misses"][r],
+                "evictions": rows["evictions"][r],
+                "accesses": rows["accesses"][r],
+                "pressure": rows["pressure"][r],
+                "hit_ratio": ratio,
+            }
+        return out
+
+    def _kv_provider(self) -> dict:
+        """The paged pool's policy and size and, per tenant with a persisted
+        session, its ghost hits and ``p``; ``p`` and residency over every
+        session.  The reductions run on the device, not pulled."""
         if self.kv_mode != "paged":
-            return out
-        out.update({"kv/pool/policy": self.cfg.kv_policy,
-                    "kv/pool/pages": self.cfg.bounded_kv_pages})
+            return {}
+        out: dict = {"pool": {"policy": self.cfg.kv_policy,
+                              "pages": self.cfg.bounded_kv_pages}}
         every = []
-        for t, states in self._kv_sessions.items():
+        # a copy: the serving thread may add a tenant's session meanwhile
+        for t, states in list(self._kv_sessions.items()):
             tel = [paged_kv.pool_telemetry(s) for s in states.values()]
             every += tel
-            out.update({f"kv/{t}/policy": self.cfg.kv_policy,
-                        f"kv/{t}/ghost_hits": self._kv_ghost_hits.get(t, 0),
-                        f"kv/{t}/p_mean": float(torch.stack([x["p_mean"] for x in tel]).mean()),
-                        f"kv/{t}/p_max": float(torch.stack([x["p_max"] for x in tel]).max())})
+            out[t] = {"policy": self.cfg.kv_policy,
+                      "ghost_hits": self._kv_ghost_hits.get(t, 0),
+                      "p_mean": torch.stack([x["p_mean"] for x in tel]).mean(),
+                      "p_max": torch.stack([x["p_max"] for x in tel]).amax()}
         if every:
-            out.update({"kv/p_mean": float(torch.stack([x["p_mean"] for x in every]).mean()),
-                        "kv/p_max": float(torch.stack([x["p_max"] for x in every]).max()),
-                        "kv/resident_mean": float(torch.stack(
-                            [x["resident_mean"] for x in every]).mean())})
+            out["p_mean"] = torch.stack([x["p_mean"] for x in every]).mean()
+            out["p_max"] = torch.stack([x["p_max"] for x in every]).amax()
+            out["resident_mean"] = torch.stack([x["resident_mean"] for x in every]).mean()
         return out
+
+    def telemetry(self) -> dict:
+        """One flat namespaced snapshot of every surface the engine serves
+        from (``Registry.snapshot``): engine counters and the decode-loop
+        planes (``serve/...``, ``serve/loop/...``), the prompt cache
+        (``prefix/...``, or ``tenant/<t>/...`` per tenant, whose
+        ``hit_ratio`` is the exact float64 division of the pulled counters),
+        in the paged mode the pool (``kv/pool/...``) and per tenant with a
+        persisted session its ghost hits and ``p`` (``kv/<t>/...``) with
+        ``p`` and residency over every session (``kv/p_mean``, ``kv/p_max``,
+        ``kv/resident_mean``), an attached expert cache (``expert/...``), the
+        host spans (``span/...``), the compile counters (``compile/...``)
+        and the profiler's cadence (``profiler/...``).  One synchronization
+        in all; it waits for a capture or graph loop in progress (the
+        engine's lock)."""
+        with self._lock:
+            return self.registry.snapshot()

@@ -35,8 +35,11 @@ Quota rebalancing is for flat cores (awrp/lru/fifo/lfu); adaptive rows
 (arc/car) carry ghost directories whose invariants do not survive a
 capacity change, so their quotas are fixed.
 
-Not ported: the reference's ``mesh`` rows sharding, the decision-trace ring
-(``ring_capacity``, ``drain_trace``) and the compile sentinels.
+Not ported: the reference's ``mesh`` rows sharding and the decision-trace
+ring (``ring_capacity``, ``drain_trace``).  The reference's compile
+sentinels of ``decide_batch`` and the tenancy step have no counterpart:
+nothing here is compiled.  The serving engine reports the rows through its
+registry (``ServeEngine.telemetry``) from ``row_metrics``, un-pulled.
 """
 
 from __future__ import annotations
@@ -63,7 +66,7 @@ from repro_torch.core.policy_core import (
 )
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
-from repro_torch.obs.metrics import safe_ratio
+from repro_torch.obs.metrics import _pull, safe_ratio
 
 __all__ = [
     "TenantCacheManager",
@@ -357,10 +360,11 @@ class TenantCacheManager:
         return self.core.row_telemetry(self.state, self.counters)
 
     def row_telemetry(self) -> Dict[str, np.ndarray]:
-        """The core's per-row accounting pulled to the host: hits / misses /
-        evictions / accesses / occupancy / capacity / pressure, each
-        ``(rows,)``."""
-        return {k: v.cpu().numpy() for k, v in self.row_metrics().items()}
+        """The core's per-row accounting pulled to the host with one
+        synchronization: hits / misses / evictions / accesses / occupancy /
+        capacity / pressure, each ``(rows,)``."""
+        rows = self.row_metrics()
+        return dict(zip(rows, _pull(list(rows.values()))))
 
     def telemetry(self) -> Dict[str, dict]:
         """Per-tenant stats dicts, the same keys for every tenant: the one
