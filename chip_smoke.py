@@ -130,14 +130,32 @@ side:
    per snapshot (as in ``serve``); in the AWRP run, a ``MetricsServer``
    polled by a client thread while the engine captures a new decode graph
    (a batch of 2) and replays it: no error, no 500, the batch's tokens == a
-   fresh engine's, and ``/metrics.json`` == ``telemetry()`` afterwards.
+   fresh engine's, and ``/metrics.json`` == ``telemetry()`` afterwards.  Both
+   runs serve ring-off; then each run's requests are served again, in order,
+   on a fresh engine that traces decisions (``decision_trace=256``: every
+   prefix-cache access launches the stream kernels' ring variant): statuses,
+   tokens, rebalances, final planes and counters == the ring-off run's; the
+   drained access events == a CPU replay's (which carries a ring too),
+   bitwise; the admission events' codes == the decisions ``decide_batch``
+   returned; one synchronizing CUDA call per drain (``torch.profiler``);
+   ``opt_regret()``'s gauges in ``telemetry()`` == ``regret_from_records``
+   on the replay's records.
 7. ``tenancy``: the trace kernels' stream mode (the tenancy manager's
    ``access_stream`` and ``access``) == its plain version (the same manager
    on the CPU, in worker processes) on the tenancy benchmark's 6000-access
    stream for all six policies, in 8 chunks with rebalances, at quotas
    (200, 100, 40), with forced renormalization, access by access; == the
    host oracles there and at 100 000 accesses; one launch and no host sync
-   per call; timed.
+   per call; timed through the manager's own launch (``stream_call``).
+   The ring variant: the six policies on the 6000-access stream with a
+   4096-event ring (it wraps): hits, planes and counters == the ring-off
+   run's, bitwise, the drained row / key / hit == the stream's tail and the
+   ring-off hits; on a 600-access prefix (100, then 500) into a 256-event
+   ring, the new ring (``buf[:cap]``, ``count``) == the plain version's on
+   the card, bitwise, for the six policies at quotas 16/16/16, arc and car
+   with ``renorm_at=64``, awrp and lfu at quotas (200, 100, 40); ms per call
+   with the ring on and off, at 6000 accesses and at one access (rings of
+   256 and 65 536 events).
 8. ``expert_cache``: ``ExpertCacheRuntime(device="cuda")`` on the card for
    awrp, lru, fifo, lfu, arc and car: the expert-cache benchmark's three
    20 000-access router traces, each as one ``route(0, trace)`` (one stream
@@ -792,6 +810,17 @@ SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchr
               "cudaMemcpy", "cudaMemcpy2D")
 
 
+def _host_events_in(events, name: str) -> list:
+    """The host-side profiler events that start inside the first
+    ``record_function(name)`` range of ``events``."""
+    from torch.autograd import DeviceType
+
+    host = [e for e in events if e.device_type != DeviceType.CUDA]
+    span = min((e for e in host if e.name == name), key=lambda e: e.time_range.start)
+    lo, hi = span.time_range.start, span.time_range.end
+    return [e for e in host if lo <= e.time_range.start <= hi]
+
+
 def one_pull(engine, reps: int = 5) -> dict:
     """One ``telemetry()`` snapshot's cost: its host wall ms (median of
     ``reps`` after a warm-up), then one snapshot under ``torch.profiler``
@@ -822,11 +851,7 @@ def one_pull(engine, reps: int = 5) -> dict:
     finally:
         obs_metrics._pull = orig
     events = prof.events()
-    span = min((e for e in events if e.name == "telemetry_snapshot"
-                and e.device_type != DeviceType.CUDA), key=lambda e: e.time_range.start)
-    lo, hi = span.time_range.start, span.time_range.end
-    inside = [e for e in events if e.device_type != DeviceType.CUDA
-              and lo <= e.time_range.start <= hi]
+    inside = _host_events_in(events, "telemetry_snapshot")
     syncs = [e.name for e in inside if e.name in SYNC_CALLS]
     device = [e for e in events if e.device_type == DeviceType.CUDA]
     d2h = sum(1 for e in device if "DtoH" in e.name or "Device -> Pageable" in e.name)
@@ -2165,19 +2190,107 @@ def _assert_rows_match_oracles(planes, stats, label) -> None:
     assert (got == stats).all(), (label, got.tolist(), stats.tolist())
 
 
-def _stream_bound(rows, keys, hits, planes, lanes) -> tuple:
+def _stream_bound(rows, keys, hits, planes, lanes, ring_cap=None) -> tuple:
     """(bound_ms, bound_by) of one stream-kernel call: the bytes it must
     move (the (T, 2) records, the hits, every plane and counter in and out,
     each once) at the HBM rate, against its 32-bit operations at the f32
     peak: per access one comparison per live lane of its row (the hit
-    search), per miss two more (the victim key and its minimum)."""
-    nbytes = 8 * len(keys) + len(hits) + 2 * sum(p.nbytes for p in planes)
+    search), per miss two more (the victim key and its minimum).  With
+    ``ring_cap`` the ring variant's: the new ring's cap + 1 slots written,
+    the max(cap - T, 0) + 1 slots of the given ring that no event
+    overwrites read, the count read and written; the victim's two
+    operations per lane also for a hit whose event survives (t >= T -
+    cap)."""
+    T = len(keys)
+    nbytes = 8 * T + len(hits) + 2 * sum(p.nbytes for p in planes)
+    victim = ~hits
+    if ring_cap is not None:
+        from repro_torch.kernels.sweep import RING_FIELDS
+
+        slot = 4 * RING_FIELDS
+        nbytes += (ring_cap + 1) * slot + (max(ring_cap - T, 0) + 1) * slot + 8
+        victim = victim | (np.arange(T) >= T - ring_cap)
     acc = np.bincount(rows, minlength=len(lanes))
-    miss = np.bincount(rows, weights=~hits, minlength=len(lanes))
+    miss = np.bincount(rows, weights=victim, minlength=len(lanes))
     n_ops = float((np.asarray(lanes) * (acc + 2 * miss)).sum())
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+#: the decision-trace ring of the tenancy phase's ring-variant runs: smaller
+#: than the stream, so it wraps
+TENANCY_RING = 4096
+
+
+def ring_prefix_equal(policy: str, quotas, rows, keys, dev, renorm_at=None) -> float:
+    """The first 600 accesses of (rows, keys), 100 then 500, through a
+    manager with a 256-event ring (``renorm_at`` forced when given): after
+    each call the kernel's new ring (``buf[:cap]``, ``count``) == its plain
+    version's on the card (``ref.*_stream_plain(ring=...)`` on the same
+    inputs), bitwise.  Returns the plain version's seconds."""
+    from repro_torch.serve.tenancy import TenantCacheManager
+
+    mgr = TenantCacheManager(dict(zip(TENANCY_TENANTS, quotas)), policy, device=dev,
+                             ring_capacity=256)
+    if renorm_at is not None:
+        mgr.core = dataclasses.replace(mgr.core, renorm_at=renorm_at)
+    plain_fn = ref.adaptive_stream_plain if mgr.is_adaptive else ref.flat_stream_plain
+    plain_s = 0.0
+    for lo, hi in ((0, 100), (100, 600)):
+        fn, args, kw = mgr.stream_call(rows[lo:hi], keys[lo:hi])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        *_, want = plain_fn(*args, **kw)
+        torch.cuda.synchronize()
+        plain_s += time.perf_counter() - t0
+        mgr.access_stream(rows[lo:hi], keys[lo:hi])
+        got = mgr.ring
+        assert got.buf[:256].cpu().numpy().tobytes() == want.buf[:256].cpu().numpy().tobytes(), \
+            (policy, quotas, renorm_at, lo)
+        assert int(got.count) == int(want.count) == hi, (policy, quotas, renorm_at, lo)
+    return plain_s
+
+
+def tenancy_ring(policy: str, ring_off: dict, rows, keys, dev) -> tuple:
+    """The stream kernels' ring variant on the tenancy stream: a manager
+    with a ``TENANCY_RING`` ring through ``access_stream`` (one ``*_ring``
+    launch, no host sync) == ``ring_off`` (``tenancy_drive``'s ring-off run
+    of the same stream on the card) in hits, planes and counters, bitwise;
+    the drained events == the stream's tail with the ring-off hits; then
+    ``ring_prefix_equal`` at quotas 16/16/16.  Returns (the results, the
+    manager's launch from its fresh state as ``stream_call`` gives it, for
+    timing)."""
+    from repro_torch.obs import decision_trace as dt
+    from repro_torch.serve.tenancy import TenantCacheManager
+
+    quotas = dict(zip(TENANCY_TENANTS, (16, 16, 16)))
+    mgr = TenantCacheManager(quotas, policy, device=dev, ring_capacity=TENANCY_RING)
+    name = ("adaptive_stream" if mgr.is_adaptive else "flat_stream") + "_ring"
+    launch = mgr.stream_call(rows, keys)
+    ops.reset_launches()
+    syncs0 = _syncs()
+    hits = mgr.access_stream(rows, keys)
+    assert ops.LAUNCHES[name] == 1 and sum(ops.LAUNCHES.values()) == 1, dict(ops.LAUNCHES)
+    assert _syncs() == syncs0, policy
+    assert np.array_equal(hits, ring_off["hits"]), policy
+    for i, (a, b) in enumerate(zip((*mgr.state, *mgr.counters), ring_off["planes"])):
+        assert a.cpu().numpy().tobytes() == b.tobytes(), (policy, i)
+    rec = mgr.drain_trace()
+    cap = TENANCY_RING
+    assert len(rec) == cap and int(mgr.ring.count) == len(keys) > cap, policy
+    assert (rec["kind"] == dt.KIND_ACCESS).all() and (rec["admit"] == -1).all()
+    assert np.array_equal(rec["row"], rows[-cap:]) and np.array_equal(rec["key"], keys[-cap:])
+    assert np.array_equal(rec["hit"], ring_off["hits"][-cap:].astype(np.int32)), policy
+
+    plain_s = ring_prefix_equal(policy, (16, 16, 16), rows, keys, dev)
+    victims = rec["victim"]
+    return {"launches": 1, "host_syncs": 0, "events": int(len(rec)), "stream_len": len(keys),
+            "equal_to_ring_off": True, "drained_equal_to_stream_tail": True,
+            "prefix_ring_equal_to_plain": True, "prefix_accesses": 600, "prefix_capacity": 256,
+            "plain_ms_per_access": plain_s * 1e3 / 600,
+            "victims_minus_one": int((victims == -1).sum()), "max_victim": int(victims.max()),
+            "hit_ratio_in_window": float(rec["hit"].mean())}, launch
 
 
 def phase_tenancy(dev) -> dict:
@@ -2199,7 +2312,9 @@ def phase_tenancy(dev) -> dict:
     generator in one call (awrp, arc, car).  One launch per call, no host
     sync in the call (``policy_core.HOST_SYNCS``); seconds per call at 6000
     and 100 000, the eager plain route on the card at 6000 (awrp), the host
-    oracles, the kernels timed alone and their bound."""
+    oracles, the kernels timed alone as the manager launches them
+    (``stream_call``) and their bound.  Then the ring variant for each
+    policy (``tenancy_ring``), timed beside the ring-off launch."""
     import concurrent.futures
     import multiprocessing
 
@@ -2284,27 +2399,29 @@ def phase_tenancy(dev) -> dict:
                                  "host_syncs": _syncs() - syncs0, "host_oracle_seconds": host_s,
                                  "counts_equal_to_host": True}
 
-    # the kernels alone (CUDA events) at 6000, beside the eager plain route
-    # on the card (awrp) and the bound
+    # the kernels alone (CUDA events) at 6000, as the manager launches them
+    # (stream_call), beside the eager plain route on the card (awrp) and the
+    # bound; the ring variant likewise, into a 4096-event ring
     res["kernels"] = {"flat_stream": [], "adaptive_stream": []}
-    dev_rows, dev_keys = (torch.from_numpy(a).to(dev) for a in (rows, keys))
+    res["ring"] = {}
     for p in TENANCY_POLICIES:
         mgr = TenantCacheManager(dict(zip(TENANCY_TENANTS, q16)), p, device=dev)
         core = mgr.core
-        if mgr.is_adaptive:
-            name, fn = "adaptive_stream", ops.adaptive_stream
-            kw = dict(kind=core.kind, alpha=mgr.pressure_alpha, renorm_at=core.renorm_at)
-            args = (dev_keys, dev_rows, mgr.state, mgr.counters, *mgr._row_consts)
-            lanes = [2 * c for c in core.caps]
-        else:
-            name, fn = "flat_stream", ops.flat_stream
-            kw = dict(alpha=mgr.pressure_alpha)
-            args = (dev_keys, dev_rows, mgr.state, mgr.counters, *mgr._row_consts)
-            lanes = list(core.ways)
+        name = "adaptive_stream" if mgr.is_adaptive else "flat_stream"
+        lanes = [2 * c for c in core.caps] if mgr.is_adaptive else list(core.ways)
+        fn, args, kw = mgr.stream_call(rows, keys)
         hits, state, ctr = fn(*args, **kw)
         ms = time_ms(lambda: fn(*args, **kw), reps=10, warmup=2)
         planes = [t.cpu().numpy() for t in (*state, *ctr)]
         bound_ms, bound_by = _stream_bound(rows, keys, hits.cpu().numpy(), planes, lanes)
+        ring, (fn_r, args_r, kw_r) = tenancy_ring(p, card[f"stream_{p}"], rows, keys, dev)
+        hits_r = fn_r(*args_r, **kw_r)[0]
+        ring_ms = time_ms(lambda: fn_r(*args_r, **kw_r), reps=10, warmup=2)
+        ring_bound_ms, ring_bound_by = _stream_bound(rows, keys, hits_r.cpu().numpy(), planes,
+                                                     lanes, ring_cap=TENANCY_RING)
+        ring.update(ring_ms=ring_ms, ring_off_ms=ms, ring_bound_ms=ring_bound_ms,
+                    ring_bound_by=ring_bound_by)
+        res["ring"][p] = ring
         # the call again on a fresh manager (the case above was this kind's
         # first launch in the process)
         warm = TenantCacheManager(dict(zip(TENANCY_TENANTS, q16)), p, device=dev)
@@ -2315,17 +2432,45 @@ def phase_tenancy(dev) -> dict:
         run = {"policy": p, "rows": 3, "accesses": TENANCY_N, "lanes": max(lanes),
                "plane_lanes": mgr.state.blocks.shape[-1], "ms": ms,
                "us_per_access": ms * 1e3 / TENANCY_N, "bound_ms": bound_ms,
-               "bound_by": bound_by, "library_ms": None,
+               "bound_by": bound_by, "library_ms": None, "ring_ms": ring_ms,
+               "ring_bound_ms": ring_bound_ms, "ring_bound_by": ring_bound_by,
                "seconds_per_access_stream_call": res["cases"][f"stream_{p}"]["seconds"],
                "seconds_per_access_stream_call_again": warm_s}
         if p == "awrp":
-            plain_fn = ref.flat_stream_plain
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            plain_fn(*args, **kw)
+            ref.flat_stream_plain(*args, **kw)
             torch.cuda.synchronize()
             run["plain_ms"] = (time.perf_counter() - t0) * 1e3
+        run["ring_plain_ms_per_access"] = ring["plain_ms_per_access"]
         res["kernels"][name].append(run)
+
+    # the ring variant == its plain version also with forced renormalization
+    # (arc, car) and at quotas (200, 100, 40), flat rows of 340 lanes in
+    # shared memory (awrp, lfu)
+    res["ring_prefix"] = {}
+    for label, p, quotas, renorm_at in (("renorm_arc", "arc", q16, 64),
+                                        ("renorm_car", "car", q16, 64),
+                                        ("wide_awrp", "awrp", (200, 100, 40), None),
+                                        ("wide_lfu", "lfu", (200, 100, 40), None)):
+        plain_s = ring_prefix_equal(p, quotas, rows, keys, dev, renorm_at=renorm_at)
+        res["ring_prefix"][label] = {"policy": p, "quotas": list(quotas), "renorm_at": renorm_at,
+                                     "accesses": 600, "capacity": 256,
+                                     "equal_to_plain": True,
+                                     "plain_ms_per_access": plain_s * 1e3 / 600}
+
+    # one access per call, as the serving path's prefix core makes it: ms per
+    # call ring-off and with rings of 256 (serve_tenants') and 65 536 events
+    res["ring_one_access"] = {}
+    for p in ("awrp", "arc"):
+        per = {}
+        for cap in (0, TRACE_RING, 65536):
+            mgr = TenantCacheManager(dict(zip(TENANCY_TENANTS, q16)), p, device=dev,
+                                     ring_capacity=cap)
+            fn, args, kw = mgr.stream_call(rows[:1], keys[:1])
+            per[f"ring_{cap}_ms" if cap else "ring_off_ms"] = time_ms(
+                lambda: fn(*args, **kw), reps=20, warmup=3)
+        res["ring_one_access"][p] = per
     res["seconds"] = time.perf_counter() - t_phase
     emit(res)
     return res
@@ -2464,6 +2609,123 @@ def live_endpoint(eng, make_plain, prompts, new_tokens: int) -> dict:
             "keys": len(direct)}
 
 
+#: the serve_tenants engines' decision-trace ring: more than the phase's
+#: events, so none is overwritten and all are held to the CPU replay's
+TRACE_RING = 256
+
+
+def _drain_syncs(eng) -> tuple:
+    """``eng.drain_decision_trace()`` under ``torch.profiler`` inside a
+    ``record_function``: (the records, the synchronizing CUDA runtime calls
+    made in that range)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("trace_drain"):
+            rec = eng.drain_decision_trace()
+        torch.cuda.synchronize()
+    return rec, [e.name for e in _host_events_in(prof.events(), "trace_drain")
+                 if e.name in SYNC_CALLS]
+
+
+def decision_trace_checks(eng, replay, decided) -> dict:
+    """The engine's decision trace against the CPU replay ``replay`` of the
+    same accesses, decays and rebalances (a manager with a ring): the
+    drained access events == the replay's, bitwise, nothing overwritten;
+    the admission events' codes == ``decided``; one synchronizing call per
+    drain; ``opt_regret()``'s gauges in ``telemetry()`` ==
+    ``regret_from_records`` on the replay's records, ``span/trace_drain``
+    counted."""
+    from repro_torch.obs import decision_trace as dt
+    from repro_torch.obs.opt_oracle import regret_from_records
+
+    mgr = eng.tenant_cache.manager
+    rec, syncs = _drain_syncs(eng)
+    assert len(syncs) == 1, syncs
+    assert len(rec) == int(mgr.ring.count) < dt.ring_capacity(mgr.ring), len(rec)
+    acc = rec[rec["kind"] == dt.KIND_ACCESS]
+    want = replay.drain_trace()
+    assert acc.tobytes() == want.tobytes(), "card's access events != the CPU replay's"
+    codes = rec[rec["kind"] == dt.KIND_ADMIT]["admit"].tolist()
+    assert codes == [("accept", "defer", "shed").index(d) for d in decided], (codes, decided)
+    regret = eng.opt_regret()
+    per_row, agg = regret_from_records(want, {replay.row(t): replay.quotas[t]
+                                              for t in replay.tenants})
+    tel = eng.telemetry()
+    for t in replay.tenants:
+        assert tel[f"tenant/{t}/opt_regret"] == per_row[replay.row(t)]["regret"] == \
+            regret[t]["regret"], t
+    assert tel[f"policy/{mgr.policy_name}/opt_regret"] == agg["regret"]
+    assert tel["span/trace_drain/calls"] >= 1
+    return {"events": len(rec), "access_events": len(acc), "admit_events": len(codes),
+            "equal_to_cpu_replay": True, "admit_codes_equal_to_decisions": True,
+            "sync_calls_per_drain": len(syncs), "sync_call": syncs[0],
+            "trace_drain_calls": tel["span/trace_drain/calls"],
+            "trace_drain_p50_s": tel["span/trace_drain/p50_s"],
+            "victims": acc["victim"].tolist(), "opt_regret": regret}
+
+
+def replay_events(mgr, events):
+    """``mgr`` (a CPU tenancy manager) driven by a served run's prefix-core
+    events in order: ("access", tenant, key), ("decay", tenant) for a shed
+    request, ("rebalance", tenant) for a one-page move to it."""
+    for ev in events:
+        if ev[0] == "access":
+            mgr.access(ev[1], ev[2])
+        elif ev[0] == "decay":
+            mgr.decay_pressure(ev[1])
+        else:
+            mgr.rebalance(ev[1], 1)
+    return mgr
+
+
+def traced_reserve(engine, quotas, prefix_policy, log, events, stream_kernel, ring_off) -> dict:
+    """A served run's requests again, in order, on a fresh engine that
+    traces decisions (``decision_trace=TRACE_RING``: every prefix-core
+    access launches the stream kernels' ring variant): each request's
+    status, tokens and rebalance count == the ring-off run's (``log``), the
+    final planes and counters == the ring-off manager ``ring_off``'s,
+    bitwise, one ``*_ring`` launch per prefix access and none ring-off; then
+    ``decision_trace_checks`` against a CPU replay of ``events`` that
+    carries a ring."""
+    from repro_torch.serve.engine import Request
+    from repro_torch.serve.tenancy import AdmissionController, TenantCacheManager
+
+    adm = AdmissionController(defer_at=0.3, shed_at=0.5, warmup=4)
+    eng = engine(tenants=quotas, admission=adm, auto_rebalance=True, decision_trace=TRACE_RING)
+    mgr = eng.tenant_cache.manager
+    # the decisions decide_batch returned for this engine's manager (the
+    # admission events' codes are held to them)
+    decided = []
+
+    def logged(m, tenants, decide=adm.decide_batch):
+        out = decide(m, tenants)
+        if m is mgr:
+            decided.extend(out)
+        return out
+
+    adm.decide_batch = logged
+    ops.reset_launches()
+    for e in log:
+        out = eng.generate([Request(e["rid"], list(e["prompt"]), max_new_tokens=e["new"],
+                                    tenant_id=e["tenant"])])[e["rid"]]
+        assert (out.status, out.tokens, eng.stats["rebalances"]) == \
+            (e["status"], e["tokens"], e["rebalances"]), e["rid"]
+    launches = dict(ops.LAUNCHES)
+    n_access = sum(ev[0] == "access" for ev in events)
+    assert launches[stream_kernel + "_ring"] == n_access and launches[stream_kernel] == 0, \
+        launches
+    for x, y in zip((*mgr.state, *mgr.counters), (*ring_off.state, *ring_off.counters)):
+        assert x.cpu().numpy().tobytes() == y.cpu().numpy().tobytes(), "ring on != ring off"
+    assert mgr.quotas == ring_off.quotas
+    replay = replay_events(TenantCacheManager(quotas, prefix_policy, device="cpu",
+                                              ring_capacity=TRACE_RING), events)
+    checks = decision_trace_checks(eng, replay, decided)
+    return {**checks, "requests": len(log), "launches": launches,
+            "equal_to_ring_off": True}
+
+
 def phase_serve_tenants(dev, params, base_cfg=CONFIG, prompt_len=1024, new_tokens=16,
                         pages=16, rounds=(6, 5)) -> dict:
     """Multi-tenant serving of smollm-360m at published widths, bf16, paged
@@ -2555,7 +2817,8 @@ def phase_serve_tenants(dev, params, base_cfg=CONFIG, prompt_len=1024, new_token
                 if eng.stats["rebalances"] > reb:
                     events.append(("rebalance", tenant))
             rows = mgr.row_telemetry()
-            log.append({"rid": rid, "tenant": tenant, "status": out.status,
+            log.append({"rid": rid, "tenant": tenant, "status": out.status, "new": new,
+                        "rebalances": eng.stats["rebalances"],
                         "prefill_cached": out.prefill_cached, "latency_s": out.latency_s,
                         "pressure_after": mgr.pressure(tenant), "prompt": prompt,
                         "tokens": out.tokens, "n_events": len(events),
@@ -2595,16 +2858,9 @@ def phase_serve_tenants(dev, params, base_cfg=CONFIG, prompt_len=1024, new_token
 
         # per-tenant counters: host oracles where the quota never changed, a
         # CPU replay of the whole event stream for every tenant
-        replay = TenantCacheManager(quotas, prefix_policy, device="cpu")
-        demux = {t: [] for t in quotas}
-        for ev in events:
-            if ev[0] == "access":
-                replay.access(ev[1], ev[2])
-                demux[ev[1]].append(ev[2])
-            elif ev[0] == "decay":
-                replay.decay_pressure(ev[1])
-            else:
-                replay.rebalance(ev[1], 1)
+        replay = replay_events(TenantCacheManager(quotas, prefix_policy, device="cpu"), events)
+        demux = {t: [ev[2] for ev in events if ev[0] == "access" and ev[1] == t]
+                 for t in quotas}
         for x, y in zip((*mgr.state, *mgr.counters), (*replay.state, *replay.counters)):
             assert x.cpu().numpy().tobytes() == y.numpy().tobytes(), "card != CPU replay"
         assert mgr.quotas == replay.quotas
@@ -2664,8 +2920,11 @@ def phase_serve_tenants(dev, params, base_cfg=CONFIG, prompt_len=1024, new_token
                          else "adaptive_policy_paged_attention")
         assert launches[stream_kernel] == len(demux["calm"] + demux["busy"] + demux["hog"]), \
             launches
+        assert launches[stream_kernel + "_ring"] == 0, launches
         assert launches[decode_kernel] == ops.SPLIT_LAUNCHES * cfg.n_layers * steps, launches
         assert launches["flash_attention"] == cfg.n_layers * stats["prefills"], launches
+        run["decision_trace"] = traced_reserve(engine, quotas, prefix_policy, log, events,
+                                               stream_kernel, mgr)
 
         if kv_policy == "awrp":  # deferred-then-completed == an unpressured engine
             plain = engine()
@@ -2692,7 +2951,7 @@ def phase_serve_tenants(dev, params, base_cfg=CONFIG, prompt_len=1024, new_token
             run["follow_up"] = {**follow["tel"], "equal_to_single_tenant_engine": True}
             del solo
         for e in log:
-            del e["prompt"], e["tokens"], e["counts"]
+            del e["prompt"], e["tokens"], e["counts"], e["new"]
         lat = [e["latency_s"] for e in log if e["status"] != "shed"]
         run.update({"statuses": statuses, "requests": len(log), "stats": stats,
                     "quotas_after": dict(mgr.quotas), "launches": launches,
@@ -2951,6 +3210,9 @@ def main() -> int:
           "nvcc_seconds": snap["nvcc_seconds"], "nvcc_builds": snap["nvcc_builds"],
           "serve": snap, "serve_tenants": [r["snapshot"] for r in srv_ten["runs"]],
           "fold_cost": srv["fold_cost"], "live_endpoint": srv_ten["runs"][0]["live_endpoint"],
+          "trace_drain": [{k: r["decision_trace"][k] for k in (
+              "events", "sync_calls_per_drain", "sync_call", "trace_drain_p50_s")}
+              for r in srv_ten["runs"]],
           "loop_planes_equal_bitwise": {label: r["loops"]["loop_planes_equal_bitwise"]
                                         for label, r in [("serve", srv), *(
                                             (x["kv_policy"], x) for x in srv_ada),
@@ -3038,7 +3300,25 @@ def main() -> int:
                        "other_shapes": [{k: r.get(k) for k in stream_keys} for r in s_others]
                        + [{"label": "expert_cache", **{k: r.get(k) for k in stream_keys}}
                           for r in ec["kernels"]
-                          if (r["policy"] in ("arc", "car")) == (stream == "adaptive_stream")]}})
+                          if (r["policy"] in ("arc", "car")) == (stream == "adaptive_stream")],
+                       # the ring variant: the same kernel writing the
+                       # decision-trace ring (a compile-time variant), launched
+                       # by serve_tenants' traced re-serves
+                       "ring": {"name": f"{stream}_ring", "route": "cuda", "source": source,
+                                "launches": sum(r["decision_trace"]["launches"][f"{stream}_ring"]
+                                                for r in srv_ten["runs"]),
+                                "max_abs_err": 0, "policy": s_main["policy"],
+                                "accesses": s_main["accesses"],
+                                "ring_capacity": TENANCY_RING, "ms": s_main["ring_ms"],
+                                "ring_off_ms": s_main["ms"],
+                                "plain_ms_per_access": s_main["ring_plain_ms_per_access"],
+                                "bound_ms": s_main["ring_bound_ms"],
+                                "bound_by": s_main["ring_bound_by"], "library_ms": None,
+                                "one_access_ms": ten["ring_one_access"][s_main["policy"]],
+                                "other_policies": [
+                                    {k: r[k] for k in ("policy", "ms", "ring_ms",
+                                                       "ring_plain_ms_per_access",
+                                                       "ring_bound_ms")} for r in s_others]}}})
     emit({"kernels": kernels})
     print(smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

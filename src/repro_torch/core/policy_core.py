@@ -42,7 +42,7 @@ Differences from the reference, all deliberate:
 * the pressure EWMA of ``on_access_counted`` is written out as the one fused
   multiply-add the reference's jitted step compiles to
   (``pressure_ewma``), not left to a compiler's choice;
-* no ``mesh`` and no decision tracing yet (later slices).
+* no ``mesh`` (rows sharding).
 """
 
 from __future__ import annotations
@@ -322,11 +322,18 @@ class _Accounting:
                                                 device=dev))
 
     def on_access_counted(self, state, counters: RowCounters, ids, *, active=None,
-                          pressure_alpha: float = 0.1):
+                          pressure_alpha: float = 0.1, ring=None):
         """``on_access`` plus per-row hit / miss / eviction accounting and the
         pressure EWMA (``pressure_ewma``) on the active rows; inactive rows
         keep every counter.  Returns ``(new state, new counters, hits)`` and
-        writes nothing it was given."""
+        writes nothing it was given.
+
+        ``ring`` (an ``obs.decision_trace.DecisionRing``) turns on decision
+        tracing: one ``KIND_ACCESS`` event per active row (its key, the hit,
+        the advisory victim lane and the core's internals, ``_trace_cols``)
+        is pushed into a new ring, returned as a fourth output.  The trace
+        reads the states before and after and feeds nothing back into
+        them."""
         occ_b = self.occupancy(state)
         new_state, hit = self.on_access(state, ids, active=active)
         occ_a = self.occupancy(new_state)
@@ -341,7 +348,16 @@ class _Accounting:
             evictions=counters.evictions + evicted,
             pressure=torch.where(act, p_new, counters.pressure),
         )
-        return new_state, new_counters, hit
+        if ring is None:
+            return new_state, new_counters, hit
+        from repro_torch.obs import decision_trace as dt
+
+        dev = occ_b.device
+        events = dt.pack_events(
+            self.rows, kind=dt.KIND_ACCESS, row=torch.arange(self.rows, dtype=_I32, device=dev),
+            key=_as_ids(ids, dev).expand(self.rows), hit=hit.to(_I32), set_id=0,
+            **self._trace_cols(state, new_state))
+        return new_state, new_counters, hit, dt.ring_push(ring, events, act)
 
     def row_telemetry(self, state, counters: RowCounters) -> dict:
         """Per-row accounting as ``(rows,)`` tensors, not pulled: cumulative
@@ -545,6 +561,19 @@ class FlatCore(_Accounting):
             self.use_kernel,
         )
         return v.reshape(B, S)
+
+    def _trace_cols(self, state: FlatState, new_state: FlatState) -> dict:
+        """Decision-trace fields of flat rows (single-set layout): the
+        pre-access advisory victim lane and its AWRP weight at the decision
+        clock N + 1 (the policy's own key for awrp rows, informational for
+        the others)."""
+        if self.num_sets != 1:
+            raise NotImplementedError("decision tracing covers the single-set serving layout")
+        victim = self.victim(state)
+        idx = victim[:, None].long()
+        w = awrp_weights(state.f.gather(-1, idx)[:, 0], state.r.gather(-1, idx)[:, 0],
+                         state.clock + 1)
+        return {"victim": victim, "weight": w}
 
 
 # ---------------------------------------------------------------------------
@@ -968,6 +997,13 @@ class AdaptiveCore(_Accounting):
         iota = torch.arange(L, dtype=_I32, device=state.blocks.device)
         lane = torch.where(ev, iota, L).amin(dim=-1)
         return torch.where(lane < L, lane, -1).to(_I32)
+
+    def _trace_cols(self, state: AdaptiveState, new_state: AdaptiveState) -> dict:
+        """Decision-trace fields of ARC/CAR rows: the pre-access advisory
+        victim lane (-1 while the cache fills) and the adaptation target
+        ``p`` before and after the access."""
+        return {"victim": self.victim(state)[:, 0], "p_before": state.p[:, 0],
+                "p_after": new_state.p[:, 0]}
 
     def resident_mask(self, state: AdaptiveState) -> torch.Tensor:
         """(rows, num_sets, L) bool — lanes whose block is cache-resident

@@ -139,15 +139,20 @@ def sweep(
 
         dev = resolve_device(torch_device)
     if dev_pols and len(trace):
+        from repro_torch.obs.profiling import PHASES
+
         from .torch_policies import simulate_trace_batched
 
         tr = np.asarray(trace, dtype=np.int64)
         if block_size > 1:
             tr = tr // block_size
-        hits = simulate_trace_batched(
-            tr, dev_pols, caps, num_sets=num_sets, use_kernel=use_kernel, device=dev
-        )
-        counts = hits[0].sum(dim=-1).cpu().numpy()  # (P, C) exact int hit counts
+        # the span holds the pull of the hit counts: it is the device
+        # route's end-to-end time
+        with PHASES.span("sweep"):
+            hits = simulate_trace_batched(
+                tr, dev_pols, caps, num_sets=num_sets, use_kernel=use_kernel, device=dev
+            )
+            counts = hits[0].sum(dim=-1).cpu().numpy()  # (P, C) exact int hit counts
         for pi, p in enumerate(dev_pols):
             for ci, c in enumerate(caps):
                 out[p][c] = int(counts[pi, ci]) / len(tr)

@@ -47,8 +47,8 @@ SIGNATURES = {
     "repro_flash_attention": ([_int] + [_vp] * 4 + [_int] * 9 + [_float, _vp], _int),
     "repro_flat_sweep": ([_vp] * 9 + [_int] * 4 + [_vp], _int),
     "repro_adaptive_sweep": ([_vp] * 10 + [_int] * 7 + [_vp], _int),
-    "repro_flat_stream": ([_vp] * 14 + [_int] * 3 + [_float, _vp], _int),
-    "repro_adaptive_stream": ([_vp] * 17 + [_int] * 6 + [_float, _vp], _int),
+    "repro_flat_stream": ([_vp] * 14 + [_int] * 3 + [_float] + [_vp] * 4 + [_int], _int),
+    "repro_adaptive_stream": ([_vp] * 17 + [_int] * 6 + [_float] + [_vp] * 4 + [_int], _int),
     "repro_error_string": ([_int], ctypes.c_char_p),
 }
 

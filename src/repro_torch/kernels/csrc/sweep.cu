@@ -68,6 +68,26 @@
 // inactive rows), so a stream that ends before a row's next access leaves
 // the same planes.  An inactive flat row does not tick its clock.
 //
+// The ring variant of the stream mode (template kRing; the ring-off
+// instantiations are the kernels above, unchanged) also writes the
+// decision-trace ring of repro_torch/obs/decision_trace.py, as the
+// reference's masked on_access_counted(ring=...) pushes it: one access event
+// per access, access t in slot (c0 + t) mod cap, c0 the ring's count read
+// from device memory.  Only the accesses t >= T - cap write theirs: exactly
+// those survive the reference's sequential overwrite, so no two warps write
+// one slot and no atomics are needed; the owning warp's lane 0 writes the
+// event into ring_buf, which the wrapper fills with a copy of the ring it
+// was given (a device-to-device copy at the copy rate, so a launch of T = 1
+// does not copy the ring on one CTA), and thread 0 of CTA 0 writes the new
+// count c0 + T into its own tensor: the inputs are never written.  A flat
+// event carries the victim the miss path would pick
+// from the pre-access lanes at clock + 1 (computed on a hit too) and that
+// lane's AWRP weight bits; an ARC/CAR event the probe victim of
+// AdaptiveCore.victim (dir_access of the never-seen id INT_MAX on a copy of
+// the warp's directory, p and ctr in 4 more planes of shared memory; the
+// first lane resident before and not after, or -1) and p before and after
+// the access.
+//
 // What bounds it on an H100: neither bytes nor operations.  A Table-1 trace
 // moves about 4 KB of ids in and 1 byte of hit per row and step out, a few
 // microseconds of HBM traffic; what takes the time is each row's serial
@@ -86,17 +106,21 @@
 //                        stream)
 //   repro_flat_stream(acc, pid, ways, blocks_in, f_in, r_in, clock_in,
 //                     counters_in[4], hits, blocks, f, r, clock, counters[4],
-//                     rows, T, W, alpha, stream)
+//                     rows, T, W, alpha, stream, ring_count_in, ring_buf,
+//                     ring_count, ring_cap)
 //   repro_adaptive_stream(acc, caps, blocks_in, tag_in, stamp_in, ref_in, p_in,
 //                         ctr_in, counters_in[4], hits, blocks, tag, stamp, ref,
 //                         p, ctr, counters[4], rows, T, L, kind, renorm,
-//                         renorm_at, alpha, stream)
+//                         renorm_at, alpha, stream, ring_count_in, ring_buf,
+//                         ring_count, ring_cap)
 // traces (N, T) int32; row_trace, pid, ways, caps (rows,) int32 (row_trace in
 // [0, N), pid a flat POLICY_IDS value, 1 <= ways <= W <= kMaxFlatLanes,
 // 1 <= caps, 2 * caps <= L <= kMaxLanes); hits (rows, T) bool; flat planes
 // (rows, S, W) and clock (rows, S) int32; adaptive planes (rows, S, L) int32,
 // p (rows, S) float32, ctr (rows, S) int32; kind 0 = arc, 1 = car; renorm 0
-// skips the renormalization check.  All contiguous.  Each returns
+// skips the renormalization check; ring_buf (ring_cap + 1, kRingFields)
+// int32, written in place, and ring_count_in / ring_count one int32, all
+// null (and ring_cap 0) for the ring-off kernels.  All contiguous.  Each returns
 // cudaGetLastError() after its launch.
 #include <type_traits>
 
@@ -111,7 +135,7 @@ constexpr int kSweepThreads = 32 * kSweepWarps;
 constexpr int kChunk = 256;  // trace ids per staged chunk
 constexpr int kMaxRegGroups = 8;  // flat lanes in registers up to W = 256
 constexpr int kMaxFlatLanes = 2048;  // flat lanes in shared memory above that
-constexpr int kPolLru = 1, kPolFifo = 2, kPolLfu = 3;  // POLICY_IDS (0 = awrp)
+constexpr int kPolAwrp = 0, kPolLru = 1, kPolFifo = 2, kPolLfu = 3;  // POLICY_IDS
 
 // The CTA's trace-id buffers, and each warp's trace (-1 for a warp past the
 // last unit).
@@ -218,10 +242,13 @@ __device__ __forceinline__ int flat_key(int f, int r, int clk, int pol, bool liv
 
 // One access of block id to the warp's set (policy_core._row_step); returns
 // the hit.  With occ_delta, also the change of the set's occupancy (live
-// lanes holding a block): only the slot's lane changes.
-template <class Lanes>
+// lanes holding a block): only the slot's lane changes.  kTrace (the ring
+// variant) also gives, hit or miss, the victim lane the miss path picks and
+// the bits of its AWRP weight at the access's clock (FlatCore._trace_cols).
+template <bool kTrace = false, class Lanes>
 __device__ __forceinline__ bool flat_access(Lanes& s, int& clock, int id, int pol, int ways,
-                                            int W, int* occ_delta = nullptr) {
+                                            int W, int* occ_delta = nullptr,
+                                            int* victim = nullptr, int* weight = nullptr) {
   const int lane = threadIdx.x & 31;
   const int clk = (int)((unsigned)clock + 1u);
   int hit_l = W, m1 = kIntMax;
@@ -235,7 +262,7 @@ __device__ __forceinline__ bool flat_access(Lanes& s, int& clock, int id, int po
   hit_l = __reduce_min_sync(kFull, hit_l);
   const bool hit = hit_l < W;
   int slot = hit_l;
-  if (!hit) {
+  if (!hit || kTrace) {
     m1 = __reduce_min_sync(kFull, m1);
     // stage 2: the tie-break key among the lanes at m1 (R for LFU, the lane
     // otherwise); stage 3: the first lane at (m1, m2)
@@ -256,6 +283,16 @@ __device__ __forceinline__ bool flat_access(Lanes& s, int& clock, int id, int po
       slot = __reduce_min_sync(kFull, v);
     } else {
       slot = m2;
+    }
+    if constexpr (kTrace) {
+      int w = 0;
+#pragma unroll
+      for (int j = 0; j < s.nj(); ++j) {
+        if ((j << 5) + lane == slot) w = flat_key(s.frq(j), s.rec(j), clk, kPolAwrp, true);
+      }
+      *victim = slot;
+      *weight = __shfl_sync(kFull, w, slot & 31);
+      if (hit) slot = hit_l;
     }
   }
   int delta = 0;
@@ -386,6 +423,44 @@ struct RowCount {
   }
 };
 
+// The decision-trace ring of the stream mode's ring variant: the count
+// given (read only) and the new ring.  kRingFields int32 per event, in
+// obs/decision_trace.py FIELDS order; float fields as their bits.
+constexpr int kRingFields = 10;
+
+struct RingArgs {
+  const int* count_in;  // events ever recorded
+  int* buf;  // (cap + 1, kRingFields), lane cap the scratch lane: a copy of the given ring
+  int* count;
+  int cap;
+};
+
+// CTA 0's thread 0: the new count c0 + T (int32, wrapping as the reference's).
+__device__ inline void ring_count(const RingArgs& g, int T) {
+  if (blockIdx.x == 0 && threadIdx.x == 0)
+    *g.count = (int)((unsigned)*g.count_in + (unsigned)T);
+}
+
+// Access t's event (kind access, set 0, no admission code) into its slot, if
+// it survives the launch (t >= T - cap).  Called by one thread.
+__device__ inline void ring_event(const RingArgs& g, int t, int T, int row, int key, bool hit,
+                                  int victim, int weight, int p_before, int p_after) {
+  if (t < T - g.cap) return;
+  int slot = (int)((unsigned)*g.count_in + (unsigned)t) % g.cap;
+  if (slot < 0) slot += g.cap;
+  int* e = g.buf + (size_t)slot * kRingFields;
+  e[0] = 0;  // KIND_ACCESS
+  e[1] = row;
+  e[2] = key;
+  e[3] = hit;
+  e[4] = 0;  // set
+  e[5] = victim;
+  e[6] = weight;
+  e[7] = p_before;
+  e[8] = p_after;
+  e[9] = -1;  // admit
+}
+
 struct FlatStreamArgs {
   const int* acc;  // (T, 2): row, key
   const int* pid;
@@ -403,11 +478,13 @@ struct FlatStreamArgs {
   Counters ctr;
   int rows, T, W;
   float alpha;
+  RingArgs ring;  // the ring variant's
 };
 
-template <class Lanes>
+template <bool kRing, class Lanes>
 __device__ __forceinline__ void flat_stream_run(const FlatStreamArgs& a, IdStage& st,
                                                 Lanes& s) {
+  if constexpr (kRing) ring_count(a.ring, a.T);
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kSweepWarps + (threadIdx.x >> 5);
   const bool active = row < a.rows;
@@ -426,10 +503,13 @@ __device__ __forceinline__ void flat_stream_run(const FlatStreamArgs& a, IdStage
   if (active) c.load(a.ctr_in, row);
   for_each_access<2>(st, a.acc, active ? 0 : -1, a.T, [&](const int* acc, int t) {
     if (acc[0] != row) return;  // another row's access: no clock tick
-    int delta;
-    const bool h = flat_access(s, clock, acc[1], pol, ways, a.W, &delta);
+    int delta, victim, weight;
+    const bool h = flat_access<kRing>(s, clock, acc[1], pol, ways, a.W, &delta, &victim, &weight);
     c.count(h, h ? 0 : 1 - delta, a.alpha);
-    if (lane == 0) a.hits[t] = h;
+    if (lane == 0) {
+      a.hits[t] = h;
+      if constexpr (kRing) ring_event(a.ring, t, a.T, row, acc[1], h, victim, weight, 0, 0);
+    }
   });
   if (!active) return;
 #pragma unroll
@@ -447,15 +527,15 @@ __device__ __forceinline__ void flat_stream_run(const FlatStreamArgs& a, IdStage
   }
 }
 
-template <int NJ>
+template <int NJ, bool kRing>
 __global__ void __launch_bounds__(kSweepThreads) flat_stream_kernel(FlatStreamArgs a) {
   __shared__ IdStage st;
   if constexpr (NJ > 0) {
     RegLanes<NJ> s;
-    flat_stream_run(a, st, s);
+    flat_stream_run<kRing>(a, st, s);
   } else {
     SmemLanes s = smem_lanes(a.W);
-    flat_stream_run(a, st, s);
+    flat_stream_run<kRing>(a, st, s);
   }
 }
 
@@ -549,6 +629,7 @@ struct AdaptiveStreamArgs {
   Counters cnt;
   int rows, T, L, kind, renorm, renorm_at;
   float alpha;
+  RingArgs ring;  // the ring variant's
 };
 
 // Residents (T1 and T2) of the warp's directory: AdaptiveCore.occupancy.
@@ -562,13 +643,45 @@ __device__ __forceinline__ int resident_count(const Dir& d) {
   return n;
 }
 
+// AdaptiveCore.victim for the warp's directory d: dir_access of INT_MAX (an
+// id no access uses) on ``probe``, a copy of d's blocks / tag / stamp / ref,
+// with copies of p and ctr; the first lane resident (T1 or T2) in d and not
+// in the probe, or -1.  d, p and ctr are not touched.  Each thread copies
+// and reads only its own lanes, as dir_access does: no barrier.
+__device__ inline int probe_victim(const Dir& d, const Dir& probe, int kind, float p, int ctr) {
+  for (int j = 0; j < d.nj; ++j) {
+    const int l = (j << 5) + lane_id();
+    if (l < d.L) {
+      probe.blocks[l] = d.blocks[l];
+      probe.tag[l] = d.tag[l];
+      probe.stamp[l] = d.stamp[l];
+      probe.ref[l] = d.ref[l];
+    }
+  }
+  dir_access(probe, kind, kIntMax, p, ctr);
+  const int v = dir_min(d, [&](int l) {
+    const bool before = d.tag[l] == kT1 || d.tag[l] == kT2;
+    const bool after = probe.tag[l] == kT1 || probe.tag[l] == kT2;
+    return before && !after ? l : d.L;
+  });
+  return v < d.L ? v : -1;
+}
+
+// Shared-memory planes per warp: the directory (5 x L), and in the ring
+// variant the probe's copy (4 x L; its scratch plane is the directory's).
+template <bool kRing>
+constexpr int kDirPlanes = kRing ? 9 : 5;
+
+template <bool kRing>
 __global__ void __launch_bounds__(kSweepThreads) adaptive_stream_kernel(AdaptiveStreamArgs a) {
   __shared__ IdStage st;
-  extern __shared__ int dir_smem[];  // per warp the directory, 5 planes of L ints
+  extern __shared__ int dir_smem[];  // per warp the directory (and the probe's copy)
+  if constexpr (kRing) ring_count(a.ring, a.T);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row = blockIdx.x * kSweepWarps + warp;
   const bool active = row < a.rows;
-  const Dir d = dir_at(dir_smem + (size_t)warp * 5 * a.L, a.L, active ? a.caps[row] : 1);
+  int* const base = dir_smem + (size_t)warp * kDirPlanes<kRing> * a.L;
+  const Dir d = dir_at(base, a.L, active ? a.caps[row] : 1);
   const size_t off = (size_t)(active ? row : 0) * a.L;
   for (int l = lane; l < a.L; l += 32) {
     d.blocks[l] = active ? a.blocks_in[off + l] : -1;
@@ -585,9 +698,24 @@ __global__ void __launch_bounds__(kSweepThreads) adaptive_stream_kernel(Adaptive
     if (a.renorm) renorm_stamps(d, a.renorm_at, ctr);  // every row, every access
     if (acc[0] != row) return;
     const int occ_b = resident_count(d);
+    int victim = -1;
+    if constexpr (kRing) {
+      // the probe only for an event that survives the launch
+      if (t >= a.T - a.ring.cap) {
+        const Dir probe{base + 5 * a.L, base + 6 * a.L, base + 7 * a.L, base + 8 * a.L,
+                        d.tmp, d.L, d.nj, d.cap};
+        victim = probe_victim(d, probe, a.kind, p, ctr);
+      }
+    }
+    const float p_before = p;
     const bool h = dir_access(d, a.kind, acc[1], p, ctr);
     c.count(h, h ? 0 : occ_b + 1 - resident_count(d), a.alpha);
-    if (lane == 0) a.hits[t] = h;
+    if (lane == 0) {
+      a.hits[t] = h;
+      if constexpr (kRing)
+        ring_event(a.ring, t, a.T, row, acc[1], h, victim, 0, __float_as_int(p_before),
+                   __float_as_int(p));
+    }
   });
   if (!active) return;
   store_dir(d, a.blocks + off, a.tag + off, a.stamp + off, a.ref + off);
@@ -655,6 +783,11 @@ repro::Counters counters_out(void* const* c) {
           static_cast<float*>(c[3])};
 }
 
+repro::RingArgs ring_args(const void* count_in, void* buf, void* count, int cap) {
+  return {static_cast<const int*>(count_in), static_cast<int*>(buf), static_cast<int*>(count),
+          cap};
+}
+
 }  // namespace
 
 extern "C" int repro_flat_stream(const void* acc, const void* pid, const void* ways,
@@ -662,9 +795,12 @@ extern "C" int repro_flat_stream(const void* acc, const void* pid, const void* w
                                  const void* clock_in, const void* const* ctr_in, void* hits,
                                  void* blocks, void* f, void* r, void* clock,
                                  void* const* ctr, int rows, int T, int W, float alpha,
-                                 void* stream) {
+                                 void* stream, const void* ring_count_in, void* ring_buf,
+                                 void* ring_count, int ring_cap) {
   using namespace repro;
-  if (rows < 1 || T < 0 || T > (1 << 29) || W < 1 || W > kMaxFlatLanes)
+  const bool ring = ring_buf != nullptr;
+  if (rows < 1 || T < 0 || T > (1 << 29) || W < 1 || W > kMaxFlatLanes ||
+      (ring && (ring_cap < 1 || ring_cap > (1 << 27) || !ring_count_in || !ring_count)))
     return (int)cudaErrorInvalidValue;
   const FlatStreamArgs a{static_cast<const int*>(acc),      static_cast<const int*>(pid),
                          static_cast<const int*>(ways),     static_cast<const int*>(blocks_in),
@@ -674,11 +810,13 @@ extern "C" int repro_flat_stream(const void* acc, const void* pid, const void* w
                          static_cast<int*>(f),              static_cast<int*>(r),
                          static_cast<int*>(clock),          counters_out(ctr),
                          rows,                              T,
-                         W,                                 alpha};
+                         W,                                 alpha,
+                         ring_args(ring_count_in, ring_buf, ring_count, ring_cap)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)by_lane_groups(W, [&](auto nj) {
     constexpr int NJ = decltype(nj)::value;
-    return launch_flat<NJ>(flat_stream_kernel<NJ>, a, rows, W, st);
+    return ring ? launch_flat<NJ>(flat_stream_kernel<NJ, true>, a, rows, W, st)
+                : launch_flat<NJ>(flat_stream_kernel<NJ, false>, a, rows, W, st);
   });
 }
 
@@ -688,10 +826,14 @@ extern "C" int repro_adaptive_stream(const void* acc, const void* caps, const vo
                                      const void* const* cnt_in, void* hits, void* blocks,
                                      void* tag, void* stamp, void* ref, void* p, void* ctr,
                                      void* const* cnt, int rows, int T, int L, int kind,
-                                     int renorm, int renorm_at, float alpha, void* stream) {
+                                     int renorm, int renorm_at, float alpha, void* stream,
+                                     const void* ring_count_in, void* ring_buf,
+                                     void* ring_count, int ring_cap) {
   using namespace repro;
+  const bool ring = ring_buf != nullptr;
   if (rows < 1 || T < 0 || T > (1 << 29) || L < 2 || L > kMaxLanes ||
-      (kind != kKindArc && kind != kKindCar))
+      (kind != kKindArc && kind != kKindCar) ||
+      (ring && (ring_cap < 1 || ring_cap > (1 << 27) || !ring_count_in || !ring_count)))
     return (int)cudaErrorInvalidValue;
   const AdaptiveStreamArgs a{static_cast<const int*>(acc),      static_cast<const int*>(caps),
                              static_cast<const int*>(blocks_in), static_cast<const int*>(tag_in),
@@ -704,11 +846,16 @@ extern "C" int repro_adaptive_stream(const void* acc, const void* caps, const vo
                              counters_out(cnt),                 rows,
                              T,                                 L,
                              kind,                              renorm,
-                             renorm_at,                         alpha};
-  const size_t bytes = (size_t)kSweepWarps * 5 * L * sizeof(int);
-  const cudaError_t err = allow_dynamic_smem(adaptive_stream_kernel, bytes);
-  if (err != cudaSuccess) return (int)err;
-  adaptive_stream_kernel<<<(rows + kSweepWarps - 1) / kSweepWarps, kSweepThreads, bytes,
-                           static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+                             renorm_at,                         alpha,
+                             ring_args(ring_count_in, ring_buf, ring_count, ring_cap)};
+  auto launch = [&](auto kern, int planes) {
+    const size_t bytes = (size_t)kSweepWarps * planes * L * sizeof(int);
+    const cudaError_t err = allow_dynamic_smem(kern, bytes);
+    if (err != cudaSuccess) return err;
+    kern<<<(rows + kSweepWarps - 1) / kSweepWarps, kSweepThreads, bytes,
+           static_cast<cudaStream_t>(stream)>>>(a);
+    return cudaGetLastError();
+  };
+  return (int)(ring ? launch(adaptive_stream_kernel<true>, kDirPlanes<true>)
+                    : launch(adaptive_stream_kernel<false>, kDirPlanes<false>));
 }

@@ -11,7 +11,9 @@ call, the pages' partials and then their fold, and count each.
 ``flat_sweep`` and ``adaptive_sweep`` run a row group's whole trace in one
 launch (the sweep engine's trace route); ``flat_stream`` and
 ``adaptive_stream``, their stream mode, run a tenancy manager's interleaved
-stream in one launch.
+stream in one launch; given a decision-trace ring they launch the kernels'
+ring variant, which also writes the ring, and count it under
+``flat_stream_ring`` / ``adaptive_stream_ring``.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ LAUNCHES: Dict[str, int] = {"paged_attention": 0, "policy_paged_attention": 0,
                              "adaptive_policy_paged_attention": 0,
                              "awrp_select": 0, "awrp_select_rows": 0,
                              "flash_attention": 0, "flat_sweep": 0, "adaptive_sweep": 0,
-                             "flat_stream": 0, "adaptive_stream": 0}
+                             "flat_stream": 0, "adaptive_stream": 0,
+                             "flat_stream_ring": 0, "adaptive_stream_ring": 0}
 
 
 #: CUDA launches per call of kernels 3, 4 and 5: the pages' partials, their
@@ -147,36 +150,38 @@ def adaptive_sweep(traces, row_trace, caps, *, kind: str, num_sets: int, lanes: 
     return res
 
 
-def flat_stream(keys, stream_rows, state, counters, pids, ways, *, alpha: float):
+def flat_stream(keys, stream_rows, state, counters, pids, ways, *, alpha: float, ring=None):
     """A tenancy manager's flat (awrp/lru/fifo/lfu) rows over one interleaved
     stream: keys, stream_rows (T,) int32, a single-set ``FlatState`` and its
     ``RowCounters``, pids / ways (rows,) int32 -> ``(hits (T,) bool, new
     FlatState, new RowCounters)``, ``on_access_counted`` on row
-    ``stream_rows[t]`` at step t.  The flat trace kernel's stream mode: one
-    launch per call."""
+    ``stream_rows[t]`` at step t.  With a decision-trace ring ``ring``
+    (``buf``, ``count``) the new ring (one access event per access) comes
+    fourth, as a ``(buf, count)`` pair.  The flat trace
+    kernel's stream mode: one launch per call."""
     args = (keys, stream_rows, state, counters, pids, ways)
     if keys.device.type == "cpu":
-        return ref.flat_stream_plain(*args, alpha=alpha)
+        return ref.flat_stream_plain(*args, alpha=alpha, ring=ring)
     from repro_torch.kernels.sweep import flat_stream_kernel
 
-    res = flat_stream_kernel(*args, alpha=alpha)
-    LAUNCHES["flat_stream"] += 1
+    res = flat_stream_kernel(*args, alpha=alpha, ring=ring)
+    LAUNCHES["flat_stream" if ring is None else "flat_stream_ring"] += 1
     return res
 
 
 def adaptive_stream(keys, stream_rows, state, counters, caps, *, kind: str, alpha: float,
-                    renorm_at):
+                    renorm_at, ring=None):
     """The same for ARC or CAR rows (``AdaptiveState`` with num_sets == 1,
     caps (rows,) int32): the ARC/CAR trace kernel's stream mode, one launch
     per call."""
     args = (keys, stream_rows, state, counters, caps)
-    kw = dict(kind=kind, alpha=alpha, renorm_at=renorm_at)
+    kw = dict(kind=kind, alpha=alpha, renorm_at=renorm_at, ring=ring)
     if keys.device.type == "cpu":
         return ref.adaptive_stream_plain(*args, **kw)
     from repro_torch.kernels.sweep import adaptive_stream_kernel
 
     res = adaptive_stream_kernel(*args, **kw)
-    LAUNCHES["adaptive_stream"] += 1
+    LAUNCHES["adaptive_stream" if ring is None else "adaptive_stream_ring"] += 1
     return res
 
 

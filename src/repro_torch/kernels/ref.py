@@ -250,19 +250,22 @@ def adaptive_sweep_plain(traces, row_trace, caps, *, kind: str, num_sets: int,
     return _sweep(core, traces, row_trace, caps=caps)
 
 
-def _stream(core, keys, stream_rows, state, counters, alpha: float):
+def _stream(core, keys, stream_rows, state, counters, alpha: float, ring=None):
     """Masked ``core.on_access_counted`` at every access of the stream, access
     t active on row ``stream_rows[t]`` alone: ``(hits (T,) bool, final state,
-    final counters)``."""
+    final counters)``, and with a decision-trace ``ring`` the new ring (one
+    event per access) as a fourth output."""
     rows = stream_rows.tolist()
     hits = torch.zeros(len(rows), dtype=torch.bool, device=keys.device)
     lane = torch.arange(core.rows, device=keys.device)
     for t, r in enumerate(rows):
-        state, counters, hit = core.on_access_counted(
-            state, counters, keys[t].expand(core.rows), active=lane == r,
-            pressure_alpha=alpha)
+        out = core.on_access_counted(state, counters, keys[t].expand(core.rows),
+                                     active=lane == r, pressure_alpha=alpha, ring=ring)
+        state, counters, hit = out[:3]
+        if ring is not None:
+            ring = out[3]
         hits[t] = hit[r]
-    return hits, state, counters
+    return (hits, state, counters) if ring is None else (hits, state, counters, ring)
 
 
 def _single_set(name: str, blocks, dims: int) -> None:
@@ -271,26 +274,29 @@ def _single_set(name: str, blocks, dims: int) -> None:
                          f"{tuple(blocks.shape)}")
 
 
-def flat_stream_plain(keys, stream_rows, state, counters, pids, ways, *, alpha: float):
+def flat_stream_plain(keys, stream_rows, state, counters, pids, ways, *, alpha: float,
+                      ring=None):
     """Plain version of ``flat_stream_kernel``: keys, stream_rows (T,) int32;
     a single-set ``FlatState`` and its ``RowCounters``; pids, ways (rows,)
-    int32 -> ``(hits (T,) bool, final FlatState, final RowCounters)``."""
+    int32 -> ``(hits (T,) bool, final FlatState, final RowCounters)``, and
+    with a ``DecisionRing`` the new ring fourth (its ring variant)."""
     _single_set("flat_stream", state.blocks, 2)
     core = FlatCore(pids=tuple(pids.tolist()), ways=tuple(ways.tolist()),
                     lanes=state.blocks.shape[1])
-    return _stream(core, keys, stream_rows, state, counters, alpha)
+    return _stream(core, keys, stream_rows, state, counters, alpha, ring)
 
 
 def adaptive_stream_plain(keys, stream_rows, state, counters, caps, *, kind: str,
-                          alpha: float, renorm_at):
+                          alpha: float, renorm_at, ring=None):
     """Plain version of ``adaptive_stream_kernel``: keys, stream_rows (T,)
     int32; an ``AdaptiveState`` with num_sets == 1 and its ``RowCounters``;
     caps (rows,) int32 -> ``(hits (T,) bool, final AdaptiveState, final
-    RowCounters)``; ``renorm_at`` None skips the renormalization check."""
+    RowCounters)``, and with a ``DecisionRing`` the new ring fourth;
+    ``renorm_at`` None skips the renormalization check."""
     _single_set("adaptive_stream", state.blocks, 3)
     core = AdaptiveCore(kind=kind, caps=tuple(caps.tolist()), lanes=state.blocks.shape[2],
                         renorm_at=renorm_at)
-    return _stream(core, keys, stream_rows, state, counters, alpha)
+    return _stream(core, keys, stream_rows, state, counters, alpha, ring)
 
 
 def flash_attention_plain(q, k, v, *, causal: bool, window: int = 0,

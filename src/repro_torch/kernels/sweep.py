@@ -9,8 +9,11 @@ group's whole trace (``FlatCore.on_access`` at every step).
 ``adaptive_stream_kernel`` are their stream mode, the tenancy manager's
 ``access_stream``: one interleaved stream of (row, key) accesses, one row per
 tenant, from a given state and given ``RowCounters``
-(``on_access_counted`` on the access's row at every step).  This module only
-validates, allocates the outputs and launches on the current stream;
+(``on_access_counted`` on the access's row at every step).  Given a
+decision-trace ring (``obs/decision_trace.py``) they launch their ring
+variant, which also writes a new ring: one access event per access.  This
+module only validates, allocates the outputs and launches on the current
+stream;
 ``kernels/ops.py`` dispatches between it and the plain versions
 (``kernels/ref.py``).
 """
@@ -23,6 +26,9 @@ import torch
 
 from repro_torch.core.policy_core import AdaptiveState, FlatState, RowCounters
 from repro_torch.kernels import _build
+
+#: int32 fields per event of a decision-trace ring (``obs/decision_trace.NF``)
+RING_FIELDS = 10
 
 #: the kernels' limits: flat lanes per set, adaptive directory lanes
 MAX_FLAT_LANES = 2048
@@ -150,15 +156,40 @@ def _ptrs(tensors):
     return (ctypes.c_void_p * 4)(*(t.data_ptr() for t in tensors))
 
 
+def _ring_args(name: str, ring, dev) -> tuple:
+    """The ring variant's C arguments (count in, buf out, count out,
+    capacity; null pointers and 0 without a ring) and the new ring
+    ``(buf, count)`` it writes (None without one).  The new buf starts as a
+    copy of the given one (a device-to-device copy, queued before the
+    launch), into which the kernel writes its events; the kernel reads the
+    count on the device."""
+    if ring is None:
+        return (None, None, None, 0), None
+    buf, count = ring
+    if buf.device != dev or count.device != dev:
+        raise ValueError(f"{name}: the ring must lie on {dev}")
+    if (buf.dtype != torch.int32 or buf.dim() != 2 or buf.shape[0] < 2
+            or buf.shape[1] != RING_FIELDS or not buf.is_contiguous()):
+        raise ValueError(f"{name}: ring buf must be contiguous (capacity + 1, {RING_FIELDS}) "
+                         f"int32, got {tuple(buf.shape)} {buf.dtype}")
+    if count.dtype != torch.int32 or count.dim() != 0:
+        raise ValueError(f"{name}: ring count must be a 0-d int32 tensor")
+    out = (buf.clone(), torch.empty_like(count))
+    return (count.data_ptr(), out[0].data_ptr(), out[1].data_ptr(), buf.shape[0] - 1), out
+
+
 def flat_stream_kernel(keys, stream_rows, state: FlatState, counters: RowCounters, pids, ways,
-                       *, alpha: float):
+                       *, alpha: float, ring=None):
     """The flat trace kernel's stream mode: keys, stream_rows (T,) int32 (row in
     [0, rows)); ``state`` a single-set ``FlatState`` ((rows, W) planes,
     (rows,) clock), ``counters`` its ``RowCounters``; pids, ways (rows,)
     int32.  Access t is ``on_access_counted`` on row ``stream_rows[t]``
     alone, with the pressure EWMA weight ``alpha``.  Returns ``(hits (T,)
     bool, new FlatState, new RowCounters)``; the inputs are not written.
-    One launch."""
+    With a decision-trace ring ``ring = (buf, count)`` the ring variant runs
+    and the new ``(buf, count)`` comes fourth: access t's event in slot
+    ``(count + t) mod capacity`` (every ``stream_rows[t]`` must lie in [0,
+    rows)).  One launch."""
     name = "flat_stream"
     if state.blocks.dim() != 2:
         raise ValueError(f"{name}: the stream mode takes num_sets == 1 ((rows, W) planes), "
@@ -168,25 +199,27 @@ def flat_stream_kernel(keys, stream_rows, state: FlatState, counters: RowCounter
     if not 1 <= W <= MAX_FLAT_LANES:
         raise ValueError(f"{name}: need 1 <= lanes <= {MAX_FLAT_LANES}, got {W}")
     dev = keys.device
+    ring_args, new_ring = _ring_args(name, ring, dev)
     hits = torch.zeros(T, dtype=torch.bool, device=dev)
     out = FlatState(*(torch.empty_like(t) for t in state))
     ctr = _new_counters(rows, dev)
     err = _build.library().repro_flat_stream(
         acc.data_ptr(), pids.data_ptr(), ways.data_ptr(), *(t.data_ptr() for t in state),
         _ptrs(counters), hits.data_ptr(), *(t.data_ptr() for t in out), _ptrs(ctr),
-        rows, T, W, float(alpha), _stream(dev))
+        rows, T, W, float(alpha), _stream(dev), *ring_args)
     _build.check(err, name)
-    return hits, out, ctr
+    return (hits, out, ctr) if ring is None else (hits, out, ctr, new_ring)
 
 
 def adaptive_stream_kernel(keys, stream_rows, state: AdaptiveState, counters: RowCounters,
-                           caps, *, kind: str, alpha: float, renorm_at):
+                           caps, *, kind: str, alpha: float, renorm_at, ring=None):
     """The ARC/CAR trace kernel's stream mode: keys, stream_rows (T,) int32;
     ``state`` an ``AdaptiveState`` with num_sets == 1 ((rows, 1, L) planes,
     (rows, 1) p and ctr), ``counters`` its ``RowCounters``; caps (rows,)
     int32 (2 * caps <= L); ``renorm_at`` the stamp-renormalization ceiling,
     or None for no check (made at every access, on every row).  Returns
-    ``(hits (T,) bool, new AdaptiveState, new RowCounters)``.  One launch."""
+    ``(hits (T,) bool, new AdaptiveState, new RowCounters)``, and with a
+    ``ring`` the new ring fourth, as ``flat_stream_kernel``.  One launch."""
     name = "adaptive_stream"
     if kind not in ADAPTIVE_KIND:
         raise ValueError(f"{name}: kind {kind!r} not in {list(ADAPTIVE_KIND)}")
@@ -200,6 +233,7 @@ def adaptive_stream_kernel(keys, stream_rows, state: AdaptiveState, counters: Ro
     if renorm_at is not None and not -2**31 <= int(renorm_at) < 2**31:
         raise ValueError(f"{name}: renorm_at must be an int32 or None, got {renorm_at!r}")
     dev = keys.device
+    ring_args, new_ring = _ring_args(name, ring, dev)
     hits = torch.zeros(T, dtype=torch.bool, device=dev)
     out = AdaptiveState(*(torch.empty_like(t) for t in state))
     ctr = _new_counters(rows, dev)
@@ -207,6 +241,6 @@ def adaptive_stream_kernel(keys, stream_rows, state: AdaptiveState, counters: Ro
         acc.data_ptr(), caps.data_ptr(), *(t.data_ptr() for t in state), _ptrs(counters),
         hits.data_ptr(), *(t.data_ptr() for t in out), _ptrs(ctr), rows, T, L,
         ADAPTIVE_KIND[kind], int(renorm_at is not None),
-        0 if renorm_at is None else int(renorm_at), float(alpha), _stream(dev))
+        0 if renorm_at is None else int(renorm_at), float(alpha), _stream(dev), *ring_args)
     _build.check(err, name)
-    return hits, out, ctr
+    return (hits, out, ctr) if ring is None else (hits, out, ctr, new_ring)

@@ -12,7 +12,11 @@ tenant (quota = row capacity) with the admission controller in front:
 requests round-robin the tenants, run one at a time, and the last lines give
 each tenant's quota, hit ratio, evictions and pressure and the shed /
 deferred / rebalanced counts; ``--auto-rebalance`` moves quota lanes to a
-pressured tenant from the coldest.
+pressured tenant from the coldest.  ``--decision-trace N`` (needs
+``--tenants``) records the tenants' last N access and admission decisions in
+the on-device trace ring and reports their OPT regret, also as the
+``tenant/<t>/opt_regret`` and ``policy/<name>/opt_regret`` gauges of the
+final snapshot.
 
 ``--arch`` picks the model: ``smollm_360m`` (default), ``gemma3_27b`` (5
 sliding-window local layers per global layer; the pool bounds the global
@@ -109,6 +113,10 @@ def main(argv=None):
     ap.add_argument("--host-loop", action="store_true",
                     help="decode with the eager per-step host loop instead of "
                     "replaying the captured decode graph")
+    ap.add_argument("--decision-trace", type=int, default=0, metavar="N",
+                    help="multi-tenant only: record the last N policy decisions in the "
+                    "on-device trace ring and report OPT-regret gauges in the final "
+                    "snapshot")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--metrics-out", default=None, metavar="PATH",
                     help="export the final telemetry snapshot: writes PATH.prom "
@@ -133,6 +141,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.snapshot_every and not args.metrics_out:
         ap.error("--snapshot-every needs --metrics-out")
+    if args.decision_trace and not args.tenants:
+        ap.error("--decision-trace needs --tenants")
 
     tenants = None
     if args.tenants:
@@ -159,7 +169,8 @@ def main(argv=None):
     engine = ServeEngine(cfg, params, max_len=args.max_len, kv_mode=args.kv_mode,
                          fused=args.fused, seed=args.seed, tenants=tenants,
                          auto_rebalance=args.auto_rebalance,
-                         jit_loop=not args.host_loop, profile_dir=args.profile_dir,
+                         jit_loop=not args.host_loop, decision_trace=args.decision_trace,
+                         profile_dir=args.profile_dir,
                          profile_every=args.profile_every,
                          profile_phases=args.profile_phases, device=device)
     # live export: both run on daemon threads and take the same one-pull
@@ -196,6 +207,7 @@ def main(argv=None):
         results = engine.generate(reqs)
     dt = time.perf_counter() - t0
     total = sum(len(r.tokens) for r in results.values())
+    regret = engine.opt_regret() if args.decision_trace else None  # sets the gauges
     tel = engine.telemetry()  # one flat snapshot, one synchronization
     print(f"arch={cfg.name} device={device} kv_mode={args.kv_mode} "
           f"policy={args.kv_policy} fused={args.fused} "
@@ -215,6 +227,11 @@ def main(argv=None):
                   f"pressure={tel[f'tenant/{name}/pressure']:.2f}")
         print(f"admission: shed={tel['serve/shed']} deferred={tel['serve/deferred']} "
               f"rebalances={tel['serve/rebalances']}")
+    if regret is not None:
+        agg = regret["aggregate"]
+        print(f"opt regret ({agg['accesses']} traced accesses): "
+              f"observed={agg['observed']:.2f} opt={agg['opt']:.2f} "
+              f"regret={agg['regret']:.2f}")
     print(f"decode graphs: built={tel['compile/decode_loop/count']} "
           f"replays={tel['compile/decode_loop/calls']} "
           f"loop steps={tel.get('serve/loop/steps', 'off')} "

@@ -1,4 +1,4 @@
-"""The metrics half of observability (``repro/obs``).
+"""Observability (``repro/obs``).
 
 * ``obs.metrics``: the registry, one flat namespaced snapshot over every
   mounted provider, read back from the device with one synchronization;
@@ -10,13 +10,24 @@
   counters, and ``torch.profiler`` trace capture;
 * ``obs.export``: Prometheus text exposition and the JSONL event log;
 * ``obs.server``: the background HTTP ``/metrics`` endpoint and the
-  periodic JSONL snapshot loop.
+  periodic JSONL snapshot loop;
+* ``obs.decision_trace``: the decision-trace ring, written on the device by
+  the tenancy manager's accesses (inside the stream kernels on the card) and
+  admissions, drained with one synchronization;
+* ``obs.opt_oracle``: OPT regret of a drained trace against the offline
+  Belady oracle.
 
-Not ported yet: the reference's decision-trace ring (``obs.decision_trace``)
-and the OPT-regret oracle (``obs.opt_oracle``).  Only ``metrics`` is
-imported at package level; import the other modules explicitly.
+``PHASES`` (``obs.profiling``) holds the spans of code with no engine, the
+sweep's ``sweep`` phase.  The names below are exported at package level;
+import the other modules explicitly.
 """
 
+from repro_torch.obs.decision_trace import (KIND_ACCESS, KIND_ADMIT, DecisionRing, drain,
+                                            ring_init)
 from repro_torch.obs.metrics import Derived, Registry, safe_ratio, safe_ratio_plane
+from repro_torch.obs.opt_oracle import opt_hit_ratio, regret_from_records
+from repro_torch.obs.profiling import PHASES
 
-__all__ = ["Derived", "Registry", "safe_ratio", "safe_ratio_plane"]
+__all__ = ["Derived", "Registry", "safe_ratio", "safe_ratio_plane", "DecisionRing",
+           "KIND_ACCESS", "KIND_ADMIT", "ring_init", "drain", "opt_hit_ratio",
+           "regret_from_records", "PHASES"]

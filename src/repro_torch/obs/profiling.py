@@ -22,6 +22,9 @@ counter here: a CUDA graph has no equations to count.
 ``TraceCapture`` is the opt-in ``torch.profiler`` hook:
 ``ServeEngine(profile_dir=...)`` writes one chrome trace per ``every``
 requests under ``profile_dir``.
+
+``PHASES`` is the module's span set for code with no engine to mount on:
+``core.simulator.sweep`` times its device route there as ``sweep``.
 """
 
 from __future__ import annotations
@@ -35,8 +38,13 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.obs.spans import SpanSet
 
-__all__ = ["Sentinel", "compile_metrics", "TraceCapture"]
+__all__ = ["Sentinel", "compile_metrics", "TraceCapture", "PHASES"]
+
+#: phase spans of code with no engine to mount on (the sweep's device route
+#: records ``sweep`` here)
+PHASES = SpanSet()
 
 #: every live sentinel, summed by name in ``compile_metrics``; the lock
 #: keeps a snapshot on another thread from iterating it while an engine is

@@ -1,6 +1,5 @@
 """Serving engine: prefill -> decode over AWRP-managed caches
-(``repro/serve/engine.py``; its decision-trace ring and OPT regret are not
-ported yet).
+(``repro/serve/engine.py``).
 
   * length-bucketed batching: requests with equal page-aligned prompt
     lengths run together, sharing one token position per step;
@@ -48,7 +47,13 @@ ported yet).
     ``Registry`` and ``telemetry()`` is one flat snapshot with one
     synchronization; host spans (``prefill``, ``decode``, ``rebalance``),
     the decode graphs' compile counters and, with ``profile_dir``, one
-    ``torch.profiler`` trace per ``profile_every`` requests ride along.
+    ``torch.profiler`` trace per ``profile_every`` requests ride along;
+  * decision trace: ``decision_trace=N`` (multi-tenant engines only) gives
+    the tenants' core a decision-trace ring of its N most recent access and
+    admission events, written on the device (on the card inside the stream
+    kernels); ``drain_decision_trace()`` pulls it with one synchronization
+    and ``opt_regret()`` judges it against the offline OPT oracle and
+    publishes the regret as registry gauges.
 """
 
 from __future__ import annotations
@@ -59,6 +64,7 @@ import threading
 import time
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.cache import paged_kv
@@ -70,6 +76,7 @@ from repro_torch.models import model as M
 from repro_torch.obs import profiling
 from repro_torch.obs.metrics import (Derived, Registry, loop_merge_, loop_planes,
                                      loop_update_, safe_ratio)
+from repro_torch.obs.opt_oracle import regret_from_records
 from repro_torch.obs.profiling import Sentinel, TraceCapture
 from repro_torch.obs.spans import SpanSet
 from repro_torch.serve.sampling import sample, sample_traced
@@ -268,8 +275,10 @@ class ServeEngine:
 
     ``metrics=False`` drops the loop planes (no fold in the graph, tokens and
     stats unchanged); ``profile_phases=True`` makes each span wait for its
-    phase's outputs; ``profile_dir`` turns on ``torch.profiler`` capture.
-    ``telemetry()`` may be called from another thread (``obs/server.py``):
+    phase's outputs; ``profile_dir`` turns on ``torch.profiler`` capture;
+    ``decision_trace=N`` (needs ``tenants``) records the tenants' last N
+    access and admission decisions (``drain_decision_trace``,
+    ``opt_regret``).  ``telemetry()`` may be called from another thread (``obs/server.py``):
     the engine's lock, held while a decode graph is captured and while a
     bucket's graph loop runs under sync debug mode ``"error"``, makes a
     snapshot wait for both to end, so its one synchronization neither
@@ -280,7 +289,7 @@ class ServeEngine:
                  tenants: Optional[Dict[str, int]] = None,
                  admission: Optional[AdmissionController] = None,
                  auto_rebalance: bool = False, fused: bool = False, expert_cache=None,
-                 jit_loop: bool = True, metrics: bool = True,
+                 jit_loop: bool = True, metrics: bool = True, decision_trace: int = 0,
                  profile_dir: Optional[str] = None, profile_every: int = 16,
                  profile_phases: bool = False, device="cuda"):
         self.device = resolve_device(device)
@@ -299,6 +308,10 @@ class ServeEngine:
         self.tenants = dict(tenants) if tenants else None
         self.auto_rebalance = bool(auto_rebalance)
         self.expert_cache = expert_cache
+        if decision_trace and self.tenants is None:
+            raise ValueError(
+                "decision_trace records the tenancy core's per-access events; "
+                "construct the engine with tenants={...}")
         if self.tenants is None:
             self.prefix_cache = PrefixCache(prefix_cache_entries, prefix_policy)
             self.tenant_cache = None
@@ -306,6 +319,7 @@ class ServeEngine:
         else:
             self.prefix_cache = None
             self.tenant_cache = TenantPrefixCache(self.tenants, prefix_policy,
+                                                  ring_capacity=int(decision_trace),
                                                   device=self.device)
             self.admission = admission or AdmissionController()
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
@@ -519,6 +533,37 @@ class ServeEngine:
         with self.spans.span("rebalance"):
             moved, _ = self.tenant_cache.rebalance(tenant, 1)
         self.stats["rebalances"] += moved
+
+    def drain_decision_trace(self) -> np.ndarray:
+        """The decision-trace ring (``decision_trace=N`` engines) on the host
+        as a structured record array, oldest event first: the tenants' access
+        and admission events (``obs.decision_trace``).  One synchronization,
+        under the ``trace_drain`` span."""
+        if self.tenants is None:
+            raise ValueError("decision tracing needs a multi-tenant engine")
+        with self.spans.span("trace_drain"):
+            return self.tenant_cache.manager.drain_trace()
+
+    def opt_regret(self) -> Dict[str, dict]:
+        """OPT regret: drain the decision trace, replay each tenant's
+        recorded key stream through the offline Belady oracle at the
+        tenant's quota, and publish ``opt - observed`` hit-ratio regret as
+        sticky registry gauges (``tenant/<t>/opt_regret`` and the
+        access-weighted ``policy/<name>/opt_regret``).  Returns the
+        per-tenant numbers and ``"aggregate"``
+        (``obs.opt_oracle.regret_from_records``)."""
+        records = self.drain_decision_trace()
+        mgr = self.tenant_cache.manager
+        caps = {mgr.row(t): mgr.quotas[t] for t in mgr.tenants}
+        per_row, aggregate = regret_from_records(records, caps)
+        out = {}
+        for t in mgr.tenants:
+            info = per_row[mgr.row(t)]
+            self.registry.set_gauge(f"tenant/{t}/opt_regret", info["regret"])
+            out[t] = info
+        self.registry.set_gauge(f"policy/{mgr.policy_name}/opt_regret", aggregate["regret"])
+        out["aggregate"] = aggregate
+        return out
 
     def _admit(self, requests: List[Request]) -> List[str]:
         """Admission decisions for ``requests`` in order, with the decay on

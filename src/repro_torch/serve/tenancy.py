@@ -35,8 +35,15 @@ Quota rebalancing is for flat cores (awrp/lru/fifo/lfu); adaptive rows
 (arc/car) carry ghost directories whose invariants do not survive a
 capacity change, so their quotas are fixed.
 
-Not ported: the reference's ``mesh`` rows sharding and the decision-trace
-ring (``ring_capacity``, ``drain_trace``).  The reference's compile
+Decision tracing: ``ring_capacity=N`` gives the manager a decision-trace
+ring (``obs/decision_trace.py``) of its N most recent events.  Every access
+records one ``KIND_ACCESS`` event: on the card the stream launch runs the
+kernels' ring variant, which writes the ring with the state, and on the CPU
+the plain version pushes it per access.  ``decide_batch`` records one
+``KIND_ADMIT`` event per request.  ``drain_trace`` pulls the ring with one
+synchronization.
+
+Not ported: the reference's ``mesh`` rows sharding.  The reference's compile
 sentinels of ``decide_batch`` and the tenancy step have no counterpart:
 nothing here is compiled.  The serving engine reports the rows through its
 registry (``ServeEngine.telemetry``) from ``row_metrics``, un-pulled.
@@ -66,6 +73,7 @@ from repro_torch.core.policy_core import (
 )
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.obs import decision_trace as dt
 from repro_torch.obs.metrics import _pull, safe_ratio
 
 __all__ = [
@@ -89,10 +97,12 @@ class TenantCacheManager:
     ``quotas`` is an ordered ``{tenant: capacity}`` mapping; ``policy`` a
     device policy name (flat: awrp/lru/fifo/lfu; adaptive: arc/car).  Flat
     cores pad every row to ``lanes = sum(quotas)`` so rebalancing can grow
-    any tenant up to the whole pool without changing plane shapes."""
+    any tenant up to the whole pool without changing plane shapes.
+    ``ring_capacity > 0`` records every access and admission decision in a
+    decision-trace ring of that many events (``drain_trace``)."""
 
     def __init__(self, quotas: Dict[str, int], policy: str = "awrp", *,
-                 pressure_alpha: float = 0.1, device="cuda"):
+                 pressure_alpha: float = 0.1, ring_capacity: int = 0, device="cuda"):
         if not quotas:
             raise ValueError("need at least one tenant")
         for t, q in quotas.items():
@@ -111,6 +121,9 @@ class TenantCacheManager:
         self._tf = np.zeros(len(self.tenants), dtype=np.int64)
         self._tr = np.zeros(len(self.tenants), dtype=np.int64)
         self._tclock = 0
+        # the decision-trace ring: written on the device by every access and
+        # admission, read only by drain_trace
+        self.ring = dt.ring_init(ring_capacity, self.device) if ring_capacity else None
         self._mount()
         self.state = self.core.init(device=self.device)
         self.counters: RowCounters = self.core.init_counters(device=self.device)
@@ -145,19 +158,29 @@ class TenantCacheManager:
         self._row_consts = tuple(torch.tensor(v, dtype=_I32, device=self.device)
                                  for v in per_row)
 
+    def stream_call(self, tenant_rows: np.ndarray, keys: np.ndarray):
+        """The stream launch over ``keys`` on rows ``tenant_rows`` (int32
+        arrays of one length, rows in [0, rows)) from the current state,
+        counters and ring, as ``(fn, args, kwargs)``: ``fn(*args, **kwargs)``
+        returns (hits, state, counters), and the new ring ``(buf, count)``
+        fourth when the manager traces, and leaves the manager as it was."""
+        both = torch.from_numpy(np.stack([tenant_rows, keys]).astype(np.int32)).to(self.device)
+        args = (both[1], both[0], self.state, self.counters, *self._row_consts)
+        kw = dict(alpha=self.pressure_alpha, ring=self.ring)
+        if self.is_adaptive:
+            return ops.adaptive_stream, args, dict(kw, kind=self.core.kind,
+                                                   renorm_at=self.core.renorm_at)
+        return ops.flat_stream, args, kw
+
     def _run_stream(self, tenant_rows: np.ndarray, keys: np.ndarray) -> torch.Tensor:
         """One call of the stream mode over the interleaved stream: advances
-        ``state`` and ``counters`` (the pressure EWMA included) and returns
-        the (T,) bool hits, on the device, not pulled."""
-        both = torch.from_numpy(np.stack([tenant_rows, keys])).to(self.device)
-        rows_t, keys_t = both[0], both[1]
-        args = (keys_t, rows_t, self.state, self.counters, *self._row_consts)
-        if self.is_adaptive:
-            hits, self.state, self.counters = ops.adaptive_stream(
-                *args, kind=self.core.kind, alpha=self.pressure_alpha,
-                renorm_at=self.core.renorm_at)
-        else:
-            hits, self.state, self.counters = ops.flat_stream(*args, alpha=self.pressure_alpha)
+        ``state``, ``counters`` (the pressure EWMA included) and the ring and
+        returns the (T,) bool hits, on the device, not pulled."""
+        fn, args, kw = self.stream_call(tenant_rows, keys)
+        out = fn(*args, **kw)
+        hits, self.state, self.counters = out[:3]
+        if self.ring is not None:
+            self.ring = dt.DecisionRing(*out[3])
         return hits
 
     def _pull_pressure(self) -> None:
@@ -386,6 +409,15 @@ class TenantCacheManager:
             }
         return out
 
+    def drain_trace(self) -> np.ndarray:
+        """The decision-trace ring on the host as a structured record array,
+        oldest event first (``obs.decision_trace.drain``: one
+        synchronization).  Needs ``ring_capacity > 0``."""
+        if self.ring is None:
+            raise ValueError(
+                "decision tracing is off; construct the manager with ring_capacity > 0")
+        return dt.drain(self.ring)
+
 
 @dataclasses.dataclass
 class AdmissionController:
@@ -423,14 +455,18 @@ class AdmissionController:
         later requests see the pressure decayed by earlier sheds, as the host
         loop of ``decide`` + ``decay_pressure`` does.  Mutates
         ``manager.counters.pressure`` (the sheds' decays) and refreshes the
-        mirror; one pull of the codes at the end."""
+        mirror; one pull of the codes at the end.  A tracing manager also
+        records one ``KIND_ADMIT`` event per request (its row, the pressure
+        before and after the request's decay, the ``ADMIT_*`` code); the
+        decisions are the same either way."""
         rows = [manager.row(t) for t in tenants]
         if not rows:
             return []
         fn = _decide_batch_fn(self.defer_at, self.shed_at, self.warmup,
                               manager.pressure_alpha, manager.core.rows)
         ctr = manager.counters
-        codes, new_p = fn(ctr.pressure, ctr.hits + ctr.misses, rows)
+        codes, new_p, manager.ring = fn(ctr.pressure, ctr.hits + ctr.misses, rows,
+                                        manager.ring)
         manager.counters = ctr._replace(pressure=new_p)
         order = (ACCEPT, DEFER, SHED)  # indexed by ADMIT_* codes
         decisions = [order[c] for c in codes.tolist()]
@@ -442,18 +478,25 @@ class AdmissionController:
 def _decide_batch_fn(defer_at, shed_at, warmup, alpha, rows):
     """The batch-admission loop, cached per (thresholds, alpha, rows): a
     short loop of torch ops carrying the pressure plane (a shed's decay is
-    visible to every later request), returning the (n,) int32 codes and the
-    final plane, neither pulled."""
+    visible to every later request), returning the (n,) int32 codes, the
+    final plane and the ring (None, or one ``KIND_ADMIT`` event pushed per
+    request), none pulled."""
 
-    def fn(pressure, accesses, req_rows: List[int]):
+    def fn(pressure, accesses, req_rows: List[int], ring=None):
         lane = torch.arange(rows, device=pressure.device)
+        one = torch.ones(1, dtype=torch.bool, device=pressure.device)
         p, codes = pressure, []
         for r in req_rows:
             code = admission_decide(p[r], accesses[r], defer_at=defer_at, shed_at=shed_at,
                                     warmup=warmup)
-            p = admission_decay(p, (lane == r) & (code == ADMIT_SHED), alpha)
+            p_new = admission_decay(p, (lane == r) & (code == ADMIT_SHED), alpha)
+            if ring is not None:
+                ev = dt.pack_events(1, kind=dt.KIND_ADMIT, row=r, key=-1, p_before=p[r],
+                                    p_after=p_new[r], admit=code)
+                ring = dt.ring_push(ring, ev, one)
+            p = p_new
             codes.append(code)
-        return torch.stack(codes), p
+        return torch.stack(codes), p, ring
 
     return fn
 
