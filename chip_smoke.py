@@ -6,7 +6,8 @@ Needs one CUDA card and ``nvcc``.  Phase by phase, each printing one JSON
 line, any failure raising (non-zero exit, no result line).  Kernels 4 and 5
 take the token position as a 0-d int32 tensor they read from device memory.
 Every served phase (``serve``, ``serve_adaptive``, ``serve_gemma3``,
-``serve_phi35``) runs its requests through the engine's decode graph
+``serve_phi35``, ``serve_qwen25``, ``serve_zamba2``, ``serve_mamba2``) runs
+its requests through the engine's decode graph
 (``jit_loop=True``: one captured CUDA graph per batch size, replayed once per
 token under sync debug mode ``"error"``) and then the same requests through
 the host loop (``jit_loop=False``) on the same parameters: greedy tokens,
@@ -27,9 +28,11 @@ side:
    PyTorch version (bf16 out within one bf16 ulp, f32 mass within
    MASS_RTOL), its output repeated bit for bit over 6 launches; kernel,
    plain and SDPA times beside the byte bound, with the grid's CTA count,
-   the achieved GB/s and bound_ms / ms; then a ragged pool (5 free pages,
-   each sequence's ``cur`` elsewhere mid-page) at P=256 and at gemma3's
-   shape.
+   the achieved GB/s and bound_ms / ms; the same at zamba2-7b's shared
+   attention (B=4, P=16, page=64, KVH=32, G=1, hd=112: the fold's second
+   64-dim slice is partial); then a ragged pool (5 free pages, each
+   sequence's ``cur`` elsewhere mid-page) at P=256, gemma3's and zamba2's
+   shapes.
 3. ``policy_attn``: the fused policy-attention step from a full pool,
    AWRP over 3*page decode steps so every page boundary evicts, at P=256
    and at P=16, and each other page policy over two evicting boundaries at
@@ -38,13 +41,17 @@ side:
    of its plain version, planes equal except at steps where a page's plain
    mass lies within EPS_TAU of tau (counted); the AWRP runs timed like
    phase 2, the timed (evicting) step repeated bit for bit over 6
-   launches; AWRP again at gemma3's decode shape and at phi3.5-moe's (B=4,
-   P=16, page=64, KVH=8, G=4, hd=128).
+   launches; AWRP again at gemma3's decode shape, at phi3.5-moe's (B=4,
+   P=16, page=64, KVH=8, G=4, hd=128), and over one evicting boundary
+   (page steps; the timed step the next boundary) at qwen2.5-14b's (KVH=8,
+   G=5), yi-34b's (KVH=8, G=7) and zamba2-7b's (KVH=32, G=1, hd=112).
 3a. ``flash_attn``: kernel 6, the prefill attention, against its plain
    version (bf16 within one bf16 ulp, f32 within F32_OUT_RTOL) at gemma3's
    prefill shape (4, 2048, 16, 2, 128) with window 1024 and 0, smollm's
    (4, 1024, 5, 3, 64), phi3.5-moe's (4, 2048, 8, 4, 128) causal, a ragged
    S=1000 with window 48, non-causal, a ``kv_len`` mask, f32 and hd=256,
+   qwen2.5's (4, 2048, 8, 5, 128), yi's (4, 2048, 8, 7, 128) and zamba2's
+   (4, 2048, 32, 1, 112) causal, and f32 at hd=112 with window 100,
    each repeated bit for bit over 6
    launches; kernel, plain and SDPA times (same mask) beside the bound over
    the unmasked (query head, key) pairs; the HMMA instructions of each bf16
@@ -69,8 +76,10 @@ side:
    adaptive_insert_token + paged_attention kernel + adaptive_score_update,
    and within phase 2's tolerances of its plain version with every plane
    equal except at near-tau steps (counted); timed at the serve shape and
-   at gemma3's and phi3.5-moe's decode shapes (arc), at a page boundary and
-   mid-page, both repeated bit for bit over 6 launches, as at P=256.
+   at gemma3's, phi3.5-moe's, qwen2.5's, yi's and zamba2's decode shapes
+   (arc; the last three over two steps, an evicting boundary and a
+   mid-page step), at a page boundary and mid-page, both repeated bit for
+   bit over 6 launches, as at P=256.
 4b. ``serve_adaptive``: the serve phase's model and pool with
    ``kv_policy`` arc_adaptive and car_adaptive: 4 x 1024-token prompts and 192
    greedy tokens, then single requests A and B (distinct 1024-token prompts),
@@ -102,6 +111,36 @@ side:
    then ``arc_adaptive`` (kernel 5): a 1024-token request and its follow-up
    turn (ghost hits); a decode-step profile beside the step's byte bound,
    prefill seconds, decode tokens/s and the peak memory.
+4f. ``serve_qwen25``: qwen2.5-14b (QKV bias; d 5120, 40/8 heads, G 5, hd
+   128, d_ff 13824, vocab 152064) at published widths and all 48 layers,
+   bf16, random weights from SEED drawn on the card with the q/k/v biases
+   drawn nonzero (N(0, QKV_BIAS_STD); the reference inits them to zeros),
+   a 16-page pool (the one cut): 4 prompts of 2048 seeded tokens and 32
+   greedy tokens (AWRP: kernel 6 in every layer of every prefill, kernel 4
+   twice per layer per decode step), then one ``arc_adaptive`` request of
+   1024 tokens (kernel 5 at G = 5); a decode-step profile beside the step's
+   byte bound (``step_bound``), prefill seconds, tokens/s, peak memory.
+4g. ``serve_zamba2``: zamba2-7b (13 x (5 Mamba-2 + 1 shared-attention
+   block, whose one parameter set all 13 occurrences run) + 3 Mamba-2; d
+   3584, 32 heads of hd 112, G 1; SSM d_inner 7168, 112 heads of 64, state
+   64, chunk 256) at published widths and all 81 blocks, bf16, random
+   weights from SEED, 16 pages per shared-attention occurrence (the one
+   cut): first ``mamba_layer_check`` (block 0's ``mamba2_block`` at (4,
+   2048, 3584) against a plain f32 token-by-token recurrence from the same
+   weights, then one ``mamba2_decode_step`` from its state, each within
+   MAMBA_REL_TOL relative L2), then 4 prompts of 2048 seeded tokens and 32
+   greedy tokens (AWRP: kernel 6 at hd = 112 in each occurrence of every
+   prefill, kernel 4 twice per occurrence per decode step); a decode-step
+   profile beside its byte bound, prefill seconds, tokens/s, peak memory.
+4h. ``serve_mamba2``: mamba2-370m (48 Mamba-2 blocks, d 1024, 32 heads of
+   64, state 128) at published widths and depth, bf16, random weights from
+   SEED: 4 prompts of 1024 seeded tokens and 32 greedy tokens, then one of
+   them alone twice: the second hits the prefix cache (the SSM states
+   after prefill), skips its prefill and repeats its tokens, the cache's
+   ``entry_bytes`` == the payload's bytes from its shapes.  Attention-free:
+   no kernel of the port runs (every launch count 0, said in the kernel
+   summary).  In 4g and 4h both loops' final SSM states are also equal bit
+   for bit, position by position.
 5. ``awrp_select``: the two AWRP victim-selection kernels against their
    plain versions, exact equality of the victims, at the sweep's shapes
    (kernel 2) and the serve pool's (kernel 1), tie-heavy and all-invalid
@@ -191,10 +230,14 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.cache import paged_kv  # noqa: E402
 from repro_torch.configs.gemma3_27b import CONFIG as GEMMA3  # noqa: E402
+from repro_torch.configs.mamba2_370m import CONFIG as MAMBA2  # noqa: E402
 from repro_torch.configs.phi35_moe import CONFIG as PHI35  # noqa: E402
+from repro_torch.configs.qwen25_14b import CONFIG as QWEN25  # noqa: E402
 from repro_torch.configs.smollm_360m import CONFIG  # noqa: E402
+from repro_torch.configs.zamba2_7b import CONFIG as ZAMBA2  # noqa: E402
 from repro_torch.core.kv_policy import PAGE_POLICIES  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.models.model import MambaCache  # noqa: E402
 from repro_torch.kernels.paged_attn import (  # noqa: E402
     paged_attention_kernel, split_ctas)
 from repro_torch.kernels.policy_attn import (  # noqa: E402
@@ -543,6 +586,10 @@ FLASH_CASES = [
     ("kv_len_mask", (2, 256, 2, 4, 64), False, 0, 150, torch.bfloat16),
     ("f32_window100", (1, 300, 2, 4, 64), True, 100, None, torch.float32),
     ("hd256", (1, 384, 2, 4, 256), True, 0, None, torch.bfloat16),
+    ("qwen25", (4, 2048, 8, 5, 128), True, 0, None, torch.bfloat16),
+    ("yi34", (4, 2048, 8, 7, 128), True, 0, None, torch.bfloat16),
+    ("zamba2", (4, 2048, 32, 1, 112), True, 0, None, torch.bfloat16),
+    ("f32_hd112_window100", (1, 300, 4, 1, 112), True, 100, None, torch.float32),
 ]
 
 
@@ -610,7 +657,7 @@ def phase_flash_attn(dev) -> dict:
     once, at the HBM rate, against 4*hd flops per unmasked (query head, key)
     pair at the type's peak (bf16 tensor cores; f32 outside them).  The bf16
     path's tensor-core use is read from the built library: every bf16
-    instantiation (hd 64, 128, 256) must hold HMMA instructions."""
+    instantiation (hd 64, 112, 128, 256) must hold HMMA instructions."""
     from repro_torch.kernels.flash_attn import HEAD_DIMS, flash_attention_kernel
 
     t0 = time.perf_counter()
@@ -665,6 +712,12 @@ SERVE_SHAPE = (4, 16, 64, 5, 3, 64)  # the serve phase's pool: 16 pages of 64
 GEMMA3_DECODE_SHAPE = (4, 16, 64, 16, 2, 128)
 #: phi3.5-moe's pool in the serve_phi35 phase (GQA group G = 4)
 PHI35_DECODE_SHAPE = (4, 16, 64, 8, 4, 128)
+#: qwen2.5-14b's pool in the serve_qwen25 phase (G = 5), yi-34b's at the same
+#: 16 pages (G = 7; yi is held at its kernel shapes, not served), and
+#: zamba2-7b's shared-attention pool in serve_zamba2 (G = 1, hd = 112)
+QWEN25_DECODE_SHAPE = (4, 16, 64, 8, 5, 128)
+YI34_DECODE_SHAPE = (4, 16, 64, 8, 7, 128)
+ZAMBA2_DECODE_SHAPE = (4, 16, 64, 32, 1, 112)
 
 
 def serve_params(dev):
@@ -685,11 +738,18 @@ LOOP_STATS = ("prefill_s", "decode_s", "loop_captures")
 LOOP_KEYS = ("serve/loop/steps", "serve/loop/tokens", "serve/loop/token_hist")
 
 
+def _ssm_states_of(caches) -> dict:
+    """The Mamba positions' SSM states of a decode-cache tree (copies), by
+    position name."""
+    return {name: c.state.clone() for name, c in caches["blocks"].items()
+            if isinstance(c, MambaCache)}
+
+
 def _planes_of(caches) -> list:
     """``pos`` and every policy plane of a decode-cache tree (copies; the
     K/V are left out)."""
     out = [caches["pos"].clone()]
-    for c in caches["blocks"].values():
+    for _, c in sorted(caches["blocks"].items()):
         if isinstance(c, paged_kv.AdaptivePagedPool):
             out += [t.clone() for t in (*c.pool[2:], *c.policy)]
         elif isinstance(c, paged_kv.PagedPool):
@@ -701,13 +761,15 @@ class Drive:
     """An engine's request lists in order: per list the results, and the
     engine's stats, ``ops.LAUNCHES``, the decode loops run so far and the
     snapshot's ``serve/loop/*`` planes after it (counted from 0 at the
-    start); per decode loop the final planes (``_planes_of``); at the end the
-    ghost sessions.  ``replay`` sends the same lists to another engine."""
+    start); per decode loop the final planes (``_planes_of``) and SSM states
+    (``_ssm_states_of``); at the end the ghost sessions.  ``replay`` sends
+    the same lists to another engine."""
 
     def __init__(self, engine):
         self.engine = engine
         self.calls: list = []
         self.planes: list = []
+        self.states: list = []
         self.sessions: dict = {}
         self.graphs: list = []
         for name in ("_graph_loop", "_host_loop"):
@@ -716,6 +778,7 @@ class Drive:
             def wrapped(*args, _orig=orig, **kwargs):
                 out = _orig(*args, **kwargs)
                 self.planes.append(_planes_of(out[1]))
+                self.states.append(_ssm_states_of(out[1]))
                 return out
 
             setattr(engine, name, wrapped)
@@ -751,8 +814,9 @@ def _requests(asked):
 def loops_agree(graph: Drive, host: Drive) -> dict:
     """The graph loop's run against the host loop's on the same requests and
     parameters: greedy tokens, every stat but the clocks and the graph
-    count, the launch counts after every request list, the final planes of
-    every decode loop and the ghost sessions, all equal (planes bitwise);
+    count, the launch counts after every request list, the final planes and
+    SSM states of every decode loop and the ghost sessions, all equal
+    (planes and states bitwise, each position by its name);
     after every request list the snapshot's ``serve/loop/*`` equal bit for
     bit, ``steps`` the sampling events (each loop's first token and its
     decode steps) and ``tokens`` the engine's.  Returns both loops' decode
@@ -785,6 +849,12 @@ def loops_agree(graph: Drive, host: Drive) -> dict:
             assert all(torch.equal(x, y) for x, y in zip(st, hs[t][name])), (t, name)
     steps = g["stats"]["decode_steps"]
     tokens = sum(len(r[0]) for c in graph.calls for r in c["results"].values())
+    for i, (a, b) in enumerate(zip(graph.states, host.states, strict=True)):
+        assert a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a), \
+            f"decode loop {i}: final SSM states differ"
+    # a stacked state (n, B, H, P, N) holds n layers
+    ssm_layers = sum(t.shape[0] if t.dim() == 5 else 1
+                     for s in graph.states for t in s.values())
     return {"tokens_equal": True, "stats_equal": True, "launches_equal": True,
             "planes_equal_bitwise": True, "loop_planes_equal_bitwise": True,
             "loop_steps": gp["serve/loop/steps"], "loop_tokens": gp["serve/loop/tokens"],
@@ -795,7 +865,9 @@ def loops_agree(graph: Drive, host: Drive) -> dict:
             "static_tree_gb": [n / 1e9 for _, n in graph.graphs],
             "graph_decode_s": g["stats"]["decode_s"], "host_decode_s": h["stats"]["decode_s"],
             "graph_ms_per_step": g["stats"]["decode_s"] * 1e3 / steps,
-            "host_ms_per_step": h["stats"]["decode_s"] * 1e3 / steps}
+            "host_ms_per_step": h["stats"]["decode_s"] * 1e3 / steps,
+            "ssm_states_equal_bitwise": True if ssm_layers else None,
+            "ssm_layer_states_compared": ssm_layers}
 
 
 def _leaves(tree):
@@ -982,6 +1054,9 @@ def phase_serve(dev, params, init_s, base_cfg=CONFIG, n_req=4, prompt_len=1024,
     emit(res)
     return res
 
+
+#: kernels 3-5 held at the QKV-bias and hybrid families' decode shapes
+NEW_DECODE_SHAPES = (QWEN25_DECODE_SHAPE, YI34_DECODE_SHAPE, ZAMBA2_DECODE_SHAPE)
 
 #: the CUDA kernels of one kernel-4 call (csrc/policy_attn.cu): partials, fold
 KERNEL4_CUDA = ("policy_partials_kernel", "policy_fold_kernel")
@@ -1335,6 +1410,233 @@ def _numel(tree) -> int:
     return sum(_numel(v) if isinstance(v, dict) else v.numel() for v in tree.values())
 
 
+# -- the serve cells' scaffold: one model at published widths per phase ------
+
+#: the block kinds whose decode attends over a paged pool (kernels 4-5)
+POOL_KINDS = ("attn", "global", "moe", "shared_attn")
+
+
+def _init_cell(cfg, dev):
+    """``cfg``'s random weights from SEED drawn on the card, the peak
+    counter reset first; returns (params, init seconds, the init's peak
+    bytes above what was allocated before it)."""
+    from repro_torch.models import model as M
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    torch.cuda.synchronize()
+    return params, time.perf_counter() - t0, torch.cuda.max_memory_allocated() - before
+
+
+def _engine_maker(params, dev):
+    from repro_torch.serve.engine import ServeEngine
+
+    def make(c, max_len, jit_loop=True):
+        return ServeEngine(c, params, max_len=max_len, kv_mode="paged", fused=True,
+                           seed=SEED, jit_loop=jit_loop, device=dev)
+
+    return make
+
+
+def step_bound(cfg, params, pages: int, batch: int) -> dict:
+    """Least time of one decode step of ``cfg`` at ``batch`` sequences, at
+    the HBM rate: every weight the step reads (all but the embedding table,
+    of which it reads one row per sequence, unless the table is tied and
+    read whole as the unembedding; the shared-attention set once per
+    occurrence, as it is far larger than L2; a MoE layer's every expert, as
+    the reference's step runs each over its capacity buffer), each pool
+    layer's ``pages``-page K/V and each local layer's window ring read once,
+    and each Mamba layer's f32 state and conv window read and written
+    once."""
+    def nbytes(tree):
+        return sum(nbytes(v) if isinstance(v, dict) else v.numel() * v.element_size()
+                   for v in tree.values())
+
+    kinds = cfg.layer_pattern
+    weights = nbytes({k: v for k, v in params.items() if k != "embed"})
+    if cfg.tie_embeddings:
+        weights += params["embed"].numel() * params["embed"].element_size()
+    if "shared_attn" in params:
+        weights += (kinds.count("shared_attn") - 1) * nbytes(params["shared_attn"])
+    row = cfg.kv_dim * 2 * 2  # one token's K and V in bf16
+    kv = batch * row * (sum(k in POOL_KINDS for k in kinds) * pages * cfg.page_size
+                        + kinds.count("local") * cfg.sliding_window)
+    state = kinds.count("mamba") * batch * 2 * (
+        cfg.ssm_heads * cfg.ssm_head_dim * cfg.ssm_state * 4
+        + (cfg.d_conv - 1) * (cfg.d_inner + 2 * cfg.ssm_state) * 2)
+    total = weights + kv + state
+    out = {"weight_bytes": weights, "kv_bytes": kv, "ssm_state_bytes": state,
+           "bytes": total, "bound_ms": total / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    if cfg.n_experts:
+        out["expert_bytes"] = sum(nbytes({k: v for k, v in blk.items()
+                                          if k in ("w_up", "w_gate", "w_down")})
+                                  for blk in params.values()
+                                  if isinstance(blk, dict) and "w_router" in blk)
+    return out
+
+
+def _serve_batch(make, cfg, prompts, new_tokens, *, flash: int):
+    """The cell's batch through a graph-loop engine under a ``Drive``: every
+    request's tokens in range, no non-finite logits; kernel 6 launched
+    ``flash`` times (its prefill's attention layers), kernel 4
+    ``ops.SPLIT_LAUNCHES`` times per pool layer per decode step, kernel 5
+    never; evictions exactly when the cell has a pool.  Returns (drive,
+    results, launches, stats)."""
+    from repro_torch.serve.engine import Request
+
+    n_pool = sum(k in POOL_KINDS for k in cfg.layer_pattern)
+    drive = Drive(make(cfg, len(prompts[0]) + new_tokens))
+    results = drive.generate([Request(i, list(p), max_new_tokens=new_tokens)
+                              for i, p in enumerate(prompts)])
+    launches, stats = dict(ops.LAUNCHES), dict(drive.engine.stats)
+    for r in results.values():
+        assert len(r.tokens) == new_tokens
+        assert all(0 <= tok < cfg.vocab for tok in r.tokens)
+    assert stats["nonfinite_logits"] == 0, stats
+    assert launches["flash_attention"] == flash, launches
+    assert launches["policy_paged_attention"] == \
+        ops.SPLIT_LAUNCHES * n_pool * (new_tokens - 1), launches
+    assert launches["adaptive_policy_paged_attention"] == 0, launches
+    assert (stats["kv_evictions"] > 0) == (n_pool > 0), stats
+    return drive, results, launches, stats
+
+
+def _prefix_repeat(drive, prompt, new_tokens) -> None:
+    """One prompt of the batch alone twice through the drive's engine: the
+    first misses the prefix cache, the second hits it, skips its prefill
+    and repeats the first's tokens."""
+    from repro_torch.serve.engine import Request
+
+    first = drive.generate([Request(10, list(prompt), max_new_tokens=new_tokens)])
+    prefills = drive.engine.stats["prefills"]
+    again = drive.generate([Request(11, list(prompt), max_new_tokens=new_tokens)])
+    assert not first[10].prefill_cached and again[11].prefill_cached
+    assert drive.engine.stats["prefills"] == prefills  # the hit skipped its prefill
+    assert first[10].tokens == again[11].tokens
+    assert drive.engine.prefix_cache.hits == 1
+    assert drive.engine.stats["nonfinite_logits"] == 0
+
+
+def _cell_loops(drive, make, params, cfg, prompts, new_tokens, pages, dev,
+                profile_steps: int) -> dict:
+    """After the cell's requests: the graph peak, the decode step profiled
+    in both loops (``profile_decode``), its bound (``step_bound``), then
+    the drive's requests replayed through a host-loop engine and held
+    against the graph loop's (``loops_agree``); the drive's engine is
+    dropped first (its static tree and prefix payloads)."""
+    n_pool = sum(k in POOL_KINDS for k in cfg.layer_pattern)
+    graph_peak = torch.cuda.max_memory_allocated()
+    profile = profile_decode(params, cfg, prompts, dev, KERNEL4_CUDA if n_pool else (),
+                             steps=profile_steps)
+    bound = step_bound(cfg, params, pages if n_pool else 0, len(prompts))
+    drive.engine = None
+    loops = loops_agree(drive, drive.replay(make(cfg, len(prompts[0]) + new_tokens, False)))
+    return {"graph_peak_memory_allocated_gb": graph_peak / 1e9,
+            "decode_step_profile": profile, "decode_step_bound": bound, "loops": loops}
+
+
+def _adaptive_turns(make, cfg, rng, single_len, new_tokens, *, flash: int,
+                    follow_up: bool) -> dict:
+    """``arc_adaptive`` on the cell's weights (kernel 5 in place of kernel
+    4): a request of ``single_len`` seeded tokens and, with ``follow_up``,
+    its follow-up turn (the prompt and its tokens), whose re-prefill
+    ghost-hits the pages the first turn's decode evicted; kernel 6 launched
+    ``flash`` times a prefill, kernel 5 ``ops.SPLIT_LAUNCHES`` times per
+    pool layer per decode step, kernel 4 never; then both loops on the same
+    turns (``loops_agree``)."""
+    from repro_torch.serve.engine import Request
+
+    acfg = dataclasses.replace(cfg, kv_policy="arc_adaptive")
+    n_pool = sum(k in POOL_KINDS for k in cfg.layer_pattern)
+    turns, steps = 1 + follow_up, new_tokens - 1
+    max_len = single_len + turns * new_tokens
+    drive = Drive(make(acfg, max_len))
+    a = rng.randint(1, cfg.vocab, size=single_len).tolist()
+    got = [drive.generate([Request(20, list(a), max_new_tokens=new_tokens)])[20]]
+    out = {"kv_policy": acfg.kv_policy, "prompt_len": single_len}
+    if follow_up:
+        gh0 = drive.engine.stats["kv_ghost_hits"]
+        got.append(drive.generate([Request(21, a + got[0].tokens,
+                                           max_new_tokens=new_tokens)])[21])
+        ghost_hits = drive.engine.stats["kv_ghost_hits"] - gh0
+        assert not got[1].prefill_cached and ghost_hits > 0, (ghost_hits, drive.engine.stats)
+        out.update({"follow_up_len": len(a) + len(got[0].tokens),
+                    "kv_ghost_hits_follow_up": ghost_hits})
+    launches, stats = dict(ops.LAUNCHES), dict(drive.engine.stats)
+    assert launches["flash_attention"] == turns * flash, launches
+    assert launches["adaptive_policy_paged_attention"] == \
+        ops.SPLIT_LAUNCHES * turns * n_pool * steps, launches
+    assert launches["policy_paged_attention"] == 0, launches
+    assert stats["nonfinite_logits"] == 0, stats
+    assert all(len(r.tokens) == new_tokens for r in got)
+    out.update({"launches": launches,
+                "adaptive_launches_per_decode_step":
+                    launches["adaptive_policy_paged_attention"] / (turns * steps),
+                "kv_evictions": stats["kv_evictions"], "prefill_s": stats["prefill_s"],
+                "decode_tokens_per_s": turns * steps / stats["decode_s"],
+                "p_max": drive.engine.telemetry()["kv/p_max"]})
+    drive.engine = None
+    out["loops"] = loops_agree(drive, drive.replay(make(acfg, max_len, False)))
+    return out
+
+
+def _cell_result(phase, cfg, base, params, stats, launches, *, n_req, prompt_len,
+                 new_tokens, init_s) -> dict:
+    """The fields every serve cell reports: its model (``reduced``: each
+    cut from ``base``, the published config) and its batch of ``n_req``
+    prompts."""
+    from repro_torch.models import model as M
+
+    steps = new_tokens - 1
+    res = {"phase": phase, "model": cfg.name, "family": cfg.family,
+           "layers": cfg.n_layers,
+           "layer_kinds": {k: cfg.layer_pattern.count(k) for k in sorted(set(cfg.layer_pattern))},
+           "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+           "head_dim": cfg.head_dim, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+           "qkv_bias": cfg.qkv_bias, "params": _numel(params),
+           "param_bytes": M.param_bytes(cfg), "dtype": cfg.dtype, "kv_mode": "paged",
+           "page_size": cfg.page_size,
+           "reduced": {f: [getattr(base, f), getattr(cfg, f)]
+                       for f in ("n_layers", "bounded_kv_pages")
+                       if getattr(base, f) != getattr(cfg, f)},
+           "requests": n_req, "prompt_len": prompt_len, "new_tokens": new_tokens,
+           "param_init_s": init_s, "prefill_s": stats["prefill_s"],
+           "decode_s": stats["decode_s"],
+           "decode_tokens_per_s": n_req * steps / stats["decode_s"],
+           "launches": launches, "kv_evictions": stats["kv_evictions"],
+           "flash_launches_per_prefill": launches["flash_attention"] / stats["prefills"],
+           "policy_launches_per_decode_step": launches["policy_paged_attention"] / steps}
+    if cfg.sliding_window:
+        res["sliding_window"] = cfg.sliding_window
+    if cfg.n_experts:
+        res.update({"experts": cfg.n_experts, "top_k": cfg.top_k,
+                    "capacity_factor": cfg.capacity_factor})
+    if "mamba" in cfg.layer_pattern:
+        res["ssm"] = {"d_inner": cfg.d_inner, "heads": cfg.ssm_heads,
+                      "head_dim": cfg.ssm_head_dim, "state": cfg.ssm_state,
+                      "chunk": cfg.ssm_chunk, "d_conv": cfg.d_conv}
+    return res
+
+
+def _finish_cell(res, t_phase) -> dict:
+    """The phase's peak memory and seconds; the card's memory released."""
+    res["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_phase
+    emit(res)
+    return res
+
+
+#: decode steps each loop of a PR-24 cell's decode-step profile runs (after
+#: as many of warm-up); the earlier cells profile 8
+CELL_PROFILE_STEPS = 4
+
+
 def phase_serve_gemma3(dev, n_req=4, prompt_len=2048, new_tokens=128, pages=16,
                        single_len=1024, unfused_tokens=32) -> dict:
     """gemma3-27b at published widths and all 62 layers through
@@ -1351,54 +1653,23 @@ def phase_serve_gemma3(dev, n_req=4, prompt_len=2048, new_tokens=128, pages=16,
     the pages the first turn's decode evicted.  Kernel 6 launches once per
     layer per prefill, kernel 4 (kernel 5) is called once per global layer
     per AWRP (adaptive) decode step, ``ops.SPLIT_LAUNCHES`` launches each."""
-    from repro_torch.models import model as M
     from repro_torch.serve.engine import Request, ServeEngine
 
     t_phase = time.perf_counter()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     cfg = dataclasses.replace(GEMMA3, bounded_kv_pages=pages, kv_policy="awrp")
     n_global = cfg.layer_pattern.count("global")
-    t0 = time.perf_counter()
-    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
-                           device=dev)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+    params, init_s, _ = _init_cell(cfg, dev)
     rng = np.random.RandomState(SEED + 21)
     prompts = [rng.randint(1, cfg.vocab, size=prompt_len).tolist() for _ in range(n_req)]
-
-    def make(c, max_len, jit_loop=True):
-        return ServeEngine(c, params, max_len=max_len, kv_mode="paged", fused=True,
-                           seed=SEED, jit_loop=jit_loop, device=dev)
-
-    engine = make(cfg, prompt_len + new_tokens)
+    make = _engine_maker(params, dev)
     steps = new_tokens - 1
-    drive = Drive(engine)
-    results = drive.generate([Request(i, list(p), max_new_tokens=new_tokens)
-                              for i, p in enumerate(prompts)])
-    launches = dict(ops.LAUNCHES)
-    stats = dict(engine.stats)
-    assert launches["flash_attention"] == cfg.n_layers, launches
-    assert launches["policy_paged_attention"] == ops.SPLIT_LAUNCHES * n_global * steps, launches
-    assert launches["adaptive_policy_paged_attention"] == 0, launches
-    for r in results.values():
-        assert len(r.tokens) == new_tokens
-        assert all(0 <= tok < cfg.vocab for tok in r.tokens)
-    assert stats["nonfinite_logits"] == 0, stats
-    assert stats["kv_evictions"] > 0, stats
-
-    first = drive.generate([Request(10, list(prompts[0]), max_new_tokens=new_tokens)])
-    again = drive.generate([Request(11, list(prompts[0]), max_new_tokens=new_tokens)])
-    assert not first[10].prefill_cached and again[11].prefill_cached
-    assert first[10].tokens == again[11].tokens
+    drive, results, launches, stats = _serve_batch(make, cfg, prompts, new_tokens,
+                                                   flash=cfg.n_layers)
+    _prefix_repeat(drive, prompts[0], new_tokens)
     total = dict(ops.LAUNCHES)
     assert total["flash_attention"] == 2 * cfg.n_layers, total
     assert total["policy_paged_attention"] == 3 * ops.SPLIT_LAUNCHES * n_global * steps, total
-    assert engine.stats["nonfinite_logits"] == 0
-    graph_peak = torch.cuda.max_memory_allocated()
-    profile = profile_decode(params, cfg, prompts, dev, KERNEL4_CUDA)
-    drive.engine = engine = None  # frees the static tree and the prefix payloads
-    loops = loops_agree(drive, drive.replay(make(cfg, prompt_len + new_tokens, False)))
+    loops = _cell_loops(drive, make, params, cfg, prompts, new_tokens, pages, dev, 8)
     del drive
     unfused = ServeEngine(cfg, params, max_len=prompt_len + new_tokens, kv_mode="paged",
                           fused=False, seed=SEED, device=dev)
@@ -1410,87 +1681,20 @@ def phase_serve_gemma3(dev, n_req=4, prompt_len=2048, new_tokens=128, pages=16,
                for a, b in zip(results[i].tokens, ref_res[i].tokens))
     unfused_tps = n_req * (unfused_tokens - 1) / unfused.stats["decode_s"]
     del unfused, ref_res
-
-    acfg = dataclasses.replace(cfg, kv_policy="arc_adaptive")
-    aeng = make(acfg, single_len + 2 * new_tokens)
-    a = rng.randint(1, cfg.vocab, size=single_len).tolist()
-    adrive = Drive(aeng)
-    ra = adrive.generate([Request(20, list(a), max_new_tokens=new_tokens)])[20]
-    gh0 = aeng.stats["kv_ghost_hits"]
-    rb = adrive.generate([Request(21, a + ra.tokens, max_new_tokens=new_tokens)])[21]
-    ghost_hits = aeng.stats["kv_ghost_hits"] - gh0
-    alaunch = dict(ops.LAUNCHES)
-    assert alaunch["flash_attention"] == 2 * cfg.n_layers, alaunch
-    assert alaunch["adaptive_policy_paged_attention"] == \
-        ops.SPLIT_LAUNCHES * 2 * n_global * steps, alaunch
-    assert alaunch["policy_paged_attention"] == 0, alaunch
-    assert not rb.prefill_cached and ghost_hits > 0, (ghost_hits, aeng.stats)
-    assert aeng.stats["nonfinite_logits"] == 0, aeng.stats
-    for r in (ra, rb):
-        assert len(r.tokens) == new_tokens
-    peak = torch.cuda.max_memory_allocated()
-    res = {"phase": "serve_gemma3", "model": cfg.name, "layers": cfg.n_layers,
-           "layer_kinds": {k: cfg.layer_pattern.count(k) for k in ("local", "global")},
-           "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
-           "head_dim": cfg.head_dim, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
-           "sliding_window": cfg.sliding_window, "params": _numel(params),
-           "dtype": cfg.dtype, "kv_mode": "paged", "page_size": cfg.page_size,
-           "reduced": {"bounded_kv_pages": [GEMMA3.bounded_kv_pages, pages]},
-           "requests": n_req, "prompt_len": prompt_len, "new_tokens": new_tokens,
-           "param_init_s": init_s, "prefill_s": stats["prefill_s"],
-           "decode_s": stats["decode_s"],
-           "decode_tokens_per_s": n_req * steps / stats["decode_s"],
-           "launches": launches, "launches_with_singles": total,
-           "flash_launches_per_prefill": launches["flash_attention"] / stats["prefills"],
-           "policy_launches_per_decode_step": launches["policy_paged_attention"] / steps,
-           "kv_evictions": stats["kv_evictions"], "prefix_hit": True,
-           "repeat_tokens_equal": True,
-           "greedy_agreement_fused_vs_unfused": same / (n_req * unfused_tokens),
-           "unfused_tokens": unfused_tokens, "unfused_decode_tokens_per_s": unfused_tps,
-           "adaptive": {"kv_policy": "arc_adaptive", "prompt_len": single_len,
-                        "follow_up_len": len(a) + len(ra.tokens),
-                        "launches": alaunch,
-                        "adaptive_launches_per_decode_step":
-                            alaunch["adaptive_policy_paged_attention"] / (2 * steps),
-                        "kv_ghost_hits_follow_up": ghost_hits,
-                        "kv_evictions": aeng.stats["kv_evictions"],
-                        "prefill_s": aeng.stats["prefill_s"],
-                        "decode_tokens_per_s": 2 * steps / aeng.stats["decode_s"],
-                        "p_max": aeng.telemetry()["kv/p_max"]},
-           "max_memory_allocated_gb": peak / 1e9,
-           "graph_peak_memory_allocated_gb": graph_peak / 1e9,
-           "loops": loops, "decode_step_profile": profile}
-    adrive.engine = aeng = None
-    res["adaptive"]["loops"] = loops_agree(
-        adrive, adrive.replay(make(acfg, single_len + 2 * new_tokens, False)))
-    del params, adrive
-    torch.cuda.empty_cache()
-    res["seconds"] = time.perf_counter() - t_phase
-    emit(res)
-    return res
+    adaptive = _adaptive_turns(make, cfg, rng, single_len, new_tokens, flash=cfg.n_layers,
+                               follow_up=True)
+    res = _cell_result("serve_gemma3", cfg, GEMMA3, params, stats, launches, n_req=n_req,
+                       prompt_len=prompt_len, new_tokens=new_tokens, init_s=init_s)
+    res.update({"launches_with_singles": total, "prefix_hit": True,
+                "repeat_tokens_equal": True,
+                "greedy_agreement_fused_vs_unfused": same / (n_req * unfused_tokens),
+                "unfused_tokens": unfused_tokens, "unfused_decode_tokens_per_s": unfused_tps,
+                "adaptive": adaptive, **loops})
+    del params
+    return _finish_cell(res, t_phase)
 
 
 PHI35_LAYERS = 24  # of 32: the 32 layers' 83.7 GB of bf16 weights exceed the card
-
-
-def phi35_step_bound(cfg, params, pages: int, batch: int) -> dict:
-    """Least time of one decode step of ``cfg`` at ``batch`` sequences over a
-    full ``pages``-page pool: every weight the step reads (each layer's
-    attention, router and all its experts, as the reference's step runs
-    every expert over its capacity buffer; the unembedding; not the
-    embedding table, of which it reads one row per sequence) and the pool's
-    K/V read once, at the HBM rate."""
-    unit = params["u0"]
-    expert = sum(unit[k].numel() * unit[k].element_size()
-                 for k in ("w_up", "w_gate", "w_down") if k in unit)
-    rest = sum(t.numel() * t.element_size() for k, t in unit.items()
-               if k not in ("w_up", "w_gate", "w_down"))
-    unembed = params["unembed"].numel() * params["unembed"].element_size()
-    kv = cfg.n_layers * batch * pages * cfg.page_size * cfg.kv_dim * 2 * 2
-    total = expert + rest + unembed + kv
-    return {"expert_bytes": expert, "attention_router_norm_bytes": rest,
-            "unembed_bytes": unembed, "kv_bytes": kv, "bytes": total,
-            "bound_ms": total / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
 
 
 def moe_layer_check(params, cfg, dev, batch: int, seq: int) -> dict:
@@ -1581,127 +1785,250 @@ def phase_serve_phi35(dev, n_req=4, prompt_len=2048, new_tokens=64, pages=16,
     layer 0's MoE FFN alone at the prefill shape against the CPU's routing
     and a plain loop (``moe_layer_check``)."""
     from repro_torch.models import model as M
-    from repro_torch.serve.engine import Request, ServeEngine
 
     t_phase = time.perf_counter()
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     cfg = dataclasses.replace(PHI35, n_layers=PHI35_LAYERS, bounded_kv_pages=pages,
                               kv_policy="awrp")
     L = cfg.n_layers
-    before = torch.cuda.memory_allocated()
-    t0 = time.perf_counter()
-    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+    params, init_s, param_peak = _init_cell(cfg, dev)
     # no f32 copy of a stacked leaf: the peak is the weights and one matrix
-    param_peak = torch.cuda.max_memory_allocated() - before
     assert param_peak < M.param_bytes(cfg) + (1 << 30), (param_peak, M.param_bytes(cfg))
     moe_check = moe_layer_check(params, cfg, dev, n_req, prompt_len)
     rng = np.random.RandomState(SEED + 31)
     prompts = [rng.randint(1, cfg.vocab, size=prompt_len).tolist() for _ in range(n_req)]
-
-    def make(c, max_len, jit_loop=True):
-        return ServeEngine(c, params, max_len=max_len, kv_mode="paged", fused=True,
-                           seed=SEED, jit_loop=jit_loop, device=dev)
-
-    engine = make(cfg, prompt_len + new_tokens)
+    make = _engine_maker(params, dev)
     steps = new_tokens - 1
-    drive = Drive(engine)
-    results = drive.generate([Request(i, list(p), max_new_tokens=new_tokens)
-                              for i, p in enumerate(prompts)])
-    launches = dict(ops.LAUNCHES)
-    stats = dict(engine.stats)
-    assert launches["flash_attention"] == L, launches
-    assert launches["policy_paged_attention"] == ops.SPLIT_LAUNCHES * L * steps, launches
-    assert launches["adaptive_policy_paged_attention"] == 0, launches
-    for r in results.values():
-        assert len(r.tokens) == new_tokens
-        assert all(0 <= tok < cfg.vocab for tok in r.tokens)
-    assert stats["nonfinite_logits"] == 0, stats
-    assert stats["kv_evictions"] > 0, stats
-
-    first = drive.generate([Request(10, list(prompts[0]), max_new_tokens=new_tokens)])
-    again = drive.generate([Request(11, list(prompts[0]), max_new_tokens=new_tokens)])
-    assert not first[10].prefill_cached and again[11].prefill_cached
-    assert first[10].tokens == again[11].tokens
-    assert engine.prefix_cache.hits == 1 and engine.stats["nonfinite_logits"] == 0
+    drive, _, launches, stats = _serve_batch(make, cfg, prompts, new_tokens, flash=L)
+    _prefix_repeat(drive, prompts[0], new_tokens)
     # the stored payload: (last logits (1, 1, Vpad) f32, the caches: the
     # int32 position and one stacked pool of L layers, K/V bf16 and five
     # int32 planes)
     P, page, kvd = pages, cfg.page_size, cfg.kv_dim
     want_bytes = (M.pad_vocab(cfg) * 4 + 4
                   + L * (2 * P * page * kvd * 2 + 3 * P * 4 + 2 * 4))
-    entry_bytes = engine.prefix_cache.entry_bytes()
+    entry_bytes = drive.engine.prefix_cache.entry_bytes()
     assert entry_bytes == want_bytes, (entry_bytes, want_bytes)
     total = dict(ops.LAUNCHES)
     assert total["flash_attention"] == 2 * L, total
     assert total["policy_paged_attention"] == 3 * ops.SPLIT_LAUNCHES * L * steps, total
-    graph_peak = torch.cuda.max_memory_allocated()
-    profile = profile_decode(params, cfg, prompts, dev, KERNEL4_CUDA)
-    step_bound = phi35_step_bound(cfg, params, pages, n_req)
-    drive.engine = engine = None  # frees the static tree and the prefix payloads
-    loops = loops_agree(drive, drive.replay(make(cfg, prompt_len + new_tokens, False)))
+    loops = _cell_loops(drive, make, params, cfg, prompts, new_tokens, pages, dev, 8)
     del drive
+    adaptive = _adaptive_turns(make, cfg, rng, single_len, new_tokens, flash=L,
+                               follow_up=True)
+    res = _cell_result("serve_phi35", cfg, PHI35, params, stats, launches, n_req=n_req,
+                       prompt_len=prompt_len, new_tokens=new_tokens, init_s=init_s)
+    res.update({"param_init_peak_gb": param_peak / 1e9, "launches_with_singles": total,
+                "prefix_hit": True, "repeat_tokens_equal": True,
+                "prefix_entry_bytes": entry_bytes, "adaptive": adaptive, **loops,
+                "moe_layer": moe_check})
+    del params
+    return _finish_cell(res, t_phase)
 
-    acfg = dataclasses.replace(cfg, kv_policy="arc_adaptive")
-    aeng = make(acfg, single_len + 2 * new_tokens)
-    a = rng.randint(1, cfg.vocab, size=single_len).tolist()
-    adrive = Drive(aeng)
-    ra = adrive.generate([Request(20, list(a), max_new_tokens=new_tokens)])[20]
-    gh0 = aeng.stats["kv_ghost_hits"]
-    rb = adrive.generate([Request(21, a + ra.tokens, max_new_tokens=new_tokens)])[21]
-    ghost_hits = aeng.stats["kv_ghost_hits"] - gh0
-    alaunch = dict(ops.LAUNCHES)
-    assert alaunch["flash_attention"] == 2 * L, alaunch
-    assert alaunch["adaptive_policy_paged_attention"] == \
-        ops.SPLIT_LAUNCHES * 2 * L * steps, alaunch
-    assert alaunch["policy_paged_attention"] == 0, alaunch
-    assert not rb.prefill_cached and ghost_hits > 0, (ghost_hits, aeng.stats)
-    assert aeng.stats["nonfinite_logits"] == 0, aeng.stats
-    for r in (ra, rb):
-        assert len(r.tokens) == new_tokens
-    peak = torch.cuda.max_memory_allocated()
-    res = {"phase": "serve_phi35", "model": cfg.name, "layers": L,
-           "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
-           "head_dim": cfg.head_dim, "experts": cfg.n_experts, "top_k": cfg.top_k,
-           "d_ff": cfg.d_ff, "capacity_factor": cfg.capacity_factor, "vocab": cfg.vocab,
-           "params": _numel(params), "param_bytes": M.param_bytes(cfg),
-           "dtype": cfg.dtype, "kv_mode": "paged", "page_size": cfg.page_size,
-           "reduced": {"n_layers": [PHI35.n_layers, L],
-                       "bounded_kv_pages": [PHI35.bounded_kv_pages, pages]},
-           "requests": n_req, "prompt_len": prompt_len, "new_tokens": new_tokens,
-           "param_init_s": init_s, "param_init_peak_gb": param_peak / 1e9,
-           "prefill_s": stats["prefill_s"], "decode_s": stats["decode_s"],
-           "decode_tokens_per_s": n_req * steps / stats["decode_s"],
-           "launches": launches, "launches_with_singles": total,
-           "flash_launches_per_prefill": launches["flash_attention"] / stats["prefills"],
-           "policy_launches_per_decode_step": launches["policy_paged_attention"] / steps,
-           "kv_evictions": stats["kv_evictions"], "prefix_hit": True,
-           "repeat_tokens_equal": True, "prefix_entry_bytes": entry_bytes,
-           "adaptive": {"kv_policy": "arc_adaptive", "prompt_len": single_len,
-                        "follow_up_len": len(a) + len(ra.tokens), "launches": alaunch,
-                        "adaptive_launches_per_decode_step":
-                            alaunch["adaptive_policy_paged_attention"] / (2 * steps),
-                        "kv_ghost_hits_follow_up": ghost_hits,
-                        "kv_evictions": aeng.stats["kv_evictions"],
-                        "prefill_s": aeng.stats["prefill_s"],
-                        "decode_tokens_per_s": 2 * steps / aeng.stats["decode_s"],
-                        "p_max": aeng.telemetry()["kv/p_max"]},
-           "max_memory_allocated_gb": peak / 1e9,
-           "graph_peak_memory_allocated_gb": graph_peak / 1e9,
-           "decode_step_bound": step_bound, "loops": loops,
-           "decode_step_profile": profile, "moe_layer": moe_check}
-    adrive.engine = aeng = None
-    res["adaptive"]["loops"] = loops_agree(
-        adrive, adrive.replay(make(acfg, single_len + 2 * new_tokens, False)))
-    del params, adrive
-    gc.collect()
-    torch.cuda.empty_cache()
-    res["seconds"] = time.perf_counter() - t_phase
-    emit(res)
-    return res
+
+#: std of the QKV biases drawn into qwen2.5's random weights (the reference
+#: initialises them to zeros, which would leave the bias path untested)
+QKV_BIAS_STD = 0.5
+# mamba2_block in bf16 on the card against a plain f32 recurrence: bf16
+# rounds the in-projection, the conv's taps and their sum, the C.B products,
+# y, the gate and the norm's output, each by up to 2**-9 of the value; the
+# conv's 4-tap sum and the norm's division can lift an element's error to a
+# few of those, so each token's output row and each (sequence, head) slice
+# of the state is held to this relative L2 error, where a wrong decay, skip
+# or chunk carry is off by a whole one
+MAMBA_REL_TOL = 2.0 ** -4
+
+
+def _rel_l2(got, want, dims) -> torch.Tensor:
+    """Relative L2 error of ``got`` against ``want`` over ``dims``."""
+    d = (got.float() - want.float()).pow(2).sum(dims).sqrt()
+    return d / want.float().pow(2).sum(dims).sqrt().clamp_min(1e-30)
+
+
+def _plain_mamba_recurrence(p, x, cfg, state=None, conv=None):
+    """The Mamba-2 block in f32 from the same (bf16) weights, token by token
+    with ``mamba2_decode_step``'s arithmetic and none of the port's layer
+    code: the in-projection, the causal depthwise conv over a sliding
+    window, dt = softplus(. + dt_bias), state = state * exp(dt A) + dt B x,
+    y = C . state + D x, the gated RMS norm and the out-projection.
+    x (B, S, D); returns (y (B, S, D) f32, state (B, H, P, N), conv window)."""
+    import torch.nn.functional as F
+
+    B, S, _ = x.shape
+    d_in, H, P, N = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    ch = d_in + 2 * N
+    w = {k: v.float() for k, v in p.items()}
+    zxbcdt = x.float() @ w["w_in"]
+    z, xbc, dt_raw = zxbcdt[..., :d_in], zxbcdt[..., d_in:d_in + ch], zxbcdt[..., d_in + ch:]
+    window = (torch.zeros((B, cfg.d_conv - 1, ch), device=x.device) if conv is None
+              else conv.float())
+    state = (torch.zeros((B, H, P, N), device=x.device) if state is None
+             else state.float().clone())
+    A = -torch.exp(w["a_log"])
+    ys = []
+    for t in range(S):
+        full = torch.cat([window, xbc[:, t:t + 1]], dim=1)  # (B, d_conv, ch)
+        window = full[:, 1:]
+        u = F.silu((full * w["w_conv"]).sum(1) + w["b_conv"])
+        xs, Bm, Cm = u[:, :d_in].reshape(B, H, P), u[:, d_in:d_in + N], u[:, d_in + N:]
+        dt = F.softplus(dt_raw[:, t] + w["dt_bias"])  # (B, H)
+        state = state * torch.exp(dt * A)[..., None, None] \
+            + dt[..., None, None] * xs[..., None] * Bm[:, None, None, :]
+        ys.append((state * Cm[:, None, None, :]).sum(-1) + xs * w["d_skip"][:, None])
+    y = torch.stack(ys, dim=1).reshape(B, S, d_in) * F.silu(z)
+    y = y * torch.rsqrt(y.pow(2).mean(-1, keepdim=True) + cfg.norm_eps) * (1 + w["norm_scale"])
+    return y @ w["w_out"], state, window
+
+
+def mamba_layer_check(params, cfg, dev, batch: int, seq: int) -> dict:
+    """Block 0's ``layers.mamba2_block`` on the card at the prefill shape
+    (batch, seq, d_model), bf16, on seeded unit-normal inputs, against
+    ``_plain_mamba_recurrence`` in f32 from the same weights: each token's
+    output row, each (sequence, head) slice of the final state and each row
+    of the conv window within MAMBA_REL_TOL relative L2; then one
+    ``layers.mamba2_decode_step`` from the block's state and conv window
+    against one plain step from the plain ones, the same bound."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import torch_dtype
+
+    p = {k: v[0] for k, v in params["u0"].items()}
+    dtype = torch_dtype(cfg.dtype)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 51)
+    x = torch.randn((batch, seq, cfg.d_model), generator=gen, device=dev).to(dtype)
+    y, state, conv = L.mamba2_block(p, x, cfg)
+    t_block = time_ms(lambda: L.mamba2_block(p, x, cfg), reps=5, warmup=1)
+    t0 = time.perf_counter()
+    y_p, state_p, conv_p = _plain_mamba_recurrence(p, x, cfg)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    assert torch.isfinite(y.float()).all() and torch.isfinite(state).all()
+    assert state.dtype == torch.float32
+    y_x = _rel_l2(y, y_p, -1).max().item()
+    st_x = _rel_l2(state, state_p, (-2, -1)).max().item()
+    cv_x = _rel_l2(conv, conv_p, -1).max().item()
+    assert max(y_x, st_x, cv_x) <= MAMBA_REL_TOL, (y_x, st_x, cv_x)
+    xt = torch.randn((batch, 1, cfg.d_model), generator=gen, device=dev).to(dtype)
+    y1, state1, conv1 = L.mamba2_decode_step(p, xt, cfg, state=state, conv_state=conv)
+    y1_p, state1_p, conv1_p = _plain_mamba_recurrence(p, xt, cfg, state_p, conv_p)
+    y1_x = _rel_l2(y1, y1_p, -1).max().item()
+    st1_x = _rel_l2(state1, state1_p, (-2, -1)).max().item()
+    assert y1_x <= MAMBA_REL_TOL and st1_x <= MAMBA_REL_TOL, (y1_x, st1_x)
+    cv1_x = _rel_l2(conv1, conv1_p, -1).max().item()
+    assert cv1_x <= MAMBA_REL_TOL and not torch.equal(state1, state), cv1_x
+    return {"shape": [batch, seq, cfg.d_model], "ssm_heads": cfg.ssm_heads,
+            "ssm_head_dim": cfg.ssm_head_dim, "ssm_state": cfg.ssm_state,
+            "chunk": cfg.ssm_chunk, "tol_rel_l2": MAMBA_REL_TOL,
+            "block_out_rel_l2_max": y_x, "block_state_rel_l2_max": st_x,
+            "block_conv_rel_l2_max": cv_x, "step_out_rel_l2_max": y1_x,
+            "step_state_rel_l2_max": st1_x, "step_conv_rel_l2_max": cv1_x,
+            "max_abs_err": (y.float() - y_p).abs().max().item(),
+            "mean_abs_out": y_p.abs().mean().item(),
+            "block_ms": t_block, "plain_recurrence_s": plain_s}
+
+
+def phase_serve_qwen25(dev, n_req=4, prompt_len=2048, new_tokens=32, pages=16,
+                       single_len=1024) -> dict:
+    """qwen2.5-14b at published widths and all 48 layers (QKV bias, GQA
+    group G = 5) through ServeEngine(kv_mode="paged", fused=True), random
+    bf16 weights from SEED drawn on the card with the q/k/v biases drawn
+    nonzero (N(0, QKV_BIAS_STD)), a 16-page pool: 4 prompts of 2048 seeded
+    tokens and 32 greedy tokens (AWRP: kernel 6 in every layer of every
+    prefill, kernel 4 once per layer per decode step, ``ops.SPLIT_LAUNCHES``
+    launches each), then one ``arc_adaptive`` request of ``single_len``
+    tokens (kernel 5 at G = 5); both decode loops on the same requests."""
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(QWEN25, bounded_kv_pages=pages, kv_policy="awrp")
+    params, init_s, _ = _init_cell(cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 61)
+    for name in ("bq", "bk", "bv"):
+        leaf = params["u0"][name]
+        leaf.copy_(torch.randn(leaf.shape, generator=gen, device=dev) * QKV_BIAS_STD)
+    rng = np.random.RandomState(SEED + 61)
+    prompts = [rng.randint(1, cfg.vocab, size=prompt_len).tolist() for _ in range(n_req)]
+    make = _engine_maker(params, dev)
+    drive, _, launches, stats = _serve_batch(make, cfg, prompts, new_tokens,
+                                             flash=cfg.n_layers)
+    loops = _cell_loops(drive, make, params, cfg, prompts, new_tokens, pages, dev,
+                        CELL_PROFILE_STEPS)
+    del drive
+    adaptive = _adaptive_turns(make, cfg, rng, single_len, new_tokens, flash=cfg.n_layers,
+                               follow_up=False)
+    res = _cell_result("serve_qwen25", cfg, QWEN25, params, stats, launches, n_req=n_req,
+                       prompt_len=prompt_len, new_tokens=new_tokens, init_s=init_s)
+    res.update({"gqa_group": cfg.n_heads // cfg.n_kv_heads, "qkv_bias_std": QKV_BIAS_STD,
+                "adaptive": adaptive, **loops})
+    del params
+    return _finish_cell(res, t_phase)
+
+
+def phase_serve_zamba2(dev, n_req=4, prompt_len=2048, new_tokens=32, pages=16) -> dict:
+    """zamba2-7b at published widths and all 81 blocks (13 x (5 Mamba-2 + 1
+    shared-attention block, one parameter set for the 13) + 3 Mamba-2; 32
+    heads of hd = 112, G = 1) through ServeEngine(kv_mode="paged",
+    fused=True), random bf16 weights from SEED drawn on the card, 16 pages
+    per shared-attention occurrence: 4 prompts of 2048 seeded tokens and 32
+    greedy tokens (AWRP: kernel 6 at hd = 112 in each occurrence of every
+    prefill, kernel 4 once per occurrence per decode step; the Mamba blocks'
+    SSD scan and recurrent step in torch ops); both decode loops on the same
+    requests.  First, block 0's Mamba-2 layer against a plain f32
+    recurrence (``mamba_layer_check``)."""
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(ZAMBA2, bounded_kv_pages=pages, kv_policy="awrp")
+    n_shared = cfg.layer_pattern.count("shared_attn")
+    params, init_s, _ = _init_cell(cfg, dev)
+    mamba_check = mamba_layer_check(params, cfg, dev, n_req, prompt_len)
+    rng = np.random.RandomState(SEED + 71)
+    prompts = [rng.randint(1, cfg.vocab, size=prompt_len).tolist() for _ in range(n_req)]
+    make = _engine_maker(params, dev)
+    drive, _, launches, stats = _serve_batch(make, cfg, prompts, new_tokens, flash=n_shared)
+    loops = _cell_loops(drive, make, params, cfg, prompts, new_tokens, pages, dev,
+                        CELL_PROFILE_STEPS)
+    del drive
+    res = _cell_result("serve_zamba2", cfg, ZAMBA2, params, stats, launches, n_req=n_req,
+                       prompt_len=prompt_len, new_tokens=new_tokens, init_s=init_s)
+    res.update({"shared_attn_occurrences": n_shared, "shared_attn_param_sets": 1,
+                **loops, "mamba_layer": mamba_check})
+    del params
+    return _finish_cell(res, t_phase)
+
+
+def phase_serve_mamba2(dev, n_req=4, prompt_len=1024, new_tokens=32) -> dict:
+    """mamba2-370m at published widths and all 48 Mamba-2 blocks through
+    ServeEngine(kv_mode="paged", fused=True): attention-free, so no pool and
+    no kernel of the port runs (every launch count stays 0; the SSD scan and
+    the recurrent step are torch ops, as the reference leaves them to XLA).
+    4 prompts of 1024 seeded tokens and 32 greedy tokens, then one of them
+    alone twice: the second hits the prefix cache (the SSM states after
+    prefill), skips its prefill and repeats its tokens, and the cache's
+    ``entry_bytes`` equals the payload's tensor bytes counted from the
+    shapes; both decode loops on the same requests."""
+    from repro_torch.models import model as M
+
+    t_phase = time.perf_counter()
+    cfg = MAMBA2
+    params, init_s, _ = _init_cell(cfg, dev)
+    rng = np.random.RandomState(SEED + 81)
+    prompts = [rng.randint(1, cfg.vocab, size=prompt_len).tolist() for _ in range(n_req)]
+    make = _engine_maker(params, dev)
+    drive, _, launches, stats = _serve_batch(make, cfg, prompts, new_tokens, flash=0)
+    _prefix_repeat(drive, prompts[0], new_tokens)
+    # the stored payload: the last logits (1, 1, Vpad) f32, the int32
+    # position, and per layer the f32 state and the conv window
+    want_bytes = M.pad_vocab(cfg) * 4 + 4 + cfg.n_layers * (
+        cfg.ssm_heads * cfg.ssm_head_dim * cfg.ssm_state * 4
+        + (cfg.d_conv - 1) * (cfg.d_inner + 2 * cfg.ssm_state) * 2)
+    entry_bytes = drive.engine.prefix_cache.entry_bytes()
+    assert entry_bytes == want_bytes, (entry_bytes, want_bytes)
+    total = dict(ops.LAUNCHES)
+    assert not any(total.values()), total
+    loops = _cell_loops(drive, make, params, cfg, prompts, new_tokens, 0, dev,
+                        CELL_PROFILE_STEPS)
+    del drive
+    res = _cell_result("serve_mamba2", cfg, MAMBA2, params, stats, launches, n_req=n_req,
+                       prompt_len=prompt_len, new_tokens=new_tokens, init_s=init_s)
+    res.update({"kernels_launched": 0, "prefix_hit": True, "prefix_hit_skipped_prefill": True,
+                "repeat_tokens_equal": True, "prefix_entry_bytes": entry_bytes, **loops})
+    del params
+    return _finish_cell(res, t_phase)
 
 
 def select_inputs(gen, B, P, dev, *, pinned: bool):
@@ -3161,7 +3488,8 @@ def main() -> int:
     pa = phase_paged_attention(dev)
     phase_paged_attention(dev, SERVE_SHAPE)
     pa_g3 = phase_paged_attention(dev, GEMMA3_DECODE_SHAPE)
-    for shape in (DECODE_SHAPE, GEMMA3_DECODE_SHAPE):
+    pa_z2 = phase_paged_attention(dev, ZAMBA2_DECODE_SHAPE)
+    for shape in (DECODE_SHAPE, GEMMA3_DECODE_SHAPE, ZAMBA2_DECODE_SHAPE):
         phase_paged_attention(dev, shape, ragged=True, timed=False)
     pol = phase_policy_attn(dev)
     # at the serve shape: awrp as the serve phase runs it (3 evicting page
@@ -3173,6 +3501,10 @@ def main() -> int:
                 for p in PAGE_POLICIES]
     pol_g3 = phase_policy_attn(dev, "awrp", GEMMA3_DECODE_SHAPE)
     pol_phi = phase_policy_attn(dev, "awrp", PHI35_DECODE_SHAPE)
+    # the QKV-bias and hybrid families' groups: G = 5, G = 7, (G = 1, hd = 112),
+    # over one evicting page boundary each, the timed step the next one
+    pol_new = [phase_policy_attn(dev, "awrp", shape, steps=SERVE_SHAPE[2])
+               for shape in NEW_DECODE_SHAPES]
     fl = phase_flash_attn(dev)
     params, init_s = serve_params(dev)
     srv = phase_serve(dev, params, init_s)
@@ -3187,20 +3519,27 @@ def main() -> int:
             for kind in ("arc", "car")]
     ada_g3 = phase_adaptive_attn(dev, "arc", GEMMA3_DECODE_SHAPE, timed=True)
     ada_phi = phase_adaptive_attn(dev, "arc", PHI35_DECODE_SHAPE, timed=True)
-    ada += [ada_g3, ada_phi]
+    # an evicting page boundary and a mid-page step, then both timed
+    ada_new = [phase_adaptive_attn(dev, "arc", shape, steps=2, timed=True)
+               for shape in NEW_DECODE_SHAPES]
+    ada += [ada_g3, ada_phi, *ada_new]
     srv_ada = [phase_serve_adaptive(dev, params, p, profile=p == "arc_adaptive")
                for p in ("arc_adaptive", "car_adaptive")]
     srv_ten = phase_serve_tenants(dev, params)
     del params
     g3 = phase_serve_gemma3(dev)
     phi = phase_serve_phi35(dev)
+    qwen = phase_serve_qwen25(dev)
+    zamba = phase_serve_zamba2(dev)
+    mamba = phase_serve_mamba2(dev)
     sel = phase_awrp_select(dev)
     swp = phase_sweep(dev)
     ten = phase_tenancy(dev)
     ec = phase_expert_cache(dev)
     emit({"phase": "decode_loops", "card": smi(), "cells": serving_summary(
         [("serve", srv), *((r["kv_policy"], r) for r in srv_ada), ("serve_gemma3", g3),
-         ("serve_phi35", phi)])})
+         ("serve_phi35", phi), ("serve_qwen25", qwen), ("serve_zamba2", zamba),
+         ("serve_mamba2", mamba)])})
     # the metrics half of observability: one snapshot's keys, pull and syncs
     # (serve and both serve_tenants runs), the fold's cost in the graph step,
     # the live endpoint over a capture, the kernel library's nvcc seconds
@@ -3216,7 +3555,10 @@ def main() -> int:
           "loop_planes_equal_bitwise": {label: r["loops"]["loop_planes_equal_bitwise"]
                                         for label, r in [("serve", srv), *(
                                             (x["kv_policy"], x) for x in srv_ada),
-                                            ("serve_gemma3", g3), ("serve_phi35", phi)]}})
+                                            ("serve_gemma3", g3), ("serve_phi35", phi),
+                                            ("serve_qwen25", qwen),
+                                            ("serve_zamba2", zamba),
+                                            ("serve_mamba2", mamba)]}})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     # launches: each kernel's count on its path in this run: the flat fused
     # kernel in the serve phase, the adaptive one in serve_adaptive (both
@@ -3228,18 +3570,20 @@ def main() -> int:
     # in serve_tenants (the AWRP run's prefix cache: flat, the arc run's:
     # ARC/CAR); kernel 1 is on no path of the port (as in the reference, only
     # tests reach it): 0.  Kernels 4-6 also give their counts in
-    # serve_phi35, the stream kernels theirs in expert_cache.
+    # serve_phi35, serve_qwen25 and serve_zamba2 (serve_mamba2 is
+    # attention-free: none of them runs there, 0), the stream kernels theirs
+    # in expert_cache.
     timed_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
     for name, runs, launches, times, shape, others in (
-            ("paged_attention", [pa, pa_g3], pol["launches"]["paged_attention"], pa,
-             DECODE_SHAPE, [pa_g3]),
-            ("policy_paged_attention", at_serve + [pol_g3, pol_phi],
+            ("paged_attention", [pa, pa_g3, pa_z2], pol["launches"]["paged_attention"], pa,
+             DECODE_SHAPE, [pa_g3, pa_z2]),
+            ("policy_paged_attention", at_serve + [pol_g3, pol_phi, *pol_new],
              srv["launches"]["policy_paged_attention"], at_serve[0], SERVE_SHAPE,
-             [pol_g3, pol_phi]),
+             [pol_g3, pol_phi, *pol_new]),
             ("adaptive_policy_paged_attention", ada,
              sum(r["launches"]["adaptive_policy_paged_attention"] for r in srv_ada),
-             ada[0], SERVE_SHAPE, [ada_g3, ada_phi])):
+             ada[0], SERVE_SHAPE, [ada_g3, ada_phi, *ada_new])):
         source, replaces = KERNELS[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3252,12 +3596,22 @@ def main() -> int:
     kernels[1]["launches_serve_phi35"] = phi["launches"]["policy_paged_attention"]
     kernels[2]["launches_serve_phi35"] = \
         phi["adaptive"]["launches"]["adaptive_policy_paged_attention"]
+    kernels[1]["launches_serve_qwen25"] = qwen["launches"]["policy_paged_attention"]
+    kernels[1]["launches_serve_zamba2"] = zamba["launches"]["policy_paged_attention"]
+    kernels[2]["launches_serve_qwen25"] = \
+        qwen["adaptive"]["launches"]["adaptive_policy_paged_attention"]
+    kernels[2]["launches_serve_zamba2"] = zamba["launches"]["adaptive_policy_paged_attention"]
+    for k in kernels:
+        k["launches_serve_mamba2"] = mamba["launches"][k["name"]]  # attention-free: 0
     main_case, *other_cases = fl["cases"]
     source, replaces = KERNELS["flash_attention"]
     kernels.append({
         "name": "flash_attention", "route": "cuda", "source": source,
         "replaces": replaces, "launches": g3["launches"]["flash_attention"],
         "launches_serve_phi35": phi["launches"]["flash_attention"],
+        "launches_serve_qwen25": qwen["launches"]["flash_attention"],
+        "launches_serve_zamba2": zamba["launches"]["flash_attention"],
+        "launches_serve_mamba2": mamba["launches"]["flash_attention"],
         "max_abs_err": max(c["max_abs_err"] for c in fl["cases"]),
         **{k: main_case[k] for k in timed_keys},
         "shape": main_case["shape"], "window": main_case["window"],
@@ -3319,7 +3673,9 @@ def main() -> int:
                                     {k: r[k] for k in ("policy", "ms", "ring_ms",
                                                        "ring_plain_ms_per_access",
                                                        "ring_bound_ms")} for r in s_others]}}})
-    emit({"kernels": kernels})
+    emit({"kernels": kernels,
+          "serve_mamba2": "attention-free: no kernel of the port runs in its serve "
+                          "phase (its launches_serve_mamba2 are 0)"})
     print(smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

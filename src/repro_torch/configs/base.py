@@ -2,11 +2,14 @@
 the serving slice reads, with the same names and defaults).
 
 The port serves stacks of full-attention (``"attn"``, ``"global"``),
-sliding-window (``"local"``) and MoE (``"moe"``: full attention and a top-k
-expert FFN) blocks, as a homogeneous ``"attn"`` or ``"moe"`` stack or a
-repeating ``pattern`` unit plus a ``tail`` (gemma3's 5 local + 1 global);
-the SSM and encoder-decoder fields wait for the slices that port those
-modules.
+sliding-window (``"local"``), MoE (``"moe"``: full attention and a top-k
+expert FFN), Mamba-2 (``"mamba"``: the SSD recurrence, no MLP) and shared
+attention (``"shared_attn"``: an attention + MLP block whose parameters every
+occurrence shares, zamba2's) blocks, as a homogeneous ``"attn"`` or
+``"moe"`` stack or a repeating ``pattern`` unit plus a ``tail`` (gemma3's 5
+local + 1 global, zamba2's 5 mamba + 1 shared attention); ``qkv_bias`` adds
+the q/k/v biases (qwen2.5).  The encoder-decoder and VLM fields wait for the
+slices that port those families.
 """
 
 from __future__ import annotations
@@ -45,6 +48,12 @@ class ModelConfig:
     n_experts: int = 0
     top_k: int = 0
     capacity_factor: float = 1.25
+    # SSM (mamba2)
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_chunk: int = 256
+    d_conv: int = 4
     # serving / paged KV (the paper's technique)
     page_size: int = 64
     bounded_kv_pages: int = 256
@@ -72,3 +81,11 @@ class ModelConfig:
     @property
     def kv_dim(self) -> int:
         return self.n_kv_heads * self.head_dim
+
+    @property
+    def d_inner(self) -> int:  # mamba2
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim

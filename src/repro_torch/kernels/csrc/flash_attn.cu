@@ -26,7 +26,9 @@
 // query rows.  Two buffers of one K and one V tile (kBK key rows: 64, or 32
 // at hd = 256 so that the accumulator fits in registers) sit in shared
 // memory as bf16 rows of 16-byte chunks, XOR-swizzled by the row so that
-// ldmatrix reads 8 rows without a bank conflict; the next tile's K and V
+// ldmatrix reads 8 rows without a bank conflict (a row's stride is its
+// chunk count rounded up to 8, so the XOR stays inside the row: at hd = 112
+// a row's 14 chunks take 16 slots); the next tile's K and V
 // are in flight (cp.async) while this one is computed.  S = Q K^T takes its
 // A fragments from Q and its B fragments from K with ldmatrix; at hd <= 128
 // Q's fragments stay in registers, Q being staged once in the second
@@ -50,7 +52,8 @@
 // columns tx + 16c (c < hd/16); Q (transposed), one K tile, one V tile and
 // the tile's probabilities live in shared memory as f32 (114,944 bytes at
 // hd=128, two CTAs per SM); row max and sum are butterfly shuffles over the
-// 16 lanes of a row.
+// 16 lanes of a row.  K and V are staged with 16-byte loads, a group of them
+// in flight per thread (4, or all 7 at hd = 112).
 //
 // What bounds it on an H100: operations.  Causal prefill does 4*hd flops per
 // unmasked (query head, key) pair against 2*hd*sizeof(T) bytes per key row
@@ -65,7 +68,7 @@
 // C entry point (loaded with ctypes by repro_torch/kernels/_build.py):
 //   repro_flash_attention(dtype, q, k, v, out, B, Sq, Skv, KVH, G, hd,
 //                         causal, window, kv_len, scale, stream) -> cudaError_t
-// dtype 0 = float32, 1 = bfloat16 for q / k / v / out; hd in {64, 128, 256};
+// dtype 0 = float32, 1 = bfloat16 for q / k / v / out; hd in {64, 112, 128, 256};
 // 1 <= G <= 64; all contiguous and 16-byte aligned.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -91,13 +94,14 @@ template <int HD>
 struct MmaTile {
   static constexpr int kBK = HD <= 128 ? 64 : 32;  // key rows per tile
   static constexpr int kNch = HD / 8;              // 16-byte chunks of a row
+  static constexpr int kStride = (kNch + 7) & ~7;  // chunk slots of a row
   // Q's A fragments live in registers, and Q is staged in the second
   // buffer's K tile (kRows == kBK rows) before the first tile is issued
   static constexpr bool kQRegs = HD <= 128;
   // two buffers of one K and one V tile (and Q apart at hd = 256), bf16
-  static constexpr size_t kSmem = (size_t)((kQRegs ? 0 : kRows) + 4 * kBK) * HD * 2;
+  static constexpr size_t kSmem = (size_t)((kQRegs ? 0 : kRows) + 4 * kBK) * kStride * 16;
   // CTAs per SM the registers must allow: as many as the shared memory does
-  static constexpr int kMinBlocks = HD == 64 ? 4 : HD == 128 ? 3 : 1;
+  static constexpr int kMinBlocks = HD == 64 ? 4 : HD <= 128 ? 3 : 1;
   static_assert(!kQRegs || kRows == kBK, "Q is staged in a K tile");
 };
 
@@ -168,16 +172,17 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                             __nv_bfloat16* __restrict__ out, int Sq, int Skv, int KVH, int G,
                             int causal, int window, int kv_len, float scale_log2) {
   using Tile = MmaTile<HD>;
-  constexpr int BK = Tile::kBK, NCH = Tile::kNch;
+  constexpr int BK = Tile::kBK, NCH = Tile::kNch, STRIDE = Tile::kStride;
   constexpr int NT = BK / 8;   // 8-key column tiles of S
   constexpr int ND = HD / 8;   // 8-dim column tiles of the output
   constexpr int KS = HD / 16;  // 16-dim steps of Q K^T
   extern __shared__ __align__(128) uint4 smem4[];
-  uint4* Ks = smem4;              // (2, BK, NCH)
-  uint4* Vs = Ks + 2 * BK * NCH;  // (2, BK, NCH)
-  uint4* Qs = Tile::kQRegs ? Ks + BK * NCH : Vs + 2 * BK * NCH;  // (kRows, NCH)
-  // chunk c of row r, XOR-swizzled within the row (NCH >= 8)
-  auto at = [](int r, int c) { return r * NCH + (c ^ (r & 7)); };
+  uint4* Ks = smem4;                 // (2, BK, STRIDE)
+  uint4* Vs = Ks + 2 * BK * STRIDE;  // (2, BK, STRIDE)
+  uint4* Qs = Tile::kQRegs ? Ks + BK * STRIDE : Vs + 2 * BK * STRIDE;  // (kRows, STRIDE)
+  // chunk c of row r, XOR-swizzled within the row's STRIDE slots (a
+  // multiple of 8)
+  auto at = [](int r, int c) { return r * STRIDE + (c ^ (r & 7)); };
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int BQ = kRows / G;  // positions per tile
@@ -208,8 +213,8 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
   // K and V rows k0..k0+BK-1 into buffer ``buf``; rows past Skv are zeros
   auto load_kv = [&](int k0, int buf) {
-    uint4* kd = Ks + buf * BK * NCH;
-    uint4* vd = Vs + buf * BK * NCH;
+    uint4* kd = Ks + buf * BK * STRIDE;
+    uint4* vd = Vs + buf * BK * STRIDE;
     for (int i = tid; i < BK * NCH; i += kMmaThreads) {
       const int j = i / NCH, c = i % NCH;
       const bool in = k0 + j < Skv;
@@ -257,8 +262,8 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       cp_async_wait<0>();
     }
     __syncthreads();
-    const uint4* kt = Ks + buf * BK * NCH;
-    const uint4* vt = Vs + buf * BK * NCH;
+    const uint4* kt = Ks + buf * BK * STRIDE;
+    const uint4* vt = Vs + buf * BK * STRIDE;
 
     // S = Q K^T
     float s[NT][4];
@@ -445,7 +450,8 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int kC = HD / 16;                 // output columns per thread
   constexpr int kVec = 4;  // elements per 16-byte load
   constexpr int kIters = kBK * HD / kVec / kThreads;  // 16-byte loads per tensor
-  constexpr int kGroup = kIters < 4 ? kIters : 4;      // of them in flight
+  // of them in flight: 4, or all where 4 does not divide them (hd = 112: 7)
+  constexpr int kGroup = kIters % 4 == 0 ? 4 : kIters <= 8 ? kIters : 1;
   static_assert(kBK * HD / kVec % kThreads == 0 && kIters % kGroup == 0,
                 "tile loads must divide");
   extern __shared__ __align__(16) float smem[];
@@ -619,11 +625,13 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out, i
   return cudaGetLastError();
 }
 
-// f(std::integral_constant<int, HD>{}) for the head dim hd in {64, 128, 256}
+// f(std::integral_constant<int, HD>{}) for the head dim hd in {64, 112,
+// 128, 256}
 template <typename F>
 cudaError_t with_head_dim(int hd, F f) {
   switch (hd) {
     case 64: return f(std::integral_constant<int, 64>{});
+    case 112: return f(std::integral_constant<int, 112>{});
     case 128: return f(std::integral_constant<int, 128>{});
     case 256: return f(std::integral_constant<int, 256>{});
     default: return cudaErrorInvalidValue;

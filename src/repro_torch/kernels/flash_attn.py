@@ -17,7 +17,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.paged_attn import DTYPE_CODE
 from repro_torch.kernels.ref import attn_scale
 
-HEAD_DIMS = (64, 128, 256)  # the kernel's instantiations
+HEAD_DIMS = (64, 112, 128, 256)  # the kernel's instantiations
 MAX_G = 64  # query heads per KV head: one 64-row tile holds at least one position
 
 

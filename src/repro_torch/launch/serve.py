@@ -22,9 +22,14 @@ final snapshot.
 sliding-window local layers per global layer; the pool bounds the global
 layers' KV, the local layers keep ``sliding_window``-row rings), or the MoE
 family's ``phi35_moe`` (16 SwiGLU experts, top-2) and ``grok1_314b`` (8 GELU
-experts, top-2).  A configuration whose weights exceed the device's memory
-is refused (grok-1's full config on one card): its ``--smoke`` config
-runs.
+experts, top-2), the QKV-bias GQA ``qwen25_14b`` (G = 5), the GQA
+``yi_34b`` (G = 7), the attention-free ``mamba2_370m`` (48 Mamba-2 blocks:
+no KV cache, the pool flags are moot and the prefix cache holds the SSM
+states) and the hybrid ``zamba2_7b`` (13 x (5 Mamba-2 + 1 shared-attention
+block, one parameter set for the 13) + 3 Mamba-2; each shared-attention
+occurrence has its own pool).  A configuration whose weights exceed the
+device's memory is refused (grok-1's full config on one card): its
+``--smoke`` config runs.
 
 The decode loop replays one captured CUDA graph per step (the engine's
 ``jit_loop=True``, the reference's default); ``--host-loop`` runs the eager
@@ -60,7 +65,8 @@ import numpy as np
 import torch
 
 from repro_torch.cache.paged_kv import TRUE_ADAPTIVE_KV
-from repro_torch.configs import gemma3_27b, grok1_314b, phi35_moe, smollm_360m
+from repro_torch.configs import (gemma3_27b, grok1_314b, mamba2_370m, phi35_moe,
+                                 qwen25_14b, smollm_360m, yi_34b, zamba2_7b)
 from repro_torch.core.kv_policy import PAGE_POLICIES
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
@@ -69,7 +75,8 @@ from repro_torch.obs.server import MetricsServer, SnapshotLogger
 from repro_torch.serve.engine import Request, ServeEngine
 
 ARCHS = {"smollm_360m": smollm_360m, "gemma3_27b": gemma3_27b,
-         "phi35_moe": phi35_moe, "grok1_314b": grok1_314b}
+         "phi35_moe": phi35_moe, "grok1_314b": grok1_314b, "qwen25_14b": qwen25_14b,
+         "yi_34b": yi_34b, "mamba2_370m": mamba2_370m, "zamba2_7b": zamba2_7b}
 
 
 def device_memory_bytes(device: torch.device) -> int:

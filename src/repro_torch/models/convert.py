@@ -4,7 +4,9 @@
 ``np.asarray`` on every leaf (this module never imports JAX) and returns the
 port's parameter tree: the same nesting and layout (the unit positions
 ``u0``.. stacked on a leading ``(n_repeats,)`` axis, the tail positions
-``t0``.. unstacked, (in, out) matrices), norm scales in float32.
+``t0``.. unstacked, zamba2's one ``shared_attn`` set unstacked, (in, out)
+matrices), the leaves of ``model.F32_PARAMS`` (norm scales, the Mamba-2
+block's ``a_log``, ``dt_bias``, ``d_skip`` and ``norm_scale``) in float32.
 """
 
 from __future__ import annotations
@@ -27,8 +29,8 @@ def _to_numpy_f32(a) -> np.ndarray:
 def params_from_jax(np_params: Dict[str, Any], cfg, device="cuda",
                     dtype: torch.dtype = torch.bfloat16) -> Dict[str, Any]:
     """Reference parameters (nested dicts of numpy arrays) -> the port's
-    (nested dicts of tensors on ``device``).  Matrices become ``dtype``;
-    norm scales stay float32.  Raises on a missing, extra or misshapen
+    (nested dicts of tensors on ``device``).  Matrices and biases become
+    ``dtype``; the ``F32_PARAMS`` leaves stay float32.  Raises on a missing, extra or misshapen
     leaf."""
     dev = resolve_device(device)
 

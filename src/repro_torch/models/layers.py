@@ -1,5 +1,6 @@
 """Decoder layers in plain PyTorch (``repro/models/layers.py``): dense
-attention and MLP blocks, and the top-k MoE FFN.
+attention (with the optional q/k/v biases, added before RoPE) and MLP
+blocks, the top-k MoE FFN and the Mamba-2 (SSD) block.
 
 Conventions, as in the reference:
   * activations (B, S, D) in the config's dtype; softmax and norms in f32;
@@ -15,13 +16,18 @@ Conventions, as in the reference:
   * ``moe`` is the reference's sort-based dispatch with per-sequence
     capacity, its products ``torch.einsum`` as the reference leaves them to
     XLA (no Pallas kernel there): every expert runs over its capacity
-    buffer, at decode too.
+    buffer, at decode too;
+  * the Mamba-2 block (``ssd_chunked``, ``mamba2_block``,
+    ``mamba2_decode_step``) is the reference's chunked SSD scan and its
+    O(1) recurrent step in torch ops, as the reference leaves them to XLA
+    (no Pallas kernel there): the chunk recurrence and the decode state in
+    f32, the causal depthwise conv tap by tap in the activation dtype.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -73,6 +79,8 @@ def _project_qkv(params: Params, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, ..
     B, S, _ = x.shape
     H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, k, v = x @ params["wq"], x @ params["wk"], x @ params["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
     return (q.reshape(B, S, KVH, H // KVH, hd), k.reshape(B, S, KVH, hd),
             v.reshape(B, S, KVH, hd))
 
@@ -107,6 +115,8 @@ def decode_kv_row(params: Params, x: torch.Tensor, cfg, *, position: torch.Tenso
     B = x.shape[0]
     KVH, hd = cfg.n_kv_heads, cfg.head_dim
     k_new, v_new = x @ params["wk"], x @ params["wv"]
+    if cfg.qkv_bias:
+        k_new, v_new = k_new + params["bk"], v_new + params["bv"]
     k_new = rope(k_new.reshape(B, 1, KVH, hd), _positions(position, B),
                  cfg.rope_theta).reshape(B, 1, KVH * hd)
     return k_new, v_new
@@ -119,6 +129,8 @@ def decode_q(params: Params, x: torch.Tensor, cfg, *, position: torch.Tensor
     B = x.shape[0]
     H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = x @ params["wq"]
+    if cfg.qkv_bias:
+        q = q + params["bq"]
     q = rope(q.reshape(B, 1, H, hd), _positions(position, B), cfg.rope_theta)
     return q.reshape(B, KVH, H // KVH, hd)
 
@@ -242,3 +254,152 @@ def moe(params: Params, x: torch.Tensor, cfg) -> torch.Tensor:
     contrib = torch.empty_like(rows).index_copy_(0, (b * S * K + r.order).reshape(-1), rows)
     contrib = contrib.view(B, S, K, D)
     return contrib[:, :, 0] if K == 1 else contrib[:, :, 0] + contrib[:, :, 1]
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 (SSD: state-space duality, chunked)
+# ---------------------------------------------------------------------------
+
+
+def _segsum(x: torch.Tensor) -> torch.Tensor:
+    """x (..., T) -> (..., T, T) with out[i, j] = sum_{j<k<=i} x[k], -inf
+    above the diagonal (the difference of two cumulative sums, as the
+    reference computes it)."""
+    T = x.shape[-1]
+    cs = torch.cumsum(x, dim=-1)
+    out = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((T, T), dtype=torch.bool, device=x.device))
+    return out.masked_fill(~mask, -math.inf)
+
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+                Cm: torch.Tensor, chunk: int,
+                initial_state: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba-2 SSD forward, chunked: x (B, S, H, P), dt (B, S, H) after the
+    softplus, A (H,) negative, Bm / Cm (B, S, N), ``initial_state`` (B, H,
+    P, N) or None.  Returns (y (B, S, H, P) in x's dtype, the final state
+    (B, H, P, N) f32).  S is zero-padded to a multiple of ``chunk``; the
+    intra-chunk products, the per-chunk states, the inter-chunk recurrence
+    and the inter-chunk output run in f32, as in the reference (its bf16
+    C.B product is cast to f32 after the product)."""
+    b, s, h, p = x.shape
+    n = Bm.shape[-1]
+    pad = (-s) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, pad))
+    S = x.shape[1]
+    nc = S // chunk
+    f32 = torch.float32
+    xc = x.reshape(b, nc, chunk, h, p).to(f32)
+    dtc = dt.reshape(b, nc, chunk, h).to(f32)
+    Bc = Bm.reshape(b, nc, chunk, n)
+    Cc = Cm.reshape(b, nc, chunk, n)
+
+    dA = dtc * A.to(f32)  # (b, nc, q, h)
+    dA_cs = torch.cumsum(dA, dim=2)
+
+    # 1) intra-chunk (diagonal blocks)
+    Lmat = torch.exp(_segsum(dA.permute(0, 1, 3, 2)))  # (b, nc, h, q, q)
+    scores = torch.einsum("bcqn,bckn->bcqk", Cc, Bc).to(f32)
+    M = scores[:, :, None] * Lmat  # (b, nc, h, q, k)
+    xdt = xc * dtc[..., None]  # (b, nc, q, h, p)
+    y_diag = torch.einsum("bchqk,bckhp->bcqhp", M, xdt)
+
+    # 2) per-chunk input states
+    decay_states = torch.exp(dA_cs[:, :, -1:, :] - dA_cs)  # (b, nc, q, h)
+    states = torch.einsum("bcqn,bcqh,bcqhp->bchpn", Bc.to(f32), decay_states * dtc, xc)
+
+    # 3) inter-chunk recurrence: the state at each chunk's start
+    chunk_decay = torch.exp(dA_cs[:, :, -1, :])  # (b, nc, h)
+    carry = (torch.zeros((b, h, p, n), dtype=f32, device=x.device)
+             if initial_state is None else initial_state.to(f32))
+    starts = []
+    for c in range(nc):
+        starts.append(carry)
+        carry = states[:, c] + carry * chunk_decay[:, c, :, None, None]
+    start_states = torch.stack(starts, dim=1)  # (b, nc, h, p, n)
+
+    # 4) inter-chunk output
+    state_decay_out = torch.exp(dA_cs)  # (b, nc, q, h)
+    y_off = torch.einsum("bcqn,bchpn,bcqh->bcqhp", Cc.to(f32), start_states,
+                         state_decay_out)
+    y = (y_diag + y_off).reshape(b, S, h, p)[:, :s]
+    return y.to(x.dtype), carry
+
+
+def _split_zxbcdt(cfg, zxbcdt: torch.Tensor):
+    d_in, N = cfg.d_inner, cfg.ssm_state
+    conv_ch = d_in + 2 * N
+    return torch.split(zxbcdt, [d_in, conv_ch, zxbcdt.shape[-1] - d_in - conv_ch], dim=-1)
+
+
+def mamba2_block(params: Params, x: torch.Tensor, cfg, *,
+                 initial_state: Optional[torch.Tensor] = None,
+                 initial_conv: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The Mamba-2 block over the whole prompt (B, S, D): in-projection,
+    the causal depthwise conv over xBC (the taps summed one by one in the
+    activation dtype, in the reference's order, then the bias and SiLU),
+    the SSD scan, the D skip, the gated RMS norm and the out-projection.
+    Returns (y (B, S, D), the final SSM state (B, H, P, N) f32, the conv
+    tail (B, d_conv - 1, d_inner + 2N)): a decode cache's ``MambaCache``."""
+    B, S, _ = x.shape
+    d_in, H, P, N = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    conv_ch = d_in + 2 * N
+    z, xBC, dt = _split_zxbcdt(cfg, x @ params["w_in"])
+
+    if initial_conv is None:
+        initial_conv = torch.zeros((B, cfg.d_conv - 1, conv_ch), dtype=x.dtype,
+                                   device=x.device)
+    xpad = torch.cat([initial_conv, xBC], dim=1)
+    conv_tail = xpad[:, xpad.shape[1] - (cfg.d_conv - 1):].contiguous()
+    wconv = params["w_conv"]  # (d_conv, conv_ch)
+    xconv = 0
+    for i in range(cfg.d_conv):
+        xconv = xconv + xpad[:, i:i + S] * wconv[i]
+    xBC = F.silu(xconv + params["b_conv"])
+
+    xs, Bm, Cm = torch.split(xBC, [d_in, N, N], dim=-1)
+    dt = F.softplus(dt.to(torch.float32) + params["dt_bias"])
+    A = -torch.exp(params["a_log"].to(torch.float32))  # (H,)
+    y, final_state = ssd_chunked(xs.reshape(B, S, H, P), dt, A, Bm, Cm, cfg.ssm_chunk,
+                                 initial_state=initial_state)
+    y = y + xs.reshape(B, S, H, P) * params["d_skip"].to(x.dtype)[:, None]
+    y = y.reshape(B, S, d_in)
+    y = rmsnorm(y * F.silu(z), params["norm_scale"], cfg.norm_eps)
+    return y @ params["w_out"], final_state, conv_tail
+
+
+def mamba2_decode_step(params: Params, x: torch.Tensor, cfg, *, state: torch.Tensor,
+                       conv_state: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The O(1) recurrent step: x (B, 1, D), ``state`` (B, H, P, N) f32,
+    ``conv_state`` (B, d_conv - 1, d_inner + 2N).  Returns (y (B, 1, D), the
+    new state, the new conv window): new tensors, the caches are replaced,
+    not written in place."""
+    B = x.shape[0]
+    d_in, H, P, N = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    f32 = torch.float32
+    z, xBC, dt = _split_zxbcdt(cfg, (x @ params["w_in"])[:, 0])
+
+    xfull = torch.cat([conv_state, xBC[:, None, :]], dim=1)  # (B, d_conv, ch)
+    xconv = torch.einsum("bkc,kc->bc", xfull, params["w_conv"]) + params["b_conv"]
+    xBC = F.silu(xconv)
+    new_conv = xfull[:, 1:]
+
+    xs, Bm, Cm = torch.split(xBC, [d_in, N, N], dim=-1)
+    dt = F.softplus(dt.to(f32) + params["dt_bias"])  # (B, H)
+    A = -torch.exp(params["a_log"].to(f32))
+    dA = torch.exp(dt * A)  # (B, H)
+    xh = xs.reshape(B, H, P).to(f32)
+    upd = torch.einsum("bn,bh,bhp->bhpn", Bm.to(f32), dt, xh)
+    new_state = state * dA[..., None, None] + upd
+    y = torch.einsum("bn,bhpn->bhp", Cm.to(f32), new_state)
+    y = y + xh * params["d_skip"].to(f32)[None, :, None]
+    y = y.reshape(B, d_in).to(x.dtype)
+    y = rmsnorm(y * F.silu(z), params["norm_scale"], cfg.norm_eps)
+    return (y @ params["w_out"])[:, None, :], new_state, new_conv

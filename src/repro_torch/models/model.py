@@ -1,15 +1,20 @@
 """Model assembly for the serving slice (``repro/models/model.py``):
 parameter declarations and init, prefill, the decode step and the
 prefill-to-cache handoff, for stacks of ``"attn"``, ``"global"`` (full
-attention), ``"local"`` (sliding-window) and ``"moe"`` (full attention and
-the top-k expert FFN, ``layers.moe``) blocks.
+attention), ``"local"`` (sliding-window), ``"moe"`` (full attention and the
+top-k expert FFN, ``layers.moe``), ``"mamba"`` (the Mamba-2 SSD block,
+``layers.mamba2_block``, no MLP) and ``"shared_attn"`` (a full-attention +
+MLP block whose one parameter set every occurrence shares, zamba2's)
+blocks; attention blocks carry q/k/v biases when ``cfg.qkv_bias``.
 
 Layout follows the reference so weights carry across
 (``models/convert.py``): ``scan_plan`` names the repeating unit's positions
 ``u0``..``u{n-1}`` (one ``u0`` for a homogeneous stack, gemma3's 5 local + 1
 global as ``u0``..``u5``) and the tail's ``t0``..; each unit position holds
 its layers' parameters stacked on a leading ``(n_repeats,)`` axis, each
-tail position one unstacked set.  Decode caches carry the same structure.
+tail position one unstacked set, and ``params["shared_attn"]`` the one
+unstacked set of every ``"shared_attn"`` position.  Decode caches carry the
+same structure (a ``"shared_attn"`` position has a cache per occurrence).
 Where the reference scans the unit with ``lax.scan``, this module runs a
 Python loop over repeats and positions; the per-layer views share storage
 with the stacked tensors.
@@ -19,20 +24,25 @@ the next token's index as a 0-d int32 tensor on the caches' device (the
 reference's traced scalar): ``decode_step`` advances it there and reads
 nothing back to the host, so a CUDA graph can capture the step.  A
 ``"local"`` position's cache is a sliding-window ring ``{"k", "v"}`` of
-``sliding_window`` rows (slot ``pos % W``); a full-attention position's is
-a ``{"k", "v"}`` dict of ``max_len`` rows (``kv_mode="full"``), a
-``paged_kv.PagedPool`` (``kv_mode="paged"``) or, when ``cfg.kv_policy`` is
-in ``paged_kv.TRUE_ADAPTIVE_KV``, a ``paged_kv.AdaptivePagedPool`` whose
-ARC/CAR planes also carry the leading layer axis.  K/V tensors are updated
-in place by ``decode_step`` (see ``cache/paged_kv.py``); callers that keep
-an earlier cache clone it.
+``sliding_window`` rows (slot ``pos % W``); a full-attention position's
+(``"attn"``, ``"global"``, ``"moe"``, ``"shared_attn"``) is a ``{"k", "v"}``
+dict of ``max_len`` rows (``kv_mode="full"``), a ``paged_kv.PagedPool``
+(``kv_mode="paged"``) or, when ``cfg.kv_policy`` is in
+``paged_kv.TRUE_ADAPTIVE_KV``, a ``paged_kv.AdaptivePagedPool`` whose ARC/CAR
+planes also carry the leading layer axis.  K/V tensors are updated in place
+by ``decode_step`` (see ``cache/paged_kv.py``); callers that keep an earlier
+cache clone it.  A ``"mamba"`` position's cache is a ``MambaCache``: the
+SSM state (B, H, P, N) in f32 and the conv window (B, d_conv - 1,
+d_inner + 2N) in the activation dtype, in every kv_mode; a step REPLACES it
+(``layers.mamba2_decode_step`` returns new tensors), so the stacked cache is
+rebuilt from the layers' new ones (``_restack``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, NamedTuple, Tuple
 
 import torch
 
@@ -43,8 +53,21 @@ from repro_torch.models import layers as L
 
 Params = Dict[str, Any]
 
-#: parameters kept in float32 whatever ``param_dtype`` is (norm scales)
-F32_PARAMS = ("ln1", "ln2", "final_norm")
+
+class MambaCache(NamedTuple):
+    """A ``mamba`` position's decode cache (leading dims may add a
+    ``(n_layers,)`` stack in front of ``B``).  A step replaces both."""
+
+    state: torch.Tensor  # (B, H, P, N) float32
+    conv: torch.Tensor  # (B, d_conv - 1, d_inner + 2N), the activation dtype
+
+    def clone(self) -> "MambaCache":
+        return MambaCache(*(t.clone() for t in self))
+
+#: parameters kept in float32 whatever ``param_dtype`` is (norm scales and
+#: the Mamba-2 block's A, dt bias, D skip and gated-norm scale), the
+#: reference's dtype rule
+F32_PARAMS = ("ln1", "ln2", "final_norm", "a_log", "dt_bias", "d_skip", "norm_scale")
 
 
 def pad_vocab(cfg) -> int:
@@ -58,13 +81,13 @@ def torch_dtype(name: str) -> torch.dtype:
 @dataclasses.dataclass(frozen=True)
 class Decl:
     shape: Tuple[int, ...]
-    init: str = "normal"  # normal | zeros
+    init: str = "normal"  # normal | zeros | ones | a_log | dt_bias
     scale: float = 0.02
 
 
 def _attn_decls(cfg) -> Dict[str, Decl]:
     d, qk, kv = cfg.d_model, cfg.qk_dim, cfg.kv_dim
-    return {
+    out = {
         "wq": Decl((d, qk)),
         "wk": Decl((d, kv)),
         "wv": Decl((d, kv)),
@@ -72,6 +95,11 @@ def _attn_decls(cfg) -> Dict[str, Decl]:
         "ln1": Decl((d,), "zeros"),
         "ln2": Decl((d,), "zeros"),
     }
+    if cfg.qkv_bias:  # in the param dtype, zeros at init, as the reference
+        out["bq"] = Decl((qk,), "zeros")
+        out["bk"] = Decl((kv,), "zeros")
+        out["bv"] = Decl((kv,), "zeros")
+    return out
 
 
 def _mlp_decls(cfg) -> Dict[str, Decl]:
@@ -91,25 +119,45 @@ def _moe_decls(cfg) -> Dict[str, Decl]:
     return out
 
 
-#: block kinds the port serves: full attention, sliding-window attention and
-#: full attention with the MoE FFN
-KINDS = ("attn", "global", "local", "moe")
+def _mamba_decls(cfg) -> Dict[str, Decl]:
+    d, din, n, h = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    conv_ch = din + 2 * n
+    return {
+        "w_in": Decl((d, 2 * din + 2 * n + h)),
+        "w_conv": Decl((cfg.d_conv, conv_ch)),
+        "b_conv": Decl((conv_ch,), "zeros"),
+        "dt_bias": Decl((h,), "dt_bias"),
+        "a_log": Decl((h,), "a_log"),
+        "d_skip": Decl((h,), "ones"),
+        "norm_scale": Decl((din,), "zeros"),
+        "w_out": Decl((din, d)),
+        "ln1": Decl((d,), "zeros"),
+    }
+
+
+#: block kinds the port serves: full attention, sliding-window attention,
+#: full attention with the MoE FFN, the Mamba-2 block and the shared
+#: attention block
+KINDS = ("attn", "global", "local", "moe", "mamba", "shared_attn")
 
 
 def _check_supported(cfg) -> None:
     kinds = set(cfg.layer_pattern)
     moe_ok = (("moe" in kinds) == (cfg.family == "moe")
               and ("moe" not in kinds or 1 <= cfg.top_k <= min(2, cfg.n_experts)))
-    if (cfg.family not in ("dense", "moe") or not moe_ok or cfg.qkv_bias
-            or cfg.act not in ("swiglu", "gelu") or not kinds <= set(KINDS)
-            or ("local" in kinds and cfg.sliding_window < 1)):
+    mamba_ok = "mamba" not in kinds or (
+        cfg.ssm_state >= 1 and cfg.d_conv >= 1 and cfg.ssm_chunk >= 1
+        and cfg.d_inner % cfg.ssm_head_dim == 0)
+    if (cfg.family not in ("dense", "moe", "ssm", "hybrid") or not moe_ok
+            or not mamba_ok or cfg.act not in ("swiglu", "gelu")
+            or not kinds <= set(KINDS) or ("local" in kinds and cfg.sliding_window < 1)):
         raise NotImplementedError(
-            f"{cfg.name}: only stacks of {'/'.join(KINDS)} blocks with SwiGLU "
-            "or GELU, without QKV bias, are ported to repro_torch so far "
-            "(moe blocks in the moe family alone, top-1 or top-2; mamba, "
-            "shared_attn, QKV bias, enc-dec and VLM come in later slices); got "
-            f"family={cfg.family!r} kinds={sorted(kinds)} act={cfg.act!r} "
-            f"qkv_bias={cfg.qkv_bias} top_k={cfg.top_k}")
+            f"{cfg.name}: stacks of {'/'.join(KINDS)} blocks with SwiGLU or GELU "
+            "are ported to repro_torch (moe blocks in the moe family alone, top-1 "
+            "or top-2; mamba blocks with ssm_state >= 1); the enc-dec and VLM "
+            f"families are not ported yet; got family={cfg.family!r} "
+            f"kinds={sorted(kinds)} act={cfg.act!r} top_k={cfg.top_k} "
+            f"ssm_state={cfg.ssm_state}")
 
 
 def scan_plan(cfg) -> Tuple[List[Tuple[str, str]], int, List[Tuple[str, str]]]:
@@ -135,12 +183,18 @@ def param_decls(cfg) -> Dict[str, Any]:
     unit, n_rep, tail = scan_plan(cfg)
 
     def block(kind):
+        if kind == "mamba":
+            return _mamba_decls(cfg)
         ffn = _moe_decls(cfg) if kind == "moe" else _mlp_decls(cfg)
         return {**_attn_decls(cfg), **ffn}
 
     for pos, kind in unit:
-        tree[pos] = {k: Decl((n_rep,) + v.shape, v.init, v.scale)
-                     for k, v in block(kind).items()}
+        if kind == "shared_attn":
+            # one unstacked set, shared by every occurrence in the unit
+            tree["shared_attn"] = block(kind)
+        else:
+            tree[pos] = {k: Decl((n_rep,) + v.shape, v.init, v.scale)
+                         for k, v in block(kind).items()}
     for pos, kind in tail:
         tree[pos] = block(kind)
     return tree
@@ -160,12 +214,15 @@ def param_bytes(cfg) -> int:
 
 def init_params(cfg, generator: torch.Generator, device="cuda") -> Params:
     """Random parameters with the reference's declarations and scales
-    (normal * min(scale, 1/sqrt(fan_in)); norm scales zero, in f32), drawn
-    on the generator's device.  Each leaf is allocated once in its dtype and
-    drawn matrix by matrix along its leading (layer, expert) axes, so no f32
-    copy of a whole stacked leaf exists (phi3.5-moe's stacked expert leaves
-    are 20 GB each in bf16).  The streams differ from JAX's: weights that
-    must match the reference come through ``convert.params_from_jax``."""
+    (normal * min(scale, 1/sqrt(fan_in)); norm scales zero, in f32; the
+    Mamba-2 leaves as the reference draws them: D skip ones, A's log
+    ``log(linspace(1, 16, H))``, the dt bias the inverse softplus of a dt
+    log-uniform in [1e-3, 1e-1]), drawn on the generator's device.  Each
+    leaf is allocated once in its dtype and drawn matrix by matrix along its
+    leading (layer, expert) axes, so no f32 copy of a whole stacked leaf
+    exists (phi3.5-moe's stacked expert leaves are 20 GB each in bf16).  The
+    streams differ from JAX's: weights that must match the reference come
+    through ``convert.params_from_jax``."""
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.param_dtype)
 
@@ -176,8 +233,20 @@ def init_params(cfg, generator: torch.Generator, device="cuda") -> Params:
                 out[name] = walk(decl)
                 continue
             dt = torch.float32 if name in F32_PARAMS else dtype
-            if decl.init == "zeros":
-                out[name] = torch.zeros(decl.shape, dtype=dt, device=dev)
+            if decl.init in ("zeros", "ones"):
+                fill = torch.zeros if decl.init == "zeros" else torch.ones
+                out[name] = fill(decl.shape, dtype=dt, device=dev)
+                continue
+            if decl.init == "a_log":
+                vals = torch.log(torch.linspace(1.0, 16.0, decl.shape[-1], device=dev))
+                out[name] = vals.expand(decl.shape).to(dt).contiguous()
+                continue
+            if decl.init == "dt_bias":
+                u = torch.rand(decl.shape, generator=generator, dtype=torch.float32,
+                               device=generator.device)
+                lo, hi = math.log(1e-3), math.log(0.1)
+                step = torch.exp(u * (hi - lo) + lo)
+                out[name] = (step + torch.log(-torch.expm1(-step))).to(dt).to(dev)
                 continue
             fan_in = decl.shape[-2] if len(decl.shape) >= 2 else decl.shape[-1]
             scale = min(decl.scale, 1.0 / math.sqrt(fan_in))
@@ -204,7 +273,11 @@ def _embed(params: Params, cfg, tokens: torch.Tensor) -> torch.Tensor:
     return params["embed"][tokens.long()].to(torch_dtype(cfg.dtype))
 
 
-def _layer(params: Params, pos_name: str, i: int) -> Params:
+def _layer(params: Params, pos_name: str, kind: str, i: int) -> Params:
+    """Layer ``i``'s parameters at a unit position: views of the stacked
+    tensors, or the one shared set of a ``shared_attn`` position."""
+    if kind == "shared_attn":
+        return params["shared_attn"]
     return {k: v[i] for k, v in params[pos_name].items()}
 
 
@@ -214,8 +287,12 @@ def _layer(params: Params, pos_name: str, i: int) -> Params:
 
 
 def _prefill_block(kind: str, p: Params, x: torch.Tensor, cfg):
-    """One block over the whole prompt; returns (x, k, v), k/v (B, S, kvd)."""
+    """One block over the whole prompt; returns (x, k, v), k/v (B, S, kvd),
+    or for a ``mamba`` block (x, state, conv): its decode cache's tensors."""
     B, S, _ = x.shape
+    if kind == "mamba":
+        y, state, conv = L.mamba2_block(p, L.rmsnorm(x, p["ln1"], cfg.norm_eps), cfg)
+        return x + y, state, conv
     window = cfg.sliding_window if kind == "local" else 0
     h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
     attn_out, (k, v) = L.attention(p, h, cfg, window=window)
@@ -233,7 +310,10 @@ def _cache_from_prefill(cfg, kind: str, k: torch.Tensor, v: torch.Tensor, S: int
     """Decode cache of one position from its layers' prefill K/V (n, B, S,
     kvd): a ``local`` ring keeps the last W rows at ring slots
     ``arange(start, S) % W``; a full-attention position gets a pool
-    (``paged``) or ``max_len`` zero-padded rows (``full``)."""
+    (``paged``) or ``max_len`` zero-padded rows (``full``).  A ``mamba``
+    position's (state, conv) are already its decode cache."""
+    if kind == "mamba":
+        return MambaCache(k, v)
     if kind == "local":
         W = cfg.sliding_window
         start = max(S - W, 0)
@@ -264,20 +344,24 @@ def prefill(params: Params, cfg, tokens: torch.Tensor, max_len: int,
     kv = {pos: ([], []) for pos, _ in unit}
     for i in range(n_rep):
         for pos, kind in unit:
-            x, k, v = _prefill_block(kind, _layer(params, pos, i), x, cfg)
+            x, k, v = _prefill_block(kind, _layer(params, pos, kind, i), x, cfg)
             kv[pos][0].append(k)
             kv[pos][1].append(v)
-    blocks = {}
+    tail_blocks = {}
     for pos, kind in tail:
         x, k, v = _prefill_block(kind, params[pos], x, cfg)
-        blocks[pos] = _layer_cache(
+        tail_blocks[pos] = _layer_cache(
             _cache_from_prefill(cfg, kind, k[None], v[None], S, max_len, kv_mode), 0)
     logits = logits_from_hidden(params, cfg, x)
+    blocks = {}
     for pos, kind in unit:
         ks, vs = kv.pop(pos)
         k, v = torch.stack(ks), torch.stack(vs)  # (n_rep, B, S, kvd)
         del ks, vs
         blocks[pos] = _cache_from_prefill(cfg, kind, k, v, S, max_len, kv_mode)
+    # the unit's positions, then the tail's: the order of decode_caches and
+    # decode_step
+    blocks.update(tail_blocks)
     return logits, {"pos": _position(S, x.device), "blocks": blocks}
 
 
@@ -344,6 +428,12 @@ def decode_caches(cfg, batch: int, max_len: int, *, kv_mode: str = "full",
     dtype = torch_dtype(cfg.dtype)
 
     def one(kind, n):
+        if kind == "mamba":
+            return MambaCache(
+                torch.zeros((n, batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
+                            dtype=torch.float32, device=dev),
+                torch.zeros((n, batch, cfg.d_conv - 1, cfg.d_inner + 2 * cfg.ssm_state),
+                            dtype=dtype, device=dev))
         if kind == "local":
             shape = (n, batch, cfg.sliding_window, cfg.kv_dim)
             return {"k": torch.zeros(shape, dtype=dtype, device=dev),
@@ -373,9 +463,15 @@ def decode_caches(cfg, batch: int, max_len: int, *, kv_mode: str = "full",
 def _decode_block(kind: str, p: Params, x: torch.Tensor, cfg, cache, pos,
                   win_positions, kv_mode: str, fused: bool):
     """One block at decode; returns (x, new cache of this layer).  A
-    ``local`` block writes its ring and attends over ``win_positions``."""
+    ``local`` block writes its ring and attends over ``win_positions``; a
+    ``mamba`` block steps its recurrence and returns its new state and conv
+    window."""
     B = x.shape[0]
     h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
+    if kind == "mamba":
+        y, state, conv = L.mamba2_decode_step(p, h, cfg, state=cache.state,
+                                              conv_state=cache.conv)
+        return x + y, MambaCache(state, conv)
     nk, nv = L.decode_kv_row(p, h, cfg, position=pos)
     if kind == "local":
         k, v = paged_kv.ring_insert(cache["k"], cache["v"], nk, nv, pos)
@@ -451,7 +547,7 @@ def decode_step(params: Params, cfg, token: torch.Tensor, caches,
     layers = {name: [] for name, _ in unit}
     for i in range(n_rep):
         for name, kind in unit:
-            x, new = _decode_block(kind, _layer(params, name, i), x, cfg,
+            x, new = _decode_block(kind, _layer(params, name, kind, i), x, cfg,
                                    _layer_cache(blocks[name], i), pos,
                                    win_positions, kv_mode, fused)
             layers[name].append(new)
@@ -464,18 +560,20 @@ def decode_step(params: Params, cfg, token: torch.Tensor, caches,
 
 
 def _layer_cache(cache, i: int):
-    """Layer ``i``'s view of a stacked decode cache (K/V share storage)."""
+    """Layer ``i``'s view of a stacked decode cache (its tensors share
+    storage)."""
     if isinstance(cache, paged_kv.AdaptivePagedPool):
         return paged_kv.AdaptivePagedPool(_layer_cache(cache.pool, i),
                                           AdaptiveState(*(t[i] for t in cache.policy)))
-    if isinstance(cache, paged_kv.PagedPool):
-        return paged_kv.PagedPool(*(t[i] for t in cache))
-    return {"k": cache["k"][i], "v": cache["v"][i]}
+    if isinstance(cache, (paged_kv.PagedPool, MambaCache)):
+        return type(cache)(*(t[i] for t in cache))
+    return {name: t[i] for name, t in cache.items()}
 
 
 def _restack(cache, layers):
     """The stacked cache after a step: K/V were written in place; the planes
-    of every layer's new cache are stacked again."""
+    of every layer's new cache, and a ``mamba`` position's replaced state
+    and conv window, are stacked again."""
     if isinstance(cache, paged_kv.AdaptivePagedPool):
         return paged_kv.AdaptivePagedPool(
             _restack(cache.pool, [c.pool for c in layers]),
@@ -485,6 +583,8 @@ def _restack(cache, layers):
             k=cache.k, v=cache.v,
             **{name: torch.stack([getattr(c, name) for c in layers])
                for name in ("f", "r", "page_start", "clock", "open_slot")})
+    if isinstance(cache, MambaCache):
+        return MambaCache(*(torch.stack(ts) for ts in zip(*layers)))
     return cache
 
 
@@ -492,7 +592,7 @@ def clone_caches(caches):
     """Deep copy of a decode-cache tree (for a caller that keeps it while
     decoding continues in place)."""
     def copy(cache):
-        if isinstance(cache, (paged_kv.PagedPool, paged_kv.AdaptivePagedPool)):
+        if isinstance(cache, (paged_kv.PagedPool, paged_kv.AdaptivePagedPool, MambaCache)):
             return cache.clone()
         return {k: v.clone() for k, v in cache.items()}
 

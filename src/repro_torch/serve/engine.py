@@ -121,7 +121,7 @@ def _copy_into(dst, src) -> None:
     elif isinstance(dst, dict):
         for key, leaf in dst.items():
             _copy_into(leaf, src[key])
-    else:  # PagedPool, AdaptivePagedPool, AdaptiveState
+    else:  # PagedPool, AdaptivePagedPool, AdaptiveState, MambaCache
         for a, b in zip(dst, src):
             _copy_into(a, b)
 
@@ -240,11 +240,15 @@ class DecodeGraph:
 
 
 def _batch_of(cache) -> int:
-    """The batch size of one position's decode cache (stacked or not)."""
+    """The batch size of one position's decode cache (stacked or not): a
+    pool, a ``{"k", "v"}`` cache (B, T, kvd) or a ``MambaCache`` (state
+    (B, H, P, N))."""
     if isinstance(cache, paged_kv.AdaptivePagedPool):
         cache = cache.pool
     if isinstance(cache, paged_kv.PagedPool):
         return cache.f.shape[-2]
+    if isinstance(cache, M.MambaCache):
+        return cache.state.shape[-4]
     return cache["k"].shape[-3]
 
 

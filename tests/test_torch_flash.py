@@ -27,7 +27,7 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.flash_attn import flash_attention_kernel as jflash  # noqa: E402
 from repro.models import layers as JL  # noqa: E402
-from repro_torch.configs import gemma3_27b, smollm_360m  # noqa: E402
+from repro_torch.configs import gemma3_27b, qwen25_14b, smollm_360m, zamba2_7b  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.paged_attn import split_ctas, split_scratch_floats  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
@@ -77,7 +77,12 @@ def _jax(fn, q, k, v, dtype, **kw):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 48), (False, 0)])
-@pytest.mark.parametrize("B,S,KVH,G,hd", [(1, 128, 2, 2, 32), (2, 160, 1, 3, 64)])
+@pytest.mark.parametrize("B,S,KVH,G,hd", [(1, 128, 2, 2, 32), (2, 160, 1, 3, 64),
+                                          # qwen2.5's and yi's groups (60 and 63
+                                          # of the CUDA tile's 64 rows), zamba2's
+                                          # hd = 112
+                                          (1, 128, 2, 5, 128), (1, 128, 2, 7, 128),
+                                          (1, 128, 2, 1, 112)])
 def test_flash_attention_matches_reference_kernel(B, S, KVH, G, hd, causal, window,
                                                   dtype):
     q, k, v = _inputs(1, B, S, KVH, G, hd)
@@ -253,9 +258,10 @@ def split_smem(page, KVH, G, hd, esize):
 
 
 def _decode_shapes():
-    """(name, P, page, KVH, G, hd) of both configs' decode pools: the served
-    16-page pool and the config's own ``bounded_kv_pages``."""
-    for cfg in (smollm_360m.CONFIG, gemma3_27b.CONFIG):
+    """(name, P, page, KVH, G, hd) of the served configs' decode pools: the
+    served 16-page pool and the config's own ``bounded_kv_pages``."""
+    for cfg in (smollm_360m.CONFIG, gemma3_27b.CONFIG, qwen25_14b.CONFIG,
+                zamba2_7b.CONFIG):
         for P in (16, cfg.bounded_kv_pages):
             yield (cfg.name, P, cfg.page_size, cfg.n_kv_heads,
                    cfg.n_heads // cfg.n_kv_heads, cfg.head_dim)

@@ -101,7 +101,7 @@ def test_params_from_jax_carries_tree_and_refuses_missing_or_extra_position(mode
 
 def test_unsupported_blocks_are_refused():
     for change in (dict(pattern=("local", "mamba")), dict(family="moe", n_experts=4),
-                   dict(qkv_bias=True), dict(pattern=("shared_attn",)),
+                   dict(family="encdec"), dict(family="vlm"),
                    dict(sliding_window=0)):
         cfg = dataclasses.replace(gemma3_27b.SMOKE_CONFIG, **change)
         with pytest.raises(NotImplementedError, match="ported"):

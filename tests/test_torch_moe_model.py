@@ -139,7 +139,7 @@ def test_moe_config_checks():
     base = phi35_moe.SMOKE_CONFIG
     TM.param_decls(base)
     for change in (dict(family="dense"), dict(top_k=3), dict(top_k=0),
-                   dict(qkv_bias=True), dict(pattern=("moe", "mamba"), n_repeats=1)):
+                   dict(family="encdec"), dict(pattern=("moe", "mamba"), n_repeats=1)):
         with pytest.raises(NotImplementedError, match="ported"):
             TM.param_decls(dataclasses.replace(base, **change))
 
