@@ -6,7 +6,8 @@ Needs one CUDA card and ``nvcc``.  Phase by phase, each printing one JSON
 line, any failure raising (non-zero exit, no result line).  Kernels 4 and 5
 take the token position as a 0-d int32 tensor they read from device memory.
 Every served phase (``serve``, ``serve_adaptive``, ``serve_gemma3``,
-``serve_phi35``, ``serve_qwen25``, ``serve_zamba2``, ``serve_mamba2``) runs
+``serve_phi35``, ``serve_qwen25``, ``serve_zamba2``, ``serve_mamba2``,
+``serve_whisper``, ``serve_internvl2``) runs
 its requests through the engine's decode graph
 (``jit_loop=True``: one captured CUDA graph per batch size, replayed once per
 token under sync debug mode ``"error"``) and then the same requests through
@@ -44,18 +45,27 @@ side:
    launches; AWRP again at gemma3's decode shape, at phi3.5-moe's (B=4,
    P=16, page=64, KVH=8, G=4, hd=128), and over one evicting boundary
    (page steps; the timed step the next boundary) at qwen2.5-14b's (KVH=8,
-   G=5), yi-34b's (KVH=8, G=7) and zamba2-7b's (KVH=32, G=1, hd=112).
+   G=5), yi-34b's (KVH=8, G=7), zamba2-7b's (KVH=32, G=1, hd=112) and
+   internvl2-26b's (KVH=8, G=6).
 3a. ``flash_attn``: kernel 6, the prefill attention, against its plain
    version (bf16 within one bf16 ulp, f32 within F32_OUT_RTOL) at gemma3's
    prefill shape (4, 2048, 16, 2, 128) with window 1024 and 0, smollm's
    (4, 1024, 5, 3, 64), phi3.5-moe's (4, 2048, 8, 4, 128) causal, a ragged
    S=1000 with window 48, non-causal, a ``kv_len`` mask, f32 and hd=256,
    qwen2.5's (4, 2048, 8, 5, 128), yi's (4, 2048, 8, 7, 128) and zamba2's
-   (4, 2048, 32, 1, 112) causal, and f32 at hd=112 with window 100,
-   each repeated bit for bit over 6
-   launches; kernel, plain and SDPA times (same mask) beside the bound over
-   the unmasked (query head, key) pairs; the HMMA instructions of each bf16
-   instantiation in the built library (``cuobjdump -sass``).
+   (4, 2048, 32, 1, 112) causal, f32 at hd=112 with window 100, whisper's
+   encoder (4, 1500, 20, 1, 64) non-causal (a ragged last tile), its
+   cross-attention (4, 448, 20, 1, 64) over 1500 keys (Sq != Skv,
+   non-causal), internvl2's (4, 2048, 8, 6, 128) causal, and whisper at
+   the shapes serve_whisper gives it: the encoder (4, 1504, 20, 1, 64),
+   the decoder's self-attention (4, 3008, 20, 1, 64) causal and its
+   cross-attention over 1504 keys; each row's inputs from a generator of
+   its own (seeded by its label), each repeated bit for bit over 6
+   launches; kernel, plain and SDPA times (same mask; SDPA without a mask
+   where every key is attended) beside the bound over the unmasked (query
+   head, key) pairs; the HMMA instructions of each bf16 instantiation in
+   the built library (``cuobjdump -sass``).  Then ``flash_gate_draws``:
+   every row's gate again at FLASH_DRAWS further draws of its inputs.
 4. ``serve``: ``ServeEngine`` on smollm-360m at published widths, bf16,
    paged KV with AWRP through the fused kernel (kernel 4: two launches per
    layer per decode step, ``ops.SPLIT_LAUNCHES``), 4 requests of 1024 seeded
@@ -76,8 +86,9 @@ side:
    adaptive_insert_token + paged_attention kernel + adaptive_score_update,
    and within phase 2's tolerances of its plain version with every plane
    equal except at near-tau steps (counted); timed at the serve shape and
-   at gemma3's, phi3.5-moe's, qwen2.5's, yi's and zamba2's decode shapes
-   (arc; the last three over two steps, an evicting boundary and a
+   at gemma3's, phi3.5-moe's, qwen2.5's, yi's, zamba2's and internvl2's
+   decode shapes
+   (arc; the last four over two steps, an evicting boundary and a
    mid-page step), at a page boundary and mid-page, both repeated bit for
    bit over 6 launches, as at P=256.
 4b. ``serve_adaptive``: the serve phase's model and pool with
@@ -141,6 +152,29 @@ side:
    no kernel of the port runs (every launch count 0, said in the kernel
    summary).  In 4g and 4h both loops' final SSM states are also equal bit
    for bit, position by position.
+4i. ``serve_whisper``: whisper-large-v3 (32 encoder + 32 decoder layers, d
+   1280, 20 heads of hd 64, G 1, GELU, sinusoidal positions, vocab 51866)
+   at published widths and depth, bf16, random weights from SEED, with full
+   KV caches (``kv_mode="full"``: the decode graph captures the self cache's
+   row write at the device ``pos``): 4 prompts of 3008 seeded tokens, so
+   the encoder runs over 1504 zero frames, and 32 greedy tokens; kernel 6
+   launched 96 times a prefill (encoder non-causal, decoder self causal,
+   cross-attention at Sq = 3008 over Skv = 1504; whisper itself decodes at
+   most 448 tokens, so the decoder's context here is 6.7 times its own);
+   the decode attention, self
+   and cross, is plain torch (the reference's is jnp); then one prompt
+   alone twice (a prefix hit that skips its prefill) and the cross K/V
+   held bit for bit over graph and eager steps; a decode-step profile
+   beside its byte bound (decoder weights, self K/V rows at or before the
+   position, cross K/V), prefill seconds, tokens/s, peak memory.
+4j. ``serve_internvl2``: internvl2-26b's language backbone (d 6144, 48 / 8
+   heads of hd 128, G 6, d_ff 16384, vocab 92553; 256 patch positions) at
+   published widths and INTERNVL2_LAYERS layers, bf16, random weights from
+   SEED, a 16-page pool (the cut): 4 prompts of 2048 seeded tokens whose
+   first 256 positions take the engine's zero patch embeddings, 32 greedy
+   tokens (AWRP: kernel 6 in every layer of every prefill, kernel 4 twice
+   per layer per decode step); a decode-step profile beside its byte
+   bound, prefill seconds, tokens/s, peak memory.
 5. ``awrp_select``: the two AWRP victim-selection kernels against their
    plain versions, exact equality of the victims, at the sweep's shapes
    (kernel 2) and the serve pool's (kernel 1), tie-heavy and all-invalid
@@ -221,6 +255,7 @@ import statistics
 import subprocess
 import sys
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -230,10 +265,12 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.cache import paged_kv  # noqa: E402
 from repro_torch.configs.gemma3_27b import CONFIG as GEMMA3  # noqa: E402
+from repro_torch.configs.internvl2_26b import CONFIG as INTERNVL2  # noqa: E402
 from repro_torch.configs.mamba2_370m import CONFIG as MAMBA2  # noqa: E402
 from repro_torch.configs.phi35_moe import CONFIG as PHI35  # noqa: E402
 from repro_torch.configs.qwen25_14b import CONFIG as QWEN25  # noqa: E402
 from repro_torch.configs.smollm_360m import CONFIG  # noqa: E402
+from repro_torch.configs.whisper_large_v3 import CONFIG as WHISPER  # noqa: E402
 from repro_torch.configs.zamba2_7b import CONFIG as ZAMBA2  # noqa: E402
 from repro_torch.core.kv_policy import PAGE_POLICIES  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
@@ -575,22 +612,91 @@ def phase_policy_attn(dev, policy: str = "awrp", shape=DECODE_SHAPE,
     return res
 
 
-#: (label, (B, S, KVH, G, hd), causal, window, kv_len or None, dtype)
+#: (label, (B, S, KVH, G, hd), key length or None (= S), causal, window,
+#: kv_len or None, dtype)
 FLASH_CASES = [
-    ("gemma3_local", (4, 2048, 16, 2, 128), True, 1024, None, torch.bfloat16),
-    ("gemma3_global", (4, 2048, 16, 2, 128), True, 0, None, torch.bfloat16),
-    ("smollm", (4, 1024, 5, 3, 64), True, 0, None, torch.bfloat16),
-    ("phi35", (4, 2048, 8, 4, 128), True, 0, None, torch.bfloat16),
-    ("ragged_window48", (2, 1000, 4, 2, 128), True, 48, None, torch.bfloat16),
-    ("non_causal", (2, 512, 5, 3, 64), False, 0, None, torch.bfloat16),
-    ("kv_len_mask", (2, 256, 2, 4, 64), False, 0, 150, torch.bfloat16),
-    ("f32_window100", (1, 300, 2, 4, 64), True, 100, None, torch.float32),
-    ("hd256", (1, 384, 2, 4, 256), True, 0, None, torch.bfloat16),
-    ("qwen25", (4, 2048, 8, 5, 128), True, 0, None, torch.bfloat16),
-    ("yi34", (4, 2048, 8, 7, 128), True, 0, None, torch.bfloat16),
-    ("zamba2", (4, 2048, 32, 1, 112), True, 0, None, torch.bfloat16),
-    ("f32_hd112_window100", (1, 300, 4, 1, 112), True, 100, None, torch.float32),
+    ("gemma3_local", (4, 2048, 16, 2, 128), None, True, 1024, None, torch.bfloat16),
+    ("gemma3_global", (4, 2048, 16, 2, 128), None, True, 0, None, torch.bfloat16),
+    ("smollm", (4, 1024, 5, 3, 64), None, True, 0, None, torch.bfloat16),
+    ("phi35", (4, 2048, 8, 4, 128), None, True, 0, None, torch.bfloat16),
+    ("ragged_window48", (2, 1000, 4, 2, 128), None, True, 48, None, torch.bfloat16),
+    ("non_causal", (2, 512, 5, 3, 64), None, False, 0, None, torch.bfloat16),
+    ("kv_len_mask", (2, 256, 2, 4, 64), None, False, 0, 150, torch.bfloat16),
+    ("f32_window100", (1, 300, 2, 4, 64), None, True, 100, None, torch.float32),
+    ("hd256", (1, 384, 2, 4, 256), None, True, 0, None, torch.bfloat16),
+    ("qwen25", (4, 2048, 8, 5, 128), None, True, 0, None, torch.bfloat16),
+    ("yi34", (4, 2048, 8, 7, 128), None, True, 0, None, torch.bfloat16),
+    ("zamba2", (4, 2048, 32, 1, 112), None, True, 0, None, torch.bfloat16),
+    ("f32_hd112_window100", (1, 300, 4, 1, 112), None, True, 100, None, torch.float32),
+    # whisper's encoder (1500 frames: a ragged last tile of 28 rows) and its
+    # decoder's cross-attention (448 queries over the 1500 encoder rows), both
+    # non-causal at G = 1, hd = 64; internvl2's causal prefill at G = 6
+    ("whisper_encoder", (4, 1500, 20, 1, 64), None, False, 0, None, torch.bfloat16),
+    ("whisper_cross", (4, 448, 20, 1, 64), 1500, False, 0, None, torch.bfloat16),
+    ("internvl2", (4, 2048, 8, 6, 128), None, True, 0, None, torch.bfloat16),
+    # whisper at the shapes serve_whisper gives kernel 6: the encoder over the
+    # engine's 1504 frames, the decoder's self-attention over its 3008
+    # tokens (G = 1, hd = 64, causal) and its cross-attention over the 1504
+    ("whisper_enc_served", (4, 1504, 20, 1, 64), None, False, 0, None, torch.bfloat16),
+    ("whisper_self", (4, 3008, 20, 1, 64), None, True, 0, None, torch.bfloat16),
+    ("whisper_cross_served", (4, 3008, 20, 1, 64), 1504, False, 0, None, torch.bfloat16),
 ]
+
+
+def flash_inputs(label, shape, Skv: int, dtype, dev, draw: int = 0):
+    """A FLASH_CASES row's q ~ N(0, 1) and k, v ~ 0.5 N(0, 1), drawn from a
+    generator of the row's own (its label and ``draw``), so that no row's
+    inputs depend on the rows before it."""
+    B, S, KVH, G, hd = shape
+    gen = torch.Generator().manual_seed(SEED + zlib.crc32(f"{label}/{draw}".encode()))
+    q = torch.randn(B, S, KVH, G, hd, generator=gen).to(dtype).to(dev)
+    k = (torch.randn(B, Skv, KVH, hd, generator=gen) * 0.5).to(dtype).to(dev)
+    v = (torch.randn(B, Skv, KVH, hd, generator=gen) * 0.5).to(dtype).to(dev)
+    return q, k, v
+
+
+def flash_gate(out, plain, label, dtype) -> tuple:
+    """Kernel 6's gate: ``out`` finite and within one bf16 ulp of ``plain``
+    (f32: F32_OUT_RTOL/ATOL); returns (max |out - plain|, its excess, the
+    tolerance)."""
+    rtol, atol = ((OUT_RTOL, OUT_ATOL) if dtype == torch.bfloat16
+                  else (F32_OUT_RTOL, F32_OUT_ATOL))
+    err = (out.float() - plain.float()).abs().max().item()
+    over = excess(out, plain, rtol, atol)
+    assert torch.isfinite(out.float()).all(), label
+    assert over <= 1.0, (label, err, over)
+    return err, over, [rtol, atol]
+
+
+#: further draws of every FLASH_CASES row's inputs that the run gates
+FLASH_DRAWS = 2
+
+
+def flash_gate_draws(dev, draws: int) -> dict:
+    """Kernel 6's gate on every FLASH_CASES row at ``draws`` further draws of
+    its inputs (draws 1..``draws``; phase flash_attn holds draw 0): the
+    largest excess over the gate per row, untimed."""
+    from repro_torch.kernels.flash_attn import flash_attention_kernel
+
+    t0 = time.perf_counter()
+    worst = {}
+    for label, shape, skv, causal, window, kv_len, dtype in FLASH_CASES:
+        Skv = shape[1] if skv is None else skv
+        kw = {"causal": causal, "window": window, "kv_len": Skv if kv_len is None else kv_len}
+        for draw in range(1, draws + 1):
+            q, k, v = flash_inputs(label, shape, Skv, dtype, dev, draw)
+            out = flash_attention_kernel(q, k, v, **kw)
+            plain = ref.flash_attention_plain(q, k, v, **kw)
+            err, over, _ = flash_gate(out, plain, (label, draw), dtype)
+            prev = worst.get(label, {"err_over_tol": -1.0})
+            if over > prev["err_over_tol"]:
+                worst[label] = {"err_over_tol": over, "max_abs_err": err, "draw": draw}
+            del q, k, v, out, plain
+    torch.cuda.empty_cache()
+    res = {"phase": "flash_gate_draws", "draws": draws, "worst": worst,
+           "seconds": time.perf_counter() - t0}
+    emit(res)
+    return res
 
 
 def attended_pairs(Sq: int, Skv: int, causal: bool, window: int, kv_len: int) -> int:
@@ -617,6 +723,10 @@ def sdpa_flash_ms(q, k, v, causal: bool, window: int, kv_len: int) -> float:
     if causal and not window and kv_len == Skv and Sq == Skv:
         return time_ms(lambda: F.scaled_dot_product_attention(
             qq, kk, vv, is_causal=True, enable_gqa=True))
+    if not causal and not window and kv_len == Skv:
+        # every key attended (an encoder, a cross-attention): no mask
+        return time_ms(lambda: F.scaled_dot_product_attention(
+            qq, kk, vv, enable_gqa=True))
     i = torch.arange(Sq, device=q.device)[:, None]
     j = torch.arange(Skv, device=q.device)[None, :]
     mask = j < kv_len
@@ -663,33 +773,25 @@ def phase_flash_attn(dev) -> dict:
     t0 = time.perf_counter()
     hmma = sass_hmma(_build.build().path, "flash_attention_bf16_kernel")
     assert len(hmma) == len(HEAD_DIMS) and min(hmma.values()) > 0, hmma
-    gen = torch.Generator().manual_seed(SEED + 13)
     res = {"phase": "flash_attn", "hmma_per_bf16_function": hmma, "cases": []}
-    for label, (B, S, KVH, G, hd), causal, window, kv_len, dtype in FLASH_CASES:
-        q = torch.randn(B, S, KVH, G, hd, generator=gen).to(dtype).to(dev)
-        k = (torch.randn(B, S, KVH, hd, generator=gen) * 0.5).to(dtype).to(dev)
-        v = (torch.randn(B, S, KVH, hd, generator=gen) * 0.5).to(dtype).to(dev)
-        kl = S if kv_len is None else kv_len
+    for label, (B, S, KVH, G, hd), skv, causal, window, kv_len, dtype in FLASH_CASES:
+        Skv = S if skv is None else skv
+        q, k, v = flash_inputs(label, (B, S, KVH, G, hd), Skv, dtype, dev)
+        kl = Skv if kv_len is None else kv_len
         kw = {"causal": causal, "window": window, "kv_len": kl}
         out = flash_attention_kernel(q, k, v, **kw)
         plain = ref.flash_attention_plain(q, k, v, **kw)
-        torch.cuda.synchronize()
-        rtol, atol = ((OUT_RTOL, OUT_ATOL) if dtype == torch.bfloat16
-                      else (F32_OUT_RTOL, F32_OUT_ATOL))
-        err = (out.float() - plain.float()).abs().max().item()
-        over = excess(out, plain, rtol, atol)
-        assert torch.isfinite(out.float()).all(), label
-        assert over <= 1.0, (label, err, over)
-        pairs = attended_pairs(S, S, causal, window, kl)
+        err, over, tol = flash_gate(out, plain, label, dtype)
+        pairs = attended_pairs(S, Skv, causal, window, kl)
         flops = 4 * hd * pairs * B * KVH * G
-        nbytes = (2 * q.numel() + (k.numel() + v.numel()) * kl // S) * q.element_size()
+        nbytes = (2 * q.numel() + (k.numel() + v.numel()) * kl // Skv) * q.element_size()
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / (BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS) * 1e3
         ms = time_ms(lambda: flash_attention_kernel(q, k, v, **kw))
         res["cases"].append({
-            "label": label, "shape": [B, S, KVH, G, hd], "causal": causal,
+            "label": label, "shape": [B, S, KVH, G, hd], "kv_seq": Skv, "causal": causal,
             "window": window, "kv_len": kl, "dtype": str(dtype).split(".")[-1],
-            "max_abs_err": err, "err_over_tol": over, "tol": [rtol, atol],
+            "max_abs_err": err, "err_over_tol": over, "tol": tol,
             "mean_abs_out": plain.float().abs().mean().item(),
             "repeat_launches_equal": assert_repeatable(
                 lambda: (flash_attention_kernel(q, k, v, **kw),)),
@@ -718,6 +820,8 @@ PHI35_DECODE_SHAPE = (4, 16, 64, 8, 4, 128)
 QWEN25_DECODE_SHAPE = (4, 16, 64, 8, 5, 128)
 YI34_DECODE_SHAPE = (4, 16, 64, 8, 7, 128)
 ZAMBA2_DECODE_SHAPE = (4, 16, 64, 32, 1, 112)
+#: internvl2-26b's pool in serve_internvl2 (G = 6)
+INTERNVL2_DECODE_SHAPE = (4, 16, 64, 8, 6, 128)
 
 
 def serve_params(dev):
@@ -1055,8 +1159,9 @@ def phase_serve(dev, params, init_s, base_cfg=CONFIG, n_req=4, prompt_len=1024,
     return res
 
 
-#: kernels 3-5 held at the QKV-bias and hybrid families' decode shapes
-NEW_DECODE_SHAPES = (QWEN25_DECODE_SHAPE, YI34_DECODE_SHAPE, ZAMBA2_DECODE_SHAPE)
+#: kernels 4-5 held at the QKV-bias, hybrid and VLM families' decode shapes
+NEW_DECODE_SHAPES = (QWEN25_DECODE_SHAPE, YI34_DECODE_SHAPE, ZAMBA2_DECODE_SHAPE,
+                     INTERNVL2_DECODE_SHAPE)
 
 #: the CUDA kernels of one kernel-4 call (csrc/policy_attn.cu): partials, fold
 KERNEL4_CUDA = ("policy_partials_kernel", "policy_fold_kernel")
@@ -1066,23 +1171,26 @@ KERNEL5_CUDA = ("adaptive_partials_kernel", "adaptive_fold_kernel")
 
 def profile_decode(params, cfg, prompts, dev, kernel: tuple, steps: int = 8, *,
                    metrics: bool = True, eager: bool = True) -> dict:
-    """Where a paged fused decode step's time goes, in both loops: the
-    eager step (``jit_loop=False``'s body) and one replay of the engine's
-    captured decode graph (``jit_loop=True``; with ``metrics`` the
-    loop-plane fold is in it), from the same prefill, each by
-    ``_profile_steps``; ``eager=False`` profiles the graph only.
-    ``kernel`` names the fused step's CUDA kernels (kernel 4 runs as two:
-    its partials and its fold), whose share is reported."""
+    """Where a decode step's time goes (paged and fused, or full caches for
+    the encoder-decoder: ``cell_kv_mode``), in both loops: the eager step
+    (``jit_loop=False``'s body) and one replay of the engine's captured
+    decode graph (``jit_loop=True``;
+    with ``metrics`` the loop-plane fold is in it), from the same prefill
+    (the engine's, with its stub inputs), each by ``_profile_steps``;
+    ``eager=False`` profiles the graph only.  ``kernel`` names the fused
+    step's CUDA kernels (kernel 4 runs as two: its partials and its fold),
+    whose share is reported."""
     from repro_torch.models import model as M
     from repro_torch.serve.engine import ServeEngine
 
-    tokens = torch.tensor(prompts, dtype=torch.int32, device=dev)
-    max_len = tokens.shape[1] + 3 * steps
-    logits, caches = M.prefill(params, cfg, tokens, max_len, kv_mode="paged")
+    kv_mode = cell_kv_mode(cfg)
+    fused = kv_mode == "paged"
+    max_len = len(prompts[0]) + 3 * steps
+    engine = ServeEngine(cfg, params, max_len=max_len, kv_mode=kv_mode, fused=fused,
+                         metrics=metrics, device=dev)
+    logits, caches = engine._prefill([list(p) for p in prompts])
     tok = logits[:, -1:].argmax(dim=-1).to(torch.int32)
     del logits
-    engine = ServeEngine(cfg, params, max_len=max_len, kv_mode="paged", fused=True,
-                         metrics=metrics, device=dev)
     graph = engine.decode_graph(caches, sampled=False)
     graph.load(caches, tok, 0.0)
     state = {"tok": tok, "caches": caches}
@@ -1091,7 +1199,7 @@ def profile_decode(params, cfg, prompts, dev, kernel: tuple, steps: int = 8, *,
     def run_eager(n):
         for _ in range(n):
             lg, state["caches"] = M.decode_step(params, cfg, state["tok"], state["caches"],
-                                                kv_mode="paged", fused=True)
+                                                kv_mode=kv_mode, fused=fused)
             state["tok"] = lg.argmax(dim=-1).to(torch.int32)
 
     def replay(n):
@@ -1416,6 +1524,14 @@ def _numel(tree) -> int:
 POOL_KINDS = ("attn", "global", "moe", "shared_attn")
 
 
+def _pool_layers(cfg) -> int:
+    """Layers whose decode attends over a paged pool: none in the
+    encoder-decoder, which keeps full caches in every kv_mode."""
+    if cfg.family == "encdec":
+        return 0
+    return sum(k in POOL_KINDS for k in cfg.layer_pattern)
+
+
 def _init_cell(cfg, dev):
     """``cfg``'s random weights from SEED drawn on the card, the peak
     counter reset first; returns (params, init seconds, the init's peak
@@ -1432,17 +1548,26 @@ def _init_cell(cfg, dev):
     return params, time.perf_counter() - t0, torch.cuda.max_memory_allocated() - before
 
 
+def cell_kv_mode(cfg) -> str:
+    """A serve cell's ``kv_mode``: paged and fused, but full caches for the
+    encoder-decoder, which keeps them in every kv_mode (as the reference)."""
+    return "full" if cfg.family == "encdec" else "paged"
+
+
 def _engine_maker(params, dev):
     from repro_torch.serve.engine import ServeEngine
 
     def make(c, max_len, jit_loop=True):
-        return ServeEngine(c, params, max_len=max_len, kv_mode="paged", fused=True,
-                           seed=SEED, jit_loop=jit_loop, device=dev)
+        kv_mode = cell_kv_mode(c)
+        return ServeEngine(c, params, max_len=max_len, kv_mode=kv_mode,
+                           fused=kv_mode == "paged", seed=SEED, jit_loop=jit_loop,
+                           device=dev)
 
     return make
 
 
-def step_bound(cfg, params, pages: int, batch: int) -> dict:
+def step_bound(cfg, params, pages: int, batch: int, self_rows: int = 0,
+               cross_rows: int = 0) -> dict:
     """Least time of one decode step of ``cfg`` at ``batch`` sequences, at
     the HBM rate: every weight the step reads (all but the embedding table,
     of which it reads one row per sequence, unless the table is tied and
@@ -1451,26 +1576,36 @@ def step_bound(cfg, params, pages: int, batch: int) -> dict:
     the reference's step runs each over its capacity buffer), each pool
     layer's ``pages``-page K/V and each local layer's window ring read once,
     and each Mamba layer's f32 state and conv window read and written
-    once."""
+    once.  The encoder-decoder's step reads the decoder's weights and the
+    unembedding (not the encoder's), each layer's ``self_rows`` self K/V
+    rows (those at or before the step's position) and its ``cross_rows``
+    cross K/V rows."""
     def nbytes(tree):
         return sum(nbytes(v) if isinstance(v, dict) else v.numel() * v.element_size()
                    for v in tree.values())
 
+    encdec = cfg.family == "encdec"
     kinds = cfg.layer_pattern
-    weights = nbytes({k: v for k, v in params.items() if k != "embed"})
+    unread = ("embed", "enc", "enc_final_norm") if encdec else ("embed",)
+    weights = nbytes({k: v for k, v in params.items() if k not in unread})
     if cfg.tie_embeddings:
         weights += params["embed"].numel() * params["embed"].element_size()
     if "shared_attn" in params:
         weights += (kinds.count("shared_attn") - 1) * nbytes(params["shared_attn"])
     row = cfg.kv_dim * 2 * 2  # one token's K and V in bf16
-    kv = batch * row * (sum(k in POOL_KINDS for k in kinds) * pages * cfg.page_size
-                        + kinds.count("local") * cfg.sliding_window)
+    if encdec:
+        kv = batch * row * cfg.dec_layers * (self_rows + cross_rows)
+    else:
+        kv = batch * row * (sum(k in POOL_KINDS for k in kinds) * pages * cfg.page_size
+                            + kinds.count("local") * cfg.sliding_window)
     state = kinds.count("mamba") * batch * 2 * (
         cfg.ssm_heads * cfg.ssm_head_dim * cfg.ssm_state * 4
         + (cfg.d_conv - 1) * (cfg.d_inner + 2 * cfg.ssm_state) * 2)
     total = weights + kv + state
     out = {"weight_bytes": weights, "kv_bytes": kv, "ssm_state_bytes": state,
            "bytes": total, "bound_ms": total / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    if encdec:
+        out.update({"self_rows": self_rows, "cross_rows": cross_rows})
     if cfg.n_experts:
         out["expert_bytes"] = sum(nbytes({k: v for k, v in blk.items()
                                           if k in ("w_up", "w_gate", "w_down")})
@@ -1488,7 +1623,7 @@ def _serve_batch(make, cfg, prompts, new_tokens, *, flash: int):
     results, launches, stats)."""
     from repro_torch.serve.engine import Request
 
-    n_pool = sum(k in POOL_KINDS for k in cfg.layer_pattern)
+    n_pool = _pool_layers(cfg)
     drive = Drive(make(cfg, len(prompts[0]) + new_tokens))
     results = drive.generate([Request(i, list(p), max_new_tokens=new_tokens)
                               for i, p in enumerate(prompts)])
@@ -1527,12 +1662,17 @@ def _cell_loops(drive, make, params, cfg, prompts, new_tokens, pages, dev,
     in both loops (``profile_decode``), its bound (``step_bound``), then
     the drive's requests replayed through a host-loop engine and held
     against the graph loop's (``loops_agree``); the drive's engine is
-    dropped first (its static tree and prefix payloads)."""
-    n_pool = sum(k in POOL_KINDS for k in cfg.layer_pattern)
+    dropped first (its static tree and prefix payloads).  The
+    encoder-decoder's bound counts the first step's self K/V rows and the
+    encoder's frames as its cross rows."""
+    n_pool = _pool_layers(cfg)
     graph_peak = torch.cuda.max_memory_allocated()
+    plen = len(prompts[0])
     profile = profile_decode(params, cfg, prompts, dev, KERNEL4_CUDA if n_pool else (),
                              steps=profile_steps)
-    bound = step_bound(cfg, params, pages if n_pool else 0, len(prompts))
+    rows = ({"self_rows": plen + 1, "cross_rows": plen // cfg.enc_seq_divisor}
+            if cfg.family == "encdec" else {})
+    bound = step_bound(cfg, params, pages if n_pool else 0, len(prompts), **rows)
     drive.engine = None
     loops = loops_agree(drive, drive.replay(make(cfg, len(prompts[0]) + new_tokens, False)))
     return {"graph_peak_memory_allocated_gb": graph_peak / 1e9,
@@ -1551,7 +1691,7 @@ def _adaptive_turns(make, cfg, rng, single_len, new_tokens, *, flash: int,
     from repro_torch.serve.engine import Request
 
     acfg = dataclasses.replace(cfg, kv_policy="arc_adaptive")
-    n_pool = sum(k in POOL_KINDS for k in cfg.layer_pattern)
+    n_pool = _pool_layers(cfg)
     turns, steps = 1 + follow_up, new_tokens - 1
     max_len = single_len + turns * new_tokens
     drive = Drive(make(acfg, max_len))
@@ -1598,8 +1738,8 @@ def _cell_result(phase, cfg, base, params, stats, launches, *, n_req, prompt_len
            "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
            "head_dim": cfg.head_dim, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
            "qkv_bias": cfg.qkv_bias, "params": _numel(params),
-           "param_bytes": M.param_bytes(cfg), "dtype": cfg.dtype, "kv_mode": "paged",
-           "page_size": cfg.page_size,
+           "param_bytes": M.param_bytes(cfg), "dtype": cfg.dtype,
+           "kv_mode": cell_kv_mode(cfg), "page_size": cfg.page_size,
            "reduced": {f: [getattr(base, f), getattr(cfg, f)]
                        for f in ("n_layers", "bounded_kv_pages")
                        if getattr(base, f) != getattr(cfg, f)},
@@ -1615,6 +1755,12 @@ def _cell_result(phase, cfg, base, params, stats, launches, *, n_req, prompt_len
     if cfg.n_experts:
         res.update({"experts": cfg.n_experts, "top_k": cfg.top_k,
                     "capacity_factor": cfg.capacity_factor})
+    if cfg.family == "encdec":
+        res.update({"enc_layers": cfg.enc_layers, "dec_layers": cfg.dec_layers,
+                    "encoder_frames": prompt_len // cfg.enc_seq_divisor})
+        del res["layer_kinds"]
+    if cfg.family == "vlm":
+        res["n_patch_tokens"] = cfg.n_patch_tokens
     if "mamba" in cfg.layer_pattern:
         res["ssm"] = {"d_inner": cfg.d_inner, "heads": cfg.ssm_heads,
                       "head_dim": cfg.ssm_head_dim, "state": cfg.ssm_state,
@@ -2027,6 +2173,106 @@ def phase_serve_mamba2(dev, n_req=4, prompt_len=1024, new_tokens=32) -> dict:
                        prompt_len=prompt_len, new_tokens=new_tokens, init_s=init_s)
     res.update({"kernels_launched": 0, "prefix_hit": True, "prefix_hit_skipped_prefill": True,
                 "repeat_tokens_equal": True, "prefix_entry_bytes": entry_bytes, **loops})
+    del params
+    return _finish_cell(res, t_phase)
+
+
+def cross_kv_read_only(engine, prompts, steps: int) -> dict:
+    """The encoder-decoder's cross K/V are projected once at prefill and
+    only read by a decode step: a prefill through the engine, then
+    ``steps`` replays of its decode graph and as many eager steps, after
+    which ``ck`` / ``cv`` equal the prefill's bit for bit in the graph's
+    static tree (the loads copy them in once) and in the eager caches."""
+    from repro_torch.models import model as M
+
+    logits, caches = engine._prefill([list(p) for p in prompts])
+    tok = logits.argmax(dim=-1).to(torch.int32)
+    want = {n: caches["blocks"]["dec"][n].clone() for n in ("ck", "cv")}
+    graph = engine.decode_graph(caches, sampled=False)
+    graph.load(caches, tok, 0.0)
+    for _ in range(steps):
+        graph.step()
+    state = M.clone_caches(caches)
+    for _ in range(steps):
+        lg, state = M.decode_step(engine.params, engine.cfg, tok, state)
+        tok = lg.argmax(dim=-1).to(torch.int32)
+    for tree in (graph.caches, state):
+        for n, t in want.items():
+            assert torch.equal(tree["blocks"]["dec"][n], t), n
+    assert int(graph.caches["pos"]) == int(state["pos"]) == len(prompts[0]) + steps
+    return {"steps": steps, "cross_rows": want["ck"].shape[2],
+            "cross_kv_equal_bitwise": True}
+
+
+def phase_serve_whisper(dev, n_req=4, prompt_len=3008, new_tokens=32) -> dict:
+    """whisper-large-v3 at published widths and all 32 + 32 layers (d 1280,
+    20 heads of hd = 64, G = 1, GELU, sinusoidal positions) through
+    ServeEngine(kv_mode="full"), random bf16 weights from SEED drawn on the
+    card: 4 prompts of 3008 seeded tokens (47 pages of 64), so the encoder
+    runs over the engine's 1504 zero frames (the page-aligned count nearest
+    whisper's 1500), and 32 greedy tokens; kernel 6 launches 96 times a
+    prefill (32 encoder layers non-causal, 32 decoder self-attentions
+    causal, 32 cross-attentions at Sq = 3008 over Skv = 1504); the decode
+    step (self and cross attention over full caches) is plain torch, as the
+    reference's jnp, and the decode graph captures ``full_cache_insert``'s
+    write at the device ``pos``.  Then one prompt alone twice (a prefix hit
+    that skips its prefill), the cross K/V held read-only over decode
+    (``cross_kv_read_only``) and both decode loops on the same requests."""
+    t_phase = time.perf_counter()
+    cfg = WHISPER
+    flash = cfg.enc_layers + 2 * cfg.dec_layers
+    params, init_s, _ = _init_cell(cfg, dev)
+    rng = np.random.RandomState(SEED + 91)
+    prompts = [rng.randint(1, cfg.vocab, size=prompt_len).tolist() for _ in range(n_req)]
+    make = _engine_maker(params, dev)
+    drive, _, launches, stats = _serve_batch(make, cfg, prompts, new_tokens, flash=flash)
+    _prefix_repeat(drive, prompts[0], new_tokens)
+    total = dict(ops.LAUNCHES)
+    assert total["flash_attention"] == 2 * flash, total  # the hit skipped its prefill
+    assert not any(v for k, v in total.items() if k != "flash_attention"), total
+    cross = cross_kv_read_only(drive.engine, prompts, steps=4)
+    loops = _cell_loops(drive, make, params, cfg, prompts, new_tokens, 0, dev,
+                        CELL_PROFILE_STEPS)
+    del drive
+    res = _cell_result("serve_whisper", cfg, WHISPER, params, stats, launches, n_req=n_req,
+                       prompt_len=prompt_len, new_tokens=new_tokens, init_s=init_s)
+    res.update({"launches_with_singles": total, "prefix_hit": True,
+                "prefix_hit_skipped_prefill": True, "repeat_tokens_equal": True,
+                "cross_kv": cross, **loops})
+    del params
+    return _finish_cell(res, t_phase)
+
+
+#: internvl2-26b's layers served: all 48 (19.86 B parameters, 39.7 GB in bf16)
+INTERNVL2_LAYERS = 48
+
+
+def phase_serve_internvl2(dev, n_req=4, prompt_len=2048, new_tokens=32, pages=16) -> dict:
+    """internvl2-26b's language backbone at published widths (d 6144, 48 / 8
+    heads of hd = 128, G = 6, d_ff 16384, vocab 92553) and INTERNVL2_LAYERS
+    layers through ServeEngine(kv_mode="paged", fused=True), random bf16
+    weights from SEED drawn on the card, a 16-page pool: 4 prompts of 2048
+    seeded tokens, whose first 256 positions take the engine's zero patch
+    embeddings (the vision stub), and 32 greedy tokens (AWRP: kernel 6 in
+    every layer of every prefill, kernel 4 once per layer per decode step,
+    ``ops.SPLIT_LAUNCHES`` launches each); both decode loops on the same
+    requests.  Kernel 5 at G = 6 is held by its rows in ``adaptive_attn``."""
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(INTERNVL2, n_layers=INTERNVL2_LAYERS, bounded_kv_pages=pages,
+                              kv_policy="awrp")
+    params, init_s, _ = _init_cell(cfg, dev)
+    rng = np.random.RandomState(SEED + 101)
+    prompts = [rng.randint(1, cfg.vocab, size=prompt_len).tolist() for _ in range(n_req)]
+    make = _engine_maker(params, dev)
+    drive, _, launches, stats = _serve_batch(make, cfg, prompts, new_tokens,
+                                             flash=cfg.n_layers)
+    loops = _cell_loops(drive, make, params, cfg, prompts, new_tokens, pages, dev,
+                        CELL_PROFILE_STEPS)
+    del drive
+    res = _cell_result("serve_internvl2", cfg, INTERNVL2, params, stats, launches,
+                       n_req=n_req, prompt_len=prompt_len, new_tokens=new_tokens,
+                       init_s=init_s)
+    res.update({"gqa_group": cfg.n_heads // cfg.n_kv_heads, **loops})
     del params
     return _finish_cell(res, t_phase)
 
@@ -3506,6 +3752,7 @@ def main() -> int:
     pol_new = [phase_policy_attn(dev, "awrp", shape, steps=SERVE_SHAPE[2])
                for shape in NEW_DECODE_SHAPES]
     fl = phase_flash_attn(dev)
+    fl_draws = flash_gate_draws(dev, FLASH_DRAWS)
     params, init_s = serve_params(dev)
     srv = phase_serve(dev, params, init_s)
     # kernel 5 at the serve shape from the prefill seeding (timed), with a
@@ -3532,6 +3779,8 @@ def main() -> int:
     qwen = phase_serve_qwen25(dev)
     zamba = phase_serve_zamba2(dev)
     mamba = phase_serve_mamba2(dev)
+    whisper = phase_serve_whisper(dev)
+    internvl = phase_serve_internvl2(dev)
     sel = phase_awrp_select(dev)
     swp = phase_sweep(dev)
     ten = phase_tenancy(dev)
@@ -3539,7 +3788,8 @@ def main() -> int:
     emit({"phase": "decode_loops", "card": smi(), "cells": serving_summary(
         [("serve", srv), *((r["kv_policy"], r) for r in srv_ada), ("serve_gemma3", g3),
          ("serve_phi35", phi), ("serve_qwen25", qwen), ("serve_zamba2", zamba),
-         ("serve_mamba2", mamba)])})
+         ("serve_mamba2", mamba), ("serve_whisper", whisper),
+         ("serve_internvl2", internvl)])})
     # the metrics half of observability: one snapshot's keys, pull and syncs
     # (serve and both serve_tenants runs), the fold's cost in the graph step,
     # the live endpoint over a capture, the kernel library's nvcc seconds
@@ -3558,7 +3808,9 @@ def main() -> int:
                                             ("serve_gemma3", g3), ("serve_phi35", phi),
                                             ("serve_qwen25", qwen),
                                             ("serve_zamba2", zamba),
-                                            ("serve_mamba2", mamba)]}})
+                                            ("serve_mamba2", mamba),
+                                            ("serve_whisper", whisper),
+                                            ("serve_internvl2", internvl)]}})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     # launches: each kernel's count on its path in this run: the flat fused
     # kernel in the serve phase, the adaptive one in serve_adaptive (both
@@ -3603,6 +3855,9 @@ def main() -> int:
     kernels[2]["launches_serve_zamba2"] = zamba["launches"]["adaptive_policy_paged_attention"]
     for k in kernels:
         k["launches_serve_mamba2"] = mamba["launches"][k["name"]]  # attention-free: 0
+        # whisper's decode attention is plain torch (0), internvl2's kernel 4
+        k["launches_serve_whisper"] = whisper["launches"][k["name"]]
+        k["launches_serve_internvl2"] = internvl["launches"][k["name"]]
     main_case, *other_cases = fl["cases"]
     source, replaces = KERNELS["flash_attention"]
     kernels.append({
@@ -3612,10 +3867,12 @@ def main() -> int:
         "launches_serve_qwen25": qwen["launches"]["flash_attention"],
         "launches_serve_zamba2": zamba["launches"]["flash_attention"],
         "launches_serve_mamba2": mamba["launches"]["flash_attention"],
+        "launches_serve_whisper": whisper["launches"]["flash_attention"],
+        "launches_serve_internvl2": internvl["launches"]["flash_attention"],
         "max_abs_err": max(c["max_abs_err"] for c in fl["cases"]),
         **{k: main_case[k] for k in timed_keys},
         "shape": main_case["shape"], "window": main_case["window"],
-        "other_shapes": [{k: c[k] for k in ("label", "shape", "window", "dtype",
+        "other_shapes": [{k: c[k] for k in ("label", "shape", "kv_seq", "window", "dtype",
                                             *timed_keys)} for c in other_cases]})
     for name in ("awrp_select", "awrp_select_rows"):
         source, replaces = KERNELS[name]
@@ -3675,7 +3932,10 @@ def main() -> int:
                                                        "ring_bound_ms")} for r in s_others]}}})
     emit({"kernels": kernels,
           "serve_mamba2": "attention-free: no kernel of the port runs in its serve "
-                          "phase (its launches_serve_mamba2 are 0)"})
+                          "phase (its launches_serve_mamba2 are 0)",
+          "serve_whisper": "kernel 6 in every encoder, decoder-self and cross "
+                           "attention of a prefill; its decode attention is plain "
+                           "torch, as the reference's jnp (kernels 3-5: 0)"})
     print(smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -8,8 +8,10 @@ attention (``"shared_attn"``: an attention + MLP block whose parameters every
 occurrence shares, zamba2's) blocks, as a homogeneous ``"attn"`` or
 ``"moe"`` stack or a repeating ``pattern`` unit plus a ``tail`` (gemma3's 5
 local + 1 global, zamba2's 5 mamba + 1 shared attention); ``qkv_bias`` adds
-the q/k/v biases (qwen2.5).  The encoder-decoder and VLM fields wait for the
-slices that port those families.
+the q/k/v biases (qwen2.5).  The encoder-decoder family (whisper) stacks
+``enc_layers`` encoder and ``dec_layers`` decoder blocks; the VLM family
+(internvl2) is a decoder stack whose first ``n_patch_tokens`` positions take
+the patch embeddings.
 """
 
 from __future__ import annotations
@@ -54,6 +56,13 @@ class ModelConfig:
     ssm_expand: int = 2
     ssm_chunk: int = 256
     d_conv: int = 4
+    # encoder-decoder
+    enc_layers: int = 0
+    dec_layers: int = 0
+    enc_seq_divisor: int = 2  # encoder frames = seq_len // divisor (stub)
+    cross_kv_len: int = 1_500  # fixed encoder context for decode shapes
+    # modality stub (vlm)
+    n_patch_tokens: int = 0
     # serving / paged KV (the paper's technique)
     page_size: int = 64
     bounded_kv_pages: int = 256

@@ -39,11 +39,13 @@
 // scaled by scale * log2(e) so that each exponential is one exp2f, and the
 // accumulator is rescaled only when a row's max moved; l sums the f32 p.
 // P.V cannot take p as one bf16: rounding p to 8 significant bits moves
-// outputs far past one bf16 ulp of the f32 result.  So p is split as hi =
-// bf16(p), lo = bf16(p - hi) (p - hi is exact; hi + lo carries 16
-// significant bits) and acc += hi.V + lo.V, two MMAs with the A fragments
-// built in registers from S's accumulator layout and V's B fragments from
-// ldmatrix.trans.
+// outputs far past one bf16 ulp of the f32 result.  Nor as two: hi + lo
+// keeps 16 significant bits, an absolute error of about 2^-18 sum(p|v|)/l,
+// some 1e-6, which is several bf16 ulps of an output near 0.  So p is split
+// as hi = bf16(p), mid = bf16(p - hi), lo = bf16(p - hi - mid) (each
+// difference exact in f32; the three carry p's 24 bits) and acc += hi.V +
+// mid.V + lo.V, three MMAs with the A fragments built in registers from S's
+// accumulator layout and V's B fragments from ldmatrix.trans.
 //
 // f32 (flash_attention_kernel): the two products on the CUDA cores in f32
 // (TF32 tensor cores would keep 10 significant bits of q, k, v and p and
@@ -60,7 +62,7 @@
 // read once per tile: at gemma3's (4, 2048, 16, 2, 128) some 137 GFLOP per
 // global layer against 67 MB of q/k/v/out.  The bound reported beside it is
 // those flops at the bf16 tensor-core peak (989 TFLOP/s); the bf16 kernel
-// runs 1.5 times them on the tensor cores (P.V twice), through mma.sync,
+// runs 2 times them on the tensor cores (P.V three times), through mma.sync,
 // which does not reach wgmma's rate, with one bf16 Q tile of 64 rows per
 // CTA: every warp reads the whole K and V tile from shared memory for its
 // 16 rows.  wgmma, TMA staging and a persistent schedule are later work.
@@ -154,14 +156,20 @@ __device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 h) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-// (x, y) as the bf16x2 pair hi = bf16(.) (x in the low half) and lo =
-// bf16(. - hi): x - bf16(x) is exact in f32, so hi + lo keeps x to 16
-// significant bits.
-__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi, uint32_t& lo) {
+// (x, y) as three bf16x2 pairs (x in the low halves): hi = bf16(.), mid =
+// bf16(. - hi), lo = bf16(. - hi - mid).  x - bf16(x) is exact in f32 and
+// keeps at most 16 significant bits, its remainder after mid at most 8, so
+// hi + mid + lo is x to its last bit or two.
+__device__ __forceinline__ void split3_bf16(float x, float y, uint32_t& hi, uint32_t& mid,
+                                            uint32_t& lo) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
   const float2 hf = __bfloat1622float2(h);
+  const float rx = __fsub_rn(x, hf.x), ry = __fsub_rn(y, hf.y);
+  const __nv_bfloat162 m = __floats2bfloat162_rn(rx, ry);
+  const float2 mf = __bfloat1622float2(m);
   hi = as_u32(h);
-  lo = as_u32(__floats2bfloat162_rn(__fsub_rn(x, hf.x), __fsub_rn(y, hf.y)));
+  mid = as_u32(m);
+  lo = as_u32(__floats2bfloat162_rn(__fsub_rn(rx, mf.x), __fsub_rn(ry, mf.y)));
 }
 
 template <int HD>
@@ -348,22 +356,24 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
 
-    // acc += hi.V + lo.V over the tile's keys, 16 at a time
+    // acc += hi.V + mid.V + lo.V over the tile's keys, 16 at a time
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t hi[4], lo[4];
-      split_bf16(s[2 * kk][0], s[2 * kk][1], hi[0], lo[0]);
-      split_bf16(s[2 * kk][2], s[2 * kk][3], hi[1], lo[1]);
-      split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], hi[2], lo[2]);
-      split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], hi[3], lo[3]);
+      uint32_t hi[4], mid[4], lo[4];
+      split3_bf16(s[2 * kk][0], s[2 * kk][1], hi[0], mid[0], lo[0]);
+      split3_bf16(s[2 * kk][2], s[2 * kk][3], hi[1], mid[1], lo[1]);
+      split3_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], hi[2], mid[2], lo[2]);
+      split3_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], hi[3], mid[3], lo[3]);
 #pragma unroll
       for (int dp = 0; dp < ND / 2; ++dp) {
         uint32_t bv[4];
         ldsm_x4_trans(bv, vt + at(kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3),
                                   2 * dp + (lane >> 4)));
         mma_bf16(o[2 * dp], hi, bv[0], bv[1]);
+        mma_bf16(o[2 * dp], mid, bv[0], bv[1]);
         mma_bf16(o[2 * dp], lo, bv[0], bv[1]);
         mma_bf16(o[2 * dp + 1], hi, bv[2], bv[3]);
+        mma_bf16(o[2 * dp + 1], mid, bv[2], bv[3]);
         mma_bf16(o[2 * dp + 1], lo, bv[2], bv[3]);
       }
     }

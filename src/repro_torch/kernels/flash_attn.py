@@ -5,7 +5,7 @@ port's prefill attention.  This module only validates, allocates the output
 and launches on the current stream; ``kernels/ops.py`` dispatches between it
 and the plain version.  The kernel takes any Sq / Skv and masks the ragged
 edge itself: there is no padding.  bf16 runs both products on the tensor
-cores (P.V as two bf16 products, p split into hi + lo); f32 runs on the
+cores (P.V as three bf16 products, p split into hi + mid + lo); f32 runs on the
 CUDA cores.
 """
 

@@ -27,7 +27,12 @@ experts, top-2), the QKV-bias GQA ``qwen25_14b`` (G = 5), the GQA
 no KV cache, the pool flags are moot and the prefix cache holds the SSM
 states) and the hybrid ``zamba2_7b`` (13 x (5 Mamba-2 + 1 shared-attention
 block, one parameter set for the 13) + 3 Mamba-2; each shared-attention
-occurrence has its own pool).  A configuration whose weights exceed the
+occurrence has its own pool), the VLM ``internvl2_26b`` (G = 6; the
+engine's zero patch embeddings take the first ``n_patch_tokens`` positions)
+and the encoder-decoder ``whisper_large_v3`` (32 encoder + 32 decoder
+layers over the engine's zero frame embeddings, half the prompt's length;
+full self and cross K/V caches in every ``--kv-mode``, as the reference).
+A configuration whose weights exceed the
 device's memory is refused (grok-1's full config on one card): its
 ``--smoke`` config runs.
 
@@ -65,8 +70,9 @@ import numpy as np
 import torch
 
 from repro_torch.cache.paged_kv import TRUE_ADAPTIVE_KV
-from repro_torch.configs import (gemma3_27b, grok1_314b, mamba2_370m, phi35_moe,
-                                 qwen25_14b, smollm_360m, yi_34b, zamba2_7b)
+from repro_torch.configs import (gemma3_27b, grok1_314b, internvl2_26b, mamba2_370m,
+                                 phi35_moe, qwen25_14b, smollm_360m, whisper_large_v3,
+                                 yi_34b, zamba2_7b)
 from repro_torch.core.kv_policy import PAGE_POLICIES
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
@@ -76,7 +82,8 @@ from repro_torch.serve.engine import Request, ServeEngine
 
 ARCHS = {"smollm_360m": smollm_360m, "gemma3_27b": gemma3_27b,
          "phi35_moe": phi35_moe, "grok1_314b": grok1_314b, "qwen25_14b": qwen25_14b,
-         "yi_34b": yi_34b, "mamba2_370m": mamba2_370m, "zamba2_7b": zamba2_7b}
+         "yi_34b": yi_34b, "mamba2_370m": mamba2_370m, "zamba2_7b": zamba2_7b,
+         "whisper_large_v3": whisper_large_v3, "internvl2_26b": internvl2_26b}
 
 
 def device_memory_bytes(device: torch.device) -> int:

@@ -4,9 +4,10 @@
 ``np.asarray`` on every leaf (this module never imports JAX) and returns the
 port's parameter tree: the same nesting and layout (the unit positions
 ``u0``.. stacked on a leading ``(n_repeats,)`` axis, the tail positions
-``t0``.. unstacked, zamba2's one ``shared_attn`` set unstacked, (in, out)
-matrices), the leaves of ``model.F32_PARAMS`` (norm scales, the Mamba-2
-block's ``a_log``, ``dt_bias``, ``d_skip`` and ``norm_scale``) in float32.
+``t0``.. unstacked, zamba2's one ``shared_attn`` set unstacked, whisper's
+``enc`` / ``dec`` stacks and ``enc_final_norm``, (in, out) matrices), the
+leaves of ``model.F32_PARAMS`` (norm scales, the Mamba-2 block's ``a_log``,
+``dt_bias``, ``d_skip`` and ``norm_scale``) in float32.
 """
 
 from __future__ import annotations

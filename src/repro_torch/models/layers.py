@@ -1,6 +1,7 @@
-"""Decoder layers in plain PyTorch (``repro/models/layers.py``): dense
-attention (with the optional q/k/v biases, added before RoPE) and MLP
-blocks, the top-k MoE FFN and the Mamba-2 (SSD) block.
+"""Layers in plain PyTorch (``repro/models/layers.py``): dense attention
+(with the optional q/k/v biases, added before RoPE; self- or
+cross-attention, causal or not) and MLP blocks, the top-k MoE FFN and the
+Mamba-2 (SSD) block.
 
 Conventions, as in the reference:
   * activations (B, S, D) in the config's dtype; softmax and norms in f32;
@@ -8,11 +9,15 @@ Conventions, as in the reference:
     reference's (in, out) layout, so ``x @ w`` is the reference's einsum;
   * prefill attention (``attention``) runs kernel 6, the flash-attention
     CUDA kernel (``kernels/ops.py`` ``flash_attention``; its plain version
-    on the CPU), causal with the block's sliding window; the reference
-    computes the same function as a chunked jnp loop.
+    on the CPU): causal with the block's sliding window, or non-causal
+    without RoPE (whisper's encoder), or cross-attention over K/V of another
+    length (``kv_override``, whisper's decoder); the reference computes the
+    same function as a chunked jnp loop.
     The decode-time paged attention is the CUDA kernel
     (``cache/paged_kv.py`` ``fused_decode_step``); ``decode_attend`` is the
-    unfused plain path and the local layers' ring-cache attention;
+    unfused plain path, the local layers' ring-cache attention and whisper's
+    decode attention (self and cross, as plain jnp in the reference);
+  * whisper's positions are the fixed ``sinusoidal_positions`` (no RoPE);
   * ``moe`` is the reference's sort-based dispatch with per-sequence
     capacity, its products ``torch.einsum`` as the reference leaves them to
     XLA (no Pallas kernel there): every expert runs over its capacity
@@ -63,6 +68,18 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """(B, S) int -> (B, S, d) f32 fixed sinusoidal embedding (whisper's):
+    ``[sin(p * f), cos(p * f)]`` with ``f_i = exp(-ln(1e4) * i / max(half - 1,
+    1))``, as the reference computes it in f32.  The caller casts it to the
+    activation dtype before adding it."""
+    half = d // 2
+    i = torch.arange(half, dtype=torch.float32, device=positions.device)
+    freq = torch.exp(-math.log(10_000.0) * i / max(half - 1, 1))
+    ang = positions[..., None].to(torch.float32) * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 def mlp(params: Params, x: torch.Tensor, act: str) -> torch.Tensor:
     """Feed-forward: SwiGLU, or GELU in its tanh form (``jax.nn.gelu``'s
     default; torch's default is the exact erf form)."""
@@ -85,20 +102,36 @@ def _project_qkv(params: Params, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, ..
             v.reshape(B, S, KVH, hd))
 
 
-def attention(params: Params, x: torch.Tensor, cfg, *, window: int = 0
+def attention(params: Params, x: torch.Tensor, cfg, *, causal: bool = True,
+              window: int = 0, use_rope: bool = True,
+              kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
               ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Full-sequence causal self-attention (prefill) over positions
-    ``arange(S)``, through kernel 6 (``ops.flash_attention``) with the
-    block's sliding ``window`` (0 = none).  Returns (out, (k, v)) so prefill
-    can keep the KV cache; k is RoPE'd."""
+    """Full-sequence attention (prefill) of the queries at positions
+    ``arange(S)`` over keys at ``arange(Skv)``, through kernel 6
+    (``ops.flash_attention``): causal or not, with the block's sliding
+    ``window`` (0 = none).  RoPE on q and k unless ``use_rope=False``.
+    ``kv_override=(k, v)`` (B, Skv, KVH, hd) is cross-attention: those K/V
+    replace the block's own, q gets no RoPE and Skv may differ from S (the
+    reference's ``kv_override``).  Every caller of the reference passes
+    ``positions=arange(S)``, which kernel 6 masks by index, so the port takes
+    no ``positions``.  Returns (out, (k, v)) so prefill can keep the KV
+    cache; k is RoPE'd when q is."""
     B, S, _ = x.shape
     H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q, k, v = _project_qkv(params, x, cfg)
-    pos2 = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
-    q = rope(q.reshape(B, S, H, hd), pos2, cfg.rope_theta).reshape(B, S, KVH, H // KVH, hd)
-    k = rope(k, pos2, cfg.rope_theta)
+    if kv_override is None:
+        q, k, v = _project_qkv(params, x, cfg)
+    else:
+        q = x @ params["wq"]
+        if cfg.qkv_bias:
+            q = q + params["bq"]
+        q = q.reshape(B, S, KVH, H // KVH, hd)
+        k, v = kv_override
+    if use_rope and kv_override is None:
+        pos2 = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+        q = rope(q.reshape(B, S, H, hd), pos2, cfg.rope_theta).reshape(B, S, KVH, H // KVH, hd)
+        k = rope(k, pos2, cfg.rope_theta)
     out = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                              causal=True, window=window)
+                              causal=causal, window=window)
     return out.reshape(B, S, H * hd) @ params["wo"], (k, v)
 
 
@@ -108,30 +141,34 @@ def _positions(position: torch.Tensor, B: int) -> torch.Tensor:
     return position.reshape(1, 1).expand(B, 1)
 
 
-def decode_kv_row(params: Params, x: torch.Tensor, cfg, *, position: torch.Tensor
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """New token's (k, v) rows, RoPE'd at ``position`` (0-d int32): (B, 1,
-    D) -> (B, 1, kvd) each."""
+def decode_kv_row(params: Params, x: torch.Tensor, cfg, *, position: torch.Tensor,
+                  use_rope: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """New token's (k, v) rows, k RoPE'd at ``position`` (0-d int32) unless
+    ``use_rope=False``: (B, 1, D) -> (B, 1, kvd) each."""
     B = x.shape[0]
     KVH, hd = cfg.n_kv_heads, cfg.head_dim
     k_new, v_new = x @ params["wk"], x @ params["wv"]
     if cfg.qkv_bias:
         k_new, v_new = k_new + params["bk"], v_new + params["bv"]
-    k_new = rope(k_new.reshape(B, 1, KVH, hd), _positions(position, B),
-                 cfg.rope_theta).reshape(B, 1, KVH * hd)
+    if use_rope:
+        k_new = rope(k_new.reshape(B, 1, KVH, hd), _positions(position, B),
+                     cfg.rope_theta).reshape(B, 1, KVH * hd)
     return k_new, v_new
 
 
-def decode_q(params: Params, x: torch.Tensor, cfg, *, position: torch.Tensor
-             ) -> torch.Tensor:
+def decode_q(params: Params, x: torch.Tensor, cfg, *, position: torch.Tensor,
+             use_rope: bool = True) -> torch.Tensor:
     """The query half of ``decode_attend``: (B, 1, D) -> (B, KVH, G, hd)
-    grouped queries, RoPE'd at ``position`` (0-d int32)."""
+    grouped queries, RoPE'd at ``position`` (0-d int32) unless
+    ``use_rope=False``."""
     B = x.shape[0]
     H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = x @ params["wq"]
     if cfg.qkv_bias:
         q = q + params["bq"]
-    q = rope(q.reshape(B, 1, H, hd), _positions(position, B), cfg.rope_theta)
+    q = q.reshape(B, 1, H, hd)
+    if use_rope:
+        q = rope(q, _positions(position, B), cfg.rope_theta)
     return q.reshape(B, KVH, H // KVH, hd)
 
 
@@ -143,13 +180,16 @@ def decode_project_out(params: Params, out: torch.Tensor, cfg) -> torch.Tensor:
 
 def decode_attend(params: Params, x: torch.Tensor, cfg, *, position: torch.Tensor,
                   k_cache: torch.Tensor, v_cache: torch.Tensor,
-                  kv_positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                  kv_positions: torch.Tensor, use_rope: bool = True
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One-token attention over a (B, T, kvd) cache that already holds the
-    new row.  Returns (out (B, 1, D), attn_mass (B, T)), the per-row softmax
-    mass the AWRP hit rule reads."""
+    new row (q RoPE'd at ``position`` unless ``use_rope=False``; rows whose
+    ``kv_positions`` are negative masked).  Returns (out (B, 1, D),
+    attn_mass (B, T)), the per-row softmax mass the AWRP hit rule reads."""
     B = x.shape[0]
     H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = decode_q(params, x, cfg, position=position)[:, None]  # (B, 1, KVH, G, hd)
+    q = decode_q(params, x, cfg, position=position,
+                 use_rope=use_rope)[:, None]  # (B, 1, KVH, G, hd)
     kc = k_cache.reshape(B, -1, KVH, hd)
     vc = v_cache.reshape(B, -1, KVH, hd)
     s = torch.einsum("bqkgh,btkh->bkgqt", q, kc).to(torch.float32)

@@ -5,7 +5,14 @@ attention), ``"local"`` (sliding-window), ``"moe"`` (full attention and the
 top-k expert FFN, ``layers.moe``), ``"mamba"`` (the Mamba-2 SSD block,
 ``layers.mamba2_block``, no MLP) and ``"shared_attn"`` (a full-attention +
 MLP block whose one parameter set every occurrence shares, zamba2's)
-blocks; attention blocks carry q/k/v biases when ``cfg.qkv_bias``.
+blocks; attention blocks carry q/k/v biases when ``cfg.qkv_bias``.  Two
+more families: the VLM (internvl2: such a stack whose first
+``n_patch_tokens`` positions take the patch embeddings ``prefill`` is given,
+the reference's stub frontend) and the encoder-decoder (whisper:
+``enc_layers`` non-causal encoder blocks over stub frame embeddings plus
+fixed sinusoidal positions, then ``dec_layers`` decoder blocks of causal
+self-attention, cross-attention over the encoder's output and an MLP, three
+norms each; no RoPE).
 
 Layout follows the reference so weights carry across
 (``models/convert.py``): ``scan_plan`` names the repeating unit's positions
@@ -18,6 +25,15 @@ same structure (a ``"shared_attn"`` position has a cache per occurrence).
 Where the reference scans the unit with ``lax.scan``, this module runs a
 Python loop over repeats and positions; the per-layer views share storage
 with the stacked tensors.
+
+The encoder-decoder's parameters are ``enc`` and ``dec`` (stacked on
+``(enc_layers,)`` / ``(dec_layers,)``; a decoder block's ``self_*`` and
+``cross_*`` attention sets, its MLP and ``ln1``-``ln3``) and
+``enc_final_norm``; its caches are ``{"pos", "blocks": {"dec": {"k", "v",
+"ck", "cv"}}}``, stacked on ``(dec_layers,)``: the self K/V of ``max_len``
+rows and the cross K/V projected once from the encoder's output at
+prefill, which a decode step reads and never writes.  Every ``kv_mode``
+gives that tree, as in the reference.
 
 Decode caches are ``{"pos": pos, "blocks": {position: cache}}``, ``pos``
 the next token's index as a 0-d int32 tensor on the caches' device (the
@@ -67,7 +83,8 @@ class MambaCache(NamedTuple):
 #: parameters kept in float32 whatever ``param_dtype`` is (norm scales and
 #: the Mamba-2 block's A, dt bias, D skip and gated-norm scale), the
 #: reference's dtype rule
-F32_PARAMS = ("ln1", "ln2", "final_norm", "a_log", "dt_bias", "d_skip", "norm_scale")
+F32_PARAMS = ("ln1", "ln2", "ln3", "final_norm", "enc_final_norm", "a_log", "dt_bias",
+              "d_skip", "norm_scale")
 
 
 def pad_vocab(cfg) -> int:
@@ -135,6 +152,17 @@ def _mamba_decls(cfg) -> Dict[str, Decl]:
     }
 
 
+def _cross_decls(cfg) -> Dict[str, Decl]:
+    """A whisper decoder block: self-attention (``self_*``), cross-attention
+    (``cross_*``), the MLP and three norms."""
+    out = {pre + k: v for pre in ("self_", "cross_")
+           for k, v in _attn_decls(cfg).items() if not k.startswith("ln")}
+    out.update(_mlp_decls(cfg))
+    for name in ("ln1", "ln2", "ln3"):
+        out[name] = Decl((cfg.d_model,), "zeros")
+    return out
+
+
 #: block kinds the port serves: full attention, sliding-window attention,
 #: full attention with the MoE FFN, the Mamba-2 block and the shared
 #: attention block
@@ -143,26 +171,41 @@ KINDS = ("attn", "global", "local", "moe", "mamba", "shared_attn")
 
 def _check_supported(cfg) -> None:
     kinds = set(cfg.layer_pattern)
-    moe_ok = (("moe" in kinds) == (cfg.family == "moe")
-              and ("moe" not in kinds or 1 <= cfg.top_k <= min(2, cfg.n_experts)))
-    mamba_ok = "mamba" not in kinds or (
-        cfg.ssm_state >= 1 and cfg.d_conv >= 1 and cfg.ssm_chunk >= 1
-        and cfg.d_inner % cfg.ssm_head_dim == 0)
-    if (cfg.family not in ("dense", "moe", "ssm", "hybrid") or not moe_ok
-            or not mamba_ok or cfg.act not in ("swiglu", "gelu")
-            or not kinds <= set(KINDS) or ("local" in kinds and cfg.sliding_window < 1)):
+    if cfg.family == "encdec":
+        # the reference's encoder and decoder blocks are dense attention +
+        # MLP whatever the pattern: a pattern or experts would be ignored
+        ok = (cfg.enc_layers >= 1 and cfg.dec_layers >= 1 and cfg.enc_seq_divisor >= 1
+              and cfg.pattern is None and not cfg.n_experts
+              and cfg.act in ("swiglu", "gelu"))
+    else:
+        moe_ok = (("moe" in kinds) == (cfg.family == "moe")
+                  and ("moe" not in kinds or 1 <= cfg.top_k <= min(2, cfg.n_experts)))
+        mamba_ok = "mamba" not in kinds or (
+            cfg.ssm_state >= 1 and cfg.d_conv >= 1 and cfg.ssm_chunk >= 1
+            and cfg.d_inner % cfg.ssm_head_dim == 0)
+        ok = (cfg.family in ("dense", "moe", "ssm", "hybrid", "vlm") and moe_ok
+              and mamba_ok and cfg.act in ("swiglu", "gelu") and kinds <= set(KINDS)
+              and ("local" not in kinds or cfg.sliding_window >= 1)
+              and (cfg.family != "vlm" or cfg.n_patch_tokens >= 1))
+    if not ok:
         raise NotImplementedError(
             f"{cfg.name}: stacks of {'/'.join(KINDS)} blocks with SwiGLU or GELU "
             "are ported to repro_torch (moe blocks in the moe family alone, top-1 "
-            "or top-2; mamba blocks with ssm_state >= 1); the enc-dec and VLM "
-            f"families are not ported yet; got family={cfg.family!r} "
+            "or top-2; mamba blocks with ssm_state >= 1), as is the VLM family "
+            "with n_patch_tokens >= 1 and the enc-dec family with enc_layers and "
+            f"dec_layers >= 1, no pattern and no experts; got family={cfg.family!r} "
             f"kinds={sorted(kinds)} act={cfg.act!r} top_k={cfg.top_k} "
-            f"ssm_state={cfg.ssm_state}")
+            f"ssm_state={cfg.ssm_state} n_patch_tokens={cfg.n_patch_tokens} "
+            f"enc_layers={cfg.enc_layers} dec_layers={cfg.dec_layers}")
 
 
 def scan_plan(cfg) -> Tuple[List[Tuple[str, str]], int, List[Tuple[str, str]]]:
-    """(unit, n_repeats, tail) of (position_name, kind) entries."""
+    """(unit, n_repeats, tail) of (position_name, kind) entries; none for
+    the encoder-decoder, whose stacks ``prefill`` and ``decode_step`` run
+    apart."""
     _check_supported(cfg)
+    if cfg.family == "encdec":
+        return [], 0, []
     if cfg.pattern is None:
         return [("u0", cfg.layer_pattern[0])], cfg.n_layers, []
     unit = [(f"u{i}", k) for i, k in enumerate(cfg.pattern)]
@@ -188,13 +231,20 @@ def param_decls(cfg) -> Dict[str, Any]:
         ffn = _moe_decls(cfg) if kind == "moe" else _mlp_decls(cfg)
         return {**_attn_decls(cfg), **ffn}
 
+    def stack(decls, n):
+        return {k: Decl((n,) + v.shape, v.init, v.scale) for k, v in decls.items()}
+
+    if cfg.family == "encdec":
+        tree["enc"] = stack(block("attn"), cfg.enc_layers)
+        tree["dec"] = stack(_cross_decls(cfg), cfg.dec_layers)
+        tree["enc_final_norm"] = Decl((d,), "zeros")
+        return tree
     for pos, kind in unit:
         if kind == "shared_attn":
             # one unstacked set, shared by every occurrence in the unit
             tree["shared_attn"] = block(kind)
         else:
-            tree[pos] = {k: Decl((n_rep,) + v.shape, v.init, v.scale)
-                         for k, v in block(kind).items()}
+            tree[pos] = stack(block(kind), n_rep)
     for pos, kind in tail:
         tree[pos] = block(kind)
     return tree
@@ -332,15 +382,28 @@ def _cache_from_prefill(cfg, kind: str, k: torch.Tensor, v: torch.Tensor, S: int
 
 
 def prefill(params: Params, cfg, tokens: torch.Tensor, max_len: int,
-            *, kv_mode: str = "full"):
+            *, kv_mode: str = "full", frames: torch.Tensor | None = None,
+            patches: torch.Tensor | None = None):
     """Run the whole prompt (B, S); returns (logits (B, S, Vpad), decode
     caches positioned at S).  For ``kv_mode="paged"`` the prompt must be
-    page-aligned (the engine aligns it)."""
+    page-aligned (the engine aligns it).  The VLM family takes ``patches``
+    (B, n_patch_tokens, D), which replace the first ``n_patch_tokens``
+    embedded tokens; the encoder-decoder takes ``frames`` (B, Se, D), the
+    encoder's input, and keeps full caches whatever ``kv_mode`` (as the
+    reference)."""
     if kv_mode not in ("full", "paged"):
         raise ValueError(f"unknown kv_mode {kv_mode!r}")
     unit, n_rep, tail = scan_plan(cfg)
+    if cfg.family == "encdec":
+        if frames is None:
+            raise ValueError(f"{cfg.name}: the enc-dec prefill needs frames")
+        return _encdec_prefill(params, cfg, frames, tokens, max_len)
     B, S = tokens.shape
     x = _embed(params, cfg, tokens)
+    if cfg.family == "vlm":
+        if patches is None:
+            raise ValueError(f"{cfg.name}: the VLM prefill needs patches")
+        x = torch.cat([patches.to(x.dtype), x[:, cfg.n_patch_tokens:]], dim=1)
     kv = {pos: ([], []) for pos, _ in unit}
     for i in range(n_rep):
         for pos, kind in unit:
@@ -363,6 +426,66 @@ def prefill(params: Params, cfg, tokens: torch.Tensor, max_len: int,
     # decode_step
     blocks.update(tail_blocks)
     return logits, {"pos": _position(S, x.device), "blocks": blocks}
+
+
+def _dec_layer(params: Params, i: int) -> Tuple[Params, Params, Params]:
+    """Decoder layer ``i``'s parameters (views): the whole block, its
+    self-attention set and its cross-attention set, each under the
+    attention layer's names."""
+    p = _layer(params, "dec", "dec", i)
+    return (p, {k[5:]: v for k, v in p.items() if k.startswith("self_")},
+            {k[6:]: v for k, v in p.items() if k.startswith("cross_")})
+
+
+def _encdec_prefill(params: Params, cfg, frames: torch.Tensor, tokens: torch.Tensor,
+                    max_len: int):
+    """The reference's ``_encdec_forward`` with its caches: the encoder over
+    ``frames`` plus the sinusoid (non-causal, no RoPE, kernel 6), its final
+    norm; the decoder over the embedded tokens plus the sinusoid, each block
+    causal self-attention (kernel 6), cross-attention over K/V projected
+    from the encoder's output (kernel 6, non-causal, Sq != Skv) and the MLP.
+    Returns the logits and the decode caches: the self K/V zero-padded to
+    ``max_len`` rows and the cross K/V, stacked over the decoder layers."""
+    B, Se, _ = frames.shape
+    Sd = tokens.shape[1]
+    KVH, hd, eps = cfg.n_kv_heads, cfg.head_dim, cfg.norm_eps
+    dev = tokens.device
+    # the sinusoid in f32, cast to the activation dtype before the add (the
+    # reference's order)
+    h = frames + L.sinusoidal_positions(torch.arange(Se, dtype=torch.int32, device=dev)[None],
+                                        cfg.d_model).to(frames.dtype)
+    for i in range(cfg.enc_layers):
+        p = _layer(params, "enc", "enc", i)
+        attn_out, _ = L.attention(p, L.rmsnorm(h, p["ln1"], eps), cfg, causal=False,
+                                  use_rope=False)
+        h = h + attn_out
+        h = h + L.mlp(p, L.rmsnorm(h, p["ln2"], eps), cfg.act)
+    enc_out = L.rmsnorm(h, params["enc_final_norm"], eps)
+    del h
+
+    x = _embed(params, cfg, tokens)
+    x = x + L.sinusoidal_positions(torch.arange(Sd, dtype=torch.int32, device=dev)[None],
+                                   cfg.d_model).to(x.dtype)
+    n = cfg.dec_layers
+    cache = {name: torch.zeros((n, B, rows, cfg.kv_dim), dtype=x.dtype, device=dev)
+             for name, rows in (("k", max_len), ("v", max_len), ("ck", Se), ("cv", Se))}
+    for i in range(n):
+        p, sp, cp = _dec_layer(params, i)
+        self_out, (sk, sv) = L.attention(sp, L.rmsnorm(x, p["ln1"], eps), cfg,
+                                         causal=True, use_rope=False)
+        x = x + self_out
+        ek = (enc_out @ cp["wk"]).reshape(B, Se, KVH, hd)
+        ev = (enc_out @ cp["wv"]).reshape(B, Se, KVH, hd)
+        cross_out, _ = L.attention(cp, L.rmsnorm(x, p["ln2"], eps), cfg, causal=False,
+                                   use_rope=False, kv_override=(ek, ev))
+        x = x + cross_out
+        x = x + L.mlp(p, L.rmsnorm(x, p["ln3"], eps), cfg.act)
+        cache["k"][i, :, :Sd] = sk.reshape(B, Sd, -1)
+        cache["v"][i, :, :Sd] = sv.reshape(B, Sd, -1)
+        cache["ck"][i] = ek.reshape(B, Se, -1)
+        cache["cv"][i] = ev.reshape(B, Se, -1)
+    logits = logits_from_hidden(params, cfg, x)
+    return logits, {"pos": _position(Sd, dev), "blocks": {"dec": cache}}
 
 
 def _position(value: int, device) -> torch.Tensor:
@@ -422,10 +545,17 @@ def pool_from_prefill(cfg, k: torch.Tensor, v: torch.Tensor, S: int):
 def decode_caches(cfg, batch: int, max_len: int, *, kv_mode: str = "full",
                   device="cuda"):
     """Empty decode caches, positioned at 0: unit positions stacked on the
-    ``(n_repeats,)`` axis, tail positions unstacked."""
+    ``(n_repeats,)`` axis, tail positions unstacked; the encoder-decoder's
+    ``dec`` caches (``cross_kv_len`` cross rows) stacked on
+    ``(dec_layers,)``."""
     dev = resolve_device(device)
     unit, n_rep, tail = scan_plan(cfg)
     dtype = torch_dtype(cfg.dtype)
+    if cfg.family == "encdec":  # full caches in every kv_mode, as the reference
+        rows = {"k": max_len, "v": max_len, "ck": cfg.cross_kv_len, "cv": cfg.cross_kv_len}
+        dec = {name: torch.zeros((cfg.dec_layers, batch, n, cfg.kv_dim), dtype=dtype,
+                                 device=dev) for name, n in rows.items()}
+        return {"pos": _position(0, dev), "blocks": {"dec": dec}}
 
     def one(kind, n):
         if kind == "mamba":
@@ -537,8 +667,11 @@ def decode_step(params: Params, cfg, token: torch.Tensor, caches,
 
     ``fused=True`` routes the paged blocks through the fused CUDA policy
     kernel (one call per layer, ``ops.SPLIT_LAUNCHES`` launches); decisions
-    equal the unfused path's."""
+    equal the unfused path's.  The encoder-decoder ignores ``kv_mode`` and
+    ``fused``, as the reference (``_encdec_decode``)."""
     unit, n_rep, tail = scan_plan(cfg)
+    if cfg.family == "encdec":
+        return _encdec_decode(params, cfg, token, caches)
     pos = caches["pos"]
     x = _embed(params, cfg, token)
     win_positions = (paged_kv.ring_positions(pos, cfg.sliding_window)
@@ -557,6 +690,39 @@ def decode_step(params: Params, cfg, token: torch.Tensor, caches,
                                             pos, win_positions, kv_mode, fused)
     logits = logits_from_hidden(params, cfg, x)
     return logits, {"pos": pos + 1, "blocks": new_blocks}
+
+
+def _encdec_decode(params: Params, cfg, token: torch.Tensor, caches):
+    """One whisper decoder step: the token's embedding plus the sinusoid at
+    the device ``pos``; per layer the new K/V row written at ``pos`` of the
+    self cache (in place) and attended over rows ``<= pos``, then
+    cross-attention over every row of ``ck`` / ``cv`` (read only), then the
+    MLP; all plain torch (``decode_attend``), as the reference's jnp."""
+    pos = caches["pos"]
+    B, eps = token.shape[0], cfg.norm_eps
+    x = _embed(params, cfg, token)
+    x = x + L.sinusoidal_positions(pos.reshape(1, 1).expand(B, 1), cfg.d_model).to(x.dtype)
+    dc = caches["blocks"]["dec"]
+    T, Se = dc["k"].shape[2], dc["ck"].shape[2]
+    t = torch.arange(T, dtype=torch.int32, device=x.device)
+    self_pos = torch.where(t <= pos, t, -1)[None].expand(B, T)
+    cross_pos = torch.arange(Se, dtype=torch.int32, device=x.device)[None].expand(B, Se)
+    for i in range(cfg.dec_layers):
+        p, sp, cp = _dec_layer(params, i)
+        c = _layer_cache(dc, i)
+        a = L.rmsnorm(x, p["ln1"], eps)
+        nk, nv = L.decode_kv_row(sp, a, cfg, position=pos, use_rope=False)
+        k, v = paged_kv.full_cache_insert(c["k"], c["v"], nk, nv, pos)
+        self_out, _ = L.decode_attend(sp, a, cfg, position=pos, k_cache=k, v_cache=v,
+                                      kv_positions=self_pos, use_rope=False)
+        x = x + self_out
+        cross_out, _ = L.decode_attend(cp, L.rmsnorm(x, p["ln2"], eps), cfg, position=pos,
+                                       k_cache=c["ck"], v_cache=c["cv"],
+                                       kv_positions=cross_pos, use_rope=False)
+        x = x + cross_out
+        x = x + L.mlp(p, L.rmsnorm(x, p["ln3"], eps), cfg.act)
+    logits = logits_from_hidden(params, cfg, x)
+    return logits, {"pos": pos + 1, "blocks": {"dec": dc}}
 
 
 def _layer_cache(cache, i: int):

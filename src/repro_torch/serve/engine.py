@@ -30,7 +30,7 @@
     feeds the router into it yet (in the reference neither);
   * the decode loop: with ``jit_loop=True`` (the default, as in the
     reference) one decode step, its sampling and the step's counters are
-    captured as one CUDA graph per (batch size, greedy or sampled) key
+    captured as one CUDA graph per (cache shapes, greedy or sampled) key
     (``DecodeGraph``, the counterpart of the reference's ``_get_loop`` /
     ``_build_loop``) and a bucket replays it once per token; on the CPU the
     same runner runs the same step eagerly.  ``jit_loop=False`` is the
@@ -60,6 +60,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import threading
 import time
 from typing import Dict, List, Optional
@@ -126,6 +127,17 @@ def _copy_into(dst, src) -> None:
             _copy_into(a, b)
 
 
+def _tree_shapes(tree) -> tuple:
+    """The shapes of cache tree ``tree``'s tensor leaves, in ``_copy_into``'s
+    order: a decode graph's key.  Every leaf's shape is fixed by the config
+    and the batch size, except the encoder-decoder's ``ck`` / ``cv``, whose
+    rows follow the prompt's length."""
+    if isinstance(tree, torch.Tensor):
+        return (tuple(tree.shape),)
+    leaves = tree.values() if isinstance(tree, dict) else tree
+    return tuple(shape for leaf in leaves for shape in _tree_shapes(leaf))
+
+
 @contextlib.contextmanager
 def _sync_errors(device: torch.device):
     """Run the body with ``torch.cuda.set_sync_debug_mode("error")`` on a
@@ -142,7 +154,7 @@ def _sync_errors(device: torch.device):
 
 
 class DecodeGraph:
-    """One decode step as a CUDA graph for one (batch size, greedy or
+    """One decode step as a CUDA graph for one (cache shapes, greedy or
     sampled) key: the counterpart of the reference's ``_build_loop``, whose
     ``lax.scan`` body is this step.
 
@@ -210,8 +222,18 @@ class DecodeGraph:
         graph = torch.cuda.CUDAGraph()
         if self.generator is not None:
             graph.register_generator_state(self.generator)
-        with torch.cuda.graph(graph, stream=stream):
-            self._body(self.generator)
+        # no garbage collection inside the capture: a collected cycle may hold
+        # a dropped engine's decode graph, whose destruction (the executable
+        # graph's destroy) is not permitted while a stream captures and
+        # invalidates this capture
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, stream=stream):
+                self._body(self.generator)
+        finally:
+            if collecting:
+                gc.enable()
         self.launches = {k: n - warmed[k] for k, n in ops.LAUNCHES.items()
                          if n != warmed[k]}
         ops.LAUNCHES.update(before)
@@ -241,8 +263,9 @@ class DecodeGraph:
 
 def _batch_of(cache) -> int:
     """The batch size of one position's decode cache (stacked or not): a
-    pool, a ``{"k", "v"}`` cache (B, T, kvd) or a ``MambaCache`` (state
-    (B, H, P, N))."""
+    pool, a ``{"k", "v"}`` cache (B, T, kvd) (the encoder-decoder's ``dec``
+    position adds ``ck`` / ``cv``) or a ``MambaCache`` (state (B, H, P,
+    N))."""
     if isinstance(cache, paged_kv.AdaptivePagedPool):
         cache = cache.pool
     if isinstance(cache, paged_kv.PagedPool):
@@ -261,8 +284,8 @@ class ServeEngine:
     cross-request feed, logits that were not finite, the host-clock seconds
     of prefill and decode (each ends in a device synchronize), the
     multi-tenant engine's shed and deferred requests and rebalanced quota
-    lanes, and the decode graphs built (``loop_captures``: one per batch
-    size and sampling mode, the reference's ``compile/decode_loop`` count;
+    lanes, and the decode graphs built (``loop_captures``: one per cache
+    tree's shapes and sampling mode, the reference's ``compile/decode_loop`` count;
     on the CPU the runner is built but nothing is captured; the seconds a
     build took are its ``DecodeGraph.build_s``, not in ``decode_s``).
 
@@ -331,7 +354,7 @@ class ServeEngine:
                       "kv_evictions": 0, "kv_ghost_hits": 0,
                       "nonfinite_logits": 0, "prefill_s": 0.0, "decode_s": 0.0,
                       "shed": 0, "deferred": 0, "rebalances": 0, "loop_captures": 0}
-        #: decode graphs by (batch size, sampled), and the stream they are
+        #: decode graphs by (cache shapes, sampled), and the stream they are
         #: captured on (one per engine, so the split kernels' per-stream
         #: arrival counters are set up once)
         self._graphs: Dict[tuple, DecodeGraph] = {}
@@ -372,11 +395,24 @@ class ServeEngine:
             torch.cuda.synchronize(self.device)
 
     def _prefill(self, prompts: List[List[int]]):
+        """The batch's prefill.  The stub frontends get zeros in the
+        activation dtype, as the reference's ``_batch_prefill`` gives them: a
+        VLM's ``n_patch_tokens`` patch embeddings, an encoder-decoder's
+        ``S // enc_seq_divisor`` frames."""
         tokens = torch.tensor(prompts, dtype=torch.int32, device=self.device)
+        B, S = tokens.shape
+        cfg, stub = self.cfg, {}
+        dtype = M.torch_dtype(cfg.dtype)
+        if cfg.family == "vlm":
+            stub["patches"] = torch.zeros((B, cfg.n_patch_tokens, cfg.d_model),
+                                          dtype=dtype, device=self.device)
+        if cfg.family == "encdec":
+            stub["frames"] = torch.zeros((B, S // cfg.enc_seq_divisor, cfg.d_model),
+                                         dtype=dtype, device=self.device)
         t0 = time.perf_counter()
         with self.spans.span("prefill") as sp:
-            logits, caches = M.prefill(self.params, self.cfg, tokens, self.max_len,
-                                       kv_mode=self.kv_mode)
+            logits, caches = M.prefill(self.params, cfg, tokens, self.max_len,
+                                       kv_mode=self.kv_mode, **stub)
             sp.ready(logits)
             self._sync()
         self.stats["prefill_s"] += time.perf_counter() - t0
@@ -421,10 +457,10 @@ class ServeEngine:
         return tok, caches, evictions, nonfinite
 
     def decode_graph(self, caches, sampled: bool) -> DecodeGraph:
-        """The decode graph of ``caches``' batch size and the sampling mode,
-        built (and on the card captured) at its first use, from ``caches``'
-        shapes."""
-        key = (_batch_of(next(iter(caches["blocks"].values()))), bool(sampled))
+        """The decode graph of ``caches``' shapes (the batch size and, for
+        the encoder-decoder, the cross K/V's rows) and the sampling mode,
+        built (and on the card captured) at its first use."""
+        key = (_tree_shapes(caches), bool(sampled))
         graph = self._graphs.get(key)
         if graph is None:
             with self._lock:

@@ -36,7 +36,9 @@ the reference's weights carried across by ``params_from_jax``.
   after every replay (skipped without a card).
 """
 
+import contextlib
 import dataclasses
+import gc
 
 import numpy as np
 import pytest
@@ -376,6 +378,44 @@ def test_graph_engine_tokens_equal_reference_jit_loop():
 # -- the runner's ownership of its stream and buffers -------------------------
 
 
+def test_capture_runs_with_garbage_collection_off(monkeypatch):
+    """The capture runs with Python's garbage collector off (and the warm-up
+    and the collector's state after it as before): a collection inside a
+    capture may destroy a dropped engine's CUDA graph, which invalidates the
+    capture.  The CUDA calls of ``DecodeGraph._capture`` are faked here, so
+    the step runs eagerly on the CPU."""
+    seen = []
+
+    class Stream:
+        def wait_stream(self, other):
+            pass
+
+    class Graph:
+        def register_generator_state(self, gen):
+            pass
+
+    @contextlib.contextmanager
+    def capture(graph, stream):
+        seen.append(gc.isenabled())
+        yield
+
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: Stream())
+    monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", Graph)
+    monkeypatch.setattr(torch.cuda, "graph", capture)
+    eng = _engine("smollm", "paged", True, "awrp")
+    graph = _loaded_graph(eng, "smollm")
+    assert gc.isenabled()
+    graph._capture(Stream())
+    assert seen == [False] and gc.isenabled() and isinstance(graph.graph, Graph)
+    gc.disable()
+    try:
+        graph._capture(Stream())
+        assert not gc.isenabled()  # a caller's setting is kept
+    finally:
+        gc.enable()
+
+
 def test_graph_per_key_reused_and_disjoint_from_loaded_caches():
     eng = _engine("smollm", "paged", True, "awrp")
     prompts = _prompt("smollm").tolist()
@@ -386,7 +426,9 @@ def test_graph_per_key_reused_and_disjoint_from_loaded_caches():
     assert list(eng._graphs.values()) == [g1] and _ptrs(g1.caches) == tree
     eng.generate([Request(2 + i, p, max_new_tokens=5) for i, p in enumerate(prompts)])
     eng.generate([Request(4, prompts[0][::-1], max_new_tokens=5, temperature=0.5)])
-    assert sorted(eng._graphs) == [(1, False), (1, True), (2, False)]
+    # one graph per (cache shapes: here the batch size, greedy or sampled)
+    assert sorted((g.tok.shape[0], g.generator is not None)
+                  for g in eng._graphs.values()) == [(1, False), (1, True), (2, False)]
     assert eng.stats["loop_captures"] == 3
     assert all(isinstance(g, DecodeGraph) and g.graph is None for g in eng._graphs.values())
     assert eng._capture_stream is None  # nothing is captured on the CPU

@@ -5,7 +5,8 @@
 (``tests/test_kernels.py``): two shapes x {causal, causal with window 48,
 non-causal} x {f32 within 2e-5, bf16 within 3e-2 (the reference's bf16
 tolerance: the two sides round bf16 inputs and outputs at other places)},
-plus a ragged S, the ``kv_len`` mask and fully masked rows; and against the
+plus a ragged S, the ``kv_len`` mask and fully masked rows, whisper's G = 1
+at hd = 64 non-causal at Sq != Skv (cross-attention); and against the
 reference model's chunked layer ``layers.flash_attention``, with a window.
 The decode kernels' shared-memory carves (kernels 3, 4 and 5's one CTA per
 page, kv head and sequence, kernel 5's with its ARC/CAR directory at a page
@@ -80,9 +81,9 @@ def _jax(fn, q, k, v, dtype, **kw):
 @pytest.mark.parametrize("B,S,KVH,G,hd", [(1, 128, 2, 2, 32), (2, 160, 1, 3, 64),
                                           # qwen2.5's and yi's groups (60 and 63
                                           # of the CUDA tile's 64 rows), zamba2's
-                                          # hd = 112
+                                          # hd = 112, internvl2's G = 6
                                           (1, 128, 2, 5, 128), (1, 128, 2, 7, 128),
-                                          (1, 128, 2, 1, 112)])
+                                          (1, 128, 2, 1, 112), (1, 128, 2, 6, 128)])
 def test_flash_attention_matches_reference_kernel(B, S, KVH, G, hd, causal, window,
                                                   dtype):
     q, k, v = _inputs(1, B, S, KVH, G, hd)
@@ -134,6 +135,32 @@ def test_flash_attention_cross_lengths_match_reference_kernel():
         want = _jax(jflash, q, k, v, jnp.float32, causal=causal, window=24,
                     block_q=32, block_k=32, interpret=True)
         np.testing.assert_allclose(got, want, rtol=F32_TOL, atol=F32_TOL)
+
+
+# whisper's shapes at test size: the encoder (non-causal self-attention,
+# G = 1 at hd = 64, a ragged S), the decoder's cross-attention (Sq != Skv,
+# non-causal, the keys' ragged length no tile multiple) both ways round, and
+# causal self-attention at G = 1 / hd = 64
+WHISPER_CASES = [(94, 94, False), (40, 150, False), (150, 40, False), (96, 96, True)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Sq,Skv,causal", WHISPER_CASES,
+                         ids=[f"{a}x{b}-{'causal' if c else 'full'}"
+                              for a, b, c in WHISPER_CASES])
+def test_flash_attention_whisper_shapes_match_reference_kernel(Sq, Skv, causal, dtype):
+    """G = 1, hd = 64 (whisper's 20 heads of 64, each its own KV head), at
+    Sq != Skv without the causal mask: the reference pads both lengths to
+    its tiles and masks the keys with kv_len = Skv; the port takes them as
+    they are."""
+    q, k, v = _inputs(8, 2, Sq, 3, 1, 64, Skv=Skv)
+    got = _port(q, k, v, dtype, causal=causal, window=0)
+    tol = BF16_TOL if dtype == "bfloat16" else F32_TOL
+    want = _jax(jops.flash_attention, q, k, v, dtype, causal=causal, window=0,
+                block_q=32, block_k=32, interpret=True)
+    oracle = _jax(jref.ref_flash_attention, q, k, v, dtype, causal=causal, window=0)
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+    np.testing.assert_allclose(got, oracle, rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 48), (False, 0),
@@ -197,46 +224,82 @@ def test_cpu_flash_attention_takes_plain_version_and_cuda_wrapper_refuses_cpu():
 GATE_RTOL, GATE_ATOL = 2.0 ** -7, 1e-6
 
 
-def _tensor_core_pv(q, k, v, *, split: bool):
-    """Kernel 6's bf16 numerics emulated in torch, causal: f32 scores and
-    softmax, l summed from the f32 p, then P.V as the tensor cores take it,
-    p in bf16 (bf16 x bf16 products are exact in f32, summed in f32): p
-    rounded once, or with ``split`` as hi = bf16(p) plus lo = bf16(p - hi);
-    out rounded to bf16."""
+def _bf16_parts(p, parts: int):
+    """``p`` (f32) as ``parts`` bf16 values (in f32), each the bf16 of what
+    the earlier ones leave (every difference exact in f32)."""
+    out, rest = [], p
+    for _ in range(parts):
+        out.append(rest.to(torch.bfloat16).float())
+        rest = rest - out[-1]
+    return out
+
+
+def _causal_p(q, k):
+    """Kernel 6's f32 scores and softmax numerators, causal: (p, l)."""
     S, hd = q.shape[1], q.shape[-1]
     s = torch.einsum("bqkgh,bckh->bkgqc", q.float(), k.float()) * ref.attn_scale(hd)
     pos = torch.arange(S)
     mask = pos[None, :] <= pos[:, None]
     s = torch.where(mask, s, ref.NEG_INF)
     p = torch.where(mask, torch.exp(s - s.amax(dim=-1, keepdim=True)), 0.0)
-    l = torch.clamp(p.sum(dim=-1), min=1e-30)
-    hi = p.to(torch.bfloat16).float()
-    pv = torch.einsum("bkgqc,bckh->bqkgh", hi, v.float())
-    if split:
-        lo = (p - hi).to(torch.bfloat16).float()
-        pv = pv + torch.einsum("bkgqc,bckh->bqkgh", lo, v.float())
+    return p, torch.clamp(p.sum(dim=-1), min=1e-30)
+
+
+def _tensor_core_pv(q, k, v, *, parts: int):
+    """Kernel 6's bf16 numerics emulated in torch, causal: f32 scores and
+    softmax, l summed from the f32 p, then P.V as the tensor cores take it,
+    p in ``parts`` bf16 pieces (bf16 x bf16 products are exact in f32, summed
+    in f32): rounded once, hi + lo, or hi + mid + lo as the kernel runs it;
+    out rounded to bf16."""
+    p, l = _causal_p(q, k)
+    pv = sum(torch.einsum("bkgqc,bckh->bqkgh", piece, v.float())
+             for piece in _bf16_parts(p, parts))
     return (pv / l.permute(0, 3, 1, 2)[..., None]).to(torch.bfloat16)
+
+
+def _draw_bf16(shape_q, shape_kv, seed):
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.standard_normal(shape_q).astype(np.float32))
+    k, v = (torch.from_numpy((rng.standard_normal(shape_kv) * 0.5).astype(np.float32))
+            for _ in range(2))
+    return tuple(x.to(torch.bfloat16) for x in (q, k, v))
 
 
 @pytest.mark.parametrize("B,S,KVH,G,hd", [(1, 128, 2, 2, 64), (1, 256, 2, 2, 128)])
 def test_bf16_kernel_needs_p_split_into_hi_and_lo(B, S, KVH, G, hd):
-    """Why kernel 6's bf16 path runs P.V as two tensor-core products: with
-    p rounded once to bf16 the output misses the card's one-ulp gate against
-    the plain version by two orders of magnitude (outputs near 0 lose all
-    their bits); with p split into hi + lo it stays within the gate.  Inputs
-    drawn as ``chip_smoke.py`` draws them (q ~ N(0, 1), k, v ~ 0.5 N(0, 1))."""
-    rng = np.random.default_rng(12)
-    q = torch.from_numpy(rng.standard_normal((B, S, KVH, G, hd)).astype(np.float32))
-    k, v = (torch.from_numpy((rng.standard_normal((B, S, KVH, hd)) * 0.5).astype(np.float32))
-            for _ in range(2))
-    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    """Why kernel 6's bf16 path runs P.V as several tensor-core products:
+    with p rounded once to bf16 the output misses the card's one-ulp gate
+    against the plain version by two orders of magnitude (outputs near 0
+    lose all their bits); with p split into hi + mid + lo, as the kernel
+    splits it, it stays within the gate.  Inputs drawn as ``chip_smoke.py``
+    draws them (q ~ N(0, 1), k, v ~ 0.5 N(0, 1))."""
+    q, k, v = _draw_bf16((B, S, KVH, G, hd), (B, S, KVH, hd), 12)
     plain = ref.flash_attention_plain(q, k, v, causal=True).float()
 
     def over_gate(out):
         return ((out.float() - plain).abs() / (GATE_RTOL * plain.abs() + GATE_ATOL)).max().item()
 
-    assert over_gate(_tensor_core_pv(q, k, v, split=False)) > 10.0
-    assert over_gate(_tensor_core_pv(q, k, v, split=True)) <= 1.0
+    assert over_gate(_tensor_core_pv(q, k, v, parts=1)) > 10.0
+    assert over_gate(_tensor_core_pv(q, k, v, parts=3)) <= 1.0
+
+
+def test_two_bf16_parts_of_p_miss_the_gate_floor_and_three_do_not():
+    """hi + lo keeps 16 of p's 24 bits: summed exactly (float64), P.V / l
+    with p in two parts is off the same sum over the f32 p by more than the
+    gate's floor (1e-6, the room an output near 0 has), where hi + mid + lo
+    is p itself.  Causal (1, 1024, 1, 4, 128), drawn as ``chip_smoke.py``
+    draws it: the early rows average few keys, so the parts' rounding
+    errors do not cancel."""
+    q, k, v = _draw_bf16((1, 1024, 1, 4, 128), (1, 1024, 1, 128), 1)
+    p, l = _causal_p(q, k)
+
+    def err(pieces):
+        pv = torch.einsum("bkgqc,bckh->bkgqh", sum(x.double() for x in pieces), v.double())
+        exact = torch.einsum("bkgqc,bckh->bkgqh", p.double(), v.double())
+        return ((pv - exact) / l.double()[..., None]).abs().max().item()
+
+    assert err(_bf16_parts(p, 2)) > GATE_ATOL
+    assert err(_bf16_parts(p, 3)) == 0.0
 
 
 MAX_SMEM = 232448  # kMaxSmem: 227 KB, a block's shared-memory limit on Hopper

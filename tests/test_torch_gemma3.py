@@ -100,8 +100,11 @@ def test_params_from_jax_carries_tree_and_refuses_missing_or_extra_position(mode
 
 
 def test_unsupported_blocks_are_refused():
+    # the enc-dec family with a local/global pattern (its blocks are dense
+    # whatever the pattern) and a VLM without patch positions stay refused
     for change in (dict(pattern=("local", "mamba")), dict(family="moe", n_experts=4),
-                   dict(family="encdec"), dict(family="vlm"),
+                   dict(family="encdec", enc_layers=2, dec_layers=2),
+                   dict(family="vlm", n_patch_tokens=0),
                    dict(sliding_window=0)):
         cfg = dataclasses.replace(gemma3_27b.SMOKE_CONFIG, **change)
         with pytest.raises(NotImplementedError, match="ported"):

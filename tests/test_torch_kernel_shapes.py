@@ -1,9 +1,9 @@
-"""Kernels 3-5 at the head groups and head dim of the QKV-bias and Mamba-2
-families, on the CPU: their plain PyTorch versions against the JAX
+"""Kernels 3-5 at the head groups and head dim of the QKV-bias, Mamba-2 and
+VLM families, on the CPU: their plain PyTorch versions against the JAX
 reference kernels (``repro.kernels.ops`` in Pallas interpret mode) at
 zamba2's shared attention (G = 1, hd = 112: the fold's second 64-dim slice
-is partial, 48 dims), qwen2.5's (G = 5, hd = 128) and yi's (G = 7, hd =
-128), in float32 within RTOL/ATOL; planes bitwise except at a step whose
+is partial, 48 dims), qwen2.5's (G = 5, hd = 128), yi's (G = 7, hd = 128)
+and internvl2's (G = 6, hd = 128), in float32 within RTOL/ATOL; planes bitwise except at a step whose
 JAX mass lies within EPS_TAU of tau (counted).  Kernel 6 at these shapes
 is one more input of ``tests/test_torch_flash.py``'s reference test.
 
@@ -26,8 +26,8 @@ from repro_torch.kernels import ops, ref  # noqa: E402
 
 torch.set_num_threads(2)
 
-#: (G, hd) of zamba2's shared attention, qwen2.5 and yi
-GROUPS = [(1, 112), (5, 128), (7, 128)]
+#: (G, hd) of zamba2's shared attention, qwen2.5, yi and internvl2
+GROUPS = [(1, 112), (5, 128), (7, 128), (6, 128)]
 B, P, PAGE, KVH = 2, 3, 4, 2
 RTOL = ATOL = 2e-5
 EPS_TAU = 1e-5

@@ -139,7 +139,9 @@ def test_moe_config_checks():
     base = phi35_moe.SMOKE_CONFIG
     TM.param_decls(base)
     for change in (dict(family="dense"), dict(top_k=3), dict(top_k=0),
-                   dict(family="encdec"), dict(pattern=("moe", "mamba"), n_repeats=1)):
+                   # the enc-dec family with experts (its blocks are dense)
+                   dict(family="encdec", enc_layers=2, dec_layers=2),
+                   dict(pattern=("moe", "mamba"), n_repeats=1)):
         with pytest.raises(NotImplementedError, match="ported"):
             TM.param_decls(dataclasses.replace(base, **change))
 
