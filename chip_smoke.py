@@ -64,8 +64,38 @@ side:
    launches; kernel, plain and SDPA times (same mask; SDPA without a mask
    where every key is attended) beside the bound over the unmasked (query
    head, key) pairs; the HMMA instructions of each bf16 instantiation in
-   the built library (``cuobjdump -sass``).  Then ``flash_gate_draws``:
+   the built library (``cuobjdump -sass``); every row also with the rows'
+   log-sum-exp on (``return_lse``): ``out`` bit for bit the same, lse within
+   LSE_RTOL/ATOL of the plain version's.  Then ``flash_gate_draws``:
    every row's gate again at FLASH_DRAWS further draws of its inputs.
+3b. ``flash_bwd``: the backward kernel (``csrc/flash_attn_bwd.cu``: the
+   preprocess, dK/dV and dQ launches) against its plain version at
+   smollm's training microbatch (4, 4096, 5, 3, 64) causal, gemma3's (1,
+   4096, 16, 2, 128) with window 1024 and 0, zamba2's (1, 2048, 32, 1, 112),
+   an f32 ragged (1, 1000, 4, 2, 64) with window 48 and an f32 non-causal
+   (2, 300, 4, 3, 128): the plain version takes the kernel's own out and
+   lse; bf16 dq / dk / dv within BWD_REL_L2 relative L2 of the plain f32
+   result, f32 elementwise within BWD_F32_RTOL * max|plain| + BWD_F32_ATOL,
+   lse within LSE_RTOL/ATOL, ``out`` bit for bit with lse on and off, the
+   gradients bit for bit over 6 launches; kernel, plain and SDPA-backward
+   times beside the bound (10 * hd flops per unmasked pair, or the bytes);
+   kernel 6 with lse off and on at smollm's training shape.
+3c. ``train``: smollm-360m at published widths (32 layers, d 960, vocab
+   49152; bf16 parameters, f32 master and Adam states, remat full, 2
+   microbatches) trained at train_4k's 4096 tokens, its global batch cut
+   from 256 to 8, on ``SyntheticLM`` seed 0 with the launcher's
+   ``OptConfig``: a warm-up step and 4 timed steps (the last profiled), each
+   with its wall and event ms, tokens/s, peak GB and launches (kernel 6:
+   layers x microbatches x 2, the forward and remat's recompute; the
+   backward: layers x microbatches; no plain attention), losses and grad
+   norms finite, the parameters changing every step, beside the step's
+   flop bound (the function's flops; remat's recompute reported apart);
+   then smollm's SMOKE_CONFIG (hd 64) in f32: 3 steps on the card
+   against the same 3 on the CPU (TRAIN_CPU_RTOL), two card runs bit for
+   bit, ``run_resilient`` with a failure injected at step 4 bit for bit
+   equal to an uninterrupted run, and a checkpoint round trip of the card's
+   trained state, its parameters cast to bf16, bit for
+   bit.
 4. ``serve``: ``ServeEngine`` on smollm-360m at published widths, bf16,
    paged KV with AWRP through the fused kernel (kernel 4: two launches per
    layer per decode step, ``ops.SPLIT_LAUNCHES``), 4 requests of 1024 seeded
@@ -251,6 +281,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -298,6 +329,16 @@ MASS_ATOL = 1e-7
 F32_OUT_RTOL = 1e-4
 F32_OUT_ATOL = 1e-5
 EPS_TAU = 1e-5  # a plain mass this close to tau may flip a decision
+# the backward's gates: bf16 gradients (f32 sums of bf16 inputs, rounded
+# once) within this relative L2 of the plain f32 result; f32 gradients
+# elementwise within BWD_F32_RTOL * max|plain| + BWD_F32_ATOL (summation
+# order over up to 4096 rows); the forward's lse within LSE_RTOL * |plain| +
+# LSE_ATOL (m + log(l) in f32 against one softmax)
+BWD_REL_L2 = 2.0 ** -6
+BWD_F32_RTOL = 1e-4
+BWD_F32_ATOL = 1e-5
+LSE_RTOL = 1e-5
+LSE_ATOL = 1e-6
 # MoE gates (f32, K choices normalised): ``exp`` rounds differently on the
 # card and the CPU, a few f32 ulps of the gate
 MOE_GATE_RTOL = 2.0 ** -20
@@ -310,7 +351,15 @@ MOE_ROW_TOL = 2.0 ** -5
 SEED = 0
 
 
+#: the script's start, for each phase line's ``t_s``
+T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """Print ``obj`` as one JSON line; a phase line also gets ``t_s``, the
+    seconds since the script started."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -780,7 +829,12 @@ def phase_flash_attn(dev) -> dict:
         kl = Skv if kv_len is None else kv_len
         kw = {"causal": causal, "window": window, "kv_len": kl}
         out = flash_attention_kernel(q, k, v, **kw)
-        plain = ref.flash_attention_plain(q, k, v, **kw)
+        out_lse, lse = flash_attention_kernel(q, k, v, **kw, return_lse=True)
+        assert torch.equal(out, out_lse), (label, "out changed with lse on")
+        plain, plain_lse = ref.flash_attention_plain(q, k, v, **kw, return_lse=True)
+        lse_over = excess(lse, plain_lse, LSE_RTOL, LSE_ATOL)
+        assert torch.isfinite(lse).all() and lse_over <= 1.0, (label, lse_over)
+        del out_lse, lse, plain_lse
         err, over, tol = flash_gate(out, plain, label, dtype)
         pairs = attended_pairs(S, Skv, causal, window, kl)
         flops = 4 * hd * pairs * B * KVH * G
@@ -792,6 +846,7 @@ def phase_flash_attn(dev) -> dict:
             "label": label, "shape": [B, S, KVH, G, hd], "kv_seq": Skv, "causal": causal,
             "window": window, "kv_len": kl, "dtype": str(dtype).split(".")[-1],
             "max_abs_err": err, "err_over_tol": over, "tol": tol,
+            "out_equal_lse_on_off": True, "lse_err_over_tol": lse_over,
             "mean_abs_out": plain.float().abs().mean().item(),
             "repeat_launches_equal": assert_repeatable(
                 lambda: (flash_attention_kernel(q, k, v, **kw),)),
@@ -805,6 +860,424 @@ def phase_flash_attn(dev) -> dict:
         del q, k, v, out, plain
     torch.cuda.empty_cache()
     res["seconds"] = time.perf_counter() - t0
+    emit(res)
+    return res
+
+
+#: (label, (B, S, KVH, G, hd), causal, window, dtype): the backward kernel's
+#: rows, self-attention with every key valid (the training path's case)
+FLASH_BWD_CASES = [
+    ("smollm_train", (4, 4096, 5, 3, 64), True, 0, torch.bfloat16),
+    ("gemma3_local_train", (1, 4096, 16, 2, 128), True, 1024, torch.bfloat16),
+    ("gemma3_global_train", (1, 4096, 16, 2, 128), True, 0, torch.bfloat16),
+    ("zamba2_train", (1, 2048, 32, 1, 112), True, 0, torch.bfloat16),
+    ("ragged_f32_window48", (1, 1000, 4, 2, 64), True, 48, torch.float32),
+    ("non_causal_f32", (2, 300, 4, 3, 128), False, 0, torch.float32),
+]
+
+
+def rel_l2(got, want) -> float:
+    g, w = got.float(), want.float()
+    return (torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w)).item()
+
+
+def sdpa_bwd_ms(q, k, v, dout, causal: bool, window: int) -> float:
+    """The backward alone of one PyTorch call computing the same attention
+    (``scaled_dot_product_attention`` in the (B, H, S, hd) layout, GQA,
+    causal or the window's mask), through ``torch.autograd.grad`` on a
+    retained graph (the yardstick; the port never calls it)."""
+    import torch.nn.functional as F
+
+    B, S, KVH, G, hd = q.shape
+    qq = q.reshape(B, S, KVH * G, hd).transpose(1, 2).contiguous().requires_grad_(True)
+    kk = k.transpose(1, 2).contiguous().requires_grad_(True)
+    vv = v.transpose(1, 2).contiguous().requires_grad_(True)
+    gg = dout.reshape(B, S, KVH * G, hd).transpose(1, 2).contiguous()
+    if window:
+        i = torch.arange(S, device=q.device)[:, None]
+        j = torch.arange(S, device=q.device)[None, :]
+        mask = i - j < window
+        if causal:
+            mask = mask & (j <= i)
+        out = F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask, enable_gqa=True)
+    else:
+        out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=causal, enable_gqa=True)
+    ms = time_ms(lambda: torch.autograd.grad(out, (qq, kk, vv), gg, retain_graph=True))
+    del out
+    return ms
+
+
+def phase_flash_bwd(dev) -> dict:
+    """The backward kernel (``csrc/flash_attn_bwd.cu``) against its plain
+    version on FLASH_BWD_CASES: the forward's ``out`` bit for bit with lse on
+    and off, its lse within LSE_RTOL/ATOL of the plain forward's, then
+    dq / dk / dv from the kernel's own out and lse against the plain
+    backward in f32 from the same out and lse (bf16 within BWD_REL_L2
+    relative L2 each, f32 elementwise within BWD_F32_RTOL * max|plain| +
+    BWD_F32_ATOL), repeated bit for bit over 6 launches; timed (kernel,
+    plain, SDPA's backward) beside the bound: 10 * hd flops per unmasked
+    (query head, key) pair at the type's peak, or q, k, v, out, dout and
+    lse read and dq, dk, dv written once at the HBM rate.  At smollm's
+    training shape the forward is timed with lse off and on."""
+    from repro_torch.kernels.flash_attn import (flash_attention_backward_kernel,
+                                                flash_attention_kernel)
+
+    t0 = time.perf_counter()
+    res = {"phase": "flash_bwd", "card": smi(), "cases": []}
+    for label, (B, S, KVH, G, hd), causal, window, dtype in FLASH_BWD_CASES:
+        q, k, v = flash_inputs(label, (B, S, KVH, G, hd), S, dtype, dev)
+        gen = torch.Generator().manual_seed(SEED + zlib.crc32(f"{label}/dout".encode()))
+        dout = torch.randn(B, S, KVH, G, hd, generator=gen).to(dtype).to(dev)
+        kw = {"causal": causal, "window": window}
+        out_off = flash_attention_kernel(q, k, v, **kw)
+        out, lse = flash_attention_kernel(q, k, v, **kw, return_lse=True)
+        out_equal = torch.equal(out_off, out)
+        assert out_equal, (label, "out changed with lse on")
+        del out_off
+        _, plain_lse = ref.flash_attention_plain(q, k, v, **kw, return_lse=True)
+        lse_over = excess(lse, plain_lse, LSE_RTOL, LSE_ATOL)
+        assert torch.isfinite(lse).all() and lse_over <= 1.0, (label, lse_over)
+        del plain_lse
+        grads = flash_attention_backward_kernel(q, k, v, out, lse, dout, **kw)
+        f32 = [t.float() for t in (q, k, v, out)]
+        plain = ref.flash_attention_backward_plain(*f32, lse, dout.float(), **kw)
+        del f32
+        row = {"label": label, "shape": [B, S, KVH, G, hd], "causal": causal,
+               "window": window, "dtype": str(dtype).split(".")[-1],
+               "out_equal_lse_on_off": out_equal, "lse_err_over_tol": lse_over,
+               "lse_tol": [LSE_RTOL, LSE_ATOL]}
+        errs = []
+        for name, g, p in zip(("dq", "dk", "dv"), grads, plain):
+            assert torch.isfinite(g.float()).all(), (label, name)
+            err = (g.float() - p).abs().max().item()
+            errs.append(err)
+            if dtype == torch.bfloat16:
+                r = rel_l2(g, p)
+                row[f"{name}_rel_l2"] = r
+                assert r <= BWD_REL_L2, (label, name, r)
+            else:
+                tol = BWD_F32_RTOL * p.abs().max().item() + BWD_F32_ATOL
+                row[f"{name}_err_over_tol"] = err / tol
+                assert err <= tol, (label, name, err, tol)
+        row["max_abs_err"] = max(errs)
+        row["gate"] = ({"rel_l2": BWD_REL_L2} if dtype == torch.bfloat16
+                       else {"rtol_of_max": BWD_F32_RTOL, "atol": BWD_F32_ATOL})
+        del plain
+        run = lambda: flash_attention_backward_kernel(q, k, v, out, lse, dout, **kw)  # noqa: E731
+        row["repeat_launches_equal"] = assert_repeatable(run)
+        pairs = attended_pairs(S, S, causal, window, S)
+        flops = 10 * hd * pairs * B * KVH * G
+        nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + 4 * lse.numel()
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / (BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS) * 1e3
+        ms = time_ms(run)
+        f32_in = [t.float() for t in (q, k, v, out)] + [lse, dout.float()]
+        row.update({
+            "pairs_per_head": pairs, "flops": flops, "ms": ms,
+            "achieved_tflops": flops / ms / 1e9,
+            "plain_ms": time_ms(lambda: ref.flash_attention_backward_plain(*f32_in, **kw),
+                                reps=3, warmup=1),
+            "library_ms": sdpa_bwd_ms(q, k, v, dout, causal, window),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+        del f32_in
+        if label == "smollm_train":  # kernel 6 at the training shape, lse off and on
+            row["fwd_ms"] = time_ms(lambda: flash_attention_kernel(q, k, v, **kw))
+            row["fwd_lse_ms"] = time_ms(lambda: flash_attention_kernel(
+                q, k, v, **kw, return_lse=True))
+            row["fwd_plain_ms"] = time_ms(lambda: ref.flash_attention_plain(
+                q, k, v, **kw, return_lse=True), reps=3, warmup=1)
+            row["fwd_library_ms"] = sdpa_flash_ms(q, k, v, causal, window, S)
+        res["cases"].append(row)
+        del q, k, v, dout, out, lse, grads, run
+        torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    emit(res)
+    return res
+
+
+#: the train phase's global batch: train_4k's 256 sequences of 4096 cut to 8
+#: (its f32 logits alone would be ~100 GB a microbatch on one card)
+TRAIN_BATCH = 8
+TRAIN_TIMED_STEPS = 4  # after one warm-up step; the last one profiled
+#: smollm's SMOKE_CONFIG in float32 for the card-vs-CPU, repeatability,
+#: resilient-loop and checkpoint checks, at hd 64: its hd 32 is not an
+#: instantiation of kernel 6 (64, 112, 128, 256)
+TRAIN_SMOKE_BATCH, TRAIN_SMOKE_SEQ = 8, 256
+TRAIN_CPU_RTOL = 1e-4  # card vs CPU: loss and grad norm per step, final params (rel L2)
+
+
+def train_flops(cfg, n_params: int, batch: int, seq: int) -> tuple[float, float]:
+    """Operations of one train step, as (the function's, remat's recompute).
+    The function: 2 flops per parameter per token in the forward and 4 in
+    the backward; attention 4 * hd per unmasked (query head, key) pair in
+    the forward and 10 * hd in the backward.  With ``remat="full"`` the
+    forward runs again in the backward: 2 per parameter per token and 4 * hd
+    a pair more, which the step's bound leaves out."""
+    pair_hd = 0
+    for kind in cfg.layer_pattern:
+        window = cfg.sliding_window if kind == "local" else 0
+        pair_hd += batch * cfg.n_heads * attended_pairs(seq, seq, True, window, seq) * cfg.head_dim
+    fwd = 2 * n_params * batch * seq + 4 * pair_hd
+    need = 3 * fwd + 2 * pair_hd
+    return float(need), float(fwd if cfg.remat == "full" else 0)
+
+
+def _smoke_train_cfg():
+    from repro_torch.configs.smollm_360m import SMOKE_CONFIG
+
+    return dataclasses.replace(SMOKE_CONFIG, head_dim=64, dtype="float32",
+                               param_dtype="float32")
+
+
+def _train_setup(cfg, batch: int, seq: int, steps: int):
+    """The launcher's ``OptConfig`` for ``steps``, the microbatched train step
+    and ``SyntheticLM`` seed 0 at ``batch`` x ``seq``: (oc, step, data)."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.train import default_opt_config
+    from repro_torch.train.train_step import effective_microbatches, make_train_step
+
+    oc = default_opt_config(cfg, steps)
+    step = make_train_step(cfg, oc, effective_microbatches(cfg, batch, 1))
+    return oc, step, SyntheticLM(cfg.vocab, batch, seq, seed=0)
+
+
+def _train_run(cfg, params, dev, steps: int) -> dict:
+    """``steps`` of ``make_train_step`` from ``params`` (moved to ``dev``) on
+    ``SyntheticLM`` seed 0: per-step loss and grad norm, final params."""
+    from repro_torch.launch.train import batch_to
+    from repro_torch.optim import optimizer as O
+
+    oc, step, data = _train_setup(cfg, TRAIN_SMOKE_BATCH, TRAIN_SMOKE_SEQ, steps)
+    params = O.tree_map(lambda t: t.to(dev, copy=True), params)
+    opt = O.init_opt_state(params, oc)
+    losses, gnorms = [], []
+    for _ in range(steps):
+        params, opt, m = step(params, opt, batch_to(next(data), dev))
+        losses.append(m["loss"].item())
+        gnorms.append(m["grad_norm"].item())
+    return {"loss": losses, "grad_norm": gnorms, "params": params, "opt": opt}
+
+
+def _leaves_equal(a, b) -> bool:
+    from repro_torch.optim import optimizer as O
+
+    la, lb = O.tree_leaves(a), O.tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y.to(x.device))
+        for x, y in zip(la, lb))
+
+
+def _resilient_pair(cfg, params0, dev, root: Path) -> dict:
+    """``run_resilient`` over 8 smoke steps with one injected failure at step
+    4 and a checkpoint every 3, against an uninterrupted run: restarts,
+    final params and loss."""
+    from repro_torch.launch.train import batch_to
+    from repro_torch.optim import optimizer as O
+    from repro_torch.train import fault_tolerance as FT
+
+    steps = 8
+
+    def run(name, **kw):
+        oc, step, data = _train_setup(cfg, TRAIN_SMOKE_BATCH, TRAIN_SMOKE_SEQ, steps)
+        last = {}
+
+        def init_fn():
+            p = O.tree_map(lambda t: t.to(dev, copy=True), params0)
+            return p, O.init_opt_state(p, oc)
+
+        def step_fn(p, o, b):
+            last["params"], last["opt"], m = step(p, o, batch_to(b, dev))
+            return last["params"], last["opt"], m
+
+        report = FT.run_resilient(
+            ckpt_dir=str(root / name), total_steps=steps, init_fn=init_fn, step_fn=step_fn,
+            data_iter=data, **kw)
+        return report, last
+
+    r1, last1 = run("uninterrupted", ckpt_every=100)
+    r2, last2 = run("failed_at_4", ckpt_every=3, injector=FT.FailureInjector(fail_at=[4]))
+    res = {"steps": steps, "fail_at": [4], "ckpt_every": 3, "restarts": r2.restarts,
+           "steps_done": [r1.steps_done, r2.steps_done],
+           "loss": [r1.final_metrics["loss"], r2.final_metrics["loss"]],
+           "params_equal_bitwise": _leaves_equal(last1["params"], last2["params"]),
+           "opt_equal_bitwise": _leaves_equal(last1["opt"], last2["opt"])}
+    assert r1.restarts == 0 and r2.restarts == 1, res
+    assert r1.steps_done == r2.steps_done == steps, res
+    assert res["params_equal_bitwise"] and res["opt_equal_bitwise"], res
+    assert r1.final_metrics["loss"] == r2.final_metrics["loss"], res
+    return res
+
+
+def _checkpoint_roundtrip(params, opt, root: Path) -> dict:
+    """``save`` / ``restore`` of a trained SMOKE state with its parameters
+    cast to bf16: every leaf back bit for bit, in its dtype, on its device."""
+    from repro_torch.optim import optimizer as O
+    from repro_torch.train import checkpoint as C
+
+    params = O.tree_map(lambda t: t.to(torch.bfloat16), params)
+    dev = O.tree_leaves(params)[0].device
+    d = str(root / "roundtrip")
+    C.save(d, 3, params, opt, data_state={"step": 3, "epoch": 0})
+    p2, o2, ds, _ = C.restore(d, C.latest_step(d), params, opt)
+    res = {"latest_step": C.latest_step(d), "data_state": ds,
+           "params_equal_bitwise": _leaves_equal(params, p2),
+           "opt_equal_bitwise": _leaves_equal(opt, o2),
+           "param_dtypes": sorted({str(t.dtype) for t in O.tree_leaves(p2)}),
+           "on_device": all(t.device.type == dev.type for t in O.tree_leaves((p2, o2)))}
+    assert res["params_equal_bitwise"] and res["opt_equal_bitwise"] and res["on_device"], res
+    assert "torch.bfloat16" in res["param_dtypes"], res
+    return res
+
+
+def phase_train(dev, cfg=CONFIG, batch: int = TRAIN_BATCH,
+                timed_steps: int = TRAIN_TIMED_STEPS) -> dict:
+    """The training path end to end.  (a) ``cfg`` (smollm-360m at its
+    published width: 32 layers, d 960, vocab 49152, bf16 parameters, f32
+    master and Adam states, remat full, 2 microbatches) at train_4k's 4096
+    tokens, global batch cut to ``batch``, ``SyntheticLM`` seed 0, the
+    launcher's ``OptConfig``: one warm-up step and ``timed_steps`` timed
+    (the last under ``torch.profiler``), each step's wall ms, CUDA-event ms,
+    tokens/s, peak GB and kernel 6 / backward launches (gated at the counts
+    reckoned from the config), every loss and grad norm finite, the
+    parameters changing at every step, beside the step's flop bound.
+    (b) the SMOKE config in f32 for 3 steps on the card against the same
+    steps on the CPU; (c) two card runs bit-identical; (d) the resilient
+    loop with a failure injected at step 4 equal bit for bit to an
+    uninterrupted run; (e) a bf16 checkpoint round trip bit-exact."""
+    import tempfile
+
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch.train import batch_to
+    from repro_torch.models import model as M
+    from repro_torch.optim import optimizer as O
+    from repro_torch.train.train_step import effective_microbatches
+
+    t_phase = time.perf_counter()
+    seq = SHAPES["train_4k"].seq_len
+    steps = timed_steps + 1
+    oc, step, data = _train_setup(cfg, batch, seq, steps)
+    n_micro = effective_microbatches(cfg, batch, 1)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    opt = O.init_opt_state(params, oc)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in O.tree_leaves(params))
+    flops, remat_flops = train_flops(cfg, n_params, batch, seq)
+    n_attn = sum(1 for kind in cfg.layer_pattern if kind != "mamba")
+    expect = {"flash_attention": n_attn * n_micro * (2 if cfg.remat == "full" else 1),
+              "flash_attention_bwd": n_attn * n_micro}
+    res = {"phase": "train", "card": smi(), "config": cfg.name,
+           "reduced": {"global_batch": [SHAPES["train_4k"].global_batch, batch]},
+           "seq": seq, "n_micro": n_micro, "remat": cfg.remat, "n_params": n_params,
+           "param_dtype": cfg.param_dtype, "adam_dtype": cfg.adam_dtype,
+           "opt_master": cfg.opt_master, "init_s": init_s,
+           "step_flops": flops, "step_bound_ms": flops / BF16_FLOPS * 1e3,
+           "remat_recompute_flops": remat_flops,
+           "launches_per_step_expected": expect, "steps": []}
+    ops.reset_launches()
+    for i in range(steps):
+        b = batch_to(next(data), dev)
+        before = [t.clone() for t in O.tree_leaves(params)]
+        before_master = [t.clone() for t in O.tree_leaves(opt.master)]
+        launched = {k: ops.LAUNCHES[k] for k in expect}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        profiled = i == steps - 1
+        prof = None
+        if profiled:
+            from torch.profiler import ProfilerActivity, profile
+
+            prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            prof.__enter__()
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        ev0.record()
+        params, opt, metrics = step(params, opt, b)
+        ev1.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if prof is not None:
+            prof.__exit__(None, None, None)
+        row = {"step": i + 1, "warm_up": i == 0, "profiled": profiled,
+               "wall_ms": wall * 1e3, "event_ms": ev0.elapsed_time(ev1),
+               "tokens_per_s": batch * seq / wall,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "loss": metrics["loss"].item(), "grad_norm": metrics["grad_norm"].item(),
+               "lr": metrics["lr"].item(),
+               "launches": {k: ops.LAUNCHES[k] - launched[k] for k in expect},
+               "leaves_changed": sum(not torch.equal(a, c) for a, c in
+                                     zip(before, O.tree_leaves(params))),
+               "master_leaves_changed": sum(not torch.equal(a, c) for a, c in
+                                            zip(before_master, O.tree_leaves(opt.master)))}
+        del before, before_master, b
+        n_leaves = len(O.tree_leaves(params))
+        if prof is not None:
+            from torch.autograd import DeviceType
+
+            kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+            if kern:
+                busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+                by_name: dict = {}
+                for e in kern:
+                    by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+                bwd = sum(ms for n, ms in by_name.items() if "flash_bwd" in n)
+                fwd = sum(ms for n, ms in by_name.items() if "flash_attention" in n)
+                row.update({"device_ms": busy, "device_busy_share": busy / row["wall_ms"],
+                            "kernels": len(kern), "flash_bwd_ms": bwd,
+                            "flash_fwd_ms": fwd,
+                            "top_kernels_ms": [[n[:80], ms] for n, ms in sorted(
+                                by_name.items(), key=lambda kv: -kv[1])[:8]]})
+            else:
+                row["device_ms"] = "not measured"
+            del prof
+        assert math.isfinite(row["loss"]) and math.isfinite(row["grad_norm"]), row
+        assert row["launches"] == expect, (row["launches"], expect)
+        assert row["leaves_changed"] >= 1 and row["master_leaves_changed"] == n_leaves, row
+        res["steps"].append(row)
+    res["launches"] = {k: ops.LAUNCHES[k] for k in expect}
+    timed = [r for r in res["steps"] if not r["warm_up"] and not r["profiled"]]
+    res["wall_ms_per_step"] = statistics.median(r["wall_ms"] for r in timed)
+    res["tokens_per_s"] = batch * seq / res["wall_ms_per_step"] * 1e3
+    res["peak_gb"] = max(r["peak_gb"] for r in res["steps"])
+    res["bound_over_wall"] = res["step_bound_ms"] / res["wall_ms_per_step"]
+    del params, opt, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) and (c): the SMOKE config, card against the CPU, card twice
+    scfg = _smoke_train_cfg()
+    p0 = M.init_params(scfg, torch.Generator().manual_seed(SEED), device="cpu")
+    cpu = _train_run(scfg, p0, torch.device("cpu"), 3)
+    card = _train_run(scfg, p0, dev, 3)
+    card2 = _train_run(scfg, p0, dev, 3)
+    leaf_rel = [rel_l2(a.cpu(), c) for a, c in zip(O.tree_leaves(card["params"]),
+                                                  O.tree_leaves(cpu["params"]))]
+    loss_rel = [abs(a - c) / abs(c) for a, c in zip(card["loss"], cpu["loss"])]
+    gn_rel = [abs(a - c) / abs(c) for a, c in zip(card["grad_norm"], cpu["grad_norm"])]
+    res["smoke_vs_cpu"] = {
+        "config": {"n_layers": scfg.n_layers, "d_model": scfg.d_model, "head_dim": 64,
+                   "dtype": "float32", "batch": TRAIN_SMOKE_BATCH, "seq": TRAIN_SMOKE_SEQ},
+        "loss_card": card["loss"], "loss_cpu": cpu["loss"], "loss_rel": loss_rel,
+        "grad_norm_rel": gn_rel, "params_rel_l2_max": max(leaf_rel), "tol": TRAIN_CPU_RTOL}
+    assert max(loss_rel) <= TRAIN_CPU_RTOL and max(gn_rel) <= TRAIN_CPU_RTOL, res["smoke_vs_cpu"]
+    assert max(leaf_rel) <= TRAIN_CPU_RTOL, res["smoke_vs_cpu"]
+    res["repeat_runs_equal_bitwise"] = (_leaves_equal(card["params"], card2["params"])
+                                        and card["loss"] == card2["loss"])
+    assert res["repeat_runs_equal_bitwise"]
+
+    # (d) and (e): the resilient loop and a checkpoint round trip of (b)'s state
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        res["resilient"] = _resilient_pair(scfg, p0, dev, Path(tmp))
+        res["checkpoint"] = _checkpoint_roundtrip(card["params"], card["opt"], Path(tmp))
+    del cpu, card, card2
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_phase
     emit(res)
     return res
 
@@ -3687,6 +4160,10 @@ KERNELS = {
                          "src/repro/kernels/awrp_select.py:89"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attn.cu",
                         "src/repro/kernels/flash_attn.py:80"),
+    # port-only: the gradient XLA derives for the reference's jnp
+    # flash_attention, which has no Pallas kernel of its own
+    "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attn_bwd.cu",
+                            "src/repro/models/layers.py:100"),
     # kernel 2 redesigned: the whole trace around the per-step victim search
     "flat_sweep": ("src/repro_torch/kernels/csrc/sweep.cu",
                    "src/repro/kernels/awrp_select.py:89"),
@@ -3753,6 +4230,8 @@ def main() -> int:
                for shape in NEW_DECODE_SHAPES]
     fl = phase_flash_attn(dev)
     fl_draws = flash_gate_draws(dev, FLASH_DRAWS)
+    fb = phase_flash_bwd(dev)
+    tr = phase_train(dev)
     params, init_s = serve_params(dev)
     srv = phase_serve(dev, params, init_s)
     # kernel 5 at the serve shape from the prefill seeding (timed), with a
@@ -3869,11 +4348,25 @@ def main() -> int:
         "launches_serve_mamba2": mamba["launches"]["flash_attention"],
         "launches_serve_whisper": whisper["launches"]["flash_attention"],
         "launches_serve_internvl2": internvl["launches"]["flash_attention"],
+        # the train phase's main path: each layer's forward and remat's
+        # recompute, per microbatch, with lse on
+        "launches_train": tr["launches"]["flash_attention"],
+        "smollm_train": {k: fb["cases"][0][k] for k in (
+            "fwd_ms", "fwd_lse_ms", "fwd_plain_ms", "fwd_library_ms")},
         "max_abs_err": max(c["max_abs_err"] for c in fl["cases"]),
         **{k: main_case[k] for k in timed_keys},
         "shape": main_case["shape"], "window": main_case["window"],
         "other_shapes": [{k: c[k] for k in ("label", "shape", "kv_seq", "window", "dtype",
                                             *timed_keys)} for c in other_cases]})
+    bwd_main, *bwd_others = fb["cases"]
+    source, replaces = KERNELS["flash_attention_bwd"]
+    kernels.append({
+        "name": "flash_attention_bwd", "route": "cuda", "source": source,
+        "replaces": replaces, "launches": tr["launches"]["flash_attention_bwd"],
+        "max_abs_err": max(c["max_abs_err"] for c in fb["cases"]),
+        **{k: bwd_main[k] for k in timed_keys}, "shape": bwd_main["shape"],
+        "other_shapes": [{k: c[k] for k in ("label", "shape", "window", "dtype", *timed_keys)}
+                         for c in bwd_others]})
     for name in ("awrp_select", "awrp_select_rows"):
         source, replaces = KERNELS[name]
         main_run = sel["kernels"][name][0]

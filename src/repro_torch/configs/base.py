@@ -12,14 +12,52 @@ the q/k/v biases (qwen2.5).  The encoder-decoder family (whisper) stacks
 ``enc_layers`` encoder and ``dec_layers`` decoder blocks; the VLM family
 (internvl2) is a decoder stack whose first ``n_patch_tokens`` positions take
 the patch embeddings.
+
+The training fields (``remat``, ``microbatches``, ``adam_dtype``,
+``grad_accum_dtype``, ``opt_master``, ``grad_compress``) and the shape grid
+``SHAPES`` are the reference's, read by ``models/model.py`` ``forward``,
+``train/train_step.py`` and ``launch/train.py``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import importlib
 from typing import Dict, Optional, Tuple
 
-__all__ = ["ModelConfig"]
+__all__ = ["ModelConfig", "ShapeSpec", "SHAPES", "ARCH_IDS", "load_config",
+           "load_smoke_config"]
+
+ARCH_IDS = (
+    "zamba2_7b",
+    "qwen25_14b",
+    "gemma3_27b",
+    "smollm_360m",
+    "yi_34b",
+    "internvl2_26b",
+    "grok1_314b",
+    "phi35_moe",
+    "whisper_large_v3",
+    "mamba2_370m",
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """One cell of the (arch x shape) grid."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES: Dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,11 +105,16 @@ class ModelConfig:
     page_size: int = 64
     bounded_kv_pages: int = 256
     kv_policy: str = "awrp"  # awrp | lru | fifo | lfu | arc | car | arc_adaptive | car_adaptive
-    # numerics
+    # numerics / execution
     dtype: str = "bfloat16"
     param_dtype: str = "bfloat16"
-    # training execution (carried so published configs copy verbatim)
-    microbatches: int = 8
+    remat: str = "full"  # none | full
+    # training execution
+    microbatches: int = 8  # grad-accum chunks of the global batch
+    adam_dtype: str = "float32"
+    grad_accum_dtype: str = "float32"
+    opt_master: bool = True
+    grad_compress: bool = False  # int8 quant -> dequant of the matrix grads
     run_shapes: Tuple[str, ...] = ("train_4k", "prefill_32k", "decode_32k")
     skip_reasons: Dict[str, str] = dataclasses.field(default_factory=dict)
 
@@ -98,3 +141,16 @@ class ModelConfig:
     @property
     def ssm_heads(self) -> int:
         return self.d_inner // self.ssm_head_dim
+
+
+def _arch_module(arch: str):
+    arch = arch.replace("-", "_").replace(".", "")
+    return importlib.import_module(f"repro_torch.configs.{arch}")
+
+
+def load_config(arch: str) -> ModelConfig:
+    return _arch_module(arch).CONFIG
+
+
+def load_smoke_config(arch: str) -> ModelConfig:
+    return _arch_module(arch).SMOKE_CONFIG

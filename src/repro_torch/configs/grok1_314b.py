@@ -1,7 +1,7 @@
 """grok-1-314b [moe] — 8 experts, top-2. [hf:xai-org/grok-1; unverified]
 
-The reference's config also sets its sharding, decode weight layout and
-optimizer dtypes; the port serves on one card and carries none of them.
+The reference's config also sets its sharding and decode weight layout;
+the port runs on one card and carries neither.
 Its weights exceed one card: ``launch.serve`` refuses the full config, and
 the smoke config is the GELU-expert case of the CPU parity tests.
 """
@@ -24,6 +24,10 @@ CONFIG = ModelConfig(
     top_k=2,
     act="gelu",
     microbatches=16,
+    # 314B params: bf16 Adam states and gradient accumulation, no f32 master
+    adam_dtype="bfloat16",
+    grad_accum_dtype="bfloat16",
+    opt_master=False,
     run_shapes=("train_4k", "prefill_32k", "decode_32k"),
     skip_reasons={"long_500k": "pure full-attention arch (DESIGN.md §5)"},
 )

@@ -28,7 +28,7 @@ from typing import List, NamedTuple
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("paged_attn.cu", "policy_attn.cu", "adaptive_attn.cu", "awrp_select.cu",
-           "flash_attn.cu", "sweep.cu")
+           "flash_attn.cu", "flash_attn_bwd.cu", "sweep.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -44,7 +44,8 @@ SIGNATURES = {
         [_int] + [_vp] * 33 + [_int] * 7 + [_float, _int, _int, _vp], _int),
     "repro_awrp_select": ([_vp] * 6 + [_int] * 2 + [_vp], _int),
     "repro_awrp_select_rows": ([_vp] * 5 + [_int] * 2 + [_vp], _int),
-    "repro_flash_attention": ([_int] + [_vp] * 4 + [_int] * 9 + [_float, _vp], _int),
+    "repro_flash_attention": ([_int] + [_vp] * 5 + [_int] * 9 + [_float, _vp], _int),
+    "repro_flash_attention_bwd": ([_int] + [_vp] * 10 + [_int] * 7 + [_float, _vp], _int),
     "repro_flat_sweep": ([_vp] * 9 + [_int] * 4 + [_vp], _int),
     "repro_adaptive_sweep": ([_vp] * 10 + [_int] * 7 + [_vp], _int),
     "repro_flat_stream": ([_vp] * 14 + [_int] * 3 + [_float] + [_vp] * 4 + [_int], _int),

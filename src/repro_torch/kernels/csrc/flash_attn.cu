@@ -67,11 +67,18 @@
 // CTA: every warp reads the whole K and V tile from shared memory for its
 // 16 rows.  wgmma, TMA staging and a persistent schedule are later work.
 //
+// The row's log-sum-exp.  When ``lse`` is not null the finalize step also
+// writes lse (B, Sq, KVH, G) in f32, the row's m + log(l) in natural units
+// (the bf16 path's base-2 max times ln 2), NEG_INF for a fully masked row:
+// what the backward (flash_attn_bwd.cu) recomputes p from.  It is written
+// after ``out`` from the same registers, so ``out`` keeps its bits either
+// way; prefill passes null.
+//
 // C entry point (loaded with ctypes by repro_torch/kernels/_build.py):
-//   repro_flash_attention(dtype, q, k, v, out, B, Sq, Skv, KVH, G, hd,
+//   repro_flash_attention(dtype, q, k, v, out, lse, B, Sq, Skv, KVH, G, hd,
 //                         causal, window, kv_len, scale, stream) -> cudaError_t
 // dtype 0 = float32, 1 = bfloat16 for q / k / v / out; hd in {64, 112, 128, 256};
-// 1 <= G <= 64; all contiguous and 16-byte aligned.
+// 1 <= G <= 64; all contiguous and 16-byte aligned; lse f32 or null.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -91,6 +98,7 @@ constexpr size_t kMaxSmem = 232448;
 
 constexpr int kMmaThreads = 128;  // 4 warps of 16 query rows
 constexpr float kLog2e = 1.44269504088896341f;
+constexpr float kLn2 = 0.693147180559945309f;
 
 template <int HD>
 struct MmaTile {
@@ -177,8 +185,9 @@ __global__ void __launch_bounds__(kMmaThreads, MmaTile<HD>::kMinBlocks)
 flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                             const __nv_bfloat16* __restrict__ k,
                             const __nv_bfloat16* __restrict__ v,
-                            __nv_bfloat16* __restrict__ out, int Sq, int Skv, int KVH, int G,
-                            int causal, int window, int kv_len, float scale_log2) {
+                            __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int Sq,
+                            int Skv, int KVH, int G, int causal, int window, int kv_len,
+                            float scale_log2) {
   using Tile = MmaTile<HD>;
   constexpr int BK = Tile::kBK, NCH = Tile::kNch, STRIDE = Tile::kStride;
   constexpr int NT = BK / 8;   // 8-key column tiles of S
@@ -402,11 +411,21 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * d) =
           __floats2bfloat162_rn(__fdiv_rn(o[d][2], d1), __fdiv_rn(o[d][3], d1));
   }
+  // lse = m * ln 2 + log(l) (m in base 2), by the first of a row's 4 lanes
+  if (lse != nullptr && (lane & 3) == 0) {
+    float* lb = lse + ((size_t)b * Sq + q0) * KVH * G + (size_t)kh * G;
+    if (r0 < rows)
+      lb[(size_t)(r0 / G) * KVH * G + r0 % G] =
+          l0 > 0.f ? __fadd_rn(__fmul_rn(m0, kLn2), logf(l0)) : kNegInf;
+    if (r1 < rows)
+      lb[(size_t)(r1 / G) * KVH * G + r1 % G] =
+          l1 > 0.f ? __fadd_rn(__fmul_rn(m1, kLn2), logf(l1)) : kNegInf;
+  }
 }
 
 template <int HD>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out, int B,
-                        int Sq, int Skv, int KVH, int G, int causal, int window,
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out, float* lse,
+                        int B, int Sq, int Skv, int KVH, int G, int causal, int window,
                         int kv_len, float scale, cudaStream_t stream) {
   constexpr size_t bytes = MmaTile<HD>::kSmem;
   static_assert(bytes <= kMaxSmem, "bf16 tiles must fit a block");
@@ -418,8 +437,8 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out, 
   const dim3 grid((Sq + BQ - 1) / BQ, KVH, B);
   kern<<<grid, kMmaThreads, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), Sq, Skv, KVH,
-      G, causal, window, kv_len, scale * kLog2e);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), lse, Sq, Skv,
+      KVH, G, causal, window, kv_len, scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -454,9 +473,9 @@ __device__ __forceinline__ float row_sum16(float v) {
 template <int HD>
 __global__ void __launch_bounds__(kThreads, HD <= 128 ? 2 : 1)
 flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v, float* __restrict__ out, int Sq,
-                       int Skv, int KVH, int G, int causal, int window,
-                       int kv_len, float scale) {
+                       const float* __restrict__ v, float* __restrict__ out,
+                       float* __restrict__ lse, int Sq, int Skv, int KVH, int G, int causal,
+                       int window, int kv_len, float scale) {
   constexpr int kC = HD / 16;                 // output columns per thread
   constexpr int kVec = 4;  // elements per 16-byte load
   constexpr int kIters = kBK * HD / kVec / kThreads;  // 16-byte loads per tensor
@@ -613,12 +632,16 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < kC; ++c)
       orow[tx + 16 * c] = __fdiv_rn(acc[i][c], li);
+    // lse = m + log(l), by the first of the row's 16 lanes
+    if (lse != nullptr && tx == 0)
+      lse[((size_t)b * Sq + q0 + r / G) * KVH * G + (size_t)kh * G + r % G] =
+          l[i] > 0.f ? __fadd_rn(m[i], logf(l[i])) : kNegInf;
   }
 }
 
 template <int HD>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out, int B,
-                       int Sq, int Skv, int KVH, int G, int causal, int window,
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out, float* lse,
+                       int B, int Sq, int Skv, int KVH, int G, int causal, int window,
                        int kv_len, float scale, cudaStream_t stream) {
   const size_t bytes = smem_floats<HD>() * sizeof(float);
   if (bytes > kMaxSmem) return cudaErrorInvalidValue;
@@ -630,7 +653,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out, i
   const dim3 grid((Sq + BQ - 1) / BQ, KVH, B);
   kern<<<grid, kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), Sq, Skv, KVH, G, causal,
+      static_cast<const float*>(v), static_cast<float*>(out), lse, Sq, Skv, KVH, G, causal,
       window, kv_len, scale);
   return cudaGetLastError();
 }
@@ -652,7 +675,7 @@ cudaError_t with_head_dim(int hd, F f) {
 }  // namespace repro
 
 extern "C" int repro_flash_attention(int dtype, const void* q, const void* k,
-                                     const void* v, void* out, int B, int Sq,
+                                     const void* v, void* out, void* lse, int B, int Sq,
                                      int Skv, int KVH, int G, int hd, int causal,
                                      int window, int kv_len, float scale,
                                      void* stream) {
@@ -661,14 +684,15 @@ extern "C" int repro_flash_attention(int dtype, const void* q, const void* k,
       G < 1 || G > kRows || window < 0 || kv_len < 0 || kv_len > Skv)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* lse_f = static_cast<float*>(lse);
   return (int)with_head_dim(hd, [&](auto h) {
     constexpr int HD = decltype(h)::value;
     if (dtype == 0)
-      return launch_f32<HD>(q, k, v, out, B, Sq, Skv, KVH, G, causal, window, kv_len, scale,
-                            st);
+      return launch_f32<HD>(q, k, v, out, lse_f, B, Sq, Skv, KVH, G, causal, window, kv_len,
+                            scale, st);
     if (dtype == 1)
-      return launch_bf16<HD>(q, k, v, out, B, Sq, Skv, KVH, G, causal, window, kv_len, scale,
-                             st);
+      return launch_bf16<HD>(q, k, v, out, lse_f, B, Sq, Skv, KVH, G, causal, window, kv_len,
+                             scale, st);
     return cudaErrorInvalidValue;
   });
 }

@@ -1,12 +1,17 @@
-"""CUDA launch of the flash-attention forward kernel (``csrc/flash_attn.cu``).
+"""CUDA launches of the flash-attention kernels (``csrc/flash_attn.cu``,
+``csrc/flash_attn_bwd.cu``).
 
-Replaces ``repro/kernels/flash_attn.py`` ``flash_attention_kernel``: the
-port's prefill attention.  This module only validates, allocates the output
-and launches on the current stream; ``kernels/ops.py`` dispatches between it
-and the plain version.  The kernel takes any Sq / Skv and masks the ragged
-edge itself: there is no padding.  bf16 runs both products on the tensor
-cores (P.V as three bf16 products, p split into hi + mid + lo); f32 runs on the
-CUDA cores.
+``flash_attention_kernel`` replaces ``repro/kernels/flash_attn.py``
+``flash_attention_kernel``: the port's prefill attention.  This module only
+validates, allocates the outputs and launches on the current stream;
+``kernels/ops.py`` dispatches between it and the plain version.  The kernel
+takes any Sq / Skv and masks the ragged edge itself: there is no padding.
+bf16 runs both products on the tensor cores (P.V as three bf16 products, p
+split into hi + mid + lo); f32 runs on the CUDA cores.  With
+``return_lse=True`` it also returns the rows' log-sum-exp (B, Sq, KVH, G) in
+f32, which ``flash_attention_backward_kernel`` takes: the gradient of the
+same function (port-only: the reference's gradient is XLA's derivative of
+its jnp attention), three launches, for the training path's self-attention.
 """
 
 from __future__ import annotations
@@ -18,13 +23,15 @@ from repro_torch.kernels.paged_attn import DTYPE_CODE
 from repro_torch.kernels.ref import attn_scale
 
 HEAD_DIMS = (64, 112, 128, 256)  # the kernel's instantiations
+BWD_HEAD_DIMS = (64, 112, 128)  # the backward's
 MAX_G = 64  # query heads per KV head: one 64-row tile holds at least one position
 
 
 def flash_attention_kernel(q, k, v, *, causal: bool, window: int,
-                           kv_len: int | None = None):
+                           kv_len: int | None = None, return_lse: bool = False):
     """q (B, Sq, KVH, G, hd), k/v (B, Skv, KVH, hd), bf16 or f32, contiguous
-    on one CUDA device -> out like q.  One launch."""
+    on one CUDA device -> out like q; with ``return_lse`` (out, lse (B, Sq,
+    KVH, G) f32).  One launch; ``out`` has the same bits either way."""
     name = "flash_attention"
     if q.dim() != 5 or k.dim() != 4:
         raise ValueError(f"{name}: q must be 5-D and k/v 4-D, got "
@@ -48,10 +55,72 @@ def flash_attention_kernel(q, k, v, *, causal: bool, window: int,
     if not 0 <= kv_len <= Skv or int(window) < 0:
         raise ValueError(f"{name}: kv_len {kv_len} / window {window} out of range")
     out = torch.empty_like(q)
+    lse = (torch.empty((B, Sq, KVH, G), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _build.library().repro_flash_attention(
         DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), B, Sq, Skv, KVH, G, hd, int(bool(causal)), int(window),
-        kv_len, attn_scale(hd), stream)
+        out.data_ptr(), 0 if lse is None else lse.data_ptr(), B, Sq, Skv, KVH, G, hd,
+        int(bool(causal)), int(window), kv_len, attn_scale(hd), stream)
     _build.check(err, name)
-    return out
+    return out if lse is None else (out, lse)
+
+
+def check_backward_case(q_shape, k_shape, kv_len, *, kernel: bool = True,
+                        name: str = "flash_attention_bwd") -> None:
+    """Raise a ``ValueError`` naming the case for what the backward does not
+    take: Sq != Skv, a ``kv_len`` mask and, for the kernel (``kernel``), hd
+    outside ``BWD_HEAD_DIMS`` (the plain version takes any hd)."""
+    Sq, hd, Skv = q_shape[1], q_shape[-1], k_shape[1]
+    if Sq != Skv:
+        raise ValueError(f"{name}: Sq != Skv ({Sq} vs {Skv}) is not supported: the "
+                         "backward takes self-attention only")
+    if kv_len is not None and kv_len != Skv:
+        raise ValueError(f"{name}: kv_len {kv_len} < Skv {Skv} is not supported: the "
+                         "backward takes every key valid")
+    if kernel and hd not in BWD_HEAD_DIMS:
+        raise ValueError(f"{name}: hd {hd} is not supported; have {BWD_HEAD_DIMS}")
+
+
+def flash_attention_backward_kernel(q, k, v, out, lse, dout, *, causal: bool,
+                                    window: int):
+    """Gradient of ``flash_attention_kernel`` at Sq == Skv with every key
+    valid: q, out, dout (B, S, KVH, G, hd), k/v (B, S, KVH, hd), bf16 or f32,
+    lse (B, S, KVH, G) f32, contiguous on one CUDA device -> (dq, dk, dv) in
+    the inputs' dtype.  Three launches (D = rowsum(dout * out), dK/dV, dQ),
+    f32 sums in a fixed order, no atomics."""
+    name = "flash_attention_bwd"
+    if q.dim() != 5 or k.dim() != 4:
+        raise ValueError(f"{name}: q must be 5-D and k/v 4-D, got "
+                         f"{tuple(q.shape)} and {tuple(k.shape)}")
+    check_backward_case(q.shape, k.shape, None, name=name)
+    B, S, KVH, G, hd = q.shape
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: expected CUDA tensors, got {q.device}")
+    if q.dtype not in DTYPE_CODE:
+        raise ValueError(f"{name}: dtype {q.dtype} not supported; have {list(DTYPE_CODE)}")
+    for t in (q, k, v, out, dout):
+        if t.dtype != q.dtype or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name}: q/k/v/out/dout must share dtype and device and "
+                             "be contiguous")
+    if (k.shape != (B, S, KVH, hd) or v.shape != k.shape or out.shape != q.shape
+            or dout.shape != q.shape or not 1 <= G <= MAX_G or min(B, S, KVH) < 1):
+        raise ValueError(f"{name}: unsupported shapes q={tuple(q.shape)} "
+                         f"k={tuple(k.shape)} out={tuple(out.shape)} "
+                         f"dout={tuple(dout.shape)} (G <= {MAX_G})")
+    if (lse.shape != (B, S, KVH, G) or lse.dtype != torch.float32
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"{name}: lse must be contiguous f32 (B, S, KVH, G) on q's "
+                         f"device, got {tuple(lse.shape)} {lse.dtype}")
+    if int(window) < 0:
+        raise ValueError(f"{name}: window {window} out of range")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    rowsum = torch.empty((B, S, KVH, G), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _build.library().repro_flash_attention_bwd(
+        DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        rowsum.data_ptr(), B, S, KVH, G, hd, int(bool(causal)), int(window),
+        attn_scale(hd), stream)
+    _build.check(err, name)
+    return dq, dk, dv

@@ -13,12 +13,18 @@ launch (the sweep engine's trace route); ``flat_stream`` and
 ``adaptive_stream``, their stream mode, run a tenancy manager's interleaved
 stream in one launch; given a decision-trace ring they launch the kernels'
 ring variant, which also writes the ring, and count it under
-``flat_stream_ring`` / ``adaptive_stream_ring``.
+``flat_stream_ring`` / ``adaptive_stream_ring``.  ``flash_attention`` is
+differentiable: where a gradient is wanted it runs through ``FlashAttention``,
+whose forward also keeps the rows' log-sum-exp and whose backward is the
+backward kernel (``flash_attention_bwd``: three launches, counted once per
+backward call).
 """
 
 from __future__ import annotations
 
 from typing import Dict
+
+import torch
 
 from repro_torch.kernels import ref
 
@@ -28,7 +34,8 @@ LAUNCHES: Dict[str, int] = {"paged_attention": 0, "policy_paged_attention": 0,
                              "awrp_select": 0, "awrp_select_rows": 0,
                              "flash_attention": 0, "flat_sweep": 0, "adaptive_sweep": 0,
                              "flat_stream": 0, "adaptive_stream": 0,
-                             "flat_stream_ring": 0, "adaptive_stream_ring": 0}
+                             "flat_stream_ring": 0, "adaptive_stream_ring": 0,
+                             "flash_attention_bwd": 0}
 
 
 #: CUDA launches per call of kernels 3, 4 and 5: the pages' partials, their
@@ -185,17 +192,59 @@ def adaptive_stream(keys, stream_rows, state, counters, caps, *, kind: str, alph
     return res
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    kv_len: int | None = None):
-    """Tiled flash attention, forward: q (B, Sq, KVH, G, hd), k/v (B, Skv,
-    KVH, hd) -> out like q, with causal, sliding-window (``window`` > 0) and
-    ``kv_len`` masks (``repro.kernels.ops.flash_attention``; any Sq / Skv,
-    no padding).  The port's prefill attention."""
+def _flash_forward(q, k, v, causal, window, kv_len, return_lse):
     if q.device.type == "cpu":
         return ref.flash_attention_plain(q, k, v, causal=causal, window=window,
-                                         kv_len=kv_len)
+                                         kv_len=kv_len, return_lse=return_lse)
     from repro_torch.kernels.flash_attn import flash_attention_kernel
 
-    res = flash_attention_kernel(q, k, v, causal=causal, window=window, kv_len=kv_len)
+    res = flash_attention_kernel(q, k, v, causal=causal, window=window, kv_len=kv_len,
+                                 return_lse=return_lse)
     LAUNCHES["flash_attention"] += 1
     return res
+
+
+class FlashAttention(torch.autograd.Function):
+    """Kernel 6 with its gradient: the forward keeps ``out`` and the rows'
+    log-sum-exp, the backward runs the backward kernel (its plain version
+    for CPU tensors).  Self-attention with every key valid."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        out, lse = _flash_forward(q, k, v, causal, window, None, True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dout = dout.contiguous()
+        kw = {"causal": ctx.causal, "window": ctx.window}
+        if q.device.type == "cpu":
+            dq, dk, dv = ref.flash_attention_backward_plain(q, k, v, out, lse, dout, **kw)
+        else:
+            from repro_torch.kernels.flash_attn import flash_attention_backward_kernel
+
+            dq, dk, dv = flash_attention_backward_kernel(q, k, v, out, lse, dout, **kw)
+            LAUNCHES["flash_attention_bwd"] += 1
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    kv_len: int | None = None):
+    """Tiled flash attention: q (B, Sq, KVH, G, hd), k/v (B, Skv, KVH, hd) ->
+    out like q, with causal, sliding-window (``window`` > 0) and ``kv_len``
+    masks (``repro.kernels.ops.flash_attention``; any Sq / Skv, no padding).
+    The port's prefill attention.  Where a gradient is wanted (grad mode on
+    and an input that requires one) it runs through ``FlashAttention``,
+    which takes self-attention with every key valid (on the card at hd 64,
+    112 or 128) and raises a ``ValueError`` naming any other case; otherwise
+    the forward alone, with no log-sum-exp."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        from repro_torch.kernels.flash_attn import check_backward_case
+
+        check_backward_case(q.shape, k.shape, kv_len, kernel=q.device.type != "cpu")
+        return FlashAttention.apply(q, k, v, bool(causal), int(window))
+    return _flash_forward(q, k, v, causal, window, kv_len, False)

@@ -299,33 +299,75 @@ def adaptive_stream_plain(keys, stream_rows, state, counters, caps, *, kind: str
     return _stream(core, keys, stream_rows, state, counters, alpha, ring)
 
 
+def _flash_mask(Sq: int, Skv: int, causal: bool, window: int, kv_len: int, device):
+    """(Sq, Skv) bool: query position i sees key j."""
+    qpos = torch.arange(Sq, device=device)[:, None]
+    kpos = torch.arange(Skv, device=device)[None, :]
+    mask = kpos < kv_len
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window:
+        mask = mask & (qpos - kpos < window)
+    return mask
+
+
 def flash_attention_plain(q, k, v, *, causal: bool, window: int = 0,
-                          kv_len: int | None = None):
+                          kv_len: int | None = None, return_lse: bool = False):
     """Plain version of kernel 6 (``csrc/flash_attn.cu``), the function of
     ``repro/kernels/flash_attn.py`` ``flash_attention_kernel``: q (B, Sq,
     KVH, G, hd), k/v (B, Skv, KVH, hd) -> out like q, in q's dtype.  Query
     position i sees key j where ``j < kv_len``, ``j <= i`` if causal and
     ``i - j < window`` if window; f32 scores scaled by 1/sqrt(hd), masked
     scores NEG_INF, masked p 0 and ``l`` clamped at 1e-30, so a fully masked
-    row gives 0.  One softmax over all keys, p kept in f32 for P.V."""
+    row gives 0.  One softmax over all keys, p kept in f32 for P.V.  With
+    ``return_lse`` also the rows' log-sum-exp m + log(l) (B, Sq, KVH, G) in
+    f32, NEG_INF for a fully masked row."""
     B, Sq, KVH, G, hd = q.shape
     Skv = k.shape[1]
     kv_len = Skv if kv_len is None else kv_len
-    qpos = torch.arange(Sq, device=q.device)[:, None]
-    kpos = torch.arange(Skv, device=q.device)[None, :]
-    mask = kpos < kv_len
-    if causal:
-        mask = mask & (kpos <= qpos)
-    if window:
-        mask = mask & (qpos - kpos < window)
+    mask = _flash_mask(Sq, Skv, causal, window, kv_len, q.device)
     s = torch.einsum("bqkgh,bckh->bkgqc", q.to(torch.float32),
                      k.to(torch.float32)) * attn_scale(hd)
     s = torch.where(mask, s, NEG_INF)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
     p = torch.where(mask, p, 0.0)
-    l = torch.clamp(p.sum(dim=-1), min=1e-30)  # (B, KVH, G, Sq)
+    l_raw = p.sum(dim=-1)  # (B, KVH, G, Sq)
+    l = torch.clamp(l_raw, min=1e-30)
     out = torch.einsum("bkgqc,bckh->bqkgh", p, v.to(torch.float32))
-    return (out / l.permute(0, 3, 1, 2)[..., None]).to(q.dtype)
+    out = (out / l.permute(0, 3, 1, 2)[..., None]).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(l_raw > 0, m[..., 0] + torch.log(l), NEG_INF)
+    return out, lse.permute(0, 3, 1, 2).contiguous()
+
+
+def flash_attention_backward_plain(q, k, v, out, lse, dout, *, causal: bool,
+                                   window: int = 0):
+    """Plain version of the backward kernel (``csrc/flash_attn_bwd.cu``), in
+    closed form and f32: with s = q.k / sqrt(hd), p = exp(s - lse) on the
+    unmasked pairs (0 elsewhere), dp = dout.v and D = rowsum(dout * out),
+    ds = p * (dp - D), dq = ds.k / sqrt(hd), dk = ds^T.q / sqrt(hd) and
+    dv = p^T.dout, summed over each kv head's G query heads.  q, out, dout
+    (B, S, KVH, G, hd), k/v (B, S, KVH, hd), lse (B, S, KVH, G) f32 ->
+    (dq, dk, dv) in q's dtype.  Self-attention (Sq == Skv), every key
+    valid."""
+    B, S, KVH, G, hd = q.shape
+    scale = attn_scale(hd)
+    f32 = torch.float32
+    qf, kf, vf = q.to(f32), k.to(f32), v.to(f32)
+    of, gf = out.to(f32), dout.to(f32)
+    mask = _flash_mask(S, k.shape[1], causal, window, k.shape[1], q.device)
+    s = torch.einsum("bqkgh,bckh->bkgqc", qf, kf) * scale
+    lse_t = lse.to(f32).permute(0, 2, 3, 1)[..., None]  # (B, KVH, G, S, 1)
+    p = torch.where(mask, torch.exp(torch.where(mask, s, 0.0) - lse_t), 0.0)
+    dp = torch.einsum("bqkgh,bckh->bkgqc", gf, vf)
+    D = (gf * of).sum(-1).permute(0, 2, 3, 1)[..., None]  # (B, KVH, G, S, 1)
+    ds = p * (dp - D)
+    dq = torch.einsum("bkgqc,bckh->bqkgh", ds, kf) * scale
+    dk = torch.einsum("bkgqc,bqkgh->bckh", ds, qf) * scale
+    dv = torch.einsum("bkgqc,bqkgh->bckh", p, gf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def ref_paged_attention(q, k_pages, v_pages, page_start, cur_pos):

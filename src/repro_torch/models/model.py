@@ -35,6 +35,13 @@ rows and the cross K/V projected once from the encoder's output at
 prefill, which a decode step reads and never writes.  Every ``kv_mode``
 gives that tree, as in the reference.
 
+Training (``forward``, ``loss_fn``; the reference's ``forward`` and
+``loss_fn``) takes the ``dense`` family: the prefill's blocks without their
+caches, each repeat of the unit under ``torch.utils.checkpoint`` when
+``cfg.remat == "full"`` (the reference's ``jax.checkpoint`` of the scan
+body), the stacked parameters unbound once per call so that their
+gradients are stacked once.
+
 Decode caches are ``{"pos": pos, "blocks": {position: cache}}``, ``pos``
 the next token's index as a 0-d int32 tensor on the caches' device (the
 reference's traced scalar): ``decode_step`` advances it there and reads
@@ -61,6 +68,8 @@ import math
 from typing import Any, Dict, List, NamedTuple, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.cache import paged_kv
 from repro_torch.core.policy_core import AdaptiveState
@@ -329,6 +338,60 @@ def _layer(params: Params, pos_name: str, kind: str, i: int) -> Params:
     if kind == "shared_attn":
         return params["shared_attn"]
     return {k: v[i] for k, v in params[pos_name].items()}
+
+
+# ---------------------------------------------------------------------------
+# training forward and loss
+# ---------------------------------------------------------------------------
+
+#: families ``forward`` takes; the moe, ssm / hybrid, vlm and enc-dec
+#: families' training is later work
+TRAIN_FAMILIES = ("dense",)
+
+
+def forward(params: Params, cfg, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Training forward -> logits (B, S, Vpad) in f32 (the reference's
+    ``forward``): the embedding (``F.embedding``, whose gradient is one
+    sorted reduction; the same bits as the prefill's lookup), the unit's
+    repeats and the tail through the prefill's blocks (attention through
+    kernel 6 and its backward), the final norm and the unembedding."""
+    if cfg.family not in TRAIN_FAMILIES:
+        raise ValueError(f"{cfg.name}: forward takes the {'/'.join(TRAIN_FAMILIES)} "
+                         f"family; the {cfg.family!r} family's training is not ported")
+    unit, n_rep, tail = scan_plan(cfg)
+    x = F.embedding(batch["tokens"].long(), params["embed"]).to(torch_dtype(cfg.dtype))
+    # one view per layer; their gradients are stacked once (unbind's backward)
+    layers = {pos: {k: t.unbind(0) for k, t in params[pos].items()} for pos, _ in unit}
+
+    def unit_body(h, i):
+        for pos, kind in unit:
+            h = _prefill_block(kind, {k: t[i] for k, t in layers[pos].items()}, h, cfg)[0]
+        return h
+
+    for i in range(n_rep):
+        if cfg.remat == "full":
+            x = checkpoint(unit_body, x, i, use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = unit_body(x, i)
+    for pos, kind in tail:
+        x = _prefill_block(kind, params[pos], x, cfg)[0]
+    return logits_from_hidden(params, cfg, x)
+
+
+def loss_fn(params: Params, cfg, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Mean next-token NLL over the labels >= 0 (the reference's
+    ``loss_fn``): the vocabulary's padding rows masked to -1e30 before the
+    log-sum-exp, the mean over max(count, 1)."""
+    logits = forward(params, cfg, batch)
+    labels = batch["labels"].long()
+    V = logits.shape[-1]
+    if cfg.vocab < V:
+        vmask = torch.arange(V, device=logits.device) < cfg.vocab
+        logits = torch.where(vmask, logits, -1e30)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+    mask = (labels >= 0).to(torch.float32)
+    return ((logz - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
 # ---------------------------------------------------------------------------
