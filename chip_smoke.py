@@ -21,7 +21,10 @@ side:
 
 1. ``build``: compile the CUDA kernels with nvcc (sm_90a) from the sources in
    this checkout; print the seconds taken and the card's name and power
-   limit (``nvidia-smi``).
+   limit (``nvidia-smi``).  Then the checks that need no card (host
+   oracles, plain versions and the sweep's eager route on the CPU) start
+   in worker processes (``submit_host_jobs``), for the phases that read
+   them later.
 2. ``paged_attention``: the decode-attention kernel (kernel 3) at the
    slice's decode shape with the default pool (B=4, P=256, page=64, KVH=5,
    G=3, hd=64, bf16), at the serve phase's (P=16) and at gemma3-27b's global
@@ -35,9 +38,9 @@ side:
    sequence's ``cur`` elsewhere mid-page) at P=256, gemma3's and zamba2's
    shapes.
 3. ``policy_attn``: the fused policy-attention step from a full pool,
-   AWRP over 3*page decode steps so every page boundary evicts, at P=256
-   and at P=16, and each other page policy over two evicting boundaries at
-   P=16: (a) bitwise equal to the unfused chain insert_token +
+   AWRP over 3*page decode steps so every page boundary evicts at P=16
+   and over two evicting boundaries at P=256, and each other page policy
+   over two evicting boundaries at P=16: (a) bitwise equal to the unfused chain insert_token +
    paged_attention kernel + score_update, (b) within phase 2's tolerances
    of its plain version, planes equal except at steps where a page's plain
    mass lies within EPS_TAU of tau (counted); the AWRP runs timed like
@@ -72,14 +75,17 @@ side:
    preprocess, dK/dV and dQ launches) against its plain version at
    smollm's training microbatch (4, 4096, 5, 3, 64) causal, gemma3's (1,
    4096, 16, 2, 128) with window 1024 and 0, zamba2's (1, 2048, 32, 1, 112),
-   an f32 ragged (1, 1000, 4, 2, 64) with window 48 and an f32 non-causal
-   (2, 300, 4, 3, 128): the plain version takes the kernel's own out and
-   lse; bf16 dq / dk / dv within BWD_REL_L2 relative L2 of the plain f32
-   result, f32 elementwise within BWD_F32_RTOL * max|plain| + BWD_F32_ATOL,
-   lse within LSE_RTOL/ATOL, ``out`` bit for bit with lse on and off, the
-   gradients bit for bit over 6 launches; kernel, plain and SDPA-backward
-   times beside the bound (10 * hd flops per unmasked pair, or the bytes);
-   kernel 6 with lse off and on at smollm's training shape.
+   a ragged (1, 1000, 4, 2, 64) with window 48 and a non-causal (2, 300,
+   4, 3, 128), each in f32 and in bf16: the plain version takes the
+   kernel's own out and lse; bf16 dq / dk / dv within BWD_REL_L2 relative
+   L2 of the plain f32 result, f32 elementwise within BWD_F32_RTOL *
+   max|plain| + BWD_F32_ATOL, lse within LSE_RTOL/ATOL, ``out`` bit for bit
+   with lse on and off, the gradients bit for bit over 6 launches; kernel,
+   plain and SDPA-backward times beside the bound (10 * hd flops per
+   unmasked pair, or the bytes); kernel 6 with lse off and on at smollm's
+   training shape; the HMMA instructions of every backward function in the
+   built library (each bf16 dK/dV and dQ function must hold some) and
+   their registers, spills and static shared memory from ptxas's log.
 3c. ``train``: smollm-360m at published widths (32 layers, d 960, vocab
    49152; bf16 parameters, f32 master and Adam states, remat full, 2
    microbatches) trained at train_4k's 4096 tokens, its global batch cut
@@ -99,7 +105,7 @@ side:
 4. ``serve``: ``ServeEngine`` on smollm-360m at published widths, bf16,
    paged KV with AWRP through the fused kernel (kernel 4: two launches per
    layer per decode step, ``ops.SPLIT_LAUNCHES``), 4 requests of 1024 seeded
-   tokens and 192 greedy new tokens, then one repeated prompt that must hit
+   tokens and 96 greedy new tokens, then one repeated prompt that must hit
    the prefix cache; kernel 6 launched once per layer per prefill; the
    split kernels' arrival counters of the engine's capture stream are 0
    after the replays.  Then the fold's cost: the 4 prompts served for 64
@@ -122,7 +128,7 @@ side:
    mid-page step), at a page boundary and mid-page, both repeated bit for
    bit over 6 launches, as at P=256.
 4b. ``serve_adaptive``: the serve phase's model and pool with
-   ``kv_policy`` arc_adaptive and car_adaptive: 4 x 1024-token prompts and 192
+   ``kv_policy`` arc_adaptive and car_adaptive: 4 x 1024-token prompts and 96
    greedy tokens, then single requests A and B (distinct 1024-token prompts),
    B's follow-up turn (its re-prefill ghost-hits the pages B's decode
    evicted and moves p) and A again (a prefix hit); kernel 5 called once
@@ -130,7 +136,7 @@ side:
 4c. ``serve_gemma3``: gemma3-27b at published widths and all 62 layers (10
    x (5 local + 1 global) + 2 local, window 1024), bf16, random weights from
    SEED drawn on the card, a 16-page pool (the one cut): 4 prompts of 2048
-   seeded tokens and 128 greedy new tokens (AWRP, kernel 4 on the 10 global
+   seeded tokens and 64 greedy new tokens (AWRP, kernel 4 on the 10 global
    layers, sliding-window rings on the 52 local ones, kernel 6 in every
    layer of every prefill), one prompt alone twice (a prefix hit), then
    ``arc_adaptive`` (kernel 5) on the same weights: a 1024-token request and
@@ -213,8 +219,9 @@ side:
    card on the engine's trace route (one ``flat_sweep`` and two
    ``adaptive_sweep`` launches, no kernel-2 launch, no host sync; equal to
    the host oracles' table), a 64-trace grid and a num_sets=2 grid (with and
-   without forced renormalization): trace route == eager route == host
-   oracles, each trace kernel's final planes == its plain version's; the
+   without forced renormalization): trace route == eager route (on the
+   CPU, in worker processes, but for Table 1) == host oracles, each trace
+   kernel's final planes == its plain version's on the card; the
    sweep benchmark's 10k- and 100k-access zipf traces (hit counts == host
    oracles'); kernel 2 on its per-step path (``FlatCore(use_kernel=True)``,
    200 steps) == the trace kernel; the trace kernels timed alone; a profile
@@ -279,12 +286,15 @@ timings on this card.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
+import re
 import json
 import math
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import zlib
 from pathlib import Path
@@ -367,6 +377,48 @@ def smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+#: worker processes for the checks that need no card (host oracles, plain
+#: versions on the CPU): ``main`` submits them right after the build, so they
+#: run while the card works through the phases before the ones that read
+#: them (``host_jobs``)
+HOST_WORKERS = 4
+_HOST_POOL = None
+_HOST_JOBS: dict = {}
+
+
+def host_job(fn, *args):
+    """The future of ``fn(*args)`` in a worker process: the one
+    ``submit_host_jobs`` submitted ahead, else one submitted now.  ``fn``
+    must be a module-level function (the workers are spawned and import this
+    file)."""
+    global _HOST_POOL
+    key = (fn.__name__, repr(args))
+    if key in _HOST_JOBS:
+        return _HOST_JOBS.pop(key)
+    if _HOST_POOL is None:
+        import concurrent.futures
+        import multiprocessing
+
+        _HOST_POOL = concurrent.futures.ProcessPoolExecutor(
+            max_workers=HOST_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    return _HOST_POOL.submit(fn, *args)
+
+
+def submit_host_jobs() -> None:
+    """Submit every later phase's card-free check (``host_jobs``)."""
+    for fn, *args in host_jobs():
+        _HOST_JOBS[(fn.__name__, repr(tuple(args)))] = host_job(fn, *args)
+
+
+def stop_host_workers() -> None:
+    """Drop what was not yet started and stop the worker processes."""
+    global _HOST_POOL
+    _HOST_JOBS.clear()
+    if _HOST_POOL is not None:
+        _HOST_POOL.shutdown(wait=True, cancel_futures=True)
+        _HOST_POOL = None
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -486,6 +538,8 @@ def phase_build() -> dict:
     t0 = time.perf_counter()
     info = _build.build()
     _build.library()
+    # disassembled meanwhile for phases flash_attn and flash_bwd
+    threading.Thread(target=_sass, args=(info.path,), daemon=True).start()
     res = {"phase": "build", "seconds": time.perf_counter() - t0,
            "nvcc_seconds": info.seconds, "library": str(info.path.name),
            "card": smi()}
@@ -787,14 +841,29 @@ def sdpa_flash_ms(q, k, v, causal: bool, window: int, kv_len: int) -> float:
         qq, kk, vv, attn_mask=mask, enable_gqa=True))
 
 
-def sass_hmma(lib: Path, name: str) -> dict:
-    """HMMA (tensor-core) instructions in each function of the built library
-    whose mangled name contains ``name``, counted in ``cuobjdump -sass``."""
+_SASS_LOCK = threading.Lock()
+
+
+@functools.lru_cache(maxsize=None)
+def _disassemble(lib: Path) -> str:
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+    return subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
                           check=True).stdout
+
+
+def _sass(lib: Path) -> str:
+    """``cuobjdump -sass`` of the built library, disassembled once (the
+    build phase starts it in a thread)."""
+    with _SASS_LOCK:
+        return _disassemble(lib)
+
+
+def sass_hmma(lib: Path, name: str) -> dict:
+    """HMMA (tensor-core) instructions in each function of the built library
+    whose mangled name contains ``name``, counted in ``cuobjdump -sass``."""
+    text = _sass(lib)
     counts: dict = {}
     cur = None
     for line in text.splitlines():
@@ -873,7 +942,68 @@ FLASH_BWD_CASES = [
     ("zamba2_train", (1, 2048, 32, 1, 112), True, 0, torch.bfloat16),
     ("ragged_f32_window48", (1, 1000, 4, 2, 64), True, 48, torch.float32),
     ("non_causal_f32", (2, 300, 4, 3, 128), False, 0, torch.float32),
+    ("ragged_bf16_window48", (1, 1000, 4, 2, 64), True, 48, torch.bfloat16),
+    ("non_causal_bf16", (2, 300, 4, 3, 128), False, 0, torch.bfloat16),
 ]
+
+#: the backward's kernels in the built library: (bf16 tensor-core, f32 CUDA-core)
+BWD_FUNCTIONS = (("flash_bwd_dkdv_bf16_kernel", "flash_bwd_dq_bf16_kernel"),
+                 ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"))
+
+
+def _fn_label(mangled: str, name: str) -> str:
+    """``name<hd>`` (``name<f32, hd>`` for the f32 template) of a mangled
+    kernel name."""
+    m = re.search(r"I(f?)Li(\d+)E", mangled.split(name, 1)[1])
+    return f"{name}<{'f32, ' if m.group(1) else ''}{m.group(2)}>" if m else mangled
+
+
+def ptxas_usage(log: str, name: str) -> dict:
+    """Registers, stack, spills and static shared memory of every function
+    whose mangled name contains ``name``, from nvcc's ``-Xptxas -v`` log."""
+    out: dict = {}
+    cur = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = _fn_label(m.group(1), name) if name in m.group(1) else None
+            if cur is not None:
+                out[cur] = {}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[cur].update(stack_bytes=int(m.group(1)), spill_store_bytes=int(m.group(2)),
+                            spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            out[cur]["static_smem_bytes"] = int(sm.group(1)) if sm else 0
+    return out
+
+
+def bwd_functions() -> dict:
+    """The backward's functions in the built library: each one's HMMA count
+    (``cuobjdump -sass``) and, when this process ran nvcc, its ptxas usage.
+    Every bf16 dK/dV and dQ function (hd 64, 112, 128) must hold HMMA
+    instructions; the f32 ones are reported beside them."""
+    from repro_torch.kernels.flash_attn import BWD_HEAD_DIMS
+
+    lib = _build.build().path
+    log = "".join(b.log for b in _build.BUILDS)
+    res: dict = {}
+    for kind, names in zip(("bf16", "f32"), BWD_FUNCTIONS):
+        for name in names:
+            hmma = {_fn_label(fn, name): n for fn, n in sass_hmma(lib, name).items()}
+            if kind == "bf16":
+                assert len(hmma) == len(BWD_HEAD_DIMS) and min(hmma.values()) > 0, hmma
+            usage = ptxas_usage(log, name) if log else {}
+            for fn, n in hmma.items():
+                res[fn] = {"hmma": n, **usage.get(fn, {"ptxas": "not in this run's build log"})}
+    return res
 
 
 def rel_l2(got, want) -> float:
@@ -918,12 +1048,14 @@ def phase_flash_bwd(dev) -> dict:
     plain, SDPA's backward) beside the bound: 10 * hd flops per unmasked
     (query head, key) pair at the type's peak, or q, k, v, out, dout and
     lse read and dq, dk, dv written once at the HBM rate.  At smollm's
-    training shape the forward is timed with lse off and on."""
+    training shape the forward is timed with lse off and on.  First the
+    built library's backward functions (``bwd_functions``): every bf16 one
+    must run its products on the tensor cores."""
     from repro_torch.kernels.flash_attn import (flash_attention_backward_kernel,
                                                 flash_attention_kernel)
 
     t0 = time.perf_counter()
-    res = {"phase": "flash_bwd", "card": smi(), "cases": []}
+    res = {"phase": "flash_bwd", "card": smi(), "functions": bwd_functions(), "cases": []}
     for label, (B, S, KVH, G, hd), causal, window, dtype in FLASH_BWD_CASES:
         q, k, v = flash_inputs(label, (B, S, KVH, G, hd), S, dtype, dev)
         gen = torch.Generator().manual_seed(SEED + zlib.crc32(f"{label}/dout".encode()))
@@ -1227,7 +1359,7 @@ def phase_train(dev, cfg=CONFIG, batch: int = TRAIN_BATCH,
                 fwd = sum(ms for n, ms in by_name.items() if "flash_attention" in n)
                 row.update({"device_ms": busy, "device_busy_share": busy / row["wall_ms"],
                             "kernels": len(kern), "flash_bwd_ms": bwd,
-                            "flash_fwd_ms": fwd,
+                            "flash_bwd_share": bwd / busy, "flash_fwd_ms": fwd,
                             "top_kernels_ms": [[n[:80], ms] for n, ms in sorted(
                                 by_name.items(), key=lambda kv: -kv[1])[:8]]})
             else:
@@ -1555,7 +1687,7 @@ def fold_cost(params, cfg, prompts, dev, new_tokens: int = 64) -> dict:
 
 
 def phase_serve(dev, params, init_s, base_cfg=CONFIG, n_req=4, prompt_len=1024,
-                new_tokens=192, pages=16) -> dict:
+                new_tokens=96, pages=16) -> dict:
     """smollm-360m at published widths through ServeEngine(fused=True).  The
     one cut: a 16-page pool (1024 tokens), full after prefill, so AWRP
     evicts during decode."""
@@ -1905,10 +2037,10 @@ def phase_adaptive_attn(dev, kind: str, shape=SERVE_SHAPE, steps: int | None = N
 
 
 def phase_serve_adaptive(dev, params, kv_policy: str, *, profile: bool, n_req=4,
-                         prompt_len=1024, new_tokens=192, pages=16) -> dict:
+                         prompt_len=1024, new_tokens=96, pages=16) -> dict:
     """smollm-360m at published widths, the true-adaptive pool through
     ServeEngine(fused=True), a 16-page pool as in the serve phase: 4 prompts
-    of 1024 seeded tokens and 192 greedy new tokens; then single requests:
+    of 1024 seeded tokens and 96 greedy new tokens; then single requests:
     A and a distinct B of 1024 tokens each, B's follow-up turn (B and the
     tokens B generated: its re-prefill re-references the page positions B's
     decode evicted, so they ghost-hit), and A again (a prefix hit).  Kernel 5
@@ -2256,13 +2388,13 @@ def _finish_cell(res, t_phase) -> dict:
 CELL_PROFILE_STEPS = 4
 
 
-def phase_serve_gemma3(dev, n_req=4, prompt_len=2048, new_tokens=128, pages=16,
+def phase_serve_gemma3(dev, n_req=4, prompt_len=2048, new_tokens=64, pages=16,
                        single_len=1024, unfused_tokens=32) -> dict:
     """gemma3-27b at published widths and all 62 layers through
     ServeEngine(kv_mode="paged", fused=True): the global layers' KV in a
     16-page pool (the one cut, so decode evicts), the local layers' in
     1024-row rings.  AWRP: 4 prompts of 2048 seeded tokens (longer than the
-    window) and 128 greedy tokens, then one of them alone twice (the second
+    window) and 64 greedy tokens, then one of them alone twice (the second
     hits the prefix cache and repeats its tokens), and the batch again
     through the unfused engine for ``unfused_tokens`` tokens, whose greedy
     agreement with the fused tokens is recorded (the first token, from the
@@ -2833,6 +2965,69 @@ def _host_counts(pols, trace, caps) -> tuple:
     return counts, time.perf_counter() - t0
 
 
+#: the sweep benchmark's zipf trace at its smoke size and at its large one
+ZIPF_N = 10_000
+ZIPF_BIG = 100_000
+
+
+def zipf_trace(n: int) -> np.ndarray:
+    """The sweep benchmark's trace (``benchmarks/policy_overhead.py``):
+    ``trace_zipf(n, 2_000, 0.9, seed=5)``."""
+    from repro_torch.core.traces import trace_zipf
+
+    return trace_zipf(n, 2_000, 0.9, seed=5)
+
+
+def _zipf_host_row(policy: str, n: int) -> tuple:
+    """One policy's row of ``_host_counts`` on ``zipf_trace(n)`` (a worker's
+    job)."""
+    counts, seconds = _host_counts([policy], zipf_trace(n), TABLE1_CAPS)
+    return counts[0], seconds
+
+
+def _zipf_host_counts(pols, n: int) -> tuple:
+    """``_host_counts(pols, zipf_trace(n), TABLE1_CAPS)``, a worker process
+    per policy: (counts, the workers' seconds summed)."""
+    rows = [f.result() for f in [host_job(_zipf_host_row, p, n) for p in pols]]
+    return np.stack([c for c, _ in rows]), sum(t for _, t in rows)
+
+
+def sweep_traces(kind: str, n: int) -> np.ndarray:
+    """The sweep phase's traces: ``zipf_trace(n)`` (kind ``"zipf"``) or the
+    paper traces of seeds 0..n-1, (n, 1000) (kind ``"paper"``)."""
+    from repro_torch.core.traces import paper_trace
+
+    if kind == "zipf":
+        return zipf_trace(n)
+    return np.stack([paper_trace(seed=s) for s in range(n)])
+
+
+def _eager_cpu(kind: str, n: int, num_sets: int = 1, renorm_at=None) -> tuple:
+    """The engine's eager route (``use_kernel=False``) on the CPU over
+    ``sweep_traces(kind, n)`` x the device policies x TABLE1_CAPS (a
+    worker's job): (hits as ``_engine`` returns them, seconds)."""
+    from repro_torch.core.policy_core import DEVICE_POLICIES
+    from repro_torch.core.torch_policies import simulate_trace_batched
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    hits = simulate_trace_batched(sweep_traces(kind, n), list(DEVICE_POLICIES), TABLE1_CAPS,
+                                  num_sets=num_sets, use_kernel=False, device="cpu",
+                                  _renorm_at=renorm_at)
+    return hits.numpy(), time.perf_counter() - t0
+
+
+def host_jobs() -> list:
+    """Every check of a later phase that needs no card, longest first, as
+    the phases call ``host_job``: [(function, *args)]."""
+    from repro_torch.core.policy_core import DEVICE_POLICIES
+
+    return [(_eager_cpu, "paper", 64, 1, None), (_eager_cpu, "paper", 8, 2, 64),
+            (_eager_cpu, "zipf", ZIPF_N, 1, None), (_eager_cpu, "paper", 8, 2, None),
+            *((_zipf_host_row, p, n) for n in (ZIPF_BIG, ZIPF_N) for p in DEVICE_POLICIES),
+            *((_cpu_drive, c) for c in tenancy_cases())]
+
+
 def _syncs() -> int:
     from repro_torch.core import policy_core
 
@@ -2948,7 +3143,9 @@ def time_trace_kernels(dev, pols, caps) -> dict:
                    "ms_per_step": ms / T, "bound_ms": bound_ms, "bound_by": bound_by,
                    "library_ms": None}
             if label == "table1" and g.kind in ("flat", "arc"):
-                run["plain_ms"] = time_ms(lambda: plain(*args, **kw), reps=2, warmup=1)
+                # one call: the plain version (a loop over the trace) has run
+                # in (b) and (c) already
+                run["plain_ms"] = time_ms(lambda: plain(*args, **kw), reps=1, warmup=0)
             out[name].append(run)
     return out
 
@@ -2959,26 +3156,28 @@ def phase_sweep(dev) -> dict:
     whole trace: ``flat_sweep`` for the flat rows, ``adaptive_sweep`` per
     adaptive kind); the eager route (``use_kernel=False``) beside it:
     (a) Table 1: six device policies x frame sizes 30..240 on
-        ``paper_trace()``, equal to the host oracles' table; 1 flat_sweep
-        and 2 adaptive_sweep launches, no kernel-2 launch, no host sync;
+        ``paper_trace()``, equal to the host oracles' table on both routes
+        on the card; 1 flat_sweep and 2 adaptive_sweep launches, no kernel-2
+        launch, no host sync;
     (b) a 64-trace grid (``paper_trace(seed=s)``, s < 64) x 6 x 8 = 3072
         rows: trace route == eager route in every hit bit, seeds 0-3 == the
         host oracles, each kernel's hits and final planes == its plain
         version's on the card, bitwise;
     (c) the same at num_sets=2 on 8 seeds, and again with ``_renorm_at=64``
         (stamps renormalize in sets the step does not access);
-    (d) the sweep benchmark's trace (``trace_zipf(10_000, 2_000, 0.9,
-        seed=5)``, ``benchmarks/policy_overhead.py``) x 6 x 8: hit counts
-        equal to the host oracles', on both routes;
-    (e) its 100k-access size (``trace_zipf(100_000, 2_000, 0.9, seed=5)``)
-        x 6 x 8 on the trace route: hit counts equal to the host oracles';
+    (d) the sweep benchmark's trace (``zipf_trace(ZIPF_N)``) x 6 x 8: hit
+        counts equal to the host oracles', on both routes;
+    (e) its 100k-access size (``zipf_trace(ZIPF_BIG)``) x 6 x 8 on the trace
+        route: hit counts equal to the host oracles';
+    in (b)-(d) the eager route runs on the CPU, and the host oracles of (d)
+    and (e) too, in worker processes (``host_job``) while the card works;
     then kernel 2 on its per-step path (``FlatCore(use_kernel=True)``) over
     the first 200 steps of (a)'s flat rows, equal to the trace kernel's hits
     and planes at step 200; the trace kernels timed alone; and a
     ``torch.profiler`` view of the trace route on (b)."""
     from repro_torch.core import hit_ratio_table, sweep
     from repro_torch.core.policy_core import DEVICE_POLICIES, FlatCore
-    from repro_torch.core.traces import paper_trace, trace_zipf
+    from repro_torch.core.traces import paper_trace
 
     pols, caps = list(DEVICE_POLICIES), TABLE1_CAPS
     res = {"phase": "sweep", "policies": pols, "caps": caps}
@@ -3036,12 +3235,12 @@ def phase_sweep(dev) -> dict:
 
     # (b) the 64-trace grid: trace route == eager route; seeds 0-3 == host;
     # final planes == the plain versions'
-    grid = np.stack([paper_trace(seed=s) for s in range(64)])
+    grid = sweep_traces("paper", 64)
+    eager = host_job(_eager_cpu, "paper", 64, 1, None)
     hk, sk, lk, yk = _engine(grid, pols, caps, use_kernel=True)
     _assert_trace_route(lk, yk)
-    hi, si, li, yi = _engine(grid, pols, caps, use_kernel=False)
+    hi, si = eager.result()
     assert (hk == hi).all(), "trace and eager routes differ on the 64-trace grid"
-    assert li["awrp_select_rows"] == 0 and li["flat_sweep"] == 0
     t0 = time.perf_counter()
     for n in range(4):
         for pi, p in enumerate(pols):
@@ -3051,8 +3250,8 @@ def phase_sweep(dev) -> dict:
     res["grid64"] = {"rows": int(np.prod(hk.shape[:3])), "steps": grid.shape[1],
                      "trace": {"seconds": sk, "ms_per_step": sk * 1e3 / grid.shape[1],
                                "launches": lk, "host_syncs": yk},
-                     "eager": {"seconds": si, "ms_per_step": si * 1e3 / grid.shape[1],
-                               "host_syncs_per_step": yi / grid.shape[1]},
+                     "eager": {"device": "cpu", "seconds": si,
+                               "ms_per_step": si * 1e3 / grid.shape[1]},
                      "trace_equals_eager": True, "host_checked_traces": 4,
                      "host_oracle_seconds_4_traces": host_s,
                      **_planes_equal_plain(grid, pols, caps, dev)}
@@ -3064,7 +3263,7 @@ def phase_sweep(dev) -> dict:
         kw = {"num_sets": 2, "_renorm_at": renorm_at}
         hk2, sk2, lk2, yk2 = _engine(g8, pols, caps, use_kernel=True, **kw)
         _assert_trace_route(lk2, yk2)
-        hi2, si2, _, _ = _engine(g8, pols, caps, use_kernel=False, **kw)
+        hi2, si2 = host_job(_eager_cpu, "paper", 8, 2, renorm_at).result()
         assert (hk2 == hi2).all(), ("trace and eager routes differ at num_sets=2", renorm_at)
         for n in range(8):
             for pi, p in enumerate(pols):
@@ -3072,31 +3271,33 @@ def phase_sweep(dev) -> dict:
                     assert (hk2[n, pi, ci] == _host_hits(p, g8[n], c, 2)).all(), (n, p, c)
         res["sets2"].append({
             "renorm_at": renorm_at, "rows": int(np.prod(hk2.shape[:3])), "steps": g8.shape[1],
-            "trace": {"seconds": sk2, "launches": lk2}, "eager": {"seconds": si2},
+            "trace": {"seconds": sk2, "launches": lk2},
+            "eager": {"device": "cpu", "seconds": si2},
             "trace_equals_eager_equals_host": True,
             **_planes_equal_plain(g8, pols, caps, dev, num_sets=2, renorm_at=renorm_at)})
 
     # (d) the sweep benchmark's trace at its smoke size: both routes == host
-    z = trace_zipf(10_000, 2_000, 0.9, seed=5)
+    # (the eager route and the oracles run in worker processes, on the CPU)
+    z = zipf_trace(ZIPF_N)
+    eager = host_job(_eager_cpu, "zipf", ZIPF_N, 1, None)
     hz, sz, lz, yz = _engine(z, pols, caps)
     _assert_trace_route(lz, yz)
-    hze, sze, _, yze = _engine(z, pols, caps, use_kernel=False)
+    hze, sze = eager.result()
     counts = hz[0].sum(-1)
-    host_counts, host_s = _host_counts(pols, z, caps)
+    host_counts, host_s = _zipf_host_counts(pols, len(z))
     assert (counts == host_counts).all(), (counts, host_counts)
     assert (hze == hz).all(), "trace and eager routes differ on the 10k zipf trace"
     res["zipf10k"] = {"steps": len(z), "seconds": sz, "ms_per_step": sz * 1e3 / len(z),
-                      "launches": lz, "host_syncs": yz, "eager_seconds": sze,
-                      "eager_host_syncs_per_step": yze / len(z),
-                      "host_oracle_seconds": host_s, "counts_equal_to_host": True,
-                      "hit_counts": counts.tolist()}
+                      "launches": lz, "host_syncs": yz, "eager_device": "cpu",
+                      "eager_seconds": sze, "host_oracle_seconds": host_s,
+                      "counts_equal_to_host": True, "hit_counts": counts.tolist()}
 
     # (e) the 100k-access size, trace route only
-    z = trace_zipf(100_000, 2_000, 0.9, seed=5)
+    z = zipf_trace(ZIPF_BIG)
     hz, sz, lz, yz = _engine(z, pols, caps)
     _assert_trace_route(lz, yz)
     counts = hz[0].sum(-1)
-    host_counts, host_s = _host_counts(pols, z, caps)
+    host_counts, host_s = _zipf_host_counts(pols, len(z))
     assert (counts == host_counts).all(), (counts, host_counts)
     res["zipf100k"] = {"steps": len(z), "seconds": sz, "ms_per_step": sz * 1e3 / len(z),
                        "launches": lz, "host_syncs": yz, "host_oracle_seconds": host_s,
@@ -3205,6 +3406,21 @@ def tenancy_drive(case: dict, device) -> dict:
         hits = mgr.access_stream(rows, keys)
     return {"hits": hits, "planes": [t.cpu().numpy() for t in (*mgr.state, *mgr.counters)],
             "quotas": dict(mgr.quotas), "moves": moves}
+
+
+def tenancy_cases() -> list:
+    """The cases ``phase_tenancy`` drives on the card and on the CPU."""
+    q16 = (16, 16, 16)
+    cases = [dict(label=f"stream_{p}", policy=p, quotas=q16, n=TENANCY_N, mode="stream")
+             for p in TENANCY_POLICIES]
+    cases += [dict(label="chunks_awrp", policy="awrp", quotas=q16, n=TENANCY_N, mode="chunks")]
+    cases += [dict(label=f"wide_{p}", policy=p, quotas=(200, 100, 40), n=TENANCY_N,
+                   mode="stream") for p in ("awrp", "lfu")]
+    cases += [dict(label=f"renorm_{p}", policy=p, quotas=q16, n=TENANCY_N, mode="stream",
+                   renorm_at=64) for p in ("arc", "car")]
+    cases += [dict(label=f"{mode}300_{p}", policy=p, quotas=q16, n=300, mode=mode)
+              for p in ("awrp", "car") for mode in ("access", "stream")]
+    return cases
 
 
 def _cpu_drive(case: dict) -> dict:
@@ -3361,47 +3577,33 @@ def phase_tenancy(dev) -> dict:
     oracles, the kernels timed alone as the manager launches them
     (``stream_call``) and their bound.  Then the ring variant for each
     policy (``tenancy_ring``), timed beside the ring-off launch."""
-    import concurrent.futures
-    import multiprocessing
-
-    from repro_torch.core import policy_core
     from repro_torch.serve.tenancy import TenantCacheManager
 
     t_phase = time.perf_counter()
     q16 = (16, 16, 16)
-    cases = [dict(label=f"stream_{p}", policy=p, quotas=q16, n=TENANCY_N, mode="stream")
-             for p in TENANCY_POLICIES]
-    cases += [dict(label="chunks_awrp", policy="awrp", quotas=q16, n=TENANCY_N, mode="chunks")]
-    cases += [dict(label=f"wide_{p}", policy=p, quotas=(200, 100, 40), n=TENANCY_N,
-                   mode="stream") for p in ("awrp", "lfu")]
-    cases += [dict(label=f"renorm_{p}", policy=p, quotas=q16, n=TENANCY_N, mode="stream",
-                   renorm_at=64) for p in ("arc", "car")]
-    cases += [dict(label=f"{mode}300_{p}", policy=p, quotas=q16, n=300, mode=mode)
-              for p in ("awrp", "car") for mode in ("access", "stream")]
-    ctx = multiprocessing.get_context("spawn")
+    cases = tenancy_cases()
     res = {"phase": "tenancy", "tenants": list(TENANCY_TENANTS), "stream_len": TENANCY_N,
            "cases": {}}
-    with concurrent.futures.ProcessPoolExecutor(max_workers=6, mp_context=ctx) as pool:
-        plain = {c["label"]: pool.submit(_cpu_drive, c) for c in cases}
-        card = {}
-        for c in cases:
-            syncs0 = _syncs()
-            ops.reset_launches()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            card[c["label"]] = tenancy_drive(c, dev)
-            seconds = time.perf_counter() - t0
-            launches = ops.LAUNCHES["flat_stream"] + ops.LAUNCHES["adaptive_stream"]
-            calls = {"stream": 1, "chunks": 8, "access": c["n"]}[c["mode"]]
-            assert launches == calls, (c["label"], dict(ops.LAUNCHES))
-            assert _syncs() == syncs0, c["label"]
-            res["cases"][c["label"]] = {"policy": c["policy"], "quotas": list(c["quotas"]),
-                                        "accesses": c["n"], "mode": c["mode"],
-                                        "seconds": seconds, "launches": launches,
-                                        "host_syncs": _syncs() - syncs0}
-        t_wait = time.perf_counter()
-        plain = {k: f.result() for k, f in plain.items()}
-        res["plain_wait_s"] = time.perf_counter() - t_wait
+    plain = {c["label"]: host_job(_cpu_drive, c) for c in cases}
+    card = {}
+    for c in cases:
+        syncs0 = _syncs()
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card[c["label"]] = tenancy_drive(c, dev)
+        seconds = time.perf_counter() - t0
+        launches = ops.LAUNCHES["flat_stream"] + ops.LAUNCHES["adaptive_stream"]
+        calls = {"stream": 1, "chunks": 8, "access": c["n"]}[c["mode"]]
+        assert launches == calls, (c["label"], dict(ops.LAUNCHES))
+        assert _syncs() == syncs0, c["label"]
+        res["cases"][c["label"]] = {"policy": c["policy"], "quotas": list(c["quotas"]),
+                                    "accesses": c["n"], "mode": c["mode"],
+                                    "seconds": seconds, "launches": launches,
+                                    "host_syncs": _syncs() - syncs0}
+    t_wait = time.perf_counter()
+    plain = {k: f.result() for k, f in plain.items()}
+    res["plain_wait_s"] = time.perf_counter() - t_wait
     for c in cases:
         label = c["label"]
         got = card[label]
@@ -4208,16 +4410,26 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
+    submit_host_jobs()
+    try:
+        return _phases(dev, t_start)
+    finally:
+        stop_host_workers()
+
+
+def _phases(dev, t_start: float) -> int:
+    """Every phase after the build, the kernels line and the result line."""
     pa = phase_paged_attention(dev)
     phase_paged_attention(dev, SERVE_SHAPE)
     pa_g3 = phase_paged_attention(dev, GEMMA3_DECODE_SHAPE)
     pa_z2 = phase_paged_attention(dev, ZAMBA2_DECODE_SHAPE)
     for shape in (DECODE_SHAPE, GEMMA3_DECODE_SHAPE, ZAMBA2_DECODE_SHAPE):
         phase_paged_attention(dev, shape, ragged=True, timed=False)
-    pol = phase_policy_attn(dev)
-    # at the serve shape: awrp as the serve phase runs it (3 evicting page
-    # boundaries), every other page policy over two evicting boundaries
+    # at P=256 over two evicting page boundaries; at the serve shape: awrp
+    # as the serve phase runs it (3 evicting page boundaries), every other
+    # page policy over two evicting boundaries
     page = SERVE_SHAPE[2]
+    pol = phase_policy_attn(dev, steps=DECODE_SHAPE[2] + 1)
     at_serve = [phase_policy_attn(dev, p, SERVE_SHAPE,
                                   steps=3 * page if p == "awrp" else page + 1,
                                   timed=p == "awrp")

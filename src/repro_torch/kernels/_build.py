@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-Each source under ``kernels/csrc`` is compiled by its own ``nvcc -c`` (all
-started together, ``-gencode arch=compute_90a,code=sm_90a -O3``, IEEE
-division and ``expf``: no ``--use_fast_math``), and one more ``nvcc`` links
+Each source under ``kernels/csrc`` is compiled by its own ``nvcc -c``
+(kernel 5's twice, ``UNITS``; all started together, ``-gencode
+arch=compute_90a,code=sm_90a -O3``, IEEE division and ``expf``: no
+``--use_fast_math``), and one more ``nvcc`` links
 the objects into a shared library with a plain C interface, loaded with
 ``ctypes``.  The three decode kernels share their page math
 (``paged_attn_common.cuh``) and these flags, which is what makes the fused
@@ -29,6 +30,11 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("paged_attn.cu", "policy_attn.cu", "adaptive_attn.cu", "awrp_select.cu",
            "flash_attn.cu", "flash_attn_bwd.cu", "sweep.cu")
+#: the translation units, (source, its own nvcc flags): every source once,
+#: and kernel 5's a second time for its bfloat16 kernels, which alone would
+#: be the build's longest compile
+UNITS = (*((src, ()) for src in SOURCES),
+         ("adaptive_attn.cu", ("-DREPRO_ADAPTIVE_BF16",)))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -74,6 +80,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(UNITS).encode())
     for src in sorted(CSRC.iterdir()):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -82,8 +89,8 @@ def _digest() -> str:
 
 def build() -> BuildInfo:
     """Compile the kernels (once per source hash): one ``nvcc -c`` per
-    source, run in parallel, then one link.  Returns the library path, the
-    seconds the build took and nvcc's log.  Raises with nvcc's output on
+    translation unit (``UNITS``), run in parallel, then one link.  Returns
+    the library path, the seconds the build took and nvcc's log.  Raises with nvcc's output on
     failure."""
     out = BUILD_DIR / f"librepro_torch_kernels_{_digest()}.so"
     if out.exists():
@@ -93,9 +100,9 @@ def build() -> BuildInfo:
     nvcc = _nvcc()
     t0 = time.perf_counter()
     jobs = []
-    for src in SOURCES:
-        obj = BUILD_DIR / f"{tag}.{Path(src).stem}.o"
-        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)]
+    for i, (src, flags) in enumerate(UNITS):
+        obj = BUILD_DIR / f"{tag}.{i}.{Path(src).stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, *flags, "-c", "-o", str(obj), str(CSRC / src)]
         jobs.append((cmd, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     log = ""

@@ -261,8 +261,25 @@ cudaError_t launch(const void* const* ptrs, const int* pos, int B, const Dims& d
 }
 
 }  // namespace
+
+// The bfloat16 instantiations are a translation unit of their own: the build
+// compiles this file a second time with REPRO_ADAPTIVE_BF16 (_build.py
+// UNITS), so the two dtypes' kernels for G = 1..8 compile in parallel.
+cudaError_t adaptive_launch_bf16(const void* const* ptrs, const int* pos, int B,
+                                 const Dims& d, int L, float scale, int kind,
+                                 int renorm_at, cudaStream_t stream);
+
+#ifdef REPRO_ADAPTIVE_BF16
+cudaError_t adaptive_launch_bf16(const void* const* ptrs, const int* pos, int B,
+                                 const Dims& d, int L, float scale, int kind,
+                                 int renorm_at, cudaStream_t stream) {
+  return launch<__nv_bfloat16>(ptrs, pos, B, d, L, scale, kind, renorm_at, stream);
+}
+#endif
+
 }  // namespace repro
 
+#ifndef REPRO_ADAPTIVE_BF16
 extern "C" int repro_adaptive_policy_paged_attention(
     int dtype, const void* q, const void* k, const void* v, const void* new_k,
     const void* new_v, const void* pos, const void* f, const void* r,
@@ -289,6 +306,7 @@ extern "C" int repro_adaptive_policy_paged_attention(
   if (dtype == 0)
     return (int)launch<float>(ptrs, pos_in, B, d, L, scale, kind, renorm_at, st);
   if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(ptrs, pos_in, B, d, L, scale, kind, renorm_at, st);
+    return (int)adaptive_launch_bf16(ptrs, pos_in, B, d, L, scale, kind, renorm_at, st);
   return (int)cudaErrorInvalidValue;
 }
+#endif

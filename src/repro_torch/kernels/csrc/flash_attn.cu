@@ -23,7 +23,8 @@
 //
 // bf16 (flash_attention_bf16_kernel): both products on the tensor cores,
 // mma.sync.m16n8k16 bf16 x bf16 -> f32.  128 threads, each warp owning 16
-// query rows.  Two buffers of one K and one V tile (kBK key rows: 64, or 32
+// query rows (the PTX helpers: mma_common.cuh, shared with the backward).
+// Two buffers of one K and one V tile (kBK key rows: 64, or 32
 // at hd = 256 so that the accumulator fits in registers) sit in shared
 // memory as bf16 rows of 16-byte chunks, XOR-swizzled by the row so that
 // ldmatrix reads 8 rows without a bank conflict (a row's stride is its
@@ -85,6 +86,8 @@
 
 #include <type_traits>
 
+#include "mma_common.cuh"
+
 namespace repro {
 namespace {
 
@@ -114,55 +117,6 @@ struct MmaTile {
   static constexpr int kMinBlocks = HD == 64 ? 4 : HD <= 128 ? 3 : 1;
   static_assert(!kQRegs || kRows == kBK, "Q is staged in a K tile");
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte cp.async into shared memory; zeros when ``valid`` is false
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(smem)),
-               "l"(gmem), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most N committed groups of this thread are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Four 8x8 bf16 matrices from shared memory, lane l giving the address of
-// row l % 8 of matrix l / 8; .trans delivers them transposed.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// d += a.b, one 16x8x16 product: bf16 inputs, f32 accumulator
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 h) {
-  return *reinterpret_cast<uint32_t*>(&h);
-}
 
 // (x, y) as three bf16x2 pairs (x in the low halves): hi = bf16(.), mid =
 // bf16(. - hi), lo = bf16(. - hi - mid).  x - bf16(x) is exact in f32 and

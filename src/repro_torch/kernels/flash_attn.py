@@ -11,7 +11,9 @@ split into hi + mid + lo); f32 runs on the CUDA cores.  With
 ``return_lse=True`` it also returns the rows' log-sum-exp (B, Sq, KVH, G) in
 f32, which ``flash_attention_backward_kernel`` takes: the gradient of the
 same function (port-only: the reference's gradient is XLA's derivative of
-its jnp attention), three launches, for the training path's self-attention.
+its jnp attention), three launches, for the training path's self-attention;
+bf16 runs its five products on the tensor cores (p and dS rounded once to
+bf16 as operands), f32 on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -88,7 +90,7 @@ def flash_attention_backward_kernel(q, k, v, out, lse, dout, *, causal: bool,
     valid: q, out, dout (B, S, KVH, G, hd), k/v (B, S, KVH, hd), bf16 or f32,
     lse (B, S, KVH, G) f32, contiguous on one CUDA device -> (dq, dk, dv) in
     the inputs' dtype.  Three launches (D = rowsum(dout * out), dK/dV, dQ),
-    f32 sums in a fixed order, no atomics."""
+    f32 sums in a fixed order, no atomics; bf16 tensors 16-byte aligned."""
     name = "flash_attention_bwd"
     if q.dim() != 5 or k.dim() != 4:
         raise ValueError(f"{name}: q must be 5-D and k/v 4-D, got "
@@ -103,6 +105,9 @@ def flash_attention_backward_kernel(q, k, v, out, lse, dout, *, causal: bool,
         if t.dtype != q.dtype or t.device != q.device or not t.is_contiguous():
             raise ValueError(f"{name}: q/k/v/out/dout must share dtype and device and "
                              "be contiguous")
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"{name}: bf16 q/k/v/out/dout must be 16-byte aligned "
+                             "(the tensor-core kernels stage them with cp.async)")
     if (k.shape != (B, S, KVH, hd) or v.shape != k.shape or out.shape != q.shape
             or dout.shape != q.shape or not 1 <= G <= MAX_G or min(B, S, KVH) < 1):
         raise ValueError(f"{name}: unsupported shapes q={tuple(q.shape)} "

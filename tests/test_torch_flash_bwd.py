@@ -179,6 +179,57 @@ def test_backward_head_dims_bind_the_kernel_not_the_plain_version():
     assert all(torch.isfinite(g).all() for g in grads)
 
 
+def _bf16(x):
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _bf16_operand_backward(q, k, v, out, lse, dout, *, causal, window):
+    """The plain backward's closed form as the bf16 kernel computes it: p and
+    ds in f32, each rounded once to bf16 as the operand of its products
+    (a bf16 x bf16 product is exact in f32, the sums in f32), the gradients
+    rounded to bf16."""
+    B, S, KVH, G, hd = q.shape
+    scale = ref.attn_scale(hd)
+    i = torch.arange(S)[:, None]
+    j = torch.arange(S)[None, :]
+    mask = torch.ones(S, S, dtype=torch.bool)
+    if causal:
+        mask &= j <= i
+    if window:
+        mask &= i - j < window
+    s = torch.einsum("bqkgh,bckh->bkgqc", q, k) * scale
+    lse_t = lse.permute(0, 2, 3, 1)[..., None]
+    p = torch.where(mask, torch.exp(torch.where(mask, s, 0.0) - lse_t), 0.0)
+    dp = torch.einsum("bqkgh,bckh->bkgqc", dout, v)
+    D = (dout * out).sum(-1).permute(0, 2, 3, 1)[..., None]
+    ds = p * (dp - D)
+    p, ds = _bf16(p), _bf16(ds)
+    dq = torch.einsum("bkgqc,bckh->bqkgh", ds, k) * scale
+    dk = torch.einsum("bkgqc,bqkgh->bckh", ds, q) * scale
+    dv = torch.einsum("bkgqc,bqkgh->bckh", p, dout)
+    return _bf16(dq), _bf16(dk), _bf16(dv)
+
+
+@pytest.mark.parametrize("causal,window", MASKS)
+@pytest.mark.parametrize("G", [1, 3])
+@pytest.mark.parametrize("hd", [64, 112, 128])
+def test_bf16_operands_of_p_and_ds_stay_within_a_quarter_of_the_gate(causal, window, G, hd):
+    """The bf16 kernel feeds p and ds to the tensor cores as one bf16 each:
+    on bf16 inputs with the forward's bf16 ``out``, that scheme stays within
+    a quarter of the card's gate (2**-6 relative L2) of the f32 closed form,
+    so no product needs p or ds in several parts."""
+    q, k, v, dout = (_bf16(torch.from_numpy(a)) for a in _inputs(9, 1, 300, 2, G, hd))
+    out, lse = ref.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                         return_lse=True)
+    out = _bf16(out)
+    want = ref.flash_attention_backward_plain(q, k, v, out, lse, dout, causal=causal,
+                                              window=window)
+    got = _bf16_operand_backward(q, k, v, out, lse, dout, causal=causal, window=window)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        rel = (torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w)).item()
+        assert rel <= 2.0 ** -6 / 4, (name, rel)
+
+
 # -- on the card -------------------------------------------------------------
 
 
