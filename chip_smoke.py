@@ -76,7 +76,14 @@ side:
    smollm's training microbatch (4, 4096, 5, 3, 64) causal, gemma3's (1,
    4096, 16, 2, 128) with window 1024 and 0, zamba2's (1, 2048, 32, 1, 112),
    a ragged (1, 1000, 4, 2, 64) with window 48 and a non-causal (2, 300,
-   4, 3, 128), each in f32 and in bf16: the plain version takes the
+   4, 3, 128), each in f32 and in bf16; the train_families cells' G = 6
+   (internvl2, (1, 4096, 8, 6, 128)) and G = 4 (phi3.5-moe, (1, 4096, 8, 4,
+   128)), causal, each in bf16 and f32; then at Sq != Skv and under a
+   ``kv_len`` mask, each in bf16 and f32: whisper's training
+   cross-attention at its cell's microbatch (1, 448, 20, 1, 64) and at (8,
+   448, 20, 1, 64) over its 1500 encoder keys, non-causal, a causal (2,
+   1000, 4, 2, 128) over 700 keys and a (2, 500, 4, 3, 112) over 1000 keys
+   with kv_len 700: the plain version takes the
    kernel's own out and lse; bf16 dq / dk / dv within BWD_REL_L2 relative
    L2 of the plain f32 result, f32 elementwise within BWD_F32_RTOL *
    max|plain| + BWD_F32_ATOL, lse within LSE_RTOL/ATOL, ``out`` bit for bit
@@ -102,6 +109,27 @@ side:
    equal to an uninterrupted run, and a checkpoint round trip of the card's
    trained state, its parameters cast to bf16, bit for
    bit.
+3d. ``train_families``: the other families' training at published widths
+   (bf16 parameters, the config's optimizer rule, remat full, its
+   microbatches), one warm-up and 2 timed steps each, with wall and event
+   ms, tokens/s, peak GB and kernel 6 / backward launches (gated at the
+   counts reckoned from the config), losses and grad norms finite, every
+   master leaf changing, beside the step's flop bound: whisper-large-v3
+   whole (32 + 32 layers) on 8 sequences of its 1500 zero frames and 448
+   tokens (kernel 6 non-causal in the encoder, causal in the decoder and
+   at 448 over 1500 in the cross-attention, each with its backward);
+   mamba2-370m whole at 16 x 4096 (no kernel runs); zamba2-7b at 9 of 81
+   blocks (one repeat of its unit and its tail) at 4 x 4096; phi3.5-moe at
+   1 of 32 layers and internvl2-26b at 2 of 48 (its 256 patch positions),
+   8 x 4096; grok-1 is not run (one layer at published width is ~4.8 B
+   parameters).  Then every moe, ssm, hybrid, vlm and enc-dec family's
+   SMOKE_CONFIG in f32 (hd 64 where it has attention): 2 steps of 4 x 128
+   tokens on the card against the same 2 on the CPU (the CPU runs in the
+   worker processes): losses, grad norms and the first batch's gradients
+   leaf by leaf within TRAIN_CPU_RTOL, and the final parameters within it
+   on the elements whose first-batch gradient is 0 or at least
+   TRAIN_PARAMS_GRAD_FLOOR (every element's distance reported); two card
+   runs bit for bit (the moe family's repeatability reported, not gated).
 4. ``serve``: ``ServeEngine`` on smollm-360m at published widths, bf16,
    paged KV with AWRP through the fused kernel (kernel 4: two launches per
    layer per decode step, ``ops.SPLIT_LAUNCHES``), 4 requests of 1024 seeded
@@ -124,12 +152,14 @@ side:
    equal except at near-tau steps (counted); timed at the serve shape and
    at gemma3's, phi3.5-moe's, qwen2.5's, yi's, zamba2's and internvl2's
    decode shapes
-   (arc; the last four over two steps, an evicting boundary and a
-   mid-page step), at a page boundary and mid-page, both repeated bit for
-   bit over 6 launches, as at P=256.
+   (arc; the last six over two steps, an evicting boundary and a mid-page
+   step: gemma3's and phi3.5's were cut from two evicting boundaries to
+   make room for train_families in the time limit), at a page boundary and
+   mid-page, both repeated bit for bit over 6 launches, as at P=256.
 4b. ``serve_adaptive``: the serve phase's model and pool with
-   ``kv_policy`` arc_adaptive and car_adaptive: 4 x 1024-token prompts and 96
-   greedy tokens, then single requests A and B (distinct 1024-token prompts),
+   ``kv_policy`` arc_adaptive and car_adaptive: 4 x 1024-token prompts and 64
+   greedy tokens (cut from 96 for the time limit), then single requests A
+   and B (distinct 1024-token prompts),
    B's follow-up turn (its re-prefill ghost-hits the pages B's decode
    evicted and moves p) and A again (a prefix hit); kernel 5 called once
    per layer per decode step (two launches, ``ops.SPLIT_LAUNCHES``).
@@ -813,32 +843,39 @@ def attended_pairs(Sq: int, Skv: int, causal: bool, window: int, kv_len: int) ->
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
-def sdpa_flash_ms(q, k, v, causal: bool, window: int, kv_len: int) -> float:
-    """One PyTorch call computing the same attention over the same mask (the
-    yardstick; the port never calls it)."""
+def sdpa_call(q, k, v, causal: bool, window: int, kv_len: int, *, grad: bool = False):
+    """(call, (qq, kk, vv)): one PyTorch ``scaled_dot_product_attention``
+    call computing the same attention over the same mask in the (B, H, S,
+    hd) layout, GQA (the yardstick; the port never calls it): ``is_causal``
+    at Sq == Skv, no mask where every key is attended (an encoder, a
+    cross-attention), else the boolean mask.  ``grad``: the inputs require
+    a gradient."""
     import torch.nn.functional as F
 
     B, Sq, KVH, G, hd = q.shape
     Skv = k.shape[1]
-    qq = q.reshape(B, Sq, KVH * G, hd).transpose(1, 2).contiguous()
-    kk = k.transpose(1, 2).contiguous()
-    vv = v.transpose(1, 2).contiguous()
+    qq = q.reshape(B, Sq, KVH * G, hd).transpose(1, 2).contiguous().requires_grad_(grad)
+    kk = k.transpose(1, 2).contiguous().requires_grad_(grad)
+    vv = v.transpose(1, 2).contiguous().requires_grad_(grad)
+    kw = {"enable_gqa": True}
     if causal and not window and kv_len == Skv and Sq == Skv:
-        return time_ms(lambda: F.scaled_dot_product_attention(
-            qq, kk, vv, is_causal=True, enable_gqa=True))
-    if not causal and not window and kv_len == Skv:
-        # every key attended (an encoder, a cross-attention): no mask
-        return time_ms(lambda: F.scaled_dot_product_attention(
-            qq, kk, vv, enable_gqa=True))
-    i = torch.arange(Sq, device=q.device)[:, None]
-    j = torch.arange(Skv, device=q.device)[None, :]
-    mask = j < kv_len
-    if causal:
-        mask = mask & (j <= i)
-    if window:
-        mask = mask & (i - j < window)
-    return time_ms(lambda: F.scaled_dot_product_attention(
-        qq, kk, vv, attn_mask=mask, enable_gqa=True))
+        kw["is_causal"] = True
+    elif causal or window or kv_len != Skv:
+        i = torch.arange(Sq, device=q.device)[:, None]
+        j = torch.arange(Skv, device=q.device)[None, :]
+        mask = j < kv_len
+        if causal:
+            mask = mask & (j <= i)
+        if window:
+            mask = mask & (i - j < window)
+        kw["attn_mask"] = mask
+    return (lambda: F.scaled_dot_product_attention(qq, kk, vv, **kw)), (qq, kk, vv)
+
+
+def sdpa_flash_ms(q, k, v, causal: bool, window: int, kv_len: int) -> float:
+    """One PyTorch call computing the same attention over the same mask
+    (``sdpa_call``), timed."""
+    return time_ms(sdpa_call(q, k, v, causal, window, kv_len)[0])
 
 
 _SASS_LOCK = threading.Lock()
@@ -933,17 +970,39 @@ def phase_flash_attn(dev) -> dict:
     return res
 
 
-#: (label, (B, S, KVH, G, hd), causal, window, dtype): the backward kernel's
-#: rows, self-attention with every key valid (the training path's case)
+#: (label, (B, Sq, KVH, G, hd), key length or None (= Sq), causal, window,
+#: kv_len or None, dtype): the backward kernel's rows, self-attention (the
+#: training cells' shapes among them), then cross-attention at Sq != Skv and a
+#: ``kv_len`` mask
 FLASH_BWD_CASES = [
-    ("smollm_train", (4, 4096, 5, 3, 64), True, 0, torch.bfloat16),
-    ("gemma3_local_train", (1, 4096, 16, 2, 128), True, 1024, torch.bfloat16),
-    ("gemma3_global_train", (1, 4096, 16, 2, 128), True, 0, torch.bfloat16),
-    ("zamba2_train", (1, 2048, 32, 1, 112), True, 0, torch.bfloat16),
-    ("ragged_f32_window48", (1, 1000, 4, 2, 64), True, 48, torch.float32),
-    ("non_causal_f32", (2, 300, 4, 3, 128), False, 0, torch.float32),
-    ("ragged_bf16_window48", (1, 1000, 4, 2, 64), True, 48, torch.bfloat16),
-    ("non_causal_bf16", (2, 300, 4, 3, 128), False, 0, torch.bfloat16),
+    ("smollm_train", (4, 4096, 5, 3, 64), None, True, 0, None, torch.bfloat16),
+    ("gemma3_local_train", (1, 4096, 16, 2, 128), None, True, 1024, None, torch.bfloat16),
+    ("gemma3_global_train", (1, 4096, 16, 2, 128), None, True, 0, None, torch.bfloat16),
+    ("zamba2_train", (1, 2048, 32, 1, 112), None, True, 0, None, torch.bfloat16),
+    ("ragged_f32_window48", (1, 1000, 4, 2, 64), None, True, 48, None, torch.float32),
+    ("non_causal_f32", (2, 300, 4, 3, 128), None, False, 0, None, torch.float32),
+    ("ragged_bf16_window48", (1, 1000, 4, 2, 64), None, True, 48, None, torch.bfloat16),
+    ("non_causal_bf16", (2, 300, 4, 3, 128), None, False, 0, None, torch.bfloat16),
+    # the train_families cells' own per-microbatch shapes where no row above
+    # has their group: internvl2's G = 6 (a 64-row query tile holds 10
+    # positions, 60 rows and 4 empty) and phi3.5-moe's G = 4, causal at 4096
+    ("internvl2_train", (1, 4096, 8, 6, 128), None, True, 0, None, torch.bfloat16),
+    ("internvl2_train_f32", (1, 4096, 8, 6, 128), None, True, 0, None, torch.float32),
+    ("phi35_train", (1, 4096, 8, 4, 128), None, True, 0, None, torch.bfloat16),
+    ("phi35_train_f32", (1, 4096, 8, 4, 128), None, True, 0, None, torch.float32),
+    # whisper's training cross-attention: its 448 decoder queries over the
+    # 1500 encoder keys (a ragged last key tile of 28), at the cell's
+    # microbatch of one sequence and at 8; a causal row with more queries
+    # than keys; a kv_len mask ending inside a key tile (700 = 10 tiles + 60)
+    # at hd 112
+    ("whisper_cross_train", (1, 448, 20, 1, 64), 1500, False, 0, None, torch.bfloat16),
+    ("whisper_cross_train_f32", (1, 448, 20, 1, 64), 1500, False, 0, None, torch.float32),
+    ("whisper_cross_b8", (8, 448, 20, 1, 64), 1500, False, 0, None, torch.bfloat16),
+    ("whisper_cross_b8_f32", (8, 448, 20, 1, 64), 1500, False, 0, None, torch.float32),
+    ("cross_causal", (2, 1000, 4, 2, 128), 700, True, 0, None, torch.bfloat16),
+    ("cross_causal_f32", (2, 1000, 4, 2, 128), 700, True, 0, None, torch.float32),
+    ("cross_kv_len", (2, 500, 4, 3, 112), 1000, False, 0, 700, torch.bfloat16),
+    ("cross_kv_len_f32", (2, 500, 4, 3, 112), 1000, False, 0, 700, torch.float32),
 ]
 
 #: the backward's kernels in the built library: (bf16 tensor-core, f32 CUDA-core)
@@ -1011,28 +1070,15 @@ def rel_l2(got, want) -> float:
     return (torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w)).item()
 
 
-def sdpa_bwd_ms(q, k, v, dout, causal: bool, window: int) -> float:
-    """The backward alone of one PyTorch call computing the same attention
-    (``scaled_dot_product_attention`` in the (B, H, S, hd) layout, GQA,
-    causal or the window's mask), through ``torch.autograd.grad`` on a
-    retained graph (the yardstick; the port never calls it)."""
-    import torch.nn.functional as F
-
-    B, S, KVH, G, hd = q.shape
-    qq = q.reshape(B, S, KVH * G, hd).transpose(1, 2).contiguous().requires_grad_(True)
-    kk = k.transpose(1, 2).contiguous().requires_grad_(True)
-    vv = v.transpose(1, 2).contiguous().requires_grad_(True)
-    gg = dout.reshape(B, S, KVH * G, hd).transpose(1, 2).contiguous()
-    if window:
-        i = torch.arange(S, device=q.device)[:, None]
-        j = torch.arange(S, device=q.device)[None, :]
-        mask = i - j < window
-        if causal:
-            mask = mask & (j <= i)
-        out = F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask, enable_gqa=True)
-    else:
-        out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=causal, enable_gqa=True)
-    ms = time_ms(lambda: torch.autograd.grad(out, (qq, kk, vv), gg, retain_graph=True))
+def sdpa_bwd_ms(q, k, v, dout, causal: bool, window: int, kv_len: int) -> float:
+    """The backward alone of the same attention's one PyTorch call
+    (``sdpa_call``), through ``torch.autograd.grad`` on a retained graph
+    (the yardstick; the port never calls it)."""
+    B, Sq, KVH, G, hd = q.shape
+    call, inputs = sdpa_call(q, k, v, causal, window, kv_len, grad=True)
+    gg = dout.reshape(B, Sq, KVH * G, hd).transpose(1, 2).contiguous()
+    out = call()
+    ms = time_ms(lambda: torch.autograd.grad(out, inputs, gg, retain_graph=True))
     del out
     return ms
 
@@ -1047,8 +1093,10 @@ def phase_flash_bwd(dev) -> dict:
     BWD_F32_ATOL), repeated bit for bit over 6 launches; timed (kernel,
     plain, SDPA's backward) beside the bound: 10 * hd flops per unmasked
     (query head, key) pair at the type's peak, or q, k, v, out, dout and
-    lse read and dq, dk, dv written once at the HBM rate.  At smollm's
-    training shape the forward is timed with lse off and on.  First the
+    lse read and dq, dk, dv written once at the HBM rate (the K / V rows
+    below kv_len read).  Rows at Sq != Skv and under a ``kv_len`` mask
+    come last.  At smollm's training shape the forward is timed with lse
+    off and on.  First the
     built library's backward functions (``bwd_functions``): every bf16 one
     must run its products on the tensor cores."""
     from repro_torch.kernels.flash_attn import (flash_attention_backward_kernel,
@@ -1056,11 +1104,14 @@ def phase_flash_bwd(dev) -> dict:
 
     t0 = time.perf_counter()
     res = {"phase": "flash_bwd", "card": smi(), "functions": bwd_functions(), "cases": []}
-    for label, (B, S, KVH, G, hd), causal, window, dtype in FLASH_BWD_CASES:
-        q, k, v = flash_inputs(label, (B, S, KVH, G, hd), S, dtype, dev)
+    for label, (B, S, KVH, G, hd), skv, causal, window, kv_len, dtype in FLASH_BWD_CASES:
+        t_row = time.perf_counter()
+        Skv = S if skv is None else skv
+        kl = Skv if kv_len is None else kv_len
+        q, k, v = flash_inputs(label, (B, S, KVH, G, hd), Skv, dtype, dev)
         gen = torch.Generator().manual_seed(SEED + zlib.crc32(f"{label}/dout".encode()))
         dout = torch.randn(B, S, KVH, G, hd, generator=gen).to(dtype).to(dev)
-        kw = {"causal": causal, "window": window}
+        kw = {"causal": causal, "window": window, "kv_len": kl}
         out_off = flash_attention_kernel(q, k, v, **kw)
         out, lse = flash_attention_kernel(q, k, v, **kw, return_lse=True)
         out_equal = torch.equal(out_off, out)
@@ -1074,8 +1125,8 @@ def phase_flash_bwd(dev) -> dict:
         f32 = [t.float() for t in (q, k, v, out)]
         plain = ref.flash_attention_backward_plain(*f32, lse, dout.float(), **kw)
         del f32
-        row = {"label": label, "shape": [B, S, KVH, G, hd], "causal": causal,
-               "window": window, "dtype": str(dtype).split(".")[-1],
+        row = {"label": label, "shape": [B, S, KVH, G, hd], "kv_seq": Skv, "kv_len": kl,
+               "causal": causal, "window": window, "dtype": str(dtype).split(".")[-1],
                "out_equal_lse_on_off": out_equal, "lse_err_over_tol": lse_over,
                "lse_tol": [LSE_RTOL, LSE_ATOL]}
         errs = []
@@ -1097,9 +1148,12 @@ def phase_flash_bwd(dev) -> dict:
         del plain
         run = lambda: flash_attention_backward_kernel(q, k, v, out, lse, dout, **kw)  # noqa: E731
         row["repeat_launches_equal"] = assert_repeatable(run)
-        pairs = attended_pairs(S, S, causal, window, S)
+        pairs = attended_pairs(S, Skv, causal, window, kl)
         flops = 10 * hd * pairs * B * KVH * G
-        nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + 4 * lse.numel()
+        # q, out, dout read, dq written; the K / V rows below kv_len read,
+        # every dk / dv row written; lse read
+        nbytes = ((4 * q.numel() + 2 * k.numel() + 2 * k.numel() * kl // Skv)
+                  * q.element_size() + 4 * lse.numel())
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / (BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS) * 1e3
         ms = time_ms(run)
@@ -1109,7 +1163,7 @@ def phase_flash_bwd(dev) -> dict:
             "achieved_tflops": flops / ms / 1e9,
             "plain_ms": time_ms(lambda: ref.flash_attention_backward_plain(*f32_in, **kw),
                                 reps=3, warmup=1),
-            "library_ms": sdpa_bwd_ms(q, k, v, dout, causal, window),
+            "library_ms": sdpa_bwd_ms(q, k, v, dout, causal, window, kl),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
         del f32_in
@@ -1119,7 +1173,8 @@ def phase_flash_bwd(dev) -> dict:
                 q, k, v, **kw, return_lse=True))
             row["fwd_plain_ms"] = time_ms(lambda: ref.flash_attention_plain(
                 q, k, v, **kw, return_lse=True), reps=3, warmup=1)
-            row["fwd_library_ms"] = sdpa_flash_ms(q, k, v, causal, window, S)
+            row["fwd_library_ms"] = sdpa_flash_ms(q, k, v, causal, window, kl)
+        row["seconds"] = time.perf_counter() - t_row
         res["cases"].append(row)
         del q, k, v, dout, out, lse, grads, run
         torch.cuda.empty_cache()
@@ -1139,48 +1194,108 @@ TRAIN_SMOKE_BATCH, TRAIN_SMOKE_SEQ = 8, 256
 TRAIN_CPU_RTOL = 1e-4  # card vs CPU: loss and grad norm per step, final params (rel L2)
 
 
-def train_flops(cfg, n_params: int, batch: int, seq: int) -> tuple[float, float]:
+def train_flops(cfg, params, batch: int, seq: int, enc_seq: int = 0) -> tuple[float, float]:
     """Operations of one train step, as (the function's, remat's recompute).
-    The function: 2 flops per parameter per token in the forward and 4 in
-    the backward; attention 4 * hd per unmasked (query head, key) pair in
-    the forward and 10 * hd in the backward.  With ``remat="full"`` the
-    forward runs again in the backward: 2 per parameter per token and 4 * hd
-    a pair more, which the step's bound leaves out."""
-    pair_hd = 0
-    for kind in cfg.layer_pattern:
-        window = cfg.sliding_window if kind == "local" else 0
-        pair_hd += batch * cfg.n_heads * attended_pairs(seq, seq, True, window, seq) * cfg.head_dim
-    fwd = 2 * n_params * batch * seq + 4 * pair_hd
+    The function's forward: 2 flops per parameter per row it multiplies (the
+    tokens; an expert's parameters its capacity buffer's C rows a sequence,
+    as the MoE FFN computes every expert over its buffer; a lookup-only
+    embedding none; whisper's encoder and cross K / V projections the
+    ``enc_seq`` frames), each Mamba-2 block's chunked SSD products (2 * S *
+    (Q * N + Q * H * P + 2 * N * H * P) a sequence, chunk Q) and attention's
+    4 * hd per unmasked (query head, key) pair; its backward twice the
+    forward's products and 10 * hd a pair.  With ``remat="full"`` the
+    forward runs again in the backward, which the step's bound leaves
+    out."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.optim import optimizer as O
+
+    def numel(tree) -> int:
+        return sum(t.numel() for t in O.tree_leaves(tree))
+
+    lookup = 0 if cfg.tie_embeddings else params["embed"].numel()
+    heads_hd = batch * cfg.n_heads * cfg.head_dim
+    ssd = 0
+    if cfg.family == "encdec":
+        enc, cross_kv = numel(params["enc"]), 2 * params["dec"]["cross_wk"].numel()
+        rows = (enc + cross_kv) * enc_seq + (numel(params) - enc - cross_kv - lookup) * seq
+        pair_hd = heads_hd * (
+            cfg.enc_layers * attended_pairs(enc_seq, enc_seq, False, 0, enc_seq)
+            + cfg.dec_layers * (attended_pairs(seq, seq, True, 0, seq)
+                                + attended_pairs(seq, enc_seq, False, 0, enc_seq)))
+    else:
+        unit, _, tail = M.scan_plan(cfg)
+        expert = sum(params[pos][name].numel() for pos, kind in unit + tail if kind == "moe"
+                     for name in ("w_up", "w_gate", "w_down") if name in params[pos])
+        rows = ((numel(params) - lookup - expert) * seq
+                + expert * (L.moe_capacity(seq, cfg) if expert else 0))
+        pair_hd = 0
+        for kind in cfg.layer_pattern:
+            if kind != "mamba":
+                window = cfg.sliding_window if kind == "local" else 0
+                pair_hd += heads_hd * attended_pairs(seq, seq, True, window, seq)
+        n_mamba = cfg.layer_pattern.count("mamba")
+        if n_mamba:
+            Q, N, H, P = cfg.ssm_chunk, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+            s_pad = -(-seq // Q) * Q
+            ssd = 2 * s_pad * (Q * N + Q * H * P + 2 * N * H * P) * n_mamba
+    fwd = 2 * rows * batch + ssd * batch + 4 * pair_hd
     need = 3 * fwd + 2 * pair_hd
     return float(need), float(fwd if cfg.remat == "full" else 0)
 
 
-def _smoke_train_cfg():
-    from repro_torch.configs.smollm_360m import SMOKE_CONFIG
+def _with_stub_inputs(cfg, data, enc_seq: int = 0):
+    """``data``'s batches with the stub frontend's input the family needs
+    (``launch.train.STUB_INPUTS``), in f32 numpy: the VLM's ``patches`` (B,
+    n_patch_tokens, D) and the enc-dec's ``frames`` (B, S //
+    enc_seq_divisor, D), N(0, 1) * 0.02 from numpy seed SEED, so that the
+    card's and the CPU's runs see the same batches; with ``enc_seq`` the
+    frames are (B, enc_seq, D) zeros instead, as ``serve_whisper`` feeds its
+    encoder; other families' batches as they are."""
+    from repro_torch.launch.train import STUB_INPUTS
 
-    return dataclasses.replace(SMOKE_CONFIG, head_dim=64, dtype="float32",
-                               param_dtype="float32")
+    key = STUB_INPUTS.get(cfg.family)
+    if key is None:
+        return data
+    rng = np.random.default_rng(SEED)
+
+    def batches():
+        for b in data:
+            B, S = b["tokens"].shape
+            if key == "frames" and enc_seq:
+                b[key] = np.zeros((B, enc_seq, cfg.d_model), np.float32)
+            else:
+                rows = S // cfg.enc_seq_divisor if key == "frames" else cfg.n_patch_tokens
+                b[key] = (rng.standard_normal((B, rows, cfg.d_model))
+                          * 0.02).astype(np.float32)
+            yield b
+
+    return batches()
 
 
-def _train_setup(cfg, batch: int, seq: int, steps: int):
+def _train_setup(cfg, batch: int, seq: int, steps: int, enc_seq: int = 0):
     """The launcher's ``OptConfig`` for ``steps``, the microbatched train step
-    and ``SyntheticLM`` seed 0 at ``batch`` x ``seq``: (oc, step, data)."""
+    (updating its state in place) and ``SyntheticLM`` seed 0 at ``batch`` x
+    ``seq`` (``_with_stub_inputs`` at ``enc_seq``): (oc, step, data)."""
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.launch.train import default_opt_config
     from repro_torch.train.train_step import effective_microbatches, make_train_step
 
     oc = default_opt_config(cfg, steps)
     step = make_train_step(cfg, oc, effective_microbatches(cfg, batch, 1))
-    return oc, step, SyntheticLM(cfg.vocab, batch, seq, seed=0)
+    return oc, step, _with_stub_inputs(cfg, SyntheticLM(cfg.vocab, batch, seq, seed=0),
+                                       enc_seq)
 
 
-def _train_run(cfg, params, dev, steps: int) -> dict:
+def _train_run(cfg, params, dev, steps: int, batch: int = TRAIN_SMOKE_BATCH,
+               seq: int = TRAIN_SMOKE_SEQ) -> dict:
     """``steps`` of ``make_train_step`` from ``params`` (moved to ``dev``) on
-    ``SyntheticLM`` seed 0: per-step loss and grad norm, final params."""
+    ``SyntheticLM`` seed 0 at ``batch`` x ``seq``: per-step loss and grad
+    norm, final params."""
     from repro_torch.launch.train import batch_to
     from repro_torch.optim import optimizer as O
 
-    oc, step, data = _train_setup(cfg, TRAIN_SMOKE_BATCH, TRAIN_SMOKE_SEQ, steps)
+    oc, step, data = _train_setup(cfg, batch, seq, steps)
     params = O.tree_map(lambda t: t.to(dev, copy=True), params)
     opt = O.init_opt_state(params, oc)
     losses, gnorms = [], []
@@ -1189,6 +1304,12 @@ def _train_run(cfg, params, dev, steps: int) -> dict:
         losses.append(m["loss"].item())
         gnorms.append(m["grad_norm"].item())
     return {"loss": losses, "grad_norm": gnorms, "params": params, "opt": opt}
+
+
+def leaf_names(tree, prefix: str = "") -> list:
+    """The paths of a nested dict's leaves, in ``tree_leaves``' order."""
+    return [n for k, v in tree.items() for n in (
+        leaf_names(v, f"{prefix}{k}/") if isinstance(v, dict) else [prefix + k])]
 
 
 def _leaves_equal(a, b) -> bool:
@@ -1296,8 +1417,8 @@ def phase_train(dev, cfg=CONFIG, batch: int = TRAIN_BATCH,
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in O.tree_leaves(params))
-    flops, remat_flops = train_flops(cfg, n_params, batch, seq)
-    n_attn = sum(1 for kind in cfg.layer_pattern if kind != "mamba")
+    flops, remat_flops = train_flops(cfg, params, batch, seq)
+    n_attn = attention_calls(cfg)
     expect = {"flash_attention": n_attn * n_micro * (2 if cfg.remat == "full" else 1),
               "flash_attention_bwd": n_attn * n_micro}
     res = {"phase": "train", "card": smi(), "config": cfg.name,
@@ -1379,14 +1500,16 @@ def phase_train(dev, cfg=CONFIG, batch: int = TRAIN_BATCH,
     gc.collect()
     torch.cuda.empty_cache()
 
-    # (b) and (c): the SMOKE config, card against the CPU, card twice
-    scfg = _smoke_train_cfg()
+    # (b) and (c): the SMOKE config, card against the CPU (a worker's job),
+    # card twice
+    scfg = _smoke_family_cfg("smollm_360m")
     p0 = M.init_params(scfg, torch.Generator().manual_seed(SEED), device="cpu")
-    cpu = _train_run(scfg, p0, torch.device("cpu"), 3)
     card = _train_run(scfg, p0, dev, 3)
     card2 = _train_run(scfg, p0, dev, 3)
-    leaf_rel = [rel_l2(a.cpu(), c) for a, c in zip(O.tree_leaves(card["params"]),
-                                                  O.tree_leaves(cpu["params"]))]
+    cpu = host_job(_smoke_train_cpu, "smollm_360m", 3, TRAIN_SMOKE_BATCH,
+                   TRAIN_SMOKE_SEQ).result()
+    leaf_rel = [rel_l2(a.cpu(), torch.from_numpy(c))
+                for a, c in zip(O.tree_leaves(card["params"]), cpu["params"])]
     loss_rel = [abs(a - c) / abs(c) for a, c in zip(card["loss"], cpu["loss"])]
     gn_rel = [abs(a - c) / abs(c) for a, c in zip(card["grad_norm"], cpu["grad_norm"])]
     res["smoke_vs_cpu"] = {
@@ -1407,6 +1530,273 @@ def phase_train(dev, cfg=CONFIG, batch: int = TRAIN_BATCH,
         res["resilient"] = _resilient_pair(scfg, p0, dev, Path(tmp))
         res["checkpoint"] = _checkpoint_roundtrip(card["params"], card["opt"], Path(tmp))
     del cpu, card, card2
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_phase
+    emit(res)
+    return res
+
+
+#: the families train_families trains at their SMOKE_CONFIG, card against CPU,
+#: for 2 steps of 4 x 128 tokens (whisper's 64 frames, internvl2's 8 patches,
+#: 4 SSD chunks of 32)
+TRAIN_FAMILY_ARCHS = ("phi35_moe", "grok1_314b", "mamba2_370m", "zamba2_7b",
+                      "internvl2_26b", "whisper_large_v3")
+TRAIN_FAMILY_SMOKE_STEPS = 2
+TRAIN_FAMILY_SMOKE_BATCH, TRAIN_FAMILY_SMOKE_SEQ = 4, 128
+TRAIN_FAMILY_TIMED_STEPS = 2  # after one warm-up step
+#: the families' final parameters are held to TRAIN_CPU_RTOL on the elements
+#: whose first-batch gradient on the CPU is 0 or at least this, 100 x Adam's
+#: eps: below it the first update g / (|g| + eps) turns f32 rounding of g into
+#: a share of the step (zamba2's zero-initialized u0/ln1 lands 5.5e-4 relative
+#: L2 from the CPU's over all its elements, 2.6e-6 over these)
+TRAIN_PARAMS_GRAD_FLOOR = 1e-6
+
+
+def _smoke_family_cfg(arch: str):
+    """``arch``'s SMOKE_CONFIG in f32, at hd 64 where it has attention (its
+    hd 32 is not an instantiation of kernel 6 or its backward): the card
+    against CPU checks of ``train`` (smollm) and ``train_families``."""
+    from repro_torch.configs.base import load_smoke_config
+
+    cfg = load_smoke_config(arch)
+    return dataclasses.replace(cfg, dtype="float32", param_dtype="float32",
+                               **({"head_dim": 64} if cfg.n_heads else {}))
+
+
+def _smoke_grads(cfg, params, dev, batch: int, seq: int) -> list:
+    """Each leaf's gradient of ``loss_fn`` at ``params`` (copied to ``dev``)
+    on the first batch of ``_train_setup``'s data, on the CPU."""
+    from repro_torch.launch.train import batch_to
+    from repro_torch.models import model as M
+    from repro_torch.optim import optimizer as O
+
+    data = _train_setup(cfg, batch, seq, 1)[2]
+    leaves = [t.to(dev, copy=True).requires_grad_(True) for t in O.tree_leaves(params)]
+    it = iter(leaves)
+    loss = M.loss_fn(O.tree_map(lambda _: next(it), params), cfg, batch_to(next(data), dev))
+    return [g.cpu() for g in torch.autograd.grad(loss, leaves)]
+
+
+def _smoke_train_cpu(arch: str, steps: int, batch: int, seq: int) -> dict:
+    """``steps`` of ``arch``'s f32 smoke training (``_smoke_family_cfg``) at
+    ``batch`` x ``seq`` on the CPU from SEED's parameters (a worker's job):
+    per-step loss and grad norm, the final parameters and the first batch's
+    gradients (``_smoke_grads``) as numpy, seconds."""
+    from repro_torch.models import model as M
+    from repro_torch.optim import optimizer as O
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    cfg = _smoke_family_cfg(arch)
+    p0 = M.init_params(cfg, torch.Generator().manual_seed(SEED), device="cpu")
+    run = _train_run(cfg, p0, torch.device("cpu"), steps, batch, seq)
+    return {"loss": run["loss"], "grad_norm": run["grad_norm"],
+            "params": [t.numpy() for t in O.tree_leaves(run["params"])],
+            "grads": [g.numpy() for g in _smoke_grads(cfg, p0, torch.device("cpu"), batch,
+                                                      seq)],
+            "seconds": time.perf_counter() - t0}
+
+
+def train_family_cells() -> list:
+    """The train_families phase's cells: (label, config, global batch,
+    decoder / token sequence, encoder frames, reduced).  Published widths;
+    batch 256 x 4096 (train_4k) fits neither one card's memory nor the
+    script's time.  A parameter holds 14 bytes of state (bf16 weight, f32
+    master, m and v) and 4 of f32 gradient accumulator through the step
+    (the step updates its state in place: no second copy at the update)."""
+    from repro_torch.configs.base import SHAPES
+
+    gb, seq = SHAPES["train_4k"].global_batch, SHAPES["train_4k"].seq_len
+    return [
+        # whole: 32 + 32 layers; its own lengths: 1500 frames, 448 tokens
+        ("whisper-large-v3", WHISPER, 8, 448, 1500,
+         {"global_batch": [gb, 8], "seq": [seq, "448 decoder tokens over 1500 frames, "
+                                                "whisper's published lengths"]}),
+        # whole (48 blocks); 16 a step, 8 a microbatch: at 16 a microbatch
+        # the loss's f32 logits (50304 wide) and their gradients alone would
+        # take ~53 GB
+        ("mamba2-370m", MAMBA2, 16, seq, 0, {"global_batch": [gb, 16]}),
+        # one repeat of the unit (5 Mamba-2 + the shared attention) and the
+        # 3-block tail: 9 of 81 blocks; 4 a step, 1 a microbatch (the tail
+        # runs outside remat, its SSD activations kept)
+        ("zamba2-7b", dataclasses.replace(ZAMBA2, n_repeats=1, n_layers=9), 4, seq, 0,
+         {"blocks": [81, 9], "global_batch": [gb, 4]}),
+        # one of 32 layers (16 experts; 1.56 B parameters with the
+        # embeddings): two (2.8 B) would hold ~61 GB through the backward
+        # before the update's f32 temporaries of a 3.4 GB expert leaf, too
+        # near the card's 79.6 GB
+        ("phi3.5-moe", dataclasses.replace(PHI35, n_layers=1), 8, seq, 0,
+         {"layers": [32, 1], "global_batch": [gb, 8]}),
+        # two of 48 layers (1.92 B parameters, 1.14 B of them the 92 672-row
+        # embedding and unembedding), its 256 patch positions
+        ("internvl2-26b", dataclasses.replace(INTERNVL2, n_layers=2), 8, seq, 0,
+         {"layers": [48, 2], "global_batch": [gb, 8]}),
+    ]
+
+
+def attention_calls(cfg) -> int:
+    """Kernel-6 calls of one forward over one microbatch: one per attention
+    block (every ``shared_attn`` occurrence), and for the encoder-decoder
+    one per encoder layer and two per decoder layer (self, cross)."""
+    if cfg.family == "encdec":
+        return cfg.enc_layers + 2 * cfg.dec_layers
+    return sum(kind != "mamba" for kind in cfg.layer_pattern)
+
+
+def _train_family_cell(dev, label, cfg, batch, seq, enc_seq, reduced) -> dict:
+    """One cell: bf16 parameters from SEED drawn on the card, the config's
+    optimizer rule (f32 master and Adam, or grok's bf16), remat full; one
+    warm-up step and TRAIN_FAMILY_TIMED_STEPS timed on ``SyntheticLM`` seed
+    0 (``_with_stub_inputs``: whisper's frames zeros, internvl2's patches
+    N(0, 1) * 0.02, cast to the config's dtype on the card); each
+    step's wall and event ms, tokens/s, peak GB and launches (gated at the
+    counts reckoned from the config), loss and grad norm finite, every
+    master leaf changing, beside the step's flop bound."""
+    from repro_torch.launch.train import batch_to
+    from repro_torch.models import model as M
+    from repro_torch.optim import optimizer as O
+    from repro_torch.train.train_step import effective_microbatches
+
+    t_cell = time.perf_counter()
+    steps = TRAIN_FAMILY_TIMED_STEPS + 1
+    oc, step, data = _train_setup(cfg, batch, seq, steps, enc_seq)
+    n_micro = effective_microbatches(cfg, batch, 1)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    opt = O.init_opt_state(params, oc)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in O.tree_leaves(params))
+    flops, remat_flops = train_flops(cfg, params, batch, seq, enc_seq)
+    calls = attention_calls(cfg) * n_micro
+    expect = {"flash_attention": calls * (2 if cfg.remat == "full" else 1),
+              "flash_attention_bwd": calls}
+    res = {"config": label, "family": cfg.family, "reduced": reduced,
+           "batch": batch, "seq": seq, "n_micro": n_micro, "remat": cfg.remat,
+           "n_params": n_params, "param_dtype": cfg.param_dtype,
+           "adam_dtype": cfg.adam_dtype, "opt_master": cfg.opt_master, "init_s": init_s,
+           "step_flops": flops, "step_bound_ms": flops / BF16_FLOPS * 1e3,
+           "remat_recompute_flops": remat_flops,
+           "launches_per_step_expected": expect, "steps": []}
+    if enc_seq:
+        res["enc_seq"] = enc_seq
+    dt = M.torch_dtype(cfg.dtype)
+    for i in range(steps):
+        b = {k: t.to(dt) if t.is_floating_point() else t
+             for k, t in batch_to(next(data), dev).items()}
+        before_master = [t.clone() for t in O.tree_leaves(
+            opt.master if opt.master is not None else params)]
+        launched = dict(ops.LAUNCHES)
+        torch.cuda.synchronize()
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        ev0.record()
+        params, opt, metrics = step(params, opt, b)
+        ev1.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        after = O.tree_leaves(opt.master if opt.master is not None else params)
+        row = {"step": i + 1, "warm_up": i == 0, "wall_ms": wall * 1e3,
+               "event_ms": ev0.elapsed_time(ev1), "tokens_per_s": batch * seq / wall,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "loss": metrics["loss"].item(), "grad_norm": metrics["grad_norm"].item(),
+               "launches": {k: ops.LAUNCHES[k] - launched[k] for k in expect},
+               "master_leaves_changed": sum(not torch.equal(a, c)
+                                            for a, c in zip(before_master, after)),
+               "other_launches": {k: ops.LAUNCHES[k] - launched[k] for k in ops.LAUNCHES
+                                  if k not in expect and ops.LAUNCHES[k] != launched[k]}}
+        del before_master, after, b
+        assert math.isfinite(row["loss"]) and math.isfinite(row["grad_norm"]), (label, row)
+        assert row["launches"] == expect, (label, row["launches"], expect)
+        assert row["master_leaves_changed"] == len(O.tree_leaves(params)), (label, row)
+        res["steps"].append(row)
+    timed = [r for r in res["steps"] if not r["warm_up"]]
+    res["wall_ms_per_step"] = statistics.median(r["wall_ms"] for r in timed)
+    res["event_ms_per_step"] = statistics.median(r["event_ms"] for r in timed)
+    res["tokens_per_s"] = batch * seq / res["wall_ms_per_step"] * 1e3
+    if enc_seq:
+        res["frames_per_s"] = batch * enc_seq / res["wall_ms_per_step"] * 1e3
+    res["peak_gb"] = max(r["peak_gb"] for r in res["steps"])
+    res["bound_over_wall"] = res["step_bound_ms"] / res["wall_ms_per_step"]
+    del params, opt, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_cell
+    return res
+
+
+def phase_train_families(dev, cells=None) -> dict:
+    """Training for the moe, ssm, hybrid, vlm and enc-dec families on the
+    card.  (a) Each of ``train_family_cells`` at published widths
+    (``_train_family_cell``).  (b) Every family's SMOKE_CONFIG in f32 at hd
+    64 (``_smoke_family_cfg``): TRAIN_FAMILY_SMOKE_STEPS steps on the card
+    against the same steps on the CPU (a worker's job), loss and grad norm
+    per step within TRAIN_CPU_RTOL, and every leaf's gradient on the first
+    batch (``_smoke_grads``) within TRAIN_CPU_RTOL relative L2, and every
+    leaf's final parameters within TRAIN_CPU_RTOL relative L2 on the
+    elements whose first-batch gradient is 0 or at least
+    TRAIN_PARAMS_GRAD_FLOOR (the share left out, and the largest distance
+    over all elements, reported beside it); a second card run
+    bit for bit equal to the first for the ssm, hybrid, vlm and enc-dec
+    families; for the moe family whether it repeats is reported, not gated
+    (the backward of its index gathers may add with atomics on the card)."""
+    from repro_torch.models import model as M
+    from repro_torch.optim import optimizer as O
+
+    t_phase = time.perf_counter()
+    smoke = (TRAIN_FAMILY_SMOKE_STEPS, TRAIN_FAMILY_SMOKE_BATCH, TRAIN_FAMILY_SMOKE_SEQ)
+    jobs = {a: host_job(_smoke_train_cpu, a, *smoke) for a in TRAIN_FAMILY_ARCHS}
+    res = {"phase": "train_families", "card": smi(), "cells": [], "smoke": {}}
+    for cell in (train_family_cells() if cells is None else cells):
+        res["cells"].append(_train_family_cell(dev, *cell))
+    for arch in TRAIN_FAMILY_ARCHS:
+        cfg = _smoke_family_cfg(arch)
+        p0 = M.init_params(cfg, torch.Generator().manual_seed(SEED), device="cpu")
+        ops.reset_launches()
+        card = _train_run(cfg, p0, dev, *smoke)
+        launches = {k: n for k, n in ops.LAUNCHES.items() if n}
+        card2 = _train_run(cfg, p0, dev, *smoke)
+        cpu = jobs[arch].result()
+        names = leaf_names(p0)
+        leaf_rel, gated_rel, left_out = [], [], 0
+        for a, c, g in zip(O.tree_leaves(card["params"]), cpu["params"], cpu["grads"]):
+            a, c = a.cpu(), torch.from_numpy(c)
+            keep = torch.from_numpy((np.abs(g) >= TRAIN_PARAMS_GRAD_FLOOR) | (g == 0))
+            leaf_rel.append(rel_l2(a, c))
+            gated_rel.append(rel_l2(a[keep], c[keep]) if keep.any() else 0.0)
+            left_out += int((~keep).sum())
+        grad_rel = [rel_l2(g, torch.from_numpy(c)) for g, c in zip(
+            _smoke_grads(cfg, p0, dev, *smoke[1:]), cpu["grads"])]
+        row = {"family": cfg.family, "head_dim": cfg.head_dim,
+               "batch": TRAIN_FAMILY_SMOKE_BATCH, "seq": TRAIN_FAMILY_SMOKE_SEQ,
+               "loss_card": card["loss"], "loss_cpu": cpu["loss"],
+               "loss_rel": [abs(a - c) / abs(c) for a, c in zip(card["loss"], cpu["loss"])],
+               "grad_norm_rel": [abs(a - c) / abs(c) for a, c in
+                                 zip(card["grad_norm"], cpu["grad_norm"])],
+               "grads_rel_l2_max": max(grad_rel),
+               "grads_rel_l2_worst_leaf": names[grad_rel.index(max(grad_rel))],
+               "params_rel_l2_max": max(leaf_rel),
+               "params_rel_l2_worst_leaf": names[leaf_rel.index(max(leaf_rel))],
+               "params_gated_rel_l2_max": max(gated_rel),
+               "params_gated_worst_leaf": names[gated_rel.index(max(gated_rel))],
+               "params_grad_floor": TRAIN_PARAMS_GRAD_FLOOR,
+               "params_left_out_share": left_out / sum(c.size for c in cpu["params"]),
+               "tol": TRAIN_CPU_RTOL, "launches": launches, "cpu_seconds": cpu["seconds"],
+               "repeat_runs_equal_bitwise": (_leaves_equal(card["params"], card2["params"])
+                                             and card["loss"] == card2["loss"])}
+        res["smoke"][arch] = row
+        assert max(row["loss_rel"]) <= TRAIN_CPU_RTOL, (arch, row)
+        assert max(row["grad_norm_rel"]) <= TRAIN_CPU_RTOL, (arch, row)
+        assert row["grads_rel_l2_max"] <= TRAIN_CPU_RTOL, (arch, row)
+        assert row["params_gated_rel_l2_max"] <= TRAIN_CPU_RTOL, (arch, row)
+        if cfg.family != "moe":
+            assert row["repeat_runs_equal_bitwise"], (arch, row)
+        del card, card2, cpu
+    res["launches"] = {k: sum(r["launches"][k] for c in res["cells"] for r in c["steps"])
+                       for k in ("flash_attention", "flash_attention_bwd")}
     gc.collect()
     torch.cuda.empty_cache()
     res["seconds"] = time.perf_counter() - t_phase
@@ -2037,10 +2427,11 @@ def phase_adaptive_attn(dev, kind: str, shape=SERVE_SHAPE, steps: int | None = N
 
 
 def phase_serve_adaptive(dev, params, kv_policy: str, *, profile: bool, n_req=4,
-                         prompt_len=1024, new_tokens=96, pages=16) -> dict:
+                         prompt_len=1024, new_tokens=64, pages=16) -> dict:
     """smollm-360m at published widths, the true-adaptive pool through
     ServeEngine(fused=True), a 16-page pool as in the serve phase: 4 prompts
-    of 1024 seeded tokens and 96 greedy new tokens; then single requests:
+    of 1024 seeded tokens and 64 greedy new tokens (cut from 96 for the
+    time limit); then single requests:
     A and a distinct B of 1024 tokens each, B's follow-up turn (B and the
     tokens B generated: its re-prefill re-references the page positions B's
     decode evicted, so they ghost-hit), and A again (a prefix hit).  Kernel 5
@@ -3018,11 +3409,15 @@ def _eager_cpu(kind: str, n: int, num_sets: int = 1, renorm_at=None) -> tuple:
 
 
 def host_jobs() -> list:
-    """Every check of a later phase that needs no card, longest first, as
-    the phases call ``host_job``: [(function, *args)]."""
+    """Every check of a later phase that needs no card, as the phases call
+    ``host_job``: [(function, *args)]; the training phases' CPU runs first
+    (the earliest phases to read one), then the longest first."""
     from repro_torch.core.policy_core import DEVICE_POLICIES
 
-    return [(_eager_cpu, "paper", 64, 1, None), (_eager_cpu, "paper", 8, 2, 64),
+    return [(_smoke_train_cpu, "smollm_360m", 3, TRAIN_SMOKE_BATCH, TRAIN_SMOKE_SEQ),
+            *((_smoke_train_cpu, a, TRAIN_FAMILY_SMOKE_STEPS, TRAIN_FAMILY_SMOKE_BATCH,
+               TRAIN_FAMILY_SMOKE_SEQ) for a in TRAIN_FAMILY_ARCHS),
+            (_eager_cpu, "paper", 64, 1, None), (_eager_cpu, "paper", 8, 2, 64),
             (_eager_cpu, "zipf", ZIPF_N, 1, None), (_eager_cpu, "paper", 8, 2, None),
             *((_zipf_host_row, p, n) for n in (ZIPF_BIG, ZIPF_N) for p in DEVICE_POLICIES),
             *((_cpu_drive, c) for c in tenancy_cases())]
@@ -4444,20 +4839,21 @@ def _phases(dev, t_start: float) -> int:
     fl_draws = flash_gate_draws(dev, FLASH_DRAWS)
     fb = phase_flash_bwd(dev)
     tr = phase_train(dev)
+    trf = phase_train_families(dev)
     params, init_s = serve_params(dev)
     srv = phase_serve(dev, params, init_s)
     # kernel 5 at the serve shape from the prefill seeding (timed), with a
     # forced stamp renormalization and from a ghost-hit reseed (p != 0),
     # each over two evicting page boundaries; at P=256 (L=512) across one;
-    # at gemma3's decode shape (timed)
+    # at the other families' decode shapes (timed) an evicting page boundary
+    # and a mid-page step, then both timed
     ada = [phase_adaptive_attn(dev, kind, timed=kind == "arc") for kind in ("arc", "car")]
     ada += [phase_adaptive_attn(dev, kind, renorm_at=64) for kind in ("arc", "car")]
     ada += [phase_adaptive_attn(dev, kind, ghost=True) for kind in ("arc", "car")]
     ada += [phase_adaptive_attn(dev, kind, DECODE_SHAPE, steps=2, repeat=True)
             for kind in ("arc", "car")]
-    ada_g3 = phase_adaptive_attn(dev, "arc", GEMMA3_DECODE_SHAPE, timed=True)
-    ada_phi = phase_adaptive_attn(dev, "arc", PHI35_DECODE_SHAPE, timed=True)
-    # an evicting page boundary and a mid-page step, then both timed
+    ada_g3 = phase_adaptive_attn(dev, "arc", GEMMA3_DECODE_SHAPE, steps=2, timed=True)
+    ada_phi = phase_adaptive_attn(dev, "arc", PHI35_DECODE_SHAPE, steps=2, timed=True)
     ada_new = [phase_adaptive_attn(dev, "arc", shape, steps=2, timed=True)
                for shape in NEW_DECODE_SHAPES]
     ada += [ada_g3, ada_phi, *ada_new]
@@ -4561,8 +4957,10 @@ def _phases(dev, t_start: float) -> int:
         "launches_serve_whisper": whisper["launches"]["flash_attention"],
         "launches_serve_internvl2": internvl["launches"]["flash_attention"],
         # the train phase's main path: each layer's forward and remat's
-        # recompute, per microbatch, with lse on
+        # recompute, per microbatch, with lse on; likewise the other
+        # families' cells (whisper's encoder, decoder self and cross)
         "launches_train": tr["launches"]["flash_attention"],
+        "launches_train_families": trf["launches"]["flash_attention"],
         "smollm_train": {k: fb["cases"][0][k] for k in (
             "fwd_ms", "fwd_lse_ms", "fwd_plain_ms", "fwd_library_ms")},
         "max_abs_err": max(c["max_abs_err"] for c in fl["cases"]),
@@ -4575,9 +4973,11 @@ def _phases(dev, t_start: float) -> int:
     kernels.append({
         "name": "flash_attention_bwd", "route": "cuda", "source": source,
         "replaces": replaces, "launches": tr["launches"]["flash_attention_bwd"],
+        "launches_train_families": trf["launches"]["flash_attention_bwd"],
         "max_abs_err": max(c["max_abs_err"] for c in fb["cases"]),
         **{k: bwd_main[k] for k in timed_keys}, "shape": bwd_main["shape"],
-        "other_shapes": [{k: c[k] for k in ("label", "shape", "window", "dtype", *timed_keys)}
+        "other_shapes": [{k: c[k] for k in ("label", "shape", "kv_seq", "kv_len", "causal",
+                                            "window", "dtype", *timed_keys)}
                          for c in bwd_others]})
     for name in ("awrp_select", "awrp_select_rows"):
         source, replaces = KERNELS[name]

@@ -51,7 +51,7 @@ SIGNATURES = {
     "repro_awrp_select": ([_vp] * 6 + [_int] * 2 + [_vp], _int),
     "repro_awrp_select_rows": ([_vp] * 5 + [_int] * 2 + [_vp], _int),
     "repro_flash_attention": ([_int] + [_vp] * 5 + [_int] * 9 + [_float, _vp], _int),
-    "repro_flash_attention_bwd": ([_int] + [_vp] * 10 + [_int] * 7 + [_float, _vp], _int),
+    "repro_flash_attention_bwd": ([_int] + [_vp] * 10 + [_int] * 9 + [_float, _vp], _int),
     "repro_flat_sweep": ([_vp] * 9 + [_int] * 4 + [_vp], _int),
     "repro_adaptive_sweep": ([_vp] * 10 + [_int] * 7 + [_vp], _int),
     "repro_flat_stream": ([_vp] * 14 + [_int] * 3 + [_float] + [_vp] * 4 + [_int], _int),

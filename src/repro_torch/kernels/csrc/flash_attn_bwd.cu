@@ -3,12 +3,13 @@
 //
 // The reference has no Pallas kernel here: XLA differentiates its jnp
 // flash_attention (repro/models/layers.py:100).  This is the gradient of
-// the same function.  q (B, S, KVH, G, hd), k / v (B, S, KVH, hd), out and
-// dout like q, lse (B, S, KVH, G) f32 from the forward (m + log(l), natural
-// units).  Query position i attends key position j where
-//   (j <= i if causal)  and  (i - j < window if window),
-// self-attention only (Sq == Skv, every key valid): the training path's
-// cases.  With s = (q.k) * scale, p = exp(s - lse) and dp = dout.v,
+// the same function.  q (B, Sq, KVH, G, hd), k / v (B, Skv, KVH, hd), out
+// and dout like q, lse (B, Sq, KVH, G) f32 from the forward (m + log(l),
+// natural units).  Query position i attends key position j where
+//   j < kv_len  and  (j <= i if causal)  and  (i - j < window if window),
+// the forward's mask: self-attention (Sq == Skv) and cross-attention (Sq !=
+// Skv, whisper's decoder over its encoder) alike, keys at or past kv_len
+// masked.  With s = (q.k) * scale, p = exp(s - lse) and dp = dout.v,
 //   D  = rowsum(dout * out)                       (preprocess)
 //   ds = p * (dp - D)
 //   dv = sum over rows of p * dout                (dK/dV kernel)
@@ -16,28 +17,32 @@
 //   dq = scale * sum over keys of ds * k          (dQ kernel)
 // with the rows of a key the G query heads of its kv head at every query
 // position.  Masked pairs give p = ds = 0, so a fully masked row (lse =
-// NEG_INF) gives zero gradients, never NaN.
+// NEG_INF) gives zero gradients, never NaN, and a key at or past kv_len
+// gets dk = dv = 0 (its K / V rows are never read).
 //
 // Design: three launches, every sum in f32 and in an order fixed by the
 // code, and no atomics, so the gradient repeats bit for bit from launch to
 // launch.
-//   (a) preprocess: one warp per (position, head) row, D in f32.
-//   (b) dK/dV: one CTA per (64-key tile, kv head, batch row), the tiles
-//       with the most causal work first.  It walks the query tiles the
-//       causal and window masks allow (64 rows each: 64 / G positions x the
-//       G heads, as the forward's tiles, so the G query heads of a kv head
-//       are summed inside the CTA), recomputing S^T and dP^T, and keeps the
-//       keys' dK and dV in registers until the last tile.
-//   (c) dQ: one CTA per (64-row query tile, kv head, batch row), the
-//       forward's grid, the longest causal tiles first.  It walks the key
-//       tiles in range, recomputing S and dP, and keeps the rows' dQ in
-//       registers.
+//   (a) preprocess: one warp per (query position, head) row of the Sq * G,
+//       D in f32.
+//   (b) dK/dV: one CTA per (64-key tile of the ceil(Skv / 64), kv head,
+//       batch row), the tiles with the most causal work first.  A tile
+//       wholly at or past kv_len has no work.  It walks the query tiles
+//       whose positions see one of its keys under the causal and window
+//       masks (64 rows each: 64 / G positions x the G heads, as the
+//       forward's tiles, so the G query heads of a kv head are summed
+//       inside the CTA), recomputing S^T and dP^T, and keeps the keys' dK
+//       and dV in registers until the last tile.
+//   (c) dQ: one CTA per (64-row query tile of the Sq * G rows, kv head,
+//       batch row), the forward's grid, the longest causal tiles first.  It
+//       walks the key tiles below min(Skv, kv_len) that its rows see,
+//       recomputing S and dP, and keeps the rows' dQ in registers.
 //
 // What bounds it on an H100: operations.  The function needs 10 * hd flops
 // per unmasked (query head, key) pair (S, dP, dV, dK, dQ: 2 * hd each), the
 // bound reported beside it, at the bf16 tensor-core peak.  The kernel does
 // 14 * hd: (c) recomputes S and dP rather than taking dS from (b) through
-// device memory (an S x S matrix per head) or summing dQ with atomics.
+// device memory (an Sq x Skv matrix per head) or summing dQ with atomics.
 //
 // bf16: the five products on the tensor cores, mma.sync.m16n8k16 bf16 x
 // bf16 -> f32 (mma_common.cuh), 128 threads.  In (b) each warp owns 16
@@ -58,9 +63,11 @@
 // cp.async: the next query tile's Q, dO, lse and D in (b), the next key
 // tile's K and V in (c), are in flight while the current one is computed
 // (96 KB a CTA at hd 128: two CTAs an SM; three of (c) at hd 64).  Edge
-// tiles (keys past S, the causal diagonal, the window's edge) mask per
-// element before the exponential: a masked pair, a row past the tile's
-// last position and a key past S give p = ds = 0.  Inside a full tile the
+// tiles (keys at or past kv_len, the causal diagonal, the window's edge)
+// mask per element before the exponential: a masked pair, a row past the
+// tile's last position and a key at or past kv_len give p = ds = 0; such
+// keys' rows are staged as zeros.  1500 encoder keys (whisper) end in a
+// ragged tile of 28.  Inside a full tile the
 // rows past the last position are zeros with lse = D = 0, so they add
 // nothing.  Rounding p and
 // ds to bf16 moves the gradients by some 2.4e-3 relative L2 of the f32
@@ -89,11 +96,12 @@
 //
 // C entry point (loaded with ctypes by repro_torch/kernels/_build.py):
 //   repro_flash_attention_bwd(dtype, q, k, v, out, lse, dout, dq, dk, dv, D,
-//                             B, S, KVH, G, hd, causal, window, scale,
-//                             stream) -> cudaError_t
+//                             B, Sq, Skv, KVH, G, hd, causal, window,
+//                             kv_len, scale, stream) -> cudaError_t
 // dtype 0 = float32, 1 = bfloat16 for q / k / v / out / dout / dq / dk / dv;
-// lse and the D scratch (B, S, KVH, G) f32; hd in {64, 112, 128}; 1 <= G <=
-// 64; all contiguous, the bf16 tensors 16-byte aligned.
+// lse and the D scratch (B, Sq, KVH, G) f32; hd in {64, 112, 128}; 1 <= G
+// <= 64; 0 <= kv_len <= Skv; all contiguous, the bf16 tensors 16-byte
+// aligned.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -164,8 +172,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ dout,
                       const float* __restrict__ lse, const float* __restrict__ D,
-                      T* __restrict__ dk, T* __restrict__ dv, int S, int KVH, int G,
-                      int causal, int window, float scale) {
+                      T* __restrict__ dk, T* __restrict__ dv, int Sq, int Skv, int kv_len,
+                      int KVH, int G, int causal, int window, float scale) {
   constexpr int kC = BwdTile<HD>::kC;
   constexpr int LD = HD + 1;
   extern __shared__ __align__(16) float smem[];
@@ -180,17 +188,18 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int k0 = blockIdx.x * kT, kh = blockIdx.y, b = blockIdx.z;
-  const int nk = min(kT, S - k0);
+  const int nk = min(kT, Skv - k0);              // keys of this tile
+  const int nvalid = max(0, min(nk, kv_len - k0));  // those below kv_len
   const size_t krow = (size_t)KVH * HD;      // k/v elements per position
   const size_t qrow = (size_t)KVH * G * HD;  // q elements per position
   const size_t lrow = (size_t)KVH * G;       // lse / D entries per position
 
-  // this tile's K and V, transposed; keys past S are zeros
+  // this tile's K and V, transposed; keys at or past kv_len are zeros
   for (int e = tid; e < kT * HD; e += kThreads) {
     const int j = e / HD, h = e % HD;
     float kx = 0.f, vx = 0.f;
-    if (j < nk) {
-      const size_t off = ((size_t)b * S + k0 + j) * krow + (size_t)kh * HD + h;
+    if (j < nvalid) {
+      const size_t off = ((size_t)b * Skv + k0 + j) * krow + (size_t)kh * HD + h;
       kx = to_f(k[off]);
       vx = to_f(v[off]);
     }
@@ -198,11 +207,11 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     Vt[h * kT + j] = vx;
   }
 
-  // the query tiles whose positions see a key of this tile
+  // the query tiles whose positions see a key of this tile below kv_len
   const int BQ = kT / G;  // positions per query tile
-  const int k_last = k0 + nk - 1;
+  const int k_last = k0 + nvalid - 1;
   const int p_begin = causal ? k0 : 0;
-  const int p_end = window ? min(S, k_last + window) : S;
+  const int p_end = nvalid == 0 ? 0 : window ? min(Sq, k_last + window) : Sq;
   const int t_begin = p_begin / BQ;
   const int t_end = p_end > p_begin ? (p_end + BQ - 1) / BQ : t_begin;
 
@@ -213,12 +222,12 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < kC; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
 
   for (int t = t_begin; t < t_end; ++t) {
-    const int q0 = t * BQ, nq = min(BQ, S - q0), rows = nq * G;
+    const int q0 = t * BQ, nq = min(BQ, Sq - q0), rows = nq * G;
     __syncthreads();  // the previous tile's Qs / dOs / Ps / dSs are consumed
     // Q and dO rows (row r = position q0 + r / G, head r % G); rows past
     // ``rows`` are zeros
-    const T* qb = q + ((size_t)b * S + q0) * qrow + (size_t)kh * G * HD;
-    const T* gb = dout + ((size_t)b * S + q0) * qrow + (size_t)kh * G * HD;
+    const T* qb = q + ((size_t)b * Sq + q0) * qrow + (size_t)kh * G * HD;
+    const T* gb = dout + ((size_t)b * Sq + q0) * qrow + (size_t)kh * G * HD;
     for (int e = tid; e < kT * HD; e += kThreads) {
       const int r = e / HD, h = e % HD;
       float qx = 0.f, gx = 0.f;
@@ -232,7 +241,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     if (tid < kT) {
       const int r = tid;
-      const size_t off = ((size_t)b * S + q0 + r / G) * lrow + (size_t)kh * G + r % G;
+      const size_t off = ((size_t)b * Sq + q0 + r / G) * lrow + (size_t)kh * G + r % G;
       lse_s[r] = r < rows ? lse[off] : 0.f;
       D_s[r] = r < rows ? D[off] : 0.f;
     }
@@ -270,7 +279,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int kpos = k0 + 4 * ty + i;
-        const bool ok = r < rows && kpos < S && (!causal || kpos <= qp) &&
+        const bool ok = r < rows && kpos < kv_len && (!causal || kpos <= qp) &&
                         (!window || qp - kpos < window);
         const float p = ok ? expf(__fsub_rn(__fmul_rn(s[i][jj], scale), lse_s[r])) : 0.f;
         const float ds = ok ? __fmul_rn(p, __fsub_rn(dp[i][jj], D_s[r])) : 0.f;
@@ -304,7 +313,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int j = 4 * ty + i;
     if (j >= nk) continue;
-    const size_t off = ((size_t)b * S + k0 + j) * krow + (size_t)kh * HD;
+    const size_t off = ((size_t)b * Skv + k0 + j) * krow + (size_t)kh * HD;
 #pragma unroll
     for (int c = 0; c < kC; ++c) {
       dk[off + tx + 16 * c] = from_f<T>(__fmul_rn(acc_k[i][c], scale));
@@ -319,8 +328,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ D,
-                    T* __restrict__ dq, int S, int KVH, int G, int causal, int window,
-                    float scale) {
+                    T* __restrict__ dq, int Sq, int Skv, int kv_len, int KVH, int G,
+                    int causal, int window, float scale) {
   constexpr int kC = BwdTile<HD>::kC;
   constexpr int LD = HD + 1;
   extern __shared__ __align__(16) float smem[];
@@ -336,14 +345,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int BQ = kT / G;  // positions per tile
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // the longest causal tiles first
   const int kh = blockIdx.y, b = blockIdx.z;
-  const int nq = min(BQ, S - q0), rows = nq * G;
+  const int nq = min(BQ, Sq - q0), rows = nq * G;
   const size_t krow = (size_t)KVH * HD;
   const size_t qrow = (size_t)KVH * G * HD;
   const size_t lrow = (size_t)KVH * G;
 
   // Q and dO of the tile, transposed; rows past ``rows`` are zeros
-  const T* qb = q + ((size_t)b * S + q0) * qrow + (size_t)kh * G * HD;
-  const T* gb = dout + ((size_t)b * S + q0) * qrow + (size_t)kh * G * HD;
+  const T* qb = q + ((size_t)b * Sq + q0) * qrow + (size_t)kh * G * HD;
+  const T* gb = dout + ((size_t)b * Sq + q0) * qrow + (size_t)kh * G * HD;
   for (int e = tid; e < kT * HD; e += kThreads) {
     const int r = e / HD, h = e % HD;
     float qx = 0.f, gx = 0.f;
@@ -357,14 +366,15 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   if (tid < kT) {
     const int r = tid;
-    const size_t off = ((size_t)b * S + q0 + r / G) * lrow + (size_t)kh * G + r % G;
+    const size_t off = ((size_t)b * Sq + q0 + r / G) * lrow + (size_t)kh * G + r % G;
     lse_s[r] = r < rows ? lse[off] : 0.f;
     D_s[r] = r < rows ? D[off] : 0.f;
   }
 
-  // the key tiles that meet any row of this tile (the forward's range)
+  // the key tiles below kv_len that meet any row of this tile (the
+  // forward's range)
   const int q_last = q0 + nq - 1;
-  const int k_end = causal ? min(S, q_last + 1) : S;
+  const int k_end = causal ? min(kv_len, q_last + 1) : kv_len;
   const int k_begin = window ? max(0, q0 - window + 1) / kT * kT : 0;
 
   int qpos[4];
@@ -381,8 +391,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = tid; e < kT * HD; e += kThreads) {
       const int j = e / HD, h = e % HD;
       float kx = 0.f, vx = 0.f;
-      if (k0 + j < S) {
-        const size_t off = ((size_t)b * S + k0 + j) * krow + (size_t)kh * HD + h;
+      if (k0 + j < kv_len) {
+        const size_t off = ((size_t)b * Skv + k0 + j) * krow + (size_t)kh * HD + h;
         kx = to_f(k[off]);
         vx = to_f(v[off]);
       }
@@ -422,7 +432,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
         const int kpos = k0 + tx + 16 * jj;
-        const bool ok = r < rows && kpos < S && (!causal || kpos <= qpos[i]) &&
+        const bool ok = r < rows && kpos < kv_len && (!causal || kpos <= qpos[i]) &&
                         (!window || qpos[i] - kpos < window);
         float ds = 0.f;
         if (ok) {
@@ -434,8 +444,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
 
-    // dQ += dS.K over the tile's keys, in key order
-    const int nk = min(kT, S - k0);
+    // dQ += dS.K over the tile's keys below kv_len, in key order
+    const int nk = min(kT, kv_len - k0);
     for (int j = 0; j < nk; ++j) {
       const float4 d4 = *reinterpret_cast<const float4*>(dSs + sw(j, 4 * ty));
       const float da[4] = {d4.x, d4.y, d4.z, d4.w};
@@ -449,7 +459,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   // dq = scale * acc, written once
-  T* ob = dq + ((size_t)b * S + q0) * qrow + (size_t)kh * G * HD;
+  T* ob = dq + ((size_t)b * Sq + q0) * qrow + (size_t)kh * G * HD;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = 4 * ty + i;
@@ -499,8 +509,8 @@ flash_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ dout,
                            const float* __restrict__ lse, const float* __restrict__ D,
                            __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-                           int S, int KVH, int G, int causal, int window, float scale,
-                           float scale_log2) {
+                           int Sq, int Skv, int kv_len, int KVH, int G, int causal,
+                           int window, float scale, float scale_log2) {
   using Tile = MmaBwdTile<HD>;
   constexpr int NCH = Tile::kNch, STRIDE = Tile::kStride, TILE = Tile::kTile;
   constexpr int SUB = Tile::kSub;
@@ -522,18 +532,19 @@ flash_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int k0 = blockIdx.x * kT, kh = blockIdx.y, b = blockIdx.z;
-  const int nk = min(kT, S - k0);
+  const int nk = min(kT, Skv - k0);                 // keys of this tile
+  const int nvalid = max(0, min(nk, kv_len - k0));  // those below kv_len
   const size_t krow = (size_t)KVH * HD;      // k/v elements per position
   const size_t qrow = (size_t)KVH * G * HD;  // q elements per position
   const size_t lrow = (size_t)KVH * G;       // lse / D entries per position
   const int BQ = kT / G;                     // positions per query tile
 
-  // this tile's K and V; keys past S are zeros
-  const __nv_bfloat16* kb = k + ((size_t)b * S + k0) * krow + (size_t)kh * HD;
-  const __nv_bfloat16* vb = v + ((size_t)b * S + k0) * krow + (size_t)kh * HD;
+  // this tile's K and V; keys at or past kv_len are zeros
+  const __nv_bfloat16* kb = k + ((size_t)b * Skv + k0) * krow + (size_t)kh * HD;
+  const __nv_bfloat16* vb = v + ((size_t)b * Skv + k0) * krow + (size_t)kh * HD;
   for (int i = tid; i < kT * NCH; i += kMmaThreads) {
     const int j = i / NCH, c = i % NCH;
-    const bool in = j < nk;
+    const bool in = j < nvalid;
     const size_t off = in ? (size_t)j * krow + c * 8 : 0;
     cp_async16(Ks + at(j, c), kb + off, in);
     cp_async16(Vs + at(j, c), vb + off, in);
@@ -548,19 +559,19 @@ flash_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   }
   __syncthreads();
 
-  // the query tiles whose positions see a key of this tile
-  const int k_last = k0 + nk - 1;
+  // the query tiles whose positions see a key of this tile below kv_len
+  const int k_last = k0 + nvalid - 1;
   const int p_begin = causal ? k0 : 0;
-  const int p_end = window ? min(S, k_last + window) : S;
+  const int p_end = nvalid == 0 ? 0 : window ? min(Sq, k_last + window) : Sq;
   const int t_begin = p_begin / BQ;
   const int t_end = p_end > p_begin ? (p_end + BQ - 1) / BQ : t_begin;
 
   // Q, dO, lse and D of query tile t into buffer ``buf``; rows past the
   // tile's last position are zeros
   auto load_q = [&](int t, int buf) {
-    const int q0 = t * BQ, rows = min(BQ, S - q0) * G;
-    const __nv_bfloat16* qb = q + ((size_t)b * S + q0) * qrow + (size_t)kh * G * HD;
-    const __nv_bfloat16* gb = dout + ((size_t)b * S + q0) * qrow + (size_t)kh * G * HD;
+    const int q0 = t * BQ, rows = min(BQ, Sq - q0) * G;
+    const __nv_bfloat16* qb = q + ((size_t)b * Sq + q0) * qrow + (size_t)kh * G * HD;
+    const __nv_bfloat16* gb = dout + ((size_t)b * Sq + q0) * qrow + (size_t)kh * G * HD;
     uint4* qd = Qs + buf * TILE;
     uint4* gd = Gs + buf * TILE;
     for (int i = tid; i < kT * NCH; i += kMmaThreads) {
@@ -572,7 +583,7 @@ flash_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     }
     if (tid < kT) {
       const bool in = tid < rows;
-      const size_t off = in ? ((size_t)b * S + q0) * lrow + (size_t)kh * G + loff[tid] : 0;
+      const size_t off = in ? ((size_t)b * Sq + q0) * lrow + (size_t)kh * G + loff[tid] : 0;
       cp_async4(lse_s + buf * kT + tid, lse + off, in);
       cp_async4(D_s + buf * kT + tid, D + off, in);
     }
@@ -600,9 +611,9 @@ flash_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       cp_async_wait<0>();
     }
     __syncthreads();
-    const int q0 = t * BQ, nq = min(BQ, S - q0), rows = nq * G;
+    const int q0 = t * BQ, nq = min(BQ, Sq - q0), rows = nq * G;
     // every (key, position) pair of the tile unmasked: no per-element mask
-    const bool full = k0 + kT <= S && (!causal || k0 + kT - 1 <= q0) &&
+    const bool full = k0 + kT <= kv_len && (!causal || k0 + kT - 1 <= q0) &&
                       (!window || q0 + nq - 1 - k0 < window);
     const uint4* qt = Qs + buf * TILE;
     const uint4* gt = Gs + buf * TILE;
@@ -648,7 +659,7 @@ flash_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
           bool ok = true;
           if (!full) {
             const int kpos = k0 + kr + 8 * (e >> 1), qp = q0 + rpos[r];
-            ok = r < rows && kpos < S && (!causal || kpos <= qp) &&
+            ok = r < rows && kpos < kv_len && (!causal || kpos <= qp) &&
                  (!window || qp - kpos < window);
           }
           const float p =
@@ -688,8 +699,8 @@ flash_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   }
 
   // dk = scale * acc_k, dv = acc_v, rounded once to bf16 and written once
-  __nv_bfloat16* dkb = dk + ((size_t)b * S + k0) * krow + (size_t)kh * HD + col;
-  __nv_bfloat16* dvb = dv + ((size_t)b * S + k0) * krow + (size_t)kh * HD + col;
+  __nv_bfloat16* dkb = dk + ((size_t)b * Skv + k0) * krow + (size_t)kh * HD + col;
+  __nv_bfloat16* dvb = dv + ((size_t)b * Skv + k0) * krow + (size_t)kh * HD + col;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int j = kr + 8 * half;
@@ -713,8 +724,9 @@ flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                          const __nv_bfloat16* __restrict__ v,
                          const __nv_bfloat16* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ D,
-                         __nv_bfloat16* __restrict__ dq, int S, int KVH, int G, int causal,
-                         int window, float scale, float scale_log2) {
+                         __nv_bfloat16* __restrict__ dq, int Sq, int Skv, int kv_len,
+                         int KVH, int G, int causal, int window, float scale,
+                         float scale_log2) {
   using Tile = MmaBwdTile<HD>;
   constexpr int NCH = Tile::kNch, STRIDE = Tile::kStride, TILE = Tile::kTile;
   constexpr int NT = kT / 8;   // 8-key column tiles of S
@@ -733,14 +745,14 @@ flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int BQ = kT / G;  // positions per tile
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // the longest causal tiles first
   const int kh = blockIdx.y, b = blockIdx.z;
-  const int nq = min(BQ, S - q0), rows = nq * G;
+  const int nq = min(BQ, Sq - q0), rows = nq * G;
   const size_t krow = (size_t)KVH * HD;
   const size_t qrow = (size_t)KVH * G * HD;
   const size_t lrow = (size_t)KVH * G;
 
   // Q, dO, lse and D of the tile; rows past ``rows`` are zeros
-  const __nv_bfloat16* qb = q + ((size_t)b * S + q0) * qrow + (size_t)kh * G * HD;
-  const __nv_bfloat16* gb = dout + ((size_t)b * S + q0) * qrow + (size_t)kh * G * HD;
+  const __nv_bfloat16* qb = q + ((size_t)b * Sq + q0) * qrow + (size_t)kh * G * HD;
+  const __nv_bfloat16* gb = dout + ((size_t)b * Sq + q0) * qrow + (size_t)kh * G * HD;
   for (int i = tid; i < kT * NCH; i += kMmaThreads) {
     const int r = i / NCH, c = i % NCH;
     const bool in = r < rows;
@@ -751,27 +763,29 @@ flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   if (tid < kT) {
     const bool in = tid < rows;
     const size_t off =
-        in ? ((size_t)b * S + q0 + tid / G) * lrow + (size_t)kh * G + tid % G : 0;
+        in ? ((size_t)b * Sq + q0 + tid / G) * lrow + (size_t)kh * G + tid % G : 0;
     cp_async4(lse_s + tid, lse + off, in);
     cp_async4(D_s + tid, D + off, in);
   }
   cp_async_commit();
 
-  // the key tiles that meet any row of this tile (the forward's range)
+  // the key tiles below kv_len that meet any row of this tile (the
+  // forward's range)
   const int q_last = q0 + nq - 1;
-  const int k_end = causal ? min(S, q_last + 1) : S;
+  const int k_end = causal ? min(kv_len, q_last + 1) : kv_len;
   const int k_begin = window ? max(0, q0 - window + 1) / kT * kT : 0;
   const int ntiles = k_end > k_begin ? (k_end - k_begin + kT - 1) / kT : 0;
 
-  // K and V rows k0..k0+63 into buffer ``buf``; rows past S are zeros
-  const __nv_bfloat16* kb = k + (size_t)b * S * krow + (size_t)kh * HD;
-  const __nv_bfloat16* vb = v + (size_t)b * S * krow + (size_t)kh * HD;
+  // K and V rows k0..k0+63 into buffer ``buf``; rows at or past kv_len are
+  // zeros
+  const __nv_bfloat16* kb = k + (size_t)b * Skv * krow + (size_t)kh * HD;
+  const __nv_bfloat16* vb = v + (size_t)b * Skv * krow + (size_t)kh * HD;
   auto load_kv = [&](int k0, int buf) {
     uint4* kd = Ks + buf * TILE;
     uint4* vd = Vs + buf * TILE;
     for (int i = tid; i < kT * NCH; i += kMmaThreads) {
       const int j = i / NCH, c = i % NCH;
-      const bool in = k0 + j < S;
+      const bool in = k0 + j < kv_len;
       const size_t off = in ? (size_t)(k0 + j) * krow + c * 8 : 0;
       cp_async16(kd + at(j, c), kb + off, in);
       cp_async16(vd + at(j, c), vb + off, in);
@@ -836,7 +850,7 @@ flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
     // ds = exp(s * scale - lse) * (dp - D) into s; element e of column
     // tile j: row r0 (e < 2) or r1, key k0 + 8j + col + e % 2; masked pairs 0
-    const bool full = k0 + kT <= S && (!causal || k0 + kT - 1 <= q0) &&
+    const bool full = k0 + kT <= kv_len && (!causal || k0 + kT - 1 <= q0) &&
                       (!window || q_last - k0 < window);
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
@@ -846,7 +860,7 @@ flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
         bool ok = true;
         if (!full) {
           const int kpos = k0 + 8 * j + col + (e & 1);
-          ok = r < rows && kpos < S && (!causal || kpos <= qp) &&
+          ok = r < rows && kpos < kv_len && (!causal || kpos <= qp) &&
                (!window || qp - kpos < window);
         }
         const float p = ok ? exp2f(__fmaf_rn(s[j][e], scale_log2, -(e < 2 ? l0 : l1))) : 0.f;
@@ -875,7 +889,7 @@ flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   }
 
   // dq = scale * acc, rounded once to bf16 and written once
-  __nv_bfloat16* ob = dq + ((size_t)b * S + q0) * qrow + (size_t)kh * G * HD + col;
+  __nv_bfloat16* ob = dq + ((size_t)b * Sq + q0) * qrow + (size_t)kh * G * HD + col;
   if (r0 < rows) {
     __nv_bfloat16* orow = ob + (size_t)(r0 / G) * qrow + (r0 % G) * HD;
 #pragma unroll
@@ -906,48 +920,49 @@ cudaError_t launch_with_smem(K kern, dim3 grid, int threads, size_t bytes, cudaS
 template <typename T, int HD>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* out,
                        const void* lse, const void* dout, void* dq, void* dk, void* dv,
-                       float* D, int B, int S, int KVH, int G, int causal, int window,
-                       float scale, cudaStream_t stream) {
+                       float* D, int B, int Sq, int Skv, int KVH, int G, int causal,
+                       int window, int kv_len, float scale, cudaStream_t stream) {
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const T* gt = static_cast<const T*>(dout);
   const float* lf = static_cast<const float*>(lse);
 
-  const long long rows = (long long)B * S * KVH * G;
+  const long long rows = (long long)B * Sq * KVH * G;
   const long long blocks = (rows + kThreads / 32 - 1) / (kThreads / 32);
   flash_bwd_preprocess_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
       static_cast<const T*>(out), gt, D, rows, HD);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  const dim3 key_grid((S + kT - 1) / kT, KVH, B);
-  const dim3 query_grid((S + kT / G - 1) / (kT / G), KVH, B);
+  const dim3 key_grid((Skv + kT - 1) / kT, KVH, B);
+  const dim3 query_grid((Sq + kT / G - 1) / (kT / G), KVH, B);
   if constexpr (std::is_same<T, float>::value) {
     using Tile = BwdTile<HD>;
     static_assert(Tile::kDkdvBytes <= kMaxSmem && Tile::kDqBytes <= kMaxSmem,
                   "tiles must fit a block");
     err = launch_with_smem(flash_bwd_dkdv_kernel<T, HD>, key_grid, kThreads,
                            Tile::kDkdvBytes, stream, qt, kt, vt, gt, lf, (const float*)D,
-                           static_cast<T*>(dk), static_cast<T*>(dv), S, KVH, G, causal,
-                           window, scale);
+                           static_cast<T*>(dk), static_cast<T*>(dv), Sq, Skv, kv_len, KVH,
+                           G, causal, window, scale);
     if (err != cudaSuccess) return err;
     return launch_with_smem(flash_bwd_dq_kernel<T, HD>, query_grid, kThreads,
                             Tile::kDqBytes, stream, qt, kt, vt, gt, lf, (const float*)D,
-                            static_cast<T*>(dq), S, KVH, G, causal, window, scale);
+                            static_cast<T*>(dq), Sq, Skv, kv_len, KVH, G, causal, window,
+                            scale);
   } else {
     using Tile = MmaBwdTile<HD>;
     static_assert(Tile::kDkdvBytes <= kMaxSmem && Tile::kDqBytes <= kMaxSmem,
                   "tiles must fit a block");
     err = launch_with_smem(flash_bwd_dkdv_bf16_kernel<HD>, key_grid, kMmaThreads,
                            Tile::kDkdvBytes, stream, qt, kt, vt, gt, lf, (const float*)D,
-                           static_cast<T*>(dk), static_cast<T*>(dv), S, KVH, G, causal,
-                           window, scale, scale * kLog2e);
+                           static_cast<T*>(dk), static_cast<T*>(dv), Sq, Skv, kv_len, KVH,
+                           G, causal, window, scale, scale * kLog2e);
     if (err != cudaSuccess) return err;
     return launch_with_smem(flash_bwd_dq_bf16_kernel<HD>, query_grid, kMmaThreads,
                             Tile::kDqBytes, stream, qt, kt, vt, gt, lf, (const float*)D,
-                            static_cast<T*>(dq), S, KVH, G, causal, window, scale,
-                            scale * kLog2e);
+                            static_cast<T*>(dq), Sq, Skv, kv_len, KVH, G, causal, window,
+                            scale, scale * kLog2e);
   }
 }
 
@@ -968,23 +983,25 @@ cudaError_t with_head_dim(int hd, F f) {
 extern "C" int repro_flash_attention_bwd(int dtype, const void* q, const void* k,
                                          const void* v, const void* out, const void* lse,
                                          const void* dout, void* dq, void* dk, void* dv,
-                                         void* D, int B, int S, int KVH, int G, int hd,
-                                         int causal, int window, float scale, void* stream) {
+                                         void* D, int B, int Sq, int Skv, int KVH, int G,
+                                         int hd, int causal, int window, int kv_len,
+                                         float scale, void* stream) {
   using namespace repro;
   // a query tile's row offsets (64 positions x KVH * G * hd) must fit an int
-  if (B < 1 || S < 1 || KVH < 1 || KVH > 65535 || B > 65535 || G < 1 || G > kT ||
-      window < 0 || (long long)kT * KVH * G * hd > INT_MAX)
+  if (B < 1 || Sq < 1 || Skv < 1 || KVH < 1 || KVH > 65535 || B > 65535 || G < 1 ||
+      G > kT || window < 0 || kv_len < 0 || kv_len > Skv ||
+      (long long)kT * KVH * G * hd > INT_MAX)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* Df = static_cast<float*>(D);
   return (int)with_head_dim(hd, [&](auto h) {
     constexpr int HD = decltype(h)::value;
     if (dtype == 0)
-      return launch_bwd<float, HD>(q, k, v, out, lse, dout, dq, dk, dv, Df, B, S, KVH, G,
-                                   causal, window, scale, st);
+      return launch_bwd<float, HD>(q, k, v, out, lse, dout, dq, dk, dv, Df, B, Sq, Skv, KVH,
+                                   G, causal, window, kv_len, scale, st);
     if (dtype == 1)
-      return launch_bwd<__nv_bfloat16, HD>(q, k, v, out, lse, dout, dq, dk, dv, Df, B, S,
-                                           KVH, G, causal, window, scale, st);
+      return launch_bwd<__nv_bfloat16, HD>(q, k, v, out, lse, dout, dq, dk, dv, Df, B, Sq,
+                                           Skv, KVH, G, causal, window, kv_len, scale, st);
     return cudaErrorInvalidValue;
   });
 }

@@ -11,8 +11,9 @@ split into hi + mid + lo); f32 runs on the CUDA cores.  With
 ``return_lse=True`` it also returns the rows' log-sum-exp (B, Sq, KVH, G) in
 f32, which ``flash_attention_backward_kernel`` takes: the gradient of the
 same function (port-only: the reference's gradient is XLA's derivative of
-its jnp attention), three launches, for the training path's self-attention;
-bf16 runs its five products on the tensor cores (p and dS rounded once to
+its jnp attention), three launches, for the training path's attention
+(self-attention, and cross-attention at Sq != Skv, under every mask the
+forward takes); bf16 runs its five products on the tensor cores (p and dS rounded once to
 bf16 as operands), f32 on the CUDA cores.
 """
 
@@ -71,32 +72,32 @@ def flash_attention_kernel(q, k, v, *, causal: bool, window: int,
 def check_backward_case(q_shape, k_shape, kv_len, *, kernel: bool = True,
                         name: str = "flash_attention_bwd") -> None:
     """Raise a ``ValueError`` naming the case for what the backward does not
-    take: Sq != Skv, a ``kv_len`` mask and, for the kernel (``kernel``), hd
-    outside ``BWD_HEAD_DIMS`` (the plain version takes any hd)."""
-    Sq, hd, Skv = q_shape[1], q_shape[-1], k_shape[1]
-    if Sq != Skv:
-        raise ValueError(f"{name}: Sq != Skv ({Sq} vs {Skv}) is not supported: the "
-                         "backward takes self-attention only")
-    if kv_len is not None and kv_len != Skv:
-        raise ValueError(f"{name}: kv_len {kv_len} < Skv {Skv} is not supported: the "
-                         "backward takes every key valid")
+    take: a ``kv_len`` outside [0, Skv] and, for the kernel (``kernel``), hd
+    outside ``BWD_HEAD_DIMS`` (the plain version takes any hd).  Sq and Skv
+    may differ."""
+    hd, Skv = q_shape[-1], k_shape[1]
+    if kv_len is not None and not 0 <= kv_len <= Skv:
+        raise ValueError(f"{name}: kv_len {kv_len} out of range [0, {Skv}]")
     if kernel and hd not in BWD_HEAD_DIMS:
         raise ValueError(f"{name}: hd {hd} is not supported; have {BWD_HEAD_DIMS}")
 
 
 def flash_attention_backward_kernel(q, k, v, out, lse, dout, *, causal: bool,
-                                    window: int):
-    """Gradient of ``flash_attention_kernel`` at Sq == Skv with every key
-    valid: q, out, dout (B, S, KVH, G, hd), k/v (B, S, KVH, hd), bf16 or f32,
-    lse (B, S, KVH, G) f32, contiguous on one CUDA device -> (dq, dk, dv) in
-    the inputs' dtype.  Three launches (D = rowsum(dout * out), dK/dV, dQ),
-    f32 sums in a fixed order, no atomics; bf16 tensors 16-byte aligned."""
+                                    window: int, kv_len: int | None = None):
+    """Gradient of ``flash_attention_kernel`` under the same masks: q, out,
+    dout (B, Sq, KVH, G, hd), k/v (B, Skv, KVH, hd), bf16 or f32, lse (B,
+    Sq, KVH, G) f32, contiguous on one CUDA device -> (dq, dk, dv) in the
+    inputs' dtype; keys at or past ``kv_len`` get zero gradients.  Three
+    launches (D = rowsum(dout * out), dK/dV, dQ), f32 sums in a fixed order,
+    no atomics; bf16 tensors 16-byte aligned."""
     name = "flash_attention_bwd"
     if q.dim() != 5 or k.dim() != 4:
         raise ValueError(f"{name}: q must be 5-D and k/v 4-D, got "
                          f"{tuple(q.shape)} and {tuple(k.shape)}")
-    check_backward_case(q.shape, k.shape, None, name=name)
-    B, S, KVH, G, hd = q.shape
+    check_backward_case(q.shape, k.shape, kv_len, name=name)
+    B, Sq, KVH, G, hd = q.shape
+    Skv = k.shape[1]
+    kv_len = Skv if kv_len is None else int(kv_len)
     if q.device.type != "cuda":
         raise ValueError(f"{name}: expected CUDA tensors, got {q.device}")
     if q.dtype not in DTYPE_CODE:
@@ -108,24 +109,24 @@ def flash_attention_backward_kernel(q, k, v, out, lse, dout, *, causal: bool,
         if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
             raise ValueError(f"{name}: bf16 q/k/v/out/dout must be 16-byte aligned "
                              "(the tensor-core kernels stage them with cp.async)")
-    if (k.shape != (B, S, KVH, hd) or v.shape != k.shape or out.shape != q.shape
-            or dout.shape != q.shape or not 1 <= G <= MAX_G or min(B, S, KVH) < 1):
+    if (k.shape != (B, Skv, KVH, hd) or v.shape != k.shape or out.shape != q.shape
+            or dout.shape != q.shape or not 1 <= G <= MAX_G or min(B, Sq, Skv, KVH) < 1):
         raise ValueError(f"{name}: unsupported shapes q={tuple(q.shape)} "
                          f"k={tuple(k.shape)} out={tuple(out.shape)} "
                          f"dout={tuple(dout.shape)} (G <= {MAX_G})")
-    if (lse.shape != (B, S, KVH, G) or lse.dtype != torch.float32
+    if (lse.shape != (B, Sq, KVH, G) or lse.dtype != torch.float32
             or lse.device != q.device or not lse.is_contiguous()):
-        raise ValueError(f"{name}: lse must be contiguous f32 (B, S, KVH, G) on q's "
+        raise ValueError(f"{name}: lse must be contiguous f32 (B, Sq, KVH, G) on q's "
                          f"device, got {tuple(lse.shape)} {lse.dtype}")
     if int(window) < 0:
         raise ValueError(f"{name}: window {window} out of range")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    rowsum = torch.empty((B, S, KVH, G), dtype=torch.float32, device=q.device)
+    rowsum = torch.empty((B, Sq, KVH, G), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _build.library().repro_flash_attention_bwd(
         DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        rowsum.data_ptr(), B, S, KVH, G, hd, int(bool(causal)), int(window),
+        rowsum.data_ptr(), B, Sq, Skv, KVH, G, hd, int(bool(causal)), int(window), kv_len,
         attn_scale(hd), stream)
     _build.check(err, name)
     return dq, dk, dv

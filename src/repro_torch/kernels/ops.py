@@ -207,28 +207,28 @@ def _flash_forward(q, k, v, causal, window, kv_len, return_lse):
 class FlashAttention(torch.autograd.Function):
     """Kernel 6 with its gradient: the forward keeps ``out`` and the rows'
     log-sum-exp, the backward runs the backward kernel (its plain version
-    for CPU tensors).  Self-attention with every key valid."""
+    for CPU tensors) under the forward's masks: causal, ``window`` and
+    ``kv_len``, at any Sq and Skv."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window: int):
-        out, lse = _flash_forward(q, k, v, causal, window, None, True)
+    def forward(ctx, q, k, v, causal: bool, window: int, kv_len):
+        out, lse = _flash_forward(q, k, v, causal, window, kv_len, True)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.kw = {"causal": causal, "window": window, "kv_len": kv_len}
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dout = dout.contiguous()
-        kw = {"causal": ctx.causal, "window": ctx.window}
         if q.device.type == "cpu":
-            dq, dk, dv = ref.flash_attention_backward_plain(q, k, v, out, lse, dout, **kw)
+            dq, dk, dv = ref.flash_attention_backward_plain(q, k, v, out, lse, dout, **ctx.kw)
         else:
             from repro_torch.kernels.flash_attn import flash_attention_backward_kernel
 
-            dq, dk, dv = flash_attention_backward_kernel(q, k, v, out, lse, dout, **kw)
+            dq, dk, dv = flash_attention_backward_kernel(q, k, v, out, lse, dout, **ctx.kw)
             LAUNCHES["flash_attention_bwd"] += 1
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -236,15 +236,16 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     """Tiled flash attention: q (B, Sq, KVH, G, hd), k/v (B, Skv, KVH, hd) ->
     out like q, with causal, sliding-window (``window`` > 0) and ``kv_len``
     masks (``repro.kernels.ops.flash_attention``; any Sq / Skv, no padding).
-    The port's prefill attention.  Where a gradient is wanted (grad mode on
-    and an input that requires one) it runs through ``FlashAttention``,
-    which takes self-attention with every key valid (on the card at hd 64,
-    112 or 128) and raises a ``ValueError`` naming any other case; otherwise
-    the forward alone, with no log-sum-exp."""
+    The port's prefill and training attention.  Where a gradient is wanted
+    (grad mode on and an input that requires one) it runs through
+    ``FlashAttention``, which takes every case the forward takes (on the
+    card at hd 64, 112 or 128; another hd raises a ``ValueError``);
+    otherwise the forward alone, with no log-sum-exp."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         from repro_torch.kernels.flash_attn import check_backward_case
 
         check_backward_case(q.shape, k.shape, kv_len, kernel=q.device.type != "cpu")
-        return FlashAttention.apply(q, k, v, bool(causal), int(window))
+        return FlashAttention.apply(q, k, v, bool(causal), int(window),
+                                    None if kv_len is None else int(kv_len))
     return _flash_forward(q, k, v, causal, window, kv_len, False)

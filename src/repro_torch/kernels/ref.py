@@ -343,26 +343,29 @@ def flash_attention_plain(q, k, v, *, causal: bool, window: int = 0,
 
 
 def flash_attention_backward_plain(q, k, v, out, lse, dout, *, causal: bool,
-                                   window: int = 0):
+                                   window: int = 0, kv_len: int | None = None):
     """Plain version of the backward kernel (``csrc/flash_attn_bwd.cu``), in
     closed form and f32: with s = q.k / sqrt(hd), p = exp(s - lse) on the
-    unmasked pairs (0 elsewhere), dp = dout.v and D = rowsum(dout * out),
-    ds = p * (dp - D), dq = ds.k / sqrt(hd), dk = ds^T.q / sqrt(hd) and
-    dv = p^T.dout, summed over each kv head's G query heads.  q, out, dout
-    (B, S, KVH, G, hd), k/v (B, S, KVH, hd), lse (B, S, KVH, G) f32 ->
-    (dq, dk, dv) in q's dtype.  Self-attention (Sq == Skv), every key
-    valid."""
-    B, S, KVH, G, hd = q.shape
+    pairs the forward's mask leaves (``_flash_mask``: ``j < kv_len``, ``j <=
+    i`` if causal, ``i - j < window`` if window; 0 elsewhere), dp = dout.v
+    and D = rowsum(dout * out), ds = p * (dp - D), dq = ds.k / sqrt(hd),
+    dk = ds^T.q / sqrt(hd) and dv = p^T.dout, summed over each kv head's G
+    query heads.  q, out, dout (B, Sq, KVH, G, hd), k/v (B, Skv, KVH, hd),
+    lse (B, Sq, KVH, G) f32 -> (dq, dk, dv) in q's dtype.  A fully masked
+    row (lse NEG_INF) and a key at or past ``kv_len`` get zero gradients."""
+    B, Sq, KVH, G, hd = q.shape
+    Skv = k.shape[1]
+    kv_len = Skv if kv_len is None else kv_len
     scale = attn_scale(hd)
     f32 = torch.float32
     qf, kf, vf = q.to(f32), k.to(f32), v.to(f32)
     of, gf = out.to(f32), dout.to(f32)
-    mask = _flash_mask(S, k.shape[1], causal, window, k.shape[1], q.device)
+    mask = _flash_mask(Sq, Skv, causal, window, kv_len, q.device)
     s = torch.einsum("bqkgh,bckh->bkgqc", qf, kf) * scale
-    lse_t = lse.to(f32).permute(0, 2, 3, 1)[..., None]  # (B, KVH, G, S, 1)
+    lse_t = lse.to(f32).permute(0, 2, 3, 1)[..., None]  # (B, KVH, G, Sq, 1)
     p = torch.where(mask, torch.exp(torch.where(mask, s, 0.0) - lse_t), 0.0)
     dp = torch.einsum("bqkgh,bckh->bkgqc", gf, vf)
-    D = (gf * of).sum(-1).permute(0, 2, 3, 1)[..., None]  # (B, KVH, G, S, 1)
+    D = (gf * of).sum(-1).permute(0, 2, 3, 1)[..., None]  # (B, KVH, G, Sq, 1)
     ds = p * (dp - D)
     dq = torch.einsum("bkgqc,bckh->bqkgh", ds, kf) * scale
     dk = torch.einsum("bkgqc,bqkgh->bckh", ds, qf) * scale

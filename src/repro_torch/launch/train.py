@@ -15,8 +15,12 @@ One deviation from the reference: under ``--preset full``, ``--batch`` and
 ``--seq`` override ``train_4k``'s shape when they are given.  ``train_4k``'s
 global batch of 256 x 4096 does not fit one card (smollm's f32 logits alone
 would be ~100 GB a microbatch).  ``--mesh`` takes only ``none``: the mesh
-belongs to the multi-device slice, not ported yet.  Only the dense family
-trains (``models.model.TRAIN_FAMILIES``).
+belongs to the multi-device slice, not ported yet.  The dense, moe, ssm and
+hybrid families train on ``SyntheticLM``, as in the reference.  The
+enc-dec and VLM families need ``frames`` / ``patches``, which
+``SyntheticLM`` does not yield (the reference's launcher fails on them for
+want of those keys): the launcher raises a ``ValueError`` for them, and
+``models.model.loss_fn`` trains them on batches that carry the key.
 """
 
 from __future__ import annotations
@@ -35,6 +39,10 @@ from repro_torch.models import model as M
 from repro_torch.optim import optimizer as O
 from repro_torch.train import fault_tolerance as FT
 from repro_torch.train.train_step import effective_microbatches, make_train_step
+
+
+#: the families whose batches carry a stub frontend's input besides the tokens
+STUB_INPUTS = {"encdec": "frames", "vlm": "patches"}
 
 
 def tiny_config(cfg):
@@ -79,6 +87,11 @@ def main(argv=None):
     if args.mesh != "none":
         raise ValueError(f"--mesh {args.mesh}: meshes belong to the multi-device slice, "
                          "which is not ported; use --mesh none")
+    key = STUB_INPUTS.get(load_config(args.arch).family)
+    if key is not None:
+        raise ValueError(f"--arch {args.arch}: its batches need {key!r}, and SyntheticLM "
+                         "yields tokens and labels only; call models.model.loss_fn with "
+                         f"a batch that carries {key!r}")
     device = resolve_device(args.device)
     if args.preset == "full":
         cfg = load_config(args.arch)

@@ -21,7 +21,9 @@ Conventions, as in the reference:
   * ``moe`` is the reference's sort-based dispatch with per-sequence
     capacity, its products ``torch.einsum`` as the reference leaves them to
     XLA (no Pallas kernel there): every expert runs over its capacity
-    buffer, at decode too;
+    buffer, at decode too; differentiable to x, the gates and the router
+    (the dispatch's index writes carry their gradients);
+    ``moe_aux_loss`` is the reference's load-balancing loss;
   * the Mamba-2 block (``ssd_chunked``, ``mamba2_block``,
     ``mamba2_decode_step``) is the reference's chunked SSD scan and its
     O(1) recurrent step in torch ops, as the reference leaves them to XLA
@@ -294,6 +296,19 @@ def moe(params: Params, x: torch.Tensor, cfg) -> torch.Tensor:
     contrib = torch.empty_like(rows).index_copy_(0, (b * S * K + r.order).reshape(-1), rows)
     contrib = contrib.view(B, S, K, D)
     return contrib[:, :, 0] if K == 1 else contrib[:, :, 0] + contrib[:, :, 1]
+
+
+def moe_aux_loss(params: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+    """Switch-style load-balancing loss E * sum_e f_e * P_e over x (B, S,
+    D) (``repro.models.layers.moe_aux_loss``): f the share of tokens whose
+    top-1 expert is e (the first on a tie), P the mean router probability
+    of e, both over the B * S tokens, in f32.  As in the reference, nothing
+    adds it to the training loss."""
+    E = cfg.n_experts
+    logits = torch.einsum("bsd,de->bse", x, params["w_router"]).to(torch.float32)
+    probs = torch.softmax(logits, dim=-1).reshape(-1, E)
+    f = F.one_hot(probs.argmax(dim=-1), E).to(torch.float32).mean(dim=0)
+    return E * (f * probs.mean(dim=0)).sum()
 
 
 # ---------------------------------------------------------------------------

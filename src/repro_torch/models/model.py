@@ -36,11 +36,13 @@ prefill, which a decode step reads and never writes.  Every ``kv_mode``
 gives that tree, as in the reference.
 
 Training (``forward``, ``loss_fn``; the reference's ``forward`` and
-``loss_fn``) takes the ``dense`` family: the prefill's blocks without their
-caches, each repeat of the unit under ``torch.utils.checkpoint`` when
-``cfg.remat == "full"`` (the reference's ``jax.checkpoint`` of the scan
-body), the stacked parameters unbound once per call so that their
-gradients are stacked once.
+``loss_fn``) takes every family: the prefill's blocks without their caches
+(the MoE FFN, Mamba-2 blocks, the one shared-attention set, the VLM's
+patches), or for the encoder-decoder its encoder and decoder blocks; each
+repeat of the unit, and each encoder and decoder layer, under
+``torch.utils.checkpoint`` when ``cfg.remat == "full"`` (the reference's
+``jax.checkpoint`` of its scan bodies), the stacked parameters unbound once
+per call so that their gradients are stacked once.
 
 Decode caches are ``{"pos": pos, "blocks": {position: cache}}``, ``pos``
 the next token's index as a 0-d int32 tensor on the caches' device (the
@@ -344,35 +346,50 @@ def _layer(params: Params, pos_name: str, kind: str, i: int) -> Params:
 # training forward and loss
 # ---------------------------------------------------------------------------
 
-#: families ``forward`` takes; the moe, ssm / hybrid, vlm and enc-dec
-#: families' training is later work
-TRAIN_FAMILIES = ("dense",)
+
+def _unbind(stacked: Params) -> Dict[str, Tuple[torch.Tensor, ...]]:
+    """One view per layer of each stacked tensor; their gradients are
+    stacked once (unbind's backward)."""
+    return {k: t.unbind(0) for k, t in stacked.items()}
+
+
+def _remat(cfg, fn, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` when ``cfg.remat ==
+    "full"`` (its interior recomputed in the backward, as the reference's
+    ``jax.checkpoint``)."""
+    if cfg.remat == "full":
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
 
 
 def forward(params: Params, cfg, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Training forward -> logits (B, S, Vpad) in f32 (the reference's
     ``forward``): the embedding (``F.embedding``, whose gradient is one
-    sorted reduction; the same bits as the prefill's lookup), the unit's
-    repeats and the tail through the prefill's blocks (attention through
-    kernel 6 and its backward), the final norm and the unembedding."""
-    if cfg.family not in TRAIN_FAMILIES:
-        raise ValueError(f"{cfg.name}: forward takes the {'/'.join(TRAIN_FAMILIES)} "
-                         f"family; the {cfg.family!r} family's training is not ported")
+    sorted reduction; the same bits as the prefill's lookup), for the VLM
+    with ``batch["patches"]`` (B, n_patch_tokens, D) in place of the first
+    positions; the unit's repeats and the tail through the prefill's blocks
+    (attention through kernel 6 and its backward; a ``shared_attn`` position
+    runs the one shared set, whose gradient sums over its occurrences), the
+    final norm and the unembedding.  The encoder-decoder takes
+    ``batch["frames"]`` (B, Se, D) (``_encdec_forward``)."""
+    if cfg.family == "encdec":
+        x = _encdec_forward(params, cfg, batch["frames"], batch["tokens"])
+        return logits_from_hidden(params, cfg, x)
     unit, n_rep, tail = scan_plan(cfg)
     x = F.embedding(batch["tokens"].long(), params["embed"]).to(torch_dtype(cfg.dtype))
-    # one view per layer; their gradients are stacked once (unbind's backward)
-    layers = {pos: {k: t.unbind(0) for k, t in params[pos].items()} for pos, _ in unit}
+    if cfg.family == "vlm":
+        x = torch.cat([batch["patches"].to(x.dtype), x[:, cfg.n_patch_tokens:]], dim=1)
+    layers = {pos: _unbind(params[pos]) for pos, kind in unit if kind != "shared_attn"}
 
     def unit_body(h, i):
         for pos, kind in unit:
-            h = _prefill_block(kind, {k: t[i] for k, t in layers[pos].items()}, h, cfg)[0]
+            p = (params["shared_attn"] if kind == "shared_attn"
+                 else {k: t[i] for k, t in layers[pos].items()})
+            h = _prefill_block(kind, p, h, cfg)[0]
         return h
 
     for i in range(n_rep):
-        if cfg.remat == "full":
-            x = checkpoint(unit_body, x, i, use_reentrant=False, preserve_rng_state=False)
-        else:
-            x = unit_body(x, i)
+        x = _remat(cfg, unit_body, x, i)
     for pos, kind in tail:
         x = _prefill_block(kind, params[pos], x, cfg)[0]
     return logits_from_hidden(params, cfg, x)
@@ -491,58 +508,101 @@ def prefill(params: Params, cfg, tokens: torch.Tensor, max_len: int,
     return logits, {"pos": _position(S, x.device), "blocks": blocks}
 
 
-def _dec_layer(params: Params, i: int) -> Tuple[Params, Params, Params]:
-    """Decoder layer ``i``'s parameters (views): the whole block, its
-    self-attention set and its cross-attention set, each under the
-    attention layer's names."""
-    p = _layer(params, "dec", "dec", i)
+def _dec_split(p: Params) -> Tuple[Params, Params, Params]:
+    """A decoder layer's parameters: the whole block, its self-attention set
+    and its cross-attention set, each under the attention layer's names."""
     return (p, {k[5:]: v for k, v in p.items() if k.startswith("self_")},
             {k[6:]: v for k, v in p.items() if k.startswith("cross_")})
 
 
+def _enc_block(p: Params, h: torch.Tensor, cfg) -> torch.Tensor:
+    """One encoder block: non-causal self-attention (kernel 6, no RoPE) and
+    the MLP, pre-norm."""
+    attn_out, _ = L.attention(p, L.rmsnorm(h, p["ln1"], cfg.norm_eps), cfg, causal=False,
+                              use_rope=False)
+    h = h + attn_out
+    return h + L.mlp(p, L.rmsnorm(h, p["ln2"], cfg.norm_eps), cfg.act)
+
+
+def _dec_block(p: Params, x: torch.Tensor, enc_out: torch.Tensor, cfg):
+    """One decoder block: causal self-attention (kernel 6), cross-attention
+    over K/V projected from the encoder's output (kernel 6, non-causal, Sq
+    != Skv) and the MLP, three norms.  Returns (x, self k, self v, cross k,
+    cross v), the K/V (B, S, KVH, hd)."""
+    p, sp, cp = _dec_split(p)
+    B, Se, _ = enc_out.shape
+    eps = cfg.norm_eps
+    self_out, (sk, sv) = L.attention(sp, L.rmsnorm(x, p["ln1"], eps), cfg, causal=True,
+                                     use_rope=False)
+    x = x + self_out
+    ek = (enc_out @ cp["wk"]).reshape(B, Se, cfg.n_kv_heads, cfg.head_dim)
+    ev = (enc_out @ cp["wv"]).reshape(B, Se, cfg.n_kv_heads, cfg.head_dim)
+    cross_out, _ = L.attention(cp, L.rmsnorm(x, p["ln2"], eps), cfg, causal=False,
+                               use_rope=False, kv_override=(ek, ev))
+    x = x + cross_out
+    x = x + L.mlp(p, L.rmsnorm(x, p["ln3"], eps), cfg.act)
+    return x, sk, sv, ek, ev
+
+
+def _add_sinusoid(x: torch.Tensor, cfg) -> torch.Tensor:
+    """x (B, S, D) plus the sinusoid at positions ``arange(S)``, computed in
+    f32 and cast to x's dtype before the add (the reference's order): the
+    encoder's input from its frames, the decoder's from its embeddings."""
+    pos = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)[None]
+    return x + L.sinusoidal_positions(pos, cfg.d_model).to(x.dtype)
+
+
+def _encdec_forward(params: Params, cfg, frames: torch.Tensor,
+                    tokens: torch.Tensor) -> torch.Tensor:
+    """The reference's ``_encdec_forward`` without caches, for training:
+    the encoder over ``frames`` plus the sinusoid, its final norm, then the
+    decoder over the embedded tokens plus the sinusoid; each encoder and
+    each decoder layer under ``torch.utils.checkpoint`` when ``cfg.remat ==
+    "full"`` (the reference checkpoints ``enc_body`` and ``dec_body``).
+    Returns the decoder's last hidden state (B, Sd, D)."""
+    enc, dec = _unbind(params["enc"]), _unbind(params["dec"])
+
+    def enc_body(h, i):
+        return _enc_block({k: t[i] for k, t in enc.items()}, h, cfg)
+
+    def dec_body(x, enc_out, i):
+        return _dec_block({k: t[i] for k, t in dec.items()}, x, enc_out, cfg)[0]
+
+    h = _add_sinusoid(frames, cfg)
+    for i in range(cfg.enc_layers):
+        h = _remat(cfg, enc_body, h, i)
+    enc_out = L.rmsnorm(h, params["enc_final_norm"], cfg.norm_eps)
+    x = F.embedding(tokens.long(), params["embed"]).to(torch_dtype(cfg.dtype))
+    x = _add_sinusoid(x, cfg)
+    for i in range(cfg.dec_layers):
+        x = _remat(cfg, dec_body, x, enc_out, i)
+    return x
+
+
 def _encdec_prefill(params: Params, cfg, frames: torch.Tensor, tokens: torch.Tensor,
                     max_len: int):
-    """The reference's ``_encdec_forward`` with its caches: the encoder over
-    ``frames`` plus the sinusoid (non-causal, no RoPE, kernel 6), its final
-    norm; the decoder over the embedded tokens plus the sinusoid, each block
-    causal self-attention (kernel 6), cross-attention over K/V projected
-    from the encoder's output (kernel 6, non-causal, Sq != Skv) and the MLP.
-    Returns the logits and the decode caches: the self K/V zero-padded to
-    ``max_len`` rows and the cross K/V, stacked over the decoder layers."""
+    """The reference's ``_encdec_forward`` with its caches: the encoder
+    (``_enc_block``: non-causal, no RoPE, kernel 6) over ``frames`` plus the
+    sinusoid, its final norm; the decoder (``_dec_block``: causal
+    self-attention, cross-attention at Sq != Skv, both kernel 6, the MLP)
+    over the embedded tokens plus the sinusoid.  Returns the logits and the
+    decode caches: the self K/V zero-padded to ``max_len`` rows and the
+    cross K/V, stacked over the decoder layers."""
     B, Se, _ = frames.shape
     Sd = tokens.shape[1]
-    KVH, hd, eps = cfg.n_kv_heads, cfg.head_dim, cfg.norm_eps
     dev = tokens.device
-    # the sinusoid in f32, cast to the activation dtype before the add (the
-    # reference's order)
-    h = frames + L.sinusoidal_positions(torch.arange(Se, dtype=torch.int32, device=dev)[None],
-                                        cfg.d_model).to(frames.dtype)
+    h = _add_sinusoid(frames, cfg)
     for i in range(cfg.enc_layers):
-        p = _layer(params, "enc", "enc", i)
-        attn_out, _ = L.attention(p, L.rmsnorm(h, p["ln1"], eps), cfg, causal=False,
-                                  use_rope=False)
-        h = h + attn_out
-        h = h + L.mlp(p, L.rmsnorm(h, p["ln2"], eps), cfg.act)
-    enc_out = L.rmsnorm(h, params["enc_final_norm"], eps)
+        h = _enc_block(_layer(params, "enc", "enc", i), h, cfg)
+    enc_out = L.rmsnorm(h, params["enc_final_norm"], cfg.norm_eps)
     del h
 
-    x = _embed(params, cfg, tokens)
-    x = x + L.sinusoidal_positions(torch.arange(Sd, dtype=torch.int32, device=dev)[None],
-                                   cfg.d_model).to(x.dtype)
+    x = _add_sinusoid(_embed(params, cfg, tokens), cfg)
     n = cfg.dec_layers
     cache = {name: torch.zeros((n, B, rows, cfg.kv_dim), dtype=x.dtype, device=dev)
              for name, rows in (("k", max_len), ("v", max_len), ("ck", Se), ("cv", Se))}
     for i in range(n):
-        p, sp, cp = _dec_layer(params, i)
-        self_out, (sk, sv) = L.attention(sp, L.rmsnorm(x, p["ln1"], eps), cfg,
-                                         causal=True, use_rope=False)
-        x = x + self_out
-        ek = (enc_out @ cp["wk"]).reshape(B, Se, KVH, hd)
-        ev = (enc_out @ cp["wv"]).reshape(B, Se, KVH, hd)
-        cross_out, _ = L.attention(cp, L.rmsnorm(x, p["ln2"], eps), cfg, causal=False,
-                                   use_rope=False, kv_override=(ek, ev))
-        x = x + cross_out
-        x = x + L.mlp(p, L.rmsnorm(x, p["ln3"], eps), cfg.act)
+        x, sk, sv, ek, ev = _dec_block(_layer(params, "dec", "dec", i), x, enc_out, cfg)
         cache["k"][i, :, :Sd] = sk.reshape(B, Sd, -1)
         cache["v"][i, :, :Sd] = sv.reshape(B, Sd, -1)
         cache["ck"][i] = ek.reshape(B, Se, -1)
@@ -771,7 +831,7 @@ def _encdec_decode(params: Params, cfg, token: torch.Tensor, caches):
     self_pos = torch.where(t <= pos, t, -1)[None].expand(B, T)
     cross_pos = torch.arange(Se, dtype=torch.int32, device=x.device)[None].expand(B, Se)
     for i in range(cfg.dec_layers):
-        p, sp, cp = _dec_layer(params, i)
+        p, sp, cp = _dec_split(_layer(params, "dec", "dec", i))
         c = _layer_cache(dc, i)
         a = L.rmsnorm(x, p["ln1"], eps)
         nk, nv = L.decode_kv_row(sp, a, cfg, position=pos, use_rope=False)

@@ -3,12 +3,14 @@
 decay and a cosine schedule with warmup.
 
 Plain functions under ``torch.no_grad()`` on nested dicts of tensors (the
-parameter tree): ``apply_updates`` returns new trees and never reads the
-device from the host.  The step, the schedule and the bias corrections are
-f32 tensors on the parameters' device, as the reference computes them, not
-Python doubles.  Weight decay follows the reference's rule ``p.ndim >= 2``
-exactly: in the stacked layout it also decays the ``(n_layers, d)`` norm
-scales.  ``abstract_opt_state`` (shapes for a dry run) is not ported.
+parameter tree): ``apply_updates`` writes the new parameters, moments and
+master weights into the given tensors (the reference's launcher donates
+them to its jitted step) and never reads the device from the host.  The
+step, the schedule and the bias corrections are f32 tensors on the
+parameters' device, as the reference computes them, not Python doubles.
+Weight decay follows the reference's rule ``p.ndim >= 2`` exactly: in the
+stacked layout it also decays the ``(n_layers, d)`` norm scales.
+``abstract_opt_state`` (shapes for a dry run) is not ported.
 """
 
 from __future__ import annotations
@@ -97,8 +99,10 @@ def global_norm(tree) -> torch.Tensor:
 @torch.no_grad()
 def apply_updates(params, grads, state: OptState, oc: OptConfig
                   ) -> Tuple[Any, OptState, Dict[str, torch.Tensor]]:
-    """grads: f32 tree.  Returns (new_params, new_state, metrics), the
-    metrics 0-d f32 tensors on the device."""
+    """grads: f32 tree.  Updates ``params`` and ``state``'s tensors in place
+    (one copy of the parameters and Adam states, not the old and the new)
+    and returns (params, new_state, metrics), the metrics 0-d f32 tensors
+    on the device."""
     step = state.step + 1
     gnorm = global_norm(grads)
     scale = torch.clamp(oc.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
@@ -122,12 +126,16 @@ def apply_updates(params, grads, state: OptState, oc: OptConfig
 
     def walk(p, g, m, v, mw):
         if isinstance(p, dict):
-            outs = {k: walk(p[k], g[k], m[k], v[k], None if mw is None else mw[k])
-                    for k in p}
-            return tuple({k: o[i] for k, o in outs.items()} for i in range(4))
+            for k in p:
+                walk(p[k], g[k], m[k], v[k], None if mw is None else mw[k])
+            return
         n, m2, v2 = upd(p, g, m, v, mw)
-        return n.to(p.dtype), m2, v2, (n if mw is not None else None)
+        p.copy_(n)
+        m.copy_(m2)
+        v.copy_(v2)
+        if mw is not None:
+            mw.copy_(n)
 
-    new_p, new_m, new_v, new_mw = walk(params, grads, state.m, state.v, state.master)
-    new_state = OptState(step, new_m, new_v, new_mw if state.master is not None else None)
-    return new_p, new_state, {"grad_norm": gnorm, "lr": lr}
+    walk(params, grads, state.m, state.v, state.master)
+    return params, OptState(step, state.m, state.v, state.master), {"grad_norm": gnorm,
+                                                                     "lr": lr}

@@ -52,8 +52,10 @@ def _flatten(tree) -> Dict[str, Any]:
 
 
 def _to_host(t: torch.Tensor) -> Tuple[np.ndarray, str]:
-    """(numpy array, manifest dtype) of a leaf; bf16 as its uint16 bits."""
-    t = t.detach().cpu()
+    """(numpy array, manifest dtype) of a leaf; bf16 as its uint16 bits.  A
+    copy also on the CPU: the train step updates its tensors in place while
+    an asynchronous write is still reading them."""
+    t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
     arr = t.numpy()

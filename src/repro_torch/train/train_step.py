@@ -31,8 +31,9 @@ def effective_microbatches(cfg, global_batch: int, batch_shards: int) -> int:
 
 def make_train_step(cfg, oc: O.OptConfig, n_micro: int):
     """Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
-    metrics)``; ``batch`` values are tensors on the parameters' device whose
-    leading dim B_g divides by ``n_micro``."""
+    metrics)``, which updates the given parameters and optimizer state in
+    place (``O.apply_updates``); ``batch`` values are tensors on the
+    parameters' device whose leading dim B_g divides by ``n_micro``."""
     acc_dt = M.torch_dtype(cfg.grad_accum_dtype)
 
     def train_step(params, opt_state, batch: Dict[str, torch.Tensor]):
@@ -53,7 +54,8 @@ def make_train_step(cfg, oc: O.OptConfig, n_micro: int):
                 loss_sum += loss.detach()
             del loss, grads
         with torch.no_grad():
-            flat = [(a.to(torch.float32) / n_micro) for a in acc]
+            # in place where the accumulator is f32: the same bits as a / n
+            flat = [a.to(torch.float32).div_(n_micro) for a in acc]
             del acc
             it = iter(flat)
             grads = O.tree_map(lambda _: next(it), params)

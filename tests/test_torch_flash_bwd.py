@@ -4,12 +4,14 @@
 jnp ``repro.models.layers.flash_attention`` (``layers.py:100``, the function
 XLA differentiates: the reference has no backward kernel), on a grid of
 causal / window / non-causal x G in {1, 3} x hd in {64, 112, 128} at a
-ragged S, each gradient elementwise within 1e-5 * max|ref| + 1e-6;
+ragged S, each gradient elementwise within 1e-5 * max|ref| + 1e-6; the same
+at Sq != Skv (cross-attention: non-causal, causal, windowed, both Sq < Skv
+and Sq > Skv) and under a ``kv_len`` mask (``CROSS_CASES``);
 ``ops.flash_attention`` through ``FlashAttention`` on CPU tensors; the
-forward's log-sum-exp; the cases the backward refuses.
+forward's log-sum-exp; the ``kv_len`` range the backward refuses.
 
-The ``cuda``-marked test holds the backward kernel against its plain
-version on a card and skips without one.
+The ``cuda``-marked tests hold the backward kernel against its plain
+version on a card and skip without one.
 """
 
 import numpy as np
@@ -39,23 +41,25 @@ def _settle_torch_exp():
     torch.exp(torch.einsum("bqkgh,bckh->bkgqc", q, k))
 
 
-def _inputs(seed, B, S, KVH, G, hd):
-    """Seeded q, k, v and the output cotangent dout, f32 numpy."""
+def _inputs(seed, B, S, KVH, G, hd, Skv=None):
+    """Seeded q, k, v and the output cotangent dout, f32 numpy; k / v of
+    ``Skv`` positions (default S)."""
+    Skv = S if Skv is None else Skv
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((B, S, KVH, G, hd)).astype(np.float32)
-    k = (rng.standard_normal((B, S, KVH, hd)) * 0.5).astype(np.float32)
-    v = (rng.standard_normal((B, S, KVH, hd)) * 0.5).astype(np.float32)
+    k = (rng.standard_normal((B, Skv, KVH, hd)) * 0.5).astype(np.float32)
+    v = (rng.standard_normal((B, Skv, KVH, hd)) * 0.5).astype(np.float32)
     dout = rng.standard_normal((B, S, KVH, G, hd)).astype(np.float32)
     return q, k, v, dout
 
 
-def _plain_grads(q, k, v, dout, causal, window):
+def _plain_grads(q, k, v, dout, causal, window, kv_len=None):
     """The closed form from the plain forward's own out and lse."""
     t = [torch.from_numpy(a) for a in (q, k, v, dout)]
     out, lse = ref.flash_attention_plain(*t[:3], causal=causal, window=window,
-                                         return_lse=True)
+                                         kv_len=kv_len, return_lse=True)
     return ref.flash_attention_backward_plain(*t[:3], out, lse, t[3], causal=causal,
-                                              window=window)
+                                              window=window, kv_len=kv_len)
 
 
 def _assert_within(got, want, label):
@@ -149,19 +153,93 @@ def test_lse_is_the_rows_logsumexp_and_neg_inf_when_fully_masked():
     assert not out0.any() and bool((lse0 == ref.NEG_INF).all())
 
 
-@pytest.mark.parametrize("case", ["cross", "kv_len"])
-def test_backward_refuses_what_it_does_not_take(case):
-    rng = np.random.default_rng(6)
-    Skv = 48 if case == "cross" else 32
-    q = torch.from_numpy(rng.standard_normal((1, 32, 1, 2, 64)).astype(np.float32))
-    k = torch.from_numpy(rng.standard_normal((1, Skv, 1, 64)).astype(np.float32))
-    kv_len = 20 if case == "kv_len" else None
-    qg = q.clone().requires_grad_(True)
-    with pytest.raises(ValueError, match={"cross": "Sq != Skv", "kv_len": "kv_len"}[case]):
-        ops.flash_attention(qg, k, k, causal=False, kv_len=kv_len)
-    # the forward alone still takes it
-    with torch.no_grad():
-        ops.flash_attention(qg, k, k, causal=False, kv_len=kv_len)
+#: (label, Sq, Skv, causal, window, kv_len): cross-attention shapes and
+#: ``kv_len`` masks, each row of which sees at least one key (the
+#: reference's chunked attention averages a fully masked row where the port
+#: gives 0, so no such row is compared with it)
+CROSS_CASES = [
+    ("cross", 40, 100, False, 0, None),  # whisper's decoder over its encoder
+    ("cross_long_q", 100, 40, False, 0, None),
+    ("cross_causal", 40, 100, True, 0, None),
+    ("cross_causal_long_q", 100, 40, True, 0, None),
+    ("cross_window", 60, 100, False, 24, None),
+    ("kv_len", 64, 100, False, 0, 70),
+]
+
+
+def _cross(label):
+    return next(c[1:] for c in CROSS_CASES if c[0] == label)
+
+
+@pytest.mark.parametrize("label", [c[0] for c in CROSS_CASES])
+@pytest.mark.parametrize("G", [1, 3])
+def test_plain_backward_matches_autograd_at_sq_ne_skv(label, G):
+    Sq, Skv, causal, window, kv_len = _cross(label)
+    q, k, v, dout = _inputs(11, 2, Sq, 2, G, 64, Skv)
+    qt, kt, vt = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
+    out = ref.flash_attention_plain(qt, kt, vt, causal=causal, window=window, kv_len=kv_len)
+    want = torch.autograd.grad(out, (qt, kt, vt), torch.from_numpy(dout))
+    got = _plain_grads(q, k, v, dout, causal, window, kv_len)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        _assert_within(g.numpy(), w.numpy(), name)
+    if kv_len is not None:  # keys at or past kv_len get no gradient
+        assert not got[1][:, kv_len:].any() and not got[2][:, kv_len:].any()
+
+
+@pytest.mark.parametrize("label", [c[0] for c in CROSS_CASES])
+@pytest.mark.parametrize("G", [1, 3])
+def test_plain_backward_matches_jax_vjp_at_sq_ne_skv(label, G):
+    """Against ``jax.vjp`` of the reference's chunked jnp attention at Sq !=
+    Skv; a ``kv_len`` mask is its ``kv_positions`` of -1 past kv_len."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from repro.models import layers as JL
+
+    Sq, Skv, causal, window, kv_len = _cross(label)
+    q, k, v, dout = _inputs(12, 2, Sq, 2, G, 64, Skv)
+    qpos = jnp.arange(Sq, dtype=jnp.int32)
+    kpos = jnp.arange(Skv, dtype=jnp.int32)
+    if kv_len is not None:
+        kpos = jnp.where(kpos < kv_len, kpos, -1)
+
+    def f(q_, k_, v_):
+        return JL.flash_attention(q_, k_, v_, q_positions=qpos, kv_positions=kpos,
+                                  causal=causal, window=window, q_chunk=32, kv_chunk=48)
+
+    _, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(dout))
+    got = _plain_grads(q, k, v, dout, causal, window, kv_len)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        _assert_within(g.numpy(), np.asarray(w), name)
+
+
+@pytest.mark.parametrize("label", [c[0] for c in CROSS_CASES])
+def test_flash_attention_apply_at_sq_ne_skv_matches_autograd_through_plain(label):
+    """``ops.flash_attention`` with a gradient at Sq != Skv and under
+    ``kv_len`` goes through ``FlashAttention`` (no refusal), equal to the
+    plain forward and its autograd gradients."""
+    Sq, Skv, causal, window, kv_len = _cross(label)
+    q, k, v, dout = _inputs(13, 1, Sq, 2, 3, 64, Skv)
+    a = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    b = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    kw = {"causal": causal, "window": window, "kv_len": kv_len}
+    out = ops.flash_attention(*a, **kw)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    want_out = ref.flash_attention_plain(*b, **kw)
+    assert torch.equal(out, want_out)
+    g = torch.from_numpy(dout)
+    for name, x, y in zip(("dq", "dk", "dv"), torch.autograd.grad(out, a, g),
+                          torch.autograd.grad(want_out, b, g)):
+        _assert_within(x.numpy(), y.numpy(), name)
+
+
+@pytest.mark.parametrize("kv_len", [-1, 33])
+def test_backward_refuses_a_kv_len_out_of_range(kv_len):
+    with pytest.raises(ValueError, match=f"kv_len {kv_len} out of range"):
+        check_backward_case((1, 20, 1, 2, 64), (1, 32, 1, 64), kv_len)
+    check_backward_case((1, 20, 1, 2, 64), (1, 32, 1, 64), 32)
+    check_backward_case((1, 20, 1, 2, 64), (1, 32, 1, 64), 0)
 
 
 def test_backward_head_dims_bind_the_kernel_not_the_plain_version():
@@ -268,3 +346,33 @@ def test_cuda_backward_matches_plain(cuda_device, dtype, shape, causal, window):
             assert rel.item() <= 2.0 ** -6
         else:
             assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item() + 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,Skv,causal,window,kv_len", [
+    ((2, 130, 2, 1, 64), 300, False, 0, None), ((1, 200, 2, 3, 128), 90, True, 0, None),
+    ((2, 100, 2, 2, 112), 150, True, 40, 120),
+    # G = 6 (internvl2's group): a 64-row query tile holds 10 positions and 4 empty rows
+    ((1, 150, 2, 6, 128), 220, True, 0, 200)])
+def test_cuda_backward_matches_plain_at_sq_ne_skv(cuda_device, dtype, shape, Skv, causal,
+                                                  window, kv_len):
+    from repro_torch.kernels.flash_attn import flash_attention_kernel
+
+    dt = getattr(torch, dtype)
+    q, k, v, dout = (torch.from_numpy(a).to(dt).to(cuda_device)
+                     for a in _inputs(14, *shape, Skv))
+    kw = {"causal": causal, "window": window, "kv_len": kv_len}
+    out, lse = flash_attention_kernel(q, k, v, return_lse=True, **kw)
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    got = torch.autograd.grad(ops.flash_attention(qg, kg, vg, **kw), (qg, kg, vg), dout)
+    want = ref.flash_attention_backward_plain(q.float(), k.float(), v.float(), out.float(),
+                                              lse, dout.float(), **kw)
+    for g, w in zip(got, want):
+        if dtype == "bfloat16":
+            rel = torch.linalg.vector_norm(g.float() - w) / torch.linalg.vector_norm(w)
+            assert rel.item() <= 2.0 ** -6
+        else:
+            assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item() + 1e-5
+    if kv_len is not None:
+        assert not got[1][:, kv_len:].any() and not got[2][:, kv_len:].any()

@@ -4,15 +4,21 @@
   relative of ``M.loss_fn`` and every leaf's gradient within relative L2
   1e-4 of ``jax.grad``'s, at the reference's ``_tiny_setup`` smollm config
   (``tests/test_train_substrate.py``), gemma3's SMOKE_CONFIG (local and
-  global layers) and qwen2.5's (QKV bias, biases drawn nonzero) in f32;
+  global layers), qwen2.5's (QKV bias, biases drawn nonzero) and the
+  other families' SMOKE_CONFIGs in f32: phi3.5-moe and grok-1 (MoE, SwiGLU
+  and GELU experts), mamba2 (SSD blocks), zamba2 (Mamba-2 + the shared
+  attention set), internvl2 (``patches``) and whisper (``frames``: the
+  encoder, the decoder and its cross-attention at Sq != Skv);
   ``forward``'s logits equal the prefill's bit for bit; remat on and off
-  give the same gradients; the other families raise;
+  give the same gradients, whisper's included; ``layers.moe_aux_loss``
+  against the reference's;
 * ``optim``: ``apply_updates`` against ``O.apply_updates`` from the same
   grads and state (``opt_state_from_jax``), per leaf within 1e-6 * max|p|;
   ``quantize_int8`` / ``maybe_compress_grads`` bit for bit;
 * ``train/train_step.py``: ``effective_microbatches`` equal on a grid;
   three microbatched steps (n_micro = 2) against the reference's jitted
-  step, the loss per step within 1e-5 relative;
+  step, the loss per step within 1e-5 relative, also for whisper (its
+  ``frames`` split with the tokens);
 * ``data/pipeline.py``: the same batches bit for bit, also after ``state``
   / ``restore`` and across epochs;
 * ``train/checkpoint.py``: a bit-exact round trip (bf16 included); a
@@ -21,8 +27,10 @@
 * ``train/fault_tolerance.py``: ``run_resilient`` survives failures at 7 and
   23, a resumed run reproduces the uninterrupted one bit for bit, the
   straggler detector;
-* ``launch/train.py``: a tiny CPU run, ``--device cuda`` without a card and
-  ``--mesh single`` raise.
+* ``launch/train.py``: a tiny CPU run (smollm, and the moe and ssm
+  families), ``--device cuda`` without a card, ``--mesh single`` and the
+  enc-dec / VLM families (``SyntheticLM`` has no frames or patches)
+  raise.
 """
 
 import dataclasses
@@ -104,10 +112,27 @@ def _jax_params(cfg, seed: int = 0, bias_std: float = 0.0):
     return params
 
 
-def _batch(vocab: int, B: int, S: int, seed: int = 0):
+def _stub_inputs(cfg, B: int, S: int, rng) -> dict:
+    """The stub frontend's input of ``cfg``'s family: for the enc-dec
+    ``frames`` (B, S // enc_seq_divisor, D), for the VLM ``patches`` (B,
+    n_patch_tokens, D), N(0, 1) * 0.02 in f32 from ``rng``, as
+    ``tests/test_models.py`` draws them; none for the other families."""
+    family = getattr(cfg, "family", None)
+    if family == "encdec":
+        return {"frames": (rng.standard_normal((B, S // cfg.enc_seq_divisor, cfg.d_model))
+                           * 0.02).astype(np.float32)}
+    if family == "vlm":
+        return {"patches": (rng.standard_normal((B, cfg.n_patch_tokens, cfg.d_model))
+                            * 0.02).astype(np.float32)}
+    return {}
+
+
+def _batch(vocab: int, B: int, S: int, seed: int = 0, cfg=None):
+    """Seeded tokens and labels, then the family's ``_stub_inputs``."""
     rng = np.random.default_rng(seed)
-    return {"tokens": rng.integers(0, vocab, (B, S)).astype(np.int32),
-            "labels": rng.integers(0, vocab, (B, S)).astype(np.int32)}
+    out = {"tokens": rng.integers(0, vocab, (B, S)).astype(np.int32),
+           "labels": rng.integers(0, vocab, (B, S)).astype(np.int32)}
+    return {**out, **_stub_inputs(cfg, B, S, rng)}
 
 
 def _rel_l2(a, b) -> float:
@@ -130,6 +155,11 @@ LOSS_CASES = {
     "tiny_smollm": (lambda side: _tiny(side), 0.0, 4, 64),
     "gemma3_smoke": (lambda side: _smoke_f32("gemma3_27b", side), 0.0, 2, 40),
     "qwen25_smoke": (lambda side: _smoke_f32("qwen25_14b", side), 0.5, 2, 32),
+    # the other families (S = 64: whisper's 32 frames, internvl2's 8 patches,
+    # two SSD chunks of 32 for mamba2 and zamba2)
+    **{f"{arch}_smoke": (lambda side, a=arch: _smoke_f32(a, side), 0.0, 2, 64)
+       for arch in ("phi35_moe", "grok1_314b", "mamba2_370m", "zamba2_7b", "internvl2_26b",
+                    "whisper_large_v3")},
 }
 
 
@@ -138,7 +168,7 @@ def test_loss_and_grads_match_reference(case):
     make, bias_std, B, S = LOSS_CASES[case]
     jcfg, tcfg = make(True), make(False)
     npp = _jax_params(jcfg, bias_std=bias_std)
-    batch = _batch(jcfg.vocab, B, S, seed=1)
+    batch = _batch(jcfg.vocab, B, S, seed=1, cfg=jcfg)
     jl, jg = jax.jit(jax.value_and_grad(lambda p, b: JM.loss_fn(p, jcfg, b)))(
         jax.tree.map(jnp.asarray, npp), {k: jnp.asarray(v) for k, v in batch.items()})
     tp = params_from_jax(npp, tcfg, "cpu", torch.float32)
@@ -166,9 +196,10 @@ def test_forward_logits_equal_the_prefill_logits():
     assert a.dtype == torch.float32 and torch.equal(a, b)
 
 
-def test_remat_changes_no_gradient():
-    cfg = _tiny(False)
-    batch = {k: torch.from_numpy(v) for k, v in _batch(cfg.vocab, 2, 32).items()}
+def _remat_runs(cfg):
+    """(loss, grads) with ``remat`` "full" and "none" from the same
+    parameters and batch."""
+    batch = {k: torch.from_numpy(v) for k, v in _batch(cfg.vocab, 2, 32, cfg=cfg).items()}
     params = TM.init_params(cfg, torch.Generator().manual_seed(1), device="cpu")
     out = []
     for remat in ("full", "none"):
@@ -178,6 +209,18 @@ def test_remat_changes_no_gradient():
         tree = TO.tree_map(lambda _: next(it), params)
         loss = TM.loss_fn(tree, c, batch)
         out.append((loss, torch.autograd.grad(loss, leaves)))
+    return out
+
+
+def test_remat_changes_no_gradient():
+    out = _remat_runs(_tiny(False))
+    assert torch.equal(out[0][0], out[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))
+
+
+def test_remat_changes_no_gradient_of_the_encoder_decoder():
+    """whisper's encoder and decoder layers, each checkpointed apart."""
+    out = _remat_runs(_smoke_f32("whisper_large_v3", False))
     assert torch.equal(out[0][0], out[1][0])
     assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))
 
@@ -202,13 +245,26 @@ def test_loss_ignores_negative_labels_and_vocab_padding():
     assert none.item() == 0.0
 
 
-@pytest.mark.parametrize("arch", ["phi35_moe", "mamba2_370m", "zamba2_7b", "internvl2_26b",
-                                  "whisper_large_v3"])
-def test_forward_refuses_the_families_not_ported(arch):
-    cfg = TB.load_smoke_config(arch)
-    assert cfg.family != "dense"
-    with pytest.raises(ValueError, match="training is not ported"):
-        TM.forward({}, cfg, {"tokens": torch.zeros((1, 8), dtype=torch.int32)})
+@pytest.mark.parametrize("arch", ["phi35_moe", "grok1_314b"])
+def test_moe_aux_loss_matches_reference(arch):
+    """``layers.moe_aux_loss`` (which no loss adds, in either package)
+    against the reference's, from the same router and inputs; its gradient
+    to the router within GRAD_REL_L2 of ``jax.grad``'s."""
+    from repro.models import layers as JL
+    from repro_torch.models import layers as TLy
+
+    jcfg, tcfg = _smoke_f32(arch, True), _smoke_f32(arch, False)
+    rng = np.random.default_rng(4)
+    w = (rng.standard_normal((jcfg.d_model, jcfg.n_experts)) * 0.3).astype(np.float32)
+    x = rng.standard_normal((3, 40, jcfg.d_model)).astype(np.float32)
+    jl, jg = jax.value_and_grad(lambda w_: JL.moe_aux_loss({"w_router": w_}, jnp.asarray(x),
+                                                           jcfg))(jnp.asarray(w))
+    wt = torch.from_numpy(w).requires_grad_(True)
+    tl = TLy.moe_aux_loss({"w_router": wt}, torch.from_numpy(x), tcfg)
+    (tg,) = torch.autograd.grad(tl, [wt])
+    assert tl.dtype == torch.float32 and tl.dim() == 0
+    assert abs(tl.item() - float(jl)) <= LOSS_RTOL * abs(float(jl))
+    assert _rel_l2(tg.numpy(), np.asarray(jg)) <= GRAD_REL_L2
 
 
 @pytest.mark.parametrize("arch", TB.ARCH_IDS)
@@ -328,10 +384,10 @@ def test_effective_microbatches_equal_reference(microbatches, global_batch, shar
         JTS.effective_microbatches(j, global_batch, shards)
 
 
-@pytest.mark.parametrize("grad_compress", [False, True])
-def test_microbatched_steps_match_reference(grad_compress):
-    jcfg = _tiny(True, microbatches=2, grad_compress=grad_compress)
-    tcfg = _tiny(False, microbatches=2, grad_compress=grad_compress)
+def _microbatched_steps_match(jcfg, tcfg):
+    """Three microbatched steps (n_micro = 2) against the reference's jitted
+    step; an enc-dec config's batches also carry ``frames``, which both
+    steps split with the tokens."""
     oc = JO.OptConfig(lr=1e-2, warmup_steps=1, total_steps=10)
     toc = TO.OptConfig(lr=1e-2, warmup_steps=1, total_steps=10)
     n = JTS.effective_microbatches(jcfg, 8, 1)
@@ -343,12 +399,26 @@ def test_microbatched_steps_match_reference(grad_compress):
     js, ts = JO.init_opt_state(jp, oc), TO.init_opt_state(tp, toc)
     jd, td = JP.SyntheticLM(jcfg.vocab, 8, 64, seed=3), TP.SyntheticLM(tcfg.vocab, 8, 64,
                                                                        seed=3)
+    rng = np.random.default_rng(5)
     for _ in range(3):
-        jp, js, jm = jstep(jp, js, next(jd))
-        tp, ts, tm = tstep(tp, ts, TL.batch_to(next(td), CPU))
+        stub = _stub_inputs(jcfg, 8, 64, rng)
+        jp, js, jm = jstep(jp, js, {**next(jd), **stub})
+        tp, ts, tm = tstep(tp, ts, TL.batch_to({**next(td), **stub}, CPU))
         assert tm["loss"].dim() == 0
         assert abs(tm["loss"].item() - float(jm["loss"])) <= LOSS_RTOL * float(jm["loss"])
         np.testing.assert_allclose(tm["grad_norm"].item(), float(jm["grad_norm"]), rtol=1e-4)
+
+
+@pytest.mark.parametrize("grad_compress", [False, True])
+def test_microbatched_steps_match_reference(grad_compress):
+    _microbatched_steps_match(_tiny(True, microbatches=2, grad_compress=grad_compress),
+                              _tiny(False, microbatches=2, grad_compress=grad_compress))
+
+
+def test_microbatched_steps_split_frames_with_tokens():
+    arch = "whisper_large_v3"
+    _microbatched_steps_match(dataclasses.replace(_smoke_f32(arch, True), microbatches=2),
+                              dataclasses.replace(_smoke_f32(arch, False), microbatches=2))
 
 
 # -- data ------------------------------------------------------------------
@@ -535,6 +605,26 @@ def test_launcher_trains_tiny_on_the_cpu(tmp_path, capsys):
                       "--log-every", "2", "--ckpt-dir", str(tmp_path)])
     assert report.steps_done == 4 and np.isfinite(report.final_metrics["loss"])
     assert "done: 4 steps" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch,preset", [("phi35_moe", "tiny"), ("mamba2_370m", "tiny"),
+                                         ("mamba2_370m", "smoke")])
+def test_launcher_trains_the_moe_and_ssm_families_on_the_cpu(tmp_path, capsys, arch, preset):
+    """The reference's tiny preset keeps the family's FFN (4 experts, top-2)
+    and gives the ssm family attention blocks; the smoke preset runs
+    mamba2's SSD blocks."""
+    report = TL.main(["--device", "cpu", "--arch", arch, "--preset", preset, "--steps", "2",
+                      "--batch", "4", "--seq", "64", "--log-every", "1",
+                      "--ckpt-dir", str(tmp_path)])
+    assert report.steps_done == 2 and np.isfinite(report.final_metrics["loss"])
+    assert "done: 2 steps" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch,key", [("whisper_large_v3", "frames"),
+                                      ("internvl2_26b", "patches")])
+def test_launcher_refuses_the_families_synthetic_lm_cannot_feed(tmp_path, arch, key):
+    with pytest.raises(ValueError, match=key):
+        TL.main(["--device", "cpu", "--arch", arch, "--ckpt-dir", str(tmp_path)])
 
 
 def test_launcher_defaults_to_cuda_and_raises_without_a_card(tmp_path, monkeypatch):
