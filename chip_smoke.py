@@ -211,7 +211,8 @@ side:
    profile beside its byte bound, prefill seconds, tokens/s, peak memory.
 4h. ``serve_mamba2``: mamba2-370m (48 Mamba-2 blocks, d 1024, 32 heads of
    64, state 128) at published widths and depth, bf16, random weights from
-   SEED: 4 prompts of 1024 seeded tokens and 32 greedy tokens, then one of
+   SEED: 4 prompts of 1024 seeded tokens and 16 greedy tokens (32 until the
+   rows_mesh phase took their seconds), then one of
    them alone twice: the second hits the prefix cache (the SSM states
    after prefill), skips its prefill and repeats its tokens, the cache's
    ``entry_bytes`` == the payload's bytes from its shapes.  Attention-free:
@@ -280,6 +281,24 @@ side:
    returned; one synchronizing CUDA call per drain (``torch.profiler``);
    ``opt_regret()``'s gauges in ``telemetry()`` == ``regret_from_records``
    on the replay's records.
+6a. ``rows_mesh`` (after ``sweep``): the rows mesh (``core/sharding.py``)
+   on meshes that repeat the card, each shard on a stream of its own, every
+   sharded run held bitwise to the unsharded port on the card: (a) the
+   64-trace grid of ``sweep`` (b) on the trace route at 2 and 8 shards, hits
+   == ``sweep``'s unsharded hits, n flat_sweep and 2n adaptive_sweep
+   launches, no host sync, the seconds beside the unsharded call's; (b)
+   kernels 4 (awrp) and 5 (arc_adaptive) at the serve shape at 2 and 4
+   shards from a full pool over two evicting page boundaries: out, mass
+   and every plane == the unsharded step's, n x its launches per call;
+   (c) the serve phase's model, parameters (kept in host memory from
+   ``serve_tenants`` on) and 4 prompts of 1024 tokens at 2 shards, AWRP
+   fused, the graph loop, 32 tokens: each shard's tokens, loop planes and
+   pool planes == an unsharded engine serving its two requests, n x the
+   launches, one synchronizing call per snapshot (its K/V, and equality
+   with the unsharded engine on all four requests, reported); (d) tenancy:
+   3 tenants padded to 4 rows on 2 shards, the 6000-access stream with a
+   4096-event ring, then ``decide_batch``: hits, counters, codes and the
+   drained records == the unsharded manager's.
 7. ``tenancy``: the trace kernels' stream mode (the tenancy manager's
    ``access_stream`` and ``access``) == its plain version (the same manager
    on the CPU, in worker processes) on the tenancy benchmark's 6000-access
@@ -344,6 +363,7 @@ from repro_torch.configs.smollm_360m import CONFIG  # noqa: E402
 from repro_torch.configs.whisper_large_v3 import CONFIG as WHISPER  # noqa: E402
 from repro_torch.configs.zamba2_7b import CONFIG as ZAMBA2  # noqa: E402
 from repro_torch.core.kv_policy import PAGE_POLICIES  # noqa: E402
+from repro_torch.core.sharding import tree_map  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.models.model import MambaCache  # noqa: E402
 from repro_torch.kernels.paged_attn import (  # noqa: E402
@@ -3133,13 +3153,13 @@ def phase_serve_zamba2(dev, n_req=4, prompt_len=2048, new_tokens=32, pages=16) -
     return _finish_cell(res, t_phase)
 
 
-def phase_serve_mamba2(dev, n_req=4, prompt_len=1024, new_tokens=32) -> dict:
+def phase_serve_mamba2(dev, n_req=4, prompt_len=1024, new_tokens=16) -> dict:
     """mamba2-370m at published widths and all 48 Mamba-2 blocks through
     ServeEngine(kv_mode="paged", fused=True): attention-free, so no pool and
     no kernel of the port runs (every launch count stays 0; the SSD scan and
     the recurrent step are torch ops, as the reference leaves them to XLA).
-    4 prompts of 1024 seeded tokens and 32 greedy tokens, then one of them
-    alone twice: the second hits the prefix cache (the SSM states after
+    4 prompts of 1024 seeded tokens and 16 greedy tokens (cut from 32 to
+    pay for the rows_mesh phase), then one of them alone twice: the second hits the prefix cache (the SSM states after
     prefill), skips its prefill and repeats its tokens, and the cache's
     ``entry_bytes`` equals the payload's tensor bytes counted from the
     shapes; both decode loops on the same requests."""
@@ -3701,6 +3721,7 @@ def phase_sweep(dev) -> dict:
     res["kernels"] = time_trace_kernels(dev, pols, caps)
     res["profile_grid64"] = profile_sweep(grid, pols, caps)
     emit(res)
+    res["_grid64_hits"] = hk  # for rows_mesh (a), not printed
     return res
 
 
@@ -4744,6 +4765,259 @@ def phase_expert_cache(dev, n_layers=16, cap=8, k=2, steps=400, by_layer_steps=1
     return res
 
 
+# -- the rows mesh ---------------------------------------------------------------
+
+#: shard counts of the rows_mesh phase: the sweep grid, kernels 4-5, the engine
+ROWS_MESH_SWEEP = (2, 8)
+ROWS_MESH_FUSED = (2, 4)
+ROWS_MESH_SERVE = 2
+
+
+def card_mesh(n: int):
+    """A rows mesh of ``n`` shards that repeats the card: each shard has a
+    stream of its own on it."""
+    from repro_torch.core import sharding
+
+    return sharding.rows_mesh(devices=("cuda:0",) * n)
+
+
+def rows_mesh_sweep(grid, want, unsharded: dict) -> list:
+    """(a) The 64-trace grid x 6 policies x TABLE1_CAPS on the trace route
+    under a mesh of n: hits == the unsharded hits of ``phase_sweep``, bitwise;
+    n launches of flat_sweep and 2n of adaptive_sweep (the unsharded call's
+    1 and 2, once per shard), no kernel-2 launch, no host sync; the call's
+    seconds beside the unsharded call's."""
+    from repro_torch.core.policy_core import DEVICE_POLICIES
+
+    out = []
+    for n in ROWS_MESH_SWEEP:
+        mesh = card_mesh(n)
+        calls = []
+        for _ in range(2):
+            hits, s, launches, syncs = _engine(grid, list(DEVICE_POLICIES), TABLE1_CAPS,
+                                               use_kernel=True, mesh=mesh)
+            assert (hits == want).all(), f"the grid under a mesh of {n} differs"
+            assert launches["flat_sweep"] == n and launches["adaptive_sweep"] == 2 * n, launches
+            assert launches["awrp_select_rows"] == 0 and syncs == 0, (launches, syncs)
+            calls.append(s)
+        out.append({"shards": n, "rows": int(np.prod(want.shape[:3])), "steps": grid.shape[1],
+                    "seconds": calls[0], "seconds_second_call": calls[1],
+                    "unsharded_seconds": unsharded["seconds"],
+                    "launches": {k: launches[k] for k in ("flat_sweep", "adaptive_sweep")},
+                    "launches_unsharded": {k: unsharded["launches"][k]
+                                           for k in ("flat_sweep", "adaptive_sweep")},
+                    "host_syncs": syncs, "hits_equal_unsharded_bitwise": True})
+    return out
+
+
+def rows_mesh_fused(dev) -> list:
+    """(b) Kernels 4 (awrp) and 5 (arc_adaptive) at the serve shape under a
+    mesh of n, from a full pool over two evicting page boundaries (page + 1
+    steps): each sharded step (a whole pool cut into row views, as
+    ``decode_step(mesh=)`` runs it) against the unsharded step on a copy,
+    out, mass and every pool and policy plane (K/V included) bitwise; n x
+    the unsharded launches per call; the step timed both ways."""
+    B, P, page, KVH, G, hd = SERVE_SHAPE
+    out = []
+    for n in ROWS_MESH_FUSED:
+        mesh = card_mesh(n)
+        for policy in ("awrp", "arc_adaptive"):
+            gen = torch.Generator().manual_seed(SEED + 11)
+            if policy == "awrp":
+                _, k, v, ps, _, _ = decode_inputs(gen, B, P, page, KVH, G, hd,
+                                                  torch.bfloat16, dev)
+                pool = paged_kv.PagedPool(
+                    k=k.reshape(B, P, page, KVH * hd).contiguous(),
+                    v=v.reshape(B, P, page, KVH * hd).contiguous(),
+                    f=torch.randint(1, 9, (B, P), generator=gen, dtype=torch.int32).to(dev),
+                    r=torch.randint(1, 300, (B, P), generator=gen, dtype=torch.int32).to(dev),
+                    page_start=ps, clock=torch.full((B,), 300, dtype=torch.int32, device=dev),
+                    open_slot=torch.full((B,), P - 1, dtype=torch.int32, device=dev))
+                pos0, name = P * page, "policy_paged_attention"
+                step = functools.partial(paged_kv.fused_decode_step, page_size=page,
+                                         policy="awrp")
+            else:
+                pool, pos0 = adaptive_start(gen, "arc", SERVE_SHAPE, dev, ghost=False)
+                name = "adaptive_policy_paged_attention"
+                core = paged_kv.adaptive_core(policy, B, P, masked_renorm=True)
+                step = functools.partial(paged_kv.fused_adaptive_decode_step, page_size=page,
+                                         core=core)
+            pool_m = pool.clone()
+            launches = []
+            for i in range(page + 1):
+                q = torch.randn(B, KVH, G, hd, generator=gen).to(torch.bfloat16).to(dev)
+                nk = (torch.randn(B, KVH * hd, generator=gen) * 0.3).to(torch.bfloat16).to(dev)
+                nv = (torch.randn(B, KVH * hd, generator=gen) * 0.3).to(torch.bfloat16).to(dev)
+                pos = dpos(pos0 + i, dev)
+                o1, m1, pool = step(pool, q, nk, nv, pos)
+                ops.reset_launches()
+                o2, m2, pool_m = step(pool_m, q, nk, nv, pos, mesh=mesh)
+                torch.cuda.synchronize()
+                launches.append(ops.LAUNCHES[name])
+                assert torch.equal(o1, o2) and torch.equal(m1, m2), (policy, n, i)
+                assert all(torch.equal(a, b) for a, b in zip(_leaves(pool), _leaves(pool_m))), \
+                    (policy, n, i)
+            assert set(launches) == {n * ops.SPLIT_LAUNCHES}, launches
+            row = {"shards": n, "kv_policy": policy, "shape": list(SERVE_SHAPE),
+                   "steps": page + 1, "first_pos": pos0, "evicting_boundaries": 2,
+                   "launches_per_call": launches[0],
+                   "launches_per_call_unsharded": ops.SPLIT_LAUNCHES,
+                   "out_mass_planes_equal_bitwise": True}
+            if policy == "awrp":
+                pos = dpos(pos0 + page + 1, dev)
+                row["ms"] = time_ms(lambda: step(pool_m, q, nk, nv, pos, mesh=mesh))
+                row["unsharded_ms"] = time_ms(lambda: step(pool, q, nk, nv, pos))
+            out.append(row)
+    return out
+
+
+def rows_mesh_serve(dev, params, n_req=4, prompt_len=1024, new_tokens=32, pages=16) -> dict:
+    """(c) smollm-360m at published widths under a mesh of ROWS_MESH_SERVE
+    shards: ``kv_mode="paged"``, ``fused=True``, AWRP, the graph loop, the
+    serve phase's parameters and prompts.  Gated: each shard's tokens, its
+    loop planes and its final pool planes (pos, F, R, page_start, clock,
+    open_slot) bitwise equal to an unsharded engine serving that shard's
+    requests; n x the unsharded launches (kernel 6 once per layer per
+    shard's prefill, kernel 4 twice per layer per step per shard); one
+    synchronizing call per snapshot.  Reported: the K/V of each shard's pools
+    equal too, and tokens and planes equal to the unsharded engine on all
+    the requests (cuBLAS may pick other GEMM kernels at another M)."""
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    n = ROWS_MESH_SERVE
+    cfg = dataclasses.replace(CONFIG, bounded_kv_pages=pages, kv_policy="awrp")
+    rng = np.random.RandomState(SEED)
+    prompts = [rng.randint(1, cfg.vocab, size=prompt_len).tolist() for _ in range(n_req)]
+
+    def serve(batch, **kw):
+        eng = ServeEngine(cfg, params, max_len=prompt_len + new_tokens, kv_mode="paged",
+                          fused=True, seed=SEED, device=dev, **kw)
+        final = {}
+        orig = eng._graph_loop
+
+        def loop(*a, **k):
+            res = orig(*a, **k)
+            final["planes"] = _planes_of(res[1])
+            final["kv"] = [t.clone() for c in res[1]["blocks"].values() for t in c[:2]]
+            return res
+
+        eng._graph_loop = loop
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        res = eng.generate([Request(i, list(p), max_new_tokens=new_tokens)
+                            for i, p in enumerate(batch)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        tel = eng.telemetry()
+        return eng, {"tokens": [res[i].tokens for i in range(len(batch))],
+                     "launches": dict(ops.LAUNCHES), "seconds": seconds,
+                     "loop": {k: tel[k] for k in LOOP_KEYS}, **final}
+
+    eng, got = serve(prompts, mesh=card_mesh(n))
+    assert eng.stats["loop_captures"] == n and eng.stats["nonfinite_logits"] == 0, eng.stats
+    assert eng.stats["kv_evictions"] > 0, eng.stats
+    per_call = ops.SPLIT_LAUNCHES * cfg.n_layers * (new_tokens - 1)
+    assert got["launches"]["policy_paged_attention"] == n * per_call, got["launches"]
+    assert got["launches"]["flash_attention"] == n * cfg.n_layers, got["launches"]
+    snapshot = one_pull(eng)
+    k = n_req // n
+    shards, kv_equal = [], True
+    for i, shard in enumerate(eng.last_shards):
+        sub_eng, sub = serve(prompts[i * k:(i + 1) * k])
+        assert got["tokens"][i * k:(i + 1) * k] == sub["tokens"], f"shard {i}: tokens differ"
+        for key in LOOP_KEYS:
+            want = sub["loop"][key]
+            have = shard["planes"][key.rsplit("/", 1)[1]].cpu().numpy()
+            assert np.array_equal(have, want), (i, key)
+        planes = _planes_of(shard["caches"])
+        assert len(planes) == len(sub["planes"])
+        assert all(torch.equal(a, b) for a, b in zip(planes, sub["planes"])), \
+            f"shard {i}: pool planes differ"
+        kv = [t for c in shard["caches"]["blocks"].values() for t in c[:2]]
+        kv_equal &= all(torch.equal(a, b) for a, b in zip(kv, sub["kv"]))
+        shards.append({"requests": k, "tokens_equal": True, "loop_planes_equal": True,
+                       "pool_planes_equal_bitwise": True, "seconds": sub["seconds"],
+                       "launches": {x: sub["launches"][x] for x in (
+                           "policy_paged_attention", "flash_attention")}})
+        del sub_eng
+    whole_eng, whole = serve(prompts)
+    del whole_eng
+    # the whole batch's planes are (layers, 4, P); a shard's (layers, 2, P)
+    gathered = [torch.cat([_planes_of(s["caches"])[j] for s in eng.last_shards], dim=1)
+                for j in range(1, len(whole["planes"]))]
+    return {"shards": n, "model": cfg.name, "layers": cfg.n_layers, "requests": n_req,
+            "prompt_len": prompt_len, "new_tokens": new_tokens, "pages": pages,
+            "seconds": got["seconds"], "unsharded_seconds": whole["seconds"],
+            "decode_s": eng.stats["decode_s"], "prefill_s": eng.stats["prefill_s"],
+            "launches": {x: got["launches"][x] for x in ("policy_paged_attention",
+                                                         "flash_attention")},
+            "launches_unsharded": {x: whole["launches"][x] for x in (
+                "policy_paged_attention", "flash_attention")},
+            "per_shard": shards, "shard_kv_equal_bitwise": bool(kv_equal),
+            "tokens_equal_unsharded_whole_batch": got["tokens"] == whole["tokens"],
+            "loop_planes_equal_unsharded_whole_batch": all(
+                np.array_equal(got["loop"][key], whole["loop"][key]) for key in LOOP_KEYS),
+            "pool_planes_equal_unsharded_whole_batch": all(
+                torch.equal(a, b) for a, b in zip(gathered, whole["planes"][1:])),
+            "snapshot": {x: snapshot[x] for x in ("sync_calls", "sync_call", "keys",
+                                                  "snapshot_ms")}}
+
+
+def rows_mesh_tenancy(dev) -> list:
+    """(d) The tenancy benchmark's 6000-access stream, 3 tenants (16 each)
+    padded to 4 core rows on a mesh of 2, ``access_stream`` with a
+    TENANCY_RING-event ring (it wraps), then ``decide_batch``: hits,
+    counters, the admission codes and the drained records (access and
+    admission events, field by field, in order) == the unsharded manager's
+    on the card; one ring launch per shard."""
+    from repro_torch.serve.tenancy import AdmissionController, TenantCacheManager
+
+    rows, keys = tenancy_trace(TENANCY_N)
+    quotas = dict(zip(TENANCY_TENANTS, (16, 16, 16)))
+    batch = ["mid", "scan", "hot", "scan", "mid"]
+    out = []
+    for policy in ("awrp", "car"):
+        stream = "adaptive_stream_ring" if policy == "car" else "flat_stream_ring"
+        adm = AdmissionController(defer_at=0.2, shed_at=0.5, warmup=0)
+        base = TenantCacheManager(quotas, policy, ring_capacity=TENANCY_RING, device=dev)
+        mgr = TenantCacheManager(quotas, policy, ring_capacity=TENANCY_RING,
+                                 mesh=card_mesh(2))
+        want = base.access_stream(rows, keys)
+        ops.reset_launches()
+        got = mgr.access_stream(rows, keys)
+        launches = ops.LAUNCHES[stream]
+        assert np.array_equal(got, want) and launches == 2, (policy, launches)
+        assert adm.decide_batch(mgr, batch) == adm.decide_batch(base, batch), policy
+        tb, tm = base.row_telemetry(), mgr.row_telemetry()
+        for key in ("hits", "misses", "evictions", "pressure", "occupancy"):
+            assert np.array_equal(tm[key][:3], tb[key]), (policy, key)
+        assert not tm["hits"][3:].any() and not tm["occupancy"][3:].any(), policy
+        a, b = mgr.drain_trace(), base.drain_trace()
+        assert len(a) == len(b) == TENANCY_RING, (len(a), len(b))
+        assert all(np.array_equal(a[f], b[f]) for f in a.dtype.names), policy
+        out.append({"policy": policy, "tenants": 3, "core_rows": mgr.core.rows, "shards": 2,
+                    "accesses": len(keys), "ring_capacity": TENANCY_RING,
+                    "launches": launches, "launches_unsharded": 1,
+                    "hits_counters_decisions_trace_equal": True})
+    return out
+
+
+def phase_rows_mesh(dev, params, sweep: dict) -> dict:
+    """The rows mesh on the card (``core/sharding.py``): meshes that repeat
+    the card, one stream per shard; every sharded run held bitwise to the
+    unsharded port on the card: (a) the sweep grid, (b) kernels 4 and 5,
+    (c) the serving engine, (d) tenancy with the decision-trace ring."""
+    t0 = time.perf_counter()
+    res = {"phase": "rows_mesh", "card": smi(),
+           "sweep": rows_mesh_sweep(sweep_traces("paper", 64), sweep["_grid64_hits"],
+                                    sweep["grid64"]["trace"]),
+           "fused": rows_mesh_fused(dev), "serve": rows_mesh_serve(dev, params),
+           "tenancy": rows_mesh_tenancy(dev)}
+    res["seconds"] = time.perf_counter() - t0
+    emit(res)
+    return res
+
+
 KERNELS = {
     "paged_attention": ("src/repro_torch/kernels/csrc/paged_attn.cu",
                         "src/repro/kernels/paged_attn.py:86"),
@@ -4860,6 +5134,8 @@ def _phases(dev, t_start: float) -> int:
     srv_ada = [phase_serve_adaptive(dev, params, p, profile=p == "arc_adaptive")
                for p in ("arc_adaptive", "car_adaptive")]
     srv_ten = phase_serve_tenants(dev, params)
+    # the serve phases' parameters wait in host memory for rows_mesh
+    params_host = tree_map(lambda t: t.to("cpu"), params)
     del params
     g3 = phase_serve_gemma3(dev)
     phi = phase_serve_phi35(dev)
@@ -4870,6 +5146,8 @@ def _phases(dev, t_start: float) -> int:
     internvl = phase_serve_internvl2(dev)
     sel = phase_awrp_select(dev)
     swp = phase_sweep(dev)
+    rows = phase_rows_mesh(dev, tree_map(lambda t: t.to(dev), params_host), swp)
+    del params_host
     ten = phase_tenancy(dev)
     ec = phase_expert_cache(dev)
     emit({"phase": "decode_loops", "card": smi(), "cells": serving_summary(
@@ -4945,6 +5223,14 @@ def _phases(dev, t_start: float) -> int:
         # whisper's decode attention is plain torch (0), internvl2's kernel 4
         k["launches_serve_whisper"] = whisper["launches"][k["name"]]
         k["launches_serve_internvl2"] = internvl["launches"][k["name"]]
+    # launches under the rows mesh: kernel 4 in rows_mesh (c)'s engine
+    # (n x the unsharded count), kernel 5 per call of (b) at the largest mesh
+    kernels[1]["launches_rows_mesh"] = rows["serve"]["launches"]["policy_paged_attention"]
+    kernels[1]["launches_rows_mesh_unsharded"] = \
+        rows["serve"]["launches_unsharded"]["policy_paged_attention"]
+    kernels[2]["launches_rows_mesh_per_call"] = {
+        f"{r['shards']}_shards": r["launches_per_call"] for r in rows["fused"]
+        if r["kv_policy"] == "arc_adaptive"}
     main_case, *other_cases = fl["cases"]
     source, replaces = KERNELS["flash_attention"]
     kernels.append({
@@ -4956,6 +5242,7 @@ def _phases(dev, t_start: float) -> int:
         "launches_serve_mamba2": mamba["launches"]["flash_attention"],
         "launches_serve_whisper": whisper["launches"]["flash_attention"],
         "launches_serve_internvl2": internvl["launches"]["flash_attention"],
+        "launches_rows_mesh": rows["serve"]["launches"]["flash_attention"],
         # the train phase's main path: each layer's forward and remat's
         # recompute, per microbatch, with lse on; likewise the other
         # families' cells (whisper's encoder, decoder self and cross)
@@ -4999,6 +5286,8 @@ def _phases(dev, t_start: float) -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": swp["table1"]["launches"][name],
+            "launches_rows_mesh": {f"{r['shards']}_shards": r["launches"][name]
+                                   for r in rows["sweep"]},
             "max_abs_err": 0,  # hit bits and integer planes, compared for equality
             **{k: main_run[k] for k in timed_keys}, "ms_per_step": main_run["ms_per_step"],
             "shape": {k: main_run[k] for k in ("grid", "kind", "rows", "steps", "lanes")},
@@ -5023,6 +5312,9 @@ def _phases(dev, t_start: float) -> int:
                        "ring": {"name": f"{stream}_ring", "route": "cuda", "source": source,
                                 "launches": sum(r["decision_trace"]["launches"][f"{stream}_ring"]
                                                 for r in srv_ten["runs"]),
+                                "launches_rows_mesh": sum(
+                                    r["launches"] for r in rows["tenancy"]
+                                    if (r["policy"] == "car") == (stream == "adaptive_stream")),
                                 "max_abs_err": 0, "policy": s_main["policy"],
                                 "accesses": s_main["accesses"],
                                 "ring_capacity": TENANCY_RING, "ms": s_main["ring_ms"],

@@ -13,8 +13,17 @@ Differences from the reference, all deliberate:
   zeroed on allocation); every other plane is replaced by a new tensor.  A
   caller that keeps an old pool must clone it (the serving engine's host
   loop clones prefix-cache payloads on insert and on hit; its graph loop
-  copies them into the graph's own tree);
-* no ``mesh`` (XLA layout hints).
+  copies them into the graph's own tree).
+
+Rows mesh: ``init_pool`` / ``init_adaptive_pool`` take ``mesh=`` (a
+``core.sharding`` rows mesh) and place the per-sequence batch axis across it
+as a ``RowShards``; ``fused_decode_step`` / ``fused_adaptive_decode_step``
+take ``mesh=`` and launch kernels 4 and 5 shard-locally, each shard's
+sequences on its device and stream (the reference's ``_shard_wrap``): on a
+sharded pool the outputs stay sharded; on a whole pool the shards are row
+views of it and the outputs are gathered, the K/V written in place.  Like
+the reference, a whole pool whose batch does not divide the mesh runs
+unsharded.
 
 The token index ``pos`` is a 0-d int32 tensor on the pool's device, shared
 by the batch, as the reference's traced scalar.  Every page-boundary branch
@@ -39,6 +48,7 @@ from typing import Dict, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import sharding
 from repro_torch.core.kv_policy import page_victim
 from repro_torch.core.policy_core import (_TAG_B1, _TAG_B2, _TAG_T1, _TAG_T2,
                                           AdaptiveCore, AdaptiveState, first_min)
@@ -75,11 +85,14 @@ class PagedPool(NamedTuple):
 
 
 def init_pool(batch: int, pages: int, page_size: int, kvd: int, dtype,
-              *, device="cuda") -> PagedPool:
-    """All-zeros pool, every page free (``page_start == -1``)."""
-    dev = resolve_device(device)
+              *, device="cuda", mesh=None) -> PagedPool:
+    """All-zeros pool, every page free (``page_start == -1``).  ``mesh`` (a
+    ``core.sharding`` rows mesh) places the per-sequence batch axis across
+    its devices instead, as a ``RowShards`` (batch must divide the mesh);
+    decisions are identical because page references are sequence-local."""
+    dev = resolve_device(device if mesh is None else mesh.devices[0])
     i32 = dict(dtype=torch.int32, device=dev)
-    return PagedPool(
+    pool = PagedPool(
         k=torch.zeros((batch, pages, page_size, kvd), dtype=dtype, device=dev),
         v=torch.zeros((batch, pages, page_size, kvd), dtype=dtype, device=dev),
         f=torch.zeros((batch, pages), **i32),
@@ -88,6 +101,7 @@ def init_pool(batch: int, pages: int, page_size: int, kvd: int, dtype,
         clock=torch.zeros((batch,), **i32),
         open_slot=torch.zeros((batch,), **i32),
     )
+    return sharding.shard_rows(None, pool, mesh)
 
 
 def _scatter_new_token(pool: PagedPool, new_k, new_v, pos, page_size: int,
@@ -183,8 +197,55 @@ def score_update(pool: PagedPool, attn_mass, page_size: int) -> PagedPool:
     return pool._replace(f=f, r=r, clock=clock)
 
 
+def _sharded(mesh, pool) -> bool:
+    """Whether a fused step runs shard-locally: under a mesh, for a sharded
+    pool or a whole one whose batch divides the mesh (the reference's
+    ``_shard_wrap`` rule)."""
+    if mesh is None:
+        return False
+    if isinstance(pool, sharding.RowShards):
+        return True
+    flat = pool.pool if isinstance(pool, AdaptivePagedPool) else pool
+    return flat.f.shape[0] % mesh.size == 0
+
+
+def _shard_step(step, mesh, pool, q, new_k, new_v, pos, *args):
+    """``step(pool, q, new_k, new_v, pos, *args)`` (an unsharded fused
+    step) on every shard of ``mesh``, each on its device and stream, ``pos``
+    replicated.  A sharded pool gives sharded ``(out, mass, pool)``; a whole
+    one is cut into row views, and the outputs are gathered on its device:
+    the planes concatenated, the K/V written in place (copied back from a
+    shard on another device)."""
+    pools = sharding.split_rows(pool, mesh)
+    rows = [sharding.split_rows(x, mesh) for x in (q, new_k, new_v)]
+    pos_at = {d: pos.to(d) for d in mesh.distinct_devices}
+    outs = sharding.run_shards(
+        mesh, lambda i, pl, *x: step(pl, *x, pos_at[mesh.devices[i]], *args), pools, *rows)
+    if isinstance(pool, sharding.RowShards):
+        return tuple(pool.replace(o[j] for o in outs) for j in range(3))
+    whole = pool.pool if isinstance(pool, AdaptivePagedPool) else pool
+    k = len(outs[0][1])
+    for i, (_, _, new) in enumerate(outs):
+        part = new.pool if isinstance(new, AdaptivePagedPool) else new
+        if part.k.device != whole.k.device:
+            whole.k[i * k:(i + 1) * k].copy_(part.k)
+            whole.v[i * k:(i + 1) * k].copy_(part.v)
+    dev = whole.k.device
+
+    def cat(parts):
+        return torch.cat([p.to(dev) for p in parts])
+
+    planes = PagedPool(whole.k, whole.v, *(cat([getattr(
+        o[2].pool if isinstance(o[2], AdaptivePagedPool) else o[2], name) for o in outs])
+        for name in PagedPool._fields[2:]))
+    if isinstance(pool, AdaptivePagedPool):
+        planes = AdaptivePagedPool(planes, AdaptiveState(
+            *(cat(parts) for parts in zip(*(o[2].policy for o in outs)))))
+    return cat([o[0] for o in outs]), cat([o[1] for o in outs]), planes
+
+
 def fused_decode_step(pool: PagedPool, q, new_k, new_v, pos,
-                      page_size: int, policy: str = "awrp"
+                      page_size: int, policy: str = "awrp", *, mesh=None
                       ) -> Tuple[torch.Tensor, torch.Tensor, PagedPool]:
     """One flat-policy decode step as one kernel call (kernel 4: two
     launches, ``ops.SPLIT_LAUNCHES``): equivalent to
@@ -192,9 +253,13 @@ def fused_decode_step(pool: PagedPool, q, new_k, new_v, pos,
     policy arithmetic inside the attention kernel.  q (B, KVH, G, hd);
     new_k/new_v (B, kvd); ``pos`` 0-d int32, which the kernel reads from
     device memory.  Returns ``(out (B, KVH, G, hd), page_mass (B, P),
-    new_pool)``; the pool's K/V are updated in place."""
+    new_pool)``; the pool's K/V are updated in place.  ``mesh`` launches
+    the kernel shard-locally (``_shard_step``)."""
     from repro_torch.kernels import ops
 
+    if _sharded(mesh, pool):
+        return _shard_step(fused_decode_step, mesh, pool, q, new_k, new_v, pos,
+                           page_size, policy)
     B, P = pool.f.shape
     KVH, G, hd = q.shape[1:]
     kp = pool.k.view(B, P, page_size, KVH, hd)
@@ -269,11 +334,16 @@ def adaptive_core(kv_policy: str, batch: int, pages: int, *,
 
 
 def init_adaptive_pool(batch: int, pages: int, page_size: int, kvd: int, dtype,
-                       kv_policy: str, *, device="cuda") -> AdaptivePagedPool:
-    """Empty pool and freshly initialised ARC/CAR planes."""
-    return AdaptivePagedPool(
-        pool=init_pool(batch, pages, page_size, kvd, dtype, device=device),
-        policy=adaptive_core(kv_policy, batch, pages).init(device=device))
+                       kv_policy: str, *, device="cuda", mesh=None) -> AdaptivePagedPool:
+    """Empty pool and freshly initialised ARC/CAR planes.  ``mesh`` (a
+    ``core.sharding`` rows mesh) places the per-sequence pools across its
+    devices, as a ``RowShards`` of ``AdaptivePagedPool``s."""
+    apool = AdaptivePagedPool(
+        pool=init_pool(batch, pages, page_size, kvd, dtype, device=device if mesh is None
+                       else mesh.devices[0]),
+        policy=adaptive_core(kv_policy, batch, pages).init(device=device if mesh is None
+                                                           else mesh.devices[0]))
+    return sharding.shard_rows(None, apool, mesh)
 
 
 def seed_adaptive_state(batch: int, pages: int, first_page: int, n_res: int,
@@ -499,15 +569,19 @@ def adaptive_score_update(apool: AdaptivePagedPool, attn_mass, page_size: int,
 
 
 def fused_adaptive_decode_step(apool: AdaptivePagedPool, q, new_k, new_v, pos,
-                               page_size: int, core: AdaptiveCore):
+                               page_size: int, core: AdaptiveCore, *, mesh=None):
     """One true-adaptive decode step as one kernel call (kernel 5: two
     launches, ``ops.SPLIT_LAUNCHES``): equivalent to
     ``adaptive_insert_token`` + ``ops.paged_attention`` +
     ``adaptive_score_update``, with the P+1 policy accesses inside the
     attention kernel.  Returns ``(out, page_mass, new_apool)``; the pool's
-    K/V are updated in place."""
+    K/V are updated in place.  ``mesh`` launches the kernel shard-locally
+    (``_shard_step``; ``core`` is per sequence, so every shard uses it)."""
     from repro_torch.kernels import ops
 
+    if _sharded(mesh, apool):
+        return _shard_step(fused_adaptive_decode_step, mesh, apool, q, new_k, new_v, pos,
+                           page_size, core)
     pool, st = apool
     B, P = pool.f.shape
     KVH, G, hd = q.shape[1:]

@@ -41,19 +41,29 @@ Differences from the reference, all deliberate:
   kernel takes, built once per batch instead of once per access;
 * the pressure EWMA of ``on_access_counted`` is written out as the one fused
   multiply-add the reference's jitted step compiles to
-  (``pressure_ewma``), not left to a compiler's choice;
-* no ``mesh`` (rows sharding).
+  (``pressure_ewma``), not left to a compiler's choice.
+
+Rows mesh: ``init(mesh=...)`` and ``init_counters(mesh=...)`` place the rows
+axis across a ``core.sharding`` mesh as a ``RowShards``.  Every method of a
+core takes such a state: each shard steps its own rows with the core's
+``shard_core`` (the same spec restricted to those rows), on its own device
+and stream, and the results come back as ``RowShards`` (``row_telemetry``'s
+gathered on the mesh's first device).  Decisions are bit-identical to the
+unsharded core's; a decision-trace ring records the shards' events in row
+order, as the unsharded push does.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import NamedTuple, Optional, Tuple, Union
+from typing import Callable, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from repro_torch.core import sharding
+from repro_torch.core.sharding import RowShards
 from repro_torch.device import resolve_device
 
 __all__ = [
@@ -312,14 +322,32 @@ class _Accounting:
     free lane, 1 when a resident was overwritten or demoted to a ghost list,
     ARC's discard-T1 and ghost-hit REPLACE included)."""
 
-    def init_counters(self, *, device="cuda") -> RowCounters:
+    def init_counters(self, *, device="cuda", mesh=None) -> RowCounters:
         """Fresh all-zero counters for this core's ``rows`` on ``device``
-        (the CUDA card unless the caller asks for the CPU)."""
-        dev = resolve_device(device)
+        (the CUDA card unless the caller asks for the CPU).  ``mesh`` (a
+        ``core.sharding`` rows mesh) places the rows axis across it, on its
+        devices, matching a state built with ``init(mesh=...)`` (rows must
+        divide the mesh)."""
+        dev = resolve_device(device if mesh is None else mesh.devices[0])
         z = torch.zeros((self.rows,), dtype=_I32, device=dev)
-        return RowCounters(hits=z, misses=z.clone(), evictions=z.clone(),
-                           pressure=torch.zeros((self.rows,), dtype=torch.float32,
-                                                device=dev))
+        counters = RowCounters(hits=z, misses=z.clone(), evictions=z.clone(),
+                               pressure=torch.zeros((self.rows,), dtype=torch.float32,
+                                                    device=dev))
+        return sharding.shard_rows(self, counters, mesh)
+
+    def _per_shard(self, state: RowShards, fn: Callable, *row_args) -> list:
+        """``fn(shard core, shard state, *shard parts of row_args)`` on every
+        shard of ``state``, each on its own device and stream."""
+        mesh = state.mesh
+        cores = [self.shard_core(*state.bounds(i)) for i in range(mesh.size)]
+        parts = [_split_arg(a, mesh) for a in row_args]
+        return sharding.run_shards(mesh, lambda i, st, *a: fn(cores[i], st, *a),
+                                   state.shards, *parts)
+
+    def _on_access_sharded(self, state: RowShards, ids, active):
+        outs = self._per_shard(state, lambda c, st, x, a: c.on_access(st, x, active=a),
+                               ids, active)
+        return state.replace(o[0] for o in outs), state.replace(o[1] for o in outs)
 
     def on_access_counted(self, state, counters: RowCounters, ids, *, active=None,
                           pressure_alpha: float = 0.1, ring=None):
@@ -334,6 +362,42 @@ class _Accounting:
         is pushed into a new ring, returned as a fourth output.  The trace
         reads the states before and after and feeds nothing back into
         them."""
+        if isinstance(state, RowShards):
+            return self._counted_sharded(state, counters, ids, active, pressure_alpha, ring)
+        new_state, new_counters, hit, events, act = self._counted(
+            state, counters, ids, active, pressure_alpha, ring is not None)
+        if ring is None:
+            return new_state, new_counters, hit
+        from repro_torch.obs import decision_trace as dt
+
+        return new_state, new_counters, hit, dt.ring_push(ring, events, act)
+
+    def _counted_sharded(self, state: RowShards, counters: RowShards, ids, active,
+                         pressure_alpha: float, ring):
+        """``on_access_counted`` shard by shard; a ring takes the shards'
+        events in shard order after they join, which is the unsharded push's
+        row order."""
+        trace = ring is not None
+        outs = self._per_shard(
+            state, lambda core, st, ctr, x, act: core._counted(
+                st, ctr, x, act, pressure_alpha, trace),
+            counters, ids, active)
+        new_state, new_counters, hit = (state.replace(o[j] for o in outs) for j in range(3))
+        if ring is None:
+            return new_state, new_counters, hit
+        from repro_torch.obs import decision_trace as dt
+
+        dev, row = ring.buf.device, dt.FIELDS.index("row")
+        for i, (_, _, _, events, act) in enumerate(outs):
+            events = events.to(dev)
+            events[:, row] += state.offsets[i]  # the shard's rows, numbered globally
+            ring = dt.ring_push(ring, events, act.to(dev))
+        return new_state, new_counters, hit, ring
+
+    def _counted(self, state, counters: RowCounters, ids, active, pressure_alpha: float,
+                 trace: bool):
+        """The body of ``on_access_counted``: ``(new state, new counters,
+        hits, access events or None, active rows)``."""
         occ_b = self.occupancy(state)
         new_state, hit = self.on_access(state, ids, active=active)
         occ_a = self.occupancy(new_state)
@@ -348,8 +412,8 @@ class _Accounting:
             evictions=counters.evictions + evicted,
             pressure=torch.where(act, p_new, counters.pressure),
         )
-        if ring is None:
-            return new_state, new_counters, hit
+        if not trace:
+            return new_state, new_counters, hit, None, act
         from repro_torch.obs import decision_trace as dt
 
         dev = occ_b.device
@@ -357,12 +421,17 @@ class _Accounting:
             self.rows, kind=dt.KIND_ACCESS, row=torch.arange(self.rows, dtype=_I32, device=dev),
             key=_as_ids(ids, dev).expand(self.rows), hit=hit.to(_I32), set_id=0,
             **self._trace_cols(state, new_state))
-        return new_state, new_counters, hit, dt.ring_push(ring, events, act)
+        return new_state, new_counters, hit, events, act
 
     def row_telemetry(self, state, counters: RowCounters) -> dict:
         """Per-row accounting as ``(rows,)`` tensors, not pulled: cumulative
         hits / misses / evictions / accesses, occupancy, capacity and
-        pressure."""
+        pressure.  A sharded state's come gathered on its mesh's first
+        device."""
+        if isinstance(state, RowShards):
+            parts = self._per_shard(state, lambda core, st, ctr: core.row_telemetry(st, ctr),
+                                    counters)
+            return sharding.gather_rows(state.replace(parts))
         return {
             "hits": counters.hits,
             "misses": counters.misses,
@@ -429,6 +498,27 @@ def _as_active(active, device) -> torch.Tensor:
     return torch.as_tensor(active, dtype=torch.bool, device=device)
 
 
+def _split_arg(x, mesh) -> list:
+    """Per-shard parts of a per-row argument of a sharded step (ids, active
+    rows, counters): ``None`` for every shard, a ``RowShards``'s shards, or
+    rows ``[lo, hi)`` of anything ``torch.as_tensor`` takes (a 0-d value
+    whole)."""
+    if x is None:
+        return [None] * mesh.size
+    if not isinstance(x, (RowShards, torch.Tensor)) and not hasattr(x, "_fields"):
+        x = torch.as_tensor(x)
+    if isinstance(x, torch.Tensor) and x.dim() == 0:
+        return [x] * mesh.size
+    return sharding.split_rows(x, mesh)
+
+
+def _no_overrides(**kw) -> None:
+    bad = [k for k, v in kw.items() if v is not None]
+    if bad:
+        raise ValueError(f"{bad} override the spec's per-row constants; a sharded "
+                         "state steps each shard with its shard_core's own")
+
+
 @dataclasses.dataclass(frozen=True)
 class FlatCore(_Accounting):
     """Static spec for a batch of flat-state policy rows (awrp/lru/fifo/lfu).
@@ -476,24 +566,36 @@ class FlatCore(_Accounting):
 
     def occupancy(self, state: FlatState) -> torch.Tensor:
         """(rows,) int32 resident-block count (dead padding lanes excluded)."""
+        if isinstance(state, RowShards):
+            return state.replace(self._per_shard(state, lambda c, st: c.occupancy(st)))
         live = ~self._masks(state.blocks.device).dead  # (B, W)
         occ = state.blocks >= 0
         if self.num_sets == 1:
             return (occ & live).sum(dim=-1, dtype=_I32)
         return (occ & live[:, None, :]).sum(dim=(-2, -1), dtype=_I32)
 
-    def init(self, *, device="cuda") -> FlatState:
+    def init(self, *, device="cuda", mesh=None) -> FlatState:
         """Fresh empty ``FlatState`` for this spec on ``device`` (the CUDA
-        card unless the caller asks for the CPU)."""
-        dev = resolve_device(device)
+        card unless the caller asks for the CPU).  ``mesh`` (a
+        ``core.sharding`` rows mesh) places the rows axis across its devices
+        instead, as a ``RowShards`` (rows must divide the mesh; see
+        ``sharding.pad_rows_to``)."""
+        dev = resolve_device(device if mesh is None else mesh.devices[0])
         B, S, W = self.rows, self.num_sets, self.W
         shape = (B, W) if S == 1 else (B, S, W)
-        return FlatState(
+        state = FlatState(
             blocks=torch.full(shape, -1, dtype=_I32, device=dev),
             f=torch.zeros(shape, dtype=_I32, device=dev),
             r=torch.zeros(shape, dtype=_I32, device=dev),
             clock=torch.zeros(shape[:-1], dtype=_I32, device=dev),
         )
+        return sharding.shard_rows(self, state, mesh)
+
+    def shard_core(self, lo: int, hi: int) -> "FlatCore":
+        """The spec of rows ``[lo, hi)`` alone, with this core's lane count:
+        the core a shard of a sharded state steps with."""
+        return dataclasses.replace(self, pids=self.pids[lo:hi], ways=self.ways[lo:hi],
+                                   lanes=self.W)
 
     def on_access(
         self,
@@ -507,6 +609,9 @@ class FlatCore(_Accounting):
         optionally masks rows to no-ops.  ``masks`` overrides the
         spec-derived per-row constants (the sweep engine builds them once).
         Returns new state tensors and the (rows,) bool hits."""
+        if isinstance(state, RowShards):
+            _no_overrides(masks=masks)
+            return self._on_access_sharded(state, ids, active)
         dev = state.blocks.device
         ids = _as_ids(ids, dev)
         if masks is None:
@@ -546,6 +651,8 @@ class FlatCore(_Accounting):
         """Advisory victim lanes — ``(rows,)`` for single-set cores,
         ``(rows, num_sets)`` otherwise: the lane each set would evict (or
         fill) if the next access — at clock N+1 — were a miss."""
+        if isinstance(state, RowShards):
+            return state.replace(self._per_shard(state, lambda c, st: c.victim(st)))
         dev = state.blocks.device
         if self.num_sets == 1:
             return _flat_victim(state.f, state.r, state.clock + 1,
@@ -911,10 +1018,22 @@ class AdaptiveCore(_Accounting):
         plus ghosts."""
         return self.lanes if self.lanes is not None else 2 * max(self.caps)
 
-    def init(self, *, device="cuda") -> AdaptiveState:
+    def init(self, *, device="cuda", mesh=None) -> AdaptiveState:
         """Fresh empty ``AdaptiveState`` for this spec on ``device`` (the
-        CUDA card unless the caller asks for the CPU)."""
-        return init_adaptive_state(self.rows, self.num_sets, self.L, device=device)
+        CUDA card unless the caller asks for the CPU).  ``mesh`` (a
+        ``core.sharding`` rows mesh) places the rows axis across its devices
+        instead, as a ``RowShards`` (rows must divide the mesh; see
+        ``sharding.pad_rows_to``)."""
+        state = init_adaptive_state(self.rows, self.num_sets, self.L,
+                                    device=device if mesh is None else mesh.devices[0])
+        return sharding.shard_rows(self, state, mesh)
+
+    def shard_core(self, lo: int, hi: int) -> "AdaptiveCore":
+        """The spec of rows ``[lo, hi)`` alone, with this core's lane count
+        and renormalization ceiling: the core a shard of a sharded state
+        steps with."""
+        return dataclasses.replace(self, caps=self.caps[lo:hi], lanes=self.L,
+                                   renorm_at=self.renorm_at)
 
     def on_access(
         self,
@@ -930,6 +1049,9 @@ class AdaptiveCore(_Accounting):
         ``(rows,)`` int32 tensor already on the state's device (the sweep
         engine builds it once).  Returns new state tensors and the (rows,)
         bool hits."""
+        if isinstance(state, RowShards):
+            _no_overrides(caps=caps)
+            return self._on_access_sharded(state, ids, active)
         dev = state.blocks.device
         ids = _as_ids(ids, dev)
         if self.renorm_at is not None:
@@ -985,6 +1107,8 @@ class AdaptiveCore(_Accounting):
         access were a complete miss; -1 where no eviction would occur (cache
         not yet full).  Computed by probing ``on_access`` with a never-seen
         block id and diffing residency — the probe state is discarded."""
+        if isinstance(state, RowShards):
+            return state.replace(self._per_shard(state, lambda c, st: c.victim(st)))
         if self.num_sets != 1:
             raise NotImplementedError(
                 "AdaptiveCore.victim probes one access; with num_sets > 1 "
@@ -1008,6 +1132,8 @@ class AdaptiveCore(_Accounting):
     def resident_mask(self, state: AdaptiveState) -> torch.Tensor:
         """(rows, num_sets, L) bool — lanes whose block is cache-resident
         (T1 or T2; ghost-directory entries are NOT resident)."""
+        if isinstance(state, RowShards):
+            return state.replace(self._per_shard(state, lambda c, st: c.resident_mask(st)))
         return (state.tag == _TAG_T1) | (state.tag == _TAG_T2)
 
     @property
@@ -1017,6 +1143,8 @@ class AdaptiveCore(_Accounting):
 
     def occupancy(self, state: AdaptiveState) -> torch.Tensor:
         """(rows,) int32 resident-page count (ghost entries excluded)."""
+        if isinstance(state, RowShards):
+            return state.replace(self._per_shard(state, lambda c, st: c.occupancy(st)))
         return self.resident_mask(state).sum(dim=(-2, -1), dtype=_I32)
 
 
@@ -1060,13 +1188,14 @@ def make_core(
 
 def init(
     policy: str, rows: int = 1, num_sets: int = 1, ways: int = 1,
-    *, device="cuda", **kw
+    *, device="cuda", mesh=None, **kw
 ) -> Tuple[PolicyCore, PolicyState]:
     """Protocol entry point: build the core for ``policy`` and its initial
     state in one call — ``core, state = init(policy, rows, sets, ways)``, on
-    the CUDA card unless ``device`` says otherwise."""
+    the CUDA card unless ``device`` says otherwise.  ``mesh`` (a
+    ``core.sharding`` rows mesh) places the state's rows axis across it."""
     core = make_core(policy, rows, num_sets, ways, **kw)
-    return core, core.init(device=device)
+    return core, core.init(device=device, mesh=mesh)
 
 
 def make_cache_policy(policy, capacity: int, **kw):

@@ -30,13 +30,22 @@ Two routes run the reference's ``lax.scan``:
   group's ``on_access`` per step, every row's block ids gathered up front
   as a ``(T, rows)`` tensor, the per-row constants (grid masks, adaptive
   capacities) built once, hits in a preallocated ``(T, rows)`` bool tensor.
-  Its only host syncs are CAR's clock-hand sweep checks and, where the trace
-  is long enough to need it, the stamp renormalization check
-  (``policy_core.HOST_SYNCS`` counts both).
+  Its host syncs are one read of each group's per-row constants before the
+  loop, CAR's clock-hand sweep checks and, where the trace is long enough to
+  need it, the stamp renormalization check (``policy_core.HOST_SYNCS``
+  counts the last two).
 
-Not ported yet: the ``mesh=`` rows sharding (``_sharded_groups_scan``), the
-``unroll`` option, and the legacy single-cache API (``CacheState``,
-``init_state``, ``access``, ``victim_slot``, ``simulate_trace``).
+Rows mesh (``mesh=``, a ``core.sharding`` rows mesh): each state-layout
+group pads its rows to a multiple of the shard count with rows that run real
+accesses (flat: ``lru`` with 1 way; adaptive: capacity 1) and whose hits are
+sliced off; each shard gets its own per-row constants and runs its own
+calls (``_sharded_groups``) on its device and stream, on either route; the
+hits come back on the mesh's first device in the unsharded row order, bit
+for bit the unsharded run's.
+
+Not ported yet: the ``unroll`` option, and the legacy single-cache API
+(``CacheState``, ``init_state``, ``access``, ``victim_slot``,
+``simulate_trace``).
 """
 
 from __future__ import annotations
@@ -46,6 +55,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import sharding
 from repro_torch.core.policy_core import (
     ADAPTIVE_POLICIES,
     DEVICE_POLICIES,
@@ -155,6 +165,38 @@ def _sweep_groups(traces: torch.Tensor, groups: Sequence[_Group], num_sets: int,
     return out
 
 
+def _eager_steps(xs: torch.Tensor, groups: Sequence[_Group], num_sets: int, W: int,
+                 renorm_at: Optional[int]) -> list:
+    """The eager route's per-group loop state on ``xs``' device: ``[core,
+    state, per-step ids (T, rows), step keyword arguments]`` per group."""
+    dev = xs.device
+    steps = []
+    for g in groups:
+        ids = xs[:, g.row_trace.long()].contiguous()
+        pids_g = tuple(g.pids.tolist())
+        ways_g = tuple(g.ways.tolist())
+        if g.kind == "flat":
+            core = FlatCore(pids=pids_g, ways=ways_g, num_sets=num_sets, lanes=W)
+            masks = _make_masks(pids_g, ways_g, W, dev)
+            steps.append([core, core.init(device=dev), ids, {"masks": masks}])
+        else:
+            core = AdaptiveCore(kind=g.kind, caps=ways_g, num_sets=num_sets, lanes=2 * W,
+                                renorm_at=renorm_at)
+            steps.append([core, core.init(device=dev), ids, {"caps": g.ways}])
+    return steps
+
+
+def _eager_step(steps: list, t: int) -> List[torch.Tensor]:
+    """Step ``t`` of every group of ``_eager_steps``: the groups' (rows,)
+    hits."""
+    hits = []
+    for st in steps:
+        core, state, ids, kw = st
+        st[1], h = core.on_access(state, ids[t], **kw)
+        hits.append(h)
+    return hits
+
+
 def _simulate_batched_impl(
     traces: torch.Tensor,  # (N, T) int32, on the engine's device
     policy_ids: Tuple[int, ...],
@@ -162,6 +204,7 @@ def _simulate_batched_impl(
     num_sets: int,
     use_kernel: bool,
     renorm_at: Optional[int],
+    mesh=None,
 ) -> torch.Tensor:
     dev = traces.device
     N, T = traces.shape
@@ -174,39 +217,77 @@ def _simulate_batched_impl(
     groups = _grid_groups(N, policy_ids, ways, dev)
     inv = torch.as_tensor(np.argsort(np.concatenate([g.rows for g in groups])), device=dev)
 
+    if mesh is not None:
+        hits = _sharded_groups(traces, groups, mesh, num_sets, W, renorm_at, use_kernel)
+        return hits[inv].reshape(N, P, C, T)
+
     if use_kernel:  # the trace route: one call per group runs its whole trace
         hits = torch.cat([h for h, _ in _sweep_groups(traces, groups, num_sets, W, renorm_at)])
         return hits[inv].reshape(N, P, C, T)
 
     # the eager route: every row's block id at every step, gathered once:
     # (T, rows) int32
-    xs = traces.T.contiguous()
-    steps = []  # (core, state, per-step ids, step keyword arguments)
-    for g in groups:
-        ids = xs[:, g.row_trace.long()].contiguous()
-        pids_g = np.asarray(policy_ids)[(g.rows // C) % P]
-        ways_g = tuple(int(w) for w in np.asarray(ways)[g.rows % C])
-        if g.kind == "flat":
-            core = FlatCore(pids=tuple(int(p) for p in pids_g), ways=ways_g,
-                            num_sets=num_sets, lanes=W)
-            masks = _make_masks(pids_g, ways_g, W, dev)
-            steps.append((core, core.init(device=dev), ids, {"masks": masks}))
-        else:
-            core = AdaptiveCore(kind=g.kind, caps=ways_g, num_sets=num_sets, lanes=2 * W,
-                                renorm_at=renorm_at)
-            steps.append((core, core.init(device=dev), ids, {"caps": g.ways}))
-
+    steps = _eager_steps(traces.T.contiguous(), groups, num_sets, W, renorm_at)
     hits = torch.empty((T, len(inv)), dtype=torch.bool, device=dev)
-    states = [g[1] for g in steps]
     for t in range(T):
-        col = 0
-        for gi, (core, _, ids, kw) in enumerate(steps):
-            states[gi], h = core.on_access(states[gi], ids[t], **kw)
-            hits[t, col:col + core.rows] = h
-            col += core.rows
+        hits[t] = torch.cat(_eager_step(steps, t))
 
     # (T, concat-of-groups) -> original row order -> (N, P, C, T)
     return hits[:, inv].T.reshape(N, P, C, T)
+
+
+def _pad_group(g: _Group, n: int) -> _Group:
+    """``g`` with its rows padded to a multiple of ``n`` (on the host): pad
+    rows read trace 0, as ``lru`` with 1 way (flat) or capacity 1
+    (adaptive), and run real accesses whose hits the caller slices off."""
+    B = len(g.rows)
+    Bp = sharding.pad_rows_to(B, n)
+    pad = (np.zeros(Bp - B, np.int32), np.full(Bp - B, POLICY_IDS["lru"], np.int32),
+           np.ones(Bp - B, np.int32))
+    cols = [np.concatenate([t.cpu().numpy(), p])
+            for t, p in zip((g.row_trace, g.pids, g.ways), pad)]
+    return _Group(g.kind, g.rows, *(torch.from_numpy(c) for c in cols))
+
+
+def _sharded_groups(traces: torch.Tensor, groups: Sequence[_Group], mesh, num_sets: int,
+                    W: int, renorm_at: Optional[int], use_kernel: bool) -> torch.Tensor:
+    """The grid under a rows mesh: each group padded (``_pad_group``) and cut
+    into the mesh's shards, each shard's per-row constants on its device,
+    the traces copied once to each device; shard ``i`` runs its groups
+    (trace route: one ``flat_sweep`` / ``adaptive_sweep`` call per group;
+    eager route: the step loop) on its device and stream.  Returns the
+    ``(rows, T)`` hits of the groups concatenated, pads sliced off, on the
+    mesh's first device."""
+    n, T = mesh.size, traces.shape[1]
+    padded = [_pad_group(g, n) for g in groups]
+    on_dev = {d: traces.to(d) for d in mesh.distinct_devices}
+    shard_groups = []  # per shard: its part of every group
+    for i, d in enumerate(mesh.devices):
+        part = []
+        for g in padded:
+            k = len(g.row_trace) // n
+            part.append(_Group(g.kind, g.rows, *(t[i * k:(i + 1) * k].to(d)
+                                                 for t in (g.row_trace, g.pids, g.ways))))
+        shard_groups.append(part)
+    if use_kernel:
+        per_shard = sharding.run_shards(
+            mesh, lambda i, part: [h for h, _ in _sweep_groups(
+                on_dev[mesh.devices[i]], part, num_sets, W, renorm_at)], shard_groups)
+    else:
+        steps = [_eager_steps(on_dev[d].T.contiguous(), part, num_sets, W, renorm_at)
+                 for d, part in zip(mesh.devices, shard_groups)]
+        per_shard = [[torch.empty((T, len(p.row_trace)), dtype=torch.bool, device=d)
+                      for p in part] for d, part in zip(mesh.devices, shard_groups)]
+        with sharding.forked(mesh):
+            for t in range(T):
+                for i in range(n):
+                    with sharding.on_shard(mesh, i):
+                        for out, h in zip(per_shard[i], _eager_step(steps[i], t)):
+                            out[t] = h
+        per_shard = [[h.T for h in hs] for hs in per_shard]
+    dev = mesh.devices[0]
+    return torch.cat([torch.cat([hs[gi].to(dev) for hs in per_shard])[:len(g.rows)]
+                      for gi, g in enumerate(groups)])
 
 
 def simulate_trace_batched(
@@ -217,6 +298,7 @@ def simulate_trace_batched(
     num_sets: int = 1,
     use_kernel: bool | None = None,
     device="cuda",
+    mesh=None,
     _renorm_at: Optional[int] = None,
 ) -> torch.Tensor:
     """Run the full (trace, policy, capacity) grid as one batch of rows.
@@ -237,6 +319,10 @@ def simulate_trace_batched(
         identical either way.
       device: where the engine runs: the CUDA card unless the caller asks
         for the CPU.
+      mesh: a ``core.sharding`` rows mesh: the grid's rows run across its
+        shards, each on its own device and stream (``device`` is then the
+        mesh's first device); decisions are bit-identical to the unsharded
+        run.  None (the default) runs unsharded.
       _renorm_at: test hook — override the adaptive stamp-renormalization
         threshold (forcing frequent renormalizations); None picks it
         automatically, and elides the check entirely for traces short
@@ -244,7 +330,8 @@ def simulate_trace_batched(
 
     Returns:
       bool tensor ``(n_traces, n_policies, n_capacities, T)`` of per-access
-      hits on ``device``, bit-identical to the host oracles' decisions.
+      hits on ``device`` (a mesh's first device), bit-identical to the host
+      oracles' decisions.
     """
     tr = np.asarray(traces)
     if tr.ndim == 1:
@@ -268,7 +355,7 @@ def simulate_trace_batched(
         if c % num_sets:
             raise ValueError(f"capacity {c} not divisible by num_sets {num_sets}")
         ways.append(c // num_sets)
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.devices[0]
     renorm_at = _renorm_at
     if renorm_at is None and any(p in ADAPTIVE_POLICIES for p in policies):
         # ARC/CAR grant at most ways+2 stamps per access; when the whole
@@ -286,6 +373,7 @@ def simulate_trace_batched(
         int(num_sets),
         bool(use_kernel),
         renorm_at,
+        mesh,
     )
 
 

@@ -714,7 +714,7 @@ def decode_caches(cfg, batch: int, max_len: int, *, kv_mode: str = "full",
 
 
 def _decode_block(kind: str, p: Params, x: torch.Tensor, cfg, cache, pos,
-                  win_positions, kv_mode: str, fused: bool):
+                  win_positions, kv_mode: str, fused: bool, mesh=None):
     """One block at decode; returns (x, new cache of this layer).  A
     ``local`` block writes its ring and attends over ``win_positions``; a
     ``mamba`` block steps its recurrence and returns its new state and conv
@@ -743,11 +743,11 @@ def _decode_block(kind: str, p: Params, x: torch.Tensor, cfg, cache, pos,
             q = L.decode_q(p, h, cfg, position=pos)
             if adaptive:
                 out, _, new_cache = paged_kv.fused_adaptive_decode_step(
-                    cache, q, nk[:, 0], nv[:, 0], pos, cfg.page_size, core)
+                    cache, q, nk[:, 0], nv[:, 0], pos, cfg.page_size, core, mesh=mesh)
             else:
                 out, _, new_cache = paged_kv.fused_decode_step(
                     cache, q, nk[:, 0], nv[:, 0], pos, cfg.page_size,
-                    cfg.kv_policy)
+                    cfg.kv_policy, mesh=mesh)
             attn_out = L.decode_project_out(p, out.to(x.dtype), cfg)
         else:
             if adaptive:
@@ -780,7 +780,7 @@ def _decode_block(kind: str, p: Params, x: torch.Tensor, cfg, cache, pos,
 
 
 def decode_step(params: Params, cfg, token: torch.Tensor, caches,
-                *, kv_mode: str = "full", fused: bool = False):
+                *, kv_mode: str = "full", fused: bool = False, mesh=None):
     """One serving step: token (B, 1) int -> (logits (B, 1, Vpad), caches),
     ``pos`` advanced on the device.  No host read and no host copy, so a
     CUDA graph captures it whole (``serve/engine.py``).  An unfused
@@ -790,8 +790,12 @@ def decode_step(params: Params, cfg, token: torch.Tensor, caches,
 
     ``fused=True`` routes the paged blocks through the fused CUDA policy
     kernel (one call per layer, ``ops.SPLIT_LAUNCHES`` launches); decisions
-    equal the unfused path's.  The encoder-decoder ignores ``kv_mode`` and
-    ``fused``, as the reference (``_encdec_decode``)."""
+    equal the unfused path's.  ``mesh`` (a ``core.sharding`` rows mesh)
+    launches each fused kernel shard-locally, each shard's sequences on its
+    device and stream (``paged_kv.fused_decode_step``), with decisions
+    bit-identical; it is a no-op without ``fused`` or when the batch does not
+    divide the mesh.  The encoder-decoder ignores ``kv_mode``, ``fused`` and
+    ``mesh``, as the reference (``_encdec_decode``)."""
     unit, n_rep, tail = scan_plan(cfg)
     if cfg.family == "encdec":
         return _encdec_decode(params, cfg, token, caches)
@@ -805,12 +809,12 @@ def decode_step(params: Params, cfg, token: torch.Tensor, caches,
         for name, kind in unit:
             x, new = _decode_block(kind, _layer(params, name, kind, i), x, cfg,
                                    _layer_cache(blocks[name], i), pos,
-                                   win_positions, kv_mode, fused)
+                                   win_positions, kv_mode, fused, mesh)
             layers[name].append(new)
     new_blocks = {name: _restack(blocks[name], layers[name]) for name, _ in unit}
     for name, kind in tail:
         x, new_blocks[name] = _decode_block(kind, params[name], x, cfg, blocks[name],
-                                            pos, win_positions, kv_mode, fused)
+                                            pos, win_positions, kv_mode, fused, mesh)
     logits = logits_from_hidden(params, cfg, x)
     return logits, {"pos": pos + 1, "blocks": new_blocks}
 

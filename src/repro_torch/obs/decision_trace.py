@@ -45,6 +45,7 @@ __all__ = [
     "pack_events",
     "ring_push",
     "drain",
+    "drain_shards",
 ]
 
 #: event kinds: one ring records both access and admission decisions
@@ -131,8 +132,12 @@ def drain(ring: DecisionRing) -> np.ndarray:
     order (the oldest surviving event first), float fields decoded.  One
     pull of ``buf`` and ``count`` together, so one synchronization; the ring
     is left as it is."""
-    cap = ring_capacity(ring)
-    buf, count = _pull([ring.buf, ring.count])
+    return _records(*_pull([ring.buf, ring.count]))
+
+
+def _records(buf: np.ndarray, count: np.ndarray) -> np.ndarray:
+    """A pulled ring's records, oldest first, float fields decoded."""
+    cap = buf.shape[0] - 1
     n = int(count)
     if n <= cap:
         rows = buf[:n]
@@ -143,4 +148,25 @@ def drain(ring: DecisionRing) -> np.ndarray:
     for name in FIELDS:
         col = np.ascontiguousarray(rows[:, _F[name]])
         out[name] = col.view(np.float32) if name in _BITS else col
+    return out
+
+
+def drain_shards(rings, order: np.ndarray, offsets) -> np.ndarray:
+    """The records of a ring kept as one segment per shard of a rows mesh
+    (a sharded tenancy manager's), merged into the one ring's order: one
+    pull per device; ``order`` holds the shard of every event recorded, in
+    order (at least the last capacity of them), ``offsets`` each shard's
+    first row (the segments hold shard-local rows).  Each shard's segment
+    keeps its own last ``capacity`` events, so it holds every one of its
+    events among the last ``capacity`` of all."""
+    pulled = _pull([t for r in rings for t in (r.buf, r.count)])
+    order = np.asarray(order)[-ring_capacity(rings[0]):]
+    out = np.empty(len(order), dtype=_REC_DTYPE)
+    for i in range(len(rings)):
+        rec = _records(pulled[2 * i], pulled[2 * i + 1])
+        rec["row"] += offsets[i]
+        mine = order == i
+        n = int(mine.sum())
+        if n:
+            out[mine] = rec[len(rec) - n:]
     return out

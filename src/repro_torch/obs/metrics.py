@@ -31,6 +31,8 @@ from typing import Any, Callable, Dict, List, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+
 __all__ = [
     "safe_ratio",
     "safe_ratio_plane",
@@ -205,11 +207,11 @@ class Registry:
 # -- the decode loop's planes -------------------------------------------------
 
 
-def loop_planes(device="cpu", bins: int = HIST_BINS) -> Dict[str, torch.Tensor]:
-    """Fresh all-zero decode-loop planes on ``device``: the sampling-event
-    and token counters (0-d int32) and a ``(bins,)`` int32 token-id
-    histogram."""
-    z = dict(dtype=torch.int32, device=device)
+def loop_planes(device="cuda", bins: int = HIST_BINS) -> Dict[str, torch.Tensor]:
+    """Fresh all-zero decode-loop planes on ``device`` (the CUDA card unless
+    the caller asks for the CPU): the sampling-event and token counters (0-d
+    int32) and a ``(bins,)`` int32 token-id histogram."""
+    z = dict(dtype=torch.int32, device=resolve_device(device))
     return {"steps": torch.zeros((), **z), "tokens": torch.zeros((), **z),
             "token_hist": torch.zeros((bins,), **z)}
 

@@ -48,6 +48,17 @@
     synchronization; host spans (``prefill``, ``decode``, ``rebalance``),
     the decode graphs' compile counters and, with ``profile_dir``, one
     ``torch.profiler`` trace per ``profile_every`` requests ride along;
+  * rows mesh: ``mesh=`` (a ``core.sharding`` rows mesh) serves a bucket
+    whose request count divides the mesh shard by shard: shard ``i`` takes
+    a contiguous ``1/n`` of the requests and prefills and decodes them on
+    its own device and stream, with the parameters of its device (one copy
+    per distinct device: shards on one device share one set), a decode
+    graph of its own (captured on its stream) and a generator of its own
+    seeded as the engine's; the tokens are gathered in the batch's order.
+    Each shard's tokens and planes are those of an unsharded engine serving
+    its requests, bit for bit.  A bucket of one request (the prompt cache's
+    path) or one that does not divide the mesh runs unsharded.  The
+    tenants' core rows are placed across the mesh too (``serve/tenancy.py``);
   * decision trace: ``decision_trace=N`` (multi-tenant engines only) gives
     the tenants' core a decision-trace ring of its N most recent access and
     admission events, written on the device (on the card inside the stream
@@ -70,6 +81,7 @@ import torch
 
 from repro_torch.cache import paged_kv
 from repro_torch.cache.prefix_cache import PrefixCache
+from repro_torch.core import sharding
 from repro_torch.core.policy_core import AdaptiveState
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
@@ -138,6 +150,30 @@ def _tree_shapes(tree) -> tuple:
     return tuple(shape for leaf in leaves for shape in _tree_shapes(leaf))
 
 
+@dataclasses.dataclass
+class _Shard:
+    """One shard of a rows-mesh engine: its device, its device's
+    parameters, its stream (None on the CPU) and its sampling generator."""
+
+    index: int
+    device: torch.device
+    params: dict
+    stream: Optional[torch.cuda.Stream]
+    generator: torch.Generator
+
+
+@dataclasses.dataclass
+class _ShardRun:
+    """One shard's share of a bucket in flight: its caches, its tokens so
+    far, its (evictions, non-finite logits) counts as 0-d tensors and the
+    bucket's loop planes (None with metrics off)."""
+
+    caches: dict
+    toks: List[torch.Tensor]
+    counts: List[torch.Tensor]
+    planes: Optional[Dict[str, torch.Tensor]]
+
+
 @contextlib.contextmanager
 def _sync_errors(device: torch.device):
     """Run the body with ``torch.cuda.set_sync_debug_mode("error")`` on a
@@ -177,11 +213,16 @@ class DecodeGraph:
     launches the device ran in both loops; the warm-up and the capture
     count none.  A sampled graph draws from the engine's generator,
     registered with the graph.  On the CPU ``step`` runs the same body
-    eagerly."""
+    eagerly.  A rows-mesh engine's shard (``shard``) has a graph of its own,
+    on its device with its parameters and generator, captured on its stream;
+    it is replayed on that stream."""
 
-    def __init__(self, engine: "ServeEngine", caches, sampled: bool):
-        dev = engine.device
+    def __init__(self, engine: "ServeEngine", caches, sampled: bool,
+                 shard: Optional[_Shard] = None):
+        dev = engine.device if shard is None else shard.device
         self.engine = engine
+        self.device = dev
+        self.params = engine.params if shard is None else shard.params
         self.caches = M.clone_caches(caches)
         B = _batch_of(next(iter(caches["blocks"].values())))
         self.tok = torch.zeros((B, 1), dtype=torch.int32, device=dev)
@@ -190,25 +231,26 @@ class DecodeGraph:
         self.nonfinite = torch.zeros((), dtype=torch.int64, device=dev)
         #: the bucket's loop planes, added into the engine's after it
         self.planes = loop_planes(dev) if engine.metrics else None
-        self.generator = engine.generator if sampled else None
+        self.generator = ((engine.generator if shard is None else shard.generator)
+                          if sampled else None)
         self.graph = None
         #: host-clock seconds of the build: clone, warm-up and capture
         self.build_s = 0.0
         #: ops.LAUNCHES the captured step makes, added once per replay
         self.launches: Dict[str, int] = {}
         if dev.type == "cuda":
-            self._capture(engine.capture_stream())
+            self._capture(engine.capture_stream() if shard is None else shard.stream)
 
     def _body(self, generator) -> None:
         tok, caches, evictions, nonfinite = self.engine._step(
-            self.tok, self.caches, generator, self.temperature, self.planes)
+            self.tok, self.caches, generator, self.temperature, self.planes, self.params)
         self.tok.copy_(tok)
         self.evictions += evictions
         self.nonfinite += nonfinite
         _copy_into(self.caches, caches)
 
     def _capture(self, stream) -> None:
-        dev = self.engine.device
+        dev = self.device
         before = dict(ops.LAUNCHES)
         # the warm-up draws from a generator of its own: the engine's stream
         # of draws is the host loop's
@@ -261,6 +303,17 @@ class DecodeGraph:
             ops.LAUNCHES[name] += n
 
 
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """``a`` and ``b`` name one device (``cuda`` without an index is the
+    current one)."""
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    cur = torch.cuda.current_device
+    return (cur() if a.index is None else a.index) == (cur() if b.index is None else b.index)
+
+
 def _batch_of(cache) -> int:
     """The batch size of one position's decode cache (stacked or not): a
     pool, a ``{"k", "v"}`` cache (B, T, kvd) (the encoder-decoder's ``dec``
@@ -276,7 +329,9 @@ def _batch_of(cache) -> int:
 
 
 class ServeEngine:
-    """Batched generation over AWRP-managed caches on one device.
+    """Batched generation over AWRP-managed caches on one device, or under
+    ``mesh`` (a ``core.sharding`` rows mesh) shard by shard across its
+    devices and streams (``_run_sharded``).
 
     ``stats`` counts prefills, decode steps and tokens, the KV evictions
     (page allocations made while a sequence's pool was full, summed over
@@ -318,8 +373,11 @@ class ServeEngine:
                  auto_rebalance: bool = False, fused: bool = False, expert_cache=None,
                  jit_loop: bool = True, metrics: bool = True, decision_trace: int = 0,
                  profile_dir: Optional[str] = None, profile_every: int = 16,
-                 profile_phases: bool = False, device="cuda"):
+                 profile_phases: bool = False, device="cuda", mesh=None):
         self.device = resolve_device(device)
+        #: optional ``core.sharding`` rows mesh: multi-request buckets that
+        #: divide it are served shard by shard (``_run_sharded``)
+        self.mesh = mesh
         self.jit_loop = bool(jit_loop)
         if (self.jit_loop and self.device.type == "cuda" and kv_mode == "paged"
                 and cfg.kv_policy in paged_kv.TRUE_ADAPTIVE_KV and not fused):
@@ -347,9 +405,13 @@ class ServeEngine:
             self.prefix_cache = None
             self.tenant_cache = TenantPrefixCache(self.tenants, prefix_policy,
                                                   ring_capacity=int(decision_trace),
-                                                  device=self.device)
+                                                  device=self.device, mesh=mesh)
             self.admission = admission or AdmissionController()
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self._shards = self._mesh_shards(seed) if mesh is not None else []
+        #: per shard of the last sharded bucket: its final caches and the
+        #: bucket's loop planes (``None`` with metrics off)
+        self.last_shards: List[dict] = []
         self.stats = {"prefills": 0, "decode_steps": 0, "tokens": 0,
                       "kv_evictions": 0, "kv_ghost_hits": 0,
                       "nonfinite_logits": 0, "prefill_s": 0.0, "decode_s": 0.0,
@@ -390,41 +452,75 @@ class ServeEngine:
             prompt = [0] * (page - len(prompt)) + prompt
         return prompt[-n:]
 
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+    def _mesh_shards(self, seed: int) -> List[_Shard]:
+        """The mesh's shards: the parameters copied once to each distinct
+        device other than the engine's (shards on one device share them),
+        a generator per shard seeded as the engine's."""
+        params = {self.device: self.params}
+        shards = []
+        for i, (dev, stream) in enumerate(zip(self.mesh.devices, self.mesh.streams)):
+            key = next((d for d in params if _same_device(d, dev)), None)
+            if key is None:
+                key = dev
+                params[dev] = sharding.tree_map(lambda t, d=dev: t.to(d), self.params)
+            shards.append(_Shard(i, dev, params[key], stream,
+                                 torch.Generator(device=dev).manual_seed(seed)))
+        return shards
 
-    def _prefill(self, prompts: List[List[int]]):
-        """The batch's prefill.  The stub frontends get zeros in the
-        activation dtype, as the reference's ``_batch_prefill`` gives them: a
-        VLM's ``n_patch_tokens`` patch embeddings, an encoder-decoder's
-        ``S // enc_seq_divisor`` frames."""
-        tokens = torch.tensor(prompts, dtype=torch.int32, device=self.device)
+    def _sync(self) -> None:
+        devices = ([self.device] if self.mesh is None
+                   else [self.device, *self.mesh.distinct_devices])
+        for dev in devices:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+    def _prefill_call(self, prompts: List[List[int]], params, device):
+        """The batch's prefill on ``device``: ``(logits of the last position
+        (B, 1, V), caches)``.  The stub frontends get zeros in the activation
+        dtype, as the reference's ``_batch_prefill`` gives them: a VLM's
+        ``n_patch_tokens`` patch embeddings, an encoder-decoder's ``S //
+        enc_seq_divisor`` frames."""
+        tokens = torch.tensor(prompts, dtype=torch.int32, device=device)
         B, S = tokens.shape
         cfg, stub = self.cfg, {}
         dtype = M.torch_dtype(cfg.dtype)
         if cfg.family == "vlm":
             stub["patches"] = torch.zeros((B, cfg.n_patch_tokens, cfg.d_model),
-                                          dtype=dtype, device=self.device)
+                                          dtype=dtype, device=device)
         if cfg.family == "encdec":
             stub["frames"] = torch.zeros((B, S // cfg.enc_seq_divisor, cfg.d_model),
-                                         dtype=dtype, device=self.device)
+                                         dtype=dtype, device=device)
+        logits, caches = M.prefill(params, cfg, tokens, self.max_len, kv_mode=self.kv_mode,
+                                   **stub)
+        # a copy of the last position, so the (B, S, V) logits are freed
+        return logits[:, -1:].clone(), caches
+
+    def _prefill(self, prompts: List[List[int]], parts: bool = False):
+        """The batch's prefill, under the ``prefill`` span, ending in a
+        device synchronize.  With ``parts`` (a sharded bucket) ``prompts``
+        holds one list per shard, each prefilled on its shard's device and
+        stream: a list of ``(logits, caches)``."""
         t0 = time.perf_counter()
         with self.spans.span("prefill") as sp:
-            logits, caches = M.prefill(self.params, cfg, tokens, self.max_len,
-                                       kv_mode=self.kv_mode, **stub)
-            sp.ready(logits)
+            if parts:
+                out = sharding.run_shards(
+                    self.mesh, lambda i, p: self._prefill_call(p, self._shards[i].params,
+                                                               self._shards[i].device),
+                    prompts)
+                sp.ready([o[0] for o in out])
+            else:
+                out = self._prefill_call(prompts, self.params, self.device)
+                sp.ready(out[0])
             self._sync()
         self.stats["prefill_s"] += time.perf_counter() - t0
         self.stats["prefills"] += 1
-        # a copy of the last position, so the (B, S, V) logits are freed
-        return logits[:, -1:].clone(), caches
+        return out
 
     def _evictions_at(self, caches) -> torch.Tensor:
         """Allocations the next step makes into a full pool, summed over the
         pool positions: counted on every step and kept where ``pos`` is a
         page boundary (0-d tensor, computed on the device, not pulled)."""
-        total = torch.zeros((), dtype=torch.int64, device=self.device)
+        total = torch.zeros((), dtype=torch.int64, device=caches["pos"].device)
         if self.kv_mode != "paged":
             return total
         for pool in caches["blocks"].values():
@@ -441,31 +537,34 @@ class ServeEngine:
             self._capture_stream = torch.cuda.Stream(device=self.device)
         return self._capture_stream
 
-    def _step(self, tok, caches, generator, temperature, planes=None):
+    def _step(self, tok, caches, generator, temperature, planes=None, params=None):
         """One decode step on the device: the evictions its allocation makes
         into a full pool, the step, its non-finite logits and the next token
         (``sample_traced``), folded into the loop ``planes`` in place when
-        given.  Returns ``(tok, caches, evictions, nonfinite)``; nothing is
-        read back to the host."""
+        given.  ``params`` defaults to the engine's (a shard passes its
+        device's).  Returns ``(tok, caches, evictions, nonfinite)``; nothing
+        is read back to the host."""
         evictions = self._evictions_at(caches)
-        logits, caches = M.decode_step(self.params, self.cfg, tok, caches,
-                                       kv_mode=self.kv_mode, fused=self.fused)
+        logits, caches = M.decode_step(self.params if params is None else params, self.cfg,
+                                       tok, caches, kv_mode=self.kv_mode, fused=self.fused)
         nonfinite = (~torch.isfinite(logits)).sum()
         tok = sample_traced(logits, generator, temperature, vocab=self.cfg.vocab)
         if planes is not None:
             loop_update_(planes, tok, vocab=self.cfg.vocab)
         return tok, caches, evictions, nonfinite
 
-    def decode_graph(self, caches, sampled: bool) -> DecodeGraph:
+    def decode_graph(self, caches, sampled: bool, shard: Optional[_Shard] = None
+                     ) -> DecodeGraph:
         """The decode graph of ``caches``' shapes (the batch size and, for
-        the encoder-decoder, the cross K/V's rows) and the sampling mode,
-        built (and on the card captured) at its first use."""
-        key = (_tree_shapes(caches), bool(sampled))
+        the encoder-decoder, the cross K/V's rows), the sampling mode and
+        the mesh shard (None unsharded), built (and on the card captured) at
+        its first use."""
+        key = (_tree_shapes(caches), bool(sampled), None if shard is None else shard.index)
         graph = self._graphs.get(key)
         if graph is None:
             with self._lock:
                 t0 = time.perf_counter()
-                graph = DecodeGraph(self, caches, sampled)
+                graph = DecodeGraph(self, caches, sampled, shard)
                 self._sync()
                 graph.build_s = time.perf_counter() - t0
             self._graphs[key] = graph
@@ -496,20 +595,27 @@ class ServeEngine:
     def _host_loop(self, tok, caches, temperature: float, steps: int):
         """``steps`` eager decode steps (``jit_loop=False``, the baseline):
         the same outputs as ``_graph_loop``."""
-        evictions = torch.zeros((), dtype=torch.int64, device=self.device)
-        nonfinite = torch.zeros((), dtype=torch.int64, device=self.device)
+        counts = [torch.zeros((), dtype=torch.int64, device=self.device) for _ in range(2)]
         generated = []
         for _ in range(steps):
-            evictions += self._evictions_at(caches)
-            logits, caches = M.decode_step(self.params, self.cfg, tok, caches,
-                                           kv_mode=self.kv_mode, fused=self.fused)
-            nonfinite += (~torch.isfinite(logits)).sum()
-            tok = sample(logits, self.generator, temperature=temperature,
-                         vocab=self.cfg.vocab)
-            if self._planes is not None:
-                loop_update_(self._planes, tok, vocab=self.cfg.vocab)
+            tok, caches = self._host_step(tok, caches, self.params, self.generator,
+                                          temperature, self._planes, counts)
             generated.append(tok)
-        return generated, caches, evictions, nonfinite
+        return generated, caches, *counts
+
+    def _host_step(self, tok, caches, params, generator, temperature: float, planes,
+                   counts):
+        """One eager decode step: adds its evictions and non-finite logits
+        into ``counts`` and folds its token into ``planes`` (when given);
+        returns ``(tok, caches)``."""
+        counts[0] += self._evictions_at(caches)
+        logits, caches = M.decode_step(params, self.cfg, tok, caches,
+                                       kv_mode=self.kv_mode, fused=self.fused)
+        counts[1] += (~torch.isfinite(logits)).sum()
+        tok = sample(logits, generator, temperature=temperature, vocab=self.cfg.vocab)
+        if planes is not None:
+            loop_update_(planes, tok, vocab=self.cfg.vocab)
+        return tok, caches
 
     # -- ghost-hit feed (true-adaptive paged KV) ---------------------------
     @property
@@ -612,7 +718,83 @@ class ServeEngine:
         return self.admission.decide_batch(self.tenant_cache.manager,
                                            [r.tenant_id for r in requests])
 
+    def _run_sharded(self, reqs: List[Request]) -> Dict[int, Result]:
+        """A bucket under the rows mesh: shard ``i`` prefills and decodes
+        requests ``[i*k, (i+1)*k)`` on its device and stream (its own decode
+        graph, or the eager loop), the shards interleaved step by step; the
+        tokens gathered in the batch's order with the bucket's one pull.
+        Stats count the bucket once, as an unsharded run of it; the engine's
+        loop planes take every shard's tokens and the sampling events
+        once (shard 0's), so they equal the unsharded run's too."""
+        t0 = time.perf_counter()
+        mesh, shards = self.mesh, self._shards
+        k = len(reqs) // mesh.size
+        prefilled = self._prefill([[r.prompt for r in reqs[i * k:(i + 1) * k]]
+                                   for i in range(mesh.size)], parts=True)
+        max_new = max(r.max_new_tokens for r in reqs)
+        temperature, steps = reqs[0].temperature, max_new - 1
+        graphs = ([self.decode_graph(c, temperature > 0.0, s)
+                   for (_, c), s in zip(prefilled, shards)]
+                  if self.jit_loop and steps else None)
+        vocab = self.cfg.vocab
+        t1 = time.perf_counter()
+        with self.spans.span("decode") as sp, self._lock:
+            runs = []
+            with sharding.forked(mesh):
+                for s, (logits, caches) in zip(shards, prefilled):
+                    with sharding.on_shard(mesh, s.index):
+                        run = _ShardRun(caches, [sample(logits, s.generator, temperature=0.0,
+                                                        vocab=vocab)],
+                                        [torch.zeros((), dtype=torch.int64, device=s.device),
+                                         (~torch.isfinite(logits)).sum()],
+                                        loop_planes(s.device) if self.metrics else None)
+                        if run.planes is not None:
+                            loop_update_(run.planes, run.toks[0], vocab=vocab)
+                        if graphs is not None:
+                            graphs[s.index].load(caches, run.toks[0], temperature)
+                        runs.append(run)
+                with (_sync_errors(self.device) if graphs is not None
+                      else contextlib.nullcontext()):
+                    for _ in range(steps):
+                        for s, run in zip(shards, runs):
+                            with sharding.on_shard(mesh, s.index):
+                                if graphs is None:
+                                    tok, run.caches = self._host_step(
+                                        run.toks[-1], run.caches, s.params, s.generator,
+                                        temperature, run.planes, run.counts)
+                                else:
+                                    graphs[s.index].step()
+                                    tok = graphs[s.index].tok.clone()
+                                run.toks.append(tok)
+                for s, run, g in zip(shards, runs, graphs or ()):
+                    with sharding.on_shard(mesh, s.index):
+                        if run.planes is not None:
+                            loop_merge_(run.planes, g.planes)
+                        run.caches = g.caches
+                        run.counts = [run.counts[0] + g.evictions, run.counts[1] + g.nonfinite]
+            sp.ready([run.caches for run in runs])
+            # the bucket's one pull
+            gen = torch.cat([torch.cat(run.toks, dim=1).to(self.device) for run in runs]).cpu()
+            evictions = sum(int(run.counts[0]) for run in runs)
+            nonfinite = sum(int(run.counts[1]) for run in runs)
+        if self._planes is not None:
+            for i, run in enumerate(runs):
+                for name in ("steps", "tokens", "token_hist")[0 if i == 0 else 1:]:
+                    self._planes[name].add_(run.planes[name].to(self.device))
+        self.last_shards = [{"caches": run.caches, "planes": run.planes} for run in runs]
+        self.stats["decode_s"] += time.perf_counter() - t1
+        self.stats["decode_steps"] += steps
+        self.stats["tokens"] += gen.numel()
+        self.stats["kv_evictions"] += evictions
+        self.stats["nonfinite_logits"] += nonfinite
+        dt = time.perf_counter() - t0
+        return {r.rid: Result(rid=r.rid, tokens=gen[i, :r.max_new_tokens].tolist(),
+                              prefill_cached=False, latency_s=dt)
+                for i, r in enumerate(reqs)}
+
     def _run_bucket(self, plen: int, reqs: List[Request]) -> Dict[int, Result]:
+        if self.mesh is not None and len(reqs) > 1 and len(reqs) % self.mesh.size == 0:
+            return self._run_sharded(reqs)
         t0 = time.perf_counter()
         max_new = max(r.max_new_tokens for r in reqs)
         single = len(reqs) == 1

@@ -43,9 +43,18 @@ the plain version pushes it per access.  ``decide_batch`` records one
 ``KIND_ADMIT`` event per request.  ``drain_trace`` pulls the ring with one
 synchronization.
 
-Not ported: the reference's ``mesh`` rows sharding.  The reference's compile
-sentinels of ``decide_batch`` and the tenancy step have no counterpart:
-nothing here is compiled.  The serving engine reports the rows through its
+Rows mesh: ``mesh=`` (a ``core.sharding`` rows mesh) places the tenant rows
+across its shards.  Tenant counts rarely divide the shard count, so the core
+pads its rows to a multiple (``sharding.pad_rows_to``) with minimum-quota
+rows no access touches.  ``access`` / ``access_stream`` cut the stream by
+shard and launch each shard's part on its device and stream (a shard with
+no access launches nothing); ``decide_batch`` runs each shard's requests
+likewise.  The decision-trace ring is one segment per shard, each of the
+full capacity; the manager logs on the host which shard recorded each event,
+and ``drain_trace`` merges the segments in that order, so the drained
+records equal the unsharded manager's, field by field and in order.  The
+reference's compile sentinels of ``decide_batch`` and the tenancy step have
+no counterpart: nothing here is compiled.  The serving engine reports the rows through its
 registry (``ServeEngine.telemetry``) from ``row_metrics``, un-pulled.
 """
 
@@ -59,6 +68,7 @@ import numpy as np
 import torch
 
 from repro_torch.cache.prefix_cache import prompt_key
+from repro_torch.core import sharding
 from repro_torch.core.policy_core import (
     ADAPTIVE_POLICIES,
     ADMIT_SHED,
@@ -99,34 +109,49 @@ class TenantCacheManager:
     cores pad every row to ``lanes = sum(quotas)`` so rebalancing can grow
     any tenant up to the whole pool without changing plane shapes.
     ``ring_capacity > 0`` records every access and admission decision in a
-    decision-trace ring of that many events (``drain_trace``)."""
+    decision-trace ring of that many events (``drain_trace``).  ``mesh``
+    (a ``core.sharding`` rows mesh) places the tenant rows across its
+    shards, padded with rows no access touches; counters and decisions are
+    bit-identical to the unsharded manager's."""
 
     def __init__(self, quotas: Dict[str, int], policy: str = "awrp", *,
-                 pressure_alpha: float = 0.1, ring_capacity: int = 0, device="cuda"):
+                 pressure_alpha: float = 0.1, ring_capacity: int = 0, device="cuda",
+                 mesh=None):
         if not quotas:
             raise ValueError("need at least one tenant")
         for t, q in quotas.items():
             if int(q) <= 0:
                 raise ValueError(f"tenant {t!r} quota must be positive, got {q}")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device) if mesh is None else mesh.devices[0]
         self.tenants: List[str] = list(quotas)
         self._row_of = {t: i for i, t in enumerate(self.tenants)}
         self.policy_name = policy
         self.quotas = {t: int(q) for t, q in quotas.items()}
         self.pressure_alpha = float(pressure_alpha)
+        #: core rows: the tenants', padded to a multiple of the mesh's shards
+        self._core_rows = (len(self.tenants) if mesh is None
+                           else sharding.pad_rows_to(len(self.tenants), mesh.size))
         # host mirror of the device pressure plane: always a pulled copy,
         # never recomputed on the host
-        self._pressure = np.zeros(len(self.tenants), dtype=np.float32)
+        self._pressure = np.zeros(self._core_rows, dtype=np.float32)
         # tenant-altitude AWRP metadata for ranking: F_t / R_t / clock N
         self._tf = np.zeros(len(self.tenants), dtype=np.int64)
         self._tr = np.zeros(len(self.tenants), dtype=np.int64)
         self._tclock = 0
         # the decision-trace ring: written on the device by every access and
-        # admission, read only by drain_trace
-        self.ring = dt.ring_init(ring_capacity, self.device) if ring_capacity else None
+        # admission, read only by drain_trace.  Under a mesh one segment per
+        # shard, and the shard of every recorded event in order on the host
+        # (the last ring_capacity of them)
         self._mount()
-        self.state = self.core.init(device=self.device)
-        self.counters: RowCounters = self.core.init_counters(device=self.device)
+        self.state = self.core.init(device=self.device, mesh=mesh)
+        self.counters: RowCounters = self.core.init_counters(device=self.device, mesh=mesh)
+        self.ring = None
+        self._ring_log = np.zeros(0, dtype=np.int32)
+        if ring_capacity:
+            self.ring = (dt.ring_init(ring_capacity, self.device) if mesh is None else
+                         self.state.replace(dt.ring_init(ring_capacity, d)
+                                            for d in mesh.devices))
 
     # -- core mount ---------------------------------------------------------
     @property
@@ -142,8 +167,11 @@ class TenantCacheManager:
     def _mount(self) -> None:
         """Build the core for the current quotas, and the stream launch's
         per-row int32 constants on the device: (caps,) for adaptive rows,
-        (pids, ways) for flat ones."""
+        (pids, ways) for flat ones; under a mesh each shard's on its device
+        (``_row_consts`` a ``RowShards``).  Mesh padding rows have quota 1
+        and are never accessed, so they stay empty and unaccounted."""
         q = tuple(self.quotas[t] for t in self.tenants)
+        q += (1,) * (self._core_rows - len(q))
         if self.policy_name in JAX_POLICIES:
             self.core = FlatCore(pids=(POLICY_IDS[self.policy_name],) * len(q), ways=q,
                                  lanes=sum(self.quotas.values()))
@@ -157,35 +185,110 @@ class TenantCacheManager:
                 f"have {JAX_POLICIES + ADAPTIVE_POLICIES}")
         self._row_consts = tuple(torch.tensor(v, dtype=_I32, device=self.device)
                                  for v in per_row)
+        if self.mesh is not None:
+            self._row_consts = sharding.shard_rows(None, self._row_consts, self.mesh)
 
     def stream_call(self, tenant_rows: np.ndarray, keys: np.ndarray):
         """The stream launch over ``keys`` on rows ``tenant_rows`` (int32
         arrays of one length, rows in [0, rows)) from the current state,
         counters and ring, as ``(fn, args, kwargs)``: ``fn(*args, **kwargs)``
         returns (hits, state, counters), and the new ring ``(buf, count)``
-        fourth when the manager traces, and leaves the manager as it was."""
-        both = torch.from_numpy(np.stack([tenant_rows, keys]).astype(np.int32)).to(self.device)
-        args = (both[1], both[0], self.state, self.counters, *self._row_consts)
-        kw = dict(alpha=self.pressure_alpha, ring=self.ring)
+        fourth when the manager traces, and leaves the manager as it was.
+        Unsharded managers only: a sharded one makes one such call per
+        shard (``_run_stream``)."""
+        if self.mesh is not None:
+            raise ValueError("stream_call is the unsharded launch; a sharded manager "
+                             "launches per shard")
+        return self._call(tenant_rows, keys, self.state, self.counters, self._row_consts,
+                          self.ring, self.device)
+
+    def _call(self, tenant_rows, keys, state, counters, consts, ring, dev):
+        both = torch.from_numpy(np.stack([tenant_rows, keys]).astype(np.int32)).to(dev)
+        args = (both[1], both[0], state, counters, *consts)
+        kw = dict(alpha=self.pressure_alpha, ring=ring)
         if self.is_adaptive:
             return ops.adaptive_stream, args, dict(kw, kind=self.core.kind,
                                                    renorm_at=self.core.renorm_at)
         return ops.flat_stream, args, kw
 
+    def _log_events(self, shard_of_event: np.ndarray) -> None:
+        """Append the shards of newly recorded events to the ring's log (a
+        sharded tracing manager), keeping the last capacity of them."""
+        if self.mesh is None or self.ring is None:
+            return
+        cap = dt.ring_capacity(self.ring.shards[0])
+        self._ring_log = np.concatenate([self._ring_log, shard_of_event])[-cap:]
+
     def _run_stream(self, tenant_rows: np.ndarray, keys: np.ndarray) -> torch.Tensor:
         """One call of the stream mode over the interleaved stream: advances
         ``state``, ``counters`` (the pressure EWMA included) and the ring and
-        returns the (T,) bool hits, on the device, not pulled."""
-        fn, args, kw = self.stream_call(tenant_rows, keys)
-        out = fn(*args, **kw)
-        hits, self.state, self.counters = out[:3]
+        returns the (T,) bool hits, on the device, not pulled.  Under a mesh
+        each shard's accesses (in stream order, on local rows) are one call
+        on its device and stream, and the hits come back in stream order."""
+        if self.mesh is None:
+            fn, args, kw = self.stream_call(tenant_rows, keys)
+            out = fn(*args, **kw)
+            hits, self.state, self.counters = out[:3]
+            if self.ring is not None:
+                self.ring = dt.DecisionRing(*out[3])
+            return hits
+        mesh, k = self.mesh, self._core_rows // self.mesh.size
+        shard = tenant_rows // k
+        picks = [np.flatnonzero(shard == i) for i in range(mesh.size)]
+        rings = self.ring.shards if self.ring is not None else (None,) * mesh.size
+
+        def run(i, state, counters, consts, ring):
+            if not len(picks[i]):
+                return None
+            fn, args, kw = self._call(tenant_rows[picks[i]] - i * k, keys[picks[i]], state,
+                                      counters, consts, ring, mesh.devices[i])
+            return fn(*args, **kw)
+
+        outs = sharding.run_shards(mesh, run, self.state.shards, self.counters.shards,
+                                   self._row_consts.shards, rings)
+        hits = torch.zeros(len(keys), dtype=torch.bool, device=self.device)
+        states, counters, rings = (list(t) for t in (self.state.shards, self.counters.shards,
+                                                     rings))
+        for i, out in enumerate(outs):
+            if out is None:  # no access on this shard: it launched nothing
+                continue
+            hits[torch.from_numpy(picks[i]).to(self.device)] = out[0].to(self.device)
+            states[i], counters[i] = out[1], out[2]
+            if self.ring is not None:
+                rings[i] = dt.DecisionRing(*out[3])
+        self.state, self.counters = self.state.replace(states), self.counters.replace(counters)
         if self.ring is not None:
-            self.ring = dt.DecisionRing(*out[3])
+            self.ring = self.ring.replace(rings)
+            self._log_events(shard.astype(np.int32))
         return hits
 
     def _pull_pressure(self) -> None:
-        """Refresh the host mirror from the device plane (writable copy)."""
-        self._pressure = self.counters.pressure.cpu().numpy().copy()
+        """Refresh the host mirror from the device plane (writable copy;
+        one read per device under a mesh)."""
+        if self.mesh is None:
+            self._pressure = self.counters.pressure.cpu().numpy().copy()
+        else:
+            self._pressure = np.concatenate(_pull([c.pressure for c in self.counters.shards]))
+
+    def _local(self, r: int) -> Tuple[Optional[int], int]:
+        """``(shard, local row)`` of core row ``r``: ``(None, r)`` unsharded."""
+        return (None, r) if self.mesh is None else self.state.locate(r)
+
+    def _part(self, tree, i: Optional[int]):
+        """The whole ``tree`` (``i`` None) or its shard ``i``."""
+        return tree if i is None else tree.shards[i]
+
+    def _put(self, i: Optional[int], *, state=None, counters=None) -> None:
+        """Replace the whole state / counters (``i`` None) or shard ``i``'s."""
+        def put(tree, new):
+            if new is None:
+                return tree
+            if i is None:
+                return new
+            return tree.replace(new if j == i else s for j, s in enumerate(tree.shards))
+
+        self.state = put(self.state, state)
+        self.counters = put(self.counters, counters)
 
     def row(self, tenant: str) -> int:
         """Core row index of ``tenant`` (raises KeyError for unknowns)."""
@@ -196,6 +299,8 @@ class TenantCacheManager:
 
     # -- access -------------------------------------------------------------
     def _resident_ids(self, state, r: int) -> set:
+        i, r = self._local(r)
+        state = self._part(state, i)
         if self.is_adaptive:
             blocks = state.blocks[r, 0]
             return set(blocks[self.core.resident_mask(state)[r, 0]].tolist())
@@ -263,10 +368,12 @@ class TenantCacheManager:
         when it sheds, so refused work doubles as probation time.  Refreshes
         the mirror and returns the new value."""
         r = self.row(tenant)
-        mask = np.zeros(self.rows, dtype=bool)
-        mask[r] = True
-        self.counters = self.counters._replace(
-            pressure=admission_decay(self.counters.pressure, mask, self.pressure_alpha))
+        i, lr = self._local(r)
+        counters = self._part(self.counters, i)
+        mask = np.zeros(counters.pressure.shape[0], dtype=bool)
+        mask[lr] = True
+        self._put(i, counters=counters._replace(
+            pressure=admission_decay(counters.pressure, mask, self.pressure_alpha)))
         self._pull_pressure()
         return float(self._pressure[r])
 
@@ -291,7 +398,8 @@ class TenantCacheManager:
         """Occupied lanes of row ``r`` in eviction order (first = evicted
         first) under the row's own policy: the flat victim rule on the
         host."""
-        st = self.state
+        i, r = self._local(r)
+        st = self._part(self.state, i)
         blocks = st.blocks[r].cpu().numpy()
         f = st.f[r].cpu().numpy().astype(np.float64)
         rr = st.r[r].cpu().numpy().astype(np.float64)
@@ -335,8 +443,6 @@ class TenantCacheManager:
             return 0, {}
         old_ways = self.core.ways
         self._mount()
-        p = self.counters.pressure
-        a, one = _f32(self.pressure_alpha, p), _f32(1.0, p)
         for t in self.tenants:
             r = self.row(t)
             new_w = self.quotas[t]
@@ -346,9 +452,12 @@ class TenantCacheManager:
             if ev:
                 evicted_by[t] = ev
                 # the reference's eager fold, op by op: (1 - a) * p + a * e
-                p = self.counters.pressure.clone()
-                p[r] = (one - a) * p[r] + a * _f32(float(len(ev)), p)
-                self.counters = self.counters._replace(pressure=p)
+                i, lr = self._local(r)
+                counters = self._part(self.counters, i)
+                p = counters.pressure.clone()
+                a, one = _f32(self.pressure_alpha, p), _f32(1.0, p)
+                p[lr] = (one - a) * p[lr] + a * _f32(float(len(ev)), p)
+                self._put(i, counters=counters._replace(pressure=p))
         self._pull_pressure()
         return moved, evicted_by
 
@@ -359,7 +468,8 @@ class TenantCacheManager:
         order = self._flat_keep_order(r)  # eviction order, worst first
         n_drop = max(len(order) - new_ways, 0)
         dropped, kept = order[:n_drop], np.sort(order[n_drop:])
-        st = self.state
+        i, r = self._local(r)
+        st = self._part(self.state, i)
         blocks, f, rr = (t[r].cpu().numpy() for t in (st.blocks, st.f, st.r))
         evicted = blocks[dropped].tolist()
         W = blocks.shape[0]
@@ -371,15 +481,16 @@ class TenantCacheManager:
         out = []
         for plane, new in zip((st.blocks, st.f, st.r), planes):
             plane = plane.clone()
-            plane[r] = torch.from_numpy(new).to(self.device)
+            plane[r] = torch.from_numpy(new).to(plane.device)
             out.append(plane)
-        self.state = st._replace(blocks=out[0], f=out[1], r=out[2])
+        self._put(i, state=st._replace(blocks=out[0], f=out[1], r=out[2]))
         return evicted
 
     # -- telemetry ----------------------------------------------------------
     def row_metrics(self) -> Dict[str, torch.Tensor]:
         """The core's per-row accounting as ``(rows,)`` tensors, not
-        pulled."""
+        pulled (under a mesh gathered on its first device, padding rows
+        included)."""
         return self.core.row_telemetry(self.state, self.counters)
 
     def row_telemetry(self) -> Dict[str, np.ndarray]:
@@ -416,7 +527,9 @@ class TenantCacheManager:
         if self.ring is None:
             raise ValueError(
                 "decision tracing is off; construct the manager with ring_capacity > 0")
-        return dt.drain(self.ring)
+        if self.mesh is None:
+            return dt.drain(self.ring)
+        return dt.drain_shards(self.ring.shards, self._ring_log, self.ring.offsets)
 
 
 @dataclasses.dataclass
@@ -462,16 +575,53 @@ class AdmissionController:
         rows = [manager.row(t) for t in tenants]
         if not rows:
             return []
+        order = (ACCEPT, DEFER, SHED)  # indexed by ADMIT_* codes
+        if manager.mesh is not None:
+            return [order[c] for c in self._decide_sharded(manager, rows)]
         fn = _decide_batch_fn(self.defer_at, self.shed_at, self.warmup,
                               manager.pressure_alpha, manager.core.rows)
         ctr = manager.counters
         codes, new_p, manager.ring = fn(ctr.pressure, ctr.hits + ctr.misses, rows,
                                         manager.ring)
         manager.counters = ctr._replace(pressure=new_p)
-        order = (ACCEPT, DEFER, SHED)  # indexed by ADMIT_* codes
         decisions = [order[c] for c in codes.tolist()]
         manager._pull_pressure()
         return decisions
+
+    def _decide_sharded(self, manager: TenantCacheManager, rows: List[int]) -> List[int]:
+        """``decide_batch`` on a sharded manager: each shard's requests, in
+        order and on local rows, through the same loop on its device and
+        stream (a request's decay touches its own row only); the codes in
+        request order, with one pull per device."""
+        mesh = manager.mesh
+        where = [manager.state.locate(r) for r in rows]
+        shard = np.array([i for i, _ in where], dtype=np.int32)
+        fn = _decide_batch_fn(self.defer_at, self.shed_at, self.warmup,
+                              manager.pressure_alpha, manager._core_rows // mesh.size)
+        rings = (manager.ring.shards if manager.ring is not None else (None,) * mesh.size)
+
+        def run(i, ctr, ring):
+            local = [lr for j, lr in where if j == i]
+            if not local:
+                return None
+            return fn(ctr.pressure, ctr.hits + ctr.misses, local, ring)
+
+        outs = sharding.run_shards(mesh, run, manager.counters.shards, rings)
+        counters, new_rings, codes = [], [], [None] * len(rows)
+        for i, out in enumerate(outs):
+            ctr = manager.counters.shards[i]
+            counters.append(ctr if out is None else ctr._replace(pressure=out[1]))
+            new_rings.append(rings[i] if out is None else out[2])
+        manager.counters = manager.counters.replace(counters)
+        if manager.ring is not None:
+            manager.ring = manager.ring.replace(new_rings)
+            manager._log_events(shard)
+        pulled = _pull([out[0] for out in outs if out is not None])
+        for i, got in zip([i for i, out in enumerate(outs) if out is not None], pulled):
+            for slot, code in zip(np.flatnonzero(shard == i), got.tolist()):
+                codes[slot] = code
+        manager._pull_pressure()
+        return codes
 
 
 @functools.lru_cache(maxsize=None)

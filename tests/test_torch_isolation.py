@@ -134,7 +134,8 @@ def test_port_files_cover_the_sweep_slice():
     for mod in ("core/traces.py", "core/policies.py", "core/simulator.py",
                 "core/policy_core.py", "core/torch_policies.py",
                 "kernels/awrp_select.py", "kernels/flash_attn.py",
-                "configs/gemma3_27b.py", "serve/tenancy.py", "kernels/sweep.py"):
+                "configs/gemma3_27b.py", "serve/tenancy.py", "kernels/sweep.py",
+                "core/sharding.py"):
         assert mod in names, mod
         assert "repro_torch." + mod[:-3].replace("/", ".") in PORT_MODULES
 
@@ -144,6 +145,22 @@ def test_simulate_trace_batched_defaults_to_cuda(no_cuda):
 
     with pytest.raises(RuntimeError, match="cuda"):
         simulate_trace_batched([1, 2, 1], ["awrp"], [2])
+
+
+def test_rows_mesh_defaults_to_cuda(no_cuda):
+    from repro_torch.core import sharding
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        sharding.rows_mesh()
+    with pytest.raises(RuntimeError, match="cuda"):
+        sharding.rows_mesh(devices=("cuda:0",) * 2)
+
+
+def test_loop_planes_defaults_to_cuda(no_cuda):
+    from repro_torch.obs.metrics import loop_planes
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        loop_planes()
 
 
 def test_sweep_engine_defaults_to_cuda(no_cuda):
