@@ -109,6 +109,16 @@ side:
    equal to an uninterrupted run, and a checkpoint round trip of the card's
    trained state, its parameters cast to bf16, bit for
    bit.
+3c'. ``train_mesh``: the placed train step (``make_train_step(mesh=)``:
+   DTensor parameters placed by the logical-axis rules, the model on
+   DTensors, kernel 6 and its backward on the local heads under
+   ``local_map``) on smollm-360m as ``train`` runs it, in a world of one
+   NCCL rank on a (1, 1) ("data", "model") mesh: 2 placed steps against 2
+   plain steps from the same initial state, parameters, master, m, v and
+   losses bit for bit, kernel 6 and backward launches equal; ms a step,
+   tokens/s and peak GB beside ``train``'s.  Two gloo ranks sharing the
+   card are not run (the functional collectives' all-gather faults on a
+   gloo group with CUDA tensors); the CPU tests hold the multi-rank meshes.
 3d. ``train_families``: the other families' training at published widths
    (bf16 parameters, the config's optimizer rule, remat full, its
    microbatches), one warm-up and 2 timed steps each, with wall and event
@@ -334,6 +344,7 @@ timings on this card.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -1552,6 +1563,142 @@ def phase_train(dev, cfg=CONFIG, batch: int = TRAIN_BATCH,
     del cpu, card, card2
     gc.collect()
     torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_phase
+    emit(res)
+    return res
+
+
+#: train_mesh: the placed step's steps, from the same state as the plain ones
+TRAIN_MESH_STEPS = 2
+
+
+@contextlib.contextmanager
+def _world_of_one(backend: str, store: Path):
+    """A ``torch.distributed`` world of one rank, started through a file
+    store."""
+    import torch.distributed as dist
+
+    dist.init_process_group(backend, init_method=f"file://{store}", rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _full_state(params, opt) -> dict:
+    """{path: full tensor} of parameters and optimizer state (DTensor leaves
+    gathered)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.optim import optimizer as O
+
+    out = {}
+    for prefix, tree in (("params", params), ("m", opt.m), ("v", opt.v),
+                         ("master", opt.master)):
+        for name, t in zip(leaf_names(tree), O.tree_leaves(tree)):
+            out[f"{prefix}/{name}"] = t.full_tensor() if isinstance(t, DTensor) else t
+    out["step"] = opt.step
+    return out
+
+
+def _mesh_steps(params, oc, step, batches, dev) -> dict:
+    """Run ``step`` over ``batches`` from ``params`` (its optimizer state
+    fresh): per step wall / event ms, peak GB, loss, grad norm and kernel 6 /
+    backward launches; the final full state."""
+    from repro_torch.launch.train import batch_to
+    from repro_torch.optim import optimizer as O
+
+    opt = O.init_opt_state(params, oc)
+    rows = []
+    for b in batches:
+        b = batch_to(b, dev)
+        launched = {k: ops.LAUNCHES[k] for k in ("flash_attention", "flash_attention_bwd")}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        ev0.record()
+        params, opt, m = step(params, opt, b)
+        ev1.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rows.append({"wall_ms": wall * 1e3, "event_ms": ev0.elapsed_time(ev1),
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(),
+                     "launches": {k: ops.LAUNCHES[k] - v for k, v in launched.items()}})
+    return {"steps": rows, "state": _full_state(params, opt)}
+
+
+def phase_train_mesh(dev, tr: dict) -> dict:
+    """The placed train step (``train_step.make_train_step(mesh=...)``):
+    smollm-360m as ``train`` runs it (published width, bf16 parameters, f32
+    master and Adam, remat, 2 microbatches of SyntheticLM seed 0 at 4096
+    tokens, ``train``'s global batch) in a world of one NCCL rank on a (1,
+    1) mesh (DTensor parameters drawn by ``init_params(mesh=...)`` as the
+    launcher draws them, the model on DTensors, kernel 6 and its backward
+    under ``local_map``): TRAIN_MESH_STEPS placed steps against as many
+    plain steps from the same seed, parameters, master, m, v
+    and losses bit for bit, kernel 6 and backward launches equal; wall /
+    event ms a step, tokens/s and peak GB beside ``train``'s.  Two gloo
+    ranks sharing the card are not run: DTensor's redistribute goes through
+    the functional collectives, whose all-gather faults (SIGSEGV) on a gloo
+    group with CUDA tensors (torch 2.11); the CPU tests hold the multi-rank
+    meshes."""
+    import tempfile
+
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch.inputs import params_shardings
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.sharding.specs import make_rules
+    from repro_torch.train.train_step import effective_microbatches, make_train_step
+
+    t_phase = time.perf_counter()
+    cfg, batch, seq = CONFIG, TRAIN_BATCH, SHAPES["train_4k"].seq_len
+    oc, plain_step, data = _train_setup(cfg, batch, seq, TRAIN_MESH_STEPS)
+    batches = [next(data) for _ in range(TRAIN_MESH_STEPS)]
+    n_micro = effective_microbatches(cfg, batch, 1)
+    p0 = M.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    plain = _mesh_steps(tree_map(lambda t: t.clone(), p0), oc, plain_step, batches, dev)
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=root) as tmp, \
+            _world_of_one("nccl", Path(tmp) / "store"):
+        mesh = make_mesh((1, 1), device_type="cuda")
+        rules = make_rules(moe_sharding=cfg.moe_sharding)
+        del p0  # the placed state is drawn as the launcher draws it
+        params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev,
+                               mesh=mesh, shardings=params_shardings(cfg, mesh, rules))
+        step = make_train_step(cfg, oc, n_micro, mesh=mesh, rules=rules)
+        ops.reset_launches()  # the placed path's run
+        placed = _mesh_steps(params, oc, step, batches, dev)
+        launches = {k: ops.LAUNCHES[k] for k in ("flash_attention", "flash_attention_bwd")}
+        del params
+    same = {k: torch.equal(v, plain["state"][k]) for k, v in placed["state"].items()}
+    keys = ("wall_ms", "event_ms", "peak_gb", "loss", "grad_norm", "launches")
+    res = {"phase": "train_mesh", "card": smi(), "config": cfg.name, "seq": seq,
+           "reduced": {"global_batch": [SHAPES["train_4k"].global_batch, batch]},
+           "mesh": [1, 1], "backend": "nccl", "world": 1, "n_micro": n_micro,
+           "launches": launches,
+           "steps": [{k: r[k] for k in keys} for r in placed["steps"]],
+           "plain_steps": [{k: r[k] for k in keys} for r in plain["steps"]],
+           "tokens_per_s": [batch * seq / r["wall_ms"] * 1e3 for r in placed["steps"]],
+           "plain_tokens_per_s": [batch * seq / r["wall_ms"] * 1e3 for r in plain["steps"]],
+           "train_wall_ms_per_step": tr["wall_ms_per_step"],
+           "train_tokens_per_s": tr["tokens_per_s"], "train_peak_gb": tr["peak_gb"],
+           "leaves_equal_bitwise": sum(same.values()), "leaves": len(same),
+           "losses_equal": [r["loss"] for r in placed["steps"]]
+           == [r["loss"] for r in plain["steps"]],
+           "two_ranks_on_the_card": "not run: the functional collectives' all-gather "
+                                    "faults on a gloo group with CUDA tensors"}
+    del plain, placed
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert all(same.values()), [k for k, v in same.items() if not v][:8]
+    assert res["losses_equal"], res
+    assert all(r["launches"] == p["launches"]
+               for r, p in zip(res["steps"], res["plain_steps"])), res
+    assert all(v > 0 for v in launches.values()), launches
     res["seconds"] = time.perf_counter() - t_phase
     emit(res)
     return res
@@ -5113,6 +5260,7 @@ def _phases(dev, t_start: float) -> int:
     fl_draws = flash_gate_draws(dev, FLASH_DRAWS)
     fb = phase_flash_bwd(dev)
     tr = phase_train(dev)
+    trm = phase_train_mesh(dev, tr)
     trf = phase_train_families(dev)
     params, init_s = serve_params(dev)
     srv = phase_serve(dev, params, init_s)
@@ -5247,6 +5395,9 @@ def _phases(dev, t_start: float) -> int:
         # recompute, per microbatch, with lse on; likewise the other
         # families' cells (whisper's encoder, decoder self and cross)
         "launches_train": tr["launches"]["flash_attention"],
+        # the placed step on a (1, 1) mesh, each rank's local heads under
+        # local_map: as many as the plain step's
+        "launches_train_mesh": trm["launches"]["flash_attention"],
         "launches_train_families": trf["launches"]["flash_attention"],
         "smollm_train": {k: fb["cases"][0][k] for k in (
             "fwd_ms", "fwd_lse_ms", "fwd_plain_ms", "fwd_library_ms")},
@@ -5260,6 +5411,7 @@ def _phases(dev, t_start: float) -> int:
     kernels.append({
         "name": "flash_attention_bwd", "route": "cuda", "source": source,
         "replaces": replaces, "launches": tr["launches"]["flash_attention_bwd"],
+        "launches_train_mesh": trm["launches"]["flash_attention_bwd"],
         "launches_train_families": trf["launches"]["flash_attention_bwd"],
         "max_abs_err": max(c["max_abs_err"] for c in fb["cases"]),
         **{k: bwd_main[k] for k in timed_keys}, "shape": bwd_main["shape"],

@@ -88,6 +88,7 @@ class ModelConfig:
     n_experts: int = 0
     top_k: int = 0
     capacity_factor: float = 1.25
+    moe_sharding: str = "tp"  # tp | ep: the experts' "model" split (sharding/specs.py)
     # SSM (mamba2)
     ssm_state: int = 0
     ssm_head_dim: int = 64

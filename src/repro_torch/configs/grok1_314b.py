@@ -1,7 +1,7 @@
 """grok-1-314b [moe] — 8 experts, top-2. [hf:xai-org/grok-1; unverified]
 
-The reference's config also sets its sharding and decode weight layout;
-the port runs on one card and carries neither.
+The reference's config also sets its decode weight layout, which the
+port does not carry; its expert sharding (``moe_sharding="tp"``) it does.
 Its weights exceed one card: ``launch.serve`` refuses the full config, and
 the smoke config is the GELU-expert case of the CPU parity tests.
 """

@@ -1,8 +1,8 @@
 """phi3.5-moe-42b-a6.6b [moe] — 16 experts, top-2.
 [hf:microsoft/Phi-3.5-MoE-instruct; hf]
 
-The reference's config also picks its expert sharding (EP); the port
-runs on one card and carries no sharding fields.
+Its experts shard over the "model" axis (``moe_sharding="ep"``), as the
+reference's.
 """
 
 import dataclasses
@@ -23,6 +23,7 @@ CONFIG = ModelConfig(
     top_k=2,
     microbatches=16,
     capacity_factor=1.0,
+    moe_sharding="ep",
     run_shapes=("train_4k", "prefill_32k", "decode_32k"),
     skip_reasons={"long_500k": "pure full-attention arch (DESIGN.md §5)"},
 )

@@ -14,29 +14,44 @@ plain versions on the CPU.
 One deviation from the reference: under ``--preset full``, ``--batch`` and
 ``--seq`` override ``train_4k``'s shape when they are given.  ``train_4k``'s
 global batch of 256 x 4096 does not fit one card (smollm's f32 logits alone
-would be ~100 GB a microbatch).  ``--mesh`` takes only ``none``: the mesh
-belongs to the multi-device slice, not ported yet.  The dense, moe, ssm and
+would be ~100 GB a microbatch).  The dense, moe, ssm and
 hybrid families train on ``SyntheticLM``, as in the reference.  The
 enc-dec and VLM families need ``frames`` / ``patches``, which
 ``SyntheticLM`` does not yield (the reference's launcher fails on them for
 want of those keys): the launcher raises a ``ValueError`` for them, and
 ``models.model.loss_fn`` trains them on batches that carry the key.
+
+``--mesh single`` / ``--mesh multi`` train on the reference's production
+mesh, (16, 16) over ("data", "model") or (2, 16, 16) with "pod"
+(``launch/mesh.py``), one rank per device: start one process per rank with
+``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT`` set (and
+``LOCAL_RANK`` for the card), e.g. under ``torchrun``.  Each rank draws
+the same parameters from seed 0 and keeps only its slice of each matrix
+(``models.model.init_params`` with ``params_shardings``), and the train
+step runs placed (``train_step.make_train_step(mesh=...)``) under
+``activate``.  With fewer
+ranks than the mesh needs it raises the mesh's ``RuntimeError``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import os
 import tempfile
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ARCH_IDS, SHAPES, load_config, load_smoke_config
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.device import resolve_device
+from repro_torch.launch.inputs import params_shardings
+from repro_torch.launch.mesh import batch_shards, make_production_mesh
 from repro_torch.models import model as M
 from repro_torch.optim import optimizer as O
+from repro_torch.sharding.specs import activate, make_rules
 from repro_torch.train import fault_tolerance as FT
 from repro_torch.train.train_step import effective_microbatches, make_train_step
 
@@ -84,9 +99,6 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.mesh != "none":
-        raise ValueError(f"--mesh {args.mesh}: meshes belong to the multi-device slice, "
-                         "which is not ported; use --mesh none")
     key = STUB_INPUTS.get(load_config(args.arch).family)
     if key is not None:
         raise ValueError(f"--arch {args.arch}: its batches need {key!r}, and SyntheticLM "
@@ -105,13 +117,23 @@ def main(argv=None):
         seq = 256 if args.seq is None else args.seq
 
     oc = default_opt_config(cfg, args.steps, args.lr)
-    n_micro = effective_microbatches(cfg, batch, 1)
-    train_step = make_train_step(cfg, oc, n_micro)
+    mesh = rules = None
+    shards = 1
+    if args.mesh != "none":
+        device = _start_world(device)
+        mesh = make_production_mesh(multi_pod=args.mesh == "multi",
+                                    device_type=device.type)
+        rules = make_rules(multi_pod=args.mesh == "multi", moe_sharding=cfg.moe_sharding)
+        shards = batch_shards(mesh)
+    n_micro = effective_microbatches(cfg, batch, shards)
+    train_step = make_train_step(cfg, oc, n_micro, mesh=mesh, rules=rules)
     data = SyntheticLM(cfg.vocab, batch, seq)
 
     def init_fn():
+        placed = {} if mesh is None else {
+            "mesh": mesh, "shardings": params_shardings(cfg, mesh, rules)}
         params = M.init_params(cfg, torch.Generator(device=device).manual_seed(0),
-                               device=device)
+                               device=device, **placed)
         return params, O.init_opt_state(params, oc)
 
     def step_fn(params, opt_state, np_batch):
@@ -123,15 +145,30 @@ def main(argv=None):
                   f"gnorm {metrics['grad_norm']:.3f} lr {metrics['lr']:.2e}",
                   flush=True)
 
-    report = FT.run_resilient(
-        ckpt_dir=args.ckpt_dir, total_steps=args.steps, init_fn=init_fn,
-        step_fn=step_fn, data_iter=data, ckpt_every=args.ckpt_every,
-        on_metrics=log,
-    )
+    with activate(mesh, rules) if mesh is not None else contextlib.nullcontext():
+        report = FT.run_resilient(
+            ckpt_dir=args.ckpt_dir, total_steps=args.steps, init_fn=init_fn,
+            step_fn=step_fn, data_iter=data, ckpt_every=args.ckpt_every,
+            on_metrics=log,
+        )
     print(f"done: {report.steps_done} steps, {report.restarts} restarts, "
           f"{len(report.stragglers)} straggler steps, "
           f"final loss {report.final_metrics.get('loss'):.4f}")
     return report
+
+
+def _start_world(device: torch.device) -> torch.device:
+    """Start the process group from the environment (``WORLD_SIZE`` and the
+    rest, as ``torchrun`` sets them) unless one is started or the
+    environment names none; returns this rank's device (``LOCAL_RANK``'s
+    card under CUDA)."""
+    if device.type == "cuda" and "LOCAL_RANK" in os.environ:
+        device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+        torch.cuda.set_device(device)
+    if not dist.is_initialized() and "WORLD_SIZE" in os.environ:
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                                init_method="env://")
+    return device
 
 
 if __name__ == "__main__":

@@ -28,7 +28,14 @@ Conventions, as in the reference:
     ``mamba2_decode_step``) is the reference's chunked SSD scan and its
     O(1) recurrent step in torch ops, as the reference leaves them to XLA
     (no Pallas kernel there): the chunk recurrence and the decode state in
-    f32, the causal depthwise conv tap by tap in the activation dtype.
+    f32, the causal depthwise conv tap by tap in the activation dtype;
+  * every hot intermediate is constrained with ``logical_shard`` where the
+    reference constrains it (an identity off a mesh).  On a mesh (the
+    placed train step, ``train/train_step.py``) the layers run on DTensors:
+    kernel 6 on each shard's local heads under ``local_map`` (``_flash``),
+    heads replicated where the kv heads do not divide "model"
+    (``_head_feat``), the MoE routing, dispatch and combine whole on every
+    shard (``_replicated``).
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.sharding.specs import logical_shard, shards_of
 
 Params = Dict[str, Any]
 
@@ -85,13 +93,25 @@ def sinusoidal_positions(positions: torch.Tensor, d: int) -> torch.Tensor:
 def mlp(params: Params, x: torch.Tensor, act: str) -> torch.Tensor:
     """Feed-forward: SwiGLU, or GELU in its tanh form (``jax.nn.gelu``'s
     default; torch's default is the exact erf form)."""
+    feat = ("act_batch", "act_seq", "act_feat")
     if act == "swiglu":
-        h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+        h = F.silu(logical_shard(x @ params["w_gate"], *feat)) * logical_shard(
+            x @ params["w_up"], *feat)
     elif act == "gelu":
-        h = F.gelu(x @ params["w_up"], approximate="tanh")
+        h = F.gelu(logical_shard(x @ params["w_up"], *feat), approximate="tanh")
     else:
         raise ValueError(f"unknown act {act!r}")
-    return h @ params["w_down"]
+    return logical_shard(h @ params["w_down"], "act_batch", "act_res_seq", "act_embed")
+
+
+def _head_feat(cfg) -> Optional[str]:
+    """The logical name of a flattened per-head feature dim: ``"act_feat"``
+    where the kv heads divide its shards, so each shard holds whole kv heads
+    and their query groups; otherwise None (replicated).  GSPMD pads an
+    uneven split; DTensor cannot view a flattened ``heads * hd`` dim split
+    off a head boundary, so those heads are computed whole on every shard
+    (smollm: 5 kv heads at full width, 1 at its smoke config)."""
+    return "act_feat" if cfg.n_kv_heads % shards_of("act_feat") == 0 else None
 
 
 def _project_qkv(params: Params, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, ...]:
@@ -100,6 +120,8 @@ def _project_qkv(params: Params, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, ..
     q, k, v = x @ params["wq"], x @ params["wk"], x @ params["wv"]
     if cfg.qkv_bias:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+    names = ("act_batch", "act_seq", _head_feat(cfg))
+    q, k, v = (logical_shard(t, *names) for t in (q, k, v))
     return (q.reshape(B, S, KVH, H // KVH, hd), k.reshape(B, S, KVH, hd),
             v.reshape(B, S, KVH, hd))
 
@@ -126,15 +148,43 @@ def attention(params: Params, x: torch.Tensor, cfg, *, causal: bool = True,
         q = x @ params["wq"]
         if cfg.qkv_bias:
             q = q + params["bq"]
+        q = logical_shard(q, "act_batch", "act_seq", _head_feat(cfg))
         q = q.reshape(B, S, KVH, H // KVH, hd)
         k, v = kv_override
     if use_rope and kv_override is None:
         pos2 = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
         q = rope(q.reshape(B, S, H, hd), pos2, cfg.rope_theta).reshape(B, S, KVH, H // KVH, hd)
         k = rope(k, pos2, cfg.rope_theta)
-    out = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                              causal=causal, window=window)
-    return out.reshape(B, S, H * hd) @ params["wo"], (k, v)
+    out = _flash(q.contiguous(), k.contiguous(), v.contiguous(), causal, window)
+    out = logical_shard(out.reshape(B, S, H * hd), "act_batch", "act_seq", "act_feat")
+    proj = logical_shard(out @ params["wo"], "act_batch", "act_res_seq", "act_embed")
+    return proj, (k, v)
+
+
+def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+           window: int) -> torch.Tensor:
+    """Kernel 6 (``ops.flash_attention``).  On DTensors it runs under
+    ``local_map``: each shard's local heads (q's kv-head dim 2, or its batch
+    dim 0) go to the kernel as plain contiguous tensors, k and v placed as
+    q; the output keeps q's placements.  Any other placement raises."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    if not isinstance(q, DTensor):
+        return ops.flash_attention(q, k, v, causal=causal, window=window)
+    mesh = q.device_mesh
+    # a mesh dim of size 1 holds the whole tensor whatever its placement
+    pl = tuple(Replicate() if mesh.size(i) == 1 else p for i, p in enumerate(q.placements))
+    if any(not (isinstance(p, Replicate) or p in (Shard(0), Shard(2))) for p in pl):
+        raise ValueError(f"flash attention: q placed {pl}; heads (dim 2) or batch "
+                         "(dim 0) shards only")
+    q, k, v = (t.redistribute(mesh, pl) for t in (q, k, v))
+    fn = local_map(lambda a, b, c: ops.flash_attention(a.contiguous(), b.contiguous(),
+                                                       c.contiguous(), causal=causal,
+                                                       window=window),
+                   out_placements=list(pl), in_placements=(list(pl),) * 3,
+                   device_mesh=mesh)
+    return fn(q, k, v)
 
 
 def _positions(position: torch.Tensor, B: int) -> torch.Tensor:
@@ -177,7 +227,9 @@ def decode_q(params: Params, x: torch.Tensor, cfg, *, position: torch.Tensor,
 def decode_project_out(params: Params, out: torch.Tensor, cfg) -> torch.Tensor:
     """The output half of ``decode_attend``: (B, KVH, G, hd) -> (B, 1, D)."""
     B = out.shape[0]
-    return out.reshape(B, 1, cfg.n_heads * cfg.head_dim) @ params["wo"]
+    out = logical_shard(out.reshape(B, 1, cfg.n_heads * cfg.head_dim), "act_batch",
+                        "act_seq", "act_feat")
+    return out @ params["wo"]
 
 
 def decode_attend(params: Params, x: torch.Tensor, cfg, *, position: torch.Tensor,
@@ -192,15 +244,18 @@ def decode_attend(params: Params, x: torch.Tensor, cfg, *, position: torch.Tenso
     H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = decode_q(params, x, cfg, position=position,
                  use_rope=use_rope)[:, None]  # (B, 1, KVH, G, hd)
-    kc = k_cache.reshape(B, -1, KVH, hd)
-    vc = v_cache.reshape(B, -1, KVH, hd)
+    kc = logical_shard(k_cache.reshape(B, -1, KVH, hd), "act_batch", "act_pages",
+                       "act_kv_heads", None)
+    vc = logical_shard(v_cache.reshape(B, -1, KVH, hd), "act_batch", "act_pages",
+                       "act_kv_heads", None)
     s = torch.einsum("bqkgh,btkh->bkgqt", q, kc).to(torch.float32)
     s = s * (1.0 / math.sqrt(hd))
     valid = (kv_positions >= 0)[:, None, None, None, :]
     s = torch.where(valid, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqt,btkh->bqkgh", p.to(vc.dtype), vc)
-    proj = out.reshape(B, 1, H * hd) @ params["wo"]
+    out = logical_shard(out.reshape(B, 1, H * hd), "act_batch", "act_seq", "act_feat")
+    proj = out @ params["wo"]
     return proj, p.sum(dim=(1, 2, 3))
 
 
@@ -261,39 +316,95 @@ def moe(params: Params, x: torch.Tensor, cfg) -> torch.Tensor:
     zero rows for the dropped ones onto rank C - 1: the same values).  The
     combine adds each token's contributions onto zero, which rounds once
     whatever the order for K <= 2, so it equals the reference's scatter-add;
-    a larger K is refused."""
+    a larger K is refused.
+
+    On a mesh the expert products run on DTensors (experts or their d_ff
+    over "model", ``moe_sharding``); the routing, the dispatch and the
+    combine read across a sequence's tokens and experts, so they run whole
+    on every shard (``_replicated``), each from the same router logits."""
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
     if not 1 <= K <= 2:
         raise NotImplementedError(f"moe: the combine is exact for top_k <= 2, got {K}")
     C = moe_capacity(S, cfg)
     logits = torch.einsum("bsd,de->bse", x, params["w_router"]).to(torch.float32)
-    r = route(logits, K, C)
+    r = Routing(*_replicated(lambda lg: route(lg, K, C), logits,
+                             n_out=len(Routing._fields)))
+    pairs = (r.order, r.sorted_e, r.rank, r.keep)
+    buf = _replicated(_dispatch, x, *pairs, top_k=K, n_experts=E, capacity=C)
+    buf = logical_shard(buf, "act_batch", "act_experts", None, "act_embed")
 
-    b = torch.arange(B, device=x.device)[:, None]
-    src_token = r.order // K  # (B, S*K) indices into S
-    # kept pairs to their (expert, rank) slot; dropped ones to one spare row
-    # past the buffer, so no pair needs a host-side mask
-    slot = torch.where(r.keep, (b * E + r.sorted_e) * C + r.rank, B * E * C)
-    buf = torch.zeros((B * E * C + 1, D), dtype=x.dtype, device=x.device)
-    buf[slot.reshape(-1)] = x[b, src_token].reshape(-1, D)
-    buf = buf[:-1].view(B, E, C, D)
-
+    ff = ("act_batch", "act_experts", None, "act_expert_ff")
     if cfg.act == "swiglu":
-        h = F.silu(torch.einsum("becd,edf->becf", buf, params["w_gate"]))
-        h = h * torch.einsum("becd,edf->becf", buf, params["w_up"])
+        h = F.silu(logical_shard(torch.einsum("becd,edf->becf", buf, params["w_gate"]), *ff))
+        h = h * logical_shard(torch.einsum("becd,edf->becf", buf, params["w_up"]), *ff)
     elif cfg.act == "gelu":
-        h = F.gelu(torch.einsum("becd,edf->becf", buf, params["w_up"]),
+        h = F.gelu(logical_shard(torch.einsum("becd,edf->becf", buf, params["w_up"]), *ff),
                    approximate="tanh")
     else:
         raise ValueError(f"unknown act {cfg.act!r}")
-    eout = torch.einsum("becf,efd->becd", h, params["w_down"]).reshape(-1, D)
+    eout = torch.einsum("becf,efd->becd", h, params["w_down"])
+    eout = logical_shard(eout, "act_batch", "act_experts", None, "act_embed")
+    out = _replicated(_combine, eout, r.gate, *pairs, top_k=K, dtype=x.dtype)
+    return logical_shard(out, "act_batch", "act_res_seq", "act_embed")
 
-    w = torch.gather(r.gate.reshape(B, S * K), 1, r.order)
-    rows = eout[torch.where(r.keep, slot, 0).reshape(-1)] * w.reshape(-1, 1).to(x.dtype)
-    rows = torch.where(r.keep.reshape(-1, 1), rows, 0)
+
+def _replicated(fn, *tensors: torch.Tensor, n_out: int = 1, **kw):
+    """``fn(*tensors, **kw)``, which returns one tensor or, with ``n_out`` >
+    1, a tuple of that many.  On DTensors each input is made whole
+    (``Replicate()`` on every mesh dim) and ``fn`` runs on the local copies
+    under ``local_map``, its outputs replicated, the gradient flowing back
+    through them."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(tensors[0], DTensor):
+        return fn(*tensors, **kw)
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = tensors[0].device_mesh
+    rep = [Replicate()] * mesh.ndim
+    whole = [t.redistribute(mesh, rep) for t in tensors]
+    return local_map(lambda *ts: fn(*ts, **kw),
+                     out_placements=rep if n_out == 1 else (rep,) * n_out,
+                     in_placements=(rep,) * len(whole), device_mesh=mesh)(*whole)
+
+
+def _slots(order, sorted_e, rank, keep, n_experts: int, capacity: int) -> torch.Tensor:
+    """Each sorted pair's row of the flat (B*E*C + 1, D) buffer: kept pairs
+    at their (expert, rank) slot, dropped ones at the spare last row, so no
+    pair needs a host-side mask."""
+    B, E, C = order.shape[0], n_experts, capacity
+    b = torch.arange(B, device=order.device)[:, None]
+    return torch.where(keep, (b * E + sorted_e) * C + rank, B * E * C)
+
+
+def _dispatch(x: torch.Tensor, order, sorted_e, rank, keep, *, top_k: int,
+              n_experts: int, capacity: int) -> torch.Tensor:
+    """The (B, E, C, D) expert buffer of x's kept token-expert pairs (the
+    ``Routing`` fields in its sorted pair order)."""
+    B, S, D = x.shape
+    E, C = n_experts, capacity
+    b = torch.arange(B, device=x.device)[:, None]
+    buf = torch.zeros((B * E * C + 1, D), dtype=x.dtype, device=x.device)
+    buf[_slots(order, sorted_e, rank, keep, E, C).reshape(-1)] = \
+        x[b, order // top_k].reshape(-1, D)
+    return buf[:-1].view(B, E, C, D)
+
+
+def _combine(eout: torch.Tensor, gate, order, sorted_e, rank, keep, *, top_k: int,
+             dtype: torch.dtype) -> torch.Tensor:
+    """Each token's output from the experts' (B, E, C, D) rows: the sum of
+    its kept pairs' rows times their gates, the gates cast to ``dtype``
+    (the activations')."""
+    B, E, C, D = eout.shape
+    S, K = gate.shape[1], top_k
+    slot = _slots(order, sorted_e, rank, keep, E, C)
+    b = torch.arange(B, device=eout.device)[:, None]
+    w = torch.gather(gate.reshape(B, S * K), 1, order)
+    rows = eout.reshape(-1, D)[torch.where(keep, slot, 0).reshape(-1)] * w.reshape(-1, 1).to(dtype)
+    rows = torch.where(keep.reshape(-1, 1), rows, 0)
     # back to pair order (s * K + k), then each token's K contributions
-    contrib = torch.empty_like(rows).index_copy_(0, (b * S * K + r.order).reshape(-1), rows)
+    contrib = torch.empty_like(rows).index_copy_(0, (b * S * K + order).reshape(-1), rows)
     contrib = contrib.view(B, S, K, D)
     return contrib[:, :, 0] if K == 1 else contrib[:, :, 0] + contrib[:, :, 1]
 
@@ -405,7 +516,8 @@ def mamba2_block(params: Params, x: torch.Tensor, cfg, *,
     B, S, _ = x.shape
     d_in, H, P, N = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     conv_ch = d_in + 2 * N
-    z, xBC, dt = _split_zxbcdt(cfg, x @ params["w_in"])
+    z, xBC, dt = _split_zxbcdt(cfg, logical_shard(x @ params["w_in"], "act_batch",
+                                                   "act_seq", "act_feat"))
 
     if initial_conv is None:
         initial_conv = torch.zeros((B, cfg.d_conv - 1, conv_ch), dtype=x.dtype,
@@ -426,7 +538,8 @@ def mamba2_block(params: Params, x: torch.Tensor, cfg, *,
     y = y + xs.reshape(B, S, H, P) * params["d_skip"].to(x.dtype)[:, None]
     y = y.reshape(B, S, d_in)
     y = rmsnorm(y * F.silu(z), params["norm_scale"], cfg.norm_eps)
-    return y @ params["w_out"], final_state, conv_tail
+    out = logical_shard(y @ params["w_out"], "act_batch", "act_res_seq", "act_embed")
+    return out, final_state, conv_tail
 
 
 def mamba2_decode_step(params: Params, x: torch.Tensor, cfg, *, state: torch.Tensor,

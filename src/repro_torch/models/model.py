@@ -42,7 +42,12 @@ patches), or for the encoder-decoder its encoder and decoder blocks; each
 repeat of the unit, and each encoder and decoder layer, under
 ``torch.utils.checkpoint`` when ``cfg.remat == "full"`` (the reference's
 ``jax.checkpoint`` of its scan bodies), the stacked parameters unbound once
-per call so that their gradients are stacked once.
+per call so that their gradients are stacked once.  Each declaration
+carries the reference's logical axes (``param_logical_axes``: the placed
+train step's layout, ``launch/inputs.py``); ``abstract_params`` gives the
+tree on the ``meta`` device.  The embedding, the residual stream and the
+logits are constrained with ``logical_shard`` where the reference
+constrains them.
 
 Decode caches are ``{"pos": pos, "blocks": {position: cache}}``, ``pos``
 the next token's index as a 0-d int32 tensor on the caches' device (the
@@ -66,8 +71,9 @@ rebuilt from the layers' new ones (``_restack``).
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
-from typing import Any, Dict, List, NamedTuple, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -77,6 +83,8 @@ from repro_torch.cache import paged_kv
 from repro_torch.core.policy_core import AdaptiveState
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.sharding.shards import cut, from_piece, local_box
+from repro_torch.sharding.specs import logical_shard
 
 Params = Dict[str, Any]
 
@@ -109,6 +117,7 @@ def torch_dtype(name: str) -> torch.dtype:
 @dataclasses.dataclass(frozen=True)
 class Decl:
     shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]  # logical axis names (sharding/specs.py)
     init: str = "normal"  # normal | zeros | ones | a_log | dt_bias
     scale: float = 0.02
 
@@ -116,34 +125,36 @@ class Decl:
 def _attn_decls(cfg) -> Dict[str, Decl]:
     d, qk, kv = cfg.d_model, cfg.qk_dim, cfg.kv_dim
     out = {
-        "wq": Decl((d, qk)),
-        "wk": Decl((d, kv)),
-        "wv": Decl((d, kv)),
-        "wo": Decl((qk, d)),
-        "ln1": Decl((d,), "zeros"),
-        "ln2": Decl((d,), "zeros"),
+        "wq": Decl((d, qk), ("p_embed", "p_feat")),
+        "wk": Decl((d, kv), ("p_embed", "p_feat")),
+        "wv": Decl((d, kv), ("p_embed", "p_feat")),
+        "wo": Decl((qk, d), ("p_feat", "p_embed")),
+        "ln1": Decl((d,), ("p_noshard",), "zeros"),
+        "ln2": Decl((d,), ("p_noshard",), "zeros"),
     }
     if cfg.qkv_bias:  # in the param dtype, zeros at init, as the reference
-        out["bq"] = Decl((qk,), "zeros")
-        out["bk"] = Decl((kv,), "zeros")
-        out["bv"] = Decl((kv,), "zeros")
+        out["bq"] = Decl((qk,), ("p_feat",), "zeros")
+        out["bk"] = Decl((kv,), ("p_feat",), "zeros")
+        out["bv"] = Decl((kv,), ("p_feat",), "zeros")
     return out
 
 
 def _mlp_decls(cfg) -> Dict[str, Decl]:
     d, ff = cfg.d_model, cfg.d_ff
-    out = {"w_up": Decl((d, ff)), "w_down": Decl((ff, d))}
+    out = {"w_up": Decl((d, ff), ("p_embed", "p_feat")),
+           "w_down": Decl((ff, d), ("p_feat", "p_embed"))}
     if cfg.act == "swiglu":
-        out["w_gate"] = Decl((d, ff))
+        out["w_gate"] = Decl((d, ff), ("p_embed", "p_feat"))
     return out
 
 
 def _moe_decls(cfg) -> Dict[str, Decl]:
     d, ff, e = cfg.d_model, cfg.d_ff, cfg.n_experts
-    out = {"w_router": Decl((d, e)), "w_up": Decl((e, d, ff)),
-           "w_down": Decl((e, ff, d))}
+    out = {"w_router": Decl((d, e), ("p_embed", "p_noshard")),
+           "w_up": Decl((e, d, ff), ("p_experts", "p_embed", "p_expert_ff")),
+           "w_down": Decl((e, ff, d), ("p_experts", "p_expert_ff", "p_embed"))}
     if cfg.act == "swiglu":
-        out["w_gate"] = Decl((e, d, ff))
+        out["w_gate"] = Decl((e, d, ff), ("p_experts", "p_embed", "p_expert_ff"))
     return out
 
 
@@ -151,15 +162,15 @@ def _mamba_decls(cfg) -> Dict[str, Decl]:
     d, din, n, h = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     conv_ch = din + 2 * n
     return {
-        "w_in": Decl((d, 2 * din + 2 * n + h)),
-        "w_conv": Decl((cfg.d_conv, conv_ch)),
-        "b_conv": Decl((conv_ch,), "zeros"),
-        "dt_bias": Decl((h,), "dt_bias"),
-        "a_log": Decl((h,), "a_log"),
-        "d_skip": Decl((h,), "ones"),
-        "norm_scale": Decl((din,), "zeros"),
-        "w_out": Decl((din, d)),
-        "ln1": Decl((d,), "zeros"),
+        "w_in": Decl((d, 2 * din + 2 * n + h), ("p_embed", "p_feat")),
+        "w_conv": Decl((cfg.d_conv, conv_ch), ("p_noshard", "p_feat")),
+        "b_conv": Decl((conv_ch,), ("p_feat",), "zeros"),
+        "dt_bias": Decl((h,), ("p_noshard",), "dt_bias"),
+        "a_log": Decl((h,), ("p_noshard",), "a_log"),
+        "d_skip": Decl((h,), ("p_noshard",), "ones"),
+        "norm_scale": Decl((din,), ("p_feat",), "zeros"),
+        "w_out": Decl((din, d), ("p_feat", "p_embed")),
+        "ln1": Decl((d,), ("p_noshard",), "zeros"),
     }
 
 
@@ -170,7 +181,7 @@ def _cross_decls(cfg) -> Dict[str, Decl]:
            for k, v in _attn_decls(cfg).items() if not k.startswith("ln")}
     out.update(_mlp_decls(cfg))
     for name in ("ln1", "ln2", "ln3"):
-        out[name] = Decl((cfg.d_model,), "zeros")
+        out[name] = Decl((cfg.d_model,), ("p_noshard",), "zeros")
     return out
 
 
@@ -229,11 +240,11 @@ def param_decls(cfg) -> Dict[str, Any]:
     ``(n_repeats,)`` dim, tail positions unstacked."""
     V, d = pad_vocab(cfg), cfg.d_model
     tree: Dict[str, Any] = {
-        "embed": Decl((V, d), scale=1.0),
-        "final_norm": Decl((d,), "zeros"),
+        "embed": Decl((V, d), ("p_vocab", "p_embed"), scale=1.0),
+        "final_norm": Decl((d,), ("p_noshard",), "zeros"),
     }
     if not cfg.tie_embeddings:
-        tree["unembed"] = Decl((V, d))
+        tree["unembed"] = Decl((V, d), ("p_vocab", "p_embed"))
     unit, n_rep, tail = scan_plan(cfg)
 
     def block(kind):
@@ -243,12 +254,13 @@ def param_decls(cfg) -> Dict[str, Any]:
         return {**_attn_decls(cfg), **ffn}
 
     def stack(decls, n):
-        return {k: Decl((n,) + v.shape, v.init, v.scale) for k, v in decls.items()}
+        return {k: Decl((n,) + v.shape, ("layers",) + v.axes, v.init, v.scale)
+                for k, v in decls.items()}
 
     if cfg.family == "encdec":
         tree["enc"] = stack(block("attn"), cfg.enc_layers)
         tree["dec"] = stack(_cross_decls(cfg), cfg.dec_layers)
-        tree["enc_final_norm"] = Decl((d,), "zeros")
+        tree["enc_final_norm"] = Decl((d,), ("p_noshard",), "zeros")
         return tree
     for pos, kind in unit:
         if kind == "shared_attn":
@@ -273,7 +285,8 @@ def param_bytes(cfg) -> int:
     return walk(param_decls(cfg))
 
 
-def init_params(cfg, generator: torch.Generator, device="cuda") -> Params:
+def init_params(cfg, generator: torch.Generator, device="cuda", *, mesh=None,
+                shardings=None) -> Params:
     """Random parameters with the reference's declarations and scales
     (normal * min(scale, 1/sqrt(fan_in)); norm scales zero, in f32; the
     Mamba-2 leaves as the reference draws them: D skip ones, A's log
@@ -283,42 +296,85 @@ def init_params(cfg, generator: torch.Generator, device="cuda") -> Params:
     leading (layer, expert) axes, so no f32 copy of a whole stacked leaf
     exists (phi3.5-moe's stacked expert leaves are 20 GB each in bf16).  The
     streams differ from JAX's: weights that must match the reference come
-    through ``convert.params_from_jax``."""
+    through ``convert.params_from_jax``.
+
+    With ``mesh`` and ``shardings`` (``launch.inputs.params_shardings``)
+    every leaf is a DTensor of those placements, equal to ``place`` of the
+    unplaced tree: each rank draws the same stream, matrix by matrix, and
+    keeps only its piece of each matrix, so no rank holds a leaf whole."""
+    if (mesh is None) != (shardings is None):
+        raise ValueError("init_params: pass mesh and shardings together")
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.param_dtype)
 
-    def walk(tree):
+    def full(decl, dt):
+        if decl.init in ("zeros", "ones"):
+            fill = torch.zeros if decl.init == "zeros" else torch.ones
+            return fill(decl.shape, dtype=dt, device=dev)
+        if decl.init == "a_log":
+            vals = torch.log(torch.linspace(1.0, 16.0, decl.shape[-1], device=dev))
+            return vals.expand(decl.shape).to(dt).contiguous()
+        u = torch.rand(decl.shape, generator=generator, dtype=torch.float32,
+                       device=generator.device)
+        lo, hi = math.log(1e-3), math.log(0.1)
+        step = torch.exp(u * (hi - lo) + lo)
+        return (step + torch.log(-torch.expm1(-step))).to(dt).to(dev)
+
+    def drawn(decl, dt, box):
+        """The normal leaf's ``box`` (all of it when None)."""
+        fan_in = decl.shape[-2] if len(decl.shape) >= 2 else decl.shape[-1]
+        scale = min(decl.scale, 1.0 / math.sqrt(fan_in))
+        box = box or [(0, n) for n in decl.shape]
+        leaf = torch.empty([n for _, n in box], dtype=dt, device=dev)
+        lead = decl.shape[:-2]
+        tail = tuple(slice(a, a + n) for a, n in box[len(lead):])
+        for idx in itertools.product(*map(range, lead)):
+            w = torch.randn(decl.shape[len(lead):], generator=generator,
+                            dtype=torch.float32, device=generator.device)
+            if all(a <= i < a + n for i, (a, n) in zip(idx, box)):
+                at = tuple(i - a for i, (a, _) in zip(idx, box))
+                leaf[at].copy_((w * scale)[tail])
+        return leaf
+
+    def walk(tree, pls):
         out = {}
         for name, decl in tree.items():
             if not isinstance(decl, Decl):
-                out[name] = walk(decl)
+                out[name] = walk(decl, None if pls is None else pls[name])
                 continue
             dt = torch.float32 if name in F32_PARAMS else dtype
-            if decl.init in ("zeros", "ones"):
-                fill = torch.zeros if decl.init == "zeros" else torch.ones
-                out[name] = fill(decl.shape, dtype=dt, device=dev)
-                continue
-            if decl.init == "a_log":
-                vals = torch.log(torch.linspace(1.0, 16.0, decl.shape[-1], device=dev))
-                out[name] = vals.expand(decl.shape).to(dt).contiguous()
-                continue
-            if decl.init == "dt_bias":
-                u = torch.rand(decl.shape, generator=generator, dtype=torch.float32,
-                               device=generator.device)
-                lo, hi = math.log(1e-3), math.log(0.1)
-                step = torch.exp(u * (hi - lo) + lo)
-                out[name] = (step + torch.log(-torch.expm1(-step))).to(dt).to(dev)
-                continue
-            fan_in = decl.shape[-2] if len(decl.shape) >= 2 else decl.shape[-1]
-            scale = min(decl.scale, 1.0 / math.sqrt(fan_in))
-            leaf = torch.empty(decl.shape, dtype=dt, device=dev)
-            mats = leaf.view(-1, *decl.shape[-2:]) if leaf.dim() > 2 else leaf[None]
-            for m in mats:
-                w = torch.randn(m.shape, generator=generator, dtype=torch.float32,
-                                device=generator.device)
-                m.copy_(w * scale)
-            out[name] = leaf
+            box = None if pls is None else local_box(decl.shape, mesh, pls[name])
+            if decl.init == "normal":
+                leaf = drawn(decl, dt, box)
+            else:
+                leaf = full(decl, dt)
+                leaf = leaf if box is None else cut(leaf, box).contiguous()
+            out[name] = leaf if pls is None else from_piece(leaf, mesh, pls[name], decl.shape)
         return out
+
+    return walk(param_decls(cfg), shardings)
+
+
+def abstract_params(cfg) -> Params:
+    """The parameter tree as tensors on the ``meta`` device (shapes and the
+    dtypes ``init_params`` gives, no storage; the reference's
+    ``ShapeDtypeStruct`` tree), so that a dry run of grok-1's 314 B
+    parameters allocates nothing."""
+    dtype = torch_dtype(cfg.param_dtype)
+
+    def walk(tree):
+        return {name: (walk(d) if not isinstance(d, Decl) else torch.empty(
+            d.shape, dtype=torch.float32 if name in F32_PARAMS else dtype, device="meta"))
+            for name, d in tree.items()}
+
+    return walk(param_decls(cfg))
+
+
+def param_logical_axes(cfg) -> Dict[str, Any]:
+    """The parameter tree's logical axis names (a tuple per leaf), the
+    input of ``sharding.specs.placements_for``."""
+    def walk(tree):
+        return {k: (v.axes if isinstance(v, Decl) else walk(v)) for k, v in tree.items()}
 
     return walk(param_decls(cfg))
 
@@ -327,11 +383,21 @@ def logits_from_hidden(params: Params, cfg, x: torch.Tensor) -> torch.Tensor:
     """Final norm and the (tied) unembedding; logits (B, S, Vpad) in f32."""
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
-    return (x @ table.T).to(torch.float32)
+    return logical_shard((x @ table.T).to(torch.float32), "act_batch", "act_seq", "act_vocab")
 
 
 def _embed(params: Params, cfg, tokens: torch.Tensor) -> torch.Tensor:
     return params["embed"][tokens.long()].to(torch_dtype(cfg.dtype))
+
+
+def _train_embed(params: Params, cfg, tokens: torch.Tensor) -> torch.Tensor:
+    """The training forward's embedding: ``F.embedding``, whose gradient is
+    one sorted reduction (the same bits as the prefill's lookup).  On a mesh
+    the table is gathered over its vocabulary shards first: DTensor's
+    vocab-parallel lookup leaves a masked partial whose backward it cannot
+    redistribute."""
+    table = logical_shard(params["embed"], None, "act_embed")
+    return F.embedding(tokens.long(), table).to(torch_dtype(cfg.dtype))
 
 
 def _layer(params: Params, pos_name: str, kind: str, i: int) -> Params:
@@ -376,9 +442,10 @@ def forward(params: Params, cfg, batch: Dict[str, torch.Tensor]) -> torch.Tensor
         x = _encdec_forward(params, cfg, batch["frames"], batch["tokens"])
         return logits_from_hidden(params, cfg, x)
     unit, n_rep, tail = scan_plan(cfg)
-    x = F.embedding(batch["tokens"].long(), params["embed"]).to(torch_dtype(cfg.dtype))
+    x = _train_embed(params, cfg, batch["tokens"])
     if cfg.family == "vlm":
         x = torch.cat([batch["patches"].to(x.dtype), x[:, cfg.n_patch_tokens:]], dim=1)
+    x = logical_shard(x, "act_batch", "act_res_seq", "act_embed")
     layers = {pos: _unbind(params[pos]) for pos, kind in unit if kind != "shared_attn"}
 
     def unit_body(h, i):
@@ -398,8 +465,10 @@ def forward(params: Params, cfg, batch: Dict[str, torch.Tensor]) -> torch.Tensor
 def loss_fn(params: Params, cfg, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Mean next-token NLL over the labels >= 0 (the reference's
     ``loss_fn``): the vocabulary's padding rows masked to -1e30 before the
-    log-sum-exp, the mean over max(count, 1)."""
-    logits = forward(params, cfg, batch)
+    log-sum-exp, the mean over max(count, 1).  On a mesh the logits are
+    gathered whole over the vocabulary first: DTensor's gather of the gold
+    logit from a vocab-sharded dim leaves a masked partial it cannot reduce."""
+    logits = logical_shard(forward(params, cfg, batch), "act_batch", "act_seq", None)
     labels = batch["labels"].long()
     V = logits.shape[-1]
     if cfg.vocab < V:
@@ -484,6 +553,7 @@ def prefill(params: Params, cfg, tokens: torch.Tensor, max_len: int,
         if patches is None:
             raise ValueError(f"{cfg.name}: the VLM prefill needs patches")
         x = torch.cat([patches.to(x.dtype), x[:, cfg.n_patch_tokens:]], dim=1)
+    x = logical_shard(x, "act_batch", "act_res_seq", "act_embed")
     kv = {pos: ([], []) for pos, _ in unit}
     for i in range(n_rep):
         for pos, kind in unit:
@@ -535,8 +605,9 @@ def _dec_block(p: Params, x: torch.Tensor, enc_out: torch.Tensor, cfg):
     self_out, (sk, sv) = L.attention(sp, L.rmsnorm(x, p["ln1"], eps), cfg, causal=True,
                                      use_rope=False)
     x = x + self_out
-    ek = (enc_out @ cp["wk"]).reshape(B, Se, cfg.n_kv_heads, cfg.head_dim)
-    ev = (enc_out @ cp["wv"]).reshape(B, Se, cfg.n_kv_heads, cfg.head_dim)
+    heads = ("act_batch", "act_seq", L._head_feat(cfg))
+    ek = logical_shard(enc_out @ cp["wk"], *heads).reshape(B, Se, cfg.n_kv_heads, cfg.head_dim)
+    ev = logical_shard(enc_out @ cp["wv"], *heads).reshape(B, Se, cfg.n_kv_heads, cfg.head_dim)
     cross_out, _ = L.attention(cp, L.rmsnorm(x, p["ln2"], eps), cfg, causal=False,
                                use_rope=False, kv_override=(ek, ev))
     x = x + cross_out
@@ -572,8 +643,8 @@ def _encdec_forward(params: Params, cfg, frames: torch.Tensor,
     for i in range(cfg.enc_layers):
         h = _remat(cfg, enc_body, h, i)
     enc_out = L.rmsnorm(h, params["enc_final_norm"], cfg.norm_eps)
-    x = F.embedding(tokens.long(), params["embed"]).to(torch_dtype(cfg.dtype))
-    x = _add_sinusoid(x, cfg)
+    x = _train_embed(params, cfg, tokens)
+    x = logical_shard(_add_sinusoid(x, cfg), "act_batch", "act_res_seq", "act_embed")
     for i in range(cfg.dec_layers):
         x = _remat(cfg, dec_body, x, enc_out, i)
     return x
@@ -800,7 +871,7 @@ def decode_step(params: Params, cfg, token: torch.Tensor, caches,
     if cfg.family == "encdec":
         return _encdec_decode(params, cfg, token, caches)
     pos = caches["pos"]
-    x = _embed(params, cfg, token)
+    x = logical_shard(_embed(params, cfg, token), "act_batch", "act_res_seq", "act_embed")
     win_positions = (paged_kv.ring_positions(pos, cfg.sliding_window)
                      if cfg.sliding_window else None)
     blocks = caches["blocks"]

@@ -10,7 +10,13 @@ step, the schedule and the bias corrections are f32 tensors on the
 parameters' device, as the reference computes them, not Python doubles.
 Weight decay follows the reference's rule ``p.ndim >= 2`` exactly: in the
 stacked layout it also decays the ``(n_layers, d)`` norm scales.
-``abstract_opt_state`` (shapes for a dry run) is not ported.
+
+Placed state (DTensor leaves, ``train_step`` on a mesh): ``init_opt_state``
+keeps each parameter's placements, ``apply_updates`` updates every shard in
+place, and ``global_norm`` gathers each gradient one dim-0 slice at a time
+(``sharding.shards.whole_slices``), so the clipping scale is the unsharded
+one bit for bit and no rank holds a stacked gradient whole.
+``abstract_opt_state`` gives the state's tensors on the ``meta`` device.
 """
 
 from __future__ import annotations
@@ -20,8 +26,10 @@ import math
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.model import torch_dtype
+from repro_torch.sharding.shards import whole_slices
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,13 +73,32 @@ def tree_map(fn: Callable, tree, *rest):
 
 @torch.no_grad()
 def init_opt_state(params, oc: OptConfig) -> OptState:
+    """Zero moments and the f32 master copy, each like its parameter (a
+    DTensor parameter's keep its placements)."""
     adt = torch_dtype(oc.adam_dtype)
-    m = tree_map(lambda p: torch.zeros(p.shape, dtype=adt, device=p.device), params)
-    v = tree_map(lambda p: torch.zeros(p.shape, dtype=adt, device=p.device), params)
+    m = tree_map(lambda p: torch.zeros_like(p, dtype=adt), params)
+    v = tree_map(lambda p: torch.zeros_like(p, dtype=adt), params)
     master = (tree_map(lambda p: p.detach().to(torch.float32, copy=True), params)
               if oc.master_weights else None)
-    device = tree_leaves(params)[0].device
+    device = _local(tree_leaves(params)[0]).device
     return OptState(torch.zeros((), dtype=torch.int32, device=device), m, v, master)
+
+
+def abstract_opt_state(params, oc: OptConfig) -> OptState:
+    """``init_opt_state``'s tensors on the ``meta`` device (shapes and
+    dtypes, no storage), for ``params`` from ``model.abstract_params``."""
+    adt = torch_dtype(oc.adam_dtype)
+
+    def like(dtype):
+        return tree_map(lambda p: torch.empty(p.shape, dtype=dtype, device="meta"), params)
+
+    return OptState(torch.empty((), dtype=torch.int32, device="meta"), like(adt), like(adt),
+                    like(torch.float32) if oc.master_weights else None)
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (sharing its storage), else ``t``."""
+    return t.to_local() if isinstance(t, DTensor) else t
 
 
 @torch.no_grad()
@@ -89,10 +116,15 @@ def schedule(oc: OptConfig, step: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def global_norm(tree) -> torch.Tensor:
+    """sqrt of the f32 sum of squares, summed leaf by leaf and, in a stacked
+    leaf of 3 or more dims, slice by slice along dim 0
+    (``sharding.shards.whole_slices``): a placed leaf gathers one slice at a
+    time and sums the unsharded leaf's numbers in its order."""
     total = None
     for g in tree_leaves(tree):
-        part = torch.sum(torch.square(g.to(torch.float32)))
-        total = part if total is None else total + part
+        for piece in whole_slices(g):
+            part = torch.sum(torch.square(piece.to(torch.float32)))
+            total = part if total is None else total + part
     return torch.sqrt(total)
 
 
@@ -129,6 +161,8 @@ def apply_updates(params, grads, state: OptState, oc: OptConfig
             for k in p:
                 walk(p[k], g[k], m[k], v[k], None if mw is None else mw[k])
             return
+        p, g, m, v = _local(p), _local(g), _local(m), _local(v)
+        mw = None if mw is None else _local(mw)
         n, m2, v2 = upd(p, g, m, v, mw)
         p.copy_(n)
         m.copy_(m2)

@@ -13,6 +13,15 @@ package restores in the other.  numpy has no bfloat16 without
 manifest's ``dtype`` says ``bfloat16``.  Saving copies each leaf to the
 host; async mode hands those host arrays to a writer thread, so the loop
 resumes at once.  ``restore`` puts each leaf on its template leaf's device.
+
+Placed state (DTensor leaves, a train step on a mesh): ``save`` writes each
+leaf's full tensor, gathered to the host one dim-0 slice of a stacked leaf
+at a time (every rank takes part in the gathers, rank 0 alone keeps the
+host copy and writes), so the files are the unsharded format; ``restore``
+cuts each rank's piece of a leaf out of the host array and moves only that
+piece to the device, on its template's mesh and placements.  So a sharded
+checkpoint restores unsharded and the other way round.  ``sync`` is the barrier a multi-rank loop passes before
+it reads a checkpoint that rank 0 may still be writing.
 """
 
 from __future__ import annotations
@@ -25,6 +34,10 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+
+from repro_torch.sharding.shards import local_part, whole_slices
 
 _SEP = "/"
 
@@ -55,7 +68,13 @@ def _to_host(t: torch.Tensor) -> Tuple[np.ndarray, str]:
     """(numpy array, manifest dtype) of a leaf; bf16 as its uint16 bits.  A
     copy also on the CPU: the train step updates its tensors in place while
     an asynchronous write is still reading them."""
-    t = t.detach().to("cpu", copy=True)
+    if isinstance(t, DTensor):  # gathered one dim-0 slice at a time
+        host = torch.empty(t.shape, dtype=t.dtype)
+        for part, piece in zip(host.unbind(0) if t.dim() >= 3 else (host,), whole_slices(t)):
+            part.copy_(piece)
+        t = host
+    else:
+        t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
     arr = t.numpy()
@@ -69,14 +88,33 @@ def _from_host(arr: np.ndarray, dtype: str, device) -> torch.Tensor:
     return torch.from_numpy(np.array(arr)).to(device)
 
 
+def _writes() -> bool:
+    """Whether this process writes checkpoints: rank 0 of a started world,
+    or the one process."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def sync() -> None:
+    """A barrier over the started world (nothing in a world of one)."""
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
+
+
 def save(directory: str, step: int, params, opt_state=None,
          data_state: Optional[dict] = None, extra: Optional[dict] = None,
          *, async_write: bool = False) -> threading.Thread | None:
     """Copy to the host and write ``step_<N>``; async mode returns the writer
-    thread (join before exit)."""
+    thread (join before exit).  In a world of several ranks every rank calls
+    it (placed leaves are gathered) and rank 0 alone writes."""
     tree = {"params": params}
     if opt_state is not None:
         tree["opt"] = opt_state
+    if not _writes():  # take part in the placed leaves' gathers only
+        for v in _flatten(tree).values():
+            if isinstance(v, DTensor):
+                for _ in whole_slices(v):
+                    pass
+        return None
     host, dtypes = {}, {}
     for k, v in _flatten(tree).items():
         host[k], dtypes[k] = _to_host(v)
@@ -144,6 +182,10 @@ def restore(directory: str, step: int, params_template, opt_template=None
             if template is None:
                 return None
             key = _SEP.join(prefix)
+            if isinstance(template, DTensor):  # only this rank's piece goes to the device
+                full = _from_host(arrays[key], leaves[key]["dtype"], "cpu")
+                return local_part(full, template.device_mesh, template.placements,
+                                  template.to_local().device)
             return _from_host(arrays[key], leaves[key]["dtype"], template.device)
 
         params = rebuild(params_template, ("params",))
@@ -152,7 +194,7 @@ def restore(directory: str, step: int, params_template, opt_template=None
 
 
 def gc_old(directory: str, keep: int = 3) -> None:
-    if not os.path.isdir(directory):
+    if not _writes() or not os.path.isdir(directory):
         return
     steps = sorted(
         int(d[5:]) for d in os.listdir(directory)

@@ -16,6 +16,13 @@ SIGTERM semantics):
 ``step_fn`` takes the batch as the data iterator gives it; the launcher
 wraps it to move the batch to the device.  The loop reads each step's
 metrics back to the host (``float``) to log them.
+
+A multi-rank run (a train step on a mesh) runs this loop on every rank
+with the same data and the same failures: every rank saves (rank 0 writes,
+``checkpoint.save``), and before a rank reads the newest checkpoint, rank 0
+lands its pending write and the ranks pass a barrier (``checkpoint.sync``).
+A failure on one rank alone is outside this harness: the others would wait
+in their next collective.
 """
 
 from __future__ import annotations
@@ -136,6 +143,7 @@ def run_resilient(
                     # restore the newest complete checkpoint, not a stale one
                     pending_writer.join()
                     pending_writer = None
+                C.sync()
                 last = C.latest_step(ckpt_dir)
                 if last is not None:
                     params, opt_state, data_state, _ = C.restore(
@@ -151,6 +159,7 @@ def run_resilient(
                     step = 0
         if pending_writer is not None:
             pending_writer.join()
+        C.sync()
         return RunReport(step, restarts, timer.stragglers, metrics)
     finally:
         signal.signal(signal.SIGTERM, old_handler)

@@ -128,14 +128,15 @@ def test_gemma3_entry_points_default_to_cuda(no_cuda):
 
 
 def test_port_files_cover_the_sweep_slice():
-    """The import checks above walk every module of the package, the sweep
-    and tenancy slices' included."""
+    """The import checks above walk every module of the package, the sweep,
+    tenancy and training-layout slices' included."""
     names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
     for mod in ("core/traces.py", "core/policies.py", "core/simulator.py",
                 "core/policy_core.py", "core/torch_policies.py",
                 "kernels/awrp_select.py", "kernels/flash_attn.py",
                 "configs/gemma3_27b.py", "serve/tenancy.py", "kernels/sweep.py",
-                "core/sharding.py"):
+                "core/sharding.py", "sharding/specs.py", "launch/mesh.py",
+                "launch/inputs.py"):
         assert mod in names, mod
         assert "repro_torch." + mod[:-3].replace("/", ".") in PORT_MODULES
 
@@ -206,3 +207,16 @@ def test_set_state_defaults_to_cuda(no_cuda):
         init_set_state(8, 2)
     with pytest.raises(RuntimeError, match="cuda"):
         init_adaptive_state(1, 1, 8)
+
+
+def test_mesh_entry_points_default_to_cuda(no_cuda):
+    import inspect
+
+    from repro_torch.configs.base import load_smoke_config
+    from repro_torch.launch import inputs, mesh
+
+    for fn in (mesh.make_mesh, mesh.make_production_mesh):
+        assert inspect.signature(fn).parameters["device_type"].default == "cuda"
+    with pytest.raises(RuntimeError, match="cuda"):
+        inputs.concrete_batch(load_smoke_config("smollm_360m"), 2, 8,
+                              torch.Generator().manual_seed(0))

@@ -28,9 +28,10 @@
   23, a resumed run reproduces the uninterrupted one bit for bit, the
   straggler detector;
 * ``launch/train.py``: a tiny CPU run (smollm, and the moe and ssm
-  families), ``--device cuda`` without a card, ``--mesh single`` and the
-  enc-dec / VLM families (``SyntheticLM`` has no frames or patches)
-  raise.
+  families), ``--device cuda`` without a card, ``--mesh single`` / ``multi``
+  in a world of one rank (the mesh's error) and the enc-dec / VLM families
+  (``SyntheticLM`` has no frames or patches) raise; ``--mesh none`` keeps
+  the loss sequence it had.
 """
 
 import dataclasses
@@ -607,6 +608,18 @@ def test_launcher_trains_tiny_on_the_cpu(tmp_path, capsys):
     assert "done: 4 steps" in capsys.readouterr().out
 
 
+def test_launcher_mesh_none_keeps_the_loss_sequence(tmp_path, capsys):
+    """``--mesh none`` trains as the launcher did before it took a mesh: the
+    logged sequence of the tiny preset's first four steps."""
+    TL.main(["--device", "cpu", "--preset", "tiny", "--steps", "4", "--log-every", "1",
+             "--mesh", "none", "--ckpt-dir", str(tmp_path)])
+    lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("step")]
+    assert lines == ["step     1 loss 7.6110 gnorm 7.609 lr 3.00e-04",
+                     "step     2 loss 7.0481 gnorm 5.725 lr 2.33e-04",
+                     "step     3 loss 6.7399 gnorm 3.798 lr 9.75e-05",
+                     "step     4 loss 6.6310 gnorm 3.703 lr 3.00e-05"]
+
+
 @pytest.mark.parametrize("arch,preset", [("phi35_moe", "tiny"), ("mamba2_370m", "tiny"),
                                          ("mamba2_370m", "smoke")])
 def test_launcher_trains_the_moe_and_ssm_families_on_the_cpu(tmp_path, capsys, arch, preset):
@@ -633,7 +646,9 @@ def test_launcher_defaults_to_cuda_and_raises_without_a_card(tmp_path, monkeypat
         TL.main(["--preset", "tiny", "--steps", "1", "--ckpt-dir", str(tmp_path)])
 
 
-@pytest.mark.parametrize("mesh", ["single", "multi"])
-def test_launcher_refuses_a_mesh(tmp_path, mesh):
-    with pytest.raises(ValueError, match="multi-device slice"):
+@pytest.mark.parametrize("mesh,world", [("single", 256), ("multi", 512)])
+def test_launcher_refuses_a_mesh(tmp_path, mesh, world):
+    """A world of one rank is smaller than the production mesh: the mesh's
+    ``RuntimeError`` names the world it needs."""
+    with pytest.raises(RuntimeError, match=f"needs a world of {world} ranks, have 1"):
         TL.main(["--device", "cpu", "--mesh", mesh, "--ckpt-dir", str(tmp_path)])
