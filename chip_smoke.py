@@ -140,6 +140,18 @@ side:
    on the elements whose first-batch gradient is 0 or at least
    TRAIN_PARAMS_GRAD_FLOOR (every element's distance reported); two card
    runs bit for bit (the moe family's repeatability reported, not gated).
+3e. ``dryrun``: ``python -m repro_torch.launch.dryrun --arch smollm_360m
+   --shape train_4k --mesh single``, started in a process of its own after
+   the build (its fake world of 256 ranks leaves this script's NCCL world
+   alone; every tensor ``meta``, no kernel built or launched) and waited
+   for here, DRYRUN_LIMIT_S from its start: exit 0, the record ``ok`` on a
+   "cuda"-typed mesh of 256 ranks, no launch counted, the gradient
+   reduction's all-to-alls counted as all-to-alls; its per-rank memory and
+   collective bytes printed.  Then the ported roofline (``roofline/``,
+   H100 constants) of the ``train`` and ``train_families`` cells at
+   ``MeshInfo(1, 1)`` and each cell's own batch: compute, memory and
+   collective seconds, 6·N·D and the MFU at the measured step, beside
+   ``train_flops``' count and the ratios of the counts (not gated).
 4. ``serve``: ``ServeEngine`` on smollm-360m at published widths, bf16,
    paged KV with AWRP through the fused kernel (kernel 4: two launches per
    layer per decode step, ``ops.SPLIT_LAUNCHES``), 4 requests of 1024 seeded
@@ -351,6 +363,7 @@ import gc
 import re
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -1984,6 +1997,108 @@ YI34_DECODE_SHAPE = (4, 16, 64, 8, 7, 128)
 ZAMBA2_DECODE_SHAPE = (4, 16, 64, 32, 1, 112)
 #: internvl2-26b's pool in serve_internvl2 (G = 6)
 INTERNVL2_DECODE_SHAPE = (4, 16, 64, 8, 6, 128)
+
+
+#: the dry run's cell (``launch/dryrun.py``): smollm-360m train_4k on the
+#: single-pod mesh, a fake world of 256 ranks in a process of its own
+DRYRUN_ARGS = ("--arch", "smollm_360m", "--shape", "train_4k", "--mesh", "single")
+DRYRUN_LIMIT_S = 120
+#: the dry run's process while it runs (``main`` stops it on any exit)
+DRYRUN = {}
+
+
+def start_dryrun() -> None:
+    """Start the dry run in a process of its own (its fake world leaves this
+    script's NCCL world alone); it builds no kernel and allocates nothing on
+    the card: every tensor is ``meta``.  ``phase_dryrun`` waits for it."""
+    root = Path(__file__).resolve().parent
+    out = root / "build" / "dryrun"
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    DRYRUN["out"] = out
+    DRYRUN["t0"] = time.perf_counter()
+    DRYRUN["proc"] = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *DRYRUN_ARGS, "--out", str(out)],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def stop_dryrun() -> None:
+    proc = DRYRUN.pop("proc", None)
+    if proc is not None and proc.poll() is None:
+        proc.kill()
+        proc.communicate()
+
+
+def train_roofline(cfg, batch: int, seq: int, wall_ms: float, step_flops: float,
+                   remat_flops: float) -> dict:
+    """The ported roofline (``roofline/``, the H100's constants) of a
+    measured train cell on one card (``MeshInfo(1, 1)``) at its own batch:
+    the analytic compute, memory and collective seconds, 6·N·D and the MFU
+    at the measured step, beside ``train_flops``' count (the function's,
+    and with remat's recompute) and the ratios of the counts (not gated)."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.roofline.analysis import Roofline, model_flops_for
+    from repro_torch.roofline.analytic import MeshInfo, cell_costs
+
+    shape = ShapeSpec(f"train_{seq}", seq, batch, "train")
+    costs = cell_costs(cfg, shape, mesh=MeshInfo(1, 1))
+    r = Roofline(cfg.name, shape.name, "1x1", 1, hlo_flops=costs["hlo_flops"],
+                 hlo_bytes=costs["hbm_bytes"], coll_bytes=costs["coll_bytes"],
+                 model_flops=model_flops_for(cfg, shape))
+    return {"config": cfg.name, "batch": batch, "seq": seq, "compute_s": r.compute_s,
+            "memory_s": r.memory_s, "collective_s": r.collective_s,
+            "bottleneck": r.bottleneck, "roofline_step_s": r.step_time_s,
+            "model_flops": r.model_flops, "analytic_flops": r.hlo_flops,
+            "measured_ms_per_step": wall_ms,
+            "mfu_at_measured_step": r.model_flops / (wall_ms * 1e-3 * r.chips
+                                                     * BF16_FLOPS),
+            "train_flops": step_flops, "train_flops_with_remat": step_flops + remat_flops,
+            "model_over_train_flops": r.model_flops / step_flops,
+            "analytic_over_train_flops_with_remat": r.hlo_flops / (step_flops + remat_flops)}
+
+
+def phase_dryrun(tr: dict, trf: dict) -> dict:
+    """Phase ``dryrun``: waits for ``start_dryrun``'s process (DRYRUN_LIMIT_S
+    from its start), which must exit 0 with a record of status "ok": 256
+    ranks on a "cuda" mesh, no launch, its all-to-alls counted as such;
+    prints the record's memory and collective lines.  Then the roofline of
+    the ``train`` and ``train_families`` cells measured above
+    (``train_roofline``)."""
+    t_phase = time.perf_counter()
+    proc = DRYRUN["proc"]
+    try:
+        out, err = proc.communicate(
+            timeout=max(1.0, DRYRUN_LIMIT_S - (time.perf_counter() - DRYRUN["t0"])))
+    except subprocess.TimeoutExpired:
+        stop_dryrun()
+        raise AssertionError(f"dryrun: over {DRYRUN_LIMIT_S} s") from None
+    collected_s = time.perf_counter() - DRYRUN["t0"]
+    DRYRUN.pop("proc")
+    assert proc.returncode == 0, f"dryrun exited {proc.returncode}: {err[-3000:]}"
+    path = DRYRUN["out"] / "smollm_360m__train_4k__single.json"
+    rec = json.loads(path.read_text())
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert rec["chips"] == 256 and rec["mesh_device_type"] == "cuda", rec
+    assert rec["launches"] == 0, rec["launches"]
+    assert rec["collective_ops"]["all-to-all"] > 0, rec["collective_ops"]
+    res = {"phase": "dryrun", "card": smi(), "cell": list(DRYRUN_ARGS),
+           # the process ran beside the phases above: its own seconds are the
+           # record's build_s + run_s (and its start-up); the script waited wait_s
+           "collected_after_s": collected_s, "wait_s": time.perf_counter() - t_phase,
+           "torch": torch.__version__, "cli": out.strip().splitlines()[0],
+           "build_s": rec["lower_s"], "run_s": rec["compile_s"], "n_micro": rec["n_micro"],
+           "memory": rec["memory"], "collectives": rec["collectives"],
+           "collective_ops": rec["collective_ops"], "flops": rec["flops"],
+           "flops_parts": rec["flops_parts"], "analytic": rec["analytic"],
+           "model_flops": rec["model_flops"]}
+    cells = {label: (cfg, batch, seq) for label, cfg, batch, seq, _, _ in train_family_cells()}
+    res["roofline"] = [train_roofline(CONFIG, TRAIN_BATCH, tr["seq"], tr["wall_ms_per_step"],
+                                      tr["step_flops"], tr["remat_recompute_flops"])]
+    for c in trf["cells"]:
+        cfg, batch, seq = cells[c["config"]]
+        res["roofline"].append(train_roofline(cfg, batch, seq, c["wall_ms_per_step"],
+                                              c["step_flops"], c["remat_recompute_flops"]))
+    emit(res)
+    return res
 
 
 def serve_params(dev):
@@ -5227,9 +5342,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
     submit_host_jobs()
+    start_dryrun()
     try:
         return _phases(dev, t_start)
     finally:
+        stop_dryrun()
         stop_host_workers()
 
 
@@ -5262,6 +5379,7 @@ def _phases(dev, t_start: float) -> int:
     tr = phase_train(dev)
     trm = phase_train_mesh(dev, tr)
     trf = phase_train_families(dev)
+    phase_dryrun(tr, trf)
     params, init_s = serve_params(dev)
     srv = phase_serve(dev, params, init_s)
     # kernel 5 at the serve shape from the prefill seeding (timed), with a

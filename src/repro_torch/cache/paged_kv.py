@@ -146,13 +146,79 @@ def insert_token(pool: PagedPool, new_k, new_v, pos, page_size: int,
                  policy: str = "awrp") -> PagedPool:
     """Write one token row (B, kvd) at ``pos`` (0-d int32); on a page
     boundary allocate, evicting by ``policy`` when the pool is full (paper
-    insert rule: F=1, R=N)."""
+    insert rule: F=1, R=N).  A pool of DTensors (a placed decode step) goes
+    to ``_placed_insert_token``."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(pool.k, DTensor):
+        return _placed_insert_token(pool, new_k, new_v, pos, page_size, policy)
     slot, f, r, page_start = allocate(pool.f, pool.r, pool.page_start,
                                       pool.clock, pool.open_slot, pos,
                                       page_size, policy)
     open_slot = slot.to(torch.int32)
     return _scatter_new_token(pool, new_k, new_v, pos, page_size, slot, f, r,
                               page_start, pool.clock, open_slot)
+
+
+def _placed_insert_token(pool: PagedPool, new_k, new_v, pos, page_size: int,
+                         policy: str) -> PagedPool:
+    """``insert_token`` on a pool of DTensors (pages over the batch axes for
+    a batch of 1, features over "model"): the allocation on the whole (B, P)
+    planes (small; made whole on every shard, as the MoE routing), then each
+    shard writes its own pages under ``local_map``: the row lands on the
+    shard whose pages hold ``slot``, the others keep theirs (a masked
+    select).  No K/V moves between shards; the planes keep their
+    placements.  The same decisions as ``insert_token``."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.sharding.shards import local_box
+
+    mesh = pool.k.device_mesh
+    rep = [Replicate()] * mesh.ndim
+
+    def whole(t):
+        return t.redistribute(mesh, rep).to_local() if isinstance(t, DTensor) else t
+
+    slot, f, r, page_start = allocate(whole(pool.f), whole(pool.r), whole(pool.page_start),
+                                      whole(pool.clock), whole(pool.open_slot), whole(pos),
+                                      page_size, policy)
+
+    def placed(t, like):
+        return DTensor.from_local(t, mesh, rep, run_check=False).redistribute(
+            mesh, like.placements)
+
+    kv_pl = list(pool.k.placements)
+    # a (B, kvd) row and a (B,) slot take the pool's batch and feature splits
+    row_pl = [Shard(0) if p == Shard(0) else Shard(1) if p == Shard(3) else Replicate()
+              for p in kv_pl]
+    slot_pl = [Shard(0) if p == Shard(0) else Replicate() for p in kv_pl]
+    lo = local_box(pool.k.shape, mesh, kv_pl)[1][0]  # this shard's first page
+
+    def write(k, v, nk, nv, sl, within):
+        n = k.shape[1]
+        loc = sl.long() - lo
+        mine = (loc >= 0) & (loc < n)
+        loc = loc.clamp(0, max(n - 1, 0))
+        bidx = torch.arange(k.shape[0], device=k.device)
+        row = within.long().expand(k.shape[0])
+        fresh = (within == 0) & mine
+        for cache, new in ((k, nk), (v, nv)):
+            cache[bidx, loc] = torch.where(fresh[:, None, None], 0, cache[bidx, loc])
+            cache[bidx, loc, row] = torch.where(mine[:, None], new.to(cache.dtype),
+                                                cache[bidx, loc, row])
+        return k, v
+
+    args = (pool.k, pool.v,
+            new_k.redistribute(mesh, row_pl), new_v.redistribute(mesh, row_pl),
+            DTensor.from_local(slot, mesh, rep, run_check=False).redistribute(mesh, slot_pl),
+            DTensor.from_local(whole(pos) % page_size, mesh, rep, run_check=False))
+    k, v = local_map(write, out_placements=(kv_pl, kv_pl),
+                     in_placements=(kv_pl, kv_pl, row_pl, row_pl, slot_pl, rep),
+                     device_mesh=mesh)(*args)
+    return PagedPool(k, v, placed(f, pool.f), placed(r, pool.r),
+                     placed(page_start, pool.page_start), pool.clock,
+                     placed(slot.to(torch.int32), pool.open_slot))
 
 
 def kv_positions(pool: PagedPool, pos, page_size: int) -> torch.Tensor:
@@ -275,8 +341,23 @@ def fused_decode_step(pool: PagedPool, q, new_k, new_v, pos,
 
 
 def _write_row(cache, new, index) -> None:
-    """``cache[:, index] = new[:, 0]`` in place, ``index`` a 0-d tensor."""
-    cache.index_copy_(1, index.reshape(1).long(), new.to(cache.dtype))
+    """``cache[:, index] = new[:, 0]`` in place, ``index`` a 0-d tensor.  On
+    DTensors (a placed decode step), whose row dim is whole on every shard,
+    each shard writes its own piece under ``local_map``."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    idx = index.reshape(1).long()
+    if not isinstance(cache, DTensor):
+        cache.index_copy_(1, idx, new.to(cache.dtype))
+        return
+    from torch.distributed.tensor.experimental import local_map
+
+    pl = list(cache.placements)
+    if Shard(1) in pl:
+        raise ValueError(f"a cache's row dim must be whole on every shard, placed {pl}")
+    mesh = cache.device_mesh
+    local_map(lambda c, n: c.index_copy_(1, idx, n.to(c.dtype)), out_placements=pl,
+              in_placements=(pl, pl), device_mesh=mesh)(cache, new.redistribute(mesh, pl))
 
 
 def full_cache_insert(k_cache, v_cache, new_k, new_v, pos):

@@ -16,7 +16,13 @@ the patch embeddings.
 The training fields (``remat``, ``microbatches``, ``adam_dtype``,
 ``grad_accum_dtype``, ``opt_master``, ``grad_compress``) and the shape grid
 ``SHAPES`` are the reference's, read by ``models/model.py`` ``forward``,
-``train/train_step.py`` and ``launch/train.py``.
+``train/train_step.py`` and ``launch/train.py``.  The layout and schedule
+fields (``decode_param_mode``, ``tp_feat``, ``seq_parallel``,
+``force_paged_decode``, ``attention_schedule``) and ``n_params`` /
+``n_active_params`` are the reference's too, read by ``launch/dryrun.py``
+and ``roofline/``.  ``attention_schedule="balanced"`` runs the same kernel
+6 as "rect" (``models/layers.py`` ``attention``); the reference's
+``attention_impl`` is not carried: kernel 6 always runs.
 """
 
 from __future__ import annotations
@@ -89,6 +95,7 @@ class ModelConfig:
     top_k: int = 0
     capacity_factor: float = 1.25
     moe_sharding: str = "tp"  # tp | ep: the experts' "model" split (sharding/specs.py)
+    decode_param_mode: str = "fsdp"  # fsdp | tp2d (serving weight layout)
     # SSM (mamba2)
     ssm_state: int = 0
     ssm_head_dim: int = 64
@@ -106,10 +113,14 @@ class ModelConfig:
     page_size: int = 64
     bounded_kv_pages: int = 256
     kv_policy: str = "awrp"  # awrp | lru | fifo | lfu | arc | car | arc_adaptive | car_adaptive
+    force_paged_decode: bool = False  # AWRP-bounded pool for decode_32k too
     # numerics / execution
     dtype: str = "bfloat16"
     param_dtype: str = "bfloat16"
     remat: str = "full"  # none | full
+    attention_schedule: str = "rect"  # rect | balanced: the same kernel 6 in the port
+    tp_feat: bool = True  # False => pure-DP weights
+    seq_parallel: bool = False  # Megatron-style SP on the residual stream
     # training execution
     microbatches: int = 8  # grad-accum chunks of the global batch
     adam_dtype: str = "float32"
@@ -142,6 +153,51 @@ class ModelConfig:
     @property
     def ssm_heads(self) -> int:
         return self.d_inner // self.ssm_head_dim
+
+    def n_params(self) -> int:
+        """Analytic parameter count (used for 6ND model-FLOPs in roofline)."""
+        d, ff, v = self.d_model, self.d_ff, self.vocab
+        emb = v * d * (1 if self.tie_embeddings else 2)
+        per_attn = d * self.qk_dim + 2 * d * self.kv_dim + self.qk_dim * d
+        per_mlp = 3 * d * ff if self.act == "swiglu" else 2 * d * ff
+        per_moe = self.n_experts * per_mlp + d * self.n_experts
+        per_mamba = (
+            self.d_model * (2 * self.d_inner + 2 * self.ssm_state + self.ssm_heads)
+            + self.d_inner * self.d_model  # out_proj
+            + self.d_conv * (self.d_inner + 2 * self.ssm_state)  # conv
+            + 2 * self.ssm_heads  # A_log, dt_bias
+            + self.d_inner  # D
+        )
+        total = emb
+        if self.family == "encdec":
+            total += self.enc_layers * (per_attn + per_mlp + 2 * d)
+            total += self.dec_layers * (2 * per_attn + per_mlp + 3 * d)
+            return total
+        shared_attn_counted = False
+        for blk in self.layer_pattern:
+            if blk in ("attn", "local", "global"):
+                total += per_attn + per_mlp + 2 * d
+            elif blk == "moe":
+                total += per_attn + per_moe + 2 * d
+            elif blk == "mamba":
+                total += per_mamba + d
+            elif blk == "shared_attn":
+                if not shared_attn_counted:
+                    total += per_attn + per_mlp + 2 * d
+                    shared_attn_counted = True
+            else:
+                raise ValueError(blk)
+        return total
+
+    def n_active_params(self) -> int:
+        """Active params per token (MoE: only top_k experts count)."""
+        if not self.n_experts:
+            return self.n_params()
+        d, ff = self.d_model, self.d_ff
+        per_mlp = 3 * d * ff if self.act == "swiglu" else 2 * d * ff
+        inactive = (self.n_experts - self.top_k) * per_mlp
+        n_moe_layers = sum(1 for b in self.layer_pattern if b == "moe")
+        return self.n_params() - n_moe_layers * inactive
 
 
 def _arch_module(arch: str):

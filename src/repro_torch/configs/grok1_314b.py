@@ -1,7 +1,7 @@
 """grok-1-314b [moe] — 8 experts, top-2. [hf:xai-org/grok-1; unverified]
 
-The reference's config also sets its decode weight layout, which the
-port does not carry; its expert sharding (``moe_sharding="tp"``) it does.
+Its decode weight layout (``decode_param_mode="tp2d"``) and expert
+sharding (``moe_sharding="tp"``) are the reference's.
 Its weights exceed one card: ``launch.serve`` refuses the full config, and
 the smoke config is the GELU-expert case of the CPU parity tests.
 """
@@ -28,6 +28,7 @@ CONFIG = ModelConfig(
     adam_dtype="bfloat16",
     grad_accum_dtype="bfloat16",
     opt_master=False,
+    decode_param_mode="tp2d",
     run_shapes=("train_4k", "prefill_32k", "decode_32k"),
     skip_reasons={"long_500k": "pure full-attention arch (DESIGN.md §5)"},
 )

@@ -1,8 +1,7 @@
 """yi-34b [dense] — llama-arch GQA. [arXiv:2403.04652; hf]
 
-The reference's config also picks its serving weight layout
-(``decode_param_mode``); the port runs on one card and carries no sharding
-fields.
+Its serving weight layout is the reference's: feature dims sharded over
+(batch x model) jointly with no gather (``decode_param_mode="tp2d"``).
 """
 
 import dataclasses
@@ -21,6 +20,7 @@ CONFIG = ModelConfig(
     vocab=64000,
     rope_theta=5_000_000.0,
     microbatches=16,
+    decode_param_mode="tp2d",
     run_shapes=("train_4k", "prefill_32k", "decode_32k"),
     skip_reasons={"long_500k": "pure full-attention arch (DESIGN.md §5)"},
 )

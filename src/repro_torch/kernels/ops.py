@@ -18,6 +18,16 @@ differentiable: where a gradient is wanted it runs through ``FlashAttention``,
 whose forward also keeps the rows' log-sum-exp and whose backward is the
 backward kernel (``flash_attention_bwd``: three launches, counted once per
 backward call).
+
+Kernel 6 and its backward also take ``meta`` tensors, which hold no data:
+the dry run (``launch/dryrun.py``) plans a cell on them.  There nothing is
+launched and no launch is counted: ``ref.flash_attention_meta`` /
+``ref.flash_attention_backward_meta`` give the outputs' shapes and dtypes,
+as the plain versions would, and add the work the kernels do to
+``META_FLOPS`` (4·hd FLOPs a (query head, key) pair the masks leave,
+forward; 10·hd, backward), since the plain versions' (Sq, Skv) f32 scores,
+which the kernels never hold, would stand in a planned cell's memory.  No
+CPU or CUDA tensor takes that route.
 """
 
 from __future__ import annotations
@@ -38,6 +48,11 @@ LAUNCHES: Dict[str, int] = {"paged_attention": 0, "policy_paged_attention": 0,
                              "flash_attention_bwd": 0}
 
 
+#: FLOPs of kernel 6's and its backward's ``meta`` calls since the last
+#: ``reset_launches`` (the dry run's; no CUDA call adds to it)
+META_FLOPS: Dict[str, float] = {"flash_attention": 0.0, "flash_attention_bwd": 0.0}
+
+
 #: CUDA launches per call of kernels 3, 4 and 5: the pages' partials, their
 #: fold
 SPLIT_LAUNCHES = 2
@@ -46,6 +61,8 @@ SPLIT_LAUNCHES = 2
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    for name in META_FLOPS:
+        META_FLOPS[name] = 0.0
 
 
 def paged_attention(q, k_pages, v_pages, page_start, cur_pos):
@@ -193,6 +210,11 @@ def adaptive_stream(keys, stream_rows, state, counters, caps, *, kind: str, alph
 
 
 def _flash_forward(q, k, v, causal, window, kv_len, return_lse):
+    if q.device.type == "meta":
+        res, flops = ref.flash_attention_meta(q, k, v, causal=causal, window=window,
+                                              kv_len=kv_len, return_lse=return_lse)
+        META_FLOPS["flash_attention"] += flops
+        return res
     if q.device.type == "cpu":
         return ref.flash_attention_plain(q, k, v, causal=causal, window=window,
                                          kv_len=kv_len, return_lse=return_lse)
@@ -221,7 +243,10 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dout = dout.contiguous()
-        if q.device.type == "cpu":
+        if q.device.type == "meta":
+            (dq, dk, dv), flops = ref.flash_attention_backward_meta(q, k, v, **ctx.kw)
+            META_FLOPS["flash_attention_bwd"] += flops
+        elif q.device.type == "cpu":
             dq, dk, dv = ref.flash_attention_backward_plain(q, k, v, out, lse, dout, **ctx.kw)
         else:
             from repro_torch.kernels.flash_attn import flash_attention_backward_kernel
@@ -245,7 +270,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                                     or v.requires_grad):
         from repro_torch.kernels.flash_attn import check_backward_case
 
-        check_backward_case(q.shape, k.shape, kv_len, kernel=q.device.type != "cpu")
+        check_backward_case(q.shape, k.shape, kv_len, kernel=q.device.type == "cuda")
         return FlashAttention.apply(q, k, v, bool(causal), int(window),
                                     None if kv_len is None else int(kv_len))
     return _flash_forward(q, k, v, causal, window, kv_len, False)

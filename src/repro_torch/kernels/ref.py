@@ -342,6 +342,44 @@ def flash_attention_plain(q, k, v, *, causal: bool, window: int = 0,
     return out, lse.permute(0, 3, 1, 2).contiguous()
 
 
+def flash_pairs(Sq: int, Skv: int, causal: bool, window: int, kv_len: int | None) -> int:
+    """(query, key) pairs ``_flash_mask`` leaves, in closed form: row i sees
+    keys [max(0, i - window + 1) if window, min(i, kv_len - 1) if causal
+    else kv_len - 1]."""
+    kv_len = Skv if kv_len is None else min(kv_len, Skv)
+    i = torch.arange(Sq, dtype=torch.int64)
+    hi = torch.full_like(i, kv_len - 1)
+    if causal:
+        hi = torch.minimum(hi, i)
+    lo = (i - window + 1).clamp_min(0) if window else torch.zeros_like(i)
+    return int((hi - lo + 1).clamp_min(0).sum())
+
+
+def flash_attention_meta(q, k, v, *, causal: bool, window: int = 0,
+                         kv_len: int | None = None, return_lse: bool = False):
+    """Kernel 6 on ``meta`` tensors: ``flash_attention_plain``'s outputs'
+    shapes and dtypes, and the FLOPs the kernel spends (4·hd a query head's
+    pair the masks leave: q.k and p.v).  Returns ``(out or (out, lse),
+    flops)``."""
+    B, Sq, KVH, G, hd = q.shape
+    flops = 4 * hd * B * KVH * G * flash_pairs(Sq, k.shape[1], causal, window, kv_len)
+    out = torch.empty_like(q)
+    if not return_lse:
+        return out, flops
+    return (out, torch.empty((B, Sq, KVH, G), dtype=torch.float32, device=q.device)), flops
+
+
+def flash_attention_backward_meta(q, k, v, *, causal: bool, window: int = 0,
+                                  kv_len: int | None = None):
+    """The backward kernel on ``meta`` tensors: ``(dq, dk, dv)`` of
+    ``flash_attention_backward_plain``'s shapes and dtypes, and its FLOPs
+    (10·hd a query head's pair the masks leave: s, dp, dv, dq, dk).
+    Returns ``((dq, dk, dv), flops)``."""
+    B, Sq, KVH, G, hd = q.shape
+    flops = 10 * hd * B * KVH * G * flash_pairs(Sq, k.shape[1], causal, window, kv_len)
+    return (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)), flops
+
+
 def flash_attention_backward_plain(q, k, v, out, lse, dout, *, causal: bool,
                                    window: int = 0, kv_len: int | None = None):
     """Plain version of the backward kernel (``csrc/flash_attn_bwd.cu``), in

@@ -1,0 +1,397 @@
+"""Dry run: every (arch × shape × mesh) cell on ``meta`` tensors over a fake
+world of 256 or 512 ranks (``repro/launch/dryrun.py``).
+
+For each cell this shows, without a card:
+  * the layout is coherent: the cell's step runs on DTensors placed by the
+    logical-axis rules (``sharding/specs.py``) over the production mesh,
+    every op and every redistribution planned by DTensor;
+  * each rank's memory: the bytes of its local pieces of the arguments and
+    outputs, and the peak over the step (``MemTracker``);
+  * the roofline's inputs: each rank's FLOPs and the collectives it issues
+    with their bytes (``roofline.analysis.CellTrace``), beside the analytic
+    model (``roofline.analytic.cell_costs``).
+
+Where it runs: one process joins a fake process group
+(``torch.testing._internal.distributed.fake_pg``) of 256 ranks (``single``)
+or 512 (``multi``) as rank 0, and builds ``make_production_mesh`` typed
+"cuda", so DTensor picks NCCL's collectives (an all-to-all stays one; a
+"cpu" mesh would lower it to an all-gather).  Every leaf is a ``meta``
+piece: nothing is allocated, nothing launched, no card touched.  It is no
+CPU fallback either: ``meta`` carries no numbers.  Kernel 6 and its
+backward take a shape-only route on ``meta`` (``kernels/ops.py``): no
+launch is counted, their FLOPs are the pairs their masks leave
+(``ops.META_FLOPS``: 4·hd a pair forward, 10·hd backward), and their
+memory is their outputs', as on the card (the plain versions' (Sq, Skv)
+scores would be the larger part of a cell's peak).  The decode step is the
+unfused one (the reference's default), which reaches no kernel.
+
+Usage:
+  python -m repro_torch.launch.dryrun --arch qwen25_14b --shape train_4k --mesh single
+  python -m repro_torch.launch.dryrun --all [--mesh both] [--out artifacts/dryrun]
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import dataclasses
+import json
+import math
+import os
+import time
+import traceback
+import warnings
+from typing import Optional, Sequence
+
+import torch
+
+from repro_torch.configs.base import ARCH_IDS, SHAPES, ModelConfig, ShapeSpec, load_config
+from repro_torch.kernels import ops
+from repro_torch.launch import inputs as I
+from repro_torch.launch.mesh import PRODUCTION_SHAPES, batch_shards, make_mesh
+from repro_torch.models import model as M
+from repro_torch.optim import optimizer as O
+from repro_torch.roofline import analysis as R
+from repro_torch.roofline.analytic import MeshInfo, cell_costs
+from repro_torch.sharding.shards import local_part
+from repro_torch.sharding.specs import activate, make_rules
+from repro_torch.train.train_step import effective_microbatches, make_train_step
+
+#: the reference's config fields the port does not carry, and why
+REFUSED_FIELDS = {
+    "attention_impl": "the port always runs kernel 6 (no XLA / Pallas choice)",
+}
+
+#: record fields with no honest counterpart on ``meta``, and why
+NULL_FIELDS = {
+    "bytes_accessed": "only XLA's cost analysis gives it; the analytic model's "
+                      "is analytic.hbm_bytes",
+    "transcendentals": "only XLA's cost analysis gives it",
+    "generated_code_size_in_bytes": "no compiled program",
+}
+
+
+def start_fake_world(world_size: int) -> None:
+    """Join a fake process group of ``world_size`` ranks as rank 0 (once a
+    process; a started world of another size raises)."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        if dist.get_world_size() != world_size:
+            raise RuntimeError(f"a world of {dist.get_world_size()} ranks is started; "
+                               f"the cell needs {world_size}")
+        return
+    # private to torch's tests: imported here, never at the package's import
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", rank=0, world_size=world_size, store=FakeStore())
+
+
+def fake_mesh(shape: Sequence[int]):
+    """A "cuda"-typed ``DeviceMesh`` of ``shape`` over a fake world of
+    exactly its size."""
+    start_fake_world(math.prod(shape))
+    return make_mesh(shape, device_type="cuda")
+
+
+def _leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return []
+
+
+def local_bytes(tree) -> int:
+    """Bytes of this rank's pieces of every tensor of ``tree``."""
+    from torch.distributed.tensor import DTensor
+
+    total = 0
+    for t in _leaves(tree):
+        t = t.to_local() if isinstance(t, DTensor) else t
+        total += t.numel() * t.element_size()
+    return total
+
+
+def cell_rules(cfg: ModelConfig, shape: ShapeSpec, multi: bool):
+    """The rules of a cell, as the reference's dry run builds them."""
+    return make_rules(
+        multi_pod=multi, moe_sharding=cfg.moe_sharding,
+        shard_pages=shape.global_batch == 1,
+        param_mode=cfg.decode_param_mode if shape.kind == "decode" else "fsdp",
+        tp_feat=cfg.tp_feat, seq_parallel=cfg.seq_parallel)
+
+
+def build_cell(cfg: ModelConfig, shape: ShapeSpec, mesh, rules):
+    """Returns ``(fn, args, extra)`` for one cell: ``fn(*args)`` runs its step
+    on placed ``meta`` tensors; ``extra`` holds what the record reports of
+    the build (``n_micro`` for a train cell, ``kv_mode`` for a decode)."""
+    params = I.place(M.abstract_params(cfg), mesh, I.params_shardings(cfg, mesh, rules),
+                     device="meta")
+
+    def batch():
+        return {k: local_part(s.meta(), mesh, s.placements, device="meta")
+                for k, s in I.batch_specs(cfg, shape, mesh, rules).items()}
+
+    if shape.kind == "train":
+        oc = O.OptConfig(adam_dtype=cfg.adam_dtype, master_weights=cfg.opt_master)
+        n_micro = effective_microbatches(cfg, shape.global_batch, batch_shards(mesh))
+        step = make_train_step(cfg, oc, n_micro, mesh=mesh, rules=rules)
+        return step, (params, O.init_opt_state(params, oc), batch()), {"n_micro": n_micro}
+
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    # FSDP weights are gathered over the batch axes on use, once a step as
+    # the train step does; "tp2d" weights stay split (no gather)
+    fsdp = shape.kind != "decode" or cfg.decode_param_mode == "fsdp"
+
+    def use(p):
+        return I.gather_batch_axes(p, mesh) if fsdp else p
+
+    if shape.kind == "prefill":
+        def prefill_fn(p, b):
+            with activate(mesh, rules), implicit_replication(), torch.no_grad():
+                return M.prefill(use(p), cfg, b["tokens"], shape.seq_len,
+                                 frames=b.get("frames"), patches=b.get("patches"))
+
+        return prefill_fn, (params, batch()), {}
+
+    token, caches, mode = I.decode_specs(cfg, shape, mesh, rules)
+    token = local_part(token.meta(), mesh, token.placements, device="meta")
+    caches = _place_specs(caches, mesh)
+
+    def serve_step(p, t, c):
+        with activate(mesh, rules), implicit_replication(), torch.no_grad():
+            return M.decode_step(use(p), cfg, t, c, kv_mode=mode)
+
+    return serve_step, (params, token, caches), {"kv_mode": mode}
+
+
+def _place_specs(tree, mesh):
+    """A tree of ``inputs.Spec`` as placed ``meta`` DTensors (a 0-d leaf,
+    the decode position, stays a plain ``meta`` tensor, as the unplaced
+    caches keep it)."""
+    if isinstance(tree, dict):
+        return {k: _place_specs(v, mesh) for k, v in tree.items()}
+    if isinstance(tree, I.Spec):
+        if not tree.shape:
+            return tree.meta()
+        return local_part(tree.meta(), mesh, tree.placements, device="meta")
+    return type(tree)(*(_place_specs(v, mesh) for v in tree))
+
+
+def _peak_tracker():
+    """``MemTracker`` (private to torch) if this torch has it, else None."""
+    try:
+        from torch.distributed._tools.mem_tracker import MemTracker
+    except ImportError:  # its absence is recorded
+        return None
+    return MemTracker()
+
+
+def run_cell(arch: str, shape_name: str, mesh_name: str, out_dir: Optional[str],
+             overrides: dict | None = None, tag: str = "", *,
+             cfg: Optional[ModelConfig] = None, shape: Optional[ShapeSpec] = None,
+             mesh_shape: Optional[Sequence[int]] = None) -> dict:
+    """Run one cell and write its record to ``out_dir`` (None: no file).
+    ``cfg`` / ``shape`` / ``mesh_shape`` replace the arch's config, the
+    named shape and the production mesh (smaller cells for tests)."""
+    cfg = cfg if cfg is not None else load_config(arch)
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+    shape = shape if shape is not None else SHAPES[shape_name]
+    mesh_shape = tuple(mesh_shape or PRODUCTION_SHAPES[mesh_name == "multi"])
+    multi = len(mesh_shape) == 3
+    t0 = time.time()
+    rec = {
+        "arch": arch, "shape": shape_name, "mesh": mesh_name,
+        "mesh_shape": list(mesh_shape), "chips": math.prod(mesh_shape),
+        "status": "ok", "overrides": overrides or {},
+    }
+    try:
+        mesh = fake_mesh(mesh_shape)
+        rec["mesh_device_type"] = mesh.device_type
+        mi = MeshInfo(batch_shards=batch_shards(mesh), model_shards=mesh_shape[-1])
+        rules = cell_rules(cfg, shape, multi)
+        fn, args, extra = build_cell(cfg, shape, mesh, rules)
+        t_lower = time.time() - t0
+        arg_bytes = local_bytes(args)  # before the step: the train step updates in place
+        launches, kflops = dict(ops.LAUNCHES), dict(ops.META_FLOPS)
+        trace, peak = R.CellTrace(), _peak_tracker()
+        with contextlib.ExitStack() as stack:
+            # DTensor warns of the 0-d decode position it replicates, once a layer
+            stack.enter_context(warnings.catch_warnings())
+            warnings.filterwarnings("ignore", message="Found a non-scalar tensor")
+            if peak is not None:
+                stack.enter_context(peak)
+                peak.track_external(*_leaves(args))
+            stack.enter_context(trace)
+            out = fn(*args)
+        peak_bytes = None if peak is None else _peak_on(peak, "meta")
+        t_run = time.time() - t0 - t_lower
+        kernel_flops = sum(ops.META_FLOPS[k] - kflops[k] for k in kflops)
+        launched = sum(ops.LAUNCHES[k] - launches[k] for k in launches)
+        memory = {"argument_size_in_bytes": arg_bytes,
+                  "output_size_in_bytes": local_bytes(out),
+                  "peak_bytes": peak_bytes,
+                  "temp_size_in_bytes": None if peak_bytes is None else
+                  max(peak_bytes - arg_bytes, 0),
+                  "generated_code_size_in_bytes": None}
+        rec.update(
+            flops=float(trace.flops + kernel_flops),
+            flops_parts={"torch_ops": float(trace.flops), "kernels": float(kernel_flops)},
+            launches=launched,
+            bytes_accessed=None,
+            transcendentals=None,
+            collectives=R.collective_bytes(trace.collectives),
+            collective_ops=trace.counts(),
+            analytic=cell_costs(cfg, shape, multi_pod=multi, mesh=mi),
+            model_flops=R.model_flops_for(cfg, shape),
+            memory=memory,
+            n_params=cfg.n_params(),
+            n_active_params=cfg.n_active_params(),
+            lower_s=round(t_lower, 1),
+            compile_s=round(t_run, 1),
+            **extra,
+        )
+        rec["null_fields"] = dict(NULL_FIELDS)
+        if peak is None:
+            rec["null_fields"]["peak_bytes"] = "torch.distributed._tools.mem_tracker is missing"
+        rec["notes"] = {
+            "flops": "per rank: torch.utils.flop_counter's formulas over the local "
+                     "ops on meta, plus kernel 6 and its backward from their meta "
+                     "route (4·hd / 10·hd a (query head, key) pair the masks leave; "
+                     "the masked half of a causal product not counted)",
+            "memory": "per rank, from the local pieces' shapes; peak_bytes and "
+                      "temp_size_in_bytes from MemTracker over the step (meta): every "
+                      "local tensor alive at once, collectives' outputs included",
+            "lower_s": "placing the arguments and building the step",
+            "compile_s": "running the step once on meta (nothing is compiled)",
+        }
+    except Exception as e:  # noqa: BLE001 — record the failure, keep sweeping
+        rec["status"] = "FAIL"
+        rec["error"] = f"{type(e).__name__}: {e}"
+        rec["traceback"] = traceback.format_exc()[-2000:]
+    if out_dir is not None:
+        os.makedirs(out_dir, exist_ok=True)
+        suffix = f"__{tag}" if tag else ""
+        path = os.path.join(out_dir, f"{arch}__{shape_name}__{mesh_name}{suffix}.json")
+        with open(path, "w") as f:
+            json.dump(rec, f, indent=1)
+    return rec
+
+
+def _peak_on(tracker, device: str) -> Optional[int]:
+    """The tracker's peak bytes on ``device`` (every category), or None."""
+    snap = tracker.get_tracker_snapshot("peak")
+    for dev, stats in snap.items():
+        if torch.device(dev).type == device:
+            return int(stats.get("Total", sum(stats.values())))
+    return None
+
+
+def parse_overrides(pairs: Sequence[str]) -> dict:
+    """``key=value`` pairs as config overrides (bools, ints, floats, else
+    strings, as the reference parses them).  A field the port does not
+    carry, or one no config has, raises a ``ValueError`` naming it."""
+    fields = {f.name for f in dataclasses.fields(ModelConfig)}
+    out = {}
+    for kv in pairs:
+        k, v = kv.split("=", 1)
+        if k in REFUSED_FIELDS:
+            raise ValueError(f"--set {k}: not a field of the port ({REFUSED_FIELDS[k]})")
+        if k not in fields:
+            raise ValueError(f"--set {k}: no such config field")
+        if v in ("true", "True", "false", "False"):
+            v = v in ("true", "True")
+        else:
+            try:
+                v = int(v)
+            except ValueError:
+                try:
+                    v = float(v)
+                except ValueError:
+                    pass
+        out[k] = v
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=ARCH_IDS)
+    ap.add_argument("--shape", choices=sorted(SHAPES))
+    ap.add_argument("--mesh", choices=("single", "multi", "both"), default="single")
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--out", default="artifacts/dryrun")
+    ap.add_argument("--skip-existing", action="store_true")
+    ap.add_argument("--set", action="append", default=[],
+                    help="cfg override key=value (repeatable), e.g. "
+                         "--set attention_schedule=balanced")
+    ap.add_argument("--tag", default="", help="artifact filename suffix")
+    args = ap.parse_args(argv)
+    try:
+        overrides = parse_overrides(args.set)
+    except ValueError as e:
+        ap.error(str(e))
+
+    archs = ARCH_IDS if args.all or not args.arch else (args.arch,)
+    meshes = ("single", "multi") if args.mesh == "both" else (args.mesh,)
+    if len(meshes) > 1:
+        # one fake world a process: each mesh in a process of its own
+        import subprocess
+        import sys
+
+        rcs = []
+        for mesh_name in meshes:
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh", mesh_name,
+                   "--out", args.out] + [f"--set={kv}" for kv in args.set]
+            cmd += ["--all"] if args.all else []
+            cmd += ["--arch", args.arch] if args.arch else []
+            cmd += ["--shape", args.shape] if args.shape else []
+            cmd += ["--skip-existing"] if args.skip_existing else []
+            cmd += ["--tag", args.tag] if args.tag else []
+            rcs.append(subprocess.run(cmd).returncode)
+        raise SystemExit(max(rcs))
+    n_ok = n_fail = n_skip = 0
+    for arch in archs:
+        cfg = load_config(arch)
+        shapes = cfg.run_shapes if args.all or not args.shape else (args.shape,)
+        for shape_name in shapes:
+            if shape_name not in cfg.run_shapes:
+                print(f"SKIP {arch} {shape_name}: {cfg.skip_reasons.get(shape_name)}")
+                n_skip += 1
+                continue
+            for mesh_name in meshes:
+                path = os.path.join(args.out, f"{arch}__{shape_name}__{mesh_name}.json")
+                if args.skip_existing and os.path.exists(path):
+                    with open(path) as f:
+                        if json.load(f).get("status") == "ok":
+                            n_ok += 1
+                            continue
+                rec = run_cell(arch, shape_name, mesh_name, args.out,
+                               overrides=overrides, tag=args.tag)
+                ok = rec["status"] == "ok"
+                n_ok += ok
+                n_fail += not ok
+                if ok:
+                    peak = rec["memory"]["peak_bytes"]
+                    print(
+                        f"OK   {arch:18s} {shape_name:12s} {mesh_name:6s} "
+                        f"flops/dev={rec['flops']:.3e} "
+                        f"coll={rec['collectives']['total']:.3e}B "
+                        f"args={rec['memory']['argument_size_in_bytes'] / 2**30:.2f}GiB "
+                        f"peak={'n/a' if peak is None else f'{peak / 2**30:.2f}GiB'} "
+                        f"run={rec['compile_s']}s",
+                        flush=True,
+                    )
+                else:
+                    print(f"FAIL {arch} {shape_name} {mesh_name}: {rec['error']}",
+                          flush=True)
+    print(f"\ndry-run: {n_ok} ok, {n_fail} failed, {n_skip} skipped")
+    raise SystemExit(1 if n_fail else 0)
+
+
+if __name__ == "__main__":
+    main()

@@ -21,7 +21,8 @@ from repro_torch.sharding.shards import local_part
 from repro_torch.sharding.specs import AxisRules, placements_for
 
 __all__ = ["Spec", "kv_mode_for", "params_shardings", "batch_specs",
-           "decode_cache_shardings", "decode_specs", "concrete_batch", "place"]
+           "decode_cache_shardings", "decode_specs", "concrete_batch", "gather_batch_axes",
+           "place"]
 
 
 class Spec(NamedTuple):
@@ -38,8 +39,13 @@ class Spec(NamedTuple):
 
 def kv_mode_for(cfg: ModelConfig, shape: ShapeSpec) -> str:
     """long_500k decodes from the paper's AWRP-bounded pool on
-    full-attention blocks; everything else from the exact (full) cache."""
-    return "paged" if (shape.name == "long_500k" and cfg.family != "ssm") else "full"
+    full-attention blocks, and so does every decode shape under
+    ``cfg.force_paged_decode``; everything else from the exact (full)
+    cache."""
+    has_attn = cfg.family != "ssm"
+    if cfg.force_paged_decode and shape.kind == "decode" and has_attn:
+        return "paged"
+    return "paged" if (shape.name == "long_500k" and has_attn) else "full"
 
 
 def _is_leaf(x) -> bool:
@@ -160,12 +166,38 @@ def concrete_batch(cfg: ModelConfig, B: int, S: int, generator: torch.Generator,
     return out
 
 
-def place(tree, mesh, shardings):
+def gather_batch_axes(params, mesh):
+    """Each placed parameter made whole over the mesh's batch axes, its
+    "model" split kept: the FSDP gather on use, which the placed train step
+    makes once a step, for a placed prefill or decode step under
+    ``param_mode="fsdp"`` rules.  Without it DTensor may split a contraction
+    over a batch axis instead (partial sums, then an all-reduce).  A leaf
+    the batch axes do not split is returned as it is."""
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.launch.mesh import batch_axes
+
+    bdims = [mesh.mesh_dim_names.index(a) for a in batch_axes(mesh)]
+
+    def one(p):
+        want = [Replicate() if i in bdims else pl for i, pl in enumerate(p.placements)]
+        return p if list(p.placements) == want else p.redistribute(mesh, want)
+
+    return {k: gather_batch_axes(v, mesh) if isinstance(v, dict) else one(v)
+            for k, v in params.items()}
+
+
+def place(tree, mesh, shardings, *, device=None):
     """Each full tensor of ``tree`` as a DTensor on ``mesh`` with the
     placements of the matching leaf of ``shardings``.  Every rank passes the
     same full tree (the same seed, checkpoint or ``convert.params_from_jax``
-    output, on any device) and keeps a copy of its own slice on the mesh's
-    device: no communication (``sharding.shards.local_part``)."""
+    output, on any device) and keeps a copy of its own slice on ``device``
+    (the mesh's device when None; ``"meta"`` for a dry run, whose tree is on
+    ``meta`` too): no communication (``sharding.shards.local_part``).
+    Dicts and NamedTuples (a decode cache's pools) keep their structure."""
     if isinstance(tree, dict):
-        return {k: place(v, mesh, shardings[k]) for k, v in tree.items()}
-    return local_part(tree, mesh, shardings)
+        return {k: place(v, mesh, shardings[k], device=device) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(place(v, mesh, s, device=device)
+                            for v, s in zip(tree, shardings)))
+    return local_part(tree, mesh, shardings, device=device)

@@ -14,8 +14,8 @@ from __future__ import annotations
 import math
 from typing import Sequence, Tuple
 
-__all__ = ["AXES", "world_size", "make_mesh", "make_production_mesh", "batch_axes",
-           "batch_shards"]
+__all__ = ["AXES", "PRODUCTION_SHAPES", "world_size", "make_mesh", "make_production_mesh",
+           "batch_axes", "batch_shards"]
 
 #: mesh axis names by mesh rank
 AXES = {2: ("data", "model"), 3: ("pod", "data", "model")}
@@ -46,9 +46,13 @@ def make_mesh(shape: Sequence[int], *, device_type: str = "cuda"):
     return init_device_mesh(device_type, shape, mesh_dim_names=AXES[len(shape)])
 
 
+#: the protocol's mesh shapes: single pod, and multi-pod with "pod"
+PRODUCTION_SHAPES = {False: (16, 16), True: (2, 16, 16)}
+
+
 def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
     """The (16, 16) ("data", "model") mesh, or (2, 16, 16) with "pod"."""
-    return make_mesh((2, 16, 16) if multi_pod else (16, 16), device_type=device_type)
+    return make_mesh(PRODUCTION_SHAPES[multi_pod], device_type=device_type)
 
 
 def batch_axes(mesh) -> Tuple[str, ...]:

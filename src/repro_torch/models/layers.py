@@ -138,8 +138,11 @@ def attention(params: Params, x: torch.Tensor, cfg, *, causal: bool = True,
     replace the block's own, q gets no RoPE and Skv may differ from S (the
     reference's ``kv_override``).  Every caller of the reference passes
     ``positions=arange(S)``, which kernel 6 masks by index, so the port takes
-    no ``positions``.  Returns (out, (k, v)) so prefill can keep the KV
-    cache; k is RoPE'd when q is."""
+    no ``positions``.  ``cfg.attention_schedule`` "balanced" runs kernel 6
+    as "rect" does: the reference's ``flash_attention_balanced`` pairs query
+    chunks to skip the masked half of a causal product, and kernel 6 skips
+    every tile above the diagonal whatever the schedule.  Returns (out, (k,
+    v)) so prefill can keep the KV cache; k is RoPE'd when q is."""
     B, S, _ = x.shape
     H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     if kv_override is None:
@@ -202,6 +205,8 @@ def decode_kv_row(params: Params, x: torch.Tensor, cfg, *, position: torch.Tenso
     k_new, v_new = x @ params["wk"], x @ params["wv"]
     if cfg.qkv_bias:
         k_new, v_new = k_new + params["bk"], v_new + params["bv"]
+    names = ("act_batch", "act_seq", _head_feat(cfg))
+    k_new, v_new = logical_shard(k_new, *names), logical_shard(v_new, *names)
     if use_rope:
         k_new = rope(k_new.reshape(B, 1, KVH, hd), _positions(position, B),
                      cfg.rope_theta).reshape(B, 1, KVH * hd)
@@ -218,7 +223,7 @@ def decode_q(params: Params, x: torch.Tensor, cfg, *, position: torch.Tensor,
     q = x @ params["wq"]
     if cfg.qkv_bias:
         q = q + params["bq"]
-    q = q.reshape(B, 1, H, hd)
+    q = logical_shard(q, "act_batch", "act_seq", _head_feat(cfg)).reshape(B, 1, H, hd)
     if use_rope:
         q = rope(q, _positions(position, B), cfg.rope_theta)
     return q.reshape(B, KVH, H // KVH, hd)
@@ -226,10 +231,18 @@ def decode_q(params: Params, x: torch.Tensor, cfg, *, position: torch.Tensor,
 
 def decode_project_out(params: Params, out: torch.Tensor, cfg) -> torch.Tensor:
     """The output half of ``decode_attend``: (B, KVH, G, hd) -> (B, 1, D)."""
+    return _project_row(params, out, cfg)
+
+
+def _project_row(params: Params, out: torch.Tensor, cfg) -> torch.Tensor:
+    """(B, ..., H, hd) attention rows -> (B, 1, D) through ``wo``, as one
+    (B, H*hd) x (H*hd, D) product: the one ``matmul`` makes of a plain (B,
+    1, H*hd) row, which a DTensor's size-1 stride would turn into a batched
+    product of other rounding."""
     B = out.shape[0]
-    out = logical_shard(out.reshape(B, 1, cfg.n_heads * cfg.head_dim), "act_batch",
-                        "act_seq", "act_feat")
-    return out @ params["wo"]
+    out = logical_shard(out.reshape(B, cfg.n_heads * cfg.head_dim), "act_batch", "act_feat")
+    return logical_shard((out @ params["wo"])[:, None], "act_batch", "act_res_seq",
+                         "act_embed")
 
 
 def decode_attend(params: Params, x: torch.Tensor, cfg, *, position: torch.Tensor,
@@ -244,19 +257,65 @@ def decode_attend(params: Params, x: torch.Tensor, cfg, *, position: torch.Tenso
     H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = decode_q(params, x, cfg, position=position,
                  use_rope=use_rope)[:, None]  # (B, 1, KVH, G, hd)
-    kc = logical_shard(k_cache.reshape(B, -1, KVH, hd), "act_batch", "act_pages",
-                       "act_kv_heads", None)
-    vc = logical_shard(v_cache.reshape(B, -1, KVH, hd), "act_batch", "act_pages",
-                       "act_kv_heads", None)
+    # whole kv heads per shard, or the heads replicated (``_head_feat``)
+    feat = _head_feat(cfg)
+    kv_ax = "act_kv_heads" if feat else None
+    kc = logical_shard(logical_shard(k_cache, "act_batch", "act_pages", feat)
+                       .reshape(B, -1, KVH, hd), "act_batch", "act_pages", kv_ax, None)
+    vc = logical_shard(logical_shard(v_cache, "act_batch", "act_pages", feat)
+                       .reshape(B, -1, KVH, hd), "act_batch", "act_pages", kv_ax, None)
+    scale = 1.0 / math.sqrt(hd)
+    if _is_dtensor(q) and not _splits(kc, 1):
+        out, mass = _placed_attend(q, kc, vc, kv_positions, scale)
+    else:
+        # plain tensors, or keys split over shards (a batch-1 pool's pages):
+        # DTensor gathers the scores and sums the partial P.V products
+        out, mass = _attend_rows(q, kc, vc, kv_positions, scale)
+    return _project_row(params, out, cfg), mass
+
+
+def _attend_rows(q, kc, vc, kv_positions, scale: float):
+    """``decode_attend``'s core: q (B, 1, KVH, G, hd) over kc / vc (B, T,
+    KVH, hd), rows whose ``kv_positions`` are negative masked; returns (out
+    (B, 1, KVH, G, hd), the rows' softmax mass (B, T))."""
     s = torch.einsum("bqkgh,btkh->bkgqt", q, kc).to(torch.float32)
-    s = s * (1.0 / math.sqrt(hd))
+    s = s * scale
     valid = (kv_positions >= 0)[:, None, None, None, :]
     s = torch.where(valid, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqt,btkh->bqkgh", p.to(vc.dtype), vc)
-    out = logical_shard(out.reshape(B, 1, H * hd), "act_batch", "act_seq", "act_feat")
-    proj = out @ params["wo"]
-    return proj, p.sum(dim=(1, 2, 3))
+    return out, p.sum(dim=(1, 2, 3))
+
+
+def _splits(t, dim: int) -> bool:
+    """Whether a DTensor ``t`` is split along ``dim`` on some mesh dim of
+    more than one piece."""
+    from torch.distributed.tensor import Shard
+
+    return any(p == Shard(dim) and t.device_mesh.size(i) > 1
+               for i, p in enumerate(t.placements))
+
+
+def _placed_attend(q, kc, vc, kv_positions, scale: float):
+    """``_attend_rows`` on DTensors whose keys are whole on every shard:
+    under ``local_map``, each shard its sequences (dim 0) and kv heads (dim
+    2), as q holds them (any other split of q made whole first); the mass,
+    summed over heads, is a partial sum where the heads are split."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    keep = [p if p in (Shard(0), Shard(2)) else Replicate() for p in q.placements]
+    rows = [Shard(0) if p == Shard(0) else Replicate() for p in keep]
+    mass = [Shard(0) if p == Shard(0) else Partial() if p == Shard(2) else Replicate()
+            for p in keep]
+    if not isinstance(kv_positions, DTensor):
+        kv_positions = DTensor.from_local(kv_positions, mesh, [Replicate()] * mesh.ndim,
+                                          run_check=False)
+    args = (q.redistribute(mesh, keep), kc.redistribute(mesh, keep),
+            vc.redistribute(mesh, keep), kv_positions.redistribute(mesh, rows))
+    return local_map(lambda *ts: _attend_rows(*ts, scale), out_placements=(keep, mass),
+                     in_placements=(keep, keep, keep, rows), device_mesh=mesh)(*args)
 
 
 # ---------------------------------------------------------------------------
@@ -343,10 +402,20 @@ def moe(params: Params, x: torch.Tensor, cfg) -> torch.Tensor:
                    approximate="tanh")
     else:
         raise ValueError(f"unknown act {cfg.act!r}")
+    if _is_dtensor(h):
+        # DTensor's einsum views its local piece, which the products above
+        # leave permuted where the batch is split
+        h = h.contiguous()
     eout = torch.einsum("becf,efd->becd", h, params["w_down"])
     eout = logical_shard(eout, "act_batch", "act_experts", None, "act_embed")
     out = _replicated(_combine, eout, r.gate, *pairs, top_k=K, dtype=x.dtype)
     return logical_shard(out, "act_batch", "act_res_seq", "act_embed")
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
 
 
 def _replicated(fn, *tensors: torch.Tensor, n_out: int = 1, **kw):
@@ -449,6 +518,8 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Te
     intra-chunk products, the per-chunk states, the inter-chunk recurrence
     and the inter-chunk output run in f32, as in the reference (its bf16
     C.B product is cast to f32 after the product)."""
+    if _is_dtensor(x):
+        return _placed_ssd(x, dt, A, Bm, Cm, chunk, initial_state)
     b, s, h, p = x.shape
     n = Bm.shape[-1]
     pad = (-s) % chunk
@@ -495,6 +566,35 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Te
                          state_decay_out)
     y = (y_diag + y_off).reshape(b, S, h, p)[:, :s]
     return y.to(x.dtype), carry
+
+
+def _placed_ssd(x, dt, A, Bm, Cm, chunk: int, initial_state):
+    """``ssd_chunked`` on DTensors under ``local_map``: each shard its
+    sequences (dim 0) and heads (x's dim 2), as x holds them (any other
+    split of x made whole first); B and C, shared by the heads, whole over
+    the heads' split.  The scan is per sequence and head, so each shard
+    runs it on its own."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x.device_mesh
+    keep = [p if p in (Shard(0), Shard(2)) else Replicate() for p in x.placements]
+    rows = [Shard(0) if p == Shard(0) else Replicate() for p in keep]
+    heads = [Shard(0) if p == Shard(2) else Replicate() for p in keep]
+    state = [Shard(1) if p == Shard(2) else p for p in keep]
+    args = [x.redistribute(mesh, keep), dt.redistribute(mesh, keep),
+            A.redistribute(mesh, heads), Bm.redistribute(mesh, rows),
+            Cm.redistribute(mesh, rows)]
+    pls = [keep, keep, heads, rows, rows]
+    if initial_state is not None:
+        args.append(initial_state.redistribute(mesh, state))
+        pls.append(state)
+
+    def scan(*ts):
+        return ssd_chunked(*ts[:5], chunk, initial_state=ts[5] if len(ts) > 5 else None)
+
+    return local_map(scan, out_placements=(keep, state), in_placements=tuple(pls),
+                     device_mesh=mesh)(*args)
 
 
 def _split_zxbcdt(cfg, zxbcdt: torch.Tensor):

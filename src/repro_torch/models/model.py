@@ -514,20 +514,30 @@ def _cache_from_prefill(cfg, kind: str, k: torch.Tensor, v: torch.Tensor, S: int
     if kind == "mamba":
         return MambaCache(k, v)
     if kind == "local":
+        # token t at ring slot t % W: the last W rows, zero-padded to W and
+        # rotated by start % W
         W = cfg.sliding_window
         start = max(S - W, 0)
-        slots = torch.arange(start, S, device=k.device) % W
-        kr = torch.zeros(k.shape[:2] + (W, k.shape[-1]), dtype=k.dtype, device=k.device)
-        vr = torch.zeros_like(kr)
-        kr[:, :, slots], vr[:, :, slots] = k[:, :, start:S], v[:, :, start:S]
-        return {"k": kr, "v": vr}
+        cut = W - start % W
+
+        def ring(t):
+            seg = _pad_rows(t[:, :, start:S], W)
+            return torch.cat([seg[:, :, cut:], seg[:, :, :cut]], dim=2)
+
+        return {"k": ring(k), "v": ring(v)}
     if kv_mode == "paged":
         return pool_from_prefill(cfg, k, v, S)
-    kf = torch.zeros(k.shape[:2] + (max_len, k.shape[-1]), dtype=k.dtype,
-                     device=k.device)
-    vf = torch.zeros_like(kf)
-    kf[:, :, :S], vf[:, :, :S] = k, v
-    return {"k": kf, "v": vf}
+    return {"k": _pad_rows(k, max_len), "v": _pad_rows(v, max_len)}
+
+
+def _pad_rows(t: torch.Tensor, rows: int) -> torch.Tensor:
+    """``t`` (..., n, B, S, kvd) with zero rows after its S up to ``rows``:
+    built out of place from ops a DTensor takes (``cat``, ``new_zeros``),
+    so a placed prefill builds its caches as the unplaced one does."""
+    pad = rows - t.shape[-2]
+    if pad == 0:
+        return t
+    return torch.cat([t, t.new_zeros(t.shape[:-2] + (pad, t.shape[-1]))], dim=-2)
 
 
 def prefill(params: Params, cfg, tokens: torch.Tensor, max_len: int,
@@ -669,16 +679,17 @@ def _encdec_prefill(params: Params, cfg, frames: torch.Tensor, tokens: torch.Ten
     del h
 
     x = _add_sinusoid(_embed(params, cfg, tokens), cfg)
-    n = cfg.dec_layers
-    cache = {name: torch.zeros((n, B, rows, cfg.kv_dim), dtype=x.dtype, device=dev)
-             for name, rows in (("k", max_len), ("v", max_len), ("ck", Se), ("cv", Se))}
-    for i in range(n):
+    rows = {"k": [], "v": [], "ck": [], "cv": []}
+    for i in range(cfg.dec_layers):
         x, sk, sv, ek, ev = _dec_block(_layer(params, "dec", "dec", i), x, enc_out, cfg)
-        cache["k"][i, :, :Sd] = sk.reshape(B, Sd, -1)
-        cache["v"][i, :, :Sd] = sv.reshape(B, Sd, -1)
-        cache["ck"][i] = ek.reshape(B, Se, -1)
-        cache["cv"][i] = ev.reshape(B, Se, -1)
+        for name, t in zip(rows, (sk, sv, ek, ev)):
+            rows[name].append(t.reshape(B, t.shape[1], -1))
     logits = logits_from_hidden(params, cfg, x)
+    # stacked, the self rows zero-padded to max_len: out of place, so it runs
+    # on DTensors too
+    cache = {name: torch.stack(ts) for name, ts in rows.items()}
+    for name in ("k", "v"):
+        cache[name] = _pad_rows(cache[name], max_len)
     return logits, {"pos": _position(Sd, dev), "blocks": {"dec": cache}}
 
 

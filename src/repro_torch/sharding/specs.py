@@ -174,11 +174,15 @@ def logical_shard(x: torch.Tensor, *names: Optional[str]) -> torch.Tensor:
         return x
     if len(names) != x.dim():
         raise ValueError(f"{len(names)} names for rank-{x.dim()} tensor")
-    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor import DTensor, Replicate
 
     if not isinstance(x, DTensor):
         return x
-    want = placements_for(x.device_mesh, ctx[1], names)
+    mesh = x.device_mesh
+    # a mesh dim of size 1 holds the whole dim either way; Replicate lets
+    # DTensor view it (it refuses to reshape a dim "sharded" over one piece)
+    want = tuple(Replicate() if mesh.size(i) == 1 else p
+                 for i, p in enumerate(placements_for(mesh, ctx[1], names)))
     if tuple(x.placements) == want:
         return x
-    return x.redistribute(x.device_mesh, want)
+    return x.redistribute(mesh, want)

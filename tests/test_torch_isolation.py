@@ -136,9 +136,22 @@ def test_port_files_cover_the_sweep_slice():
                 "kernels/awrp_select.py", "kernels/flash_attn.py",
                 "configs/gemma3_27b.py", "serve/tenancy.py", "kernels/sweep.py",
                 "core/sharding.py", "sharding/specs.py", "launch/mesh.py",
-                "launch/inputs.py"):
+                "launch/inputs.py", "roofline/analytic.py", "roofline/analysis.py",
+                "launch/dryrun.py"):
         assert mod in names, mod
         assert "repro_torch." + mod[:-3].replace("/", ".") in PORT_MODULES
+
+
+def test_every_reference_module_has_a_counterpart_in_the_port():
+    """The port mirrors the reference module for module: every file of
+    ``src/repro`` has one of the same path in ``src/repro_torch``, the JAX
+    policy engine's being ``core/torch_policies.py``."""
+    ref = ROOT / "src" / "repro"
+    renamed = {"core/jax_policies.py": "core/torch_policies.py"}
+    names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
+    missing = [m for m in (p.relative_to(ref).as_posix() for p in ref.rglob("*.py"))
+               if renamed.get(m, m) not in names]
+    assert not missing, missing
 
 
 def test_simulate_trace_batched_defaults_to_cuda(no_cuda):
