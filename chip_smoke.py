@@ -1652,7 +1652,9 @@ def phase_train_mesh(dev, tr: dict) -> dict:
     under ``local_map``): TRAIN_MESH_STEPS placed steps against as many
     plain steps from the same seed, parameters, master, m, v
     and losses bit for bit, kernel 6 and backward launches equal; wall /
-    event ms a step, tokens/s and peak GB beside ``train``'s.  Two gloo
+    event ms a step, tokens/s and peak GB beside ``train``'s (each run's
+    peak with its own state alone on the card: the plain run's final state
+    is compared from the host).  Two gloo
     ranks sharing the card are not run: DTensor's redistribute goes through
     the functional collectives, whose all-gather faults (SIGSEGV) on a gloo
     group with CUDA tensors (torch 2.11); the CPU tests hold the multi-rank
@@ -1671,15 +1673,20 @@ def phase_train_mesh(dev, tr: dict) -> dict:
     oc, plain_step, data = _train_setup(cfg, batch, seq, TRAIN_MESH_STEPS)
     batches = [next(data) for _ in range(TRAIN_MESH_STEPS)]
     n_micro = effective_microbatches(cfg, batch, 1)
-    p0 = M.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
-    plain = _mesh_steps(tree_map(lambda t: t.clone(), p0), oc, plain_step, batches, dev)
+    plain = _mesh_steps(M.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                                      device=dev), oc, plain_step, batches, dev)
+    # each run's peak holds its own state alone: the plain run's final state
+    # waits on the host for the comparison
+    plain["state"] = {k: v.cpu() for k, v in plain["state"].items()}
+    gc.collect()
+    torch.cuda.empty_cache()
     root = Path(__file__).resolve().parent / "build"
     root.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=root) as tmp, \
             _world_of_one("nccl", Path(tmp) / "store"):
         mesh = make_mesh((1, 1), device_type="cuda")
         rules = make_rules(moe_sharding=cfg.moe_sharding)
-        del p0  # the placed state is drawn as the launcher draws it
+        # the placed state is drawn as the launcher draws it
         params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev,
                                mesh=mesh, shardings=params_shardings(cfg, mesh, rules))
         step = make_train_step(cfg, oc, n_micro, mesh=mesh, rules=rules)
@@ -1687,7 +1694,7 @@ def phase_train_mesh(dev, tr: dict) -> dict:
         placed = _mesh_steps(params, oc, step, batches, dev)
         launches = {k: ops.LAUNCHES[k] for k in ("flash_attention", "flash_attention_bwd")}
         del params
-    same = {k: torch.equal(v, plain["state"][k]) for k, v in placed["state"].items()}
+    same = {k: torch.equal(v.cpu(), plain["state"][k]) for k, v in placed["state"].items()}
     keys = ("wall_ms", "event_ms", "peak_gb", "loss", "grad_norm", "launches")
     res = {"phase": "train_mesh", "card": smi(), "config": cfg.name, "seq": seq,
            "reduced": {"global_batch": [SHAPES["train_4k"].global_batch, batch]},
@@ -1699,6 +1706,10 @@ def phase_train_mesh(dev, tr: dict) -> dict:
            "plain_tokens_per_s": [batch * seq / r["wall_ms"] * 1e3 for r in plain["steps"]],
            "train_wall_ms_per_step": tr["wall_ms_per_step"],
            "train_tokens_per_s": tr["tokens_per_s"], "train_peak_gb": tr["peak_gb"],
+           # placed against plain: the placed step gathers and reduces per
+           # repeat (sharding/fsdp.py), at (1, 1) with no collective
+           "peak_gb": max(r["peak_gb"] for r in placed["steps"]),
+           "plain_peak_gb": max(r["peak_gb"] for r in plain["steps"]),
            "leaves_equal_bitwise": sum(same.values()), "leaves": len(same),
            "losses_equal": [r["loss"] for r in placed["steps"]]
            == [r["loss"] for r in plain["steps"]],
@@ -2003,6 +2014,8 @@ INTERNVL2_DECODE_SHAPE = (4, 16, 64, 8, 6, 128)
 #: single-pod mesh, a fake world of 256 ranks in a process of its own
 DRYRUN_ARGS = ("--arch", "smollm_360m", "--shape", "train_4k", "--mesh", "single")
 DRYRUN_LIMIT_S = 120
+#: a rank's peak over the dry run's placed step must fit an 80 GB card
+DRYRUN_PEAK_LIMIT = 80e9
 #: the dry run's process while it runs (``main`` stops it on any exit)
 DRYRUN = {}
 
@@ -2059,8 +2072,10 @@ def train_roofline(cfg, batch: int, seq: int, wall_ms: float, step_flops: float,
 def phase_dryrun(tr: dict, trf: dict) -> dict:
     """Phase ``dryrun``: waits for ``start_dryrun``'s process (DRYRUN_LIMIT_S
     from its start), which must exit 0 with a record of status "ok": 256
-    ranks on a "cuda" mesh, no launch, its all-to-alls counted as such;
-    prints the record's memory and collective lines.  Then the roofline of
+    ranks on a "cuda" mesh, no launch, its all-to-alls (the gradients'
+    reduction) and all-gathers (the weights on use) counted as such, its
+    peak a rank under DRYRUN_PEAK_LIMIT; prints the record's peak bytes
+    beside the predicted terms, and its memory and collective lines.  Then the roofline of
     the ``train`` and ``train_families`` cells measured above
     (``train_roofline``)."""
     t_phase = time.perf_counter()
@@ -2080,7 +2095,14 @@ def phase_dryrun(tr: dict, trf: dict) -> dict:
     assert rec["chips"] == 256 and rec["mesh_device_type"] == "cuda", rec
     assert rec["launches"] == 0, rec["launches"]
     assert rec["collective_ops"]["all-to-all"] > 0, rec["collective_ops"]
+    assert rec["collective_ops"]["all-gather"] > 0, rec["collective_ops"]
+    assert rec["memory"]["peak_bytes"] < DRYRUN_PEAK_LIMIT, rec["memory"]
     res = {"phase": "dryrun", "card": smi(), "cell": list(DRYRUN_ARGS),
+           # a rank's peak over the placed step (MemTracker on meta), beside
+           # what launch.dryrun.peak_terms predicts and the FSDP bytes
+           "peak_bytes": rec["memory"]["peak_bytes"],
+           "predicted_peak_bytes": rec["memory"]["predicted_peak_bytes"],
+           "peak_terms": rec["peak_terms"], "fsdp_bytes": rec["fsdp_bytes"],
            # the process ran beside the phases above: its own seconds are the
            # record's build_s + run_s (and its start-up); the script waited wait_s
            "collected_after_s": collected_s, "wait_s": time.perf_counter() - t_phase,

@@ -53,6 +53,7 @@ from repro_torch.models import model as M
 from repro_torch.optim import optimizer as O
 from repro_torch.roofline import analysis as R
 from repro_torch.roofline.analytic import MeshInfo, cell_costs
+from repro_torch.sharding import fsdp
 from repro_torch.sharding.shards import local_part
 from repro_torch.sharding.specs import activate, make_rules
 from repro_torch.train.train_step import effective_microbatches, make_train_step
@@ -143,12 +144,12 @@ def build_cell(cfg: ModelConfig, shape: ShapeSpec, mesh, rules):
 
     from torch.distributed.tensor.experimental import implicit_replication
 
-    # FSDP weights are gathered over the batch axes on use, once a step as
-    # the train step does; "tp2d" weights stay split (no gather)
-    fsdp = shape.kind != "decode" or cfg.decode_param_mode == "fsdp"
+    # FSDP weights are gathered over the batch axes once a call (the train
+    # step gathers each repeat's slice on use); "tp2d" weights stay split
+    gather = shape.kind != "decode" or cfg.decode_param_mode == "fsdp"
 
     def use(p):
-        return I.gather_batch_axes(p, mesh) if fsdp else p
+        return I.gather_batch_axes(p, mesh) if gather else p
 
     if shape.kind == "prefill":
         def prefill_fn(p, b):
@@ -167,6 +168,120 @@ def build_cell(cfg: ModelConfig, shape: ShapeSpec, mesh, rules):
             return M.decode_step(use(p), cfg, t, c, kv_mode=mode)
 
     return serve_step, (params, token, caches), {"kv_mode": mode}
+
+
+def peak_terms(cfg: ModelConfig, shape: ShapeSpec, mesh, params) -> dict:
+    """The placed train step's predicted peak bytes a rank, term by term,
+    from the config, the shape and the placed ``params`` (their local
+    pieces' shapes):
+
+    * ``accumulator``: the gradient accumulator's pieces in
+      ``grad_accum_dtype``;
+    * ``repeat_slices``: one repeat's slices of the stacked leaves, whole
+      over the batch axes, four times (the slice, its gradient, the
+      all-to-all's send copy and its receive buffer);
+    * ``boundaries``: the unit's saved inputs, one (rows, S, D) a repeat
+      (whisper: one a layer, the encoder's at its frame length);
+    * ``unit_recompute``: one unit's activations, forward and backward,
+      at a chunk's tokens: 8·D + 4·(q, k, v widths) + 4·ff a token for an
+      attention + MLP position (widths a rank: split over "model" where
+      the heads divide), top_k · capacity_factor · (2·D + 4·ff) and the
+      router's f32 logits for an MoE FFN, 8·D + 6·(Mamba-2 in-projection
+      width) for a Mamba-2 block;
+    * ``logits``: the chunk's f32 logits piece over "model" and its
+      gradient;
+    * ``embedding``: the table gathered whole (``_train_embed``) and its
+      gradient, and every other leaf that is not stacked, gathered over the
+      batch axes, with its gradient;
+    * ``update_f32_grads``: ``_finish``'s f32 copy of the accumulator
+      where it is not f32;
+    * ``norm_slice``: ``optim.global_norm``'s largest whole piece (a
+      stacked leaf's slice, else a whole leaf) in f32, four times (the
+      gather's buffer, the joined piece, its square, a spare).
+
+    ``predicted`` = the arguments (``arguments``, set by the caller) + the
+    accumulator + the larger of the step's terms (``repeat_slices`` to
+    ``embedding``) and the update's (the last two): they do not live at
+    once."""
+    from repro_torch.sharding import fsdp
+
+    axes = fsdp.BatchAxes(mesh)
+    names = mesh.mesh_dim_names
+    ms = mesh.size(names.index("model"))
+    n_micro = effective_microbatches(cfg, shape.global_batch, axes.n)
+    rows = max(shape.global_batch // (axes.n * n_micro), 1)
+    act_b = M.torch_dtype(cfg.dtype).itemsize
+    acc_b = M.torch_dtype(cfg.grad_accum_dtype).itemsize
+    stacked = set(M.stacked_positions(cfg))
+
+    def split(width: int, heads: int) -> float:
+        return width / ms if heads and heads % ms == 0 else width
+
+    def whole_over_batch(p) -> int:
+        """Elements of this rank's piece made whole over the batch axes."""
+        local = p.to_local()
+        lay = fsdp.leaf_layout(axes, p.shape, p.placements)
+        if lay.dim is None or local.shape[lay.dim] == 0:
+            return local.numel() if lay.dim is None else 0
+        return local.numel() // local.shape[lay.dim] * p.shape[lay.dim]
+
+    def whole_piece(p) -> int:
+        """Elements of ``global_norm``'s piece: a slice of a leaf of 3 or
+        more dims, else the leaf."""
+        return math.prod(p.shape[1:]) if p.dim() >= 3 else math.prod(p.shape)
+
+    acc = slices = others = 0
+    norm = 0
+    for key, sub in params.items():
+        for p in _leaves(sub):
+            b = p.element_size()
+            acc += p.to_local().numel() * acc_b
+            norm = max(norm, whole_piece(p) * 4)
+            if key in stacked:
+                slices += whole_over_batch(p) // p.shape[0] * b
+            else:
+                others += whole_over_batch(p) * b
+    D, S = cfg.d_model, shape.seq_len
+    tokens = rows * S
+    qkv = split(cfg.qk_dim, cfg.n_heads) + 2 * split(cfg.kv_dim, cfg.n_kv_heads) \
+        if cfg.n_heads else 0
+    ff = cfg.d_ff / ms if cfg.d_ff else 0
+
+    def width(kind: str) -> float:
+        if kind == "mamba":
+            proj = 2 * cfg.d_inner + 2 * cfg.ssm_state + cfg.ssm_heads
+            return 8 * D + 6 * proj / ms
+        attn = 8 * D + 4 * qkv
+        if kind == "moe":
+            return attn + cfg.top_k * cfg.capacity_factor * (2 * D + 4 * ff) \
+                + 2 * cfg.n_experts * 4 / act_b
+        return attn + 4 * ff
+
+    if cfg.family == "encdec":
+        enc_tokens = rows * (S // cfg.enc_seq_divisor)
+        boundaries = (cfg.enc_layers * enc_tokens + cfg.dec_layers * tokens) * D * act_b
+        unit = max(enc_tokens, tokens) * (width("attn") + 4 * qkv) * act_b
+    else:
+        unit_plan, n_rep, tail = M.scan_plan(cfg)
+        boundaries = n_rep * tokens * D * act_b
+        unit = tokens * sum(width(kind) for _, kind in unit_plan) * act_b
+    vpad = M.pad_vocab(cfg)
+    emb_b = M.torch_dtype(cfg.param_dtype).itemsize
+    terms = {
+        "accumulator": acc,
+        "repeat_slices": 4 * slices,
+        "boundaries": boundaries,
+        "unit_recompute": int(unit),
+        "logits": 2 * tokens * -(-vpad // ms) * 4,
+        "embedding": 2 * vpad * D * emb_b + 2 * others,
+        "update_f32_grads": 0 if acc_b == 4 else acc // acc_b * 4,
+        "norm_slice": 4 * norm,
+    }
+    step = sum(terms[k] for k in ("repeat_slices", "boundaries", "unit_recompute", "logits",
+                                  "embedding"))
+    update = terms["update_f32_grads"] + terms["norm_slice"]
+    terms["predicted_over_arguments"] = terms["accumulator"] + max(step, update)
+    return terms
 
 
 def _place_specs(tree, mesh):
@@ -218,7 +333,11 @@ def run_cell(arch: str, shape_name: str, mesh_name: str, out_dir: Optional[str],
         fn, args, extra = build_cell(cfg, shape, mesh, rules)
         t_lower = time.time() - t0
         arg_bytes = local_bytes(args)  # before the step: the train step updates in place
+        if shape.kind == "train":
+            terms = {"arguments": arg_bytes, **peak_terms(cfg, shape, mesh, args[0])}
+            extra["peak_terms"] = terms
         launches, kflops = dict(ops.LAUNCHES), dict(ops.META_FLOPS)
+        fsdp_bytes = dict(fsdp.BYTES)
         trace, peak = R.CellTrace(), _peak_tracker()
         with contextlib.ExitStack() as stack:
             # DTensor warns of the 0-d decode position it replicates, once a layer
@@ -233,9 +352,14 @@ def run_cell(arch: str, shape_name: str, mesh_name: str, out_dir: Optional[str],
         t_run = time.time() - t0 - t_lower
         kernel_flops = sum(ops.META_FLOPS[k] - kflops[k] for k in kflops)
         launched = sum(ops.LAUNCHES[k] - launches[k] for k in launches)
+        if shape.kind == "train":
+            extra["fsdp_bytes"] = {k: fsdp.BYTES[k] - fsdp_bytes[k] for k in fsdp_bytes}
         memory = {"argument_size_in_bytes": arg_bytes,
                   "output_size_in_bytes": local_bytes(out),
                   "peak_bytes": peak_bytes,
+                  "predicted_peak_bytes": extra["peak_terms"]["arguments"]
+                  + extra["peak_terms"]["predicted_over_arguments"]
+                  if "peak_terms" in extra else None,
                   "temp_size_in_bytes": None if peak_bytes is None else
                   max(peak_bytes - arg_bytes, 0),
                   "generated_code_size_in_bytes": None}
@@ -260,6 +384,12 @@ def run_cell(arch: str, shape_name: str, mesh_name: str, out_dir: Optional[str],
         if peak is None:
             rec["null_fields"]["peak_bytes"] = "torch.distributed._tools.mem_tracker is missing"
         rec["notes"] = {
+            "peak_terms": "a train cell's predicted peak, term by term (peak_terms): "
+                          "predicted_peak_bytes = arguments + accumulator + the larger of "
+                          "the step's terms and the update's",
+            "fsdp_bytes": "bytes this rank receives from the train step's FSDP collectives "
+                          "(sharding.fsdp): the weights' gathers on use and the gradients' "
+                          "reductions",
             "flops": "per rank: torch.utils.flop_counter's formulas over the local "
                      "ops on meta, plus kernel 6 and its backward from their meta "
                      "route (4·hd / 10·hd a (query head, key) pair the masks leave; "

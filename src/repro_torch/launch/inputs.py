@@ -168,9 +168,9 @@ def concrete_batch(cfg: ModelConfig, B: int, S: int, generator: torch.Generator,
 
 def gather_batch_axes(params, mesh):
     """Each placed parameter made whole over the mesh's batch axes, its
-    "model" split kept: the FSDP gather on use, which the placed train step
-    makes once a step, for a placed prefill or decode step under
-    ``param_mode="fsdp"`` rules.  Without it DTensor may split a contraction
+    "model" split kept: the FSDP gather, once a call, for a placed prefill
+    or decode step under ``param_mode="fsdp"`` rules (the train step
+    gathers each repeat's slice on use instead: ``sharding/fsdp.py``).  Without it DTensor may split a contraction
     over a batch axis instead (partial sums, then an all-reduce).  A leaf
     the batch axes do not split is returned as it is."""
     from torch.distributed.tensor import Replicate

@@ -42,7 +42,10 @@ patches), or for the encoder-decoder its encoder and decoder blocks; each
 repeat of the unit, and each encoder and decoder layer, under
 ``torch.utils.checkpoint`` when ``cfg.remat == "full"`` (the reference's
 ``jax.checkpoint`` of its scan bodies), the stacked parameters unbound once
-per call so that their gradients are stacked once.  Each declaration
+per call so that their gradients are stacked once (the placed train step
+hands ``sharding.fsdp.StackedOnUse`` leaves instead, which gather each
+repeat's slice on use; its loss keeps the logits split over the
+vocabulary, ``_vocab_parallel_loss``).  Each declaration
 carries the reference's logical axes (``param_logical_axes``: the placed
 train step's layout, ``launch/inputs.py``); ``abstract_params`` gives the
 tree on the ``meta`` device.  The embedding, the residual stream and the
@@ -413,10 +416,22 @@ def _layer(params: Params, pos_name: str, kind: str, i: int) -> Params:
 # ---------------------------------------------------------------------------
 
 
+def stacked_positions(cfg) -> Tuple[str, ...]:
+    """The parameter tree's keys whose leaves are stacked on a leading
+    repeat (layer) dim: the unit's positions but ``shared_attn``, or the
+    encoder-decoder's ``enc`` and ``dec``."""
+    if cfg.family == "encdec":
+        return ("enc", "dec")
+    unit, _, _ = scan_plan(cfg)
+    return tuple(pos for pos, kind in unit if kind != "shared_attn")
+
+
 def _unbind(stacked: Params) -> Dict[str, Tuple[torch.Tensor, ...]]:
     """One view per layer of each stacked tensor; their gradients are
-    stacked once (unbind's backward)."""
-    return {k: t.unbind(0) for k, t in stacked.items()}
+    stacked once (unbind's backward).  A leaf that is no tensor is already
+    indexed by layer: the placed train step's ``sharding.fsdp.StackedOnUse``,
+    whose ``[i]`` gathers layer i's slice on use."""
+    return {k: t.unbind(0) if isinstance(t, torch.Tensor) else t for k, t in stacked.items()}
 
 
 def _remat(cfg, fn, *args):
@@ -465,19 +480,82 @@ def forward(params: Params, cfg, batch: Dict[str, torch.Tensor]) -> torch.Tensor
 def loss_fn(params: Params, cfg, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Mean next-token NLL over the labels >= 0 (the reference's
     ``loss_fn``): the vocabulary's padding rows masked to -1e30 before the
-    log-sum-exp, the mean over max(count, 1).  On a mesh the logits are
-    gathered whole over the vocabulary first: DTensor's gather of the gold
-    logit from a vocab-sharded dim leaves a masked partial it cannot reduce."""
-    logits = logical_shard(forward(params, cfg, batch), "act_batch", "act_seq", None)
-    labels = batch["labels"].long()
-    V = logits.shape[-1]
-    if cfg.vocab < V:
-        vmask = torch.arange(V, device=logits.device) < cfg.vocab
-        logits = torch.where(vmask, logits, -1e30)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+    log-sum-exp, the mean over max(count, 1).  On a mesh the logits stay
+    split over the vocabulary (``_vocab_parallel_loss``)."""
+    logits = forward(params, cfg, batch)
+    if L._is_dtensor(logits):
+        return _vocab_parallel_loss(logits, batch["labels"], cfg)
+    return _nll(logits, batch["labels"].long(), cfg, 0, None)
+
+
+class _SumOverPieces(torch.autograd.Function):
+    """The sum of a tensor over the vocabulary's pieces (a functional
+    all-reduce); its gradient is the caller's, which every piece holds
+    whole: the loss is the same on every piece."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        import torch.distributed._functional_collectives as fc
+
+        out = fc.all_reduce(t, "sum", group)
+        return out.wait() if isinstance(out, fc.AsyncCollectiveTensor) else out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def _nll(x: torch.Tensor, labels: torch.Tensor, cfg, start: int, group) -> torch.Tensor:
+    """The mean NLL from logits ``x`` (B, S, n) that hold the vocabulary's
+    columns ``start`` .. ``start + n`` (all of them when ``group`` is None,
+    else this piece of those the pieces over ``group`` hold).  Each piece
+    masks the padding columns it holds and takes its log-sum-exp lse_r; the
+    pieces combine as m + log(sum_r exp(lse_r - m)), m their max (no
+    gradient).  The gold logit is gathered on the piece that holds the
+    label's column, 0 elsewhere, and summed over the pieces (one term is
+    not 0: exact).  The gradient stays a piece: softmax minus one-hot on its
+    own columns."""
+    n = x.shape[-1]
+    if cfg.vocab < start + n:  # this piece holds padding columns
+        x = torch.where(torch.arange(start, start + n, device=x.device) < cfg.vocab, x, -1e30)
+    logz = torch.logsumexp(x, dim=-1)
+    if group is None:
+        gold = x.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+    else:
+        import torch.distributed._functional_collectives as fc
+
+        m = fc.all_reduce(logz.detach(), "max", group)
+        m = m.wait() if isinstance(m, fc.AsyncCollectiveTensor) else m
+        logz = m + torch.log(_SumOverPieces.apply(torch.exp(logz - m), group))
+        local = labels - start
+        here = (local >= 0) & (local < n)
+        gold = x.gather(-1, local.clamp(0, max(n - 1, 0))[..., None])[..., 0]
+        gold = _SumOverPieces.apply(torch.where(here, gold, 0.0), group)
     mask = (labels >= 0).to(torch.float32)
     return ((logz - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def _vocab_parallel_loss(logits: torch.Tensor, labels: torch.Tensor, cfg) -> torch.Tensor:
+    """``loss_fn``'s loss from logits (B, S, Vpad) placed on a mesh, each
+    piece its own columns (``logits_from_hidden`` splits them over
+    "model"; ``_nll`` on the local piece), as a replicated 0-d DTensor.
+    With one piece this is the unplaced loss, op for op."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = logits.device_mesh
+    last = logits.dim() - 1
+    vocab_dims = [i for i, p in enumerate(logits.placements)
+                  if isinstance(p, Shard) and p.dim == last and mesh.size(i) > 1]
+    if len(vocab_dims) > 1:
+        raise ValueError(f"logits split over the vocabulary by mesh dims {vocab_dims}")
+    want = [Shard(last) if i in vocab_dims else Replicate() for i in range(mesh.ndim)]
+    if list(logits.placements) != want:
+        logits = logits.redistribute(mesh, want)
+    start, _ = local_box(logits.shape, mesh, want)[last]
+    lab = labels.to_local() if isinstance(labels, DTensor) else labels
+    loss = _nll(logits.to_local(), lab.long(), cfg, start,
+                (mesh, vocab_dims[0]) if vocab_dims else None)
+    return DTensor.from_local(loss, mesh, [Replicate()] * mesh.ndim, run_check=False)
 
 
 # ---------------------------------------------------------------------------

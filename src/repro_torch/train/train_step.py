@@ -14,20 +14,27 @@ or ("pod", "data", "model")) the parameters, the accumulators and the
 optimizer state are DTensors placed by the logical-axis rules
 (``launch.inputs.place``): FSDP over the batch axes, features over
 "model".  Each batch shard takes its own rows of the batch and splits them
-into ``n_micro`` chunks.  Per step, each parameter is gathered over the
-batch axes once; each chunk then runs the model under ``activate`` on
+into ``n_micro`` chunks; each chunk runs the model under ``activate`` on
 DTensors over the shard's "model" sub-mesh (the batch wrapped with
 ``DTensor.from_local``), kernel 6 on each shard's local heads under
-``local_map``.  Each chunk's gradients are reduced over the batch axes in a
-fixed order: an all-to-all hands every shard its slice of each shard's
-gradient (an all-gather for a parameter the batch axes do not split), and
-the slices are added into the accumulator in shard order.  So the placed
-step at "model" size 1 is bit for bit the unsharded step over the same
-chunks, the chunk of micro step m and shard s being chunk m * shards + s of
-that step (``n_micro * shards`` chunks); "model" > 1 splits contractions and
-agrees within rounding.  The loss is the mean of the chunks' losses, as the
-unsharded step's: the reference's mean over the global batch when every
-chunk counts as many labels (every label >= 0).
+``local_map``, the loss on each shard's columns of the logits
+(``models.model._vocab_parallel_loss``).  The weights follow the
+reference's FSDP design (``sharding/fsdp.py``): a stacked leaf (the unit's
+repeats, whisper's encoder and decoder) is gathered over the batch axes one
+repeat's slice at a time, when the repeat runs (again in remat's
+recompute), and its slice's gradient is reduced in the backward straight
+into the accumulator; every other leaf is gathered once a chunk and reduced
+after the chunk's backward.  Each reduction is fixed-order: an all-to-all
+hands every shard its rows of each shard's gradient (an all-gather for a
+leaf the batch axes do not split), and they are added into the accumulator
+in shard order (pod-major).  So the placed step at "model" size 1 is bit
+for bit the unsharded step over the same chunks, the chunk of micro step m
+and shard s being chunk m * shards + s of that step (``n_micro * shards``
+chunks); "model" > 1 splits contractions and agrees within rounding.  No
+rank holds a gradient stacked over the shards, every weight at once or the
+logits whole over the vocabulary.  The loss is the mean of the chunks'
+losses, as the unsharded step's: the reference's mean over the global batch
+when every chunk counts as many labels (every label >= 0).
 """
 
 from __future__ import annotations
@@ -104,45 +111,19 @@ def _placed_train_step(cfg, oc: O.OptConfig, n_micro: int, mesh, rules):
     from torch.distributed.tensor import DTensor, Replicate, Shard
     from torch.distributed.tensor.experimental import implicit_replication
 
-    from repro_torch.launch.mesh import batch_axes, batch_shards
+    from repro_torch.sharding import fsdp
     from repro_torch.sharding.specs import activate, make_rules
 
     if rules is None:
         rules = make_rules(multi_pod="pod" in mesh.mesh_dim_names,
                            moe_sharding=cfg.moe_sharding)
-    names = mesh.mesh_dim_names
-    bdims = [names.index(a) for a in batch_axes(mesh)]
-    mdim = names.index("model")
+    axes = fsdp.BatchAxes(mesh)
+    mdim = mesh.mesh_dim_names.index("model")
     model_mesh = mesh["model"]
-    n_shards = batch_shards(mesh)
-    coord = mesh.get_coordinate()
-    shard = 0
-    for d in bdims:  # pod-major, the order of Shard(0) over the batch axes
-        shard = shard * mesh.size(d) + coord[d]
+    n_shards, shard = axes.n, axes.index
     acc_dt = M.torch_dtype(cfg.grad_accum_dtype)
     rep = Replicate()
-
-    def shifted(pl):
-        return Shard(pl.dim + 1) if isinstance(pl, Shard) else pl
-
-    def reduce_into(acc_local, g_local, p):
-        """Add shard 0's, shard 1's, ... slice of this chunk's gradient into
-        this shard's accumulator, in that order.  ``g_local`` is this
-        shard's gradient, whole over the batch axes; stacked on a new
-        leading dim placed ``Shard(0)`` over them, one redistribute moves
-        every shard's slice to its owner (all-to-all) or everywhere (a
-        parameter the batch axes do not split: all-gather)."""
-        if n_shards == 1:
-            acc_local.add_(g_local.to(acc_dt))
-            return
-        src = [Shard(0) if i in bdims else shifted(pl) for i, pl in enumerate(p.placements)]
-        dst = [shifted(pl) for pl in p.placements]
-        shape = (n_shards,) + tuple(p.shape)
-        stacked = DTensor.from_local(g_local[None], mesh, src, run_check=False, shape=shape,
-                                     stride=torch.empty(shape, device="meta").stride())
-        parts = stacked.redistribute(mesh, dst).to_local()
-        for s in range(n_shards):
-            acc_local.add_(parts[s].to(acc_dt))
+    stacked = set(M.stacked_positions(cfg))
 
     def local_rows(v):
         if isinstance(v, DTensor):
@@ -152,36 +133,49 @@ def _placed_train_step(cfg, oc: O.OptConfig, n_micro: int, mesh, rules):
 
     def train_step(params, opt_state, batch: Dict[str, torch.Tensor]):
         leaves = O.tree_leaves(params)
-        model_pl = [p.placements[mdim] for p in leaves]
-        with torch.no_grad():
-            gathered = [p.redistribute(mesh, [rep if i in bdims else pl
-                                              for i, pl in enumerate(p.placements)])
-                        .to_local() for p in leaves]
-        live = [DTensor.from_local(g, model_mesh, [pl], run_check=False, shape=p.shape,
-                                   stride=p.stride()).requires_grad_(True)
-                for g, pl, p in zip(gathered, model_pl, leaves)]
-        del gathered
-        it = iter(live)
-        live_params = O.tree_map(lambda _: next(it), params)
+        # each leaf's top-level key: a stacked position's leaves are stacked
+        keys = [k for k, v in params.items() for _ in (v if isinstance(v, dict) else (v,))]
         acc = [torch.zeros_like(p, dtype=acc_dt) for p in leaves]
         acc_local = [a.to_local() for a in acc]
+        layouts = [fsdp.leaf_layout(axes, p.shape, p.placements) for p in leaves]
         chunks = {k: local_rows(v).chunk(n_micro) for k, v in batch.items()}
         losses = []
         for i in range(n_micro):
+            # the stacked leaves gather each repeat's slice on use and reduce
+            # its gradient in the backward; the others are gathered here, for
+            # this chunk, and reduced after its backward
+            anchor = torch.zeros((), device=acc_local[0].device, requires_grad=True)
+            used, live, at = [], [], []
+            for j, (key, p) in enumerate(zip(keys, leaves)):
+                if key in stacked:
+                    used.append(fsdp.StackedOnUse(p, layouts[j], acc_local[j], axes,
+                                                  model_mesh, mdim, anchor))
+                    continue
+                with torch.no_grad():
+                    whole = fsdp.gather(p.to_local(), layouts[j], axes)
+                used.append(DTensor.from_local(whole, model_mesh, [p.placements[mdim]],
+                                               run_check=False, shape=p.shape,
+                                               stride=p.stride()).requires_grad_(True))
+                live.append(used[-1])
+                at.append(j)
+            it = iter(used)
+            live_params = O.tree_map(lambda _: next(it), params)
+            del used
             mb = {k: DTensor.from_local(c[i], model_mesh, [rep], run_check=False)
                   for k, c in chunks.items()}
             with activate(mesh, rules), implicit_replication():
                 loss = M.loss_fn(live_params, cfg, mb)
-                grads = torch.autograd.grad(loss, live)
+                grads = torch.autograd.grad(loss, live + [anchor])[:-1]
             with torch.no_grad():
-                for a, g, pl, p in zip(acc_local, grads, model_pl, leaves):
-                    reduce_into(a, g.redistribute(model_mesh, [pl]).to_local(), p)
+                for j, g in zip(at, grads):
+                    pl = leaves[j].placements[mdim]
+                    fsdp.reduce_into(acc_local[j], g.redistribute(model_mesh, [pl]).to_local(),
+                                     layouts[j], axes)
                 losses.append(loss.detach().redistribute(model_mesh, [rep]).to_local())
-            del loss, grads
-        del live, live_params  # the gathered parameters, before the update
+            del loss, grads, live, live_params
         with torch.no_grad():
             mine = torch.stack(losses)[None]  # (1, n_micro)
-            every = DTensor.from_local(mine, mesh, [Shard(0) if i in bdims else rep
+            every = DTensor.from_local(mine, mesh, [Shard(0) if i in axes.dims else rep
                                                     for i in range(mesh.ndim)],
                                        run_check=False)
             every = every.redistribute(mesh, [rep] * mesh.ndim).to_local()

@@ -15,7 +15,8 @@ where the reference has a number for them.
 * one full-width cell through the CLI, smollm-360m ``train_4k`` on the
   single-pod mesh (256 fake ranks): ``ok``, its JSON written, its
   ``n_micro`` the reference's, its gradient reduction counted as
-  all-to-alls;
+  all-to-alls and its gathers on use as all-gathers, its peak a rank under
+  80 GB;
 * ``--set attention_impl=...`` and an unknown field are refused by name;
 * the ``meta`` route of kernel 6 and its backward (``kernels/ops.py``):
   the plain versions' shapes and dtypes, no launch, the FLOPs of the pairs
@@ -215,7 +216,12 @@ def test_full_width_cell_through_the_cli(records):
     # the gradients' fixed-order reduction: all-to-alls on a "cuda" mesh
     assert rec["collective_ops"]["all-to-all"] > 0
     assert rec["collectives"]["all-to-all"] > 0
+    # the weights gathered on use: all-gathers
+    assert rec["collective_ops"]["all-gather"] > 0
+    assert rec["collectives"]["all-gather"] > 0
     assert rec["launches"] == 0 and rec["flops_parts"]["kernels"] > 0
+    # a rank's peak fits an 80 GB card
+    assert rec["memory"]["peak_bytes"] < 80e9
 
 
 def test_set_refuses_a_field_the_port_lacks_and_an_unknown_one(capsys):

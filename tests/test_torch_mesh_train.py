@@ -169,7 +169,7 @@ def run_placed(arch, mesh, np_params, batches, **cfg_kw):
     from repro_torch.train.train_step import make_train_step
 
     cfg, oc, dev = _cfg(arch, **cfg_kw), _opt(), _device(mesh)
-    rules = make_rules(moe_sharding=cfg.moe_sharding)
+    rules = make_rules(multi_pod="pod" in mesh.mesh_dim_names, moe_sharding=cfg.moe_sharding)
     full = params_from_jax(np_params, cfg, dev, torch.float32)
     params = place(full, mesh, params_shardings(cfg, mesh, rules))
     opt_state = O.init_opt_state(params, oc)
@@ -218,7 +218,8 @@ def init_case(arch, mesh):
     from repro_torch.sharding.specs import make_rules
 
     cfg = _cfg(arch)
-    sh = params_shardings(cfg, mesh, make_rules(moe_sharding=cfg.moe_sharding))
+    sh = params_shardings(cfg, mesh, make_rules(multi_pod="pod" in mesh.mesh_dim_names,
+                                                moe_sharding=cfg.moe_sharding))
     want = place(M.init_params(cfg, torch.Generator().manual_seed(4), device="cpu"), mesh, sh)
     got = M.init_params(cfg, torch.Generator().manual_seed(4), device="cpu", mesh=mesh,
                         shardings=sh)
@@ -474,7 +475,7 @@ def starts_at_zero(cfg, key: str) -> bool:
 def check_against_plain(rec, plain, arch, shape):
     """Bitwise at "model" size 1; otherwise the tolerances of the module
     docstring."""
-    if shape[1] == 1:
+    if shape[-1] == 1:
         assert rec["loss"] == plain["loss"]
         assert rec["grad_norm"] == plain["grad_norm"]
         for k, v in rec["state"].items():

@@ -5,7 +5,9 @@ The same cases and gates as ``test_torch_mesh_train.py`` at "model" > 1
 (against the port's unsharded step over the shards' chunks, against the
 reference's unsharded step and its final state, local shard shapes, the
 placed ``init_params``), for qwen2.5-14b,
-zamba2-7b, phi3.5-moe and smollm-360m at their SMOKE configs in f32; and
+zamba2-7b, phi3.5-moe and smollm-360m at their SMOKE configs in f32; the
+multi-pod mesh (2, 2, 1) over ("pod", "data", "model") bit for bit against
+the unsharded step over the four shards' chunks; and
 ``compressed_allreduce_int8`` at 4 ranks: int8 on the wire, the payloads
 and scales bit for bit the reference's ``quantize_int8`` per rank, the sum
 within 1e-6 relative of the reference's formula (four terms: the order of
@@ -23,6 +25,9 @@ from test_torch_mesh_train import (  # noqa: E402
     write_plain_checkpoint)
 
 MESH = (2, 2)
+#: the multi-pod layout at its smallest: ("pod", "data", "model") = (2, 2, 1),
+#: the batch axes four shards pod-major
+POD_MESH = (2, 2, 1)
 
 
 @pytest.fixture(scope="module")
@@ -31,8 +36,8 @@ def world(tmp_path_factory):
     params = {arch: reference_params(arch) for arch in ARCHS}
     batches = {arch: _batches(arch) for arch in ARCHS}
     write_plain_checkpoint(str(out / "plain_ckpt"))
-    jobs = {"meshes": (MESH,), "archs": ARCHS, "params": params, "batches": batches,
-            "resume": ()}
+    jobs = {"meshes": (MESH, POD_MESH), "archs": ARCHS, "params": params,
+            "batches": batches, "resume": ()}
     ctx = spawn_world(4, str(out), jobs)
     ref = {arch: jax_reference(arch, params[arch], batches[arch]) for arch in ARCHS}
     while not ctx.join():
@@ -45,6 +50,19 @@ def test_placed_step_against_the_unsharded_step(world, arch):
     ranks, _ = world
     rec = ranks[0][(arch, MESH)]
     check_against_plain(rec, rec["plain"], arch, MESH)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_multi_pod_placed_step_is_the_unsharded_step(world, arch):
+    """(2, 2, 1): the gradients reduced over ("pod", "data") as one group in
+    pod-major order, so two placed steps are the unsharded step over
+    ``n_micro * 4`` chunks bit for bit, on every rank."""
+    ranks, _ = world
+    rec = ranks[0][(arch, POD_MESH)]
+    check_against_plain(rec, rec["plain"], arch, POD_MESH)
+    for other in ranks[1:]:
+        assert other[(arch, POD_MESH)]["loss"] == rec["loss"]
+        assert other[(arch, POD_MESH)]["init"]["differ"] == []
 
 
 @pytest.mark.parametrize("arch", ARCHS)
