@@ -66,8 +66,10 @@ side:
    its own (seeded by its label), each repeated bit for bit over 6
    launches; kernel, plain and SDPA times (same mask; SDPA without a mask
    where every key is attended) beside the bound over the unmasked (query
-   head, key) pairs; the HMMA instructions of each bf16 instantiation in
-   the built library (``cuobjdump -sass``); every row also with the rows'
+   head, key) pairs; the HGMMA (``wgmma``) and UTMALDG (TMA load)
+   instructions of each bf16 instantiation in the built library
+   (``cuobjdump -sass``), both required, and fewer WARPGROUP.ARRIVE than
+   HGMMA (the products not serialized); every row also with the rows'
    log-sum-exp on (``return_lse``): ``out`` bit for bit the same, lse within
    LSE_RTOL/ATOL of the plain version's.  Then ``flash_gate_draws``:
    every row's gate again at FLASH_DRAWS further draws of its inputs.
@@ -495,8 +497,17 @@ def stop_host_workers() -> None:
         _HOST_POOL = None
 
 
+#: GPU cycles of the sleep kernel queued ahead of each timed call (some
+#: 100 us at the H100's clocks): longer than a wrapper's host time
+TIME_SLEEP_CYCLES = 200_000
+
+
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median of CUDA-event timings of ``fn()`` on the current stream."""
+    """Median of CUDA-event timings of ``fn()`` on the current stream, device
+    time only: a short sleep kernel queued first keeps the stream busy while
+    the host records the start event and runs ``fn``'s Python wrapper, so
+    the start event fires when the card reaches ``fn``'s first launch, not
+    when the host did."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -504,6 +515,7 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(TIME_SLEEP_CYCLES)
         a.record()
         fn()
         b.record()
@@ -941,8 +953,9 @@ def _sass(lib: Path) -> str:
         return _disassemble(lib)
 
 
-def sass_hmma(lib: Path, name: str) -> dict:
-    """HMMA (tensor-core) instructions in each function of the built library
+def sass_count(lib: Path, name: str, op: str) -> dict:
+    """Instructions ``op`` (HMMA: ``mma.sync`` on the tensor cores; HGMMA:
+    ``wgmma``; UTMALDG: a TMA load) in each function of the built library
     whose mangled name contains ``name``, counted in ``cuobjdump -sass``."""
     text = _sass(lib)
     counts: dict = {}
@@ -953,7 +966,7 @@ def sass_hmma(lib: Path, name: str) -> dict:
             cur = fn if name in fn else None
             if cur is not None:
                 counts[cur] = 0
-        elif cur is not None and "HMMA" in line:
+        elif cur is not None and op in line:
             counts[cur] += 1
     return counts
 
@@ -965,14 +978,24 @@ def phase_flash_attn(dev) -> dict:
     its bound: q read and out written once, the K/V rows below kv_len read
     once, at the HBM rate, against 4*hd flops per unmasked (query head, key)
     pair at the type's peak (bf16 tensor cores; f32 outside them).  The bf16
-    path's tensor-core use is read from the built library: every bf16
-    instantiation (hd 64, 112, 128, 256) must hold HMMA instructions."""
+    path's design is read from the built library: every bf16 instantiation
+    (hd 64, 112, 128, 256) must hold HGMMA (``wgmma``) and UTMALDG (TMA
+    load) instructions, and fewer WARPGROUP.ARRIVE than HGMMA: ptxas issues
+    the products in groups, not each alone (a serialized pipeline brackets
+    every HGMMA with its own arrive and wait)."""
     from repro_torch.kernels.flash_attn import HEAD_DIMS, flash_attention_kernel
 
     t0 = time.perf_counter()
-    hmma = sass_hmma(_build.build().path, "flash_attention_bf16_kernel")
-    assert len(hmma) == len(HEAD_DIMS) and min(hmma.values()) > 0, hmma
-    res = {"phase": "flash_attn", "hmma_per_bf16_function": hmma, "cases": []}
+    lib = _build.build().path
+    sass = {op: {_fn_label(fn, "flash_attention_bf16_kernel"): n for fn, n in
+                 sass_count(lib, "flash_attention_bf16_kernel", op).items()}
+            for op in ("HGMMA", "UTMALDG", "WARPGROUP.ARRIVE")}
+    for op in ("HGMMA", "UTMALDG"):
+        counts = sass[op]
+        assert len(counts) == len(HEAD_DIMS) and min(counts.values()) > 0, (op, counts)
+    for fn, n in sass["HGMMA"].items():
+        assert sass["WARPGROUP.ARRIVE"].get(fn, 0) < n, ("wgmma serialized", fn, sass)
+    res = {"phase": "flash_attn", "sass_per_bf16_function": sass, "cases": []}
     for label, (B, S, KVH, G, hd), skv, causal, window, kv_len, dtype in FLASH_CASES:
         Skv = S if skv is None else skv
         q, k, v = flash_inputs(label, (B, S, KVH, G, hd), Skv, dtype, dev)
@@ -1100,7 +1123,7 @@ def bwd_functions() -> dict:
     res: dict = {}
     for kind, names in zip(("bf16", "f32"), BWD_FUNCTIONS):
         for name in names:
-            hmma = {_fn_label(fn, name): n for fn, n in sass_hmma(lib, name).items()}
+            hmma = {_fn_label(fn, name): n for fn, n in sass_count(lib, name, "HMMA").items()}
             if kind == "bf16":
                 assert len(hmma) == len(BWD_HEAD_DIMS) and min(hmma.values()) > 0, hmma
             usage = ptxas_usage(log, name) if log else {}

@@ -6,8 +6,9 @@
 validates, allocates the outputs and launches on the current stream;
 ``kernels/ops.py`` dispatches between it and the plain version.  The kernel
 takes any Sq / Skv and masks the ragged edge itself: there is no padding.
-bf16 runs both products on the tensor cores (P.V as three bf16 products, p
-split into hi + mid + lo); f32 runs on the CUDA cores.  With
+bf16 runs both products on the tensor cores with ``wgmma``, K and V staged
+by TMA (P.V as three bf16 products, p split into hi + mid + lo); f32 runs on
+the CUDA cores.  With
 ``return_lse=True`` it also returns the rows' log-sum-exp (B, Sq, KVH, G) in
 f32, which ``flash_attention_backward_kernel`` takes: the gradient of the
 same function (port-only: the reference's gradient is XLA's derivative of
@@ -25,7 +26,10 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.paged_attn import DTYPE_CODE
 from repro_torch.kernels.ref import attn_scale
 
-HEAD_DIMS = (64, 112, 128, 256)  # the kernel's instantiations
+#: the kernel's instantiations; each is a multiple of 8, so every global
+#: stride of the bf16 kernel's TMA maps (hd, KVH * hd and KVH * G * hd
+#: elements of 2 bytes) is a multiple of 16 bytes, as TMA requires
+HEAD_DIMS = (64, 112, 128, 256)
 BWD_HEAD_DIMS = (64, 112, 128)  # the backward's
 MAX_G = 64  # query heads per KV head: one 64-row tile holds at least one position
 
@@ -42,6 +46,10 @@ def flash_attention_kernel(q, k, v, *, causal: bool, window: int,
     B, Sq, KVH, G, hd = q.shape
     Skv = k.shape[1]
     kv_len = Skv if kv_len is None else int(kv_len)
+    if k.shape != (B, Skv, KVH, hd) or v.shape != k.shape or hd not in HEAD_DIMS \
+            or not 1 <= G <= MAX_G or min(B, Sq, Skv, KVH) < 1:
+        raise ValueError(f"{name}: unsupported shapes q={tuple(q.shape)} "
+                         f"k={tuple(k.shape)} (hd in {HEAD_DIMS}, G <= {MAX_G})")
     if q.device.type != "cuda":
         raise ValueError(f"{name}: expected CUDA tensors, got {q.device}")
     if q.dtype not in DTYPE_CODE:
@@ -51,10 +59,6 @@ def flash_attention_kernel(q, k, v, *, causal: bool, window: int,
                 or t.data_ptr() % 16:
             raise ValueError(f"{name}: q/k/v must share dtype and device and be "
                              "contiguous and 16-byte aligned")
-    if k.shape != (B, Skv, KVH, hd) or v.shape != k.shape or hd not in HEAD_DIMS \
-            or not 1 <= G <= MAX_G or min(B, Sq, Skv, KVH) < 1:
-        raise ValueError(f"{name}: unsupported shapes q={tuple(q.shape)} "
-                         f"k={tuple(k.shape)} (hd in {HEAD_DIMS}, G <= {MAX_G})")
     if not 0 <= kv_len <= Skv or int(window) < 0:
         raise ValueError(f"{name}: kv_len {kv_len} / window {window} out of range")
     out = torch.empty_like(q)

@@ -144,12 +144,13 @@ def build_cell(cfg: ModelConfig, shape: ShapeSpec, mesh, rules):
 
     from torch.distributed.tensor.experimental import implicit_replication
 
-    # FSDP weights are gathered over the batch axes once a call (the train
-    # step gathers each repeat's slice on use); "tp2d" weights stay split
+    # FSDP weights are gathered over the batch axes as they are used, each
+    # repeat's slice when its layer runs (the train step likewise); "tp2d"
+    # weights stay split
     gather = shape.kind != "decode" or cfg.decode_param_mode == "fsdp"
 
     def use(p):
-        return I.gather_batch_axes(p, mesh) if gather else p
+        return I.gather_on_use(p, cfg, mesh) if gather else p
 
     if shape.kind == "prefill":
         def prefill_fn(p, b):
@@ -168,6 +169,18 @@ def build_cell(cfg: ModelConfig, shape: ShapeSpec, mesh, rules):
             return M.decode_step(use(p), cfg, t, c, kv_mode=mode)
 
     return serve_step, (params, token, caches), {"kv_mode": mode}
+
+
+def _whole_over_batch(axes, p) -> int:
+    """Elements of this rank's piece of the placed ``p`` made whole over the
+    batch axes (``axes``: a ``sharding.fsdp.BatchAxes``)."""
+    from repro_torch.sharding import fsdp
+
+    local = p.to_local()
+    lay = fsdp.leaf_layout(axes, p.shape, p.placements)
+    if lay.dim is None or local.shape[lay.dim] == 0:
+        return local.numel() if lay.dim is None else 0
+    return local.numel() // local.shape[lay.dim] * p.shape[lay.dim]
 
 
 def peak_terms(cfg: ModelConfig, shape: ShapeSpec, mesh, params) -> dict:
@@ -217,14 +230,6 @@ def peak_terms(cfg: ModelConfig, shape: ShapeSpec, mesh, params) -> dict:
     def split(width: int, heads: int) -> float:
         return width / ms if heads and heads % ms == 0 else width
 
-    def whole_over_batch(p) -> int:
-        """Elements of this rank's piece made whole over the batch axes."""
-        local = p.to_local()
-        lay = fsdp.leaf_layout(axes, p.shape, p.placements)
-        if lay.dim is None or local.shape[lay.dim] == 0:
-            return local.numel() if lay.dim is None else 0
-        return local.numel() // local.shape[lay.dim] * p.shape[lay.dim]
-
     def whole_piece(p) -> int:
         """Elements of ``global_norm``'s piece: a slice of a leaf of 3 or
         more dims, else the leaf."""
@@ -238,9 +243,9 @@ def peak_terms(cfg: ModelConfig, shape: ShapeSpec, mesh, params) -> dict:
             acc += p.to_local().numel() * acc_b
             norm = max(norm, whole_piece(p) * 4)
             if key in stacked:
-                slices += whole_over_batch(p) // p.shape[0] * b
+                slices += _whole_over_batch(axes, p) // p.shape[0] * b
             else:
-                others += whole_over_batch(p) * b
+                others += _whole_over_batch(axes, p) * b
     D, S = cfg.d_model, shape.seq_len
     tokens = rows * S
     qkv = split(cfg.qk_dim, cfg.n_heads) + 2 * split(cfg.kv_dim, cfg.n_kv_heads) \
@@ -281,6 +286,83 @@ def peak_terms(cfg: ModelConfig, shape: ShapeSpec, mesh, params) -> dict:
                                   "embedding"))
     update = terms["update_f32_grads"] + terms["norm_slice"]
     terms["predicted_over_arguments"] = terms["accumulator"] + max(step, update)
+    return terms
+
+
+def prefill_peak_terms(cfg: ModelConfig, shape: ShapeSpec, mesh, params) -> dict:
+    """The placed prefill's predicted peak bytes a rank over its arguments,
+    term by term (a decoder-only family; the weights gathered on use,
+    ``inputs.gather_on_use``, the MoE's routing per batch shard), at a
+    batch shard's ``tokens`` = (global batch / batch shards) x S:
+
+    * ``unstacked``: every leaf that is not stacked, gathered whole over
+      the batch axes (the embedding and unembedding, norms);
+    * ``repeat_slices``: the largest unit position's slices of one repeat,
+      whole over the batch axes, twice (the all-gather's buffer and the
+      joined slice);
+    * ``kv``: each attention layer's K and V, a rank's kv heads (all of
+      them where they do not divide "model"), kept for the caches, twice
+      (the per-layer list and the stacked cache);
+    * ``residual``: the stream and a block's output, (tokens, D) each;
+    * ``block``: the largest block's activations: q, k, v and the
+      attention output, then the MLP's three (tokens, d_ff / "model")
+      tensors, or the MoE's router logits and their softmax in f32 (three
+      (tokens, E)) and its dispatch, expert and combine tensors, top_k x
+      capacity_factor rows a token: the buffer and the experts' output
+      whole over "model" (2 D) and three d_ff / "model" wide;
+    * ``logits``: the (tokens, Vpad / "model") logits in f32 and the final
+      hidden state.
+
+    ``predicted_over_arguments`` is their sum (``block`` and ``logits`` do
+    not live at once: the larger of the two)."""
+    from repro_torch.sharding import fsdp
+
+    axes = fsdp.BatchAxes(mesh)
+    ms = mesh.size(mesh.mesh_dim_names.index("model"))
+    act_b = M.torch_dtype(cfg.dtype).itemsize
+    tokens = max(shape.global_batch // axes.n, 1) * shape.seq_len
+    stacked = set(M.stacked_positions(cfg))
+
+    def whole_bytes(p) -> int:
+        return _whole_over_batch(axes, p) * p.element_size()
+
+    unstacked, slices = 0, 0
+    for key, sub in params.items():
+        if key in stacked:
+            slices = max(slices, sum(whole_bytes(p) // p.shape[0] for p in _leaves(sub)))
+        else:
+            unstacked += sum(whole_bytes(p) for p in _leaves(sub))
+
+    def split(width: int, heads: int) -> float:
+        return width / ms if heads and heads % ms == 0 else width
+
+    D = cfg.d_model
+    q, kv = split(cfg.qk_dim, cfg.n_heads), split(cfg.kv_dim, cfg.n_kv_heads)
+    ff = cfg.d_ff / ms if cfg.d_ff else 0
+    unit, n_rep, tail = M.scan_plan(cfg)
+    attn_layers = n_rep * sum(k != "mamba" for _, k in unit) + sum(k != "mamba" for _, k in tail)
+
+    def width(kind: str) -> float:
+        if kind == "mamba":
+            return 6 * (2 * cfg.d_inner + 2 * cfg.ssm_state + cfg.ssm_heads) / ms
+        attn = 2 * q + 2 * kv
+        if kind == "moe":
+            routed = cfg.top_k * cfg.capacity_factor
+            return attn + max(3 * cfg.n_experts * 4 / act_b, routed * (2 * D + 3 * ff))
+        return attn + 3 * ff
+
+    vpad = M.pad_vocab(cfg)
+    terms = {
+        "unstacked": unstacked,
+        "repeat_slices": 2 * slices,
+        "kv": int(2 * attn_layers * 2 * tokens * kv * act_b),
+        "residual": 2 * tokens * D * act_b,
+        "block": int(tokens * max(width(k) for _, k in (*unit, *tail)) * act_b),
+        "logits": tokens * (-(-vpad // ms) * 4 + D * act_b),
+    }
+    terms["predicted_over_arguments"] = (sum(terms[k] for k in ("unstacked", "repeat_slices",
+                                                                "kv", "residual"))
+                                         + max(terms["block"], terms["logits"]))
     return terms
 
 
@@ -335,6 +417,9 @@ def run_cell(arch: str, shape_name: str, mesh_name: str, out_dir: Optional[str],
         arg_bytes = local_bytes(args)  # before the step: the train step updates in place
         if shape.kind == "train":
             terms = {"arguments": arg_bytes, **peak_terms(cfg, shape, mesh, args[0])}
+            extra["peak_terms"] = terms
+        elif shape.kind == "prefill" and cfg.family != "encdec":
+            terms = {"arguments": arg_bytes, **prefill_peak_terms(cfg, shape, mesh, args[0])}
             extra["peak_terms"] = terms
         launches, kflops = dict(ops.LAUNCHES), dict(ops.META_FLOPS)
         fsdp_bytes = dict(fsdp.BYTES)

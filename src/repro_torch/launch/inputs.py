@@ -22,7 +22,7 @@ from repro_torch.sharding.specs import AxisRules, placements_for
 
 __all__ = ["Spec", "kv_mode_for", "params_shardings", "batch_specs",
            "decode_cache_shardings", "decode_specs", "concrete_batch", "gather_batch_axes",
-           "place"]
+           "gather_on_use", "place"]
 
 
 class Spec(NamedTuple):
@@ -169,8 +169,9 @@ def concrete_batch(cfg: ModelConfig, B: int, S: int, generator: torch.Generator,
 def gather_batch_axes(params, mesh):
     """Each placed parameter made whole over the mesh's batch axes, its
     "model" split kept: the FSDP gather, once a call, for a placed prefill
-    or decode step under ``param_mode="fsdp"`` rules (the train step
-    gathers each repeat's slice on use instead: ``sharding/fsdp.py``).  Without it DTensor may split a contraction
+    or decode step under ``param_mode="fsdp"`` rules (``gather_on_use``
+    and the train step gather each repeat's slice on use instead:
+    ``sharding/fsdp.py``).  Without it DTensor may split a contraction
     over a batch axis instead (partial sums, then an all-reduce).  A leaf
     the batch axes do not split is returned as it is."""
     from torch.distributed.tensor import Replicate
@@ -184,6 +185,28 @@ def gather_batch_axes(params, mesh):
         return p if list(p.placements) == want else p.redistribute(mesh, want)
 
     return {k: gather_batch_axes(v, mesh) if isinstance(v, dict) else one(v)
+            for k, v in params.items()}
+
+
+def gather_on_use(params, cfg: ModelConfig, mesh):
+    """The parameters of a placed prefill or decode step under
+    ``param_mode="fsdp"`` rules, made whole over the batch axes as the step
+    uses them: each stacked leaf (``M.stacked_positions``) as a
+    ``sharding.fsdp.StackedOnUse`` with no accumulator, whose ``[i]``
+    gathers repeat i's slice when the model indexes it, so one repeat's
+    weights are whole at a time;
+    every other leaf gathered now (``gather_batch_axes``).  Call under
+    ``torch.no_grad``: the slices carry no gradient back to the leaf."""
+    from repro_torch.sharding import fsdp
+
+    axes = fsdp.BatchAxes(mesh)
+    stacked = set(M.stacked_positions(cfg))
+    rest = gather_batch_axes({k: v for k, v in params.items() if k not in stacked}, mesh)
+    def on_use(t):
+        return fsdp.StackedOnUse(t, fsdp.leaf_layout(axes, t.shape, t.placements), axes,
+                                 t.device_mesh, range(t.device_mesh.ndim))
+
+    return {k: ({n: on_use(t) for n, t in v.items()} if k in stacked else rest[k])
             for k, v in params.items()}
 
 

@@ -34,8 +34,8 @@ Conventions, as in the reference:
     placed train step, ``train/train_step.py``) the layers run on DTensors:
     kernel 6 on each shard's local heads under ``local_map`` (``_flash``),
     heads replicated where the kv heads do not divide "model"
-    (``_head_feat``), the MoE routing, dispatch and combine whole on every
-    shard (``_replicated``).
+    (``_head_feat``), the MoE routing, dispatch and combine on each batch
+    shard's whole sequences (``_per_sequence``).
 """
 
 from __future__ import annotations
@@ -379,18 +379,19 @@ def moe(params: Params, x: torch.Tensor, cfg) -> torch.Tensor:
 
     On a mesh the expert products run on DTensors (experts or their d_ff
     over "model", ``moe_sharding``); the routing, the dispatch and the
-    combine read across a sequence's tokens and experts, so they run whole
-    on every shard (``_replicated``), each from the same router logits."""
+    combine read across a sequence's tokens and experts, so they run on
+    whole sequences: per batch shard, each sequence whole over every other
+    mesh dim (``_per_sequence``), from the same router logits."""
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
     if not 1 <= K <= 2:
         raise NotImplementedError(f"moe: the combine is exact for top_k <= 2, got {K}")
     C = moe_capacity(S, cfg)
     logits = torch.einsum("bsd,de->bse", x, params["w_router"]).to(torch.float32)
-    r = Routing(*_replicated(lambda lg: route(lg, K, C), logits,
-                             n_out=len(Routing._fields)))
+    r = Routing(*_per_sequence(lambda lg: route(lg, K, C), logits,
+                               n_out=len(Routing._fields)))
     pairs = (r.order, r.sorted_e, r.rank, r.keep)
-    buf = _replicated(_dispatch, x, *pairs, top_k=K, n_experts=E, capacity=C)
+    buf = _per_sequence(_dispatch, x, *pairs, top_k=K, n_experts=E, capacity=C)
     buf = logical_shard(buf, "act_batch", "act_experts", None, "act_embed")
 
     ff = ("act_batch", "act_experts", None, "act_expert_ff")
@@ -408,7 +409,7 @@ def moe(params: Params, x: torch.Tensor, cfg) -> torch.Tensor:
         h = h.contiguous()
     eout = torch.einsum("becf,efd->becd", h, params["w_down"])
     eout = logical_shard(eout, "act_batch", "act_experts", None, "act_embed")
-    out = _replicated(_combine, eout, r.gate, *pairs, top_k=K, dtype=x.dtype)
+    out = _per_sequence(_combine, eout, r.gate, *pairs, top_k=K, dtype=x.dtype)
     return logical_shard(out, "act_batch", "act_res_seq", "act_embed")
 
 
@@ -418,24 +419,34 @@ def _is_dtensor(t) -> bool:
     return isinstance(t, DTensor)
 
 
-def _replicated(fn, *tensors: torch.Tensor, n_out: int = 1, **kw):
-    """``fn(*tensors, **kw)``, which returns one tensor or, with ``n_out`` >
-    1, a tuple of that many.  On DTensors each input is made whole
-    (``Replicate()`` on every mesh dim) and ``fn`` runs on the local copies
-    under ``local_map``, its outputs replicated, the gradient flowing back
-    through them."""
-    from torch.distributed.tensor import DTensor, Replicate
+def _per_sequence(fn, *tensors: torch.Tensor, n_out: int = 1, **kw):
+    """``fn(*tensors, **kw)`` for a ``fn`` that reads each row of dim 0 (a
+    sequence) alone and returns rows in the same order: on DTensors each
+    input keeps dim 0 split as the first input places it (the batch axes)
+    and is made whole over every other mesh dim, and ``fn`` runs on the
+    local rows under ``local_map``, its outputs placed alike.  So a batch
+    shard holds its own sequences only, not the global batch.  A dim 0 the
+    split does not divide evenly is refused: the rows would not be a batch
+    shard's own sequences."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
 
     if not isinstance(tensors[0], DTensor):
         return fn(*tensors, **kw)
     from torch.distributed.tensor.experimental import local_map
 
     mesh = tensors[0].device_mesh
-    rep = [Replicate()] * mesh.ndim
-    whole = [t.redistribute(mesh, rep) for t in tensors]
+    pls = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+           for p in tensors[0].placements]
+    n = 1
+    for d, p in enumerate(pls):
+        n *= mesh.size(d) if isinstance(p, Shard) else 1
+    if tensors[0].shape[0] % n:
+        raise ValueError(f"_per_sequence: {tensors[0].shape[0]} sequences do not split "
+                         f"evenly over {n} batch shards")
+    rows = [t.redistribute(mesh, pls) for t in tensors]
     return local_map(lambda *ts: fn(*ts, **kw),
-                     out_placements=rep if n_out == 1 else (rep,) * n_out,
-                     in_placements=(rep,) * len(whole), device_mesh=mesh)(*whole)
+                     out_placements=pls if n_out == 1 else (pls,) * n_out,
+                     in_placements=(pls,) * len(rows), device_mesh=mesh)(*rows)
 
 
 def _slots(order, sorted_e, rank, keep, n_experts: int, capacity: int) -> torch.Tensor:

@@ -8,7 +8,8 @@ pieces:
 * ``compressed_allreduce_int8``: the wire format itself over a process
   group: each rank quantizes to int8, ``all_gather`` moves the int8
   payloads and the f32 scales, and every rank sums ``s_r * q_r`` locally in
-  f32, in the reference's order (``tensordot`` over the gathered axis).
+  f32 as the reference's ``tensordot`` over the gathered axis does on XLA's
+  CPU: a chain of fused multiply-adds in rank order (``sum_scaled``).
   As in the reference, the train step does not call it.
 
 ``torch.round`` rounds half to even, as ``jnp.round`` does.
@@ -21,6 +22,7 @@ from typing import Optional, Tuple
 import torch
 from torch.distributed.tensor import DTensor
 
+from repro_torch.core.policy_core import _f32_of_sum
 from repro_torch.optim.optimizer import tree_map
 
 
@@ -72,5 +74,21 @@ def compressed_allreduce_int8(x: torch.Tensor, group=None) -> torch.Tensor:
     ss = [torch.empty_like(s) for _ in range(n)]
     dist.all_gather(qs, q, group=group)  # the int8 payload
     dist.all_gather(ss, s, group=group)
-    return torch.tensordot(torch.stack(ss), torch.stack(qs).to(torch.float32),
-                           dims=([0], [0]))
+    return sum_scaled(ss, qs)
+
+
+def sum_scaled(ss, qs) -> torch.Tensor:
+    """``sum_r ss[r] * qs[r]`` in f32 (``ss`` f32 scalars, ``qs`` int8
+    tensors of one shape) with the reference's bits:
+    ``jnp.tensordot(ss, qs.astype(f32), ((0,), (0,)))`` is a chain of fused
+    multiply-adds in rank order, ``acc = f32(s_0 q_0)``, then ``acc =
+    fma(s_r, q_r, acc)``, each rounded once.  ``torch.tensordot`` is not: its
+    BLAS path may or may not fuse, by host and thread count.  Written out:
+    ``s_r q_r`` (24 + 8 significant bits) is exact in float64, and
+    ``_f32_of_sum`` rounds ``acc + s_r q_r`` to float32 once, exactly (a
+    float64 sum rounded to odd), so the result is an fma's by construction,
+    on the CPU and on CUDA, at any ``torch.get_num_threads()``."""
+    acc = ss[0] * qs[0].to(torch.float32)
+    for s, q in zip(ss[1:], qs[1:]):
+        acc = _f32_of_sum(acc.double(), s.double() * q.double())
+    return acc

@@ -24,7 +24,10 @@ pod-major), each on one rank-local tensor at a time:
   (``_GatherSlice``) and wraps it as a DTensor over "model"; its backward
   reduces the slice's gradient straight into the accumulator's slice i and
   hands autograd no gradient of the leaf.  Under ``torch.utils.checkpoint``
-  the recompute gathers again.
+  the recompute gathers again.  With no accumulator it serves a step with
+  no backward (the placed prefill and decode step,
+  ``launch.inputs.gather_on_use``): the slice as a DTensor on the whole
+  mesh, so no more than one repeat's weights are whole at once.
 
 With one batch shard every collective is skipped: the gather returns the
 piece itself and the reduction is ``acc.add_(g.to(acc.dtype))``.
@@ -211,22 +214,26 @@ class _GatherSlice(torch.autograd.Function):
 class StackedOnUse:
     """A stacked placed leaf (its batch-axes ``layout``) seen by the model
     as the sequence of its layers: ``self[i]`` is repeat i's slice,
-    gathered over the batch axes now, as a DTensor over ``model_mesh`` (the
-    leaf's "model" placement); its gradient goes into ``acc[i]`` (``acc``
-    this rank's piece of the leaf's accumulator) when autograd reaches
-    it."""
+    gathered over the batch axes now, as a DTensor on ``mesh``, which keeps
+    the leaf's mesh dims ``dims`` (the train step: the "model" sub-mesh;
+    the placed prefill and decode step: the leaf's whole mesh), replicated
+    over the batch axes, the other placements kept.  With an accumulator
+    (``acc``, this rank's piece of the leaf's, and the step's ``anchor``)
+    the slice's gradient goes into ``acc[i]`` when autograd reaches it;
+    without one (a step with no backward) the slice carries no gradient."""
 
-    def __init__(self, leaf, layout: LeafLayout, acc: torch.Tensor, axes: BatchAxes, model_mesh,
-                 model_dim: int, anchor: torch.Tensor):
-        from torch.distributed.tensor import Shard
+    def __init__(self, leaf, layout: LeafLayout, axes: BatchAxes, mesh, dims: Sequence[int],
+                 acc: Optional[torch.Tensor] = None, anchor: Optional[torch.Tensor] = None):
+        from torch.distributed.tensor import Replicate, Shard
 
-        pl = leaf.placements[model_dim]
         self.local = leaf.to_local().detach()
         self.acc = acc
         self.axes = axes
         self.layout = layout.sliced()
-        self.model_mesh = model_mesh
-        self.placement = Shard(pl.dim - 1) if isinstance(pl, Shard) else pl
+        self.mesh = mesh
+        self.placements = [Replicate() if d in axes.dims
+                           else Shard(p.dim - 1) if isinstance(p, Shard) else p
+                           for d, p in enumerate(leaf.placements) if d in dims]
         self.shape = tuple(leaf.shape[1:])
         self.anchor = anchor
         self._stride = contiguous_stride(self.shape)
@@ -234,6 +241,9 @@ class StackedOnUse:
     def __getitem__(self, i: int):
         from torch.distributed.tensor import DTensor
 
-        whole = _GatherSlice.apply(self.anchor, self.local[i], self, i)
-        return DTensor.from_local(whole, self.model_mesh, [self.placement], run_check=False,
+        if self.acc is None:
+            whole = gather(self.local[i], self.layout, self.axes)
+        else:
+            whole = _GatherSlice.apply(self.anchor, self.local[i], self, i)
+        return DTensor.from_local(whole, self.mesh, self.placements, run_check=False,
                                   shape=self.shape, stride=self._stride)

@@ -148,8 +148,8 @@ def _placed_train_step(cfg, oc: O.OptConfig, n_micro: int, mesh, rules):
             used, live, at = [], [], []
             for j, (key, p) in enumerate(zip(keys, leaves)):
                 if key in stacked:
-                    used.append(fsdp.StackedOnUse(p, layouts[j], acc_local[j], axes,
-                                                  model_mesh, mdim, anchor))
+                    used.append(fsdp.StackedOnUse(p, layouts[j], axes, model_mesh, (mdim,),
+                                                  acc_local[j], anchor))
                     continue
                 with torch.no_grad():
                     whole = fsdp.gather(p.to_local(), layouts[j], axes)

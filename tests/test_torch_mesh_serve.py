@@ -189,7 +189,7 @@ def run_case(arch, mesh, *, paged=False, shards=1):
         rules = cell_rules(cfg, shape, multi=False)
         placed = I.place(params, mesh, I.params_shardings(cfg, mesh, rules))
         if kind == "prefill" or cfg.decode_param_mode == "fsdp":
-            placed = I.gather_batch_axes(placed, mesh)  # as the dry run's step
+            placed = I.gather_on_use(placed, cfg, mesh)  # as the dry run's step
 
         def put(t, names):
             return local_part(t, mesh, placements_for(mesh, rules, names))

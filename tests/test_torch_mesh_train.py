@@ -631,6 +631,38 @@ def test_compressed_allreduce_int8_at_two_ranks(world):
         assert np.array_equal(rec["out"].numpy(), want)
 
 
+@pytest.mark.parametrize("shape", ((64, 64), (64, 33), (3, 5, 129)),
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("ranks", (2, 3, 5))
+@pytest.mark.parametrize("threads", (1, 4, 8))
+def test_compressed_allreduce_int8_sum_at_thread_counts(threads, ranks, shape):
+    """The all-reduce's local sum (``sum_scaled``) over gathered payloads is
+    bit for bit the reference's ``jnp.tensordot`` at any intra-op thread
+    count, over payloads whose scales span six decades."""
+    import jax.numpy as jnp
+
+    from repro.optim import grad_compress as JGC
+    from repro_torch.optim import grad_compress as GC
+
+    before = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        for seed in range(4):
+            rng = np.random.default_rng(1000 * seed + 10 * ranks + threads)
+            xs = [rng.standard_normal(shape).astype(np.float32) * 10 ** rng.uniform(-3, 3)
+                  for _ in range(ranks)]
+            jq = [JGC.quantize_int8(jnp.asarray(x)) for x in xs]
+            want = np.asarray(jnp.tensordot(jnp.stack([s for _, s in jq]),
+                                            jnp.stack([q for q, _ in jq]).astype(jnp.float32),
+                                            axes=((0,), (0,))))
+            tq = [GC.quantize_int8(torch.from_numpy(x)) for x in xs]
+            got = GC.sum_scaled([s for _, s in tq], [q for q, _ in tq])
+            assert got.dtype == torch.float32
+            assert np.array_equal(got.numpy(), want), seed
+    finally:
+        torch.set_num_threads(before)
+
+
 # -- on the card -----------------------------------------------------------
 
 
